@@ -1,0 +1,117 @@
+"""Storage registry: env-var configured driver discovery.
+
+Counterpart of ``predictionio_tpu/data/storage/registry.py`` with the same
+configuration contract (parity: ``Storage.scala:146-466``):
+
+* ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` — driver type of source <NAME>; any
+  other key after the type becomes a constructor kwarg
+  (``PIO_STORAGE_SOURCES_FS_PATH=/data/models`` → ``path=...``).
+* ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_SOURCE`` —
+  binds each repository to a named source.
+
+The serving slice ships the ``memory`` driver (engine instances and models)
+and the ``localfs`` driver (models). The JAX package's zero-config default
+is a sqlite file; the port has no sqlite driver yet, so an environment that
+names no source is an error here rather than a silent in-memory store.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional
+
+from predictionio_tpu_torch.data.storage import base, localfs, memory
+
+METADATA = "METADATA"
+EVENTDATA = "EVENTDATA"
+MODELDATA = "MODELDATA"
+
+# driver type → DAO name → factory(source_name, **kwargs)
+DRIVERS: dict[str, dict[str, Callable]] = {
+    "memory": {
+        "Models": memory.MemoryModels,
+        "EngineInstances": memory.MemoryEngineInstances,
+    },
+    "localfs": {"Models": localfs.LocalFSModels},
+}
+
+
+class StorageError(Exception):
+    pass
+
+
+class Storage:
+    """Facade over the configured sources/repositories (object Storage)."""
+
+    _instance: Optional["Storage"] = None
+
+    def __init__(self, env: Optional[dict] = None):
+        self.env = dict(env) if env is not None else dict(os.environ)
+        self._sources = self._parse_sources()
+        self._repos = self._parse_repositories()
+        self._dao_cache: dict[tuple[str, str], object] = {}
+
+    # Singleton used by services; tests construct their own with fake env.
+    @classmethod
+    def instance(cls) -> "Storage":
+        if cls._instance is None:
+            cls._instance = Storage()
+        return cls._instance
+
+    # -- env parsing (parity: Storage.scala:158-223) -----------------------
+    def _parse_sources(self) -> dict[str, dict]:
+        prefix = "PIO_STORAGE_SOURCES_"
+        sources: dict[str, dict] = {}
+        for k, v in self.env.items():
+            if not k.startswith(prefix):
+                continue
+            rest = k[len(prefix):]
+            if "_" not in rest:
+                continue
+            name, attr = rest.split("_", 1)
+            sources.setdefault(name, {})[attr.lower()] = v
+        out = {n: a for n, a in sources.items() if "type" in a}
+        if not out:
+            raise StorageError(
+                "no storage source configured: set PIO_STORAGE_SOURCES_"
+                "<NAME>_TYPE to one of " + ", ".join(sorted(DRIVERS))
+            )
+        return out
+
+    def _parse_repositories(self) -> dict[str, str]:
+        repos: dict[str, str] = {}
+        for repo in (METADATA, EVENTDATA, MODELDATA):
+            src = self.env.get(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE")
+            if src is None:
+                src = next(iter(self._sources))
+            if src not in self._sources:
+                raise StorageError(
+                    f"repository {repo} references undefined source {src}"
+                )
+            repos[repo] = src
+        return repos
+
+    # -- DAO resolution (parity: Storage.getDataObject:310-359) ------------
+    def get_data_object(self, repo: str, dao: str):
+        key = (repo, dao)
+        if key in self._dao_cache:
+            return self._dao_cache[key]
+        source_name = self._repos[repo]
+        attrs = dict(self._sources[source_name])
+        type_name = attrs.pop("type")
+        if type_name not in DRIVERS:
+            raise StorageError(f"unknown storage type {type_name!r}")
+        if dao not in DRIVERS[type_name]:
+            raise StorageError(
+                f"storage type {type_name!r} does not implement {dao} "
+                f"(required by repository {repo})"
+            )
+        obj = DRIVERS[type_name][dao](source_name=source_name, **attrs)
+        self._dao_cache[key] = obj
+        return obj
+
+    def get_model_data_models(self) -> base.Models:
+        return self.get_data_object(MODELDATA, "Models")
+
+    def get_meta_data_engine_instances(self) -> base.EngineInstances:
+        return self.get_data_object(METADATA, "EngineInstances")

@@ -1,0 +1,87 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use.
+
+Each ``csrc/<name>.cu`` compiles into its own shared library with a plain
+C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds, not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
+
+The output lands under ``build/torch_kernels/`` at the repository root (a
+directory ``.gitignore`` lists), named by a hash of the source, so a
+changed source builds anew and an unchanged one is reused.
+:func:`build_all` starts one ``nvcc`` per source, all at once, and waits
+for them together.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("score_topk",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+# name → (library path, seconds the build took, compiler output)
+build_log: dict[str, tuple[Path, float, str]] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, tuple[Path, float, str]]:
+    """Build every named kernel not yet built, one nvcc each, in parallel."""
+    with _lock:
+        todo = [n for n in names if n not in build_log]
+        procs = {}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        for name in todo:
+            target = _target(name)
+            if target.exists():
+                build_log[name] = (target, 0.0, "cached")
+                continue
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (
+                subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                ),
+                tmp,
+                target,
+            )
+        for name, (proc, tmp, target) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, target)
+            build_log[name] = (target, time.perf_counter() - t0, out)
+        return {n: build_log[n] for n in names}
+
+
+def library(name: str) -> Path:
+    """Path of the built shared library for ``csrc/<name>.cu``."""
+    return build_all((name,))[name][0]

@@ -1,0 +1,91 @@
+"""The port stands alone: no jax, nothing of ``predictionio_tpu``.
+
+* A subprocess with ``sys.modules['jax']`` and ``sys.modules['predictionio_tpu']``
+  set to None (any import of either then raises) imports every module of
+  ``predictionio_tpu_torch`` and ``chip_smoke.py``.
+* A source scan finds no import of jax, jaxlib, ml_dtypes, orbax or
+  ``predictionio_tpu`` in the port or in ``chip_smoke.py``.
+* ``DeviceContext.create()`` without CUDA and without ``device="cpu"``
+  raises; ``chip_smoke.py`` exits non-zero and prints no result without a
+  card, and in a directory that holds nothing else of the repository.
+"""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from predictionio_tpu_torch.device import DeviceContext
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "predictionio_tpu_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|ml_dtypes|orbax|predictionio_tpu)(?:\.|\s|$)",
+    re.M,
+)
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = """
+import importlib, pkgutil, sys
+sys.modules['jax'] = None
+sys.modules['predictionio_tpu'] = None
+import predictionio_tpu_torch, chip_smoke
+names = [m.name for m in pkgutil.walk_packages(
+    predictionio_tpu_torch.__path__, 'predictionio_tpu_torch.')]
+for n in names:
+    importlib.import_module(n)
+bad = [m for m, mod in sys.modules.items() if mod is not None
+       and m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'orbax', 'predictionio_tpu')]
+assert not bad, bad
+print(len(names))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 25
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_nothing_of_jax(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path}: {hits}"
+
+
+def test_device_context_refuses_cpu_fallback():
+    if torch.cuda.is_available():
+        assert DeviceContext.create().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DeviceContext.create()
+    assert DeviceContext.create(device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError):
+        DeviceContext.create(device="meta")
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the check is for machines without one")
+    r = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode != 0 and '"ok"' not in r.stdout
