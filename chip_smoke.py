@@ -18,18 +18,45 @@ code is not 0 and the last line is never printed.
              must be identical), an exclusion mask and k == n_items. Times
              each rung: kernel, plain version, one PyTorch yardstick
              (``torch.topk(U[u] @ V.T)``, timed only) and the bound.
-4. serving — an ALSModel of that shape from ``--seed`` is written into the
-             port's MEMORY storage as a COMPLETED engine instance, deployed by
+4. train   — the training kernel at full width: 25,000,095 ratings in the
+             ML-25M shape drawn from ``--seed`` by ``bench.py``'s recipe
+             (Zipf-Mandelbrot ids, users s = 0.7, items s = 1.1, q = 50;
+             ratings uniform on [1, 5)), bucketed as ``train_als`` buckets
+             them. Every bucket of both sides of the first half-step (users
+             against the initial item factors, items against the initial user
+             factors), explicit and implicit × {f32, bf16, int8}, is held
+             against the plain version; then edge cases at small shapes and
+             ranks 4, 10 and 64. Times each side and bucket (kernel, plain
+             version, ``torch.bmm`` of the gathered bucket as yardstick, the
+             bound) and one full iteration. Then the main path:
+             ``train_als`` at that shape, rank 10, 20 iterations, explicit,
+             f32, with the kernel launched exactly buckets × iterations times
+             and a training RMSE below the first iteration's. Then a small
+             draw trained on the card and on the CPU from the same initial
+             factors (see ``phase_small_parity`` for what is held to what),
+             and ``run_train(RecommendationEngine.apply(), …)`` from
+             rate/buy events in MEMORY storage to a COMPLETED instance.
+5. serving — the full-width trained model is written into the port's MEMORY
+             storage as a COMPLETED engine instance, deployed by
              ``QueryServer(RecommendationEngine.apply(), batching=True)`` and
              sent ``N_QUERIES`` or more ``/queries.json`` in bursts that dispatch
              every rung. Every answer is held against the plain
              version; the kernel's launch count over the traffic must equal
              the fast path's dispatches.
 
-Tolerance: values within rtol = atol = 1e-5; indices equal, except where two
-reference values lie within that tolerance of each other (summation order
-may swap them); exact equality for integer-valued factors. The timings and
-the tables are also written to ``chiprun_out/chip_smoke.json``.
+Tolerances. Score kernel: values within rtol = atol = 1e-5; indices equal,
+except where two reference values lie within that tolerance of each other
+(summation order may swap them); exact equality for integer-valued
+factors. Training kernel: each entry of A and b within 3e-4 (against the
+plain version) and within 1e-5 (against the same operands summed in
+float64) of the sum of the absolute products behind it, plus 1e-6 (the
+reach of a change of summation order, over up to 96,168 slots;
+``predictionio_tpu_torch/testing.py`` says how the two were set), cnt
+equal; the largest gap of each is reported. Card-trained factors
+against CPU-trained ones: rtol = atol = 1e-4 (f32, five iterations), 1e-3
+(bf16, int8: every half-step of five iterations, the CPU fed the card's
+previous factors; ``phase_small_parity`` says why). The timings and the
+tables are also written to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -49,6 +76,8 @@ RUNGS = (1, 8, 16, 32, 64)
 N_QUERIES = 200  # at least this many /queries.json in the serving phase
 DTYPES = ("f32", "bf16", "int8")
 TOL = 1e-5
+N_RATINGS = 25_000_095  # MovieLens-25M's rating count
+TRAIN_ITERS = 20  # the recommendation template's numIterations default
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the
 # tensor cores (the kernel's arithmetic is defined in f32, no TF32)
 PEAK_BYTES_S = 3.35e12
@@ -248,6 +277,422 @@ def phase_kernels(seed, device):
     return U, V, rows, max_err
 
 
+# -- training ---------------------------------------------------------------
+
+
+def zipf_mandelbrot_weights(n: int, s: float, q: float = 50.0):
+    """Zipf-Mandelbrot pmf ``P(k) ∝ (k+q)^-s`` over ranks ``[0, n)`` (the
+    JAX package's ``tools/loadtest.py`` recipe, copied)."""
+    import numpy as np
+
+    p = (np.arange(1, n + 1, dtype=np.float64) + q) ** -s
+    return p / p.sum()
+
+
+def zipf_interactions(seed, n_users, n_items, n_ratings):
+    """``bench.py``'s synthetic ML-25M recipe at the given size."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.batch import interactions_from_arrays
+
+    rng = np.random.default_rng(seed)
+    user = rng.choice(n_users, size=n_ratings, p=zipf_mandelbrot_weights(n_users, 0.7))
+    item = rng.choice(n_items, size=n_ratings, p=zipf_mandelbrot_weights(n_items, 1.1))
+    rating = rng.uniform(1.0, 5.0, n_ratings).astype(np.float32)
+    return interactions_from_arrays(
+        user, item, rating, np.zeros(n_ratings),
+        (f"u{i}" for i in range(n_users)), (f"i{j}" for j in range(n_items)),
+    )
+
+
+def train_bound(buckets, n_opp, rank, dtype):
+    """Least time for one half-step's normal equations over ``buckets``
+    ((n_b, D, live slots) each): idx, rat and msk read once (12 B a slot),
+    the opposite factors once, A, b and cnt written once; 2k² + 2k f32
+    operations per live (unmasked) slot."""
+    from predictionio_tpu_torch.ops.quantize import FACTOR_BYTES
+
+    nbytes = n_opp * rank * FACTOR_BYTES[dtype] + (4 * n_opp if dtype == "int8" else 0)
+    ops = 0
+    for n_b, D, live in buckets:
+        nbytes += n_b * D * 12 + n_b * (rank * rank + rank + 1) * 4
+        ops += live * (2 * rank * rank + 2 * rank)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_normal_eq(idx, rat, msk, V, dtype, implicit, what, alpha=1.0):
+    """Training kernel vs plain version on one bucket. Returns the largest
+    |Δ| of A and b, and the largest |Δ| over the summed absolute products
+    behind its entry, of the kernel against the plain version and of each
+    against the same operands summed in float64."""
+    import torch
+
+    from predictionio_tpu_torch.ops.quantize import quantize_factors_torch
+    from predictionio_tpu_torch.ops.train_kernel import (
+        fused_train_normal_eq,
+        train_normal_eq_reference,
+    )
+    from predictionio_tpu_torch import testing
+
+    q, s = quantize_factors_torch(V, dtype)
+    kw = dict(implicit=implicit, alpha=alpha)
+    got = fused_train_normal_eq(idx, rat, msk, q, s, **kw)
+    ref = train_normal_eq_reference(idx, rat, msk, q, s, **kw)
+    exact = train_normal_eq_reference(idx, rat, msk, q, s, accumulate=torch.float64, **kw)
+    mag = testing.normal_eq_magnitudes(idx, rat, msk, q, s, **kw)
+    torch.cuda.synchronize()
+    bad = testing.normal_eq_mismatches(got, ref, mag, rtol=testing.KERNEL_VS_PLAIN_RTOL)
+    require(not bad, f"{what}: training kernel disagrees with plain version: {bad[:3]}")
+    bad = testing.normal_eq_mismatches(got, exact, mag, rtol=testing.KERNEL_VS_FLOAT64_RTOL)
+    require(not bad, f"{what}: training kernel disagrees with float64 sums: {bad[:3]}")
+
+    def rel(x, y):
+        return max(float(((a.double() - b.double()).abs() / (m.double() + 1e-6)).max())
+                   for a, b, m in zip(x[:2], y[:2], mag))
+
+    return {"abs": max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2])),
+            "rel": rel(got, ref), "kernel_f64": rel(got, exact), "plain_f64": rel(ref, exact)}
+
+
+def rmse(inter, U, V, device):
+    """Training RMSE of factors (original order) over every rating."""
+    import torch
+
+    Ut, Vt = torch.from_numpy(U).to(device), torch.from_numpy(V).to(device)
+    se, n = 0.0, len(inter)
+    for s in range(0, n, 5_000_000):
+        u = torch.from_numpy(inter.user[s: s + 5_000_000]).to(device).long()
+        i = torch.from_numpy(inter.item[s: s + 5_000_000]).to(device).long()
+        r = torch.from_numpy(inter.rating[s: s + 5_000_000]).to(device)
+        se += float(((Ut[u] * Vt[i]).sum(1) - r).double().pow(2).sum())
+    return (se / n) ** 0.5
+
+
+def phase_train_kernels(seed, device):
+    """The training kernel at full width and at the edges; the first
+    iteration's RMSE and this card's time per iteration."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.ops.quantize import quantize_factors_torch
+
+    t0 = time.perf_counter()
+    inter = zipf_interactions(seed, N_USERS, N_ITEMS, N_RATINGS)
+    cfg = als.ALSConfig(rank=RANK, iterations=TRAIN_ITERS, seed=seed)
+    ub, ib, u_perm, i_perm = als._dense_blocks_for(inter, cfg)
+    gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
+    U0 = als._initial_factors(cfg, N_USERS, gen)  # the draw train_als makes
+    V0 = als._initial_factors(cfg, N_ITEMS, gen)
+    U0b = torch.from_numpy(U0[np.argsort(u_perm)]).to(device)
+    V0b = torch.from_numpy(V0[np.argsort(i_perm)]).to(device)
+    sides = {}
+    for name, blocks, opp in (("user", ub, V0b), ("item", ib, U0b)):
+        dev_blocks = [
+            tuple(torch.from_numpy(a).to(device) for a in t)
+            for t in zip(blocks.idx, blocks.rat, blocks.msk)
+        ]
+        sides[name] = (blocks, dev_blocks, opp)
+    emit({"phase": "train-data", "seconds": time.perf_counter() - t0,
+          "ratings": len(inter),
+          "buckets": {n: len(b.widths) for n, (b, _, _) in sides.items()},
+          "widths": {n: b.widths for n, (b, _, _) in sides.items()},
+          "padded_slots": {n: b.padded_ratings for n, (b, _, _) in sides.items()}})
+
+    # every bucket of both sides, explicit and implicit × every dtype
+    errs = []
+    for name, (blocks, dev_blocks, opp) in sides.items():
+        for dtype in DTYPES:
+            for implicit in (False, True):
+                for j, (idx, rat, msk) in enumerate(dev_blocks):
+                    what = f"{name} bucket {j} (width {blocks.widths[j]}) {dtype} implicit={implicit}"
+                    errs.append(check_normal_eq(idx, rat, msk, opp, dtype, implicit, what))
+    def gaps(rs):
+        return {"max_abs_err": max(r["abs"] for r in rs), "max_rel_err": max(r["rel"] for r in rs),
+                # which side of the comparison owns the gap
+                "kernel_vs_f64_rel": max(r["kernel_f64"] for r in rs),
+                "plain_vs_f64_rel": max(r["plain_f64"] for r in rs)}
+
+    full = gaps(errs)
+    emit({"phase": "train-kernel-full", "checked": len(errs), **full, "ok": True})
+
+    # edge cases at small shapes: ragged, wide (split), ranks 4, 10, 64
+    rng = np.random.default_rng(seed + 2)
+    cases, edge_errs = [], []
+    for n_b, D, n_opp, k in ((1, 4, 7, 4), (32, 7, 29, 10), (17, 33, 50, 64),
+                             (3, 20_000, 1000, 10), (5, 300, 50, 64), (2, 96_168, 500, 4)):
+        idx = torch.from_numpy(rng.integers(0, n_opp, (n_b, D)).astype(np.int32)).to(device)
+        rat = torch.from_numpy(rng.uniform(1, 5, (n_b, D)).astype(np.float32)).to(device)
+        msk = torch.from_numpy((rng.uniform(size=(n_b, D)) < 0.7).astype(np.float32)).to(device)
+        V = torch.from_numpy(rng.normal(size=(n_opp, k)).astype(np.float32)).to(device)
+        for dtype in DTYPES:
+            for implicit in (False, True):
+                what = f"edge ({n_b}, {D}) n_opp={n_opp} rank {k} {dtype} implicit={implicit}"
+                edge_errs.append(check_normal_eq(idx, rat, msk, V, dtype, implicit, what, 2.0))
+                cases.append(what)
+        # masked slots pointing anywhere, in range or not, change no bit
+        q, s = quantize_factors_torch(V, "int8")
+        moved = torch.where(msk > 0, idx, (idx * 7 + 3) % (3 * n_opp) - n_opp)
+        a = train_kernel.fused_train_normal_eq(idx, rat, msk, q, s)
+        b = train_kernel.fused_train_normal_eq(moved, rat, msk, q, s)
+        require(all(torch.equal(x, y) for x, y in zip(a, b)), f"masked slots moved ({n_b}, {D})")
+        zero = train_kernel.fused_train_normal_eq(idx, rat, torch.zeros_like(msk), V, implicit=True)
+        require(not any(bool(t.any()) for t in zero), f"fully masked bucket ({n_b}, {D})")
+        cases += [f"masked-moved ({n_b}, {D})", f"fully-masked ({n_b}, {D})"]
+    try:
+        train_kernel.fused_train_normal_eq(idx, rat, msk, torch.zeros((n_opp, 65), device=device))
+        require(False, "rank 65 raises")
+    except ValueError:
+        cases.append("rank 65 raises ValueError")
+    emit({"phase": "train-kernel-edges", "cases": len(cases), **gaps(edge_errs), "ok": True})
+
+    # timings: each side's half-step (all its buckets), and each bucket
+    def yardstick(bucket, opp):
+        idx, _, msk = bucket
+        return (opp[idx.long()] * msk[:, :, None]).contiguous()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    side_rows, bucket_rows = {}, []
+    for name, (blocks, dev_blocks, opp) in sides.items():
+        n_opp = opp.shape[0]
+        live = [int(m.sum()) for m in blocks.msk]
+        for dtype in DTYPES:
+            q, s = quantize_factors_torch(opp, dtype)
+
+            def kern(bs=dev_blocks, q=q, s=s):
+                return [train_kernel.fused_train_normal_eq(i, r, m, q, s) for i, r, m in bs]
+
+            def plain(bs=dev_blocks, q=q, s=s):
+                return [train_kernel.train_normal_eq_reference(i, r, m, q, s) for i, r, m in bs]
+
+            geo = [(m.shape[0], m.shape[1], lv) for m, lv in zip(blocks.msk, live)]
+            bms, by = train_bound(geo, n_opp, RANK, dtype)
+            row = {"side": name, "dtype": dtype, "buckets": len(geo),
+                   "ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 3),
+                   "bound_ms": bms, "bound_by": by,
+                   "kernel_device_us": device_us(kern, 5)}
+            if dtype == "f32":
+                Ws = [yardstick(b, opp) for b in dev_blocks]
+                row["library_ms"] = cuda_ms(
+                    lambda: [torch.bmm(W.transpose(1, 2), W) for W in Ws], 10
+                )
+                del Ws
+            side_rows[(name, dtype)] = row
+            emit({"phase": "train-kernel-time", **row})
+            for j in (0, len(geo) - 1):  # the widest and the narrowest bucket
+                bk = dev_blocks[j]
+                bms, by = train_bound([geo[j]], n_opp, RANK, dtype)
+                W = yardstick(bk, q.float() * (s if s is not None else 1.0))
+                brow = {"side": name, "dtype": dtype, "bucket": j, "n_b": geo[j][0],
+                        "width": geo[j][1], "live_slots": geo[j][2],
+                        "splits": train_kernel.split_plan(
+                            geo[j][0], geo[j][1],
+                            torch.cuda.get_device_properties(device).multi_processor_count)[0],
+                        "ms": cuda_ms(lambda: train_kernel.fused_train_normal_eq(*bk, q, s), 20),
+                        "plain_ms": cuda_ms(lambda: train_kernel.train_normal_eq_reference(*bk, q, s), 5),
+                        "library_ms": cuda_ms(lambda: torch.bmm(W.transpose(1, 2), W), 20),
+                        "bound_ms": bms, "bound_by": by}
+                del W
+                bucket_rows.append(brow)
+                emit({"phase": "train-kernel-bucket", **brow})
+
+    # one full iteration (both half-steps: quantize, kernels, solve) from the
+    # initial factors: the first iteration train_als runs, and its time
+    u_blk, i_blk = sides["user"][1], sides["item"][1]
+
+    def iteration():
+        U1 = als._dense_half_step(u_blk, V0b, None, cfg)
+        return U1, als._dense_half_step(i_blk, U1, None, cfg)
+
+    iter_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        U1, V1 = iteration()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t)
+    # device time of one iteration by kernel name, largest first
+    per_kernel = device_us(iteration, 3)
+    iter_device_us = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12])
+    rmse1 = rmse(inter, U1.cpu().numpy()[u_perm], V1.cpu().numpy()[i_perm], device)
+    del sides, u_blk, i_blk
+    torch.cuda.empty_cache()
+    out = {"phase": "train-iteration", "buckets": len(ub.widths) + len(ib.widths),
+           "iteration_s": sorted(iter_s)[2],
+           "iteration_s_all": iter_s, "ratings_iterations_per_s": N_RATINGS / sorted(iter_s)[2],
+           "iteration_device_us_total": sum(per_kernel.values()),
+           "iteration_device_us_top": iter_device_us, "rmse_after_first": rmse1}
+    emit(out)
+    return inter, cfg, side_rows, bucket_rows, full, out
+
+
+def phase_train(inter, cfg, device, first):
+    """The training main path: train_als at full width, 20 iterations."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import train_kernel
+
+    n_buckets = first["buckets"]
+    ctx = DeviceContext.create(device=device)
+    # the main path's window: counts read just before and just after
+    train_kernel.launches.reset()
+    t0 = time.perf_counter()
+    model = als.train_als(ctx, inter, cfg)
+    train_s = time.perf_counter() - t0
+    launches = train_kernel.launches.count
+    require(launches == n_buckets * cfg.iterations,
+            f"launches {launches} vs {n_buckets} buckets × {cfg.iterations} iterations")
+    for F in (model.user_factors, model.item_factors):
+        require(bool(np.isfinite(F).all()), "finite factors")
+    require(model.user_factors.shape == (N_USERS, RANK) and model.item_factors.shape == (N_ITEMS, RANK),
+            "factor shapes")
+    last = rmse(inter, model.user_factors, model.item_factors, device)
+    require(np.isfinite(last) and last < first["rmse_after_first"],
+            f"RMSE {last} after {cfg.iterations} iterations vs {first['rmse_after_first']} after 1")
+    torch.cuda.synchronize()
+    out = {"phase": "train", "iterations": cfg.iterations, "buckets": n_buckets,
+           "launches": launches, "train_als_s": train_s, "rmse_after_first": first["rmse_after_first"],
+           "rmse_after_last": last, "iteration_s": first["iteration_s"],
+           "ratings_iterations_per_s": first["ratings_iterations_per_s"]}
+    emit(out)
+    return model, out
+
+
+def phase_small_parity(seed, device):
+    """A small draw trained on the card and on the CPU from one init.
+
+    f32, explicit and implicit: five iterations of ``train_als`` on each
+    device, every factor within rtol = atol = 1e-4. bf16 and int8 quantize
+    the opposite factors at every half-step, so once the two devices' sums
+    part in the last bit, a quantization can turn that bit into a whole
+    bf16 or int8 step and the runs drift apart. They are held half-step by
+    half-step instead: for five iterations, explicit and implicit, the card
+    runs each half-step, the CPU runs the same half-step from the card's
+    previous factors, and the two results must agree within rtol = atol =
+    1e-3 before the card's result goes on.
+    """
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+
+    n_users, n_items, iters = 2000, 1000, 5
+    inter = zipf_interactions(seed + 3, n_users, n_items, 50_000)
+    rng = np.random.default_rng(seed + 4)
+    init = ((rng.standard_normal((n_users, RANK)) / np.sqrt(RANK)).astype(np.float32),
+            (rng.standard_normal((n_items, RANK)) / np.sqrt(RANK)).astype(np.float32))
+    card_ctx, host_ctx = DeviceContext.create(device=device), DeviceContext.create(device="cpu")
+
+    def config(**kw):
+        return als.ALSConfig(rank=RANK, alpha=2.0, reg=0.05, iterations=iters, **kw)
+
+    def diff(a, b):
+        return float(np.abs(a - b).max())
+
+    results = []
+    for implicit in (False, True):
+        cfg = config(implicit=implicit)
+        card = als.train_als(card_ctx, inter, cfg, init_factors=init)
+        host = als.train_als(host_ctx, inter, cfg, init_factors=init)
+        err = max(diff(card.user_factors, host.user_factors), diff(card.item_factors, host.item_factors))
+        for a, b in ((card.user_factors, host.user_factors), (card.item_factors, host.item_factors)):
+            require(np.allclose(a, b, rtol=1e-4, atol=1e-4),
+                    f"card vs CPU factors, implicit={implicit} f32: max |Δ| {err}")
+        results.append({"implicit": implicit, "dtype": "f32", "iterations": iters, "tol": 1e-4,
+                        "max_abs_diff": err})
+
+    # half-step by half-step, the CPU fed the card's previous factors
+    ub, ib, u_perm, i_perm = als._dense_blocks_for(inter, config())
+    blocks = {
+        dev: [[tuple(torch.from_numpy(a).to(dev) for a in t) for t in zip(b.idx, b.rat, b.msk)]
+              for b in (ub, ib)]
+        for dev in (device, "cpu")
+    }
+    for dtype in ("bf16", "int8"):
+        for implicit in (False, True):
+            cfg = config(implicit=implicit, compute_dtype=dtype)
+            # blocked order, host copies of the card's latest factors
+            F = [torch.from_numpy(init[0][np.argsort(u_perm)]),
+                 torch.from_numpy(init[1][np.argsort(i_perm)])]
+            steps = []
+            for it in range(iters):
+                for side in (0, 1):  # user half-step gathers items, and back
+                    opp = F[1 - side]
+                    out = {}
+                    for dev in (device, "cpu"):
+                        o = opp.to(dev)
+                        gram = als._gram(o) if implicit else None
+                        out[dev] = als._dense_half_step(blocks[dev][side], o, gram, cfg).cpu()
+                    got, ref = out[device].numpy(), out["cpu"].numpy()
+                    steps.append(diff(got, ref))
+                    require(np.allclose(got, ref, rtol=1e-3, atol=1e-3),
+                            f"card vs CPU {dtype} implicit={implicit} iteration {it} "
+                            f"{('user', 'item')[side]} half-step: max |Δ| {steps[-1]}")
+                    F[side] = out[device]
+            results.append({"dtype": dtype, "implicit": implicit, "iterations": iters,
+                            "tol": 1e-3, "half_step_max_abs_diff": steps})
+    emit({"phase": "train-small-parity", "cases": results, "ok": True})
+
+
+def phase_workflow(seed, device):
+    """Events in MEMORY storage → run_train on the card → COMPLETED."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import memory
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
+
+    source = "CHIPSMOKEEV"
+    storage = Storage(env={f"PIO_STORAGE_SOURCES_{source}_TYPE": "memory"})
+    rng = np.random.default_rng(seed + 5)
+    app_id = storage.get_meta_data_apps().insert(App(0, "ChipSmoke"))
+    events = []
+    for k in range(5000):
+        u, i = f"u{int(rng.integers(300))}", f"i{int(rng.integers(200))}"
+        if k % 5 == 0:
+            events.append(Event(event="buy", entity_type="user", entity_id=u,
+                                target_entity_type="item", target_entity_id=i))
+        else:
+            events.append(Event(event="rate", entity_type="user", entity_id=u,
+                                target_entity_type="item", target_entity_id=i,
+                                properties={"rating": float(rng.integers(1, 6))}))
+    storage.get_l_events().insert_batch(events, app_id)
+    engine = RecommendationEngine.apply()
+    params = engine.params_from_variant({
+        "datasource": {"params": {"appName": "ChipSmoke"}},
+        "algorithms": [{"name": "als", "params": {"rank": RANK, "numIterations": 5}}],
+    })
+    store.set_storage(storage)
+    try:
+        train_kernel.launches.reset()
+        iid = workflow.run_train(
+            engine, params, "predictionio_tpu_torch.templates.recommendation.RecommendationEngine",
+            storage=storage, ctx=DeviceContext.create(device=device),
+        )
+        launches = train_kernel.launches.count
+        inst = storage.get_meta_data_engine_instances().get(iid)
+        require(inst.status == "COMPLETED", f"run_train instance status {inst.status}")
+        require(launches > 0 and launches % 5 == 0, f"run_train launched the kernel ({launches})")
+        require(storage.get_model_data_models().get(iid) is not None, "model blob stored")
+    finally:
+        store.set_storage(None)
+        memory.reset_store(source)
+    emit({"phase": "train-workflow", "events": len(events), "instance": iid,
+          "status": inst.status, "launches": launches})
+
+
 def publish(storage, engine, model):
     """Write ``model`` as a COMPLETED engine instance with its sealed blob,
     the steps the training workflow takes after training."""
@@ -280,23 +725,21 @@ def publish(storage, engine, model):
     return iid
 
 
-def phase_serving(U, V, seed, device):
+def phase_serving(model, seed, device):
+    """Deploy ``model`` (the full-width trained one) and serve it."""
     import numpy as np
     import torch
 
     from predictionio_tpu_torch.data.storage import memory
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.device import DeviceContext
-    from predictionio_tpu_torch.models.als import als_model_from_arrays
     from predictionio_tpu_torch.ops import score_kernel
     from predictionio_tpu_torch.testing import topk_mismatches
     from predictionio_tpu_torch.serving.query_server import QueryServer
     from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
 
     t0 = time.perf_counter()
-    model = als_model_from_arrays(
-        U, V, (f"u{i}" for i in range(N_USERS)), (f"i{j}" for j in range(N_ITEMS))
-    )
+    U, V = model.user_factors, model.item_factors
     source = "CHIPSMOKE"
     storage = Storage(env={
         f"PIO_STORAGE_SOURCES_{source}_TYPE": "memory",
@@ -427,10 +870,18 @@ def main(argv=None) -> int:
           "ptxas": {n: [ln.strip() for ln in out.splitlines() if "Used" in ln]
                     for n, (_, _, out) in built.items()}})
 
-    U, V, rows, max_err = phase_kernels(args.seed, device)
-    serving = phase_serving(U, V, args.seed, device)
+    _, _, rows, max_err = phase_kernels(args.seed, device)
+    inter, cfg, side_rows, bucket_rows, train_err, first = phase_train_kernels(args.seed, device)
+    model, train = phase_train(inter, cfg, device, first)
+    del inter
+    phase_small_parity(args.seed, device)
+    phase_workflow(args.seed, device)
+    serving = phase_serving(model, args.seed, device)
 
     top = next(r for r in rows if r["dtype"] == "f32" and r["batch"] == RUNGS[-1])
+    # the training kernel's line: one iteration's normal equations (both
+    # sides' buckets), f32, the main path's configuration
+    both = [side_rows[(side, "f32")] for side in ("user", "item")]
     kernels = {"kernels": [{
         "name": "fused_gather_score_topk",
         "route": "cuda",
@@ -440,11 +891,29 @@ def main(argv=None) -> int:
         "max_abs_err": max_err,
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+    }, {
+        "name": "fused_train_normal_eq",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/train_normal_eq.cu",
+        "replaces": "predictionio_tpu/ops/train_kernel.py:145",
+        "launches": train["launches"],
+        "max_abs_err": train_err["max_abs_err"],
+        # |Δ| over the summed absolute products behind the entry: the full-width
+        # sums reach 1e5, so the absolute error alone says little
+        "max_rel_err": train_err["max_rel_err"],
+        "kernel_vs_f64_rel": train_err["kernel_vs_f64_rel"],
+        "plain_vs_f64_rel": train_err["plain_vs_f64_rel"],
+        "ms": sum(r["ms"] for r in both), "plain_ms": sum(r["plain_ms"] for r in both),
+        "bound_ms": sum(r["bound_ms"] for r in both),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in both) else "operations",
+        "library_ms": sum(r["library_ms"] for r in both),
     }]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "rows": rows, "serving": serving, **kernels}, f, indent=1)
+        json.dump({"card": smi, "rows": rows, "serving": serving,
+                   "train_sides": list(side_rows.values()), "train_buckets": bucket_rows,
+                   "train": train, **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)
     emit(kernels)

@@ -9,8 +9,9 @@ configuration contract (parity: ``Storage.scala:146-466``):
 * ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_SOURCE`` —
   binds each repository to a named source.
 
-The serving slice ships the ``memory`` driver (engine instances and models)
-and the ``localfs`` driver (models). The JAX package's zero-config default
+The port ships the ``memory`` driver (events, apps, access keys, channels,
+sequences, engine instances and models) and the ``localfs`` driver
+(models). The JAX package's zero-config default
 is a sqlite file; the port has no sqlite driver yet, so an environment that
 names no source is an error here rather than a silent in-memory store.
 """
@@ -29,8 +30,14 @@ MODELDATA = "MODELDATA"
 # driver type → DAO name → factory(source_name, **kwargs)
 DRIVERS: dict[str, dict[str, Callable]] = {
     "memory": {
+        "LEvents": memory.MemoryLEvents,
+        "PEvents": memory.MemoryPEvents,
         "Models": memory.MemoryModels,
+        "Apps": memory.MemoryApps,
+        "AccessKeys": memory.MemoryAccessKeys,
+        "Channels": memory.MemoryChannels,
         "EngineInstances": memory.MemoryEngineInstances,
+        "Sequences": memory.MemorySequences,
     },
     "localfs": {"Models": localfs.LocalFSModels},
 }
@@ -110,8 +117,27 @@ class Storage:
         self._dao_cache[key] = obj
         return obj
 
+    # -- typed accessors (parity: Storage.getMetaDataApps etc.) ------------
+    def get_l_events(self) -> base.LEvents:
+        return self.get_data_object(EVENTDATA, "LEvents")
+
+    def get_p_events(self) -> base.PEvents:
+        return self.get_data_object(EVENTDATA, "PEvents")
+
     def get_model_data_models(self) -> base.Models:
         return self.get_data_object(MODELDATA, "Models")
 
+    def get_meta_data_apps(self) -> base.Apps:
+        return self.get_data_object(METADATA, "Apps")
+
+    def get_meta_data_access_keys(self) -> base.AccessKeys:
+        return self.get_data_object(METADATA, "AccessKeys")
+
+    def get_meta_data_channels(self) -> base.Channels:
+        return self.get_data_object(METADATA, "Channels")
+
     def get_meta_data_engine_instances(self) -> base.EngineInstances:
         return self.get_data_object(METADATA, "EngineInstances")
+
+    def get_meta_data_sequences(self) -> base.Sequences:
+        return self.get_data_object(METADATA, "Sequences")

@@ -1,19 +1,31 @@
-"""ALS model and its serving-side scorer.
+"""Alternating Least Squares: training with the dense solver, the model and
+its serving-side scorer.
 
-Counterpart of the serving half of ``predictionio_tpu/models/als.py``:
-:class:`ALSConfig` (``:59``, the model's own fields with the same
-defaults), :class:`ALSModel` (``:132``) and :class:`ALSScorer`
-(``:1757-2000``). Training (the dense solver and its kernel, block
-building, checkpoints) comes with the training slice; until then a model
-reaches the port through :func:`als_model_from_arrays`, which carries
-factors and id lists across — from the JAX package's trained ``ALSModel``
-in the tests, from a seeded draw in ``chip_smoke.py``.
+Counterpart of ``predictionio_tpu/models/als.py`` on one card:
+
+* training (``:262-1069``): :class:`ALSConfig` with its training fields,
+  the host-side degree bucketing (``_degree_sort_permutation``,
+  ``_bucket_boundaries``, ``_make_dense_blocks``, ``_dense_blocks_for``),
+  the dense half-step (one call of the hand-written CUDA kernel
+  ``ops/train_kernel.fused_train_normal_eq`` per degree bucket, then one
+  batched Cholesky solve) and :func:`train_als`. There is no mesh: one card
+  holds every entity, so the blocks have no shard dimension and the
+  entities are degree-sorted (the JAX package's ``n_shards = 1`` layout).
+  The segment solver and mid-training checkpoints come with later slices
+  (ROADMAP §1 items 7 and 4) and raise until then;
+* :class:`ALSModel` (``:132``) and :func:`als_model_from_arrays`, which
+  carries factors and id lists across from anywhere else;
+* serving (``:1757-2000``): :class:`ALSScorer`.
+
+The port reads no ``PIO_ALS_*`` or ``PIO_TRAIN_KERNEL`` variable: the
+compute dtype and solver are :class:`ALSConfig` fields, and a CUDA tensor
+always takes the kernel.
 
 Every device scoring call goes through the scorer's
 :class:`~predictionio_tpu_torch.serving.fastpath.BucketedScorer`, the one
-holder of the factors on the card, and so through the kernel: the batched
-path and the per-query path (whose blacklist and whitelist become the
-kernel's exclusion mask at B = 1). Unlike the JAX package, which keeps a
+holder of the factors on the card, and so through the score kernel: the
+batched path and the per-query path (whose blacklist and whitelist become
+the kernel's exclusion mask at B = 1). Unlike the JAX package, which keeps a
 second float32 copy for per-query calls, a published quantized variant
 therefore serves per-query calls from the same narrow factors as batches.
 The host numpy branches stay where the JAX package sends queries to the
@@ -30,13 +42,17 @@ import threading
 from typing import Optional
 
 import numpy as np
+import torch
 
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.ops import quantize as _quantize
+from predictionio_tpu_torch.ops import train_kernel as _train_kernel
 from predictionio_tpu_torch.ops.topk import NEG_INF
 
 logger = logging.getLogger(__name__)
+
+COMPUTE_DTYPES = ("f32", "bf16", "int8")
 
 
 @dataclasses.dataclass
@@ -47,6 +63,37 @@ class ALSConfig:
     implicit: bool = False
     alpha: float = 1.0  # implicit confidence scale
     seed: int = 3
+    # mid-training checkpoint/resume: not ported yet (ROADMAP §1 item 4)
+    checkpoint_dir: Optional[str] = None
+    # dtype of the GATHERED opposite factors ("f32" | "bf16" | "int8"): bf16
+    # gathers the opposite matrix in bfloat16, int8 quantizes it per
+    # half-step with per-row scales; every contraction accumulates f32
+    compute_dtype: str = "f32"
+    # The JAX package's LPT rebalance across mesh shards; one card has one
+    # shard, so entities are degree-sorted either way (kept so configs and
+    # pickled models read the same).
+    rebalance: bool = True
+    # "dense" — degree-bucketed normal equations through the training
+    # kernel; "segment" (scatter-add) comes with ROADMAP §1 item 7
+    solver: str = "dense"
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype must be one of {COMPUTE_DTYPES}, got {self.compute_dtype!r}"
+            )
+        if self.solver == "segment":
+            raise NotImplementedError(
+                "solver='segment' is not ported yet (ROADMAP §1 item 7, with "
+                "the gather-rows kernel); use solver='dense'"
+            )
+        if self.solver != "dense":
+            raise ValueError(f"solver must be 'dense' or 'segment', got {self.solver!r}")
+        if self.checkpoint_dir:
+            raise NotImplementedError(
+                "checkpoint_dir (mid-training checkpoints) is not ported yet "
+                "(ROADMAP §1 item 4)"
+            )
 
 
 @dataclasses.dataclass
@@ -107,6 +154,236 @@ def als_model_from_arrays(
             V, factor_dtype
         )
     return model
+
+
+# ---------------------------------------------------------------------------
+# Host-side degree bucketing (models/als.py:262-442, one shard)
+# ---------------------------------------------------------------------------
+
+
+# Upper bound on elements per bucket (n_b·D_b); bounds the (n_b, D_b, k)
+# gathered tensor of the plain version to ~chunk·k·4 bytes.
+_DENSE_CHUNK = 4_194_304
+
+
+@dataclasses.dataclass
+class _DenseBlocks:
+    """Per-bucket dense rating matrices of one side.
+
+    Bucket b holds the next n_b entities of the degree-sorted order, one row
+    each, with row width widths[b] ≥ every member entity's rating count.
+    ``idx``/``rat``/``msk`` are (n_b, width_b); padding slots carry idx 0
+    and msk 0 and contribute exactly zero.
+    """
+
+    idx: list  # of (n_b, D_b) int32 — opposite-entity ids (blocked order)
+    rat: list  # of (n_b, D_b) float32
+    msk: list  # of (n_b, D_b) float32
+    widths: list  # of int
+    padded_ratings: int  # Σ n_b·D_b — the device workload size
+
+
+def _degree_sort_permutation(entity: np.ndarray, n_entity: int) -> np.ndarray:
+    """Old id → new id relabeling by descending rating count (stable), so
+    contiguous id ranges form degree buckets."""
+    counts = np.bincount(entity, minlength=n_entity)
+    order = np.argsort(-counts, kind="stable")
+    perm = np.empty(n_entity, np.int64)
+    perm[order] = np.arange(n_entity)
+    return perm
+
+
+def _bucket_boundaries(dmax: np.ndarray, chunk_budget: int) -> list:
+    """Split a non-increasing per-id degree curve into (start, end, width)
+    buckets: width = next multiple of 8 ≥ the bucket's top degree, members
+    keep degree ≥ width/2 (≤2× padding waste), and n·width ≤ chunk_budget."""
+    n = len(dmax)
+    out = []
+    j = 0
+    while j < n:
+        width = max(8, int(-8 * (-int(dmax[j]) // 8)))  # pad8, floor 8
+        cap = max(1, chunk_budget // width)
+        j1 = j + 1
+        while j1 < n and (j1 - j) < cap and (width == 8 or int(dmax[j1]) >= width // 2):
+            j1 += 1
+        out.append((j, j1, width))
+        j = j1
+    return out
+
+
+def _make_dense_blocks(
+    entity: np.ndarray,
+    other: np.ndarray,
+    rating: np.ndarray,
+    n_entity: int,
+    chunk_budget: Optional[int] = None,
+) -> _DenseBlocks:
+    """Degree-bucketed dense rating matrices. ``entity`` must already be
+    degree-sorted (:func:`_degree_sort_permutation`): all ratings of one
+    entity land in one row of one bucket, so the half-step needs no
+    scatter."""
+    chunk_budget = chunk_budget or _DENSE_CHUNK
+    deg = np.bincount(entity, minlength=n_entity)
+    bounds = _bucket_boundaries(deg, chunk_budget)
+    # sort triples by entity: each bucket is one contiguous slice, and the
+    # column is the rank within the entity
+    order = np.argsort(entity, kind="stable")
+    entity_s, other_s, rating_s = entity[order], other[order], rating[order]
+    offsets = np.concatenate([[0], np.cumsum(deg)])
+    pos = np.arange(len(entity_s)) - offsets[entity_s]
+    idx_l, rat_l, msk_l, widths = [], [], [], []
+    padded = 0
+    for j0, j1, width in bounds:
+        n_b = j1 - j0
+        idx_b = np.zeros((n_b, width), np.int32)
+        rat_b = np.zeros((n_b, width), np.float32)
+        msk_b = np.zeros((n_b, width), np.float32)
+        s, e = offsets[j0], offsets[j1]
+        rows = entity_s[s:e] - j0
+        cols = pos[s:e]
+        idx_b[rows, cols] = other_s[s:e]
+        rat_b[rows, cols] = rating_s[s:e]
+        msk_b[rows, cols] = 1.0
+        idx_l.append(idx_b)
+        rat_l.append(rat_b)
+        msk_l.append(msk_b)
+        widths.append(width)
+        padded += n_b * width
+    return _DenseBlocks(
+        idx=idx_l, rat=rat_l, msk=msk_l, widths=widths, padded_ratings=padded,
+    )
+
+
+def _dense_blocks_for(interactions, cfg: ALSConfig):
+    """Both sides' blocks and the permutations: ``(ub, ib, u_perm, i_perm)``
+    with ``perm[original id] = blocked id`` (the JAX package's one-shard
+    path: degree sort, whatever ``cfg.rebalance`` says)."""
+    n_users, n_items = interactions.n_users, interactions.n_items
+    user = interactions.user.astype(np.int64)
+    item = interactions.item.astype(np.int64)
+    rating = interactions.rating.astype(np.float32)
+    u_perm = _degree_sort_permutation(user, n_users)
+    i_perm = _degree_sort_permutation(item, n_items)
+    ub = _make_dense_blocks(u_perm[user], i_perm[item], rating, n_users)
+    ib = _make_dense_blocks(i_perm[item], u_perm[user], rating, n_items)
+    return ub, ib, u_perm, i_perm
+
+
+# ---------------------------------------------------------------------------
+# Device half-step: solve one side's factors from the other's
+# ---------------------------------------------------------------------------
+
+
+def _solve_normal_equations(A, b, cnt, gram, rank, reg, implicit):
+    """Ridge + batched k×k Cholesky (``models/als.py:530``): explicit
+    λ·n_u + 1e-6 (ALS-WR, as MLlib; the ε keeps empty rows solvable),
+    implicit VᵀV + λI."""
+    eye = torch.eye(rank, dtype=torch.float32, device=A.device)
+    lam = _train_kernel._f32(reg)
+    if implicit:
+        A = A + gram[None, :, :] + lam * eye[None, :, :]
+    else:
+        A = A + (lam * cnt + 1e-6)[:, None, None] * eye[None, :, :]
+    L = torch.linalg.cholesky(A)
+    return torch.cholesky_solve(b[:, :, None], L)[:, :, 0]
+
+
+def _dense_half_step(blocks, opp, gram, cfg: ALSConfig):
+    """One side's new factors (blocked order) from the opposite side's:
+    quantize the opposite factors to the compute dtype, one kernel call per
+    degree bucket, concatenate (bucket rows ARE the blocked entity order),
+    solve. ``blocks`` holds each bucket's (idx, rat, msk) on the device."""
+    opp_q, opp_scale = _quantize.quantize_factors_torch(opp, cfg.compute_dtype)
+    As, bs, cnts = [], [], []
+    for idx, rat, msk in blocks:
+        A, b, cnt = _train_kernel.fused_train_normal_eq(
+            idx, rat, msk, opp_q, opp_scale, implicit=cfg.implicit, alpha=cfg.alpha
+        )
+        As.append(A)
+        bs.append(b)
+        cnts.append(cnt)
+    return _solve_normal_equations(
+        torch.cat(As), torch.cat(bs), torch.cat(cnts), gram,
+        cfg.rank, cfg.reg, cfg.implicit,
+    )
+
+
+def _gram(F: torch.Tensor) -> torch.Tensor:
+    """FᵀF (k, k) in full float32 (TF32 off for the call)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return F.T @ F
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _initial_factors(cfg: ALSConfig, n: int, gen: torch.Generator) -> np.ndarray:
+    """(n, rank) float32 standard normal draws scaled by 1/sqrt(rank), in
+    original entity order."""
+    scale = _train_kernel._f32(1.0 / np.sqrt(cfg.rank))
+    return (torch.randn((n, cfg.rank), generator=gen, dtype=torch.float32) * scale).numpy()
+
+
+def train_als(
+    ctx: DeviceContext,
+    interactions,
+    config: Optional[ALSConfig] = None,
+    *,
+    init_factors: Optional[tuple[np.ndarray, np.ndarray]] = None,
+) -> ALSModel:
+    """Train factors on ``ctx.device`` with the dense solver; returns a
+    host-form :class:`ALSModel` with factors in original id order.
+
+    The initial factors are standard normal draws from a CPU
+    ``torch.Generator`` seeded by ``config.seed``, scaled by 1/sqrt(rank),
+    unless ``init_factors=(U0, V0)`` gives them, in ORIGINAL entity order
+    ((n_users, rank) and (n_items, rank)). The JAX package draws them with
+    jax's threefry generator, which torch cannot reproduce, so the parity
+    tests pass the JAX draw here. On a CUDA device every bucket of every
+    half-step launches the training kernel; on the CPU it runs the kernel's
+    plain version.
+    """
+    cfg = config or ALSConfig()
+    device = ctx.device
+    n_users, n_items = interactions.n_users, interactions.n_items
+    ub, ib, u_perm, i_perm = _dense_blocks_for(interactions, cfg)
+
+    if init_factors is None:
+        gen = torch.Generator(device="cpu").manual_seed(int(cfg.seed))
+        U0 = _initial_factors(cfg, n_users, gen)
+        V0 = _initial_factors(cfg, n_items, gen)
+    else:
+        U0, V0 = (np.asarray(f, np.float32) for f in init_factors)
+        if U0.shape != (n_users, cfg.rank) or V0.shape != (n_items, cfg.rank):
+            raise ValueError(
+                f"init_factors shapes {U0.shape}/{V0.shape}, expected "
+                f"{(n_users, cfg.rank)}/{(n_items, cfg.rank)}"
+            )
+    # blocked row perm[e] holds original entity e
+    U = torch.from_numpy(np.ascontiguousarray(U0[np.argsort(u_perm)])).to(device)
+    V = torch.from_numpy(np.ascontiguousarray(V0[np.argsort(i_perm)])).to(device)
+
+    def put(blocks: _DenseBlocks):
+        return [
+            tuple(torch.from_numpy(a).to(device) for a in (i, r, m))
+            for i, r, m in zip(blocks.idx, blocks.rat, blocks.msk)
+        ]
+
+    u_blocks, i_blocks = put(ub), put(ib)
+    for _ in range(cfg.iterations):
+        # u-solve gathers ITEM factors, v-solve gathers USER factors
+        U = _dense_half_step(u_blocks, V, _gram(V) if cfg.implicit else None, cfg)
+        V = _dense_half_step(i_blocks, U, _gram(U) if cfg.implicit else None, cfg)
+    U_host = U.cpu().numpy()[u_perm]
+    V_host = V.cpu().numpy()[i_perm]
+    return ALSModel(
+        user_factors=U_host,
+        item_factors=V_host,
+        user_map=interactions.user_map,
+        item_map=interactions.item_map,
+        config=cfg,
+    )
 
 
 class ALSScorer:

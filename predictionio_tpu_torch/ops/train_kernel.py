@@ -1,0 +1,231 @@
+"""Normal equations of one ALS degree bucket: the CUDA kernel's wrapper and
+its plain PyTorch version.
+
+Replaces the Pallas kernel ``predictionio_tpu/ops/train_kernel.py``
+``_train_contract_kernel``, reached through ``fused_train_normal_eq``: per
+bucket of the dense solver, gather the opposite factors ``V[idx]``
+(int8 rows times their per-row scale) and accumulate ``A``, ``b`` and
+``cnt``. The kernel is ``csrc/train_normal_eq.cu``, built with ``nvcc`` for
+``sm_90a`` at first use (``ops/_build.py``) and called through ``ctypes``;
+its source note says what bounds it and how it is laid out. In short: one
+thread block per (row, part) stages 64 slots at a time in shared memory;
+rows wider than one part are cut into parts and summed in part order by a
+second launch, so every sum has one order and one seed gives one model.
+
+:func:`fused_train_normal_eq` routes by device and nothing else:
+
+* tensors on the CPU take :func:`train_normal_eq_reference`, the plain
+  version the CPU tests run;
+* tensors on a CUDA device launch the kernel, or raise on a device, dtype,
+  shape or contiguity the kernel does not take, or on a CUDA error.
+
+On either device a rank above :data:`MAX_RANK` raises. There is no ``try``
+that falls back and no environment variable that picks the plain version
+on the card: on the card V is read through L2, so the JAX package's VMEM
+budget and its demotion to the XLA path (``fits_vmem``) have no
+counterpart. :data:`launches` counts the kernel's launches (one per call:
+one or two CUDA grids).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.ops.score_kernel import LaunchCounter
+
+# Slots one thread block stages in shared memory per step, and the largest
+# rank the kernel takes (the C source's TILE and MAX_RANK).
+TILE = 64
+MAX_RANK = 64
+# Slots one thread block takes of a row before the row is cut into parts,
+# and the blocks per SM a launch aims for when it cuts wide rows.
+SEG_MIN = 2048
+BLOCKS_PER_SM = 8
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+launches = LaunchCounter()
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as JAX converts a weakly typed scalar
+    before it multiplies a float32 array."""
+    return float(np.float32(x))
+
+
+def train_normal_eq_reference(
+    idx: torch.Tensor,
+    rat: torch.Tensor,
+    msk: torch.Tensor,
+    V: torch.Tensor,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    implicit: bool = False,
+    alpha: float = 1.0,
+    accumulate: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's plain PyTorch version: the JAX package's reference math
+    (``models/als.py:644-665``) with its cast points.
+
+    int8 dequantizes before the gather; bf16 keeps the gathered rows and the
+    weights in bf16, rounds their elementwise products to bf16, and forms
+    the contractions as float32 products (exact for bf16 operands) summed in
+    float32, which is what ``preferred_element_type=f32`` asks of XLA. An
+    index outside ``[0, n_opp)`` is clamped, as XLA's gather clamps it. On
+    the card the contractions run in full float32 (TF32 off for the call).
+    ``accumulate=torch.float64`` forms the same operands and sums them in
+    float64 (``A`` and ``b`` come back in float64): the near-exact sums the
+    checks measure the kernel and this version against.
+    """
+    f32, acc = torch.float32, accumulate
+    opp = V if v_scale is None else V.to(f32) * v_scale
+    Vg = opp[idx.long().clamp(0, V.shape[0] - 1)]  # (n_b, D, k), compute dtype
+    cd = Vg.dtype
+    w = msk.to(cd)
+    a = _f32(alpha)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if implicit:
+            # A_u += Σ α·r · v vᵀ ;  b_u += Σ (1+α·r) · v   (p=1, c=1+αr)
+            cw = (a * rat).to(cd) * w
+            A = torch.einsum("edk,edl->ekl", (Vg * cw[:, :, None]).to(acc), Vg.to(acc))
+            b = torch.einsum(
+                "edk,ed->ek", Vg.to(acc), ((1.0 + a * rat).to(cd) * w).to(acc)
+            )
+            cnt = torch.zeros(idx.shape[0], dtype=f32, device=idx.device)
+        else:
+            W = (Vg * w[:, :, None]).to(acc)
+            A = torch.einsum("edk,edl->ekl", W, W)
+            b = torch.einsum("edk,ed->ek", W, rat.to(cd).to(acc))
+            cnt = msk.sum(-1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return A, b, cnt
+
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _library():
+    """The built kernel library (built on first use, once per process)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            from predictionio_tpu_torch.ops import _build
+
+            lib = ctypes.CDLL(str(_build.library("train_normal_eq")))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.pio_train_normal_eq.argtypes = (
+                [p] * 9 + [i] * 8 + [ctypes.c_float, p]
+            )
+            lib.pio_train_normal_eq.restype = i
+            lib.pio_train_normal_eq_limits.argtypes = [p, p]
+            lib.pio_train_normal_eq_limits.restype = i
+            lib.pio_train_error_string.argtypes = [i]
+            lib.pio_train_error_string.restype = ctypes.c_char_p
+            tile, max_rank = ctypes.c_int(), ctypes.c_int()
+            lib.pio_train_normal_eq_limits(ctypes.byref(tile), ctypes.byref(max_rank))
+            if (tile.value, max_rank.value) != (TILE, MAX_RANK):
+                raise RuntimeError("train_normal_eq.cu TILE/MAX_RANK disagree with Python")
+            _lib = lib
+        return _lib
+
+
+def split_plan(n_b: int, D: int, n_sm: int) -> tuple[int, int]:
+    """``(splits, seg)``: each row's D slots cut into ``splits`` parts of
+    ``seg`` slots (a TILE multiple). A row is cut only when it is wider than
+    :data:`SEG_MIN` and the bucket has too few rows to give the card's
+    ``n_sm`` SMs :data:`BLOCKS_PER_SM` blocks each."""
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // n_b))
+    splits = max(1, min(-(-D // SEG_MIN), want))
+    seg = -(-(-(-D // splits)) // TILE) * TILE
+    return -(-D // seg), seg
+
+
+def _check(t: Optional[torch.Tensor], name: str, device, dtypes, shape) -> None:
+    if t is None:
+        return
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def fused_train_normal_eq(
+    idx: torch.Tensor,
+    rat: torch.Tensor,
+    msk: torch.Tensor,
+    V: torch.Tensor,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    implicit: bool = False,
+    alpha: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One bucket's normal equations: ``(A (n_b, k, k), b (n_b, k),
+    cnt (n_b,))``, all float32.
+
+    ``idx`` (n_b, D) int32 holds opposite-entity rows, ``rat`` and ``msk``
+    (n_b, D) float32 the ratings and the 1/0 slot mask. ``V`` (n_opp, k) is
+    f32, bf16 or int8; int8 needs ``v_scale`` (n_opp, 1) f32. A masked slot
+    contributes exactly zero whatever its idx; implicit gives ``cnt = 0``.
+    """
+    n_opp, k = V.shape
+    if not 1 <= k <= MAX_RANK:
+        raise ValueError(
+            f"rank {k} is outside the training kernel's range 1..{MAX_RANK}"
+        )
+    device = V.device
+    if device.type == "cpu":
+        return train_normal_eq_reference(
+            idx, rat, msk, V, v_scale, implicit=implicit, alpha=alpha
+        )
+    if device.type != "cuda":
+        raise ValueError(f"no training kernel for device {device}")
+    if V.dtype not in _DTYPE_CODE:
+        raise ValueError(f"V dtype {V.dtype} not supported")
+    if (V.dtype == torch.int8) != (v_scale is not None):
+        raise ValueError("v_scale goes with int8 V, and only with it")
+    if idx.dim() != 2 or idx.shape[0] == 0 or idx.shape[1] == 0:
+        raise ValueError(f"idx must be a non-empty (n_b, D) matrix, got {tuple(idx.shape)}")
+    n_b, D = idx.shape
+    _check(idx, "idx", device, (torch.int32,), (n_b, D))
+    _check(rat, "rat", device, (torch.float32,), (n_b, D))
+    _check(msk, "msk", device, (torch.float32,), (n_b, D))
+    _check(V, "V", device, (V.dtype,), (n_opp, k))
+    _check(v_scale, "v_scale", device, (torch.float32,), (n_opp, 1))
+    lib = _library()
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    splits, seg = split_plan(n_b, D, n_sm)
+    A = torch.empty((n_b, k, k), dtype=torch.float32, device=device)
+    b = torch.empty((n_b, k), dtype=torch.float32, device=device)
+    cnt = torch.empty((n_b,), dtype=torch.float32, device=device)
+    parts = None
+    if splits > 1:
+        parts = torch.empty((n_b, splits, k * k + k + 1), dtype=torch.float32, device=device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pio_train_normal_eq(
+            ptr(idx), ptr(rat), ptr(msk), ptr(V), ptr(v_scale), ptr(A), ptr(b),
+            ptr(cnt), ptr(parts), n_b, D, n_opp, k, splits, seg,
+            _DTYPE_CODE[V.dtype], int(bool(implicit)), _f32(alpha), stream,
+        )
+    if rc != 0:
+        msg = lib.pio_train_error_string(rc).decode()
+        raise RuntimeError(f"train_normal_eq kernel launch failed: {msg} ({rc})")
+    launches.bump()
+    return A, b, cnt

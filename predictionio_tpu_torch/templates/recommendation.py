@@ -1,16 +1,18 @@
-"""Recommendation engine template: explicit ALS served from the card.
+"""Recommendation engine template: ALS trained and served on the card.
 
 Counterpart of ``predictionio_tpu/templates/recommendation.py`` (parity:
-``examples/scala-parallel-recommendation/``), serving half: the query and
-result types, ``ALSAlgorithm``'s deploy and predict methods
-(``load_serializable_model``, ``warmup``, ``serving_stats``,
-``batch_predict``, ``predict``), the file-filter serving variant and the
-engine factory.
+``examples/scala-parallel-recommendation/``): the DataSource reads ``rate``
+(graded) and ``buy`` (weight 4.0) events, or the ``eventRatings`` mapping;
+:class:`ExcludeItemsPreparator` drops file-listed items;
+``ALSAlgorithm.train`` runs :func:`~predictionio_tpu_torch.models.als.
+train_als` (dense solver, the training kernel) and its deploy and predict
+methods serve through the score kernel; :class:`FileFilterServing` filters
+a per-query disabled-items file.
 
-The DataSource, the Preparator and ``ALSAlgorithm.train`` come with the
-training slice. Their params classes are here already, so engine.json and
-EngineInstance rows written for the JAX package bind unchanged; calling
-them raises an error that says training is not ported yet.
+Not ported yet, and raising an error that names the ROADMAP item that
+brings them: a set ``eventWindow`` (the self-cleaning data source) and
+``read_eval`` (ROADMAP §1 item 9), and ``persistMode: "checkpoint"``
+(ROADMAP §1 item 4).
 """
 
 from __future__ import annotations
@@ -30,15 +32,14 @@ from predictionio_tpu_torch.core import (
     Preparator,
     Serving,
 )
+from predictionio_tpu_torch.core.controller import SanityCheck
+from predictionio_tpu_torch.core.persistence import RETRAIN
+from predictionio_tpu_torch.data import store
+from predictionio_tpu_torch.data.batch import Interactions, merge_interactions
 from predictionio_tpu_torch.device import DeviceContext
-from predictionio_tpu_torch.models.als import ALSModel, ALSScorer
+from predictionio_tpu_torch.models.als import ALSConfig, ALSModel, ALSScorer, train_als
 
 logger = logging.getLogger(__name__)
-
-_NOT_PORTED = (
-    "training is not ported to predictionio_tpu_torch yet (it comes with "
-    "the training slice); train with predictionio_tpu"
-)
 
 
 # -- data types -------------------------------------------------------------
@@ -63,34 +64,125 @@ class PredictedResult:
     itemScores: list[ItemScore]
 
 
-# -- DataSource / Preparator (training slice) -------------------------------
+@dataclasses.dataclass
+class TrainingData(SanityCheck):
+    interactions: Interactions
+
+    def sanity_check(self):
+        if len(self.interactions) == 0:
+            raise ValueError("No rating events found; check appName/eventNames.")
+
+
+PreparedData = TrainingData
+
+
+# -- DataSource -------------------------------------------------------------
 
 
 @dataclasses.dataclass
 class DataSourceParams(Params):
     appName: str = "default"
-    evalParams: Optional[dict] = None
+    evalParams: Optional[dict] = None  # {"kFold": 5, "queryNum": 10}
+    # self-cleaning window: not ported yet (ROADMAP §1 item 9)
     eventWindow: Optional[dict] = None
+    # event name → fixed rating value, replacing the default rate+buy read
+    # (reading-custom-events: like→4.0/dislike→1.0; train-with-view-event:
+    # {"view": 1.0} with implicitPrefs on the algorithm)
     eventRatings: Optional[dict] = None
+
+
+def _merge_part_reads(read_fn, part_kwargs: list) -> Interactions:
+    """Read one Interactions per filter dict, drop empties, merge the rest
+    into shared id maps (``parallel/ingest.py:389-397``)."""
+    reads = [read_fn(p) for p in part_kwargs]
+    reads = [r for r in reads if len(r.rating)] or reads[:1]
+    return reads[0] if len(reads) == 1 else merge_interactions(reads)
 
 
 class RecommendationDataSource(DataSource):
     params_cls = DataSourceParams
 
-    def read_training(self, ctx):
-        raise NotImplementedError(_NOT_PORTED)
+    BUY_WEIGHT = 4.0  # parity: buy events count as rating 4.0
+
+    def _part_filters(self) -> list[dict]:
+        """The per-event-type read specs (rate+buy default, or the
+        eventRatings custom mapping)."""
+        if self.params.eventRatings:
+            return [
+                dict(
+                    entity_type="user",
+                    event_names=[name],
+                    target_entity_type="item",
+                    default_rating=float(value),
+                )
+                for name, value in self.params.eventRatings.items()
+            ]
+        return [
+            dict(
+                entity_type="user",
+                event_names=["rate"],
+                target_entity_type="item",
+                rating_key="rating",
+                default_rating=self.BUY_WEIGHT,
+            ),
+            dict(
+                entity_type="user",
+                event_names=["buy"],
+                target_entity_type="item",
+                default_rating=self.BUY_WEIGHT,
+            ),
+        ]
+
+    def read_training(self, ctx) -> TrainingData:
+        if self.params.eventWindow:
+            raise NotImplementedError(
+                "eventWindow (the self-cleaning data source) is not ported yet "
+                "(ROADMAP §1 item 9)"
+            )
+        # one columnar read per event type, merged into shared id maps
+        return TrainingData(
+            _merge_part_reads(
+                lambda p: store.PEventStore.find_interactions(self.params.appName, **p),
+                self._part_filters(),
+            )
+        )
+
+    def read_eval(self, ctx):
+        raise NotImplementedError(
+            "read_eval (evaluation) is not ported yet (ROADMAP §1 item 9)"
+        )
+
+
+# -- Preparator (customize-data-prep variant) -------------------------------
 
 
 @dataclasses.dataclass
 class PreparatorParams(Params):
+    # file of item ids (one per line) to drop from training; None → identity
+    # (parity: customize-data-prep Preparator.scala:38-44)
     filepath: Optional[str] = None
 
 
 class ExcludeItemsPreparator(Preparator):
+    """Drop file-listed items from training data before the algorithm; with
+    ``filepath=None`` this is the identity."""
+
     params_cls = PreparatorParams
 
-    def prepare(self, ctx, td):
-        raise NotImplementedError(_NOT_PORTED)
+    def prepare(self, ctx, td: TrainingData) -> TrainingData:
+        # getattr: a caller-constructed EngineParams may carry EmptyParams
+        path = getattr(self.params, "filepath", None)
+        if not path:
+            return td
+        with open(path) as f:
+            no_train = {line.strip() for line in f if line.strip()}
+        if not no_train:
+            return td
+        inter = td.interactions
+        drop_idx = inter.item_map.to_index_array(sorted(no_train))
+        # drop_items compacts the item id space: a filtered item must be
+        # unrecommendable, not a zero-factor candidate still in the map
+        return TrainingData(inter.drop_items(drop_idx[drop_idx >= 0]))
 
 
 # -- Serving (customize-serving variant) ------------------------------------
@@ -139,6 +231,8 @@ class ALSAlgorithmParams(Params):
     alpha: float = 1.0
     seed: Optional[int] = None
     checkpointDir: Optional[str] = None
+    # bound so engine.json files bind; read by nothing until mid-training
+    # checkpoints are ported (ROADMAP §1 item 4)
     checkpointInterval: int = 5
     persistMode: str = "auto"
 
@@ -146,16 +240,51 @@ class ALSAlgorithmParams(Params):
 
 
 class ALSAlgorithm(Algorithm):
-    """Explicit ALS served from device-resident factors."""
+    """Explicit/implicit ALS trained on the card, served from device-resident
+    factors."""
 
     params_cls = ALSAlgorithmParams
+
+    VALID_PERSIST_MODES = ("auto", "checkpoint", "retrain")
 
     def __init__(self, params=None):
         super().__init__(params)
         self._scorers: dict[int, ALSScorer] = {}
 
-    def train(self, ctx, pd) -> ALSModel:
-        raise NotImplementedError(_NOT_PORTED)
+    def _config(self) -> ALSConfig:
+        p = self.params
+        if p.persistMode not in self.VALID_PERSIST_MODES:
+            raise ValueError(
+                f"persistMode {p.persistMode!r} not in {self.VALID_PERSIST_MODES}"
+            )
+        if p.persistMode == "checkpoint":
+            raise NotImplementedError(
+                'persistMode "checkpoint" is not ported yet (ROADMAP §1 item 4)'
+            )
+        return ALSConfig(
+            rank=p.rank,
+            iterations=p.numIterations,
+            reg=p.reg,
+            implicit=p.implicitPrefs,
+            alpha=p.alpha,
+            seed=3 if p.seed is None else p.seed,
+            checkpoint_dir=p.checkpointDir,
+        )
+
+    def train(self, ctx, pd: PreparedData) -> ALSModel:
+        if self.params.numIterations > 30:
+            logger.warning(
+                "numIterations %d > 30 (reference guardrail: "
+                "ALSAlgorithm.scala:44-50)", self.params.numIterations,
+            )
+        model = train_als(ctx, pd.interactions, self._config())
+        self._scorers[id(model)] = ALSScorer(ctx, model)
+        return model
+
+    def make_serializable_model(self, model):
+        if self.params.persistMode == "retrain":
+            return RETRAIN
+        return super().make_serializable_model(model)
 
     def load_serializable_model(self, ctx, blob) -> ALSModel:
         """Bind the deploy device to the scorer (called by prepare_deploy)."""

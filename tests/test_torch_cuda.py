@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Every test here needs a CUDA card and the CUDA toolkit (``nvcc`` builds the
+kernels at first use) and skips without a card. The file imports neither
+jax nor the JAX package, so it also runs on a machine that has only the
+port's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest imports jax to set up its CPU mesh).
+``chip_smoke.py`` runs the same comparisons at full width; these are the
+small, fast cases.
+
+Tolerances: the score kernel by ``topk_mismatches`` at 1e-5; the training
+kernel by ``normal_eq_mismatches`` (each entry of A and b within 3e-4 of
+the summed absolute products behind it against the plain version, and
+within 1e-5 against the same operands summed in float64, plus 1e-6; cnt
+equal; ``predictionio_tpu_torch/testing.py`` says how the two were set);
+training on the card against training on the CPU from the same initial
+factors, rtol = atol = 1e-4 at f32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from predictionio_tpu_torch.data.batch import interactions_from_arrays
+from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.models import als
+from predictionio_tpu_torch.ops import score_kernel, train_kernel
+from predictionio_tpu_torch.ops.quantize import quantize_factors_torch
+from predictionio_tpu_torch.testing import (
+    KERNEL_VS_FLOAT64_RTOL,
+    KERNEL_VS_PLAIN_RTOL,
+    normal_eq_magnitudes,
+    normal_eq_mismatches,
+    topk_mismatches,
+)
+
+DTYPES = ("f32", "bf16", "int8")
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs these checks there)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_score_kernel_matches_plain_version_on_card(card):
+    rng = np.random.default_rng(11)
+    U = rng.standard_normal((300, 10)).astype(np.float32)
+    V = rng.standard_normal((1100, 10)).astype(np.float32)
+    V[1090] = V[3]
+    u = torch.arange(64, dtype=torch.int32, device=card)
+    Ut, Vt = torch.from_numpy(U).to(card), torch.from_numpy(V).to(card)
+    before = score_kernel.launches.count
+    kv, ki = score_kernel.fused_gather_score_topk(Ut, Vt, u, 100)
+    rv, ri = score_kernel.gather_score_topk_reference(Ut, Vt, u, 100)
+    torch.cuda.synchronize()
+    assert score_kernel.launches.count == before + 1
+    bad = topk_mismatches(kv.cpu().numpy(), ki.cpu().numpy(),
+                          rv.cpu().numpy(), ri.cpu().numpy(), 1e-5)
+    assert not bad, bad[:3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("implicit", (False, True))
+def test_train_kernel_matches_plain_version_on_card(card, dtype, implicit):
+    rng = np.random.default_rng(1)
+    for n_b, D, n_opp, k in ((13, 24, 37, 10), (3, 20_000, 1000, 10), (5, 300, 50, 64)):
+        idx = torch.from_numpy(rng.integers(0, n_opp, (n_b, D)).astype(np.int32)).to(card)
+        rat = torch.from_numpy(rng.uniform(1, 5, (n_b, D)).astype(np.float32)).to(card)
+        msk = torch.from_numpy((rng.uniform(size=(n_b, D)) < 0.7).astype(np.float32)).to(card)
+        V = torch.from_numpy(rng.normal(size=(n_opp, k)).astype(np.float32)).to(card)
+        q, s = quantize_factors_torch(V, dtype)
+        before = train_kernel.launches.count
+        got = train_kernel.fused_train_normal_eq(idx, rat, msk, q, s, implicit=implicit, alpha=2.0)
+        ref = train_kernel.train_normal_eq_reference(idx, rat, msk, q, s, implicit=implicit, alpha=2.0)
+        exact = train_kernel.train_normal_eq_reference(
+            idx, rat, msk, q, s, implicit=implicit, alpha=2.0, accumulate=torch.float64
+        )
+        mag = normal_eq_magnitudes(idx, rat, msk, q, s, implicit=implicit, alpha=2.0)
+        torch.cuda.synchronize()
+        assert train_kernel.launches.count == before + 1
+        assert not normal_eq_mismatches(got, ref, mag, rtol=KERNEL_VS_PLAIN_RTOL), (n_b, D, k)
+        assert not normal_eq_mismatches(got, exact, mag, rtol=KERNEL_VS_FLOAT64_RTOL), (n_b, D, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("implicit", (False, True))
+def test_train_on_card_matches_cpu(card, implicit):
+    rng = np.random.default_rng(2)
+    n_users, n_items, n = 70, 45, 1200
+    inter = interactions_from_arrays(
+        rng.integers(0, n_users, n), rng.integers(0, n_items, n),
+        rng.uniform(1, 5, n), np.zeros(n),
+        [f"u{i}" for i in range(n_users)], [f"i{j}" for j in range(n_items)],
+    )
+    cfg = als.ALSConfig(rank=5, iterations=3, implicit=implicit, seed=2)
+    init = (rng.standard_normal((n_users, 5)).astype(np.float32),
+            rng.standard_normal((n_items, 5)).astype(np.float32))
+    ub, ib, _, _ = als._dense_blocks_for(inter, cfg)
+    before = train_kernel.launches.count
+    on_card = als.train_als(DeviceContext.create(device=card), inter, cfg, init_factors=init)
+    assert train_kernel.launches.count - before == (len(ub.widths) + len(ib.widths)) * 3
+    on_cpu = als.train_als(DeviceContext.create(device="cpu"), inter, cfg, init_factors=init)
+    np.testing.assert_allclose(on_card.user_factors, on_cpu.user_factors, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(on_card.item_factors, on_cpu.item_factors, rtol=1e-4, atol=1e-4)

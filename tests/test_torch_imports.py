@@ -47,7 +47,7 @@ for n in names:
 bad = [m for m, mod in sys.modules.items() if mod is not None
        and m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'orbax', 'predictionio_tpu')]
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run(
@@ -55,7 +55,18 @@ print(len(names))
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 25
+    names = set(r.stdout.split())
+    assert len(names) >= 30
+    # the training slice's modules, by name
+    assert {
+        "predictionio_tpu_torch.data.event", "predictionio_tpu_torch.data.batch",
+        "predictionio_tpu_torch.data.store", "predictionio_tpu_torch.data.storage.base",
+        "predictionio_tpu_torch.data.storage.memory",
+        "predictionio_tpu_torch.data.storage.registry",
+        "predictionio_tpu_torch.ops.train_kernel", "predictionio_tpu_torch.models.als",
+        "predictionio_tpu_torch.core.workflow",
+        "predictionio_tpu_torch.templates.recommendation",
+    } <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -11,7 +11,7 @@ values lie within that tolerance of each other (``topk_mismatches``). With
 integer-valued factors every dot product is exact in any order, so indices
 — tie order included — must be identical. The CUDA kernel itself cannot
 run here; ``chip_smoke.py`` holds it against this plain version on the card,
-and the ``cuda``-marked test below does where a card is present.
+and so does ``tests/test_torch_cuda.py`` where a card is present.
 """
 
 import numpy as np
@@ -245,21 +245,3 @@ class TestWrapper:
     def test_pad_block_items_matches_jax(self, n):
         assert score_kernel.pad_block_items(n) == jax_score_kernel.pad_block_items(n)
         assert score_kernel.BLOCK_I == jax_score_kernel.BLOCK_I
-
-    @pytest.mark.cuda
-    def test_kernel_matches_plain_version_on_card(self):
-        if not torch.cuda.is_available():
-            pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
-        dev = torch.device("cuda")
-        U, V = _factors(n_users=300, n_items=1100, rank=10, seed=11)
-        V[1090] = V[3]
-        u = torch.arange(64, dtype=torch.int32, device=dev)
-        Ut, Vt = torch.from_numpy(U).to(dev), torch.from_numpy(V).to(dev)
-        before = score_kernel.launches.count
-        kv, ki = score_kernel.fused_gather_score_topk(Ut, Vt, u, 100)
-        rv, ri = score_kernel.gather_score_topk_reference(Ut, Vt, u, 100)
-        torch.cuda.synchronize()
-        assert score_kernel.launches.count == before + 1
-        bad = topk_mismatches(kv.cpu().numpy(), ki.cpu().numpy(),
-                              rv.cpu().numpy(), ri.cpu().numpy(), TOL)
-        assert not bad, bad[:3]

@@ -383,6 +383,25 @@ class TestPersistenceAndStorage:
         ref = jax_rec.RecommendationEngine.apply().params_from_variant(variant)
         assert port.to_json_strings() == ref.to_json_strings()
 
-    def test_training_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            ALSAlgorithm(ALSAlgorithmParams()).train(None, None)
+    def test_algorithm_trains_and_its_model_serves(self, jax_model):
+        """``ALSAlgorithm.train`` trains on the CPU through ``train_als`` and
+        the model it returns answers through the same algorithm."""
+        from predictionio_tpu_torch.data.batch import interactions_from_arrays
+        from predictionio_tpu_torch.templates.recommendation import Query, TrainingData
+
+        rng = np.random.default_rng(1)
+        users, items = np.nonzero(rng.random((N_USERS, N_ITEMS)) < 0.4)
+        inter = interactions_from_arrays(
+            users, items, rng.uniform(1, 5, len(users)), np.zeros(len(users)),
+            [f"u{i}" for i in range(N_USERS)], [f"i{i}" for i in range(N_ITEMS)],
+        )
+        algo = ALSAlgorithm(ALSAlgorithmParams(rank=4, numIterations=3))
+        model = algo.train(DeviceContext.create(device="cpu"), TrainingData(inter))
+        assert isinstance(model, ALSModel) and model.user_factors.shape == (N_USERS, 4)
+        assert np.isfinite(model.item_factors).all()
+        res = algo.predict(model, Query(user="u3", num=5))
+        scores = [s.score for s in res.itemScores]
+        assert len(scores) == 5 and scores == sorted(scores, reverse=True)
+        U, V = model.user_factors, model.item_factors
+        best = np.argsort(-(U[3] @ V.T), kind="stable")[:5]
+        assert [s.item for s in res.itemScores] == [f"i{j}" for j in best]
