@@ -43,6 +43,27 @@ code is not 0 and the last line is never printed.
              every rung. Every answer is held against the plain
              version; the kernel's launch count over the traffic must equal
              the fast path's dispatches.
+6. sasrec-kernel — the flash-attention kernel against its plain version
+             (and the plain version in float64, to show which side owns the
+             gap) at (B·H, T_q, T_kv, h) = the SASRec serving shape (1, 256,
+             256, 50), the template's batchSize at that width (128, 256, 256,
+             50), (16, 512, 512, 16), (8, 1024, 1024, 64), (4, 2048, 2048,
+             128) and two T_q != T_kv shapes, causal and not, with
+             ``torch.backends.cuda.matmul.allow_tf32 = False``. Times the first
+             two, causal: kernel, plain version, bound and
+             ``F.scaled_dot_product_attention(..., is_causal=True)`` (timed only).
+7. sasrec-serving — a SASRec at the width of Kang & McAuley's MovieLens-1M
+             setting (d = 50, 2 blocks, 1 head, 3,416 items; maxLen 256, the
+             shortest length the JAX package sends to its flash kernel), params
+             drawn from ``--seed``, published as a COMPLETED instance, with
+             view histories of 1 to 419 events for the queried users (padding
+             and truncation), one user whose items are all outside the catalog
+             and one with no events. ``QueryServer(SequentialRecommendation
+             Engine.apply())`` answers every user per query (``batching=False``,
+             one client) and in held bursts of 8 (``batching=True``). Every
+             answer is held against the port's forward with the plain attention
+             on the card, and the flash kernel must launch 2 (layers) × the
+             queries whose history holds a catalog item.
 
 Tolerances. Score kernel: values within rtol = atol = 1e-5; indices equal,
 except where two reference values lie within that tolerance of each other
@@ -55,8 +76,11 @@ reach of a change of summation order, over up to 96,168 slots;
 equal; the largest gap of each is reported. Card-trained factors
 against CPU-trained ones: rtol = atol = 1e-4 (f32, five iterations), 1e-3
 (bf16, int8: every half-step of five iterations, the CPU fed the card's
-previous factors; ``phase_small_parity`` says why). The timings and the
-tables are also written to ``chiprun_out/chip_smoke.json``.
+previous factors; ``phase_small_parity`` says why). Flash kernel: o within
+rtol = atol = 2e-5 (the JAX package's own flash test), lse within rtol =
+atol = 1e-5. Served SASRec answers: scores within rtol = atol = 1e-4 of the
+plain forward's logits, items by ``topk_mismatches`` at that tolerance. The
+timings and the tables are also written to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -693,7 +717,11 @@ def phase_workflow(seed, device):
           "status": inst.status, "launches": launches})
 
 
-def publish(storage, engine, model):
+ALS_VARIANT = {"algorithms": [{"name": "als", "params": {"rank": RANK}}]}
+ALS_FACTORY = "predictionio_tpu_torch.templates.recommendation.RecommendationEngine"
+
+
+def publish(storage, engine, model, variant=ALS_VARIANT, factory=ALS_FACTORY):
     """Write ``model`` as a COMPLETED engine instance with its sealed blob,
     the steps the training workflow takes after training."""
     import datetime as dt
@@ -701,17 +729,14 @@ def publish(storage, engine, model):
     from predictionio_tpu_torch.core import persistence
     from predictionio_tpu_torch.data.storage.base import EngineInstance, Model
 
-    params = engine.params_from_variant(
-        {"algorithms": [{"name": "als", "params": {"rank": RANK}}]}
-    )
+    params = engine.params_from_variant(variant)
     algorithms = engine.make_algorithms(params)
     instances = storage.get_meta_data_engine_instances()
     now = dt.datetime.now(tz=dt.timezone.utc)
     inst = EngineInstance(
         id="", status=instances.STATUS_INIT, start_time=now, end_time=now,
         engine_id="default", engine_version="default", engine_variant="default",
-        engine_factory="predictionio_tpu_torch.templates.recommendation.RecommendationEngine",
-        **params.to_json_strings(),
+        engine_factory=factory, **params.to_json_strings(),
     )
     iid = instances.insert(inst)
     blob = persistence.serialize_models(
@@ -839,6 +864,301 @@ def phase_serving(model, seed, device):
     return out
 
 
+# -- SASRec serving -----------------------------------------------------------
+
+# Kang & McAuley, "Self-Attentive Sequential Recommendation" (ICDM 2018), §IV,
+# MovieLens-1M: d = 50, 2 self-attention blocks, 1 head; the filtered catalog
+# holds 6,040 users × 3,416 items. maxLen is 256, not the paper's 200: the
+# shortest length the JAX package sends to its flash kernel.
+SAS_D, SAS_LAYERS, SAS_HEADS, SAS_MAX_LEN, SAS_ITEMS = 50, 2, 1, 256, 3416
+SAS_USERS = 120  # users with a history, each queried in both serving modes
+SAS_VARIANT = {
+    "datasource": {"params": {"appName": "ChipSmokeSeq"}},
+    "algorithms": [{"name": "sasrec", "params": {
+        "appName": "ChipSmokeSeq", "eventNames": ["view"], "dModel": SAS_D,
+        "numLayers": SAS_LAYERS, "numHeads": SAS_HEADS, "maxLen": SAS_MAX_LEN}}],
+}
+SAS_FACTORY = "predictionio_tpu_torch.templates.sequentialrecommendation.SequentialRecommendationEngine"
+# (B·H, T_q, T_kv, h): serving (one query, one head), the template's
+# batchSize at this width, longer blocks, and T_q != T_kv both ways
+FLASH_SHAPES = (
+    (1, 256, 256, 50), (128, 256, 256, 50), (16, 512, 512, 16), (8, 1024, 1024, 64),
+    (4, 2048, 2048, 128), (4, 256, 1024, 50), (4, 1024, 256, 64),
+)
+FLASH_O_TOL = 2e-5  # rtol = atol: the JAX package's flash test
+FLASH_LSE_TOL = 1e-5  # rtol = atol
+SAS_TOL = 1e-4  # served logits vs the plain forward, rtol = atol
+
+
+def flash_bound(bh, t_q, t_kv, h, causal):
+    """Least time: q, k, v read once, o and lse written once (f32); two
+    products of h multiply-adds over each visible (query, key) pair, f32
+    outside the tensor cores."""
+    import numpy as np
+
+    nbytes = 4 * bh * (2 * t_q * h + 2 * t_kv * h + t_q)
+    rows = np.arange(t_q)
+    pairs = int(np.minimum(rows + 1, t_kv).sum()) if causal else t_q * t_kv
+    ops = 4 * bh * h * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_sasrec_kernel(seed, device):
+    """The flash kernel against its plain version (f32 and f64) at every
+    FLASH_SHAPES shape, causal and not; times at the serving shape and at
+    the batchSize shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in full f32
+    rng = np.random.default_rng(seed + 7)
+    cases, max_o, max_lse = [], 0.0, 0.0
+    inputs = {}
+    for bh, t_q, t_kv, h in FLASH_SHAPES:
+        q, k, v = (torch.from_numpy(rng.standard_normal((bh, t, h)).astype(np.float32)).to(device)
+                   for t in (t_q, t_kv, t_kv))
+        inputs[(bh, t_q, t_kv, h)] = (q, k, v)
+        for causal in (True, False):
+            o, lse = fa.flash_block_fwd(q, k, v, causal)
+            ro, rlse = fa.flash_attention_reference(q, k, v, causal)
+            o64, lse64 = fa.flash_attention_reference(q.double(), k.double(), v.double(), causal)
+            torch.cuda.synchronize()
+            what = f"flash ({bh}, {t_q}, {t_kv}, {h}) causal={causal}"
+            require(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()), f"{what}: finite")
+            for got, ref, tol, name in ((o, ro, FLASH_O_TOL, "o"), (lse, rlse, FLASH_LSE_TOL, "lse")):
+                excess = float(((got - ref).abs() - (tol + tol * ref.abs())).max())
+                require(excess <= 0, f"{what}: {name} disagrees with the plain version by {excess} past tolerance")
+            gap = {
+                "o_kernel_vs_plain": float((o - ro).abs().max()),
+                "o_kernel_vs_f64": float((o.double() - o64).abs().max()),
+                "o_plain_vs_f64": float((ro.double() - o64).abs().max()),
+                "lse_kernel_vs_plain": float((lse - rlse).abs().max()),
+                "lse_kernel_vs_f64": float((lse.double() - lse64).abs().max()),
+                "lse_plain_vs_f64": float((rlse.double() - lse64).abs().max()),
+            }
+            max_o = max(max_o, gap["o_kernel_vs_plain"])
+            max_lse = max(max_lse, gap["lse_kernel_vs_plain"])
+            cases.append({"shape": [bh, t_q, t_kv, h], "causal": causal, **gap})
+    emit({"phase": "sasrec-kernel", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cases": cases, "max_abs_err_o": max_o, "max_abs_err_lse": max_lse, "ok": True})
+
+    rows = []
+    for shape in FLASH_SHAPES[:2]:
+        bh, t_q, t_kv, h = shape
+        q, k, v = inputs[shape]
+        q4, k4, v4 = (x[:, None] for x in (q, k, v))  # (B, H = 1, T, h)
+        bms, by = flash_bound(bh, t_q, t_kv, h, True)
+        rows.append({
+            "shape": list(shape), "causal": True,
+            "ms": cuda_ms(lambda: fa.flash_block_fwd(q, k, v, True), 200),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, True), 100),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 200),
+            "bound_ms": bms, "bound_by": by,
+            "kernel_device_us": device_us(lambda: fa.flash_block_fwd(q, k, v, True)),
+        })
+        emit({"phase": "sasrec-kernel-time", **rows[-1]})
+    return rows, max_o
+
+
+def sasrec_histories(seed):
+    """Per queried user, item indices oldest → newest: lengths from 1 to
+    beyond maxLen (padding and truncation), items drawn from the catalog
+    with repeats."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 8)
+    lengths = np.unique(np.concatenate([[1, 2, 255, 256, 257, 400],
+                                        rng.integers(1, 420, SAS_USERS)]))[:SAS_USERS]
+    lengths = np.concatenate([lengths, rng.integers(1, 420, SAS_USERS - len(lengths))])
+    return {f"su{n}": rng.integers(0, SAS_ITEMS, int(L)) for n, L in enumerate(lengths)}
+
+
+def phase_sasrec_serving(seed, device):
+    """A seeded SASRec at the paper's ML-1M width, published and served:
+    every answer against the forward with the plain attention."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import memory
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import sequential
+    from predictionio_tpu_torch.ops import flash_attention as fa
+    from predictionio_tpu_torch.parallel.ring import full_attention
+    from predictionio_tpu_torch.serving.query_server import QueryServer
+    from predictionio_tpu_torch.templates.sequentialrecommendation import (
+        SequentialRecommendationEngine,
+    )
+    from predictionio_tpu_torch.testing import topk_mismatches
+
+    t0 = time.perf_counter()
+    cfg = sequential.SASRecConfig(d_model=SAS_D, n_layers=SAS_LAYERS, n_heads=SAS_HEADS,
+                                  max_len=SAS_MAX_LEN)
+    model = sequential.SASRecModel(
+        params=sequential.init_params(seed, cfg, SAS_ITEMS),
+        item_map=BiMap({f"si{j}": j for j in range(SAS_ITEMS)}), config=cfg,
+    )
+    histories = sasrec_histories(seed)
+    source = "CHIPSMOKESEQ"
+    storage = Storage(env={
+        f"PIO_STORAGE_SOURCES_{source}_TYPE": "memory",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": source,
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": source,
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": source,
+    })
+    app_id = storage.get_meta_data_apps().insert(App(0, "ChipSmokeSeq"))
+    events = [
+        Event(event="view", entity_type="user", entity_id=u, target_entity_type="item",
+              target_entity_id=f"si{int(i)}", event_time=1_767_225_600.0 + t)
+        for u, items in histories.items() for t, i in enumerate(items)
+    ]
+    # a user whose every item lies outside the catalog: no sequence, no launch
+    events += [Event(event="view", entity_type="user", entity_id="su_offcatalog",
+                     target_entity_type="item", target_entity_id=f"x{t}",
+                     event_time=1_767_225_600.0 + t) for t in range(5)]
+    storage.get_l_events().insert_batch(events, app_id)
+    engine = SequentialRecommendationEngine.apply()
+    iid = publish(storage, engine, model, SAS_VARIANT, SAS_FACTORY)
+    users = list(histories) + ["su_offcatalog", "su_ghost"]
+    rng = np.random.default_rng(seed + 9)
+    nums = {u: int(rng.integers(1, 101)) for u in users}
+    store.set_storage(storage)
+    out = {"phase": "sasrec-serving", "events": len(events), "users": len(users)}
+    loops = []
+    try:
+        fa.launches.reset()  # the main path's window: both serving loops
+        for batching in (False, True):
+            qs = QueryServer(engine, storage=storage, ctx=DeviceContext.create(device=device),
+                             batching=batching)
+            try:
+                net = qs._deployed.models[0]._net
+                require(net is not None and net.device == torch.device(device),
+                        "weights bound on the card at deploy")
+                base = f"http://127.0.0.1:{qs.start('127.0.0.1', 0)}"
+
+                def post(u):
+                    req = urllib.request.Request(
+                        f"{base}/queries.json", data=json.dumps({"user": u, "num": nums[u]}).encode(),
+                        headers={"Content-Type": "application/json"},
+                    )
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        return u, json.loads(r.read())
+
+                def info():
+                    with urllib.request.urlopen(f"{base}/", timeout=30) as r:
+                        return json.loads(r.read())
+
+                before = fa.launches.count
+                t_loop = time.perf_counter()
+                if batching:
+                    # bursts of 8 queued behind a held batcher, so each leaves
+                    # as one batch that the base batch_predict loops over
+                    answers = []
+                    with ThreadPoolExecutor(max_workers=8) as pool:
+                        for b0 in range(0, len(users), 8):
+                            burst = users[b0: b0 + 8]
+                            with qs._batcher.held():
+                                futs = [pool.submit(post, u) for u in burst]
+                                t_hold = time.monotonic() + 20
+                                while info()["inflight"] < len(burst) and time.monotonic() < t_hold:
+                                    time.sleep(0.002)
+                                time.sleep(0.02)  # the last arrivals reach the queue
+                            answers += [f.result() for f in futs]
+                else:  # one client, one query at a time
+                    answers = [post(u) for u in users]
+                loop_s = time.perf_counter() - t_loop
+                served = info()
+                loops.append({"batching": batching, "queries": len(answers), "loop_s": loop_s,
+                              # this script's loop through HTTP and the memory
+                              # event store (with the held bursts' waits when
+                              # batching), not a benchmark
+                              "script_qps": len(answers) / loop_s,
+                              "launches": fa.launches.count - before,
+                              "batch_sizes": (served["batching"] or {}).get("batch_sizes")})
+                emit({"phase": "sasrec-serving-loop", **loops[-1]})
+            finally:
+                qs.stop()
+            loops[-1]["answers"] = answers
+        launches = fa.launches.count
+        # where one query's time goes (after the window): the live history
+        # read on the host, then recommend (the forward on the card, one copy
+        # back, the host top-k), and the card's busy time within recommend
+        algo = engine.make_algorithms(engine.params_from_variant(SAS_VARIANT))[0]
+        model.bind(device)
+        hist_ms, rec_ms = [], []
+        for u in list(histories)[:20]:
+            t = time.perf_counter()
+            h = algo._history(u, SAS_MAX_LEN)
+            hist_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            model.recommend(h, nums[u])
+            rec_ms.append((time.perf_counter() - t) * 1e3)
+        per_kernel = device_us(lambda: model.recommend(h, 10))
+        breakdown = {"history_ms": sorted(hist_ms)[10], "recommend_ms": sorted(rec_ms)[10],
+                     "recommend_device_us": sum(per_kernel.values()),
+                     "recommend_device_us_top": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])}
+        emit({"phase": "sasrec-breakdown", **breakdown})
+    finally:
+        store.set_storage(None)
+        memory.reset_store(source)
+    n_with_items = sum(1 for u in users if u in histories)
+    n_queries = sum(lp["queries"] for lp in loops)
+    require(n_queries >= N_QUERIES, f"{n_queries} answers")
+    require(launches == SAS_LAYERS * 2 * n_with_items,
+            f"flash launches {launches} vs {SAS_LAYERS} layers × {2 * n_with_items} queries with catalog items")
+
+    # every answer against the plain forward on the card, one batch
+    net = model.bind(device)
+    tree = net.tree()
+    seqs = np.zeros((len(histories), SAS_MAX_LEN), np.int64)
+    for row, items in enumerate(histories.values()):
+        tail = items[-SAS_MAX_LEN:]
+        seqs[row, -len(tail):] = tail + 1
+    seq_t = torch.from_numpy(seqs).to(device)
+    with torch.no_grad():
+        hidden = sequential._block_stack(tree, seq_t, cfg, tree["pos"],
+                                         lambda q, k, v: full_attention(q, k, v, causal=True))
+        plain = (hidden[:, -1, :] @ tree["emb"][1:].T).cpu().numpy()
+        kernel = net(seq_t).cpu().numpy()  # the batch through the kernel, outside the window
+    logit_gap = float(np.abs(kernel - plain).max())
+    require(np.allclose(kernel, plain, rtol=SAS_TOL, atol=SAS_TOL),
+            f"batched logits through the kernel vs plain: max |Δ| {logit_gap}")
+    row_of = {u: r for r, u in enumerate(histories)}
+    bad, answer_gap = [], 0.0
+    for lp in loops:
+        for u, a in lp["answers"]:
+            got = a["itemScores"]
+            if u not in histories:
+                require(got == [], f"{u}: {got[:3]}")
+                continue
+            items = histories[u][-SAS_MAX_LEN:]  # the live read takes the last maxLen events
+            ref_i, ref_v = sequential.host_top_items(plain[row_of[u]], items, nums[u])
+            got_i = np.array([[int(x["item"][2:]) for x in got]])
+            got_v = np.array([[x["score"] for x in got]])
+            require(not set(got_i[0].tolist()) & set(items.tolist()), f"{u}: a history item came back")
+            bad += topk_mismatches(got_v, got_i, ref_v[None, :], ref_i[None, :], SAS_TOL)
+            if len(got):
+                answer_gap = max(answer_gap, float(np.abs(got_v[0] - plain[row_of[u], got_i[0]]).max()))
+    require(not bad, f"served answers disagree with the plain forward: {bad[:3]}")
+    for lp in loops:
+        del lp["answers"]
+    out.update({"instance": iid, "setup_and_serve_s": time.perf_counter() - t0,
+                "queries": n_queries, "queries_with_items": 2 * n_with_items,
+                "launches": launches, "loops": loops, "breakdown": breakdown,
+                "max_abs_err_answers": answer_gap,
+                "max_abs_err_batched_logits": logit_gap, "tol": SAS_TOL, "ok": True})
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -877,6 +1197,8 @@ def main(argv=None) -> int:
     phase_small_parity(args.seed, device)
     phase_workflow(args.seed, device)
     serving = phase_serving(model, args.seed, device)
+    flash_rows, flash_err = phase_sasrec_kernel(args.seed, device)
+    sasrec = phase_sasrec_serving(args.seed, device)
 
     top = next(r for r in rows if r["dtype"] == "f32" and r["batch"] == RUNGS[-1])
     # the training kernel's line: one iteration's normal equations (both
@@ -907,13 +1229,24 @@ def main(argv=None) -> int:
         "bound_ms": sum(r["bound_ms"] for r in both),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in both) else "operations",
         "library_ms": sum(r["library_ms"] for r in both),
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "predictionio_tpu/ops/flash_attention.py:62",
+        "launches": sasrec["launches"],
+        "max_abs_err": flash_err,
+        # the serving shape: one query, one head, T = 256, h = 50, causal
+        "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"],
+        "bound_ms": flash_rows[0]["bound_ms"], "bound_by": flash_rows[0]["bound_by"],
+        "library_ms": flash_rows[0]["library_ms"],
     }]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "rows": rows, "serving": serving,
                    "train_sides": list(side_rows.values()), "train_buckets": bucket_rows,
-                   "train": train, **kernels}, f, indent=1)
+                   "train": train, "flash": flash_rows, "sasrec": sasrec, **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)
     emit(kernels)

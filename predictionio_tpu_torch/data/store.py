@@ -1,8 +1,10 @@
 """Engine-developer store API: what templates call to read events.
 
-Counterpart of ``predictionio_tpu/data/store.py:30-112`` (parity:
-``store/PEventStore.scala`` and the appName→appId resolution of
-``store/Common.scala``): :class:`PEventStore` reads in bulk by app NAME.
+Counterpart of ``predictionio_tpu/data/store.py:30-177`` (parity:
+``store/PEventStore.scala``, ``store/LEventStore.scala`` and the
+appName→appId resolution of ``store/Common.scala``): :class:`PEventStore`
+reads in bulk by app NAME, :class:`LEventStore` reads rows for
+serving-time lookups (a user's recent history).
 
 The active :class:`Storage` is process-global (:func:`set_storage`) and
 defaults to the env-configured singleton, as the reference's ``object
@@ -15,6 +17,7 @@ import datetime as _dt
 from typing import Optional, Sequence
 
 from predictionio_tpu_torch.data.batch import EventBatch, Interactions
+from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.registry import Storage
 
 _active_storage: Optional[Storage] = None
@@ -97,4 +100,53 @@ class PEventStore:
             target_entity_type=target_entity_type,
             rating_key=rating_key,
             default_rating=default_rating,
+        )
+
+
+class LEventStore:
+    """Row reads for serving-time lookups (parity: LEventStore.scala:48-265).
+
+    Rows come in ``(event_time, creation_time)`` order, newest first with
+    ``latest=True``, as the storage driver's ``find`` orders them."""
+
+    @staticmethod
+    def find_by_entity(
+        app_name: str,
+        entity_type: str,
+        entity_id: str,
+        channel_name: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
+        target_entity_id: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        limit: Optional[int] = None,
+        latest: bool = True,
+    ) -> list[Event]:
+        app_id, channel_id = resolve_app(app_name, channel_name)
+        return list(
+            get_storage().get_l_events().find(
+                app_id,
+                channel_id=channel_id,
+                entity_type=entity_type,
+                entity_id=entity_id,
+                event_names=event_names,
+                target_entity_type=target_entity_type,
+                target_entity_id=target_entity_id,
+                start_time=start_time,
+                until_time=until_time,
+                limit=limit,
+                reversed=latest,
+            )
+        )
+
+    @staticmethod
+    def find(
+        app_name: str,
+        channel_name: Optional[str] = None,
+        **filters,
+    ) -> list[Event]:
+        app_id, channel_id = resolve_app(app_name, channel_name)
+        return list(
+            get_storage().get_l_events().find(app_id, channel_id=channel_id, **filters)
         )

@@ -12,14 +12,16 @@ Counterpart of ``predictionio_tpu/models/als.py`` on one card:
   holds every entity, so the blocks have no shard dimension and the
   entities are degree-sorted (the JAX package's ``n_shards = 1`` layout).
   The segment solver and mid-training checkpoints come with later slices
-  (ROADMAP §1 items 7 and 4) and raise until then;
+  (ROADMAP §1 items 4 and 7) and raise until then;
 * :class:`ALSModel` (``:132``) and :func:`als_model_from_arrays`, which
   carries factors and id lists across from anywhere else;
 * serving (``:1757-2000``): :class:`ALSScorer`.
 
-The port reads no ``PIO_ALS_*`` or ``PIO_TRAIN_KERNEL`` variable: the
-compute dtype and solver are :class:`ALSConfig` fields, and a CUDA tensor
-always takes the kernel.
+:class:`ALSConfig` resolves a ``compute_dtype`` or ``solver`` left at None
+from ``PIO_ALS_COMPUTE_DTYPE`` and ``PIO_ALS_SOLVER`` when it is built, as
+the JAX package does (``models/als.py:105-117``). The port reads no
+``PIO_TRAIN_KERNEL`` or ``PIO_NATIVE``: they choose a kernel, and a CUDA
+tensor always takes the kernel.
 
 Every device scoring call goes through the scorer's
 :class:`~predictionio_tpu_torch.serving.fastpath.BucketedScorer`, the one
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import threading
 from typing import Optional
 
@@ -63,28 +66,35 @@ class ALSConfig:
     implicit: bool = False
     alpha: float = 1.0  # implicit confidence scale
     seed: int = 3
-    # mid-training checkpoint/resume: not ported yet (ROADMAP §1 item 4)
+    # mid-training checkpoint/resume: not ported yet (ROADMAP §1 item 7)
     checkpoint_dir: Optional[str] = None
     # dtype of the GATHERED opposite factors ("f32" | "bf16" | "int8"): bf16
     # gathers the opposite matrix in bfloat16, int8 quantizes it per
-    # half-step with per-row scales; every contraction accumulates f32
-    compute_dtype: str = "f32"
+    # half-step with per-row scales; every contraction accumulates f32.
+    # None → PIO_ALS_COMPUTE_DTYPE (default "f32"), read when the config is
+    # built, not when the module is imported
+    compute_dtype: Optional[str] = None
     # The JAX package's LPT rebalance across mesh shards; one card has one
     # shard, so entities are degree-sorted either way (kept so configs and
     # pickled models read the same).
     rebalance: bool = True
     # "dense" — degree-bucketed normal equations through the training
-    # kernel; "segment" (scatter-add) comes with ROADMAP §1 item 7
-    solver: str = "dense"
+    # kernel; "segment" (scatter-add) comes with ROADMAP §1 item 4.
+    # None → PIO_ALS_SOLVER (default "dense"), read when the config is built
+    solver: Optional[str] = None
 
     def __post_init__(self):
+        if self.solver is None:
+            self.solver = os.environ.get("PIO_ALS_SOLVER", "dense")
+        if self.compute_dtype is None:
+            self.compute_dtype = os.environ.get("PIO_ALS_COMPUTE_DTYPE", "f32")
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(
                 f"compute_dtype must be one of {COMPUTE_DTYPES}, got {self.compute_dtype!r}"
             )
         if self.solver == "segment":
             raise NotImplementedError(
-                "solver='segment' is not ported yet (ROADMAP §1 item 7, with "
+                "solver='segment' is not ported yet (ROADMAP §1 item 4, with "
                 "the gather-rows kernel); use solver='dense'"
             )
         if self.solver != "dense":
@@ -92,7 +102,7 @@ class ALSConfig:
         if self.checkpoint_dir:
             raise NotImplementedError(
                 "checkpoint_dir (mid-training checkpoints) is not ported yet "
-                "(ROADMAP §1 item 4)"
+                "(ROADMAP §1 item 7)"
             )
 
 

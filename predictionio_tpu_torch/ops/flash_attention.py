@@ -1,0 +1,223 @@
+"""Exact softmax attention, forward: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Replaces the Pallas kernel ``predictionio_tpu/ops/flash_attention.py``
+``_flash_kernel``, reached through ``_flash_2d_res`` from
+``flash_attention`` (every SASRec layer at a flash-eligible length) and
+``flash_block_fwd`` (one block pair of ring attention). The kernel is
+``csrc/flash_fwd.cu``, built with ``nvcc`` for ``sm_90a`` at first use
+(``ops/_build.py``) and called through ``ctypes``; its source note says
+what bounds it and how it is laid out. In short: one thread block per
+(batch·head, 64-row query tile) keeps the online-softmax state (m, l, acc)
+in float32 registers and loops over 64-row key/value tiles staged in shared
+memory, skipping the tiles a causal mask hides entirely.
+
+What it computes is the TPU kernel's definition: ``s = (q·scale) kᵀ``, the
+causal mask by absolute position (``q_pos >= k_pos``, also for
+``T_q != T_kv``), masked scores set to ``NEG_INF`` = -1e30, softmax with
+float32 accumulators, ``o = acc / max(l, 1e-30)`` in q's dtype and
+``lse = m + log(max(l, 1e-30))`` in float32.
+
+The wrappers route by device and nothing else:
+
+* tensors on the CPU take :func:`flash_attention_reference`, the plain
+  version (the dense softmax, also what ``parallel/ring.full_attention``
+  computes);
+* tensors on a CUDA device launch the kernel, or raise on a dtype, head
+  width, shape or contiguity the kernel does not take, or on a CUDA error.
+
+There is no ``try`` that falls back and no environment variable that picks
+the plain version on the card. :data:`launches` counts the kernel's
+launches (one per call, whatever the batch·head count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.ops.score_kernel import LaunchCounter
+
+NEG_INF = -1e30
+# The JAX package's default blocks: the lengths it refuses at them are
+# refused here too (``flash_attention``'s ValueError).
+BLOCK_Q = 128
+BLOCK_K = 128
+# Rows of a query and of a key/value tile in the kernel, and the widest head
+# it takes (the C source's TILE and MAX_HEAD).
+TILE = 64
+MAX_HEAD = 256
+
+launches = LaunchCounter()
+
+
+def use_flash_default(t: int, device) -> bool:
+    """The JAX package's shape policy for the flash path: long 128-aligned
+    blocks on the accelerator; short blocks and the CPU stay dense."""
+    return t >= 256 and t % BLOCK_Q == 0 and torch.device(device).type == "cuda"
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as JAX converts a weakly typed scalar."""
+    return float(np.float32(x))
+
+
+def _check_lengths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The JAX function's refusals at its default blocks, plus the shapes
+    and head width the port takes; the same on every device."""
+    if q.dim() < 2 or k.dim() != q.dim() or v.shape != k.shape:
+        raise ValueError(
+            f"q, k, v must be (..., T, D) of one rank with k and v alike, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if q.shape[:-2] != k.shape[:-2] or q.shape[-1] != k.shape[-1]:
+        raise ValueError(
+            f"q {tuple(q.shape)} and k {tuple(k.shape)} differ outside the length"
+        )
+    t_q, t_kv, d = q.shape[-2], k.shape[-2], q.shape[-1]
+    block_q, block_k = min(BLOCK_Q, t_q), min(BLOCK_K, t_kv)
+    if t_q == 0 or t_kv == 0 or t_q % block_q or t_kv % block_k:
+        raise ValueError(
+            f"sequence lengths ({t_q}, {t_kv}) must divide block sizes "
+            f"({block_q}, {block_k})"
+        )
+    if not 1 <= d <= MAX_HEAD:
+        raise ValueError(f"head width {d} is outside the flash kernel's range 1..{MAX_HEAD}")
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain dense version: ``(o (..., T_q, D) in q's dtype,
+    lse (..., T_q) float32, float64 for float64 inputs)``.
+
+    Computes in float32 (float64 for float64 inputs): ``s = (q·scale) kᵀ``,
+    masked scores ``NEG_INF``, ``m`` the row max, ``l = Σ exp(s - m)``
+    clamped at 1e-30, as the TPU kernel finalizes (``:91-96``). On the card
+    the two products run in full float32 (TF32 off for the call).
+    """
+    d = q.shape[-1]
+    scale = _f32(scale if scale is not None else 1.0 / (d**0.5))
+    work = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf = (x.to(work) for x in (q, k, v))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        s = (qf * scale) @ kf.transpose(-1, -2)
+        if causal:
+            t_q, t_kv = s.shape[-2], s.shape[-1]
+            q_pos = torch.arange(t_q, device=s.device)[:, None]
+            k_pos = torch.arange(t_kv, device=s.device)[None, :]
+            s = s.masked_fill(q_pos < k_pos, NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        o = (p @ vf) / l
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _library():
+    """The built kernel library (built on first use, once per process)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            from predictionio_tpu_torch.ops import _build
+
+            lib = ctypes.CDLL(str(_build.library("flash_fwd")))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.pio_flash_fwd.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p]
+            lib.pio_flash_fwd.restype = i
+            lib.pio_flash_fwd_limits.argtypes = [p, p]
+            lib.pio_flash_fwd_limits.restype = i
+            lib.pio_flash_error_string.argtypes = [i]
+            lib.pio_flash_error_string.restype = ctypes.c_char_p
+            tile, max_head = ctypes.c_int(), ctypes.c_int()
+            lib.pio_flash_fwd_limits(ctypes.byref(tile), ctypes.byref(max_head))
+            if (tile.value, max_head.value) != (TILE, MAX_HEAD):
+                raise RuntimeError("flash_fwd.cu TILE/MAX_HEAD disagree with Python")
+            _lib = lib
+        return _lib
+
+
+def _launch(q, k, v, causal: bool, scale: float):
+    """One kernel launch over the flattened batch·head dimension."""
+    device = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} has dtype {t.dtype}; the flash kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    t_q, d = q.shape[-2:]
+    t_kv = k.shape[-2]
+    bh = q.numel() // (t_q * d)
+    if bh == 0:
+        raise ValueError("empty batch·head dimension")
+    lib = _library()
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pio_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            bh, t_q, t_kv, d, int(bool(causal)), scale, stream,
+        )
+    if rc != 0:
+        msg = lib.pio_flash_error_string(rc).decode()
+        raise RuntimeError(f"flash_fwd kernel launch failed: {msg} ({rc})")
+    launches.bump()
+    return o, lse
+
+
+def flash_block_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool,
+    scale: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block-pair forward: ``(o (..., T_q, D), lse (..., T_q))``.
+
+    ``o`` is the softmax-normalized attention of q over THIS k/v block and
+    ``lse`` its log-sum-exp, the pair ring attention merges across blocks
+    with ``logaddexp``. Leading dimensions flatten into one batch·head
+    dimension.
+    """
+    _check_lengths(q, k, v)
+    scale = _f32(scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5))
+    device = q.device
+    if device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, scale)
+    if device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {device}")
+    return _launch(q, k, v, causal, scale)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Exact attention, q/k/v (..., T, D) → o (..., T_q, D).
+
+    Lengths must divide the JAX package's default blocks
+    (``min(128, T)``); others raise ``ValueError`` on every device.
+    """
+    return flash_block_fwd(q, k, v, causal, scale)[0]

@@ -11,8 +11,8 @@ a per-query disabled-items file.
 
 Not ported yet, and raising an error that names the ROADMAP item that
 brings them: a set ``eventWindow`` (the self-cleaning data source) and
-``read_eval`` (ROADMAP §1 item 9), and ``persistMode: "checkpoint"``
-(ROADMAP §1 item 4).
+``read_eval`` (ROADMAP §1 item 11), and ``persistMode: "checkpoint"``
+(ROADMAP §1 item 7).
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ PreparedData = TrainingData
 class DataSourceParams(Params):
     appName: str = "default"
     evalParams: Optional[dict] = None  # {"kFold": 5, "queryNum": 10}
-    # self-cleaning window: not ported yet (ROADMAP §1 item 9)
+    # self-cleaning window: not ported yet (ROADMAP §1 item 11)
     eventWindow: Optional[dict] = None
     # event name → fixed rating value, replacing the default rate+buy read
     # (reading-custom-events: like→4.0/dislike→1.0; train-with-view-event:
@@ -137,7 +137,7 @@ class RecommendationDataSource(DataSource):
         if self.params.eventWindow:
             raise NotImplementedError(
                 "eventWindow (the self-cleaning data source) is not ported yet "
-                "(ROADMAP §1 item 9)"
+                "(ROADMAP §1 item 11)"
             )
         # one columnar read per event type, merged into shared id maps
         return TrainingData(
@@ -149,7 +149,7 @@ class RecommendationDataSource(DataSource):
 
     def read_eval(self, ctx):
         raise NotImplementedError(
-            "read_eval (evaluation) is not ported yet (ROADMAP §1 item 9)"
+            "read_eval (evaluation) is not ported yet (ROADMAP §1 item 11)"
         )
 
 
@@ -232,7 +232,7 @@ class ALSAlgorithmParams(Params):
     seed: Optional[int] = None
     checkpointDir: Optional[str] = None
     # bound so engine.json files bind; read by nothing until mid-training
-    # checkpoints are ported (ROADMAP §1 item 4)
+    # checkpoints are ported (ROADMAP §1 item 7)
     checkpointInterval: int = 5
     persistMode: str = "auto"
 
@@ -259,7 +259,7 @@ class ALSAlgorithm(Algorithm):
             )
         if p.persistMode == "checkpoint":
             raise NotImplementedError(
-                'persistMode "checkpoint" is not ported yet (ROADMAP §1 item 4)'
+                'persistMode "checkpoint" is not ported yet (ROADMAP §1 item 7)'
             )
         return ALSConfig(
             rank=p.rank,

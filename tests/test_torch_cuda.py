@@ -17,7 +17,10 @@ the summed absolute products behind it against the plain version, and
 within 1e-5 against the same operands summed in float64, plus 1e-6; cnt
 equal; ``predictionio_tpu_torch/testing.py`` says how the two were set);
 training on the card against training on the CPU from the same initial
-factors, rtol = atol = 1e-4 at f32.
+factors, rtol = atol = 1e-4 at f32; the flash-attention kernel against its
+plain version, o within rtol = atol = 2e-5 (the JAX package's own flash
+test) and lse within 1e-5; SASRec logits through the kernel against the
+plain attention, rtol = atol = 1e-4.
 """
 
 import numpy as np
@@ -27,7 +30,8 @@ import torch
 from predictionio_tpu_torch.data.batch import interactions_from_arrays
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.models import als
-from predictionio_tpu_torch.ops import score_kernel, train_kernel
+from predictionio_tpu_torch.models import sequential
+from predictionio_tpu_torch.ops import flash_attention, score_kernel, train_kernel
 from predictionio_tpu_torch.ops.quantize import quantize_factors_torch
 from predictionio_tpu_torch.testing import (
     KERNEL_VS_FLOAT64_RTOL,
@@ -109,3 +113,49 @@ def test_train_on_card_matches_cpu(card, implicit):
     on_cpu = als.train_als(DeviceContext.create(device="cpu"), inter, cfg, init_factors=init)
     np.testing.assert_allclose(on_card.user_factors, on_cpu.user_factors, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(on_card.item_factors, on_cpu.item_factors, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", (False, True))
+@pytest.mark.parametrize("bh, t_q, t_kv, h", [
+    (1, 256, 256, 50), (3, 128, 128, 64), (2, 8, 8, 16), (2, 384, 384, 128),
+    (1, 256, 512, 50), (2, 512, 256, 32), (1, 256, 256, 256), (2, 100, 100, 1),
+])
+def test_flash_kernel_matches_plain_version_on_card(card, causal, bh, t_q, t_kv, h):
+    rng = np.random.default_rng(bh * 1000 + t_q + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, t, h)).astype(np.float32)).to(card)
+               for t in (t_q, t_kv, t_kv))
+    before = flash_attention.launches.count
+    o, lse = flash_attention.flash_block_fwd(q, k, v, causal)
+    ro, rlse = flash_attention.flash_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches.count == before + 1
+    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros((1, 256, 50), device=card)
+    for bad in (q.double(), q.bfloat16(), torch.zeros((1, 50, 256), device=card).transpose(1, 2)):
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention(bad, bad, bad)
+    with pytest.raises(ValueError, match="divide"):
+        flash_attention.flash_attention(*(torch.zeros((1, 200, 8), device=card),) * 3)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention.flash_attention(*(torch.zeros((1, 128, 257), device=card),) * 3)
+
+
+@pytest.mark.cuda
+def test_sasrec_logits_through_the_kernel_on_card(card, monkeypatch):
+    cfg = sequential.SASRecConfig(d_model=50, n_heads=1, n_layers=2, max_len=256)
+    net = sequential.SASRecNet(sequential.init_params(0, cfg, 500), cfg, card)
+    seqs = torch.from_numpy(np.random.default_rng(3).integers(0, 501, (4, 256))).to(card)
+    seqs[:, :50] = 0
+    before = flash_attention.launches.count
+    got = net(seqs)
+    torch.cuda.synchronize()
+    assert flash_attention.launches.count == before + cfg.n_layers
+    monkeypatch.setattr(sequential, "_use_flash", lambda t, device: False)
+    want = net(seqs)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

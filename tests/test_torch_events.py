@@ -222,9 +222,9 @@ class TestTrainingReads:
         ds = rec.RecommendationDataSource(
             rec.DataSourceParams(appName=APP, eventWindow={"duration": "3 days"})
         )
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 11"):
             ds.read_training(None)
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 11"):
             ds.read_eval(None)
 
 

@@ -57,7 +57,7 @@ print(" ".join(names))
     assert r.returncode == 0, r.stderr
     names = set(r.stdout.split())
     assert len(names) >= 30
-    # the training slice's modules, by name
+    # the training and SASRec slices' modules, by name
     assert {
         "predictionio_tpu_torch.data.event", "predictionio_tpu_torch.data.batch",
         "predictionio_tpu_torch.data.store", "predictionio_tpu_torch.data.storage.base",
@@ -66,6 +66,10 @@ print(" ".join(names))
         "predictionio_tpu_torch.ops.train_kernel", "predictionio_tpu_torch.models.als",
         "predictionio_tpu_torch.core.workflow",
         "predictionio_tpu_torch.templates.recommendation",
+        # the SASRec serving slice
+        "predictionio_tpu_torch.ops.flash_attention", "predictionio_tpu_torch.parallel.ring",
+        "predictionio_tpu_torch.models.sequential",
+        "predictionio_tpu_torch.templates.sequentialrecommendation",
     } <= names
 
 

@@ -12,6 +12,11 @@ trainer's threefry draw, which the test hands to the port's ``train_als``.
 
 Tolerance: answers by ``topk_mismatches`` with tol 1e-4, the trained
 factors' own tolerance (``tests/test_torch_als_train.py``).
+
+``ALSConfig`` reads ``PIO_ALS_COMPUTE_DTYPE`` and ``PIO_ALS_SOLVER`` for the
+fields left at None, as the JAX package's does, so an engine trained with
+``run_train`` under ``PIO_ALS_COMPUTE_DTYPE=bf16`` trains in bf16: its
+factors must EQUAL those of ``train_als`` with ``compute_dtype="bf16"``.
 """
 
 import functools
@@ -40,6 +45,7 @@ from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage import memory
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.models import als
 from predictionio_tpu_torch.serving.query_server import QueryServer
 from predictionio_tpu_torch.templates import recommendation as rec
 from predictionio_tpu_torch.testing import topk_mismatches
@@ -214,3 +220,67 @@ def test_stop_after_read_and_cleanup_hooks(stores):
         workflow.CleanupFunctions.clear()
     assert ran == [1]
     assert workflow.resolve_engine(FACTORY).algorithm_cls_map == engine.algorithm_cls_map
+
+
+ENV_KEYS = ("PIO_ALS_COMPUTE_DTYPE", "PIO_ALS_SOLVER")
+
+
+@pytest.mark.parametrize("env, want", [
+    ({}, ("f32", "dense")),
+    ({"PIO_ALS_COMPUTE_DTYPE": "bf16"}, ("bf16", "dense")),
+    ({"PIO_ALS_COMPUTE_DTYPE": "int8", "PIO_ALS_SOLVER": "dense"}, ("int8", "dense")),
+])
+def test_als_config_reads_the_environment_as_jax_does(monkeypatch, env, want):
+    for key in ENV_KEYS:
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    port, ref = als.ALSConfig(), jax_als.ALSConfig()
+    assert (port.compute_dtype, port.solver) == (ref.compute_dtype, ref.solver) == want
+    # a field that is set wins over the environment, in both packages
+    port, ref = als.ALSConfig(compute_dtype="f32"), jax_als.ALSConfig(compute_dtype="f32")
+    assert port.compute_dtype == ref.compute_dtype == "f32"
+
+
+def test_als_config_refusals_follow_the_environment(monkeypatch):
+    for key in ENV_KEYS:
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("PIO_ALS_SOLVER", "segment")
+    assert jax_als.ALSConfig().solver == "segment"
+    with pytest.raises(NotImplementedError, match="segment"):
+        als.ALSConfig()
+    monkeypatch.delenv("PIO_ALS_SOLVER")
+    with pytest.raises(NotImplementedError, match="segment"):
+        als.ALSConfig(solver="segment")
+    monkeypatch.setenv("PIO_ALS_SOLVER", "sparse")
+    for cls in (als.ALSConfig, jax_als.ALSConfig):
+        with pytest.raises(ValueError):
+            cls()
+    monkeypatch.delenv("PIO_ALS_SOLVER")
+    monkeypatch.setenv("PIO_ALS_COMPUTE_DTYPE", "fp8")
+    for cls in (als.ALSConfig, jax_als.ALSConfig):
+        with pytest.raises(ValueError):
+            cls()
+
+
+def test_run_train_under_bf16_environment_trains_bf16(stores, monkeypatch):
+    port_storage, _ = stores
+    for key in ENV_KEYS:
+        monkeypatch.delenv(key, raising=False)
+    engine = rec.RecommendationEngine.apply()
+    params = engine.params_from_variant(_variant())
+    monkeypatch.setenv("PIO_ALS_COMPUTE_DTYPE", "bf16")
+    iid = workflow.run_train(engine, params, FACTORY, storage=port_storage, ctx=CPU)
+    inst = port_storage.get_meta_data_engine_instances().get(iid)
+    _, _, _, models = workflow.prepare_deploy(engine, inst, storage=port_storage, ctx=CPU)
+    monkeypatch.delenv("PIO_ALS_COMPUTE_DTYPE")
+    got = models[0]
+    assert got.config.compute_dtype == "bf16"
+    inter = engine.prepare_data(CPU, params).interactions
+    want = als.train_als(CPU, inter, als.ALSConfig(
+        rank=RANK, iterations=ITERS, reg=0.05, seed=SEED, compute_dtype="bf16"))
+    assert np.array_equal(got.user_factors, want.user_factors)
+    assert np.array_equal(got.item_factors, want.item_factors)
+    f32 = als.train_als(CPU, inter, als.ALSConfig(
+        rank=RANK, iterations=ITERS, reg=0.05, seed=SEED))
+    assert not np.array_equal(got.item_factors, f32.item_factors)
