@@ -64,6 +64,34 @@ code is not 0 and the last line is never printed.
              answer is held against the port's forward with the plain attention
              on the card, and the flash kernel must launch 2 (layers) × the
              queries whose history holds a catalog item.
+8. sasrec-bwd-kernel — the two flash-attention backward kernels (dq; dk and
+             dv) against the plain backward (and the plain backward in float64)
+             at every sasrec-kernel shape, causal and not, TF32 off; then the
+             ring's composition with a global lse (block pairs of 128, each fed
+             the whole forward's o and lse, summing to the whole backward).
+             Times each kernel at the training shape (128, 256, 256, 50) and at
+             (8, 1024, 1024, 64), causal: kernel, device µs, the plain backward,
+             the SDPA backward (timed only, its backend named) and the bounds.
+9. sasrec-train — the training main path at the paper's ML-1M width: 6,040
+             users × 3,416 items, 1,000,209 view events drawn from ``--seed``
+             (every user at least 20, items Zipf-Mandelbrot s = 1.1, q = 50,
+             times increasing along each history); ``train_sasrec`` on the card,
+             d 50, 2 blocks, 1 head, maxLen 256, batch 128, lr 1e-3, 100 steps.
+             Each flash kernel (forward, dq, dk/dv) launches 2 × 100 times, the
+             params are finite and the last 10 steps' mean loss is below the
+             first 10's. Then seconds per step, sequences/s, tokens/s and the
+             device time by kernel over 3 steps with the idle share.
+10. sasrec-train-parity — a small draw (64 users, 400 items, maxLen 256,
+             batch 32) trained 5 steps on the card (kernels) and on the CPU
+             (dense attention, autograd) from one start, dense and with 4
+             experts: every step's loss free-running, and step by step (the
+             CPU starting each step from the card's params and Adam moments
+             and taking the card's ReLU branches, a float64 copy as arbiter)
+             the gradients, the moments and the updated params.
+11. sasrec-train-workflow — view events of 300 users in MEMORY storage →
+             ``run_train(SequentialRecommendationEngine.apply(), …)`` on the card
+             (maxLen 256) → COMPLETED → ``QueryServer`` answers 20 queries, each
+             held against the plain forward.
 
 Tolerances. Score kernel: values within rtol = atol = 1e-5; indices equal,
 except where two reference values lie within that tolerance of each other
@@ -78,9 +106,16 @@ against CPU-trained ones: rtol = atol = 1e-4 (f32, five iterations), 1e-3
 (bf16, int8: every half-step of five iterations, the CPU fed the card's
 previous factors; ``phase_small_parity`` says why). Flash kernel: o within
 rtol = atol = 2e-5 (the JAX package's own flash test), lse within rtol =
-atol = 1e-5. Served SASRec answers: scores within rtol = atol = 1e-4 of the
-plain forward's logits, items by ``topk_mismatches`` at that tolerance. The
-timings and the tables are also written to ``chiprun_out/chip_smoke.json``.
+atol = 1e-5. Backward kernels: dq, dk, dv within rtol 2e-4, atol 2e-5 (the
+JAX package's own gradient test). Served SASRec answers: scores within
+rtol = atol = 1e-4 of the plain forward's logits, items by
+``topk_mismatches`` at that tolerance. SASRec trained on the card against
+the CPU: each step's loss within rtol 1e-5 free-running; step by step,
+gradients and Adam moments entry by entry within rtol 1e-4 plus 1e-6 of the
+leaf's largest value, and params within rtol = atol = 1e-4 except entries
+whose √v̂ is below 1e-6, which are listed and held within lr
+(``phase_sasrec_train_parity`` says why). The timings and the tables are
+also written to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -134,9 +169,10 @@ def cuda_ms(fn, n: int) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def device_us(fn, n: int = 20) -> dict:
+def device_us(fn, n: int = 20, tries: int = 2) -> dict:
     """Device time per call of each CUDA kernel ``fn`` launches (µs), from
-    ``torch.profiler``."""
+    ``torch.profiler``; a trace that comes back without device events is
+    taken once more."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,6 +191,32 @@ def device_us(fn, n: int = 20) -> dict:
             name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
             name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
             out[name] = out.get(name, 0.0) + t / n
+    if not out and tries > 1:
+        return device_us(fn, n, tries - 1)
+    return out
+
+
+def ptxas_usage(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output → {"kernel<first template argument>":
+    "registers; stack and spills"}, one entry per compiled kernel."""
+    import re
+
+    out, name, spill = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:  # an Itanium-mangled name, maybe in an anonymous namespace
+            body, ident = re.sub(r"^_ZN?", "", m.group(1)), "_GLOBAL__N"
+            while ident.startswith("_GLOBAL__N"):
+                n = re.match(r"\d+", body)
+                ident, body = body[n.end(): n.end() + int(n.group())], body[n.end() + int(n.group()):]
+            arg = re.match(r"IL[a-z](\d+)E", body)
+            name = ident + (f"<{arg.group(1)}>" if arg else "")
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[name] = f"{regs} registers; {spill}"
+            name = None
     return out
 
 
@@ -890,18 +952,46 @@ FLASH_LSE_TOL = 1e-5  # rtol = atol
 SAS_TOL = 1e-4  # served logits vs the plain forward, rtol = atol
 
 
+def visible_pairs(t_q, t_kv, causal):
+    """(query, key) pairs a causal mask by absolute position leaves, or all."""
+    import numpy as np
+
+    return int(np.minimum(np.arange(t_q) + 1, t_kv).sum()) if causal else t_q * t_kv
+
+
 def flash_bound(bh, t_q, t_kv, h, causal):
     """Least time: q, k, v read once, o and lse written once (f32); two
     products of h multiply-adds over each visible (query, key) pair, f32
     outside the tensor cores."""
-    import numpy as np
-
     nbytes = 4 * bh * (2 * t_q * h + 2 * t_kv * h + t_q)
-    rows = np.arange(t_q)
-    pairs = int(np.minimum(rows + 1, t_kv).sum()) if causal else t_q * t_kv
-    ops = 4 * bh * h * pairs
+    ops = 4 * bh * h * visible_pairs(t_q, t_kv, causal)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_backend(fn) -> dict:
+    """Which ``F.scaled_dot_product_attention`` backend the default dispatch
+    ran for ``fn``: each backend is tried alone under
+    ``torch.nn.attention.sdpa_kernel`` (a backend that does not take the
+    inputs raises and is left out); the one whose device kernels are those
+    of the default call names it."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    default = sorted(device_us(fn, 2))
+    kernels = {}
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel([b]):
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except RuntimeError:  # "No available kernel": not this backend
+                continue
+            kernels[b.name] = sorted(device_us(fn, 2))
+    ran = [name for name, ks in kernels.items() if default and ks == default]
+    return {"backend": ran[0] if len(ran) == 1 else "not recorded",
+            "default_kernels": default, "runnable": kernels}
 
 
 def phase_sasrec_kernel(seed, device):
@@ -952,11 +1042,16 @@ def phase_sasrec_kernel(seed, device):
         q, k, v = inputs[shape]
         q4, k4, v4 = (x[:, None] for x in (q, k, v))  # (B, H = 1, T, h)
         bms, by = flash_bound(bh, t_q, t_kv, h, True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
         rows.append({
             "shape": list(shape), "causal": True,
             "ms": cuda_ms(lambda: fa.flash_block_fwd(q, k, v, True), 200),
             "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, True), 100),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 200),
+            "library_ms": cuda_ms(sdpa, 200),
+            "library_backend": sdpa_backend(sdpa),
             "bound_ms": bms, "bound_by": by,
             "kernel_device_us": device_us(lambda: fa.flash_block_fwd(q, k, v, True)),
         })
@@ -977,6 +1072,52 @@ def sasrec_histories(seed):
     return {f"su{n}": rng.integers(0, SAS_ITEMS, int(L)) for n, L in enumerate(lengths)}
 
 
+def hold_answers(model, device, histories, answers, nums):
+    """Every served ``(user, answer)`` against the port's forward with the
+    plain attention on the card: items by ``topk_mismatches`` at SAS_TOL, no
+    history item back, ``[]`` for a user with no catalog item in the last
+    ``maxLen`` events. ``histories`` maps each user with events to its item
+    ids, oldest first. Returns the largest |Δ| of an answered score, the
+    plain logits of the users with catalog items and their sequences."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import sequential
+    from predictionio_tpu_torch.parallel.ring import full_attention
+    from predictionio_tpu_torch.testing import topk_mismatches
+
+    cfg, imap = model.config, model.item_map
+    # the live read takes the last maxLen events; recommend keeps the catalog's
+    known = {u: np.asarray([imap[i] for i in items[-cfg.max_len:] if i in imap], np.int64)
+             for u, items in histories.items()}
+    users = [u for u in histories if len(known[u])]
+    seqs = np.zeros((len(users), cfg.max_len), np.int64)
+    for row, u in enumerate(users):
+        seqs[row, -len(known[u]):] = known[u] + 1
+    tree = model.bind(device).tree()
+    seq_t = torch.from_numpy(seqs).to(device)
+    with torch.no_grad():
+        hidden, _ = sequential._block_stack(tree, seq_t, cfg, tree["pos"],
+                                            lambda q, k, v: full_attention(q, k, v, causal=True))
+        plain = (hidden[:, -1, :] @ tree["emb"][1:].T).cpu().numpy()
+    row_of = {u: r for r, u in enumerate(users)}
+    bad, gap = [], 0.0
+    for u, a in answers:
+        got = a["itemScores"]
+        if u not in row_of:
+            require(got == [], f"{u}: {got[:3]}")
+            continue
+        ref_i, ref_v = sequential.host_top_items(plain[row_of[u]], known[u], nums[u])
+        got_i = np.array([[imap[x["item"]] for x in got]])
+        got_v = np.array([[x["score"] for x in got]])
+        require(not set(got_i[0].tolist()) & set(known[u].tolist()), f"{u}: a history item came back")
+        bad += topk_mismatches(got_v, got_i, ref_v[None, :], ref_i[None, :], SAS_TOL)
+        if len(got):
+            gap = max(gap, float(np.abs(got_v[0] - plain[row_of[u], got_i[0]]).max()))
+    require(not bad, f"served answers disagree with the plain forward: {bad[:3]}")
+    return gap, plain, seq_t
+
+
 def phase_sasrec_serving(seed, device):
     """A seeded SASRec at the paper's ML-1M width, published and served:
     every answer against the forward with the plain attention."""
@@ -992,12 +1133,10 @@ def phase_sasrec_serving(seed, device):
     from predictionio_tpu_torch.device import DeviceContext
     from predictionio_tpu_torch.models import sequential
     from predictionio_tpu_torch.ops import flash_attention as fa
-    from predictionio_tpu_torch.parallel.ring import full_attention
     from predictionio_tpu_torch.serving.query_server import QueryServer
     from predictionio_tpu_torch.templates.sequentialrecommendation import (
         SequentialRecommendationEngine,
     )
-    from predictionio_tpu_torch.testing import topk_mismatches
 
     t0 = time.perf_counter()
     cfg = sequential.SASRecConfig(d_model=SAS_D, n_layers=SAS_LAYERS, n_heads=SAS_HEADS,
@@ -1116,38 +1255,16 @@ def phase_sasrec_serving(seed, device):
             f"flash launches {launches} vs {SAS_LAYERS} layers × {2 * n_with_items} queries with catalog items")
 
     # every answer against the plain forward on the card, one batch
+    ids = {u: [f"si{int(i)}" for i in items] for u, items in histories.items()}
+    ids["su_offcatalog"] = [f"x{t}" for t in range(5)]
+    answer_gap, plain, seq_t = hold_answers(
+        model, device, ids, [a for lp in loops for a in lp["answers"]], nums)
     net = model.bind(device)
-    tree = net.tree()
-    seqs = np.zeros((len(histories), SAS_MAX_LEN), np.int64)
-    for row, items in enumerate(histories.values()):
-        tail = items[-SAS_MAX_LEN:]
-        seqs[row, -len(tail):] = tail + 1
-    seq_t = torch.from_numpy(seqs).to(device)
     with torch.no_grad():
-        hidden = sequential._block_stack(tree, seq_t, cfg, tree["pos"],
-                                         lambda q, k, v: full_attention(q, k, v, causal=True))
-        plain = (hidden[:, -1, :] @ tree["emb"][1:].T).cpu().numpy()
         kernel = net(seq_t).cpu().numpy()  # the batch through the kernel, outside the window
     logit_gap = float(np.abs(kernel - plain).max())
     require(np.allclose(kernel, plain, rtol=SAS_TOL, atol=SAS_TOL),
             f"batched logits through the kernel vs plain: max |Δ| {logit_gap}")
-    row_of = {u: r for r, u in enumerate(histories)}
-    bad, answer_gap = [], 0.0
-    for lp in loops:
-        for u, a in lp["answers"]:
-            got = a["itemScores"]
-            if u not in histories:
-                require(got == [], f"{u}: {got[:3]}")
-                continue
-            items = histories[u][-SAS_MAX_LEN:]  # the live read takes the last maxLen events
-            ref_i, ref_v = sequential.host_top_items(plain[row_of[u]], items, nums[u])
-            got_i = np.array([[int(x["item"][2:]) for x in got]])
-            got_v = np.array([[x["score"] for x in got]])
-            require(not set(got_i[0].tolist()) & set(items.tolist()), f"{u}: a history item came back")
-            bad += topk_mismatches(got_v, got_i, ref_v[None, :], ref_i[None, :], SAS_TOL)
-            if len(got):
-                answer_gap = max(answer_gap, float(np.abs(got_v[0] - plain[row_of[u], got_i[0]]).max()))
-    require(not bad, f"served answers disagree with the plain forward: {bad[:3]}")
     for lp in loops:
         del lp["answers"]
     out.update({"instance": iid, "setup_and_serve_s": time.perf_counter() - t0,
@@ -1155,6 +1272,528 @@ def phase_sasrec_serving(seed, device):
                 "launches": launches, "loops": loops, "breakdown": breakdown,
                 "max_abs_err_answers": answer_gap,
                 "max_abs_err_batched_logits": logit_gap, "tol": SAS_TOL, "ok": True})
+    emit(out)
+    return out
+
+
+# -- SASRec training -----------------------------------------------------------
+
+# MovieLens-1M's shape (Kang & McAuley §IV): 6,040 users, 3,416 items,
+# 1,000,209 events, every user with at least 20; the paper's batch and lr.
+ML1M_USERS, ML1M_EVENTS, ML1M_MIN_EVENTS = 6040, 1_000_209, 20
+SAS_BATCH, SAS_LR, SAS_STEPS = 128, 1e-3, 100
+# (B·H, T_q, T_kv, h) of the backward's timings: the training shape, a longer block
+BWD_TIMED = ((128, 256, 256, 50), (8, 1024, 1024, 64))
+BWD_RTOL, BWD_ATOL = 2e-4, 2e-5  # the JAX package's own gradient test
+
+
+def flash_bwd_bounds(bh, t_q, t_kv, h, causal):
+    """Least time of each backward kernel, (ms, "bytes" | "operations"):
+    inputs read once and outputs written once (f32); kernel 5 (dq) makes
+    three products of h multiply-adds over each visible pair (s, dp, ds·k),
+    kernel 6 (dk, dv) four (s, dp, pᵀ·do, dsᵀ·q)."""
+    pairs = visible_pairs(t_q, t_kv, causal)
+    out = {}
+    for name, nbytes, ops in (
+        ("dq", 4 * bh * (3 * t_q * h + 2 * t_kv * h + 2 * t_q), 6 * h * pairs * bh),
+        ("dkv", 4 * bh * (2 * t_q * h + 4 * t_kv * h + 2 * t_q), 8 * h * pairs * bh),
+    ):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def ring_backward(q, k, v, o, lse, do, causal, n_blocks):
+    """The ring backward's composition on one card: q and k/v cut into
+    ``n_blocks`` blocks along T, block pair (i, j) causal on the diagonal,
+    full below it and skipped above it under a causal mask, each pair fed
+    the GLOBAL o and lse of its query block; the pieces summed."""
+    import torch
+
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    cut = q.shape[-2] // n_blocks
+    blk = [slice(b * cut, (b + 1) * cut) for b in range(n_blocks)]
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    for i, si in enumerate(blk):
+        for j, sj in enumerate(blk):
+            if causal and j > i:
+                continue
+            part = fa.flash_block_bwd(
+                *(x[:, s].contiguous() for x, s in ((q, si), (k, sj), (v, sj), (o, si), (lse, si), (do, si))),
+                causal and i == j)
+            dq[:, si] += part[0]
+            dk[:, sj] += part[1]
+            dv[:, sj] += part[2]
+    return dq, dk, dv
+
+
+def bwd_excess(got, ref):
+    """Largest |got - ref| past atol + rtol·|ref| (≤ 0 passes)."""
+    return float(((got - ref).abs() - (BWD_ATOL + BWD_RTOL * ref.abs())).max())
+
+
+def phase_sasrec_bwd_kernel(seed, device):
+    """Kernels 5 and 6 against the plain backward (f32 and f64) at every
+    FLASH_SHAPES shape, causal and not; the global-lse ring composition;
+    times at BWD_TIMED."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain products in full f32
+    rng = np.random.default_rng(seed + 10)
+    cases, worst, inputs = [], 0.0, {}
+    for shape in FLASH_SHAPES:
+        bh, t_q, t_kv, h = shape
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, t, h)).astype(np.float32)).to(device)
+                       for t in (t_q, t_kv, t_kv, t_q))
+        for causal in (True, False):
+            o, lse = fa.flash_attention_reference(q, k, v, causal)
+            got = fa.flash_block_bwd(q, k, v, o, lse, do, causal)
+            ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+            exact = fa.flash_attention_bwd_reference(*(x.double() for x in (q, k, v, o, lse, do)), causal)
+            torch.cuda.synchronize()
+            what = f"flash backward {shape} causal={causal}"
+            gap = {}
+            for name, g, r, e in zip(("dq", "dk", "dv"), got, ref, exact):
+                require(bool(torch.isfinite(g).all()), f"{what}: {name} finite")
+                excess = bwd_excess(g, r)
+                require(excess <= 0, f"{what}: {name} disagrees with the plain backward by {excess} past tolerance")
+                gap[f"{name}_kernel_vs_plain"] = float((g - r).abs().max())
+                gap[f"{name}_kernel_vs_f64"] = float((g.double() - e).abs().max())
+                gap[f"{name}_plain_vs_f64"] = float((r.double() - e).abs().max())
+                worst = max(worst, gap[f"{name}_kernel_vs_plain"])
+            cases.append({"shape": list(shape), "causal": causal, **gap})
+            if causal and shape in BWD_TIMED:
+                inputs[shape] = (q, k, v, o, lse, do)
+    emit({"phase": "sasrec-bwd-kernel", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cases": cases, "max_abs_err": worst, "rtol": BWD_RTOL, "atol": BWD_ATOL, "ok": True})
+
+    # the ring's composition: block pairs fed the whole forward's o and lse
+    ring = []
+    for shape, n_blocks in ((BWD_TIMED[0], 2), (BWD_TIMED[1], 4)):
+        bh, t_q, t_kv, h = shape
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, t, h)).astype(np.float32)).to(device)
+                       for t in (t_q, t_kv, t_kv, t_q))
+        for causal in (True, False):
+            o, lse = fa.flash_block_fwd(q, k, v, causal)
+            whole = fa.flash_block_bwd(q, k, v, o, lse, do, causal)
+            parts = ring_backward(q, k, v, o, lse, do, causal, n_blocks)
+            torch.cuda.synchronize()
+            excess = max(bwd_excess(p, w) for p, w in zip(parts, whole))
+            require(excess <= 0, f"ring backward {shape} / {n_blocks} blocks causal={causal}: "
+                                 f"{excess} past tolerance of the whole backward")
+            ring.append({"shape": list(shape), "blocks": n_blocks, "causal": causal,
+                         "max_abs_diff": max(float((p - w).abs().max()) for p, w in zip(parts, whole))})
+    emit({"phase": "sasrec-bwd-ring", "cases": ring, "ok": True})
+
+    rows = []
+    for shape in BWD_TIMED:
+        bh, t_q, t_kv, h = shape
+        q, k, v, o, lse, do = inputs[shape]
+        scale = fa._f32(1.0 / h ** 0.5)
+        delta = (do * o).sum(-1)
+        q4, k4, v4 = (x[:, None].detach().requires_grad_() for x in (q, k, v))
+        do4 = do[:, None]
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            return torch.autograd.grad(out, (q4, k4, v4), do4)
+
+        sdpa_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        bounds = flash_bwd_bounds(bh, t_q, t_kv, h, True)
+        dev = device_us(lambda: fa.flash_block_bwd(q, k, v, o, lse, do, True))
+        row = {
+            "shape": list(shape), "causal": True,
+            "dq_ms": cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, True, scale), 100),
+            "dkv_ms": cuda_ms(lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, True, scale), 100),
+            "dq_device_us": dev.get("flash_bwd_dq_kernel"),
+            "dkv_device_us": dev.get("flash_bwd_dkv_kernel"),
+            "backward_ms": cuda_ms(lambda: fa.flash_block_bwd(q, k, v, o, lse, do, True), 100),
+            "backward_device_us": dev,
+            # the plain backward and SDPA's each compute dq, dk and dv at once
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True), 20),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
+                                                             retain_graph=True), 100),
+            "library_backend": sdpa_backend(sdpa_fwd_bwd),
+            "dq_bound_ms": bounds["dq"][0], "dq_bound_by": bounds["dq"][1],
+            "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1],
+        }
+        rows.append(row)
+        emit({"phase": "sasrec-bwd-time", **row})
+    return rows, worst
+
+
+def ml1m_interactions(seed):
+    """Interactions in MovieLens-1M's shape: ML1M_EVENTS view events of
+    ML1M_USERS users over SAS_ITEMS items, every user at least
+    ML1M_MIN_EVENTS (the rest spread log-normally, ~165 on average), items
+    Zipf-Mandelbrot (s = 1.1, q = 50), times increasing along each history."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.batch import interactions_from_arrays
+
+    rng = np.random.default_rng(seed + 11)
+    spread = ML1M_EVENTS - ML1M_MIN_EVENTS * ML1M_USERS
+    w = rng.lognormal(0.0, 1.0, ML1M_USERS)
+    extra = np.floor(w / w.sum() * spread).astype(np.int64)
+    extra[rng.choice(ML1M_USERS, spread - int(extra.sum()), replace=False)] += 1
+    lengths = ML1M_MIN_EVENTS + extra
+    user = np.repeat(np.arange(ML1M_USERS), lengths)
+    item = rng.choice(SAS_ITEMS, size=len(user), p=zipf_mandelbrot_weights(SAS_ITEMS, 1.1))
+    t = np.arange(len(user)) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    inter = interactions_from_arrays(
+        user, item, np.ones(len(user)), 1_767_225_600.0 + t,
+        (f"u{i}" for i in range(ML1M_USERS)), (f"si{j}" for j in range(SAS_ITEMS)))
+    return inter, lengths
+
+
+def flash_counts():
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": fa.launches.count, "bwd_dq": fa.bwd_dq_launches.count,
+            "bwd_dkv": fa.bwd_dkv_launches.count}
+
+
+def reset_flash_counts():
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    for c in (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches):
+        c.reset()
+
+
+def phase_sasrec_train(seed, device):
+    """The training main path at full width: train_sasrec, 100 steps."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import sequential
+
+    t0 = time.perf_counter()
+    inter, lengths = ml1m_interactions(seed)
+    data_s = time.perf_counter() - t0
+    cfg = sequential.SASRecConfig(d_model=SAS_D, n_layers=SAS_LAYERS, n_heads=SAS_HEADS,
+                                  max_len=SAS_MAX_LEN, epochs=SAS_STEPS, batch_size=SAS_BATCH,
+                                  lr=SAS_LR, seed=seed)
+    ctx = DeviceContext.create(device=device)
+    torch.cuda.synchronize()
+    reset_flash_counts()  # the main path's window: counts read just before and just after
+    t0 = time.perf_counter()
+    model = sequential.train_sasrec(ctx, inter, cfg)
+    train_s = time.perf_counter() - t0
+    counts = flash_counts()
+    want = SAS_LAYERS * SAS_STEPS
+    require(counts == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
+            f"flash launches {counts} vs {SAS_LAYERS} layers × {SAS_STEPS} steps each")
+    leaves = [model.params["emb"], model.params["pos"]] + [
+        a for layer in model.params["layers"] for a in layer.values()]
+    require(all(bool(np.isfinite(a).all()) for a in leaves), "finite params")
+    losses = model.losses
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    require(np.isfinite(losses).all() and last < first,
+            f"mean loss of the last 10 steps {last} vs the first 10 {first}")
+
+    # the same step (sequential.train_step) timed on its own, and its
+    # device time by kernel, after the window
+    seqs = sequential.training_sequences(inter, cfg)
+    rows = torch.from_numpy(seqs.astype(np.int64)).to(device)
+    net = sequential.SASRecNet(model.params, cfg, device, trainable=True)
+    opt = sequential.adam(net, cfg)
+    rng = np.random.default_rng(seed + 12)
+
+    def step():
+        picks = torch.from_numpy(rng.integers(0, len(seqs), SAS_BATCH)).to(device)
+        return sequential.train_step(net, opt, rows[picks], cfg)
+
+    step_s = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    median = float(np.median(step_s[1:]))
+    per_kernel = device_us(step, 3)
+    busy_us = sum(per_kernel.values())
+    tokens = SAS_BATCH * SAS_MAX_LEN
+    out = {"phase": "sasrec-train", "users": ML1M_USERS, "items": SAS_ITEMS, "events": len(inter),
+           "events_per_user": {"min": int(lengths.min()), "median": float(np.median(lengths)),
+                               "mean": float(lengths.mean()), "max": int(lengths.max())},
+           "trainable_sequences": len(seqs), "data_s": data_s,
+           "steps": SAS_STEPS, "batch": SAS_BATCH, "launches": counts,
+           "train_sasrec_s": train_s, "loss_first10": first, "loss_last10": last,
+           "losses": [float(x) for x in losses],
+           "step_s_median": median, "step_s": step_s,
+           "sequences_per_s": SAS_BATCH / median, "tokens_per_s": tokens / median,
+           "step_device_us_total": busy_us,
+           "step_idle_share": 1.0 - busy_us * 1e-6 / median,
+           "step_device_us_top": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:14]),
+           "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9, "ok": True}
+    emit(out)
+    return out
+
+
+def param_leaves(params):
+    """(name, array) pairs of a host param tree, in one order."""
+    out = [("emb", params["emb"]), ("pos", params["pos"])]
+    for n, layer in enumerate(params["layers"]):
+        out += [(f"layers.{n}.{k}", layer[k]) for k in sorted(layer)]
+    return out
+
+
+ADAM_FLOOR = 1e-6  # √v̂ below this (100 × Adam's eps): the update is set by rounding
+
+
+class ReluDecisions:
+    """Within ``with``, ``torch.relu`` records each call's pre-activations
+    (``record``) and, given the masks of another run in call order
+    (``replay``), applies those masks in place of this device's own signs.
+    The FFN's ReLU is the model's only branch on a float value besides the
+    MoE's argmax; a pre-activation within rounding of zero takes opposite
+    branches on two devices, and the step's gradients then differ by that
+    unit's share."""
+
+    def __init__(self, replay=None):
+        self.record, self.replay = [], replay
+
+    def __enter__(self):
+        import torch
+
+        self._real, masks = torch.relu, iter(self.replay or ())
+
+        def relu(x):
+            self.record.append(x.detach())
+            if self.replay is None:
+                return self._real(x)
+            return x * next(masks).to(device=x.device, dtype=x.dtype)
+
+        torch.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.relu = self._real
+
+
+def phase_sasrec_train_parity(seed, device):
+    """A small draw trained on the card (kernels) and on the CPU (dense
+    attention, autograd) from one start, dense and with 4 experts.
+
+    Step by step, the CPU starts each of the 5 steps from the card's params
+    and Adam moments and takes the card's ReLU branches (ReluDecisions); a
+    float64 copy of the CPU model computes the same gradients as the arbiter
+    of which side owns a gap. Held at every step: gradients and Adam moments
+    entry by entry within rtol 1e-4 plus 1e-6 of the leaf's largest value,
+    and the updated params within rtol = atol = 1e-4, except entries whose
+    √v̂ is below ADAM_FLOOR (there lr·m̂/(√v̂ + eps) turns on the rounding of
+    a near-zero gradient: listed with their |g| and held within lr). The
+    ReLU pre-activations the two devices round to opposite sides of zero are
+    counted and reported.
+
+    Free-running (``train_sasrec`` on each device, each taking its own
+    branches): every step's loss within rtol 1e-5; the params' gap is
+    reported, not held: a flipped branch and the Adam floor leave gaps that
+    Adam's normalized steps carry into every param (ROADMAP §3, PERF.md §6
+    PR 4).
+    """
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.batch import interactions_from_arrays
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import sequential
+
+    n_users, n_items = 64, 400
+    rng = np.random.default_rng(seed + 13)
+    lengths = rng.integers(2, 400, n_users)
+    user = np.repeat(np.arange(n_users), lengths)
+    item = rng.choice(n_items, size=len(user), p=zipf_mandelbrot_weights(n_items, 1.1))
+    t = np.arange(len(user)) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    inter = interactions_from_arrays(user, item, np.ones(len(user)), t.astype(np.float64),
+                                     (f"u{i}" for i in range(n_users)), (f"i{j}" for j in range(n_items)))
+    card, host = DeviceContext.create(device=device), DeviceContext.create(device="cpu")
+
+    def entrywise(got, want):  # largest excess past rtol 1e-4 + 1e-6·max|want| (≤ 0 passes)
+        return float((np.abs(got - want) - (1e-4 * np.abs(want) + 1e-6 * np.abs(want).max())).max())
+
+    results = []
+    for n_experts in (0, 4):
+        cfg = sequential.SASRecConfig(d_model=SAS_D, n_layers=SAS_LAYERS, n_heads=SAS_HEADS,
+                                      max_len=SAS_MAX_LEN, epochs=5, batch_size=32, lr=SAS_LR,
+                                      seed=seed, n_experts=n_experts)
+        start = sequential.init_params(seed + 14, cfg, n_items)
+        what = f"n_experts={n_experts}"
+
+        # step by step: the CPU (and its float64 copy) start each step from the
+        # card's state and take the card's ReLU branches
+        seqs = sequential.training_sequences(inter, cfg)
+        cnet = sequential.SASRecNet(start, cfg, device, trainable=True)
+        hnet = sequential.SASRecNet(start, cfg, "cpu", trainable=True)
+        xnet = sequential.SASRecNet(start, cfg, "cpu", trainable=True).double()
+        copt, hopt = sequential.adam(cnet, cfg), sequential.adam(hnet, cfg)
+        sampler = np.random.default_rng(cfg.seed)
+        steps = []
+        for step in range(1, cfg.epochs + 1):
+            rows = torch.from_numpy(seqs[sampler.integers(0, len(seqs), min(cfg.batch_size, len(seqs)))]
+                                    .astype(np.int64))
+            with torch.no_grad():
+                for cp, hp, xp in zip(cnet.parameters(), hnet.parameters(), xnet.parameters()):
+                    hp.copy_(cp.cpu())
+                    xp.copy_(cp.cpu().double())
+                    if cp in copt.state:
+                        hopt.state[hp] = {k: v.detach().cpu().clone() for k, v in copt.state[cp].items()}
+            with ReluDecisions() as on_card:
+                sequential.train_step(cnet, copt, rows.to(device), cfg)
+            masks = [z > 0 for z in on_card.record]
+            with ReluDecisions(replay=masks) as on_host:
+                sequential.train_step(hnet, hopt, rows, cfg)
+            with ReluDecisions(replay=masks):
+                xnet.zero_grad()
+                sequential._loss_fn(xnet.tree(), rows, cfg).backward()
+            flips = [(zc.cpu() > 0) != (zh > 0) for zc, zh in zip(on_card.record, on_host.record)]
+            row = {"step": step, "relu_flips": int(sum(int(f.sum()) for f in flips)),
+                   "relu_flip_abs_preactivation": [float(zh[f].abs().max()) for zh, f in
+                                                   zip(on_host.record, flips) if f.any()],
+                   "grad": -np.inf, "moments": -np.inf, "params": -np.inf, "worst_grad": None,
+                   "floor_entries": [], "floor_max_abs_diff": 0.0}
+            for (name, cp), hp, xp in zip(cnet.named_parameters(), hnet.parameters(), xnet.parameters()):
+                g_c, g_h, g_x = cp.grad.cpu().numpy(), hp.grad.numpy(), xp.grad.numpy()
+                row["grad"] = max(row["grad"], entrywise(g_c, g_h))
+                gap = np.abs(g_c - g_h)
+                j = np.unravel_index(int(np.argmax(gap)), gap.shape)
+                if row["worst_grad"] is None or gap[j] > row["worst_grad"]["abs_diff"]:
+                    row["worst_grad"] = {"leaf": name, "index": [int(x) for x in j], "abs_diff": float(gap[j]),
+                                         "card": float(g_c[j]), "cpu": float(g_h[j]), "cpu_f64": float(g_x[j]),
+                                         "leaf_card_vs_f64": float(np.abs(g_c - g_x).max()),
+                                         "leaf_cpu_vs_f64": float(np.abs(g_h - g_x).max())}
+                cs, hs = copt.state[cp], hopt.state[hp]
+                for key in ("exp_avg", "exp_avg_sq"):
+                    row["moments"] = max(row["moments"], entrywise(cs[key].cpu().numpy(), hs[key].numpy()))
+                floor = np.sqrt(hs["exp_avg_sq"].numpy() / (1 - 0.999 ** step)) < ADAM_FLOOR
+                p_c, p_h = cp.detach().cpu().numpy(), hp.detach().numpy()
+                gap = np.abs(p_c - p_h)
+                over = gap > 1e-4 + 1e-4 * np.abs(p_h)
+                row["params"] = max(row["params"], float((gap - (1e-4 + 1e-4 * np.abs(p_h)))[~floor].max(initial=-1.0)))
+                for j in zip(*np.nonzero(floor & over)):
+                    row["floor_entries"].append({"leaf": name, "index": [int(x) for x in j],
+                                                 "abs_diff": float(gap[j]), "cpu_abs_grad": float(abs(g_h[j])),
+                                                 "card_abs_grad": float(abs(g_c[j]))})
+                if floor.any():
+                    row["floor_max_abs_diff"] = max(row["floor_max_abs_diff"], float(gap[floor].max()))
+            steps.append(row)
+            for key in ("grad", "moments", "params"):
+                require(row[key] <= 0, f"{what} step {step}: {key} past tolerance: {row}")
+            require(row["floor_max_abs_diff"] <= cfg.lr,
+                    f"{what} step {step}: an entry under the Adam floor moved apart by more than lr: {row}")
+
+        # free-running: train_sasrec on each device
+        before = flash_counts()
+        on_card = sequential.train_sasrec(card, inter, cfg, init_params=start)
+        after = flash_counts()
+        require(after["bwd_dq"] - before["bwd_dq"] == SAS_LAYERS * cfg.epochs
+                and after["bwd_dkv"] - before["bwd_dkv"] == SAS_LAYERS * cfg.epochs,
+                f"{what}: the card's training ran the backward kernels ({before} → {after})")
+        on_host = sequential.train_sasrec(host, inter, cfg, init_params=start)
+        require(np.allclose(on_card.losses, on_host.losses, rtol=1e-5, atol=0),
+                f"{what}: losses {on_card.losses} vs {on_host.losses}")
+        free_gap = [(float(np.abs(a - b).max()), name) for (name, a), (_, b) in
+                    zip(param_leaves(on_card.params), param_leaves(on_host.params))]
+        results.append({
+            "n_experts": n_experts, "steps": cfg.epochs, "step_by_step": steps,
+            "free_loss_max_rel_diff": float(np.abs(on_card.losses - on_host.losses).max()
+                                            / np.abs(on_host.losses).min()),
+            "free_param_max_abs_diff": max(free_gap),
+        })
+    emit({"phase": "sasrec-train-parity", "cases": results, "adam_floor": ADAM_FLOOR, "ok": True})
+
+
+def phase_sasrec_train_workflow(seed, device):
+    """View events in MEMORY storage → run_train on the card → COMPLETED →
+    QueryServer → 20 answers held against the plain forward."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import memory
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.serving.query_server import QueryServer
+    from predictionio_tpu_torch.templates.sequentialrecommendation import (
+        SequentialRecommendationEngine,
+    )
+
+    app, epochs = "ChipSmokeSeqTrain", 20
+    source = "CHIPSMOKESEQTRAIN"
+    storage = Storage(env={
+        f"PIO_STORAGE_SOURCES_{source}_TYPE": "memory",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": source,
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": source,
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": source,
+    })
+    rng = np.random.default_rng(seed + 15)
+    weights = zipf_mandelbrot_weights(1000, 1.1)
+    histories = {f"wu{u}": [f"wi{int(i)}" for i in rng.choice(1000, int(rng.integers(20, 301)), p=weights)]
+                 for u in range(300)}
+    app_id = storage.get_meta_data_apps().insert(App(0, app))
+    events = [Event(event="view", entity_type="user", entity_id=u, target_entity_type="item",
+                    target_entity_id=i, event_time=1_767_225_600.0 + t)
+              for u, items in histories.items() for t, i in enumerate(items)]
+    storage.get_l_events().insert_batch(events, app_id)
+    engine = SequentialRecommendationEngine.apply()
+    variant = {
+        "datasource": {"params": {"appName": app, "eventNames": ["view"]}},
+        "algorithms": [{"name": "sasrec", "params": {
+            "appName": app, "eventNames": ["view"], "dModel": SAS_D, "numLayers": SAS_LAYERS,
+            "numHeads": SAS_HEADS, "maxLen": SAS_MAX_LEN, "epochs": epochs,
+            "batchSize": SAS_BATCH, "lr": SAS_LR, "seed": seed}}],
+    }
+    ctx = DeviceContext.create(device=device)
+    store.set_storage(storage)
+    try:
+        reset_flash_counts()  # the path's window
+        t0 = time.perf_counter()
+        iid = workflow.run_train(engine, engine.params_from_variant(variant), SAS_FACTORY,
+                                 storage=storage, ctx=ctx)
+        train_s = time.perf_counter() - t0
+        counts = flash_counts()
+        inst = storage.get_meta_data_engine_instances().get(iid)
+        require(inst.status == "COMPLETED", f"run_train instance status {inst.status}")
+        want = SAS_LAYERS * epochs
+        require(counts == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
+                f"run_train flash launches {counts} vs {SAS_LAYERS} layers × {epochs} epochs")
+        qs = QueryServer(engine, storage=storage, ctx=ctx, batching=False)
+        try:
+            base = f"http://127.0.0.1:{qs.start('127.0.0.1', 0)}"
+            users = list(histories)[:20]
+            nums = {u: int(rng.integers(1, 51)) for u in users}
+
+            def post(u):
+                req = urllib.request.Request(
+                    f"{base}/queries.json", data=json.dumps({"user": u, "num": nums[u]}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    return u, json.loads(r.read())
+
+            answers = [post(u) for u in users]
+            model = qs._deployed.models[0]
+        finally:
+            qs.stop()
+        gap, _, _ = hold_answers(model, device, {u: histories[u] for u in users}, answers, nums)
+        require(all(len(a["itemScores"]) == nums[u] for u, a in answers), "every query answered in full")
+    finally:
+        store.set_storage(None)
+        memory.reset_store(source)
+    out = {"phase": "sasrec-train-workflow", "events": len(events), "users": len(histories),
+           "instance": iid, "status": inst.status, "epochs": epochs, "launches": counts,
+           "run_train_s": train_s, "queries": len(answers), "max_abs_err_answers": gap,
+           "tol": SAS_TOL, "ok": True}
     emit(out)
     return out
 
@@ -1187,8 +1826,7 @@ def main(argv=None) -> int:
     built = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: str(p.relative_to(ROOT)) for n, (p, _, _) in built.items()},
-          "ptxas": {n: [ln.strip() for ln in out.splitlines() if "Used" in ln]
-                    for n, (_, _, out) in built.items()}})
+          "ptxas": {n: ptxas_usage(out) for n, (_, _, out) in built.items()}})
 
     _, _, rows, max_err = phase_kernels(args.seed, device)
     inter, cfg, side_rows, bucket_rows, train_err, first = phase_train_kernels(args.seed, device)
@@ -1199,6 +1837,10 @@ def main(argv=None) -> int:
     serving = phase_serving(model, args.seed, device)
     flash_rows, flash_err = phase_sasrec_kernel(args.seed, device)
     sasrec = phase_sasrec_serving(args.seed, device)
+    bwd_rows, bwd_err = phase_sasrec_bwd_kernel(args.seed, device)
+    sas_train = phase_sasrec_train(args.seed, device)
+    phase_sasrec_train_parity(args.seed, device)
+    sas_flow = phase_sasrec_train_workflow(args.seed, device)
 
     top = next(r for r in rows if r["dtype"] == "f32" and r["batch"] == RUNGS[-1])
     # the training kernel's line: one iteration's normal equations (both
@@ -1240,13 +1882,27 @@ def main(argv=None) -> int:
         "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"],
         "bound_ms": flash_rows[0]["bound_ms"], "bound_by": flash_rows[0]["bound_by"],
         "library_ms": flash_rows[0]["library_ms"],
-    }]}
+    }] + [{
+        # the training shape: B·H 128, T 256, h 50, causal; plain_ms and
+        # library_ms each compute dq, dk and dv at once
+        "name": f"flash_attention_bwd_{part}",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": f"predictionio_tpu/ops/flash_attention.py:{line}",
+        "launches": sas_train["launches"][f"bwd_{part}"],
+        "max_abs_err": bwd_err,
+        "ms": bwd_rows[0][f"{part}_ms"], "plain_ms": bwd_rows[0]["plain_ms"],
+        "bound_ms": bwd_rows[0][f"{part}_bound_ms"], "bound_by": bwd_rows[0][f"{part}_bound_by"],
+        "library_ms": bwd_rows[0]["library_ms"],
+    } for part, line in (("dq", 140), ("dkv", 169))]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "rows": rows, "serving": serving,
                    "train_sides": list(side_rows.values()), "train_buckets": bucket_rows,
-                   "train": train, "flash": flash_rows, "sasrec": sasrec, **kernels}, f, indent=1)
+                   "train": train, "flash": flash_rows, "sasrec": sasrec,
+                   "flash_bwd": bwd_rows, "sasrec_train": sas_train,
+                   "sasrec_train_workflow": sas_flow, **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)
     emit(kernels)

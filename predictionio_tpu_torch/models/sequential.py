@@ -1,9 +1,11 @@
-"""Sequential recommender: SASRec-style causal transformer, served on the card.
+"""Sequential recommender: SASRec-style causal transformer, trained and
+served on the card.
 
 Counterpart of ``predictionio_tpu/models/sequential.py``. A user's recent
 items become a right-aligned id sequence (item index + 1; 0 pads); a causal
 transformer reads it, and the logits of the last position against every
-item embedding rank the next item.
+item embedding rank the next item. Training predicts every next item of a
+sequence (causal cross-entropy).
 
 * :class:`SASRecConfig` has every field of the JAX config.
 * :class:`SASRecModel` holds the host numpy params, ``item_map`` and
@@ -13,17 +15,22 @@ item embedding rank the next item.
   package copies its host params into every jitted call instead.
 * :func:`_forward` applies the JAX package's gate: at a flash-eligible
   length on a CUDA device (``ops.flash_attention.use_flash_default``) every
-  layer's attention runs the hand-written flash kernel, else the dense
-  ``parallel.ring.full_attention``. Serving pads to ``max_len``, so a
-  ``max_len`` of 256 or more (a multiple of 128) serves through the kernel.
+  layer's attention runs the hand-written flash kernels (the forward, and
+  in training the two backward kernels through the autograd Function),
+  else the dense ``parallel.ring.full_attention``. Serving pads to
+  ``max_len`` and training reads ``max_len`` inputs, so a ``max_len`` of
+  256 or more (a multiple of 128) runs the kernels.
+* ``n_experts > 0`` makes each FFN a Switch-style top-1 mixture of experts
+  (:func:`_moe_ffn`), whose load-balancing loss joins the training loss.
+* :func:`train_sasrec` trains on one device: ``build_sequences``, the
+  ``>= 2 events`` filter, the JAX package's numpy batch sampler, one Adam
+  step per epoch.
 * :func:`sasrec_params_from_jax` carries a JAX param tree across;
   :func:`init_params` draws params on numpy with the JAX scales.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP item
-that brings them: the mixture-of-experts FFN (``n_experts > 0``) and
-``train_sasrec`` (ROADMAP §1 item 3, the training slice with the two
-backward kernels), ``seq_parallel`` (item 10) and ``checkpoint_dir``
-(item 7).
+that brings them: ``seq_parallel`` and sharded (multi-host) interactions
+(item 10) and ``checkpoint_dir`` (item 7).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.data.batch import Interactions
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.ops.flash_attention import flash_attention, use_flash_default
 from predictionio_tpu_torch.parallel.ring import full_attention
@@ -54,7 +62,8 @@ class SASRecConfig:
     batch_size: int = 128
     lr: float = 1e-2
     seed: int = 0
-    # Mixture-of-experts FFN (0 = dense): not ported yet (ROADMAP §1 item 3)
+    # Mixture-of-experts FFN (0 = dense): Switch-style top-1 routing with a
+    # per-row capacity of expert_capacity · T / n_experts slots
     n_experts: int = 0
     expert_capacity: float = 1.25
     moe_aux_weight: float = 0.01
@@ -63,14 +72,6 @@ class SASRecConfig:
     # mid-training checkpoint/resume: not ported yet (item 7)
     checkpoint_dir: Optional[str] = None
     checkpoint_interval: int = 10
-
-
-def _require_dense_ffn(cfg: SASRecConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "the mixture-of-experts FFN (n_experts > 0) is not ported yet "
-            "(ROADMAP §1 item 3)"
-        )
 
 
 def _f32(a) -> np.ndarray:
@@ -82,8 +83,8 @@ def init_params(
 ) -> dict:
     """Host params drawn on numpy with the scales of the JAX
     ``_init_params``: embeddings N(0, 0.02²), projections N(0, 1/fan_in),
-    layer-norm gains 1."""
-    _require_dense_ffn(cfg)
+    layer-norm gains 1; with experts, ``router`` (d, E), ``w1`` (E, d, 4d)
+    and ``w2`` (E, 4d, d)."""
     rng = (
         generator_or_seed
         if isinstance(generator_or_seed, np.random.Generator)
@@ -94,21 +95,29 @@ def init_params(
     def normal(shape, scale):
         return _f32(rng.standard_normal(shape) * scale)
 
+    e = cfg.n_experts
+    lead = (e,) if e else ()
     params = {
         "emb": normal((n_items + 1, d), 0.02),
         "pos": normal((cfg.max_len, d), 0.02),
         "layers": [],
     }
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "wqkv": normal((d, 3 * d), d**-0.5),
             "wo": normal((d, d), d**-0.5),
             "ln1": np.ones(d, np.float32),
             "ln2": np.ones(d, np.float32),
-            "w1": normal((d, 4 * d), d**-0.5),
-            "w2": normal((4 * d, d), (4 * d) ** -0.5),
-        })
+            "w1": normal((*lead, d, 4 * d), d**-0.5),
+            "w2": normal((*lead, 4 * d, d), (4 * d) ** -0.5),
+        }
+        if e:
+            layer["router"] = normal((d, e), d**-0.5)
+        params["layers"].append(layer)
     return params
+
+
+_draw_params = init_params  # train_sasrec's own ``init_params`` argument shadows the name
 
 
 def sasrec_params_from_jax(params: dict) -> dict:
@@ -116,23 +125,23 @@ def sasrec_params_from_jax(params: dict) -> dict:
 
     The port keeps the JAX layouts (``emb`` (n_items + 1, d), ``pos``
     (max_len, d), per layer ``wqkv`` (d, 3d), ``wo`` (d, d), ``ln1``/``ln2``
-    (d,), ``w1`` (d, 4d), ``w2`` (4d, d), applied as ``x @ w``), so this
-    checks the tree and copies it as contiguous float32.
+    (d,), ``w1`` (d, 4d), ``w2`` (4d, d), applied as ``x @ w``; a mixture of
+    E experts adds ``router`` (d, E) and leads ``w1``/``w2`` with E), so
+    this checks the tree and copies it as contiguous float32.
     """
     layers = []
     for layer in params["layers"]:
-        if "router" in layer:
-            raise NotImplementedError(
-                "the mixture-of-experts FFN (n_experts > 0) is not ported yet "
-                "(ROADMAP §1 item 3)"
-            )
-        layers.append({k: _f32(layer[k]) for k in LAYER_KEYS})
+        keys = LAYER_KEYS + ("router",) if "router" in layer else LAYER_KEYS
+        layers.append({k: _f32(layer[k]) for k in keys})
     out = {"emb": _f32(params["emb"]), "pos": _f32(params["pos"]), "layers": layers}
     d = out["emb"].shape[1]
     for layer in layers:
         shapes = {k: v.shape for k, v in layer.items()}
         want = {"wqkv": (d, 3 * d), "wo": (d, d), "ln1": (d,), "ln2": (d,),
                 "w1": (d, 4 * d), "w2": (4 * d, d)}
+        if "router" in layer:
+            e = layer["router"].shape[-1]
+            want.update(router=(d, e), w1=(e, d, 4 * d), w2=(e, 4 * d, d))
         if shapes != want:
             raise ValueError(f"layer shapes {shapes} do not match d_model {d}: {want}")
     return out
@@ -151,20 +160,59 @@ def _layer_norm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-6) * g
 
 
+def _moe_ffn(layer: dict, y: torch.Tensor, cfg: SASRecConfig, valid=None):
+    """Switch-style top-1 mixture-of-experts FFN, y (B, T, D) → (out, aux);
+    the JAX function's semantics (``:169-218``).
+
+    Routing is per batch row: each (row, expert) pair has
+    ``max(1, int(expert_capacity · T / E))`` slots, filled in time order.
+    ``argmax`` takes the first expert of a tie; a token past its expert's
+    capacity gets a zero delta (the residual carries it). ``valid`` (B, T)
+    takes pads out of routing and out of the load-balancing statistics.
+    ``aux`` is the Switch loss E·Σ_e f_e·P_e over real tokens.
+    """
+    b, t, _ = y.shape
+    e = cfg.n_experts
+    cap = max(1, int(cfg.expert_capacity * t / e))
+    probs = torch.softmax(y @ layer["router"], dim=-1)  # (B, T, E)
+    gate = probs.amax(-1)  # a tie shares the gradient, as JAX's max does
+    onehot = torch.nn.functional.one_hot(probs.argmax(-1), e).to(y.dtype)
+    if valid is not None:
+        onehot = onehot * valid[..., None].to(y.dtype)
+    # the token's place in its (row, expert) queue: -1 for a pad, >= cap
+    # for an overflow token, and for both the slot one-hot is a zero row
+    pos = (onehot.cumsum(1) * onehot).sum(-1) - 1.0  # (B, T)
+    slot = (pos[..., None] == torch.arange(cap, device=y.device, dtype=y.dtype)).to(y.dtype)
+    dispatch = onehot[..., None] * slot[..., None, :]  # (B, T, E, C)
+    xs = torch.einsum("btd,btec->becd", y, dispatch)
+    h = torch.relu(torch.einsum("becd,edf->becf", xs, layer["w1"]))
+    out = torch.einsum("becf,efd->becd", h, layer["w2"])
+    yout = torch.einsum("becd,btec->btd", out, dispatch) * gate[..., None]
+    if valid is None:
+        n_real = torch.tensor(float(b * t), dtype=y.dtype, device=y.device)
+        probs_real = probs
+    else:
+        vmask = valid[..., None].to(y.dtype)
+        n_real = vmask.sum().clamp_min(1.0)
+        probs_real = probs * vmask
+    f = onehot.sum((0, 1)) / n_real
+    p = probs_real.sum((0, 1)) / n_real
+    return yout, e * (f * p).sum()
+
+
 def _block_stack(params: dict, seq: torch.Tensor, cfg: SASRecConfig, pos, attention):
-    """The transformer body: seq (B, T) → hidden (B, T, D).
+    """The transformer body: seq (B, T) → (hidden (B, T, D), MoE aux loss).
 
     ``pos`` is the positional table for these positions; ``attention``
     maps head-split (B, H, T, h) q/k/v, each contiguous, to the attention
-    output (dense or the flash kernel, chosen by the caller). Pad rows are
-    zeroed after every layer. The JAX function also returns the MoE
-    auxiliary loss, which a dense FFN does not have.
+    output (dense or the flash kernels, chosen by the caller). Pad rows are
+    zeroed after every layer. The aux loss is 0 for a dense FFN.
     """
-    _require_dense_ffn(cfg)
     seq = seq.long()
     x = params["emb"][seq] + pos[None, :, :]
     pad_mask = (seq == PAD)[:, :, None]
     h = cfg.d_model // cfg.n_heads
+    aux_total = torch.zeros((), dtype=x.dtype, device=x.device)
 
     def heads(z):  # (B, T, D) → (B, H, T, h)
         return z.reshape(*z.shape[:-1], cfg.n_heads, h).transpose(-3, -2).contiguous()
@@ -176,14 +224,21 @@ def _block_stack(params: dict, seq: torch.Tensor, cfg: SASRecConfig, pos, attent
         a = a.transpose(-3, -2).reshape(y.shape)
         x = x + a @ layer["wo"]
         y = _layer_norm(x, layer["ln2"])
-        x = x + torch.relu(y @ layer["w1"]) @ layer["w2"]
+        if cfg.n_experts:
+            delta, aux = _moe_ffn(layer, y, cfg, valid=seq != PAD)
+            x = x + delta
+            aux_total = aux_total + aux
+        else:
+            x = x + torch.relu(y @ layer["w1"]) @ layer["w2"]
         x = x.masked_fill(pad_mask, 0.0)
-    return x
+    return x, aux_total
 
 
 def _forward(params: dict, seq: torch.Tensor, cfg: SASRecConfig, allow_flash: bool = False):
-    """seq (B, T) → hidden (B, T, D). ``allow_flash`` sends every layer's
-    attention through the flash kernel where the gate allows it."""
+    """seq (B, T) → (hidden (B, T, D), MoE aux loss). ``allow_flash`` sends
+    every layer's attention through the flash kernels where the gate allows
+    it; they are differentiable (the autograd Function's backward is the
+    two backward kernels)."""
     if allow_flash and _use_flash(seq.shape[-1], seq.device):
         attention = partial(flash_attention, causal=True)
     else:
@@ -193,25 +248,48 @@ def _forward(params: dict, seq: torch.Tensor, cfg: SASRecConfig, allow_flash: bo
 
 def _predict_logits(params: dict, seq: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor:
     """(B, T) → (B, n_items): the last position against every item."""
-    hidden = _forward(params, seq, cfg, allow_flash=True)
+    hidden, _ = _forward(params, seq, cfg, allow_flash=True)
     return hidden[:, -1, :] @ params["emb"][1:].T
 
 
-class SASRecNet(torch.nn.Module):
-    """The weights of one model on one device, placed once."""
+def _masked_nll_sums(params: dict, hidden: torch.Tensor, inp: torch.Tensor, tgt: torch.Tensor):
+    """(Σ masked nll, Σ mask): every position against every item, masked
+    where the input or the target is a pad; the caller divides."""
+    logits = hidden @ params["emb"][1:].T  # skip the pad row
+    mask = (tgt != PAD) & (inp != PAD)
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt0 = (tgt.long() - 1).clamp_min(0)  # back to 0-based item index
+    nll = -logp.gather(-1, tgt0[..., None])[..., 0]
+    return (nll * mask).sum(), mask.sum()
 
-    def __init__(self, params: dict, cfg: SASRecConfig, device):
+
+def _loss_fn(params: dict, seq: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor:
+    """Causal next-item cross-entropy over seq (B, max_len + 1), plus the
+    weighted MoE load-balancing loss; positions whose target is a pad are
+    masked out. The gate inside ``_forward`` sends long blocks on the card
+    through the flash kernels."""
+    inputs, targets = seq[:, :-1], seq[:, 1:]
+    hidden, aux = _forward(params, inputs, cfg, allow_flash=True)
+    num, den = _masked_nll_sums(params, hidden, inputs, targets)
+    return num / den.clamp_min(1) + cfg.moe_aux_weight * aux
+
+
+class SASRecNet(torch.nn.Module):
+    """The weights of one model on one device, placed once. Serving keeps
+    them frozen (``requires_grad=False``, under ``no_grad``); training
+    builds a ``trainable`` net."""
+
+    def __init__(self, params: dict, cfg: SASRecConfig, device, trainable: bool = False):
         super().__init__()
-        _require_dense_ffn(cfg)
         self.cfg = cfg
 
         def put(a):
-            return torch.nn.Parameter(torch.tensor(_f32(a), device=device), requires_grad=False)
+            return torch.nn.Parameter(torch.tensor(_f32(a), device=device), requires_grad=trainable)
 
         self.emb = put(params["emb"])
         self.pos = put(params["pos"])
         self.layers = torch.nn.ModuleList(
-            torch.nn.ParameterDict({k: put(layer[k]) for k in LAYER_KEYS})
+            torch.nn.ParameterDict({k: put(v) for k, v in layer.items()})
             for layer in params["layers"]
         )
 
@@ -224,7 +302,18 @@ class SASRecNet(torch.nn.Module):
         return {
             "emb": self.emb,
             "pos": self.pos,
-            "layers": [{k: layer[k] for k in LAYER_KEYS} for layer in self.layers],
+            "layers": [dict(layer.items()) for layer in self.layers],
+        }
+
+    def host_params(self) -> dict:
+        """The weights as a host float32 numpy tree (what a blob pickles)."""
+        def host(t):
+            return _f32(t.detach().cpu().numpy())
+
+        return {
+            "emb": host(self.emb),
+            "pos": host(self.pos),
+            "layers": [{k: host(v) for k, v in layer.items()} for layer in self.layers],
         }
 
     @torch.no_grad()
@@ -238,6 +327,9 @@ class SASRecModel:
     params: dict  # host numpy tree (see sasrec_params_from_jax)
     item_map: BiMap
     config: SASRecConfig
+    # the training loss of each step, host float32; None for a model
+    # trained elsewhere and carried across
+    losses: Optional[np.ndarray] = None
 
     def __post_init__(self):
         self._net: Optional[SASRecNet] = None
@@ -299,8 +391,68 @@ def host_top_items(logits: np.ndarray, exclude, num: int) -> tuple[np.ndarray, n
     return top, logits[top]
 
 
-def train_sasrec(ctx, interactions, config: Optional[SASRecConfig] = None) -> SASRecModel:
-    """Not ported yet: SASRec training comes with the next slice."""
+def build_sequences(interactions: Interactions, max_len: int) -> np.ndarray:
+    """(n_users, max_len) right-aligned, time-ordered item ids (+1; 0 pads).
+    The sort is a stable ``lexsort`` on (t, user): equal times keep the
+    order the events came in."""
+    order = np.lexsort((interactions.t, interactions.user))
+    users = interactions.user[order]
+    items = interactions.item[order]
+    seqs = np.zeros((interactions.n_users, max_len), np.int32)
+    bounds = np.flatnonzero(np.diff(users)) + 1
+    for u_block, i_block in zip(np.split(users, bounds), np.split(items, bounds)):
+        if len(u_block) == 0:
+            continue
+        tail = i_block[-max_len:]
+        seqs[int(u_block[0]), -len(tail):] = tail + 1
+    return seqs
+
+
+def training_sequences(interactions: Interactions, cfg: SASRecConfig) -> np.ndarray:
+    """The rows ``train_sasrec`` samples from: ``max_len + 1`` long (the
+    input/target shift), users with at least 2 events (one transition)."""
+    seqs = build_sequences(interactions, cfg.max_len + 1)
+    seqs = seqs[(seqs != PAD).sum(1) >= 2]
+    if len(seqs) == 0:
+        raise ValueError(
+            "no user has >= 2 interaction events; sequential training "
+            "needs at least one (previous item -> next item) transition"
+        )
+    return seqs
+
+
+def adam(net: SASRecNet, cfg: SASRecConfig) -> torch.optim.Adam:
+    """Adam with optax's ``adam`` defaults (betas 0.9 and 0.999, eps 1e-8)."""
+    return torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def train_step(net: SASRecNet, opt: torch.optim.Optimizer, seq: torch.Tensor, cfg: SASRecConfig):
+    """One optimizer step on the batch ``seq`` (B, max_len + 1); returns
+    the loss before the step, on the device."""
+    opt.zero_grad(set_to_none=True)
+    loss = _loss_fn(net.tree(), seq, cfg)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def train_sasrec(
+    ctx,
+    interactions: Interactions,
+    config: Optional[SASRecConfig] = None,
+    init_params: Optional[dict] = None,
+) -> SASRecModel:
+    """Train a SASRec on ``ctx.device``: one Adam step per epoch.
+
+    What the JAX function does on one device: :func:`training_sequences`,
+    ``batch = min(batch_size, n)``, ``np.random.default_rng(seed)`` drawing
+    ``integers(0, n, batch)`` rows per epoch, and Adam with optax's
+    defaults (betas 0.9 and 0.999, eps 1e-8). The start is ``init_params``
+    (a host param tree, e.g. the JAX ``_init_params`` draw as numpy), else
+    :func:`init_params` from ``seed``. On the card at a flash-eligible
+    ``max_len`` every layer's attention runs the flash kernels, backward
+    included. Returns host float32 params and each step's loss.
+    """
     cfg = config or SASRecConfig()
     if cfg.seq_parallel:
         raise NotImplementedError(
@@ -312,9 +464,26 @@ def train_sasrec(ctx, interactions, config: Optional[SASRecConfig] = None) -> SA
             "checkpoint_dir (mid-training checkpoints) is not ported yet "
             "(ROADMAP §1 item 7)"
         )
-    _require_dense_ffn(cfg)
-    raise NotImplementedError(
-        "SASRec training is not ported yet (ROADMAP §1 item 3: the flash "
-        "backward kernels and the training loop); train with the JAX package "
-        "and carry the params across with sasrec_params_from_jax"
+    if not isinstance(interactions, Interactions):
+        raise NotImplementedError(
+            f"training from {type(interactions).__name__} (sharded multi-host "
+            "interactions) is not ported yet (ROADMAP §1 item 10)"
+        )
+    seqs = training_sequences(interactions, cfg)
+    n = len(seqs)
+    batch = min(cfg.batch_size, n)
+    start = init_params if init_params is not None else _draw_params(cfg.seed, cfg, interactions.n_items)
+    net = SASRecNet(start, cfg, ctx.device, trainable=True)
+    opt = adam(net, cfg)
+    rows = torch.from_numpy(seqs.astype(np.int64)).to(ctx.device)
+    rng = np.random.default_rng(cfg.seed)
+    losses = [
+        train_step(net, opt, rows[torch.from_numpy(rng.integers(0, n, batch)).to(ctx.device)], cfg)
+        for _ in range(cfg.epochs)
+    ]
+    return SASRecModel(
+        params=net.host_params(),
+        item_map=interactions.item_map,
+        config=cfg,
+        losses=torch.stack(losses).cpu().numpy().astype(np.float32) if losses else np.zeros(0, np.float32),
     )

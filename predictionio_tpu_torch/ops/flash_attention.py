@@ -1,16 +1,26 @@
-"""Exact softmax attention, forward: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Exact softmax attention, forward and backward: the CUDA kernels' wrappers
+and their plain PyTorch versions.
 
-Replaces the Pallas kernel ``predictionio_tpu/ops/flash_attention.py``
-``_flash_kernel``, reached through ``_flash_2d_res`` from
-``flash_attention`` (every SASRec layer at a flash-eligible length) and
-``flash_block_fwd`` (one block pair of ring attention). The kernel is
-``csrc/flash_fwd.cu``, built with ``nvcc`` for ``sm_90a`` at first use
-(``ops/_build.py``) and called through ``ctypes``; its source note says
-what bounds it and how it is laid out. In short: one thread block per
-(batch·head, 64-row query tile) keeps the online-softmax state (m, l, acc)
-in float32 registers and loops over 64-row key/value tiles staged in shared
-memory, skipping the tiles a causal mask hides entirely.
+Replaces the three Pallas kernels of ``predictionio_tpu/ops/flash_attention.py``:
+
+* ``_flash_kernel`` (the forward), reached through ``_flash_2d_res`` from
+  ``flash_attention`` (every SASRec layer at a flash-eligible length) and
+  ``flash_block_fwd`` (one block pair of ring attention), by
+  ``csrc/flash_fwd.cu``: one thread block per (batch·head, 64-row query
+  tile) keeps the online-softmax state (m, l, acc) in float32 registers and
+  loops over 64-row key/value tiles staged in shared memory, skipping the
+  tiles a causal mask hides entirely;
+* ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the recomputation-form
+  backward), reached through ``_flash_2d_bwd`` from the custom VJP and
+  ``flash_block_bwd``, by ``csrc/flash_bwd.cu``: one block per (batch·head,
+  64-row query tile) for dq and one per (batch·head, 64-row key tile) for
+  dk and dv, each looping over the other axis, so no sum crosses blocks.
+
+The kernels are built with ``nvcc`` for ``sm_90a`` at first use
+(``ops/_build.py``) and called through ``ctypes``; each source note says
+what bounds it and how it is laid out. :class:`_FlashAttention` is the
+``torch.autograd.Function`` that ``flash_attention`` returns through: its
+forward is :func:`flash_block_fwd`, its backward :func:`flash_block_bwd`.
 
 What it computes is the TPU kernel's definition: ``s = (q·scale) kᵀ``, the
 causal mask by absolute position (``q_pos >= k_pos``, also for
@@ -27,8 +37,9 @@ The wrappers route by device and nothing else:
   width, shape or contiguity the kernel does not take, or on a CUDA error.
 
 There is no ``try`` that falls back and no environment variable that picks
-the plain version on the card. :data:`launches` counts the kernel's
-launches (one per call, whatever the batch·head count).
+the plain version on the card. :data:`launches`, :data:`bwd_dq_launches`
+and :data:`bwd_dkv_launches` count each kernel's launches (one per call,
+whatever the batch·head count).
 """
 
 from __future__ import annotations
@@ -52,7 +63,9 @@ BLOCK_K = 128
 TILE = 64
 MAX_HEAD = 256
 
-launches = LaunchCounter()
+launches = LaunchCounter()  # the forward kernel (4)
+bwd_dq_launches = LaunchCounter()  # the backward's dq kernel (5)
+bwd_dkv_launches = LaunchCounter()  # the backward's dk/dv kernel (6)
 
 
 def use_flash_default(t: int, device) -> bool:
@@ -126,49 +139,115 @@ def flash_attention_reference(
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-_lib = None
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward, in the TPU kernels' recomputation form:
+    ``(dq, dk, dv)`` in the inputs' dtypes.
+
+    Computes in float32 (float64 for float64 inputs): ``delta = Σ_d do·o``,
+    ``s = (q·scale) kᵀ`` with the causal mask by absolute position set to
+    ``NEG_INF``, ``p = exp(s - lse)``, ``dp = do vᵀ``, ``ds = p ⊙ (dp -
+    delta)``, ``dq = (ds k)·scale``, ``dk = (dsᵀ q)·scale``, ``dv = pᵀ do``.
+    ``o`` and ``lse`` may be the global (all-blocks) forward results, so
+    ``p`` is this block's share of the globally normalized probabilities.
+    On the card the products run in full float32 (TF32 off for the call).
+    """
+    d = q.shape[-1]
+    scale = _f32(scale if scale is not None else 1.0 / (d**0.5))
+    work = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, of, dof = (x.to(work) for x in (q, k, v, o, do))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        delta = (dof * of).sum(-1, keepdim=True)
+        s = (qf * scale) @ kf.transpose(-1, -2)
+        if causal:
+            t_q, t_kv = s.shape[-2], s.shape[-1]
+            q_pos = torch.arange(t_q, device=s.device)[:, None]
+            k_pos = torch.arange(t_kv, device=s.device)[None, :]
+            s = s.masked_fill(q_pos < k_pos, NEG_INF)
+        p = torch.exp(s - lse.to(work)[..., None])
+        dp = dof @ vf.transpose(-1, -2)
+        ds = p * (dp - delta)
+        dq = (ds @ kf) * scale
+        dk = (ds.transpose(-1, -2) @ qf) * scale
+        dv = p.transpose(-1, -2) @ dof
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
-def _library():
-    """The built kernel library (built on first use, once per process)."""
-    global _lib
+def _library(name: str):
+    """The built kernel library ``csrc/<name>.cu``, ``flash_fwd`` or
+    ``flash_bwd`` (built on first use, once per process)."""
     with _lib_lock:
-        if _lib is None:
+        lib = _libs.get(name)
+        if lib is None:
             from predictionio_tpu_torch.ops import _build
 
-            lib = ctypes.CDLL(str(_build.library("flash_fwd")))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.pio_flash_fwd.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p]
-            lib.pio_flash_fwd.restype = i
-            lib.pio_flash_fwd_limits.argtypes = [p, p]
-            lib.pio_flash_fwd_limits.restype = i
+            lib = ctypes.CDLL(str(_build.library(name)))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            if name == "flash_fwd":
+                lib.pio_flash_fwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
+                lib.pio_flash_fwd.restype = i
+                limits = lib.pio_flash_fwd_limits
+            else:
+                lib.pio_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + [f, p]
+                lib.pio_flash_bwd_dq.restype = i
+                lib.pio_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + [f, p]
+                lib.pio_flash_bwd_dkv.restype = i
+                limits = lib.pio_flash_bwd_limits
+            limits.argtypes = [p, p]
+            limits.restype = i
             lib.pio_flash_error_string.argtypes = [i]
             lib.pio_flash_error_string.restype = ctypes.c_char_p
             tile, max_head = ctypes.c_int(), ctypes.c_int()
-            lib.pio_flash_fwd_limits(ctypes.byref(tile), ctypes.byref(max_head))
+            limits(ctypes.byref(tile), ctypes.byref(max_head))
             if (tile.value, max_head.value) != (TILE, MAX_HEAD):
-                raise RuntimeError("flash_fwd.cu TILE/MAX_HEAD disagree with Python")
-            _lib = lib
-        return _lib
+                raise RuntimeError(f"{name}.cu TILE/MAX_HEAD disagree with Python")
+            _libs[name] = lib
+        return lib
 
 
-def _launch(q, k, v, causal: bool, scale: float):
-    """One kernel launch over the flattened batch·head dimension."""
-    device = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_operands(**tensors) -> torch.device:
+    """The kernels take float32, contiguous tensors on one device."""
+    device = next(iter(tensors.values())).device
+    for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if t.dtype != torch.float32:
-            raise ValueError(f"{name} has dtype {t.dtype}; the flash kernel takes float32")
+            raise ValueError(f"{name} has dtype {t.dtype}; the flash kernels take float32")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return device
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {lib.pio_flash_error_string(rc).decode()} ({rc})")
+
+
+def _launch(q, k, v, causal: bool, scale: float):
+    """One forward launch over the flattened batch·head dimension."""
+    device = _check_operands(q=q, k=k, v=v)
     t_q, d = q.shape[-2:]
     t_kv = k.shape[-2]
     bh = q.numel() // (t_q * d)
     if bh == 0:
         raise ValueError("empty batch·head dimension")
-    lib = _library()
+    lib = _library("flash_fwd")
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -177,9 +256,7 @@ def _launch(q, k, v, causal: bool, scale: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             bh, t_q, t_kv, d, int(bool(causal)), scale, stream,
         )
-    if rc != 0:
-        msg = lib.pio_flash_error_string(rc).decode()
-        raise RuntimeError(f"flash_fwd kernel launch failed: {msg} ({rc})")
+    _raise_on(lib, rc, "flash_fwd")
     launches.bump()
     return o, lse
 
@@ -208,6 +285,110 @@ def flash_block_fwd(
     return _launch(q, k, v, causal, scale)
 
 
+def _bwd_geometry(q, k, v, do, lse, delta):
+    device = _check_operands(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    t_q, d = q.shape[-2:]
+    bh = q.numel() // (t_q * d)
+    if bh == 0:
+        raise ValueError("empty batch·head dimension")
+    return device, bh, t_q, k.shape[-2], d
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
+    """Kernel 5: dq, one launch over the flattened batch·head dimension."""
+    device, bh, t_q, t_kv, d = _bwd_geometry(q, k, v, do, lse, delta)
+    lib = _library("flash_bwd")
+    dq = torch.empty_like(q)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pio_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), bh, t_q, t_kv, d, int(bool(causal)), scale, stream,
+        )
+    _raise_on(lib, rc, "flash_bwd_dq")
+    bwd_dq_launches.bump()
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Kernel 6: dk and dv, one launch over the flattened batch·head
+    dimension."""
+    device, bh, t_q, t_kv, d = _bwd_geometry(q, k, v, do, lse, delta)
+    lib = _library("flash_bwd")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pio_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t_q, t_kv, d,
+            int(bool(causal)), scale, stream,
+        )
+    _raise_on(lib, rc, "flash_bwd_dkv")
+    bwd_dkv_launches.bump()
+    return dk, dv
+
+
+def flash_block_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool,
+    scale: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One block-pair backward: ``(dq, dk, dv)``, this block's shares.
+
+    ``o`` and ``lse`` (..., T_q) are the GLOBAL (all-blocks) forward
+    results for these queries: with a global ``lse``, ``exp(s - lse)`` is
+    the globally normalized probability of this block, so the pieces of all
+    blocks sum to the full gradients (the ring backward). ``do`` is made
+    contiguous here. Leading dimensions flatten into one batch·head
+    dimension.
+    """
+    _check_lengths(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:-1]:
+        raise ValueError(
+            f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse {tuple(lse.shape)} "
+            f"do not match q {tuple(q.shape)}"
+        )
+    scale = _f32(scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5))
+    do = do.contiguous()
+    device = q.device
+    if device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal, scale)
+    if device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {device}")
+    _check_operands(o=o)
+    # Σ_d do·o, the softmax-Jacobian row term: a torch op, as the JAX
+    # package computes it in plain XLA outside its kernels
+    delta = (do * o).sum(-1)
+    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    return (dq, *_launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Exact attention with the recomputation backward, the port of the JAX
+    ``custom_vjp`` (``_flash_2d``): the forward saves ``q, k, v, o, lse``,
+    the backward recomputes each score tile from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        o, lse = flash_block_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_block_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -215,9 +396,9 @@ def flash_attention(
     causal: bool = False,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Exact attention, q/k/v (..., T, D) → o (..., T_q, D).
+    """Exact attention, q/k/v (..., T, D) → o (..., T_q, D), differentiable.
 
     Lengths must divide the JAX package's default blocks
     (``min(128, T)``); others raise ``ValueError`` on every device.
     """
-    return flash_block_fwd(q, k, v, causal, scale)[0]
+    return _FlashAttention.apply(q, k, v, causal, scale)

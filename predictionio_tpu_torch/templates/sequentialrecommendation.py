@@ -6,12 +6,16 @@ at query time the user's recent history is read live from the event store
 and :meth:`~predictionio_tpu_torch.models.sequential.SASRecModel.recommend`
 ranks the next item through the causal transformer on the card.
 
-Deploy binds the model's weights to the deploy device once
-(``load_serializable_model``); with ``batching=True`` the base
-``batch_predict`` loops over :meth:`SASRecAlgorithm.predict`, as in the JAX
-package. Training is not ported yet: ``SASRecAlgorithm.train`` raises,
-naming ROADMAP §1 item 3; a model trained by the JAX package is carried
-across with ``models.sequential.sasrec_params_from_jax``.
+Training (``SASRecAlgorithm.train``, reached from ``core.workflow.run_train``)
+reads the app's interactions through :class:`SequentialDataSource` and runs
+``models.sequential.train_sasrec`` on the context's device: on the card at
+a ``maxLen`` of 256 or more (a multiple of 128) every layer's attention
+runs the flash kernels, forward and backward. Deploy binds the model's
+weights to the deploy device once (``load_serializable_model``); with
+``batching=True`` the base ``batch_predict`` loops over
+:meth:`SASRecAlgorithm.predict`, as in the JAX package. A model trained by
+the JAX package can still be carried across with
+``models.sequential.sasrec_params_from_jax``.
 """
 
 from __future__ import annotations

@@ -19,8 +19,10 @@ equal; ``predictionio_tpu_torch/testing.py`` says how the two were set);
 training on the card against training on the CPU from the same initial
 factors, rtol = atol = 1e-4 at f32; the flash-attention kernel against its
 plain version, o within rtol = atol = 2e-5 (the JAX package's own flash
-test) and lse within 1e-5; SASRec logits through the kernel against the
-plain attention, rtol = atol = 1e-4.
+test) and lse within 1e-5; the backward kernels against the plain backward,
+rtol 2e-4, atol 2e-5 (the JAX package's own gradient test); SASRec logits
+through the kernel against the plain attention, rtol = atol = 1e-4; a SASRec
+trained on the card against the same steps on the CPU, rtol = atol = 1e-4.
 """
 
 import numpy as np
@@ -159,3 +161,116 @@ def test_sasrec_logits_through_the_kernel_on_card(card, monkeypatch):
     monkeypatch.setattr(sequential, "_use_flash", lambda t, device: False)
     want = net(seqs)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _bwd_inputs(card, seed, bh, t_q, t_kv, h, causal):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, t, h)).astype(np.float32)).to(card)
+               for t in (t_q, t_kv, t_kv))
+    o, lse = flash_attention.flash_attention_reference(q, k, v, causal)
+    do = torch.from_numpy(rng.normal(size=(bh, t_q, h)).astype(np.float32)).to(card)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", (False, True))
+@pytest.mark.parametrize("bh, t_q, t_kv, h", [
+    (1, 256, 256, 50), (3, 128, 128, 64), (2, 8, 8, 16), (2, 384, 384, 128),
+    (1, 256, 512, 50), (2, 512, 256, 32), (1, 256, 256, 256), (2, 100, 100, 1),
+    (2, 128, 128, 192),
+])
+def test_flash_backward_kernels_match_plain_version_on_card(card, causal, bh, t_q, t_kv, h):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, o, lse, do = _bwd_inputs(card, bh * 1000 + t_q + h, bh, t_q, t_kv, h, causal)
+    before = (flash_attention.bwd_dq_launches.count, flash_attention.bwd_dkv_launches.count)
+    got = flash_attention.flash_block_bwd(q, k, v, o, lse, do, causal)
+    want = flash_attention.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention.bwd_dq_launches.count, flash_attention.bwd_dkv_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", (False, True))
+def test_flash_backward_with_a_global_lse_splits_over_blocks_on_card(card, causal):
+    """Block pairs of 128 (the ring's composition: causal on the diagonal,
+    full below it, skipped above it), each fed the global o and lse, sum to
+    the whole backward."""
+    q, k, v, o, lse, do = _bwd_inputs(card, 9, 4, 256, 256, 50, causal)
+    whole = flash_attention.flash_block_bwd(q, k, v, o, lse, do, causal)
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    blocks = (slice(0, 128), slice(128, 256))
+    for i, si in enumerate(blocks):
+        for j, sj in enumerate(blocks):
+            if causal and j > i:
+                continue
+            part = flash_attention.flash_block_bwd(
+                *(x[:, s].contiguous() for x, s in ((q, si), (k, sj), (v, sj), (o, si), (lse, si), (do, si))),
+                causal and i == j)
+            dq[:, si] += part[0]
+            dk[:, sj] += part[1]
+            dv[:, sj] += part[2]
+    for a, b in zip((dq, dk, dv), whole):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_grads_through_the_kernels_on_card(card):
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, 256, 16)).astype(np.float32)).to(card)
+               .requires_grad_() for _ in range(3))
+    w = torch.from_numpy(rng.normal(size=(2, 256, 3, 16)).astype(np.float32)).to(card)
+
+    def loss(attn):  # the cotangent arrives non-contiguous, as from _block_stack
+        a = attn(q, k, v)
+        return (a.transpose(-3, -2) * w).sum()
+
+    before = flash_attention.bwd_dq_launches.count
+    got = torch.autograd.grad(loss(lambda *a: flash_attention.flash_attention(*a, causal=True)), (q, k, v))
+    assert flash_attention.bwd_dq_launches.count == before + 1
+    want = torch.autograd.grad(loss(lambda *a: flash_attention.flash_attention_reference(*a, True)[0]),
+                               (q, k, v))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_what_it_does_not_take(card):
+    q, k, v, o, lse, do = _bwd_inputs(card, 11, 1, 256, 256, 50, True)
+    with pytest.raises(ValueError):
+        flash_attention.flash_block_bwd(q.double(), k, v, o, lse, do, True)
+    with pytest.raises(ValueError):
+        flash_attention.flash_block_bwd(q, k, v, o, lse[:, :128], do, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_experts", (0, 4))
+def test_sasrec_training_on_card_matches_cpu(card, n_experts):
+    rng = np.random.default_rng(12)
+    n_users, n_items = 24, 60
+    lengths = rng.integers(2, 300, n_users)
+    user = np.repeat(np.arange(n_users), lengths)
+    item = rng.integers(0, n_items, len(user))
+    t = np.concatenate([np.arange(n) for n in lengths]).astype(np.float64)
+    inter = interactions_from_arrays(user, item, np.ones(len(user)), t,
+                                     [f"u{i}" for i in range(n_users)],
+                                     [f"i{j}" for j in range(n_items)])
+    cfg = sequential.SASRecConfig(d_model=16, n_heads=2, n_layers=2, max_len=256, epochs=3,
+                                  batch_size=8, lr=1e-3, seed=3, n_experts=n_experts)
+    init = sequential.init_params(4, cfg, n_items)
+    before = flash_attention.bwd_dkv_launches.count
+    on_card = sequential.train_sasrec(DeviceContext.create(device=card), inter, cfg, init_params=init)
+    assert flash_attention.bwd_dkv_launches.count - before == cfg.n_layers * cfg.epochs
+    on_cpu = sequential.train_sasrec(DeviceContext.create(device="cpu"), inter, cfg, init_params=init)
+    np.testing.assert_allclose(on_card.losses, on_cpu.losses, rtol=1e-5)
+    for a, b in zip(_leaves(on_card.params), _leaves(on_cpu.params)):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _leaves(params):
+    out = [params["emb"], params["pos"]]
+    for layer in params["layers"]:
+        out += [layer[key] for key in sorted(layer)]
+    return out

@@ -71,6 +71,24 @@ print(" ".join(names))
         "predictionio_tpu_torch.models.sequential",
         "predictionio_tpu_torch.templates.sequentialrecommendation",
     } <= names
+    # the SASRec training slice adds no module: its names, by attribute
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "
+            "from predictionio_tpu_torch.ops.flash_attention import _FlashAttention, flash_block_bwd, "
+            "flash_attention_bwd_reference, bwd_dq_launches, bwd_dkv_launches; "
+            "from predictionio_tpu_torch.models.sequential import train_sasrec, build_sequences, "
+            "_moe_ffn, _loss_fn, train_step")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_every_kernel_source_is_built():
+    """``build_all`` (what ``chip_smoke.py`` and the first launch run)
+    builds every CUDA source of the port, the flash backward's included."""
+    from predictionio_tpu_torch.ops import _build
+
+    assert set(_build.SOURCES) == {p.stem for p in (PORT / "csrc").glob("*.cu")}
+    assert "flash_bwd" in _build.SOURCES
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -126,15 +126,15 @@ def test_gate_keeps_cpu_and_short_blocks_dense(monkeypatch):
     monkeypatch.setattr(seq, "flash_attention", lambda *a, **kw: used.append("flash"))
     cfg = seq.SASRecConfig(d_model=8, n_heads=1, n_layers=1, max_len=256)
     tree = seq.SASRecNet(seq.init_params(0, cfg, N_ITEMS), cfg, "cpu").tree()
-    hidden = seq._forward(tree, torch.ones((1, 256), dtype=torch.long), cfg, allow_flash=True)
-    assert hidden.shape == (1, 256, 8) and not used
+    hidden, aux = seq._forward(tree, torch.ones((1, 256), dtype=torch.long), cfg, allow_flash=True)
+    assert hidden.shape == (1, 256, 8) and not used and float(aux) == 0.0
 
 
 def test_pad_rows_are_zero_after_every_layer():
     cfg = seq.SASRecConfig(d_model=8, n_heads=2, n_layers=2, max_len=8)
     tree = seq.SASRecNet(seq.init_params(1, cfg, N_ITEMS), cfg, "cpu").tree()
     s = torch.tensor([[0, 0, 0, 3, 4, 5, 6, 7]])
-    hidden = seq._forward(tree, s, cfg)
+    hidden, _ = seq._forward(tree, s, cfg)
     assert torch.all(hidden[0, :3] == 0) and torch.all(hidden[0, 3:].abs().sum(-1) > 0)
 
 
@@ -227,22 +227,25 @@ def test_unbound_model_goes_to_the_card_or_raises():
 
 
 def test_not_ported_parts_name_their_roadmap_item():
-    cfg = seq.SASRecConfig(n_experts=4)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        seq.init_params(0, cfg, 10)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        seq.SASRecNet({}, cfg, "cpu")
-    moe = seq.init_params(0, seq.SASRecConfig(d_model=8), 10)
-    moe["layers"][0]["router"] = np.zeros((8, 2), np.float32)  # the JAX MoE layer's key
-    with pytest.raises(NotImplementedError, match="item 3"):
-        seq.sasrec_params_from_jax(moe)
+    # experts and training are ported: an expert model draws, binds and
+    # carries across; train_sasrec refuses only what later items bring
+    cfg = seq.SASRecConfig(d_model=8, n_heads=2, n_experts=4, max_len=8)
+    params = seq.init_params(0, cfg, 10)
+    assert params["layers"][0]["router"].shape == (8, 4)
+    assert params["layers"][0]["w1"].shape == (4, 8, 32) and params["layers"][0]["w2"].shape == (4, 32, 8)
+    net = seq.SASRecNet(params, cfg, "cpu")
+    assert net(torch.tensor([[0, 0, 3, 4, 5, 6, 7, 8]])).shape == (1, 10)
+    assert seq.sasrec_params_from_jax(params)["layers"][1]["router"].shape == (8, 4)
+    params["layers"][0]["router"] = np.zeros((8, 3), np.float32)  # E disagrees with w1
+    with pytest.raises(ValueError, match="layer shapes"):
+        seq.sasrec_params_from_jax(params)
     with pytest.raises(NotImplementedError, match="item 10"):
         seq.train_sasrec(CPU, None, seq.SASRecConfig(seq_parallel=True))
     with pytest.raises(NotImplementedError, match="item 7"):
         seq.train_sasrec(CPU, None, seq.SASRecConfig(checkpoint_dir="/nowhere"))
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         seq.train_sasrec(CPU, None)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         tmpl.SASRecAlgorithm(tmpl.SASRecParams()).train(CPU, tmpl.TrainingData(None))
 
 
@@ -381,9 +384,6 @@ def test_jax_trained_model_served_by_the_port(stores):
     engine = tmpl.SequentialRecommendationEngine.apply()
     iid = _publish(port_storage, engine, pm, variant)
     assert workflow.get_latest_completed_instance(port_storage).id == iid
-    with pytest.raises(NotImplementedError, match="item 3"):
-        workflow.run_train(engine, engine.params_from_variant(variant), FACTORY,
-                           storage=port_storage, ctx=CPU)
 
     idx = {inv[j]: j for j in range(len(inv))}
     users = [f"u{u}" for u in range(0, 48, 5)] + ["u_long", "u_tie"]
