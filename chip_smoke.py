@@ -36,6 +36,41 @@ code is not 0 and the last line is never printed.
              factors (see ``phase_small_parity`` for what is held to what),
              and ``run_train(RecommendationEngine.apply(), …)`` from
              rate/buy events in MEMORY storage to a COMPLETED instance.
+4a. gather-kernel — the segment solver's gather kernel against its plain
+             version on the card, bit for bit: the first chunk (65,536
+             ratings) of each side's stream of the same ML-25M draw against
+             the item factors (59,047 × 10) and the user factors (162,541 ×
+             10), × {f32, bf16, int8}; then n ∈ {1, 7, 513, 65,539} × ranks
+             {1, 4, 10, 64, 65, 128, 256} × dtypes with indices at 0, at
+             n_opp − 1 and beyond both ends (clamped), and n = 0 (no launch).
+             Times each side and dtype: kernel ms and device µs, the plain
+             version, one PyTorch yardstick (``V.index_select(0, idx)``; for
+             int8 the two-call ``index_select(...).float() * scale.
+             index_select(...)``, timed only, with its device µs) and the
+             bound (the call's distinct rows counted on the host).
+4b. train-segment — the segment solver's main path at full width:
+             ``train_als(ALSConfig(solver="segment", rank=10, iterations=20))``
+             on the same draw and seed, so from the dense run's initial
+             factors. The gather kernel launches exactly (user chunks + item
+             chunks) × 20 times and the training kernel not at all; the
+             factors are finite, the RMSE is below the first iteration's and
+             within 1e-3 relative of the dense model's. Reports the
+             prediction gap to the dense model on 10,000 sampled pairs (and
+             the share beyond the JAX package's dense-vs-segment tolerance,
+             rtol 5e-2, atol 5e-3), seconds per iteration, ratings ·
+             iterations/s, device time by kernel and by op over 3 iterations,
+             the idle share and the peak memory.
+4c. segment-parity — the small draw trained with the segment solver on
+             the card and on the CPU from one init by ``phase_small_parity``'s
+             rule; then f32 trained twice on the card from one seed, and
+             whether the two runs are bit-identical (reported, not held:
+             ``index_add_`` sums with float atomics).
+4d. train-workflow (segment) — the same events through ``run_train`` with
+             ``PIO_ALS_SOLVER=segment`` set for the call: COMPLETED, the gather
+             kernel launched a multiple of 5 times, the stored model's solver
+             "segment"; deployed by ``QueryServer(RecommendationEngine.apply(),
+             batching=True)``, 20 ``/queries.json`` each held against the
+             plain version.
 5. serving — the full-width trained model is written into the port's MEMORY
              storage as a COMPLETED engine instance, deployed by
              ``QueryServer(RecommendationEngine.apply(), batching=True)`` and
@@ -93,8 +128,9 @@ code is not 0 and the last line is never printed.
              (maxLen 256) → COMPLETED → ``QueryServer`` answers 20 queries, each
              held against the plain forward.
 
-Tolerances. Score kernel: values within rtol = atol = 1e-5; indices equal,
-except where two reference values lie within that tolerance of each other
+Tolerances. Gather kernel: bit for bit. Score kernel: values within rtol =
+atol = 1e-5; indices equal, except where two reference values lie within
+that tolerance of each other
 (summation order may swap them); exact equality for integer-valued
 factors. Training kernel: each entry of A and b within 3e-4 (against the
 plain version) and within 1e-5 (against the same operands summed in
@@ -170,30 +206,38 @@ def cuda_ms(fn, n: int) -> float:
 
 
 def device_us(fn, n: int = 20, tries: int = 2) -> dict:
-    """Device time per call of each CUDA kernel ``fn`` launches (µs), from
-    ``torch.profiler``; a trace that comes back without device events is
-    taken once more."""
+    """Device time per call of each CUDA kernel ``fn`` launches (µs)."""
+    return op_device_us(fn, n, tries)["kernels"]
+
+
+def op_device_us(fn, n: int = 3, tries: int = 2) -> dict:
+    """Device time per call, from ``torch.profiler``: by CUDA kernel and by
+    the PyTorch op that launched it (``self_device_time_total``); a trace
+    that comes back without device events is taken once more."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    kernels, ops = {}, {}
     for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = ev.cuda_time_total
+        if str(getattr(ev, "device_type", "")).endswith("CPU"):
+            t = getattr(ev, "self_device_time_total", 0) or 0
+            if t and ev.key.startswith("aten::"):
+                ops[ev.key] = ops.get(ev.key, 0.0) + t / n
+            continue
+        t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
         if t:
             name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
             name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
-            out[name] = out.get(name, 0.0) + t / n
-    if not out and tries > 1:
-        return device_us(fn, n, tries - 1)
-    return out
+            kernels[name] = kernels.get(name, 0.0) + t / n
+    if not kernels and tries > 1:
+        return op_device_us(fn, n, tries - 1)
+    return {"kernels": kernels, "ops": ops}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -727,8 +771,12 @@ def phase_small_parity(seed, device):
 
 
 def phase_workflow(seed, device):
-    """Events in MEMORY storage → run_train on the card → COMPLETED."""
+    """Events in MEMORY storage → run_train on the card → COMPLETED, with the
+    dense solver and then with ``PIO_ALS_SOLVER=segment``; the segment
+    instance is deployed and answers 20 queries, each held against the
+    plain version."""
     import numpy as np
+    import torch
 
     from predictionio_tpu_torch.core import workflow
     from predictionio_tpu_torch.data import store
@@ -738,8 +786,11 @@ def phase_workflow(seed, device):
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.device import DeviceContext
     from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.serving.query_server import QueryServer
     from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
+    from predictionio_tpu_torch.testing import topk_mismatches
 
+    t_phase = time.perf_counter()
     source = "CHIPSMOKEEV"
     storage = Storage(env={f"PIO_STORAGE_SOURCES_{source}_TYPE": "memory"})
     rng = np.random.default_rng(seed + 5)
@@ -760,27 +811,353 @@ def phase_workflow(seed, device):
         "datasource": {"params": {"appName": "ChipSmoke"}},
         "algorithms": [{"name": "als", "params": {"rank": RANK, "numIterations": 5}}],
     })
+    ctx = DeviceContext.create(device=device)
     store.set_storage(storage)
+    saved = os.environ.get("PIO_ALS_SOLVER")
     try:
         train_kernel.launches.reset()
-        iid = workflow.run_train(
-            engine, params, "predictionio_tpu_torch.templates.recommendation.RecommendationEngine",
-            storage=storage, ctx=DeviceContext.create(device=device),
-        )
+        iid = workflow.run_train(engine, params, ALS_FACTORY, storage=storage, ctx=ctx)
         launches = train_kernel.launches.count
         inst = storage.get_meta_data_engine_instances().get(iid)
         require(inst.status == "COMPLETED", f"run_train instance status {inst.status}")
         require(launches > 0 and launches % 5 == 0, f"run_train launched the kernel ({launches})")
         require(storage.get_model_data_models().get(iid) is not None, "model blob stored")
+
+        # the same events under PIO_ALS_SOLVER=segment, set for the call only
+        os.environ["PIO_ALS_SOLVER"] = "segment"
+        train_kernel.launches.reset()
+        train_kernel.gather_launches.reset()
+        try:
+            seg_iid = workflow.run_train(engine, params, ALS_FACTORY, storage=storage, ctx=ctx)
+        finally:
+            if saved is None:
+                os.environ.pop("PIO_ALS_SOLVER", None)
+            else:
+                os.environ["PIO_ALS_SOLVER"] = saved
+        gathers, dense_launches = train_kernel.gather_launches.count, train_kernel.launches.count
+        seg_inst = storage.get_meta_data_engine_instances().get(seg_iid)
+        require(seg_inst.status == "COMPLETED", f"segment run_train status {seg_inst.status}")
+        require(gathers > 0 and gathers % 5 == 0 and dense_launches == 0,
+                f"segment run_train: gather launches {gathers}, training kernel {dense_launches}")
+        _, _, _, models = workflow.prepare_deploy(engine, seg_inst, storage=storage, ctx=ctx)
+        model = models[0]
+        require(model.config.solver == "segment", f"stored solver {model.config.solver}")
+
+        qs = QueryServer(RecommendationEngine.apply(), storage=storage, ctx=ctx, batching=True)
+        try:
+            base = f"http://127.0.0.1:{qs.start('127.0.0.1', 0)}"
+            with urllib.request.urlopen(f"{base}/readyz", timeout=30) as r:
+                ready = json.loads(r.read())
+            require(ready["engineInstanceId"] == seg_iid, f"deployed the segment instance: {ready}")
+            users = [model.user_map.inverse[j] for j in rng.integers(0, len(model.user_map), 20)]
+            plain = Inputs(model.user_factors, model.item_factors, "f32", device)
+            n_items = model.item_factors.shape[0]
+            bad, answers = [], []
+            for u in users:
+                num = int(rng.integers(5, 30))
+                req = urllib.request.Request(
+                    f"{base}/queries.json", data=json.dumps({"user": u, "num": num}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    a = json.loads(r.read())
+                answers.append(a)
+                u_idx = torch.tensor([model.user_map[u]], dtype=torch.int32, device=device)
+                rv, ri = (t.cpu().numpy() for t in plain.plain(u_idx, min(num, n_items)))
+                got_i = np.array([[model.item_map[x["item"]] for x in a["itemScores"]]])
+                got_v = np.array([[x["score"] for x in a["itemScores"]]])
+                bad += topk_mismatches(got_v, got_i, rv, ri, TOL)
+            require(len(answers) == 20 and not bad,
+                    f"segment-trained answers disagree with the plain version: {bad[:3]}")
+        finally:
+            qs.stop()
     finally:
         store.set_storage(None)
         memory.reset_store(source)
     emit({"phase": "train-workflow", "events": len(events), "instance": iid,
-          "status": inst.status, "launches": launches})
+          "status": inst.status, "launches": launches,
+          "segment": {"instance": seg_iid, "status": seg_inst.status,
+                      "gather_launches": gathers, "queries": len(answers), "ok": True},
+          "seconds": time.perf_counter() - t_phase})
+
+
+ALS_FACTORY = "predictionio_tpu_torch.templates.recommendation.RecommendationEngine"
+
+
+# -- the segment solver ---------------------------------------------------------
+
+GATHER_EDGE_N = (1, 7, 513, 65_536 + 3)
+GATHER_EDGE_RANKS = (1, 4, 10, 64, 65, 128, 256)
+# the JAX package's own dense-vs-segment prediction tolerance (tests/test_als.py:339-353)
+SEG_PRED_RTOL, SEG_PRED_ATOL = 5e-2, 5e-3
+
+
+def gather_bound(idx, n_opp, rank, dtype):
+    """Least time for one gather call: idx read once (4 B a row), each
+    distinct row of V it names read once (with its scale for int8), the
+    (n, rank) float32 output written once; one multiply a value for int8."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops.quantize import FACTOR_BYTES
+
+    n = len(idx)
+    distinct = int(np.unique(np.clip(idx, 0, n_opp - 1)).size)
+    nbytes = 4 * n + 4 * n * rank + distinct * (rank * FACTOR_BYTES[dtype] + (4 if dtype == "int8" else 0))
+    ops = n * rank if dtype == "int8" else 0
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), distinct
+
+
+def gather_library(V, idx, v_scale):
+    """One PyTorch call (two for int8) that computes the gather: the yardstick."""
+    if v_scale is None:
+        return V.index_select(0, idx).float()
+    return V.index_select(0, idx).float() * v_scale.index_select(0, idx)
+
+
+def phase_gather_kernel(seed, device, inter):
+    """Kernel 3 against its plain version on the card, bit for bit: the first
+    chunk of each side's ML-25M stream, ranks and lengths at the edges; times
+    at the main path's shape."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.ops.quantize import quantize_factors_torch
+
+    t0 = time.perf_counter()
+    ub, ib = als._segment_blocks_for(inter)
+    rng = np.random.default_rng(seed + 20)
+    U = torch.from_numpy((rng.standard_normal((N_USERS, RANK)) / np.sqrt(RANK)).astype(np.float32)).to(device)
+    V = torch.from_numpy((rng.standard_normal((N_ITEMS, RANK)) / np.sqrt(RANK)).astype(np.float32)).to(device)
+    # the user half-step gathers item rows, the item half-step user rows
+    sides = {"user": (ub.other[: als._CHUNK], V), "item": (ib.other[: als._CHUNK], U)}
+    checked, rows = 0, []
+    for name, (idx_h, opp) in sides.items():
+        idx = torch.from_numpy(idx_h).to(device)
+        for dtype in DTYPES:
+            q, s = quantize_factors_torch(opp, dtype)
+            got = train_kernel.fused_gather_rows(q, idx, s)
+            ref = train_kernel.gather_rows_reference(q, idx, s)
+            torch.cuda.synchronize()
+            require(got.dtype == torch.float32 and torch.equal(got, ref),
+                    f"gather {name} side {dtype}: kernel differs from plain version "
+                    f"(max |Δ| {float((got - ref).abs().max())})")
+            checked += 1
+            bms, by, distinct = gather_bound(idx_h, opp.shape[0], RANK, dtype)
+            rows.append({
+                "side": name, "dtype": dtype, "n": len(idx_h), "n_opp": opp.shape[0],
+                "distinct_rows": distinct,
+                "ms": cuda_ms(lambda: train_kernel.fused_gather_rows(q, idx, s), 200),
+                "device_us": device_us(lambda: train_kernel.fused_gather_rows(q, idx, s), 20),
+                "plain_ms": cuda_ms(lambda: train_kernel.gather_rows_reference(q, idx, s), 50),
+                "library_ms": cuda_ms(lambda: gather_library(q, idx, s), 200),
+                "library_device_us": device_us(lambda: gather_library(q, idx, s), 20),
+                "library": "index_select" + (".float()" if dtype != "f32" else "")
+                           + (" * scale.index_select" if dtype == "int8" else ""),
+                "bound_ms": bms, "bound_by": by,
+            })
+            emit({"phase": "gather-kernel-time", **rows[-1]})
+    # the edges: lengths, ranks, indices at and beyond both ends, n = 0
+    for n in GATHER_EDGE_N:
+        for k in GATHER_EDGE_RANKS:
+            n_opp = 1000
+            opp = torch.from_numpy(rng.normal(size=(n_opp, k)).astype(np.float32)).to(device)
+            idx_h = rng.integers(0, n_opp, n).astype(np.int32)
+            idx_h[0] = n_opp - 1
+            idx_h[-1] = 0
+            if n >= 7:
+                idx_h[1:5] = (-1, -70_000, n_opp, 2**31 - 1)  # clamped
+            idx = torch.from_numpy(idx_h).to(device)
+            for dtype in DTYPES:
+                q, s = quantize_factors_torch(opp, dtype)
+                got = train_kernel.fused_gather_rows(q, idx, s)
+                ref = train_kernel.gather_rows_reference(q, idx, s)
+                torch.cuda.synchronize()
+                require(got.shape == (n, k) and torch.equal(got, ref),
+                        f"gather edge n={n} rank {k} {dtype}: kernel differs from plain version")
+                checked += 1
+    before = train_kernel.gather_launches.count
+    empty = train_kernel.fused_gather_rows(V, torch.zeros(0, dtype=torch.int32, device=device))
+    require(empty.shape == (0, RANK) and train_kernel.gather_launches.count == before,
+            "n = 0 returns (0, k) and launches nothing")
+    emit({"phase": "gather-kernel", "checked": checked + 1, "max_abs_err": 0.0,
+          "bitwise": True, "seconds": time.perf_counter() - t0, "ok": True})
+    return rows, 0.0
+
+
+def phase_train_segment(inter, seed, device, dense_model, dense_out):
+    """The segment solver's main path at full width: train_als, 20 iterations."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import train_kernel
+
+    t_phase = time.perf_counter()
+    cfg = als.ALSConfig(rank=RANK, iterations=TRAIN_ITERS, seed=seed, solver="segment")
+    ub, ib = als._segment_blocks_for(inter)
+    chunks = {name: b.length // min(b.length, als._CHUNK) for name, b in (("user", ub), ("item", ib))}
+    ctx = DeviceContext.create(device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    # the main path's window: counts read just before and just after
+    train_kernel.launches.reset()
+    train_kernel.gather_launches.reset()
+    t0 = time.perf_counter()
+    model = als.train_als(ctx, inter, cfg)
+    train_s = time.perf_counter() - t0
+    gathers, dense_launches = train_kernel.gather_launches.count, train_kernel.launches.count
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    want = (chunks["user"] + chunks["item"]) * cfg.iterations
+    require(gathers == want, f"gather launches {gathers} vs (chunks {chunks}) × {cfg.iterations}")
+    require(dense_launches == 0, f"the training kernel launched {dense_launches} times")
+    for F in (model.user_factors, model.item_factors):
+        require(bool(np.isfinite(F).all()), "finite factors")
+    require(model.config.solver == "segment", "segment model")
+
+    # one iteration from the initial factors (the first train_als runs),
+    # timed, then its device time by kernel and by op
+    gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
+    U0 = torch.from_numpy(als._initial_factors(cfg, N_USERS, gen)).to(device)
+    V0 = torch.from_numpy(als._initial_factors(cfg, N_ITEMS, gen)).to(device)
+    blocks = [tuple(torch.from_numpy(a).to(device) for a in (b.local, b.other, b.rating, b.mask))
+              + (b.n_entity,) for b in (ub, ib)]
+
+    def iteration():
+        U1 = als._half_step(blocks[0], V0, None, cfg)
+        return U1, als._half_step(blocks[1], U1, None, cfg)
+
+    iter_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        U1, V1 = iteration()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t)
+    median = float(np.median(iter_s))
+    rmse1 = rmse(inter, U1.cpu().numpy(), V1.cpu().numpy(), device)
+    prof = op_device_us(iteration, 3)
+    busy_us = sum(prof["kernels"].values())
+    del blocks, U1, V1
+    torch.cuda.empty_cache()
+
+    last = rmse(inter, model.user_factors, model.item_factors, device)
+    dense_rmse = dense_out["rmse_after_last"]
+    require(np.isfinite(last) and last < rmse1,
+            f"segment RMSE {last} after {cfg.iterations} iterations vs {rmse1} after 1")
+    rel = abs(last - dense_rmse) / dense_rmse
+    require(rel <= 1e-3, f"segment RMSE {last} vs dense {dense_rmse}: {rel} relative")
+    # predictions of 10,000 sampled (user, item) pairs against the dense model's
+    rng = np.random.default_rng(seed + 21)
+    u = rng.integers(0, N_USERS, 10_000)
+    i = rng.integers(0, N_ITEMS, 10_000)
+    ps = np.einsum("nk,nk->n", model.user_factors[u], model.item_factors[i])
+    pd = np.einsum("nk,nk->n", dense_model.user_factors[u], dense_model.item_factors[i])
+    beyond = np.abs(ps - pd) > SEG_PRED_ATOL + SEG_PRED_RTOL * np.abs(pd)
+
+    def top(d, m=12):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:m])
+
+    out = {"phase": "train-segment", "iterations": cfg.iterations, "chunk": als._CHUNK,
+           "chunks": chunks, "padded_slots": {"user": ub.length, "item": ib.length},
+           "gather_launches": gathers, "launches_training_kernel": dense_launches,
+           "train_als_s": train_s, "iteration_s": median, "iteration_s_all": iter_s,
+           "ratings_iterations_per_s": N_RATINGS / median,
+           "rmse_after_first": rmse1, "rmse_after_last": last, "dense_rmse_after_last": dense_rmse,
+           "rmse_rel_vs_dense": rel,
+           "pred_pairs": 10_000, "pred_max_abs_diff_vs_dense": float(np.abs(ps - pd).max()),
+           "pred_share_beyond_tol": float(beyond.mean()),
+           "pred_tol": {"rtol": SEG_PRED_RTOL, "atol": SEG_PRED_ATOL},
+           "iteration_device_us_total": busy_us,
+           "iteration_idle_share": 1.0 - busy_us * 1e-6 / median,
+           "iteration_device_us_by_kernel": top(prof["kernels"]),
+           "iteration_device_us_by_op": top(prof["ops"]),
+           "peak_memory_gb": peak_gb, "seconds": time.perf_counter() - t_phase, "ok": True}
+    emit(out)
+    return out
+
+
+def phase_segment_parity(seed, device):
+    """The segment solver on a small draw, on the card and on the CPU from
+    one init, by ``phase_small_parity``'s rule: f32 free-running over five
+    iterations at rtol = atol = 1e-4; bf16 and int8 half-step by half-step
+    at 1e-3, the CPU fed the card's previous factors. Then f32 twice on the
+    card from one seed: ``index_add_`` sums with float atomics, so the two
+    runs may differ; the difference is reported, not held."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+
+    t_phase = time.perf_counter()
+    n_users, n_items, iters = 2000, 1000, 5
+    inter = zipf_interactions(seed + 3, n_users, n_items, 50_000)
+    rng = np.random.default_rng(seed + 4)
+    init = ((rng.standard_normal((n_users, RANK)) / np.sqrt(RANK)).astype(np.float32),
+            (rng.standard_normal((n_items, RANK)) / np.sqrt(RANK)).astype(np.float32))
+    card_ctx, host_ctx = DeviceContext.create(device=device), DeviceContext.create(device="cpu")
+
+    def config(**kw):
+        return als.ALSConfig(rank=RANK, alpha=2.0, reg=0.05, iterations=iters, solver="segment", **kw)
+
+    def diff(a, b):
+        return float(np.abs(a - b).max())
+
+    results = []
+    for implicit in (False, True):
+        cfg = config(implicit=implicit)
+        card = als.train_als(card_ctx, inter, cfg, init_factors=init)
+        host = als.train_als(host_ctx, inter, cfg, init_factors=init)
+        err = max(diff(card.user_factors, host.user_factors), diff(card.item_factors, host.item_factors))
+        for a, b in ((card.user_factors, host.user_factors), (card.item_factors, host.item_factors)):
+            require(np.allclose(a, b, rtol=1e-4, atol=1e-4),
+                    f"segment card vs CPU factors, implicit={implicit} f32: max |Δ| {err}")
+        results.append({"implicit": implicit, "dtype": "f32", "iterations": iters, "tol": 1e-4,
+                        "max_abs_diff": err})
+
+    ub, ib = als._segment_blocks_for(inter)
+    blocks = {dev: [tuple(torch.from_numpy(a).to(dev) for a in (b.local, b.other, b.rating, b.mask))
+                    + (b.n_entity,) for b in (ub, ib)]
+              for dev in (device, "cpu")}
+    for dtype in ("bf16", "int8"):
+        for implicit in (False, True):
+            cfg = config(implicit=implicit, compute_dtype=dtype)
+            F = [torch.from_numpy(init[0]), torch.from_numpy(init[1])]
+            steps = []
+            for it in range(iters):
+                for side in (0, 1):  # user half-step gathers items, and back
+                    opp = F[1 - side]
+                    out = {}
+                    for dev in (device, "cpu"):
+                        o = opp.to(dev)
+                        gram = als._gram(o) if implicit else None
+                        out[dev] = als._half_step(blocks[dev][side], o, gram, cfg).cpu()
+                    got, ref = out[device].numpy(), out["cpu"].numpy()
+                    steps.append(diff(got, ref))
+                    require(np.allclose(got, ref, rtol=1e-3, atol=1e-3),
+                            f"segment card vs CPU {dtype} implicit={implicit} iteration {it} "
+                            f"{('user', 'item')[side]} half-step: max |Δ| {steps[-1]}")
+                    F[side] = out[device]
+            results.append({"dtype": dtype, "implicit": implicit, "iterations": iters,
+                            "tol": 1e-3, "half_step_max_abs_diff": steps})
+
+    cfg = config()
+    a = als.train_als(card_ctx, inter, cfg, init_factors=init)
+    b = als.train_als(card_ctx, inter, cfg, init_factors=init)
+    identical = bool(np.array_equal(a.user_factors, b.user_factors)
+                     and np.array_equal(a.item_factors, b.item_factors))
+    rerun = max(diff(a.user_factors, b.user_factors), diff(a.item_factors, b.item_factors))
+    out = {"phase": "segment-parity", "cases": results,
+           "rerun": {"bit_identical": identical, "max_abs_diff": rerun, "iterations": iters},
+           "seconds": time.perf_counter() - t_phase, "ok": True}
+    emit(out)
+    return out
 
 
 ALS_VARIANT = {"algorithms": [{"name": "als", "params": {"rank": RANK}}]}
-ALS_FACTORY = "predictionio_tpu_torch.templates.recommendation.RecommendationEngine"
 
 
 def publish(storage, engine, model, variant=ALS_VARIANT, factory=ALS_FACTORY):
@@ -1831,8 +2208,14 @@ def main(argv=None) -> int:
     _, _, rows, max_err = phase_kernels(args.seed, device)
     inter, cfg, side_rows, bucket_rows, train_err, first = phase_train_kernels(args.seed, device)
     model, train = phase_train(inter, cfg, device, first)
+    t0 = time.perf_counter()
+    gather_rows, gather_err = phase_gather_kernel(args.seed, device, inter)
+    seg_train = phase_train_segment(inter, args.seed, device, model, train)
     del inter
     phase_small_parity(args.seed, device)
+    seg_parity = phase_segment_parity(args.seed, device)
+    segment_s = time.perf_counter() - t0
+    emit({"phase": "segment-seconds", "seconds": segment_s})
     phase_workflow(args.seed, device)
     serving = phase_serving(model, args.seed, device)
     flash_rows, flash_err = phase_sasrec_kernel(args.seed, device)
@@ -1846,6 +2229,9 @@ def main(argv=None) -> int:
     # the training kernel's line: one iteration's normal equations (both
     # sides' buckets), f32, the main path's configuration
     both = [side_rows[(side, "f32")] for side in ("user", "item")]
+    # the gather kernel's line: one call at the main path's shape (a chunk of
+    # 65,536 ratings, rank 10, f32), the mean of the two sides' calls
+    g32 = [r for r in gather_rows if r["dtype"] == "f32"]
     kernels = {"kernels": [{
         "name": "fused_gather_score_topk",
         "route": "cuda",
@@ -1894,13 +2280,25 @@ def main(argv=None) -> int:
         "ms": bwd_rows[0][f"{part}_ms"], "plain_ms": bwd_rows[0]["plain_ms"],
         "bound_ms": bwd_rows[0][f"{part}_bound_ms"], "bound_by": bwd_rows[0][f"{part}_bound_by"],
         "library_ms": bwd_rows[0]["library_ms"],
-    } for part, line in (("dq", 140), ("dkv", 169))]}
+    } for part, line in (("dq", 140), ("dkv", 169))] + [{
+        "name": "fused_gather_rows",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "predictionio_tpu/ops/train_kernel.py:324",
+        "launches": seg_train["gather_launches"],
+        "max_abs_err": gather_err,
+        **{key: sum(r[key] for r in g32) / len(g32)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in g32) else "operations",
+    }]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "rows": rows, "serving": serving,
                    "train_sides": list(side_rows.values()), "train_buckets": bucket_rows,
-                   "train": train, "flash": flash_rows, "sasrec": sasrec,
+                   "train": train, "gather": gather_rows, "train_segment": seg_train,
+                   "segment_parity": seg_parity, "segment_phases_s": segment_s,
+                   "flash": flash_rows, "sasrec": sasrec,
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
                    "sasrec_train_workflow": sas_flow, **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")

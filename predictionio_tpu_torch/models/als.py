@@ -1,18 +1,22 @@
-"""Alternating Least Squares: training with the dense solver, the model and
-its serving-side scorer.
+"""Alternating Least Squares: training with the dense or the segment
+solver, the model and its serving-side scorer.
 
 Counterpart of ``predictionio_tpu/models/als.py`` on one card:
 
-* training (``:262-1069``): :class:`ALSConfig` with its training fields,
-  the host-side degree bucketing (``_degree_sort_permutation``,
+* training (``:170-1069``): :class:`ALSConfig` with its training fields and
+  :func:`train_als`, with two solvers. The dense solver (the default):
+  host-side degree bucketing (``_degree_sort_permutation``,
   ``_bucket_boundaries``, ``_make_dense_blocks``, ``_dense_blocks_for``),
-  the dense half-step (one call of the hand-written CUDA kernel
-  ``ops/train_kernel.fused_train_normal_eq`` per degree bucket, then one
-  batched Cholesky solve) and :func:`train_als`. There is no mesh: one card
-  holds every entity, so the blocks have no shard dimension and the
-  entities are degree-sorted (the JAX package's ``n_shards = 1`` layout).
-  The segment solver and mid-training checkpoints come with later slices
-  (ROADMAP §1 items 4 and 7) and raise until then;
+  then per half-step one call of the hand-written CUDA kernel
+  ``ops/train_kernel.fused_train_normal_eq`` per degree bucket and one
+  batched Cholesky solve. The segment solver (``solver="segment"``): the
+  rating stream in its own order (``_make_blocks``), then per half-step,
+  chunk by chunk, the CUDA kernel ``ops/train_kernel.fused_gather_rows``
+  and the normal equations summed with ``ops/segment.segment_sum``
+  (``index_add_``), and the same solve. There is no mesh: one card holds
+  every entity, so the blocks have no shard dimension (the JAX package's
+  ``n_shards = 1`` layout). Mid-training checkpoints come with a later
+  slice (ROADMAP §1 item 7) and raise until then;
 * :class:`ALSModel` (``:132``) and :func:`als_model_from_arrays`, which
   carries factors and id lists across from anywhere else;
 * serving (``:1757-2000``): :class:`ALSScorer`.
@@ -51,6 +55,7 @@ from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.ops import quantize as _quantize
 from predictionio_tpu_torch.ops import train_kernel as _train_kernel
+from predictionio_tpu_torch.ops.segment import segment_sum
 from predictionio_tpu_torch.ops.topk import NEG_INF
 
 logger = logging.getLogger(__name__)
@@ -74,12 +79,14 @@ class ALSConfig:
     # None → PIO_ALS_COMPUTE_DTYPE (default "f32"), read when the config is
     # built, not when the module is imported
     compute_dtype: Optional[str] = None
-    # The JAX package's LPT rebalance across mesh shards; one card has one
-    # shard, so entities are degree-sorted either way (kept so configs and
-    # pickled models read the same).
+    # The JAX package's LPT rebalance across mesh shards. One card has one
+    # shard, where the JAX package rebalances nothing: the dense solver
+    # degree-sorts and the segment solver keeps the original order either
+    # way (kept so configs and pickled models read the same).
     rebalance: bool = True
     # "dense" — degree-bucketed normal equations through the training
-    # kernel; "segment" (scatter-add) comes with ROADMAP §1 item 4.
+    # kernel (ranks 1..64); "segment" — the rating stream in chunks through
+    # the gather kernel, summed by scatter-add (any rank).
     # None → PIO_ALS_SOLVER (default "dense"), read when the config is built
     solver: Optional[str] = None
 
@@ -92,12 +99,7 @@ class ALSConfig:
             raise ValueError(
                 f"compute_dtype must be one of {COMPUTE_DTYPES}, got {self.compute_dtype!r}"
             )
-        if self.solver == "segment":
-            raise NotImplementedError(
-                "solver='segment' is not ported yet (ROADMAP §1 item 4, with "
-                "the gather-rows kernel); use solver='dense'"
-            )
-        if self.solver != "dense":
+        if self.solver not in ("dense", "segment"):
             raise ValueError(f"solver must be 'dense' or 'segment', got {self.solver!r}")
         if self.checkpoint_dir:
             raise NotImplementedError(
@@ -280,6 +282,69 @@ def _dense_blocks_for(interactions, cfg: ALSConfig):
 
 
 # ---------------------------------------------------------------------------
+# Segment solver: the rating stream in chunks (models/als.py:170-258, one shard)
+# ---------------------------------------------------------------------------
+
+
+# Ratings per chunk of the segment half-step: bounds the (chunk, k, k)
+# outer products. Chunk boundaries set the summation order, so this is the
+# JAX package's knob and default (``models/als.py:453``).
+_CHUNK = int(os.environ.get("PIO_ALS_CHUNK", 65536))
+
+
+@dataclasses.dataclass
+class _Blocks:
+    """One side's rating stream, padded: slot s rates ``local[s]`` (this
+    side's entity) against ``other[s]``. Padding slots carry other 0,
+    rating 0 and mask 0 and contribute exactly zero."""
+
+    local: np.ndarray  # (length,) int32 — this side's entity
+    other: np.ndarray  # (length,) int32 — the opposite entity
+    rating: np.ndarray  # (length,) float32
+    mask: np.ndarray  # (length,) float32, 1 = real, 0 = padding
+    n_entity: int  # entities of this side (the JAX package's per_shard)
+    length: int  # slots: a multiple of 8, and of _CHUNK beyond one chunk
+
+
+def _pad_to_multiple(n: int, m: int) -> int:
+    """Smallest multiple of m that is >= max(n, 1) (``parallel/mesh.py:96``)."""
+    return max(1, -(-max(n, 1) // m)) * m
+
+
+def _make_blocks(
+    entity: np.ndarray, other: np.ndarray, rating: np.ndarray, n_entity: int
+) -> _Blocks:
+    """The stream in its given order, padded to a multiple of 8 and, when it
+    is longer than one chunk, to a multiple of :data:`_CHUNK` (the JAX
+    package's ``_make_blocks`` at ``n_shards = 1``)."""
+    n = len(entity)
+    length = _pad_to_multiple(n, 8)
+    if length > _CHUNK:
+        length = _pad_to_multiple(length, _CHUNK)
+    local_b = np.zeros(length, np.int32)
+    other_b = np.zeros(length, np.int32)
+    rating_b = np.zeros(length, np.float32)
+    mask_b = np.zeros(length, np.float32)
+    local_b[:n] = entity
+    other_b[:n] = other
+    rating_b[:n] = rating
+    mask_b[:n] = 1.0
+    return _Blocks(local=local_b, other=other_b, rating=rating_b, mask=mask_b,
+                   n_entity=n_entity, length=length)
+
+
+def _segment_blocks_for(interactions) -> tuple[_Blocks, _Blocks]:
+    """Both sides' streams, users' then items', in original id order."""
+    user = interactions.user.astype(np.int64)
+    item = interactions.item.astype(np.int64)
+    rating = interactions.rating.astype(np.float32)
+    return (
+        _make_blocks(user, item, rating, interactions.n_users),
+        _make_blocks(item, user, rating, interactions.n_items),
+    )
+
+
+# ---------------------------------------------------------------------------
 # Device half-step: solve one side's factors from the other's
 # ---------------------------------------------------------------------------
 
@@ -318,6 +383,47 @@ def _dense_half_step(blocks, opp, gram, cfg: ALSConfig):
     )
 
 
+def _half_step(blocks, opp, gram, cfg: ALSConfig):
+    """The segment solver's half-step (``models/als.py:456-527``): one
+    side's new factors from the opposite side's. ``blocks`` is ``(local,
+    other, rating, mask, n_entity)`` with the four streams on the device.
+
+    Quantize the opposite factors once; then per chunk of :data:`_CHUNK`
+    slots gather the rows through the kernel (float32) and add the chunk's
+    outer products, right-hand sides and counts into A, b and cnt, every
+    operation float32 (no TF32: there is no matrix product). As in the JAX
+    package the carry is ``A = A + segment_sum(chunk)``, not an add into A
+    in place: with more than one chunk the in-place form sums in another
+    order.
+    """
+    local, other, rating, mask, n = blocks
+    k = cfg.rank
+    opp_q, opp_scale = _quantize.quantize_factors_torch(opp, cfg.compute_dtype)
+    alpha = _train_kernel._f32(cfg.alpha)
+    L = local.shape[0]
+    chunk = min(L, _CHUNK)
+    A = torch.zeros((n, k, k), dtype=torch.float32, device=opp.device)
+    b = torch.zeros((n, k), dtype=torch.float32, device=opp.device)
+    cnt = torch.zeros((n,), dtype=torch.float32, device=opp.device)
+    for s in range(0, L, chunk):
+        lo, ot = local[s: s + chunk], other[s: s + chunk]
+        rt, w = rating[s: s + chunk], mask[s: s + chunk]
+        vs = _train_kernel.fused_gather_rows(opp_q, ot, opp_scale)  # (chunk, k) f32
+        if cfg.implicit:
+            # A_u += Σ α·r · v vᵀ ;  b_u += Σ (1+α·r) · v   (p=1, c=1+αr)
+            cw = alpha * rt * w
+            outer = vs[:, :, None] * (vs * cw[:, None])[:, None, :]
+            A = A + segment_sum(outer, lo, n)
+            b = b + segment_sum(vs * ((1.0 + alpha * rt) * w)[:, None], lo, n)
+        else:
+            vsw = vs * w[:, None]
+            outer = vsw[:, :, None] * vsw[:, None, :]
+            A = A + segment_sum(outer, lo, n)
+            cnt = cnt + segment_sum(w, lo, n)
+            b = b + segment_sum(vsw * rt[:, None], lo, n)
+    return _solve_normal_equations(A, b, cnt, gram, k, cfg.reg, cfg.implicit)
+
+
 def _gram(F: torch.Tensor) -> torch.Tensor:
     """FᵀF (k, k) in full float32 (TF32 off for the call)."""
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -342,51 +448,65 @@ def train_als(
     *,
     init_factors: Optional[tuple[np.ndarray, np.ndarray]] = None,
 ) -> ALSModel:
-    """Train factors on ``ctx.device`` with the dense solver; returns a
+    """Train factors on ``ctx.device`` with ``config.solver``; returns a
     host-form :class:`ALSModel` with factors in original id order.
 
     The initial factors are standard normal draws from a CPU
     ``torch.Generator`` seeded by ``config.seed``, scaled by 1/sqrt(rank),
     unless ``init_factors=(U0, V0)`` gives them, in ORIGINAL entity order
-    ((n_users, rank) and (n_items, rank)). The JAX package draws them with
-    jax's threefry generator, which torch cannot reproduce, so the parity
-    tests pass the JAX draw here. On a CUDA device every bucket of every
-    half-step launches the training kernel; on the CPU it runs the kernel's
-    plain version.
+    ((n_users, rank) and (n_items, rank)). Both solvers start entity e from
+    row e of the draw, so one seed starts them from the same factors. The
+    JAX package draws them with jax's threefry generator, which torch
+    cannot reproduce, so the parity tests pass the JAX draw here. On a CUDA
+    device every bucket of every dense half-step launches the training
+    kernel, and every chunk of every segment half-step the gather kernel;
+    on the CPU they run the kernels' plain versions.
     """
     cfg = config or ALSConfig()
     device = ctx.device
     n_users, n_items = interactions.n_users, interactions.n_items
-    ub, ib, u_perm, i_perm = _dense_blocks_for(interactions, cfg)
 
     if init_factors is None:
         gen = torch.Generator(device="cpu").manual_seed(int(cfg.seed))
         U0 = _initial_factors(cfg, n_users, gen)
         V0 = _initial_factors(cfg, n_items, gen)
     else:
-        U0, V0 = (np.asarray(f, np.float32) for f in init_factors)
+        U0, V0 = (np.array(f, np.float32) for f in init_factors)
         if U0.shape != (n_users, cfg.rank) or V0.shape != (n_items, cfg.rank):
             raise ValueError(
                 f"init_factors shapes {U0.shape}/{V0.shape}, expected "
                 f"{(n_users, cfg.rank)}/{(n_items, cfg.rank)}"
             )
-    # blocked row perm[e] holds original entity e
-    U = torch.from_numpy(np.ascontiguousarray(U0[np.argsort(u_perm)])).to(device)
-    V = torch.from_numpy(np.ascontiguousarray(V0[np.argsort(i_perm)])).to(device)
-
-    def put(blocks: _DenseBlocks):
-        return [
-            tuple(torch.from_numpy(a).to(device) for a in (i, r, m))
-            for i, r, m in zip(blocks.idx, blocks.rat, blocks.msk)
-        ]
-
-    u_blocks, i_blocks = put(ub), put(ib)
+    if cfg.solver == "segment":
+        # no relabeling: the JAX package's one-shard segment path
+        ub, ib = _segment_blocks_for(interactions)
+        u_perm = i_perm = None
+        u_blocks, i_blocks = (
+            tuple(torch.from_numpy(a).to(device)
+                  for a in (blk.local, blk.other, blk.rating, blk.mask)) + (blk.n_entity,)
+            for blk in (ub, ib)
+        )
+        half_step = _half_step
+    else:
+        ub, ib, u_perm, i_perm = _dense_blocks_for(interactions, cfg)
+        # blocked row perm[e] holds original entity e
+        U0 = U0[np.argsort(u_perm)]
+        V0 = V0[np.argsort(i_perm)]
+        u_blocks, i_blocks = (
+            [tuple(torch.from_numpy(a).to(device) for a in t)
+             for t in zip(blk.idx, blk.rat, blk.msk)]
+            for blk in (ub, ib)
+        )
+        half_step = _dense_half_step
+    U = torch.from_numpy(np.ascontiguousarray(U0)).to(device)
+    V = torch.from_numpy(np.ascontiguousarray(V0)).to(device)
     for _ in range(cfg.iterations):
         # u-solve gathers ITEM factors, v-solve gathers USER factors
-        U = _dense_half_step(u_blocks, V, _gram(V) if cfg.implicit else None, cfg)
-        V = _dense_half_step(i_blocks, U, _gram(U) if cfg.implicit else None, cfg)
-    U_host = U.cpu().numpy()[u_perm]
-    V_host = V.cpu().numpy()[i_perm]
+        U = half_step(u_blocks, V, _gram(V) if cfg.implicit else None, cfg)
+        V = half_step(i_blocks, U, _gram(U) if cfg.implicit else None, cfg)
+    U_host, V_host = U.cpu().numpy(), V.cpu().numpy()
+    if u_perm is not None:
+        U_host, V_host = U_host[u_perm], V_host[i_perm]
     return ALSModel(
         user_factors=U_host,
         item_factors=V_host,

@@ -1,7 +1,8 @@
-"""Normal equations of one ALS degree bucket: the CUDA kernel's wrapper and
-its plain PyTorch version.
+"""The ALS training kernels' wrappers and their plain PyTorch versions:
+the dense solver's normal equations (kernel 2) and the segment solver's row
+gather (kernel 3).
 
-Replaces the Pallas kernel ``predictionio_tpu/ops/train_kernel.py``
+**Kernel 2** replaces the Pallas kernel ``predictionio_tpu/ops/train_kernel.py``
 ``_train_contract_kernel``, reached through ``fused_train_normal_eq``: per
 bucket of the dense solver, gather the opposite factors ``V[idx]``
 (int8 rows times their per-row scale) and accumulate ``A``, ``b`` and
@@ -12,19 +13,27 @@ thread block per (row, part) stages 64 slots at a time in shared memory;
 rows wider than one part are cut into parts and summed in part order by a
 second launch, so every sum has one order and one seed gives one model.
 
-:func:`fused_train_normal_eq` routes by device and nothing else:
+**Kernel 3** replaces ``_gather_rows_kernel``, reached through
+``fused_gather_rows``: per chunk of the segment solver's rating stream,
+``V[idx]`` widened to float32 (int8 rows times their scale). The kernel is
+``csrc/gather_rows.cu``, one thread per output value.
 
-* tensors on the CPU take :func:`train_normal_eq_reference`, the plain
-  version the CPU tests run;
+:func:`fused_train_normal_eq` and :func:`fused_gather_rows` route by device
+and nothing else:
+
+* tensors on the CPU take :func:`train_normal_eq_reference` and
+  :func:`gather_rows_reference`, the plain versions the CPU tests run;
 * tensors on a CUDA device launch the kernel, or raise on a device, dtype,
   shape or contiguity the kernel does not take, or on a CUDA error.
 
-On either device a rank above :data:`MAX_RANK` raises. There is no ``try``
-that falls back and no environment variable that picks the plain version
-on the card: on the card V is read through L2, so the JAX package's VMEM
-budget and its demotion to the XLA path (``fits_vmem``) have no
-counterpart. :data:`launches` counts the kernel's launches (one per call:
-one or two CUDA grids).
+On either device a rank above :data:`MAX_RANK` raises in the normal
+equations; the gather takes any rank while n·k stays within
+:data:`MAX_ELEMENTS`. There is no ``try`` that falls back and no
+environment variable that picks the plain version on the card: on the card
+V is read through L2, so the JAX package's VMEM budget and its demotion to
+the XLA path (``fits_vmem``, ``models/als.py:675-693``) have no counterpart
+for either kernel. :data:`launches` counts kernel 2's launches (one per
+call: one or two CUDA grids), :data:`gather_launches` kernel 3's.
 """
 
 from __future__ import annotations
@@ -50,6 +59,11 @@ BLOCKS_PER_SM = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 launches = LaunchCounter()
+gather_launches = LaunchCounter()
+
+# Kernel 3: the most values (n·k) one call writes (the C source's
+# MAX_ELEMENTS: its flat index is 32-bit).
+MAX_ELEMENTS = 2**31 - 1
 
 
 def _f32(x: float) -> float:
@@ -229,3 +243,92 @@ def fused_train_normal_eq(
         raise RuntimeError(f"train_normal_eq kernel launch failed: {msg} ({rc})")
     launches.bump()
     return A, b, cnt
+
+
+# -- kernel 3: the segment solver's row gather --------------------------------
+
+
+def gather_rows_reference(
+    V: torch.Tensor, idx: torch.Tensor, v_scale: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The kernel's plain PyTorch version, the JAX package's reference math
+    (``models/als.py:480-488,497``): dequantize V (int8 times its per-row
+    scale), gather the rows (an index outside ``[0, n_opp)`` clamped, as
+    XLA's gather clamps it), widen to float32."""
+    opp = V if v_scale is None else V.float() * v_scale
+    return opp[idx.long().clamp(0, V.shape[0] - 1)].float()
+
+
+_gather_lib = None
+
+
+def _gather_library():
+    """The built gather library (built on first use, once per process)."""
+    global _gather_lib
+    with _lib_lock:
+        if _gather_lib is None:
+            from predictionio_tpu_torch.ops import _build
+
+            lib = ctypes.CDLL(str(_build.library("gather_rows")))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.pio_gather_rows.argtypes = [p] * 4 + [i] * 4 + [p]
+            lib.pio_gather_rows.restype = i
+            lib.pio_gather_rows_limits.argtypes = [p]
+            lib.pio_gather_rows_limits.restype = i
+            lib.pio_gather_rows_error_string.argtypes = [i]
+            lib.pio_gather_rows_error_string.restype = ctypes.c_char_p
+            most = ctypes.c_longlong()
+            lib.pio_gather_rows_limits(ctypes.byref(most))
+            if most.value != MAX_ELEMENTS:
+                raise RuntimeError("gather_rows.cu MAX_ELEMENTS disagrees with Python")
+            _gather_lib = lib
+        return _gather_lib
+
+
+def fused_gather_rows(
+    V: torch.Tensor, idx: torch.Tensor, v_scale: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """``V[idx]`` widened to float32: ``(n, k)``.
+
+    ``V`` (n_opp, k) is f32, bf16 or int8; int8 needs ``v_scale`` (n_opp, 1)
+    f32, and only int8 takes one. ``idx`` (n,) int32; an index outside
+    ``[0, n_opp)`` is clamped. The result equals :func:`gather_rows_reference`
+    bit for bit on either device. ``n = 0`` returns an empty ``(0, k)`` tensor
+    and launches nothing.
+    """
+    if V.dim() != 2 or V.shape[0] == 0 or V.shape[1] == 0:
+        raise ValueError(f"V must be a non-empty (n_opp, k) matrix, got {tuple(V.shape)}")
+    if V.dtype not in _DTYPE_CODE:
+        raise ValueError(f"V dtype {V.dtype} not supported")
+    if (V.dtype == torch.int8) != (v_scale is not None):
+        raise ValueError("v_scale goes with int8 V, and only with it")
+    if idx.dim() != 1 or idx.dtype != torch.int32:
+        raise ValueError(f"idx must be a (n,) int32 vector, got {idx.dtype} {tuple(idx.shape)}")
+    n_opp, k = V.shape
+    (n,) = idx.shape
+    if n * k > MAX_ELEMENTS:
+        raise ValueError(f"{n} rows of rank {k} exceed the gather kernel's {MAX_ELEMENTS} values")
+    device = V.device
+    if device.type == "cpu":
+        return gather_rows_reference(V, idx, v_scale)
+    if device.type != "cuda":
+        raise ValueError(f"no gather kernel for device {device}")
+    _check(idx, "idx", device, (torch.int32,), (n,))
+    _check(V, "V", device, (V.dtype,), (n_opp, k))
+    _check(v_scale, "v_scale", device, (torch.float32,), (n_opp, 1))
+    out = torch.empty((n, k), dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    lib = _gather_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pio_gather_rows(
+            idx.data_ptr(), V.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(), out.data_ptr(),
+            n, n_opp, k, _DTYPE_CODE[V.dtype], stream,
+        )
+    if rc != 0:
+        msg = lib.pio_gather_rows_error_string(rc).decode()
+        raise RuntimeError(f"gather_rows kernel launch failed: {msg} ({rc})")
+    gather_launches.bump()
+    return out

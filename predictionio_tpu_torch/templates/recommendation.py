@@ -5,7 +5,9 @@ Counterpart of ``predictionio_tpu/templates/recommendation.py`` (parity:
 (graded) and ``buy`` (weight 4.0) events, or the ``eventRatings`` mapping;
 :class:`ExcludeItemsPreparator` drops file-listed items;
 ``ALSAlgorithm.train`` runs :func:`~predictionio_tpu_torch.models.als.
-train_als` (dense solver, the training kernel) and its deploy and predict
+train_als` (the dense solver through the training kernel, or, under
+``PIO_ALS_SOLVER=segment``, the segment solver through the gather kernel)
+and its deploy and predict
 methods serve through the score kernel; :class:`FileFilterServing` filters
 a per-query disabled-items file.
 

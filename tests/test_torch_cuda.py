@@ -16,8 +16,9 @@ kernel by ``normal_eq_mismatches`` (each entry of A and b within 3e-4 of
 the summed absolute products behind it against the plain version, and
 within 1e-5 against the same operands summed in float64, plus 1e-6; cnt
 equal; ``predictionio_tpu_torch/testing.py`` says how the two were set);
-training on the card against training on the CPU from the same initial
-factors, rtol = atol = 1e-4 at f32; the flash-attention kernel against its
+the gather kernel bit for bit against its plain version; training on the
+card against training on the CPU from the same initial factors (dense and
+segment solvers), rtol = atol = 1e-4 at f32; the flash-attention kernel against its
 plain version, o within rtol = atol = 2e-5 (the JAX package's own flash
 test) and lse within 1e-5; the backward kernels against the plain backward,
 rtol 2e-4, atol 2e-5 (the JAX package's own gradient test); SASRec logits
@@ -112,6 +113,67 @@ def test_train_on_card_matches_cpu(card, implicit):
     before = train_kernel.launches.count
     on_card = als.train_als(DeviceContext.create(device=card), inter, cfg, init_factors=init)
     assert train_kernel.launches.count - before == (len(ub.widths) + len(ib.widths)) * 3
+    on_cpu = als.train_als(DeviceContext.create(device="cpu"), inter, cfg, init_factors=init)
+    np.testing.assert_allclose(on_card.user_factors, on_cpu.user_factors, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(on_card.item_factors, on_cpu.item_factors, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n, n_opp, k", [(1, 9, 1), (513, 200, 10), (65_539, 3000, 65),
+                                         (70, 40, 256)])
+def test_gather_kernel_matches_plain_version_bitwise_on_card(card, dtype, n, n_opp, k):
+    rng = np.random.default_rng(n + k)
+    V = torch.from_numpy(rng.normal(size=(n_opp, k)).astype(np.float32)).to(card)
+    idx = rng.integers(0, n_opp, n).astype(np.int32)
+    idx[:2] = (0, n_opp - 1)[: min(2, n)]
+    if n > 4:
+        idx[2:4] = (-3, n_opp + 5)  # clamped
+    idx = torch.from_numpy(idx).to(card)
+    q, s = quantize_factors_torch(V, dtype)
+    before = train_kernel.gather_launches.count
+    got = train_kernel.fused_gather_rows(q, idx, s)
+    ref = train_kernel.gather_rows_reference(q, idx, s)
+    torch.cuda.synchronize()
+    assert train_kernel.gather_launches.count == before + 1
+    assert got.dtype == torch.float32 and torch.equal(got, ref)
+    empty = train_kernel.fused_gather_rows(q, idx[:0], s)
+    assert empty.shape == (0, k) and train_kernel.gather_launches.count == before + 1
+
+
+@pytest.mark.cuda
+def test_gather_kernel_refuses_what_it_does_not_take(card):
+    V = torch.zeros((8, 4), device=card)
+    idx = torch.zeros(5, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="idx is on cpu"):
+        train_kernel.fused_gather_rows(V, idx.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        train_kernel.fused_gather_rows(V.t().contiguous().t(), idx)
+    with pytest.raises(ValueError, match="v_scale"):
+        train_kernel.fused_gather_rows(V.to(torch.int8), idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("implicit", (False, True))
+def test_segment_train_on_card_matches_cpu(card, implicit, monkeypatch):
+    """Several chunks a half-step (chunks of 256); the card sums with float
+    atomics in another order than the CPU, within rtol = atol = 1e-4."""
+    monkeypatch.setattr(als, "_CHUNK", 256)
+    rng = np.random.default_rng(3)
+    n_users, n_items, n = 70, 45, 1200
+    inter = interactions_from_arrays(
+        rng.integers(0, n_users, n), rng.integers(0, n_items, n),
+        rng.uniform(1, 5, n), np.zeros(n),
+        [f"u{i}" for i in range(n_users)], [f"i{j}" for j in range(n_items)],
+    )
+    cfg = als.ALSConfig(rank=5, iterations=3, implicit=implicit, seed=2, solver="segment")
+    init = (rng.standard_normal((n_users, 5)).astype(np.float32),
+            rng.standard_normal((n_items, 5)).astype(np.float32))
+    before = train_kernel.launches.count, train_kernel.gather_launches.count
+    on_card = als.train_als(DeviceContext.create(device=card), inter, cfg, init_factors=init)
+    # 1,200 ratings pad to 5 chunks of 256 on each side, 3 iterations
+    assert (train_kernel.launches.count - before[0],
+            train_kernel.gather_launches.count - before[1]) == (0, 2 * 5 * 3)
     on_cpu = als.train_als(DeviceContext.create(device="cpu"), inter, cfg, init_factors=init)
     np.testing.assert_allclose(on_card.user_factors, on_cpu.user_factors, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(on_card.item_factors, on_cpu.item_factors, rtol=1e-4, atol=1e-4)

@@ -70,13 +70,18 @@ print(" ".join(names))
         "predictionio_tpu_torch.ops.flash_attention", "predictionio_tpu_torch.parallel.ring",
         "predictionio_tpu_torch.models.sequential",
         "predictionio_tpu_torch.templates.sequentialrecommendation",
+        # the segment solver's slice
+        "predictionio_tpu_torch.ops.segment",
     } <= names
-    # the SASRec training slice adds no module: its names, by attribute
+    # the SASRec training and segment slices' names, by attribute
     code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "
             "from predictionio_tpu_torch.ops.flash_attention import _FlashAttention, flash_block_bwd, "
             "flash_attention_bwd_reference, bwd_dq_launches, bwd_dkv_launches; "
             "from predictionio_tpu_torch.models.sequential import train_sasrec, build_sequences, "
-            "_moe_ffn, _loss_fn, train_step")
+            "_moe_ffn, _loss_fn, train_step; "
+            "from predictionio_tpu_torch.ops.train_kernel import fused_gather_rows, "
+            "gather_rows_reference, gather_launches; "
+            "from predictionio_tpu_torch.models.als import _make_blocks, _half_step")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
@@ -88,7 +93,7 @@ def test_every_kernel_source_is_built():
     from predictionio_tpu_torch.ops import _build
 
     assert set(_build.SOURCES) == {p.stem for p in (PORT / "csrc").glob("*.cu")}
-    assert "flash_bwd" in _build.SOURCES
+    assert "flash_bwd" in _build.SOURCES and "gather_rows" in _build.SOURCES
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

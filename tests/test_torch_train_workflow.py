@@ -17,6 +17,9 @@ factors' own tolerance (``tests/test_torch_als_train.py``).
 fields left at None, as the JAX package's does, so an engine trained with
 ``run_train`` under ``PIO_ALS_COMPUTE_DTYPE=bf16`` trains in bf16: its
 factors must EQUAL those of ``train_als`` with ``compute_dtype="bf16"``.
+Under ``PIO_ALS_SOLVER=segment`` it trains with the segment solver: its
+factors must EQUAL those of ``train_als`` with ``solver="segment"``, and it
+serves the answers of the JAX engine trained with the segment solver.
 """
 
 import functools
@@ -100,7 +103,7 @@ def _variant(**algo):
     }
 
 
-def _jax_trained(variant):
+def _jax_trained(variant, solver="dense"):
     """The JAX package's read → prepare → train on a one-device mesh, and
     the initial factors its trainer drew (original order)."""
     engine = jax_rec.RecommendationEngine.apply()
@@ -110,7 +113,7 @@ def _jax_trained(variant):
     cfg = jax_als.ALSConfig(
         rank=ap.rank, iterations=ap.numIterations, reg=ap.reg,
         implicit=ap.implicitPrefs, alpha=ap.alpha, seed=ap.seed,
-        solver="dense", train_kernel="reference",
+        solver=solver, train_kernel="reference",
     )
     inter = pd.interactions
     model = jax_als.train_als(MeshContext.create(devices=jax.devices()[:1]), inter, cfg)
@@ -148,6 +151,12 @@ def test_events_to_served_answers_match_jax(stores, monkeypatch, implicit):
     assert inst.status == "COMPLETED" and inst.engine_factory == FACTORY
     assert workflow.get_latest_completed_instance(port_storage).id == iid
 
+    _assert_served_like_jax(port_storage, engine, jax_model)
+
+
+def _assert_served_like_jax(port_storage, engine, jax_model):
+    """Deploy the latest COMPLETED instance with ``QueryServer(batching=True)``
+    and hold every user's answer against the JAX engine's predict."""
     qs = QueryServer(engine, storage=port_storage, ctx=CPU, batching=True)
     try:
         base_url = f"http://127.0.0.1:{qs.start('127.0.0.1', 0)}"
@@ -229,6 +238,7 @@ ENV_KEYS = ("PIO_ALS_COMPUTE_DTYPE", "PIO_ALS_SOLVER")
     ({}, ("f32", "dense")),
     ({"PIO_ALS_COMPUTE_DTYPE": "bf16"}, ("bf16", "dense")),
     ({"PIO_ALS_COMPUTE_DTYPE": "int8", "PIO_ALS_SOLVER": "dense"}, ("int8", "dense")),
+    ({"PIO_ALS_SOLVER": "segment"}, ("f32", "segment")),
 ])
 def test_als_config_reads_the_environment_as_jax_does(monkeypatch, env, want):
     for key in ENV_KEYS:
@@ -245,13 +255,11 @@ def test_als_config_reads_the_environment_as_jax_does(monkeypatch, env, want):
 def test_als_config_refusals_follow_the_environment(monkeypatch):
     for key in ENV_KEYS:
         monkeypatch.delenv(key, raising=False)
+    # the segment solver is ported: the environment picks it in both packages
     monkeypatch.setenv("PIO_ALS_SOLVER", "segment")
-    assert jax_als.ALSConfig().solver == "segment"
-    with pytest.raises(NotImplementedError, match="segment"):
-        als.ALSConfig()
+    assert jax_als.ALSConfig().solver == als.ALSConfig().solver == "segment"
     monkeypatch.delenv("PIO_ALS_SOLVER")
-    with pytest.raises(NotImplementedError, match="segment"):
-        als.ALSConfig(solver="segment")
+    assert als.ALSConfig(solver="segment").solver == "segment"
     monkeypatch.setenv("PIO_ALS_SOLVER", "sparse")
     for cls in (als.ALSConfig, jax_als.ALSConfig):
         with pytest.raises(ValueError):
@@ -284,3 +292,32 @@ def test_run_train_under_bf16_environment_trains_bf16(stores, monkeypatch):
     f32 = als.train_als(CPU, inter, als.ALSConfig(
         rank=RANK, iterations=ITERS, reg=0.05, seed=SEED))
     assert not np.array_equal(got.item_factors, f32.item_factors)
+
+
+def test_run_train_under_segment_environment_trains_segment(stores, monkeypatch):
+    """``PIO_ALS_SOLVER=segment`` reaches the engine's ``ALSConfig``: the
+    stored model is the segment solver's ``train_als`` exactly, and it serves
+    the JAX engine's answers (segment solver, reference backend) by the
+    1e-4 rule."""
+    port_storage, _ = stores
+    for key in ENV_KEYS:
+        monkeypatch.delenv(key, raising=False)
+    variant = _variant()
+    jax_model, init = _jax_trained(variant, solver="segment")
+    monkeypatch.setattr(rec, "train_als", functools.partial(rec.train_als, init_factors=init))
+    engine = rec.RecommendationEngine.apply()
+    params = engine.params_from_variant(variant)
+    monkeypatch.setenv("PIO_ALS_SOLVER", "segment")
+    iid = workflow.run_train(engine, params, FACTORY, storage=port_storage, ctx=CPU)
+    monkeypatch.delenv("PIO_ALS_SOLVER")
+    inst = port_storage.get_meta_data_engine_instances().get(iid)
+    assert inst.status == "COMPLETED"
+    _, _, _, models = workflow.prepare_deploy(engine, inst, storage=port_storage, ctx=CPU)
+    got = models[0]
+    assert got.config.solver == "segment"
+    inter = engine.prepare_data(CPU, params).interactions
+    want = als.train_als(CPU, inter, als.ALSConfig(
+        rank=RANK, iterations=ITERS, reg=0.05, seed=SEED, solver="segment"), init_factors=init)
+    assert np.array_equal(got.user_factors, want.user_factors)
+    assert np.array_equal(got.item_factors, want.item_factors)
+    _assert_served_like_jax(port_storage, engine, jax_model)
