@@ -36,7 +36,9 @@ code is not 0 and the last line is never printed.
              factors (see ``phase_small_parity`` for what is held to what),
              and ``run_train(RecommendationEngine.apply(), …)`` from
              rate/buy events in MEMORY storage to a COMPLETED instance.
-4a. gather-kernel — the segment solver's gather kernel against its plain
+4a. gather-kernel — kernel 3 as ported one to one (the gather the segment
+             solver called per chunk before the segment kernel took its
+             place; no path calls it now) against its plain
              version on the card, bit for bit: the first chunk (65,536
              ratings) of each side's stream of the same ML-25M draw against
              the item factors (59,047 × 10) and the user factors (162,541 ×
@@ -48,29 +50,40 @@ code is not 0 and the last line is never printed.
              int8 the two-call ``index_select(...).float() * scale.
              index_select(...)``, timed only, with its device µs) and the
              bound (the call's distinct rows counted on the host).
-4b. train-segment — the segment solver's main path at full width:
+4b. segment-kernel — the segment solver's normal-equation kernel (kernel
+             3 redesigned: one launch a half-step over the stream sorted by
+             entity) on the card against its plain version on the CPU (the
+             chunk loop over the stream in its own order), A, b and cnt bit
+             for bit, and a second launch byte for byte: a 1,000,000-rating
+             draw (20,000 users × 5,000 items, 16 chunks, the hot items a
+             block each) at rank 10 × {f32, bf16, int8} × explicit/implicit,
+             both sides; ranks 1 and 65 on 20,000 ratings in chunks of 4,096
+             with every entity of 64 slots or more on a block, f32 and int8;
+             then the ML-25M draw, f32 explicit, both sides. Times each side
+             at the ML-25M shape: the layout's build on the card, the kernel,
+             the plain version on the card and the bound.
+4c. train-segment — the segment solver's main path at full width:
              ``train_als(ALSConfig(solver="segment", rank=10, iterations=20))``
              on the same draw and seed, so from the dense run's initial
-             factors. The gather kernel launches exactly (user chunks + item
-             chunks) × 20 times and the training kernel not at all; the
-             factors are finite, the RMSE is below the first iteration's and
-             within 1e-3 relative of the dense model's. Reports the
-             prediction gap to the dense model on 10,000 sampled pairs (and
-             the share beyond the JAX package's dense-vs-segment tolerance,
-             rtol 5e-2, atol 5e-3), seconds per iteration, ratings ·
+             factors. The segment kernel launches exactly 2 × 20 times, the
+             gather kernel and the training kernel not at all; the factors
+             are finite, the RMSE is below the first iteration's and within
+             1e-3 relative of the dense model's. Reports the layouts' build
+             seconds, the prediction gap to the dense model on 10,000 sampled
+             pairs (and the share beyond the JAX package's dense-vs-segment
+             tolerance, rtol 5e-2, atol 5e-3), seconds per iteration, ratings ·
              iterations/s, device time by kernel and by op over 3 iterations,
              the idle share and the peak memory.
-4c. segment-parity — the small draw trained with the segment solver on
+4d. segment-parity — the small draw trained with the segment solver on
              the card and on the CPU from one init by ``phase_small_parity``'s
-             rule; then f32 trained twice on the card from one seed, and
-             whether the two runs are bit-identical (reported, not held:
-             ``index_add_`` sums with float atomics).
-4d. train-workflow (segment) — the same events through ``run_train`` with
-             ``PIO_ALS_SOLVER=segment`` set for the call: COMPLETED, the gather
-             kernel launched a multiple of 5 times, the stored model's solver
-             "segment"; deployed by ``QueryServer(RecommendationEngine.apply(),
-             batching=True)``, 20 ``/queries.json`` each held against the
-             plain version.
+             rule; then f32 trained twice on the card from one seed, and the
+             two runs must be bit-identical.
+4e. train-workflow (segment) — the same events through ``run_train`` with
+             ``PIO_ALS_SOLVER=segment`` set for the call: COMPLETED, the
+             segment kernel launched 2 × 5 times and the gather kernel not at
+             all, the stored model's solver "segment"; deployed by
+             ``QueryServer(RecommendationEngine.apply(), batching=True)``, 20
+             ``/queries.json`` each held against the plain version.
 5. serving — the full-width trained model is written into the port's MEMORY
              storage as a COMPLETED engine instance, deployed by
              ``QueryServer(RecommendationEngine.apply(), batching=True)`` and
@@ -128,7 +141,7 @@ code is not 0 and the last line is never printed.
              (maxLen 256) → COMPLETED → ``QueryServer`` answers 20 queries, each
              held against the plain forward.
 
-Tolerances. Gather kernel: bit for bit. Score kernel: values within rtol =
+Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
 that tolerance of each other
 (summation order may swap them); exact equality for integer-valued
@@ -223,7 +236,7 @@ def op_device_us(fn, n: int = 3, tries: int = 2) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    kernels, ops = {}, {}
+    kernels, ops, launches = {}, {}, {}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CPU"):
             t = getattr(ev, "self_device_time_total", 0) or 0
@@ -235,9 +248,11 @@ def op_device_us(fn, n: int = 3, tries: int = 2) -> dict:
             name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
             name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
             kernels[name] = kernels.get(name, 0.0) + t / n
+            # launches a call the trace saw: a fraction means it lost events
+            launches[name] = launches.get(name, 0.0) + ev.count / n
     if not kernels and tries > 1:
         return op_device_us(fn, n, tries - 1)
-    return {"kernels": kernels, "ops": ops}
+    return {"kernels": kernels, "ops": ops, "launches": launches}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -825,8 +840,8 @@ def phase_workflow(seed, device):
 
         # the same events under PIO_ALS_SOLVER=segment, set for the call only
         os.environ["PIO_ALS_SOLVER"] = "segment"
-        train_kernel.launches.reset()
-        train_kernel.gather_launches.reset()
+        for c in (train_kernel.launches, train_kernel.gather_launches, train_kernel.segment_launches):
+            c.reset()
         try:
             seg_iid = workflow.run_train(engine, params, ALS_FACTORY, storage=storage, ctx=ctx)
         finally:
@@ -834,11 +849,13 @@ def phase_workflow(seed, device):
                 os.environ.pop("PIO_ALS_SOLVER", None)
             else:
                 os.environ["PIO_ALS_SOLVER"] = saved
+        segments = train_kernel.segment_launches.count
         gathers, dense_launches = train_kernel.gather_launches.count, train_kernel.launches.count
         seg_inst = storage.get_meta_data_engine_instances().get(seg_iid)
         require(seg_inst.status == "COMPLETED", f"segment run_train status {seg_inst.status}")
-        require(gathers > 0 and gathers % 5 == 0 and dense_launches == 0,
-                f"segment run_train: gather launches {gathers}, training kernel {dense_launches}")
+        require(segments == 2 * 5 and gathers == 0 and dense_launches == 0,
+                f"segment run_train: segment kernel {segments} (want 10), gather {gathers}, "
+                f"training kernel {dense_launches} launches")
         _, _, _, models = workflow.prepare_deploy(engine, seg_inst, storage=storage, ctx=ctx)
         model = models[0]
         require(model.config.solver == "segment", f"stored solver {model.config.solver}")
@@ -876,7 +893,7 @@ def phase_workflow(seed, device):
     emit({"phase": "train-workflow", "events": len(events), "instance": iid,
           "status": inst.status, "launches": launches,
           "segment": {"instance": seg_iid, "status": seg_inst.status,
-                      "gather_launches": gathers, "queries": len(answers), "ok": True},
+                      "segment_launches": segments, "queries": len(answers), "ok": True},
           "seconds": time.perf_counter() - t_phase})
 
 
@@ -986,6 +1003,167 @@ def phase_gather_kernel(seed, device, inter):
     return rows, 0.0
 
 
+SEG_DRAW = (20_000, 5_000, 1_000_000)  # users, items, ratings: 16 chunks of 65,536
+SEG_EDGE_RANKS = (1, 65)  # 65: past the dense kernel's 64, 18 and 34 tiles of accumulators
+SEG_EDGE_CHUNK = 4096  # 20,000 ratings in five chunks at the edge ranks
+
+
+def segment_stats(lay):
+    """Host copies of a layout's sizes: slots, runs, entities, heavy ones."""
+    return {"slots": int(lay.other.shape[0]), "runs": int(lay.run_offsets.shape[0]) - 1,
+            "entities": lay.n_entity, "heavy": int(lay.heavy.shape[0])}
+
+
+def segment_bound(stats, distinct, rank, dtype):
+    """Least time for one segment half-step, explicit: the sorted stream read
+    once (other and rating, 8 B a slot), the run and entity offsets and the
+    entity lists (4 B each), each distinct row of V the stream names (with
+    its scale for int8), A, b and cnt written once; a slot's f32 operations
+    are the products and sums of A's entries i ≤ j (A is symmetric, its
+    mirror is a copy), of b and of the count, k(k + 1) + 2k + 1, k more for
+    int8 rows (the scale), and a run's the fold of those k(k + 1)/2 + k + 1
+    sums into the carry."""
+    from predictionio_tpu_torch.ops.quantize import FACTOR_BYTES
+
+    k, nnz, runs, n = rank, stats["slots"], stats["runs"], stats["entities"]
+    nbytes = (8 * nnz + 4 * (runs + 1) + 4 * (n + 1) + 4 * n
+              + distinct * (k * FACTOR_BYTES[dtype] + (4 if dtype == "int8" else 0))
+              + 4 * n * (k * k + k + 1))
+    ops = (nnz * (k * (k + 1) + 2 * k + 1 + (k if dtype == "int8" else 0))
+           + runs * (k * (k + 1) // 2 + k + 1))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_segment(blk, chunk, opp, dtype, implicit, device, what):
+    """The segment kernel on the card against its plain version on the CPU
+    (the layout's stream, the same chunk): A, b and cnt bit for bit, and a
+    second launch byte for byte. Returns the layouts' sizes."""
+    import torch
+
+    from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.ops.quantize import quantize_factors_torch
+
+    stream = [torch.from_numpy(a) for a in (blk.local, blk.other, blk.rating, blk.mask)]
+    lay = train_kernel.segment_layout(*(t.to(device) for t in stream), blk.n_entity, chunk=chunk)
+    q, s = quantize_factors_torch(opp, dtype)
+    got = train_kernel.fused_segment_normal_eq(lay, q, s, implicit=implicit, alpha=2.0)
+    again = train_kernel.fused_segment_normal_eq(lay, q, s, implicit=implicit, alpha=2.0)
+    ref = train_kernel.segment_normal_eq_reference(
+        *stream, blk.n_entity, q.cpu(), None if s is None else s.cpu(),
+        implicit=implicit, alpha=2.0, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, g, a, r in zip(("A", "b", "cnt"), got, again, ref):
+        g = g.cpu()
+        require(g.dtype == torch.float32 and torch.equal(g, r),
+                f"segment {what} {dtype} implicit={implicit}: kernel {name} differs from the "
+                f"plain version (max |Δ| {float((g - r).abs().max())})")
+        require(torch.equal(a.cpu(), g), f"segment {what}: two launches differ in {name}")
+    return segment_stats(lay)
+
+
+def phase_segment_kernel(seed, device, inter):
+    """The segment kernel against its plain version, bit for bit: a 1,000,000-
+    rating draw (16 chunks, Zipf-hot items a block each) at rank 10 × dtypes
+    × explicit/implicit, both sides; ranks 1 and 65 on 20,000 ratings in
+    chunks of 4,096 with every entity of 64 slots or more on a block; then
+    the ML-25M draw, f32 explicit, both sides, against the plain version run
+    on the CPU. Times each side at the ML-25M shape: the layout's build, the
+    kernel (CUDA events over back-to-back calls), the plain version (the
+    chunk loop on the card) and the bound."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.ops.quantize import quantize_factors_torch
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 22)
+
+    def factors(n, k):
+        return torch.from_numpy((rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)).to(device)
+
+    checked, cases = 0, []
+    n_u, n_i, n_r = SEG_DRAW
+    small = zipf_interactions(seed + 22, n_u, n_i, n_r)
+    ub, ib = als._segment_blocks_for(small)
+    U, V = factors(n_u, RANK), factors(n_i, RANK)
+    for dtype in DTYPES:
+        for implicit in (False, True):
+            for side, blk, opp in (("user", ub, V), ("item", ib, U)):
+                st = check_segment(blk, als._CHUNK, opp, dtype, implicit, device, f"{side} side")
+                checked += 1
+            cases.append({"dtype": dtype, "implicit": implicit, "rank": RANK, "ratings": n_r})
+    require(st["heavy"] > 0, f"the draw's hot items take a block: {st}")
+    edge = zipf_interactions(seed + 23, 300, 200, 20_000)
+    eb = als._segment_blocks_for(edge)
+    heavy_slots = train_kernel.HEAVY_SLOTS
+    train_kernel.HEAVY_SLOTS = 64
+    try:
+        for k in SEG_EDGE_RANKS:
+            opps = (factors(200, k), factors(300, k))
+            for dtype in ("f32", "int8"):
+                for implicit in (False, True):
+                    for side, blk, opp in zip(("user", "item"), eb, opps):
+                        check_segment(blk, SEG_EDGE_CHUNK, opp, dtype, implicit, device,
+                                      f"rank {k} {side} side")
+                        checked += 1
+                    cases.append({"dtype": dtype, "implicit": implicit, "rank": k, "ratings": 20_000,
+                                  "chunk": SEG_EDGE_CHUNK, "heavy_slots": 64})
+    finally:
+        train_kernel.HEAVY_SLOTS = heavy_slots
+    emit({"phase": "segment-kernel", "checked": checked, "cases": cases, "max_abs_err": 0.0,
+          "bitwise": True, "seconds": time.perf_counter() - t_phase})
+
+    # the main path's shape: the ML-25M draw, rank 10, f32, explicit
+    t_full = time.perf_counter()
+    full_u, full_i = als._segment_blocks_for(inter)
+    U, V = factors(N_USERS, RANK), factors(N_ITEMS, RANK)
+    rows = []
+    for side, blk, opp in (("user", full_u, V), ("item", full_i, U)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lay = als._segment_layout(blk, device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        stats = segment_stats(lay)
+        q, s = quantize_factors_torch(opp, "f32")
+        chunk = min(blk.length, als._CHUNK)
+        stream = [torch.from_numpy(a).to(device) for a in (blk.local, blk.other, blk.rating, blk.mask)]
+
+        def kernel():
+            return train_kernel.fused_segment_normal_eq(lay, q, s)
+
+        def plain():
+            return train_kernel.segment_normal_eq_reference(*stream, blk.n_entity, q, s, chunk=chunk)
+
+        got = [t.cpu() for t in kernel()]
+        ref = train_kernel.segment_normal_eq_reference(
+            *(torch.from_numpy(a) for a in (blk.local, blk.other, blk.rating, blk.mask)),
+            blk.n_entity, q.cpu(), chunk=chunk)
+        for name, g, r in zip(("A", "b", "cnt"), got, ref):
+            require(torch.equal(g, r), f"segment ML-25M {side} side: kernel {name} differs from the "
+                                       f"plain version on the CPU (max |Δ| {float((g - r).abs().max())})")
+        checked += 1
+        distinct = int(np.unique(blk.other[: stats["slots"]]).size)
+        bms, by = segment_bound(stats, distinct, RANK, "f32")
+        rows.append({
+            "side": side, "dtype": "f32", "implicit": False, "chunk": chunk, **stats,
+            "distinct_rows": distinct, "layout_build_s": build_s,
+            # one launch a call, ~1 ms of device work each, back to back: the
+            # events time the card (train-segment's trace gives its device µs)
+            "ms": cuda_ms(kernel, 20),
+            "plain_ms": cuda_ms(plain, 2), "bound_ms": bms, "bound_by": by, "library_ms": None,
+        })
+        emit({"phase": "segment-kernel-time", **rows[-1]})
+        del lay, stream, got, ref
+        torch.cuda.empty_cache()
+    emit({"phase": "segment-kernel-full", "checked": 2, "bitwise_vs_cpu": True,
+          "seconds": time.perf_counter() - t_full, "ok": True})
+    return rows, 0.0
+
+
 def phase_train_segment(inter, seed, device, dense_model, dense_out):
     """The segment solver's main path at full width: train_als, 20 iterations."""
     import numpy as np
@@ -1002,17 +1180,21 @@ def phase_train_segment(inter, seed, device, dense_model, dense_out):
     ctx = DeviceContext.create(device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    start_gb = torch.cuda.memory_allocated(device) / 1e9  # held by earlier phases
     # the main path's window: counts read just before and just after
-    train_kernel.launches.reset()
-    train_kernel.gather_launches.reset()
+    counters = (train_kernel.segment_launches, train_kernel.gather_launches, train_kernel.launches)
+    for c in counters:
+        c.reset()
     t0 = time.perf_counter()
     model = als.train_als(ctx, inter, cfg)
     train_s = time.perf_counter() - t0
-    gathers, dense_launches = train_kernel.gather_launches.count, train_kernel.launches.count
+    segments, gathers, dense_launches = (c.count for c in counters)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    want = (chunks["user"] + chunks["item"]) * cfg.iterations
-    require(gathers == want, f"gather launches {gathers} vs (chunks {chunks}) × {cfg.iterations}")
-    require(dense_launches == 0, f"the training kernel launched {dense_launches} times")
+    require(segments == 2 * cfg.iterations,
+            f"segment kernel launches {segments} vs 2 half-steps × {cfg.iterations} iterations")
+    require(gathers == 0 and dense_launches == 0,
+            f"train_als launched the gather kernel {gathers} and the training kernel "
+            f"{dense_launches} times")
     for F in (model.user_factors, model.item_factors):
         require(bool(np.isfinite(F).all()), "finite factors")
     require(model.config.solver == "segment", "segment model")
@@ -1022,12 +1204,16 @@ def phase_train_segment(inter, seed, device, dense_model, dense_out):
     gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
     U0 = torch.from_numpy(als._initial_factors(cfg, N_USERS, gen)).to(device)
     V0 = torch.from_numpy(als._initial_factors(cfg, N_ITEMS, gen)).to(device)
-    blocks = [tuple(torch.from_numpy(a).to(device) for a in (b.local, b.other, b.rating, b.mask))
-              + (b.n_entity,) for b in (ub, ib)]
+    # the layouts train_als builds before its loop, timed
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    layouts = [als._segment_layout(b, device) for b in (ub, ib)]
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t
 
     def iteration():
-        U1 = als._half_step(blocks[0], V0, None, cfg)
-        return U1, als._half_step(blocks[1], U1, None, cfg)
+        U1 = als._half_step(layouts[0], V0, None, cfg)
+        return U1, als._half_step(layouts[1], U1, None, cfg)
 
     iter_s = []
     for _ in range(5):
@@ -1040,7 +1226,7 @@ def phase_train_segment(inter, seed, device, dense_model, dense_out):
     rmse1 = rmse(inter, U1.cpu().numpy(), V1.cpu().numpy(), device)
     prof = op_device_us(iteration, 3)
     busy_us = sum(prof["kernels"].values())
-    del blocks, U1, V1
+    del layouts, U1, V1
     torch.cuda.empty_cache()
 
     last = rmse(inter, model.user_factors, model.item_factors, device)
@@ -1062,6 +1248,7 @@ def phase_train_segment(inter, seed, device, dense_model, dense_out):
 
     out = {"phase": "train-segment", "iterations": cfg.iterations, "chunk": als._CHUNK,
            "chunks": chunks, "padded_slots": {"user": ub.length, "item": ib.length},
+           "layout_build_s": layout_s, "segment_launches": segments,
            "gather_launches": gathers, "launches_training_kernel": dense_launches,
            "train_als_s": train_s, "iteration_s": median, "iteration_s_all": iter_s,
            "ratings_iterations_per_s": N_RATINGS / median,
@@ -1073,8 +1260,11 @@ def phase_train_segment(inter, seed, device, dense_model, dense_out):
            "iteration_device_us_total": busy_us,
            "iteration_idle_share": 1.0 - busy_us * 1e-6 / median,
            "iteration_device_us_by_kernel": top(prof["kernels"]),
+           "iteration_launches": sum(prof["launches"].values()),
+           "iteration_launches_by_kernel": top(prof["launches"]),
            "iteration_device_us_by_op": top(prof["ops"]),
-           "peak_memory_gb": peak_gb, "seconds": time.perf_counter() - t_phase, "ok": True}
+           "peak_memory_gb": peak_gb, "memory_at_start_gb": start_gb,
+           "seconds": time.perf_counter() - t_phase, "ok": True}
     emit(out)
     return out
 
@@ -1083,9 +1273,11 @@ def phase_segment_parity(seed, device):
     """The segment solver on a small draw, on the card and on the CPU from
     one init, by ``phase_small_parity``'s rule: f32 free-running over five
     iterations at rtol = atol = 1e-4; bf16 and int8 half-step by half-step
-    at 1e-3, the CPU fed the card's previous factors. Then f32 twice on the
-    card from one seed: ``index_add_`` sums with float atomics, so the two
-    runs may differ; the difference is reported, not held."""
+    at 1e-3, the CPU fed the card's previous factors. The normal equations
+    are equal on both devices bit for bit (``segment-kernel``); the factors
+    part where the two devices' Cholesky solves round differently. Then f32
+    twice on the card from one seed: the kernel sums in one fixed order, so
+    the two runs must be bit-identical."""
     import numpy as np
     import torch
 
@@ -1118,9 +1310,7 @@ def phase_segment_parity(seed, device):
         results.append({"implicit": implicit, "dtype": "f32", "iterations": iters, "tol": 1e-4,
                         "max_abs_diff": err})
 
-    ub, ib = als._segment_blocks_for(inter)
-    blocks = {dev: [tuple(torch.from_numpy(a).to(dev) for a in (b.local, b.other, b.rating, b.mask))
-                    + (b.n_entity,) for b in (ub, ib)]
+    blocks = {dev: [als._segment_layout(b, dev) for b in als._segment_blocks_for(inter)]
               for dev in (device, "cpu")}
     for dtype in ("bf16", "int8"):
         for implicit in (False, True):
@@ -1150,6 +1340,7 @@ def phase_segment_parity(seed, device):
     identical = bool(np.array_equal(a.user_factors, b.user_factors)
                      and np.array_equal(a.item_factors, b.item_factors))
     rerun = max(diff(a.user_factors, b.user_factors), diff(a.item_factors, b.item_factors))
+    require(identical, f"two card runs of one seed differ: max |Δ| {rerun}")
     out = {"phase": "segment-parity", "cases": results,
            "rerun": {"bit_identical": identical, "max_abs_diff": rerun, "iterations": iters},
            "seconds": time.perf_counter() - t_phase, "ok": True}
@@ -2210,6 +2401,7 @@ def main(argv=None) -> int:
     model, train = phase_train(inter, cfg, device, first)
     t0 = time.perf_counter()
     gather_rows, gather_err = phase_gather_kernel(args.seed, device, inter)
+    seg_rows, seg_err = phase_segment_kernel(args.seed, device, inter)
     seg_train = phase_train_segment(inter, args.seed, device, model, train)
     del inter
     phase_small_parity(args.seed, device)
@@ -2281,6 +2473,8 @@ def main(argv=None) -> int:
         "bound_ms": bwd_rows[0][f"{part}_bound_ms"], "bound_by": bwd_rows[0][f"{part}_bound_by"],
         "library_ms": bwd_rows[0]["library_ms"],
     } for part, line in (("dq", 140), ("dkv", 169))] + [{
+        # kernel 3 as ported one to one: no path calls it since the segment
+        # kernel took its place, so its count inside train_als is 0
         "name": "fused_gather_rows",
         "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/gather_rows.cu",
@@ -2290,13 +2484,28 @@ def main(argv=None) -> int:
         **{key: sum(r[key] for r in g32) / len(g32)
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in g32) else "operations",
+    }, {
+        # kernel 3 redesigned with the chunk body it fed: one iteration's
+        # normal equations (both half-steps) at the main path's shape;
+        # plain_ms is the chunk loop on the card; no one PyTorch call
+        # computes the function
+        "name": "fused_segment_normal_eq",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/segment_normal_eq.cu",
+        "replaces": "predictionio_tpu/ops/train_kernel.py:324",
+        "launches": seg_train["segment_launches"],
+        "max_abs_err": seg_err,
+        **{key: sum(r[key] for r in seg_rows) for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in seg_rows) else "operations",
+        "library_ms": None,
     }]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "rows": rows, "serving": serving,
                    "train_sides": list(side_rows.values()), "train_buckets": bucket_rows,
-                   "train": train, "gather": gather_rows, "train_segment": seg_train,
+                   "train": train, "gather": gather_rows, "segment_kernel": seg_rows,
+                   "train_segment": seg_train,
                    "segment_parity": seg_parity, "segment_phases_s": segment_s,
                    "flash": flash_rows, "sasrec": sasrec,
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,

@@ -10,10 +10,11 @@ Counterpart of ``predictionio_tpu/models/als.py`` on one card:
   then per half-step one call of the hand-written CUDA kernel
   ``ops/train_kernel.fused_train_normal_eq`` per degree bucket and one
   batched Cholesky solve. The segment solver (``solver="segment"``): the
-  rating stream in its own order (``_make_blocks``), then per half-step,
-  chunk by chunk, the CUDA kernel ``ops/train_kernel.fused_gather_rows``
-  and the normal equations summed with ``ops/segment.segment_sum``
-  (``index_add_``), and the same solve. There is no mesh: one card holds
+  rating stream in its own order (``_make_blocks``), sorted by entity once
+  per side (``_segment_layout``), then per half-step one call of the CUDA
+  kernel ``ops/train_kernel.fused_segment_normal_eq``, which sums the
+  normal equations in the JAX package's chunk order, and the same solve.
+  There is no mesh: one card holds
   every entity, so the blocks have no shard dimension (the JAX package's
   ``n_shards = 1`` layout). Mid-training checkpoints come with a later
   slice (ROADMAP §1 item 7) and raise until then;
@@ -55,7 +56,6 @@ from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.ops import quantize as _quantize
 from predictionio_tpu_torch.ops import train_kernel as _train_kernel
-from predictionio_tpu_torch.ops.segment import segment_sum
 from predictionio_tpu_torch.ops.topk import NEG_INF
 
 logger = logging.getLogger(__name__)
@@ -85,8 +85,8 @@ class ALSConfig:
     # way (kept so configs and pickled models read the same).
     rebalance: bool = True
     # "dense" — degree-bucketed normal equations through the training
-    # kernel (ranks 1..64); "segment" — the rating stream in chunks through
-    # the gather kernel, summed by scatter-add (any rank).
+    # kernel (ranks 1..64); "segment" — the rating stream sorted by entity,
+    # summed in chunk order by the segment kernel (ranks 1..1024).
     # None → PIO_ALS_SOLVER (default "dense"), read when the config is built
     solver: Optional[str] = None
 
@@ -333,6 +333,16 @@ def _make_blocks(
                    n_entity=n_entity, length=length)
 
 
+def _segment_layout(blk: _Blocks, device) -> _train_kernel.SegmentLayout:
+    """One side's stream sorted by entity on ``device``, for the segment
+    kernel: built once per side before the iterations. The runs follow the
+    half-step's chunk, ``min(length, _CHUNK)``; on the CPU the layout also
+    keeps the stream, which the plain version sums."""
+    stream = [torch.from_numpy(a).to(device) for a in (blk.local, blk.other, blk.rating, blk.mask)]
+    return _train_kernel.segment_layout(
+        *stream, blk.n_entity, chunk=min(blk.length, _CHUNK))
+
+
 def _segment_blocks_for(interactions) -> tuple[_Blocks, _Blocks]:
     """Both sides' streams, users' then items', in original id order."""
     user = interactions.user.astype(np.int64)
@@ -383,45 +393,18 @@ def _dense_half_step(blocks, opp, gram, cfg: ALSConfig):
     )
 
 
-def _half_step(blocks, opp, gram, cfg: ALSConfig):
+def _half_step(layout, opp, gram, cfg: ALSConfig):
     """The segment solver's half-step (``models/als.py:456-527``): one
-    side's new factors from the opposite side's. ``blocks`` is ``(local,
-    other, rating, mask, n_entity)`` with the four streams on the device.
+    side's new factors from the opposite side's. ``layout`` is the side's
+    :class:`~predictionio_tpu_torch.ops.train_kernel.SegmentLayout`.
 
-    Quantize the opposite factors once; then per chunk of :data:`_CHUNK`
-    slots gather the rows through the kernel (float32) and add the chunk's
-    outer products, right-hand sides and counts into A, b and cnt, every
-    operation float32 (no TF32: there is no matrix product). As in the JAX
-    package the carry is ``A = A + segment_sum(chunk)``, not an add into A
-    in place: with more than one chunk the in-place form sums in another
-    order.
+    Quantize the opposite factors once, sum A, b and cnt in one call of the
+    segment kernel (on the CPU its plain version: JAX's chunk loop), solve.
     """
-    local, other, rating, mask, n = blocks
-    k = cfg.rank
     opp_q, opp_scale = _quantize.quantize_factors_torch(opp, cfg.compute_dtype)
-    alpha = _train_kernel._f32(cfg.alpha)
-    L = local.shape[0]
-    chunk = min(L, _CHUNK)
-    A = torch.zeros((n, k, k), dtype=torch.float32, device=opp.device)
-    b = torch.zeros((n, k), dtype=torch.float32, device=opp.device)
-    cnt = torch.zeros((n,), dtype=torch.float32, device=opp.device)
-    for s in range(0, L, chunk):
-        lo, ot = local[s: s + chunk], other[s: s + chunk]
-        rt, w = rating[s: s + chunk], mask[s: s + chunk]
-        vs = _train_kernel.fused_gather_rows(opp_q, ot, opp_scale)  # (chunk, k) f32
-        if cfg.implicit:
-            # A_u += Σ α·r · v vᵀ ;  b_u += Σ (1+α·r) · v   (p=1, c=1+αr)
-            cw = alpha * rt * w
-            outer = vs[:, :, None] * (vs * cw[:, None])[:, None, :]
-            A = A + segment_sum(outer, lo, n)
-            b = b + segment_sum(vs * ((1.0 + alpha * rt) * w)[:, None], lo, n)
-        else:
-            vsw = vs * w[:, None]
-            outer = vsw[:, :, None] * vsw[:, None, :]
-            A = A + segment_sum(outer, lo, n)
-            cnt = cnt + segment_sum(w, lo, n)
-            b = b + segment_sum(vsw * rt[:, None], lo, n)
-    return _solve_normal_equations(A, b, cnt, gram, k, cfg.reg, cfg.implicit)
+    A, b, cnt = _train_kernel.fused_segment_normal_eq(
+        layout, opp_q, opp_scale, implicit=cfg.implicit, alpha=cfg.alpha)
+    return _solve_normal_equations(A, b, cnt, gram, cfg.rank, cfg.reg, cfg.implicit)
 
 
 def _gram(F: torch.Tensor) -> torch.Tensor:
@@ -459,8 +442,8 @@ def train_als(
     JAX package draws them with jax's threefry generator, which torch
     cannot reproduce, so the parity tests pass the JAX draw here. On a CUDA
     device every bucket of every dense half-step launches the training
-    kernel, and every chunk of every segment half-step the gather kernel;
-    on the CPU they run the kernels' plain versions.
+    kernel, and every segment half-step the segment kernel once; on the CPU
+    they run the kernels' plain versions.
     """
     cfg = config or ALSConfig()
     device = ctx.device
@@ -479,13 +462,9 @@ def train_als(
             )
     if cfg.solver == "segment":
         # no relabeling: the JAX package's one-shard segment path
-        ub, ib = _segment_blocks_for(interactions)
         u_perm = i_perm = None
         u_blocks, i_blocks = (
-            tuple(torch.from_numpy(a).to(device)
-                  for a in (blk.local, blk.other, blk.rating, blk.mask)) + (blk.n_entity,)
-            for blk in (ub, ib)
-        )
+            _segment_layout(blk, device) for blk in _segment_blocks_for(interactions))
         half_step = _half_step
     else:
         ub, ib, u_perm, i_perm = _dense_blocks_for(interactions, cfg)

@@ -26,7 +26,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("score_topk", "train_normal_eq", "gather_rows", "flash_fwd", "flash_bwd")
+SOURCES = (
+    "score_topk", "train_normal_eq", "gather_rows", "segment_normal_eq", "flash_fwd", "flash_bwd",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -5,7 +5,10 @@ sums with ``jax.ops.segment_sum``, outside any Pallas kernel; here the sum
 is ``index_add_`` into zeros, a plain torch op. On the CPU ``index_add_``
 adds the rows in order and equals the JAX sum bit for bit; on a CUDA card
 it adds with float atomics, in no fixed order, so two runs may differ in
-the last bits.
+the last bits. The segment solver's path on the card no longer sums here:
+it takes ``csrc/segment_normal_eq.cu``, which adds in order
+(``ops/train_kernel.fused_segment_normal_eq``). That kernel's plain version,
+which the CPU runs, still sums with ``index_add_``.
 """
 
 from __future__ import annotations

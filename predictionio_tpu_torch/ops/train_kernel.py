@@ -1,6 +1,6 @@
 """The ALS training kernels' wrappers and their plain PyTorch versions:
-the dense solver's normal equations (kernel 2) and the segment solver's row
-gather (kernel 3).
+the dense solver's normal equations (kernel 2), the row gather (kernel 3)
+and the segment solver's normal equations (kernel 3's redesign).
 
 **Kernel 2** replaces the Pallas kernel ``predictionio_tpu/ops/train_kernel.py``
 ``_train_contract_kernel``, reached through ``fused_train_normal_eq``: per
@@ -14,31 +14,46 @@ rows wider than one part are cut into parts and summed in part order by a
 second launch, so every sum has one order and one seed gives one model.
 
 **Kernel 3** replaces ``_gather_rows_kernel``, reached through
-``fused_gather_rows``: per chunk of the segment solver's rating stream,
-``V[idx]`` widened to float32 (int8 rows times their scale). The kernel is
-``csrc/gather_rows.cu``, one thread per output value.
+``fused_gather_rows``: ``V[idx]`` widened to float32 (int8 rows times their
+scale). The kernel is ``csrc/gather_rows.cu``, one thread per output value.
+It is the one-to-one counterpart of the TPU kernel; the segment solver's
+path no longer calls it.
 
-:func:`fused_train_normal_eq` and :func:`fused_gather_rows` route by device
-and nothing else:
+**The segment normal equations** (:func:`fused_segment_normal_eq`) are
+kernel 3 redesigned for the card together with the chunk body it fed
+(``models/als.py:_half_step_local``'s scan): one launch a half-step of
+``csrc/segment_normal_eq.cu`` gathers V's rows itself and sums each
+entity's outer products, right-hand sides and counts in the JAX package's
+order (chunk by chunk, stream order within a chunk), over the stream sorted
+by entity once per side (:func:`segment_layout`). No atomics: it equals
+its plain version, :func:`segment_normal_eq_reference` (the scan's body per
+chunk, ``index_add_`` into zeros), bit for bit.
 
-* tensors on the CPU take :func:`train_normal_eq_reference` and
-  :func:`gather_rows_reference`, the plain versions the CPU tests run;
+:func:`fused_train_normal_eq`, :func:`fused_gather_rows` and
+:func:`fused_segment_normal_eq` route by device and nothing else:
+
+* tensors on the CPU take :func:`train_normal_eq_reference`,
+  :func:`gather_rows_reference` and :func:`segment_normal_eq_reference`,
+  the plain versions the CPU tests run;
 * tensors on a CUDA device launch the kernel, or raise on a device, dtype,
   shape or contiguity the kernel does not take, or on a CUDA error.
 
-On either device a rank above :data:`MAX_RANK` raises in the normal
-equations; the gather takes any rank while n·k stays within
-:data:`MAX_ELEMENTS`. There is no ``try`` that falls back and no
-environment variable that picks the plain version on the card: on the card
-V is read through L2, so the JAX package's VMEM budget and its demotion to
-the XLA path (``fits_vmem``, ``models/als.py:675-693``) have no counterpart
-for either kernel. :data:`launches` counts kernel 2's launches (one per
-call: one or two CUDA grids), :data:`gather_launches` kernel 3's.
+On either device a rank above :data:`MAX_RANK` raises in the dense normal
+equations, and one above :data:`MAX_SEGMENT_RANK` in the segment ones; the
+gather takes any rank while n·k stays within :data:`MAX_ELEMENTS`. There is
+no ``try`` that falls back and no environment variable that picks the plain
+version on the card: on the card V is read through L2, so the JAX
+package's VMEM budget and its demotion to the XLA path (``fits_vmem``,
+``models/als.py:675-693``) have no counterpart for any of them.
+:data:`launches` counts kernel 2's launches (one per call: one or two CUDA
+grids), :data:`gather_launches` kernel 3's and :data:`segment_launches` the
+segment kernel's.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from typing import Optional
 
@@ -46,6 +61,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops.score_kernel import LaunchCounter
+from predictionio_tpu_torch.ops.segment import segment_sum
 
 # Slots one thread block stages in shared memory per step, and the largest
 # rank the kernel takes (the C source's TILE and MAX_RANK).
@@ -60,6 +76,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 launches = LaunchCounter()
 gather_launches = LaunchCounter()
+segment_launches = LaunchCounter()
 
 # Kernel 3: the most values (n·k) one call writes (the C source's
 # MAX_ELEMENTS: its flat index is 32-bit).
@@ -332,3 +349,244 @@ def fused_gather_rows(
         raise RuntimeError(f"gather_rows kernel launch failed: {msg} ({rc})")
     gather_launches.bump()
     return out
+
+
+# -- the segment solver's normal equations (kernel 3 redesigned) ---------------
+
+# The largest rank the segment kernel takes (the C source's MAX_RANK).
+MAX_SEGMENT_RANK = 1024
+# An entity with at least this many slots, and more than one run, is reduced by a
+# whole block (its runs spread over the block's warps), the others by one warp.
+HEAVY_SLOTS = 4096
+# The most slots a stream may hold: the layout's offsets are int32.
+MAX_SLOTS = 2**31 - 1
+
+
+@dataclasses.dataclass
+class SegmentLayout:
+    """One side's rating stream laid out for :func:`fused_segment_normal_eq`.
+
+    The real slots sorted by entity, stably: each entity's slots keep their
+    stream order and fall into runs, one for each chunk of ``chunk`` slots
+    that holds any, in chunk order. Padding (mask 0) is dropped: it adds
+    only ±0 to any sum. All offsets are int32. ``stream`` keeps the stream
+    in its own order, ``(local, other, rating, mask)``, for the plain
+    version; it is kept only on the CPU.
+    """
+
+    other: torch.Tensor  # (nnz,) int32, the opposite entity of each sorted slot
+    rating: torch.Tensor  # (nnz,) float32
+    run_offsets: torch.Tensor  # (n_runs + 1,) int32, slot offsets of the runs
+    entity_runs: torch.Tensor  # (n_entity + 1,) int32, run offsets of the entities
+    heavy: torch.Tensor  # (n_heavy,) int32, entities a block reduces, by id
+    light: torch.Tensor  # (n_light,) int32, entities a warp reduces, most slots first
+    n_entity: int
+    chunk: int
+    stream: Optional[tuple] = None
+
+
+def segment_layout(
+    local: torch.Tensor,
+    other: torch.Tensor,
+    rating: torch.Tensor,
+    mask: torch.Tensor,
+    n_entity: int,
+    *,
+    chunk: int,
+) -> SegmentLayout:
+    """Sort one side's padded stream by entity for the segment kernel, on the
+    stream's own device (``torch.sort(stable=True)``). ``local`` and
+    ``other`` are int32, ``rating`` and ``mask`` float32 with mask 1 for a
+    real slot and 0 for padding; ``chunk`` is the half-step's chunk (the
+    JAX package's ``min(length, _CHUNK)``), which sets the runs."""
+    length = local.shape[0]
+    if length > MAX_SLOTS:
+        raise ValueError(
+            f"{length} slots exceed the segment kernel's {MAX_SLOTS} (its offsets are int32)"
+        )
+    if not bool(((mask == 0) | (mask == 1)).all()):
+        raise ValueError("the segment layout takes a 0/1 mask")
+    device = local.device
+    # intermediates are freed as soon as they are used: on the card this
+    # runs beside the other side's layout
+    real = torch.nonzero(mask).squeeze(1)
+    entity, order = torch.sort(local[real], stable=True)
+    pos = real[order]
+    del real, order
+    nnz = pos.shape[0]
+    if nnz and (int(entity[0]) < 0 or int(entity[-1]) >= n_entity):
+        raise ValueError(f"entity ids must lie in [0, {n_entity})")
+    other_s, rating_s = other[pos].to(torch.int32), rating[pos].to(torch.float32)
+    run_chunk = torch.div(pos, chunk, rounding_mode="floor")
+    del pos
+    new_run = torch.ones(nnz, dtype=torch.bool, device=device)
+    new_run[1:] = (entity[1:] != entity[:-1]) | (run_chunk[1:] != run_chunk[:-1])
+    del run_chunk
+    starts = torch.nonzero(new_run).squeeze(1)
+    del new_run
+    runs = torch.bincount(entity[starts], minlength=n_entity)
+    slots = torch.bincount(entity, minlength=n_entity)
+    del entity
+    zero = torch.zeros(1, dtype=torch.int64, device=device)
+    is_heavy = (slots >= HEAVY_SLOTS) & (runs > 1)
+    light = torch.nonzero(~is_heavy).squeeze(1)
+    light = light[torch.sort(slots[light], descending=True, stable=True).indices]
+    return SegmentLayout(
+        other=other_s,
+        rating=rating_s,
+        run_offsets=torch.cat([starts, zero + nnz]).to(torch.int32),
+        entity_runs=torch.cat([zero, torch.cumsum(runs, 0)]).to(torch.int32),
+        heavy=torch.nonzero(is_heavy).squeeze(1).to(torch.int32),
+        light=light.to(torch.int32),
+        n_entity=n_entity,
+        chunk=chunk,
+        stream=(local, other, rating, mask) if device.type == "cpu" else None,
+    )
+
+
+def segment_normal_eq_reference(
+    local: torch.Tensor,
+    other: torch.Tensor,
+    rating: torch.Tensor,
+    mask: torch.Tensor,
+    n_entity: int,
+    V: torch.Tensor,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    implicit: bool = False,
+    alpha: float = 1.0,
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The segment kernel's plain PyTorch version: the JAX package's scan body
+    (``models/als.py:484-507``) chunk by chunk over the stream in its own
+    order. Per chunk of ``chunk`` slots gather the rows (float32), add the
+    chunk's outer products, right-hand sides and counts into A, b and cnt,
+    every operation float32 (no TF32: there is no matrix product). As in
+    the JAX package the carry is ``A = A + segment_sum(chunk)``, not an add
+    into A in place: with more than one chunk the in-place form sums in
+    another order. On the CPU ``index_add_`` adds in stream order, as JAX
+    does; on the card it adds with float atomics, in no fixed order."""
+    n, k = n_entity, V.shape[1]
+    alpha = _f32(alpha)
+    L = local.shape[0]
+    chunk = min(L, chunk)
+    A = torch.zeros((n, k, k), dtype=torch.float32, device=V.device)
+    b = torch.zeros((n, k), dtype=torch.float32, device=V.device)
+    cnt = torch.zeros((n,), dtype=torch.float32, device=V.device)
+    for s in range(0, L, chunk):
+        lo, ot = local[s: s + chunk], other[s: s + chunk]
+        rt, w = rating[s: s + chunk], mask[s: s + chunk]
+        vs = gather_rows_reference(V, ot, v_scale)  # (chunk, k) f32
+        if implicit:
+            # A_u += Σ α·r · v vᵀ ;  b_u += Σ (1+α·r) · v   (p=1, c=1+αr)
+            cw = alpha * rt * w
+            outer = vs[:, :, None] * (vs * cw[:, None])[:, None, :]
+            A = A + segment_sum(outer, lo, n)
+            b = b + segment_sum(vs * ((1.0 + alpha * rt) * w)[:, None], lo, n)
+        else:
+            vsw = vs * w[:, None]
+            outer = vsw[:, :, None] * vsw[:, None, :]
+            A = A + segment_sum(outer, lo, n)
+            cnt = cnt + segment_sum(w, lo, n)
+            b = b + segment_sum(vsw * rt[:, None], lo, n)
+    return A, b, cnt
+
+
+_segment_lib = None
+
+
+def _segment_library():
+    """The built segment library (built on first use, once per process)."""
+    global _segment_lib
+    with _lib_lock:
+        if _segment_lib is None:
+            from predictionio_tpu_torch.ops import _build
+
+            lib = ctypes.CDLL(str(_build.library("segment_normal_eq")))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.pio_segment_normal_eq.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, p]
+            lib.pio_segment_normal_eq.restype = i
+            lib.pio_segment_normal_eq_limits.argtypes = [p]
+            lib.pio_segment_normal_eq_limits.restype = i
+            lib.pio_segment_error_string.argtypes = [i]
+            lib.pio_segment_error_string.restype = ctypes.c_char_p
+            rank = ctypes.c_int()
+            lib.pio_segment_normal_eq_limits(ctypes.byref(rank))
+            if rank.value != MAX_SEGMENT_RANK:
+                raise RuntimeError("segment_normal_eq.cu MAX_RANK disagrees with Python")
+            _segment_lib = lib
+        return _segment_lib
+
+
+def fused_segment_normal_eq(
+    layout: SegmentLayout,
+    V: torch.Tensor,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    implicit: bool = False,
+    alpha: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One segment half-step's normal equations: ``(A (n, k, k), b (n, k),
+    cnt (n,))``, float32, n = ``layout.n_entity``.
+
+    ``V`` (n_opp, k) is f32, bf16 or int8; int8 needs ``v_scale`` (n_opp, 1)
+    f32, and only int8 takes one. An opposite id outside ``[0, n_opp)`` is
+    clamped, as XLA's gather clamps it. Implicit gives ``cnt = 0``. On CPU
+    tensors the plain version sums ``layout.stream``; on a CUDA card one
+    launch sums the sorted layout, and the two are equal bit for bit.
+    """
+    if V.dim() != 2 or V.shape[0] == 0 or V.shape[1] == 0:
+        raise ValueError(f"V must be a non-empty (n_opp, k) matrix, got {tuple(V.shape)}")
+    if V.dtype not in _DTYPE_CODE:
+        raise ValueError(f"V dtype {V.dtype} not supported")
+    if (V.dtype == torch.int8) != (v_scale is not None):
+        raise ValueError("v_scale goes with int8 V, and only with it")
+    n_opp, k = V.shape
+    if k > MAX_SEGMENT_RANK:
+        raise ValueError(
+            f"rank {k} is outside the segment kernel's range 1..{MAX_SEGMENT_RANK}")
+    n = layout.n_entity
+    device = V.device
+    if device.type == "cpu":
+        if layout.stream is None:
+            raise ValueError("V is on the CPU but the layout was built on another device")
+        return segment_normal_eq_reference(
+            *layout.stream, n, V, v_scale, implicit=implicit, alpha=alpha, chunk=layout.chunk)
+    if device.type != "cuda":
+        raise ValueError(f"no segment kernel for device {device}")
+    nnz = layout.other.shape[0]
+    n_runs = layout.run_offsets.shape[0] - 1
+    _check(layout.other, "other", device, (torch.int32,), (nnz,))
+    _check(layout.rating, "rating", device, (torch.float32,), (nnz,))
+    _check(layout.run_offsets, "run_offsets", device, (torch.int32,), (n_runs + 1,))
+    _check(layout.entity_runs, "entity_runs", device, (torch.int32,), (n + 1,))
+    n_heavy, n_light = layout.heavy.shape[0], layout.light.shape[0]
+    _check(layout.heavy, "heavy", device, (torch.int32,), (n_heavy,))
+    _check(layout.light, "light", device, (torch.int32,), (n_light,))
+    if n_heavy + n_light != n:
+        raise ValueError(f"heavy and light list {n_heavy + n_light} entities, expected {n}")
+    _check(V, "V", device, (V.dtype,), (n_opp, k))
+    _check(v_scale, "v_scale", device, (torch.float32,), (n_opp, 1))
+    A = torch.empty((n, k, k), dtype=torch.float32, device=device)
+    b = torch.empty((n, k), dtype=torch.float32, device=device)
+    cnt = torch.empty((n,), dtype=torch.float32, device=device)
+    if n == 0:
+        return A, b, cnt
+    lib = _segment_library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pio_segment_normal_eq(
+            ptr(layout.other), ptr(layout.rating), ptr(layout.run_offsets),
+            ptr(layout.entity_runs), ptr(layout.heavy), ptr(layout.light), ptr(V),
+            ptr(v_scale), ptr(A), ptr(b), ptr(cnt), n_heavy, n_light, n_opp, k,
+            _DTYPE_CODE[V.dtype], int(bool(implicit)), _f32(alpha), stream,
+        )
+    if rc != 0:
+        msg = lib.pio_segment_error_string(rc).decode()
+        raise RuntimeError(f"segment_normal_eq kernel launch failed: {msg} ({rc})")
+    segment_launches.bump()
+    return A, b, cnt

@@ -16,15 +16,19 @@ kernel by ``normal_eq_mismatches`` (each entry of A and b within 3e-4 of
 the summed absolute products behind it against the plain version, and
 within 1e-5 against the same operands summed in float64, plus 1e-6; cnt
 equal; ``predictionio_tpu_torch/testing.py`` says how the two were set);
-the gather kernel bit for bit against its plain version; training on the
-card against training on the CPU from the same initial factors (dense and
-segment solvers), rtol = atol = 1e-4 at f32; the flash-attention kernel against its
+the gather kernel and the segment normal equations bit for bit against
+their plain versions (the segment kernel against the plain version on the
+CPU, which sums in the same order); training on the card against training
+on the CPU from the same initial factors (dense and segment solvers), rtol
+= atol = 1e-4 at f32; the flash-attention kernel against its
 plain version, o within rtol = atol = 2e-5 (the JAX package's own flash
 test) and lse within 1e-5; the backward kernels against the plain backward,
 rtol 2e-4, atol 2e-5 (the JAX package's own gradient test); SASRec logits
 through the kernel against the plain attention, rtol = atol = 1e-4; a SASRec
 trained on the card against the same steps on the CPU, rtol = atol = 1e-4.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -153,11 +157,70 @@ def test_gather_kernel_refuses_what_it_does_not_take(card):
         train_kernel.fused_gather_rows(V.to(torch.int8), idx)
 
 
+def _segment_case(seed, n_entity, n_opp, n, hot):
+    """A skewed stream: ``hot`` of the slots on entity 1, none on the last."""
+    rng = np.random.default_rng(seed)
+    entity = rng.integers(0, n_entity - 1, n)
+    entity[rng.random(n) < hot] = 1
+    return als._make_blocks(entity, rng.integers(0, n_opp, n),
+                            rng.uniform(1, 5, n).astype(np.float32), n_entity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("implicit", (False, True))
+@pytest.mark.parametrize("k, heavy_slots", [(1, 4096), (10, 4096), (10, 64), (65, 64), (130, 4096)])
+def test_segment_kernel_matches_plain_version_bitwise_on_card(card, dtype, implicit, k,
+                                                              heavy_slots, monkeypatch):
+    """The kernel on the card against the plain version on the CPU, A, b and
+    cnt bit for bit: chunks of 256, a third of the slots on one entity (a
+    block of warps takes it where ``HEAVY_SLOTS`` is 64), an entity with no
+    slot, ranks from 1 past the dense kernel's 64 (65 and 130: 18 to 134
+    tiles of accumulators). Two launches give the same bytes."""
+    monkeypatch.setattr(als, "_CHUNK", 256)
+    monkeypatch.setattr(train_kernel, "HEAVY_SLOTS", heavy_slots)
+    blk = _segment_case(k, 60, 500, 3000, 1 / 3)
+    rng = np.random.default_rng(k + 1)
+    V = torch.from_numpy(rng.normal(size=(500, k)).astype(np.float32))
+    q, s = quantize_factors_torch(V, dtype)
+    lay_card, lay_cpu = als._segment_layout(blk, card), als._segment_layout(blk, "cpu")
+    assert (lay_card.heavy.numel() > 0) == (heavy_slots == 64)
+    qc, sc = q.to(card), None if s is None else s.to(card)
+    before = train_kernel.segment_launches.count
+    got = train_kernel.fused_segment_normal_eq(lay_card, qc, sc, implicit=implicit, alpha=2.0)
+    again = train_kernel.fused_segment_normal_eq(lay_card, qc, sc, implicit=implicit, alpha=2.0)
+    torch.cuda.synchronize()
+    assert train_kernel.segment_launches.count == before + 2
+    ref = train_kernel.fused_segment_normal_eq(lay_cpu, q, s, implicit=implicit, alpha=2.0)
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == torch.float32 and torch.equal(g.cpu(), r), (float((g.cpu() - r).abs().max()))
+        assert torch.equal(g, a)
+    assert train_kernel.segment_launches.count == before + 2
+
+
+@pytest.mark.cuda
+def test_segment_kernel_refuses_what_it_does_not_take(card):
+    lay = als._segment_layout(_segment_case(0, 20, 30, 100, 0.0), card)
+    V = torch.zeros((30, 4), device=card)
+    with pytest.raises(ValueError, match="V is on the CPU"):
+        train_kernel.fused_segment_normal_eq(lay, V.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        train_kernel.fused_segment_normal_eq(lay, V.t().contiguous().t())
+    with pytest.raises(ValueError, match="v_scale"):
+        train_kernel.fused_segment_normal_eq(lay, V.to(torch.int8))
+    with pytest.raises(ValueError, match="other is on cpu"):
+        train_kernel.fused_segment_normal_eq(dataclasses.replace(lay, other=lay.other.cpu()), V)
+    with pytest.raises(ValueError, match="entity_runs has shape"):
+        train_kernel.fused_segment_normal_eq(dataclasses.replace(lay, n_entity=19), V)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("implicit", (False, True))
 def test_segment_train_on_card_matches_cpu(card, implicit, monkeypatch):
-    """Several chunks a half-step (chunks of 256); the card sums with float
-    atomics in another order than the CPU, within rtol = atol = 1e-4."""
+    """Several chunks a half-step (chunks of 256), one segment kernel launch
+    a half-step and no gather; the card sums A, b and cnt in the CPU's
+    order, and the factors part only where the two devices' solves round
+    differently, within rtol = atol = 1e-4."""
     monkeypatch.setattr(als, "_CHUNK", 256)
     rng = np.random.default_rng(3)
     n_users, n_items, n = 70, 45, 1200
@@ -169,11 +232,11 @@ def test_segment_train_on_card_matches_cpu(card, implicit, monkeypatch):
     cfg = als.ALSConfig(rank=5, iterations=3, implicit=implicit, seed=2, solver="segment")
     init = (rng.standard_normal((n_users, 5)).astype(np.float32),
             rng.standard_normal((n_items, 5)).astype(np.float32))
-    before = train_kernel.launches.count, train_kernel.gather_launches.count
+    counters = (train_kernel.launches, train_kernel.gather_launches, train_kernel.segment_launches)
+    before = [c.count for c in counters]
     on_card = als.train_als(DeviceContext.create(device=card), inter, cfg, init_factors=init)
-    # 1,200 ratings pad to 5 chunks of 256 on each side, 3 iterations
-    assert (train_kernel.launches.count - before[0],
-            train_kernel.gather_launches.count - before[1]) == (0, 2 * 5 * 3)
+    # two half-steps an iteration, 3 iterations
+    assert [c.count - b for c, b in zip(counters, before)] == [0, 0, 2 * 3]
     on_cpu = als.train_als(DeviceContext.create(device="cpu"), inter, cfg, init_factors=init)
     np.testing.assert_allclose(on_card.user_factors, on_cpu.user_factors, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(on_card.item_factors, on_cpu.item_factors, rtol=1e-4, atol=1e-4)
