@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``predictionio_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --ab PARENT_TREE   # only kernels 1 and 2, parent vs this tree
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Every phase prints one JSON line; any failed check raises, so the exit
@@ -13,11 +14,16 @@ code is not 0 and the last line is never printed.
 3. kernels — the score kernel against its plain PyTorch version on the card
              at the MovieLens-25M serving shape (162,541 users × 59,047 items,
              rank 10, k = 100) at every rung {1, 8, 16, 32, 64} × {f32, bf16,
-             int8}, then ragged catalogs, exact ties within and across chunks
+             int8}, then ragged catalogs, exact ties within and across slices
              (integer-valued factors: every dot product is exact, so indices
-             must be identical), an exclusion mask and k == n_items. Times
-             each rung: kernel, plain version, one PyTorch yardstick
-             (``torch.topk(U[u] @ V.T)``, timed only) and the bound.
+             must be identical), an exclusion mask, k == n_items, and what the
+             threshold selection could get wrong: scores ascending with the
+             item index (every item beats the running threshold), all scores
+             equal (the answer is 0..k-1), a mask that leaves 5 items for
+             k = 100, B = 13, k = 1 and k = 8192 on 10,000 items. Times each
+             rung and the ascending case at B = 64: kernel, device µs and
+             launches a call from the trace, plain version, one PyTorch
+             yardstick (``torch.topk(U[u] @ V.T)``, timed only) and the bound.
 4. train   — the training kernel at full width: 25,000,095 ratings in the
              ML-25M shape drawn from ``--seed`` by ``bench.py``'s recipe
              (Zipf-Mandelbrot ids, users s = 0.7, items s = 1.1, q = 50;
@@ -25,10 +31,14 @@ code is not 0 and the last line is never printed.
              them. Every bucket of both sides of the first half-step (users
              against the initial item factors, items against the initial user
              factors), explicit and implicit × {f32, bf16, int8}, is held
-             against the plain version; then edge cases at small shapes and
-             ranks 4, 10 and 64. Times each side and bucket (kernel, plain
-             version, ``torch.bmm`` of the gathered bucket as yardstick, the
-             bound) and one full iteration. Then the main path:
+             against the plain version, and launched twice at f32 to give the
+             same bytes; then edge cases at small shapes: ranks 1, 4, 10, 63
+             and 64, widths 1, 31, 33 and 65, rows cut into parts, each with a
+             fully masked row. Times each side, and each bucket at f32 (the
+             widest and the narrowest at bf16 and int8): kernel ms and device
+             µs, live slots a second, share of the bound, the plain version,
+             ``torch.bmm`` of the gathered bucket as yardstick; and one full
+             iteration. Then the main path:
              ``train_als`` at that shape, rank 10, 20 iterations, explicit,
              f32, with the kernel launched exactly buckets × iterations times
              and a training RMSE below the first iteration's. Then a small
@@ -165,6 +175,13 @@ leaf's largest value, and params within rtol = atol = 1e-4 except entries
 whose √v̂ is below 1e-6, which are listed and held within lr
 (``phase_sasrec_train_parity`` says why). The timings and the tables are
 also written to ``chiprun_out/chip_smoke.json``.
+
+``--ab PARENT_TREE`` runs nothing of the above: it times kernels 1 and 2
+(every rung × dtype of the serving shape; each side's buckets of the first
+half-step, f32) of the tree unpacked at PARENT_TREE (``git archive`` of the
+parent commit, under a directory ``.gitignore`` lists) and of this tree, in
+turns on one card (parent, change, change, parent), each in a process of its
+own, and writes ``chiprun_out/ab.json``.
 """
 
 from __future__ import annotations
@@ -376,6 +393,7 @@ def phase_kernels(seed, device):
                 return torch.topk(s.masked_fill(inp.mask, -1e30), K)
 
             bms, by = bound(b, inp.n_pad, RANK, K, dtype)
+            trace = op_device_us(lambda: inp.kernel(u_idx, K), 20)
             rows.append({
                 "dtype": dtype, "batch": b, "n_items_pad": inp.n_pad,
                 "max_abs_err": err,
@@ -383,9 +401,32 @@ def phase_kernels(seed, device):
                 "plain_ms": cuda_ms(lambda: inp.plain(u_idx, K), 20),
                 "library_ms": cuda_ms(library, 100),
                 "bound_ms": bms, "bound_by": by,
-                "kernel_device_us": device_us(lambda: inp.kernel(u_idx, K)),
+                # device µs a call by CUDA kernel, and the launches a call of each
+                "kernel_device_us": trace["kernels"], "kernel_launches": trace["launches"],
             })
             emit({"phase": "kernels", **rows[-1]})
+    del inp
+    # scores ascending with the item index (U = e_0, V[i] = i·e_0: exact), so
+    # every item beats each row's running threshold; B = 64, f32, timed
+    Ua = np.zeros((N_USERS, RANK), np.float32)
+    Ua[:, 0] = 1.0
+    Va = np.zeros((N_ITEMS, RANK), np.float32)
+    Va[:, 0] = np.arange(N_ITEMS)
+    inp = Inputs(Ua, Va, "f32", device)
+    u_idx = torch.from_numpy(rng.integers(0, N_USERS, RUNGS[-1]).astype(np.int32)).to(device)
+    err = compare(inp, u_idx, K, 0.0, "ascending B=64")
+    _, ki = inp.kernel(u_idx, K)
+    require(bool((ki.cpu() == torch.arange(N_ITEMS - 1, N_ITEMS - 1 - K, -1)).all()),
+            "ascending: the last k items, best first")
+    bms, by = bound(RUNGS[-1], inp.n_pad, RANK, K, "f32")
+    trace = op_device_us(lambda: inp.kernel(u_idx, K), 20)
+    rows.append({"case": "ascending", "dtype": "f32", "batch": RUNGS[-1],
+                 "n_items_pad": inp.n_pad, "max_abs_err": err,
+                 "ms": cuda_ms(lambda: inp.kernel(u_idx, K), 200),
+                 "plain_ms": cuda_ms(lambda: inp.plain(u_idx, K), 20),
+                 "bound_ms": bms, "bound_by": by,
+                 "kernel_device_us": trace["kernels"], "kernel_launches": trace["launches"]})
+    emit({"phase": "kernels", **rows[-1]})
     del inp
     # edge cases, small catalogs
     edges = []
@@ -412,11 +453,32 @@ def phase_kernels(seed, device):
     for dtype in DTYPES:
         edges.append((f"mask-even {dtype}", Inputs(Ui, Vi, dtype, device, even), u64, K, 0.0 if dtype != "int8" else TOL))
     edges.append(("ties k=n_items", Inputs(Ui, Vi, "f32", device), u64[:8], 3000, 0.0))
+    # what the threshold selection could get wrong: all scores equal (the
+    # answer is 0..k-1), a mask that leaves 5 items for k = 100, a batch that
+    # is no multiple of the 8-row group, k = 1, and k = 8192 (a block's buffer)
+    Ut = rng.integers(-3, 4, (200, RANK)).astype(np.float32)
+    Vt = np.tile(rng.integers(1, 4, (1, RANK)), (N_ITEMS, 1)).astype(np.float32)
+    for dtype in ("f32", "bf16"):
+        edges.append((f"all-equal {dtype}", Inputs(Ut, Vt, dtype, device), u64, K, 0.0))
+    five = np.ones(3000, bool)
+    five[[7, 600, 1500, 2222, 2999]] = False
+    edges.append(("mask-leaves-5 k=100", Inputs(Ui, Vi, "f32", device, five), u64, K, 0.0))
+    Ur = rng.standard_normal((N_USERS, RANK)).astype(np.float32)
+    Vr = rng.standard_normal((N_ITEMS, RANK)).astype(np.float32)
+    full = Inputs(Ur, Vr, "f32", device)
+    u13 = torch.from_numpy(rng.integers(0, N_USERS, 13).astype(np.int32)).to(device)
+    edges.append(("B=13", full, u13, K, TOL))
+    edges.append(("k=1", full, u64, 1, TOL))
+    wide = Inputs(Ur[:300], Vr[:10_000], "f32", device)
+    edges.append(("k=8192 n_items=10000", wide, u64[:13], 8192, TOL))
     for what, inp, u_idx, k, tol in edges:
         err = compare(inp, u_idx, k, tol, what)
         if what.startswith("mask-even"):
             _, ki = inp.kernel(u_idx, k)
             require(bool((ki % 2 == 1).all()), f"{what}: an excluded item won")
+        if what.startswith("all-equal"):
+            _, ki = inp.kernel(u_idx, k)
+            require(bool((ki.cpu() == torch.arange(k)).all()), f"{what}: indices 0..k-1")
         max_err = max(max_err, err)
     emit({"phase": "kernel-edges", "cases": [e[0] for e in edges], "ok": True})
     return U, V, rows, max_err
@@ -563,20 +625,43 @@ def phase_train_kernels(seed, device):
     full = gaps(errs)
     emit({"phase": "train-kernel-full", "checked": len(errs), **full, "ok": True})
 
-    # edge cases at small shapes: ragged, wide (split), ranks 4, 10, 64
+    # two launches on the same inputs give the same bytes, every bucket of
+    # both sides at full width (f32, explicit and implicit)
+    for name, (blocks, dev_blocks, opp) in sides.items():
+        for implicit in (False, True):
+            for j, (idx, rat, msk) in enumerate(dev_blocks):
+                a = train_kernel.fused_train_normal_eq(idx, rat, msk, opp, implicit=implicit)
+                b = train_kernel.fused_train_normal_eq(idx, rat, msk, opp, implicit=implicit)
+                require(all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b)),
+                        f"{name} bucket {j} implicit={implicit}: two launches differ")
+    emit({"phase": "train-kernel-deterministic", "buckets": sum(len(d) for _, d, _ in sides.values()),
+          "ok": True})
+
+    # edge cases at small shapes: ragged, wide (split), ranks 1, 4, 10, 63, 64,
+    # widths 1, 31, 33 and 65 (a warp a row), each with one fully masked row
     rng = np.random.default_rng(seed + 2)
     cases, edge_errs = [], []
     for n_b, D, n_opp, k in ((1, 4, 7, 4), (32, 7, 29, 10), (17, 33, 50, 64),
-                             (3, 20_000, 1000, 10), (5, 300, 50, 64), (2, 96_168, 500, 4)):
+                             (3, 20_000, 1000, 10), (5, 300, 50, 64), (2, 96_168, 500, 4),
+                             (40, 1, 9, 10), (17, 31, 30, 1), (17, 33, 30, 63), (9, 65, 40, 10),
+                             (6, 700, 80, 63), (4, 5000, 300, 1)):
         idx = torch.from_numpy(rng.integers(0, n_opp, (n_b, D)).astype(np.int32)).to(device)
         rat = torch.from_numpy(rng.uniform(1, 5, (n_b, D)).astype(np.float32)).to(device)
-        msk = torch.from_numpy((rng.uniform(size=(n_b, D)) < 0.7).astype(np.float32)).to(device)
+        m = (rng.uniform(size=(n_b, D)) < 0.7).astype(np.float32)
+        if n_b > 1:
+            m[n_b // 2] = 0.0  # a fully masked row
+        msk = torch.from_numpy(m).to(device)
         V = torch.from_numpy(rng.normal(size=(n_opp, k)).astype(np.float32)).to(device)
         for dtype in DTYPES:
             for implicit in (False, True):
                 what = f"edge ({n_b}, {D}) n_opp={n_opp} rank {k} {dtype} implicit={implicit}"
                 edge_errs.append(check_normal_eq(idx, rat, msk, V, dtype, implicit, what, 2.0))
                 cases.append(what)
+        if n_b > 1:
+            q, s = quantize_factors_torch(V, "bf16")
+            got = train_kernel.fused_train_normal_eq(idx, rat, msk, q, s, implicit=False)
+            require(not any(bool(t[n_b // 2].any()) for t in got), f"masked row ({n_b}, {D}) rank {k}")
+            cases.append(f"masked-row ({n_b}, {D}) rank {k}")
         # masked slots pointing anywhere, in range or not, change no bit
         q, s = quantize_factors_torch(V, "int8")
         moved = torch.where(msk > 0, idx, (idx * 7 + 3) % (3 * n_opp) - n_opp)
@@ -599,6 +684,7 @@ def phase_train_kernels(seed, device):
         return (opp[idx.long()] * msk[:, :, None]).contiguous()
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     side_rows, bucket_rows = {}, []
     for name, (blocks, dev_blocks, opp) in sides.items():
         n_opp = opp.shape[0]
@@ -626,22 +712,40 @@ def phase_train_kernels(seed, device):
                 del Ws
             side_rows[(name, dtype)] = row
             emit({"phase": "train-kernel-time", **row})
-            for j in (0, len(geo) - 1):  # the widest and the narrowest bucket
+            # every bucket at f32; the widest and the narrowest at bf16 and int8
+            for j in range(len(geo)) if dtype == "f32" else (0, len(geo) - 1):
                 bk = dev_blocks[j]
                 bms, by = train_bound([geo[j]], n_opp, RANK, dtype)
                 W = yardstick(bk, q.float() * (s if s is not None else 1.0))
+                narrow, splits, _ = train_kernel.dense_plan(geo[j][0], geo[j][1], n_sm)
+
+                def one(bk=bk, q=q, s=s):
+                    return train_kernel.fused_train_normal_eq(*bk, q, s)
+
+                ms = cuda_ms(one, 20)
+                dev = sum(device_us(one, 10).values())
                 brow = {"side": name, "dtype": dtype, "bucket": j, "n_b": geo[j][0],
                         "width": geo[j][1], "live_slots": geo[j][2],
-                        "splits": train_kernel.split_plan(
-                            geo[j][0], geo[j][1],
-                            torch.cuda.get_device_properties(device).multi_processor_count)[0],
-                        "ms": cuda_ms(lambda: train_kernel.fused_train_normal_eq(*bk, q, s), 20),
+                        "route": "warp a row" if narrow else "block a row", "splits": splits,
+                        "ms": ms, "device_us": dev,
+                        "live_slots_per_s": geo[j][2] / (dev * 1e-6) if dev else None,
+                        "share_of_bound": bms / ms,
                         "plain_ms": cuda_ms(lambda: train_kernel.train_normal_eq_reference(*bk, q, s), 5),
                         "library_ms": cuda_ms(lambda: torch.bmm(W.transpose(1, 2), W), 20),
                         "bound_ms": bms, "bound_by": by}
                 del W
                 bucket_rows.append(brow)
                 emit({"phase": "train-kernel-bucket", **brow})
+            if dtype == "f32":
+                # live-slot rates from the trace: buckets of width <= 64 against
+                # those a block a row takes
+                mine = [r for r in bucket_rows if r["side"] == name and r["dtype"] == "f32"]
+                rate = {grp: sum(r["live_slots"] for r in rs) / (sum(r["device_us"] for r in rs) * 1e-6)
+                        for grp, rs in (("narrow_w_le_64", [r for r in mine if r["width"] <= 64]),
+                                        ("wide", [r for r in mine if r["route"] == "block a row"]))
+                        if rs and all(r["device_us"] for r in rs)}
+                row["live_slots_per_s"] = rate
+                emit({"phase": "train-kernel-rates", "side": name, **rate})
 
     # one full iteration (both half-steps: quantize, kernels, solve) from the
     # initial factors: the first iteration train_als runs, and its time
@@ -2366,9 +2470,114 @@ def phase_sasrec_train_workflow(seed, device):
     return out
 
 
+# -- A/B: kernels 1 and 2 of two trees, on one card ---------------------------
+
+
+def time_kernels(seed, device, data_path):
+    """Kernel 1 at every rung × dtype of the ML-25M serving shape and kernel 2
+    over each side's buckets of the first half-step (f32, explicit), through
+    whichever ``predictionio_tpu_torch`` is first on ``sys.path``. Uses only
+    the wrappers' signatures, which the parent tree shares. The buckets are
+    drawn once and kept in ``data_path`` for the other runs of the A/B."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import _build, train_kernel
+
+    t0 = time.perf_counter()
+    _build.build_all(("score_topk", "train_normal_eq"))
+    out = {"build_s": time.perf_counter() - t0, "score": [], "train": []}
+    rng = np.random.default_rng(seed)
+    U = rng.standard_normal((N_USERS, RANK)).astype(np.float32)
+    V = rng.standard_normal((N_ITEMS, RANK)).astype(np.float32)
+    for dtype in DTYPES:
+        inp = Inputs(U, V, dtype, device)
+        for b in RUNGS:
+            u_idx = torch.from_numpy(rng.integers(0, N_USERS, b).astype(np.int32)).to(device)
+
+            def kern(u_idx=u_idx, inp=inp):
+                return inp.kernel(u_idx, K)
+
+            out["score"].append({"dtype": dtype, "batch": b, "ms": cuda_ms(kern, 200),
+                                 "device_us": sum(device_us(kern).values())})
+    del inp
+    if os.path.exists(data_path):
+        z = np.load(data_path)
+        sides = {n: ([(z[f"{n}_idx{j}"], z[f"{n}_rat{j}"], z[f"{n}_msk{j}"])
+                      for j in range(int(z[f"{n}_n"]))], z[f"{n}_opp"]) for n in ("user", "item")}
+    else:
+        from predictionio_tpu_torch.models import als
+
+        inter = zipf_interactions(seed, N_USERS, N_ITEMS, N_RATINGS)
+        cfg = als.ALSConfig(rank=RANK, iterations=TRAIN_ITERS, seed=seed)
+        ub, ib, u_perm, i_perm = als._dense_blocks_for(inter, cfg)
+        gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
+        U0 = als._initial_factors(cfg, N_USERS, gen)
+        V0 = als._initial_factors(cfg, N_ITEMS, gen)
+        sides = {"user": (list(zip(ub.idx, ub.rat, ub.msk)), V0[np.argsort(i_perm)]),
+                 "item": (list(zip(ib.idx, ib.rat, ib.msk)), U0[np.argsort(u_perm)])}
+        arrays = {}
+        for n, (bl, opp) in sides.items():
+            arrays[f"{n}_n"] = np.array(len(bl))
+            arrays[f"{n}_opp"] = opp
+            for j, (i, r, m) in enumerate(bl):
+                arrays[f"{n}_idx{j}"], arrays[f"{n}_rat{j}"], arrays[f"{n}_msk{j}"] = i, r, m
+        np.savez(data_path, **arrays)
+    for name, (bl, opp) in sides.items():
+        dev = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in t) for t in bl]
+        opp_t = torch.from_numpy(np.ascontiguousarray(opp)).to(device)
+
+        def half(dev=dev, opp_t=opp_t):
+            return [train_kernel.fused_train_normal_eq(i, r, m, opp_t) for i, r, m in dev]
+
+        buckets = []
+        for i, r, m in dev:
+            def one(i=i, r=r, m=m, opp_t=opp_t):
+                return train_kernel.fused_train_normal_eq(i, r, m, opp_t)
+
+            buckets.append({"n_b": i.shape[0], "width": i.shape[1], "live_slots": int(m.sum()),
+                            "device_us": sum(device_us(one, 10).values())})
+        out["train"].append({"side": name, "ms": cuda_ms(half, 10),
+                             "device_us": sum(device_us(half, 5).values()), "buckets": buckets})
+        del dev
+    return out
+
+
+def ab(parent, seed):
+    """Kernels 1 and 2 of the tree at ``parent`` (an unpacked ``git archive``
+    of the parent commit, under a directory ``.gitignore`` lists) and of this
+    tree, in turns on one card: parent, change, change, parent. Each run is a
+    process of its own that puts its tree first on ``sys.path`` and builds
+    that tree's kernels into that tree's ``build/``."""
+    data = os.path.join(ROOT, "build", "ab_buckets.npz")
+    runs = []
+    for label, tree in (("parent", parent), ("change", ROOT), ("change", ROOT), ("parent", parent)):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--time-kernels", os.path.abspath(tree), "--data", data],
+            capture_output=True, text=True,
+        )
+        if res.returncode != 0:
+            raise RuntimeError(f"A/B run of {tree} failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        runs.append({"tree": label, **json.loads(res.stdout.strip().splitlines()[-1])})
+        emit({"phase": "ab-run", "tree": label,
+              "score_b64_ms": {r["dtype"]: r["ms"] for r in runs[-1]["score"] if r["batch"] == RUNGS[-1]},
+              "train_half_step_ms": {r["side"]: r["ms"] for r in runs[-1]["train"]},
+              "train_half_step_device_us": {r["side"]: r["device_us"] for r in runs[-1]["train"]}})
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "ab.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", metavar="PARENT_TREE",
+                    help="only time kernels 1 and 2 of PARENT_TREE and of this tree, in turns")
+    ap.add_argument("--time-kernels", metavar="TREE", help=argparse.SUPPRESS)
+    ap.add_argument("--data", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2376,7 +2585,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
+    if args.time_kernels:
+        sys.path.insert(0, args.time_kernels)
+        emit(time_kernels(args.seed, torch.device("cuda", 0), args.data))
+        return 0
     sys.path.insert(0, ROOT)
+    if args.ab:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+        emit({"phase": "ab", "card": smi})
+        ab(args.ab, args.seed)
+        return 0
     from predictionio_tpu_torch.ops import _build, score_kernel
 
     device = torch.device("cuda", 0)

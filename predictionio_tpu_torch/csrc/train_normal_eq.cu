@@ -23,23 +23,31 @@
 //
 // Design. The TPU kernel pins V in VMEM and contracts 8 entity rows per grid step
 // in order, accumulating across the D sweep in resident output blocks. On Hopper
-// V (2.4 MB of items, 6.5 MB of users at f32) is read through the 50 MB L2, and
-// blocks run in parallel and in no order, so:
-//   pass 1, one block per (row, part): a row's D slots are cut into `splits`
-//     parts of `seg` slots, so the widest rows (96,168 slots at the ML-25M zipf
-//     shape) spread over many SMs. The block stages TILE slots at a time in shared
-//     memory (the gathered, weighted rows X and Y below). Its threads form G
-//     groups of k + 1; thread i of a group owns row i of A and b[i], so it loads
-//     X[s][i] once per slot and reads Y[s] four columns at a time (k + 1 FMAs for
-//     about k/4 + 3 shared loads); group g takes every G-th staged slot. At the
-//     end the groups' sums are added in group order. A row of one part writes A,
-//     b and cnt directly; a split row writes its k*k + k + 1 partial sums.
-//   pass 2 (only when a bucket is split): one thread per (row, output) sums the
-//     row's parts in part order.
-// Every sum is taken in an order fixed by the shapes alone, with no atomics, so
-// one seed gives one model. Making it faster (several narrow rows per block,
-// overlapping the next tile's gather with this tile's sums, tensor cores for wide
-// ranks) is later work.
+// V (2.4 MB of items, 6.5 MB of users at f32) is read through the 50 MB L2, blocks
+// run in parallel and in no order, and most rows are narrow (width 48 to a few
+// hundred slots at the ML-25M zipf shape), so a row's work is a warp's:
+//   * accumulators. A warp owns one row and a tile of 32 * M of its sums, M a lane
+//     in registers (as csrc/segment_normal_eq.cu): explicit A is symmetric bit for
+//     bit (W_i * W_j is W_j * W_i, summed in the same order), so only i <= j is
+//     summed and stored twice, k(k+1)/2 + k + 1 sums (rank 10: 66, M = 3);
+//     implicit A is not (X and g differ), so k^2 + k (110, M = 4), and cnt is 0.
+//     Larger ranks take more tiles, one task each.
+//   * slots. The warp reads up to 32 slots' (idx, rat, msk) at a time, coalesced;
+//     a ballot keeps the live slots (m != 0), in slot order; their V rows are
+//     gathered, widened and weighted (the cast points above) into one record a
+//     slot in the warp's shared memory; then each lane adds its accumulators'
+//     products, slot after slot (fmaf), with no __syncthreads and no cross-group
+//     fold. The next batch's metadata is in flight meanwhile.
+//   * narrow rows (width up to NARROW_MAX, set in ops/train_kernel.py:dense_plan):
+//     eight rows a block, a warp each, the whole row.
+//   * wide rows: a block per (row, part), the part's batches dealt to its 8 warps in
+//     turn, the warps' sums folded in warp order through shared memory. A row cut
+//     into parts (split_plan) writes its parts' sums, and a second grid adds them
+//     in part order.
+// Every sum is taken in an order fixed by the shapes alone (and which slots are
+// live), with no atomics, so one seed gives one model. Making it faster (fewer
+// shared loads a product, one launch a half-step over all buckets, tensor cores
+// for wide ranks) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,17 +55,30 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE = 64;        // slots staged per step (Python: TILE)
-constexpr int MAX_RANK = 64;    // (Python: MAX_RANK)
-constexpr int MAX_GROUPS = 16;   // slot groups per block
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int TILE = 64;            // slots: the grain of a wide row's parts (Python: TILE)
+constexpr int MAX_RANK = 64;        // (Python: MAX_RANK)
+constexpr int MAX_PER_LANE = 4;     // accumulators a lane, at most
+constexpr int STAGE_FLOATS = 1152;  // staged records a warp, in floats
+constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ __forceinline__ int row_stride(int k) { return (k + 2 + 3) / 4 * 4; }
-
-// groups of k + 1 threads per block: as many as fit in THREADS, at most MAX_GROUPS
-__host__ __device__ __forceinline__ int groups(int k) {
-  const int g = THREADS / (k + 1);
-  return g < MAX_GROUPS ? g : MAX_GROUPS;
+// floats of one slot's record: the weighted row (k), implicit: g (k), then the b
+// weight, m and 1
+__host__ __device__ __forceinline__ int record(int k, bool implicit) {
+  return (implicit ? 2 * k : k) + 3;
+}
+// slots of one batch: 32, or fewer where 32 records would not fit
+__host__ __device__ __forceinline__ int batch_rows(int k, bool implicit) {
+  const int rows = STAGE_FLOATS / record(k, implicit);
+  return rows > 32 ? 32 : rows;
+}
+// shared floats of one warp: its records, then the batch's row ids, ratings, masks
+__host__ __device__ __forceinline__ int warp_floats(int k, bool implicit) {
+  return batch_rows(k, implicit) * record(k, implicit) + 96;
+}
+__host__ __device__ __forceinline__ int accumulators(int k, bool implicit) {
+  return implicit ? k * k + k : k * (k + 1) / 2 + k + 1;
 }
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -72,250 +93,352 @@ __device__ __forceinline__ float load(const int8_t* V, long long o) {
   return static_cast<float>(V[o]);
 }
 
-// Shared memory, per block: X and Y, TILE rows of KS floats each (k + 2 rounded
-// up to a multiple of 4, so a row reads as float4s), the per-group sums and the
-// staged slot metadata. Columns 0..k-1 hold the weighted rows; column k holds the
-// b weight (Y); column k+1 the count weight (Y). Every output is a sum over slots:
-//   A[i][j] = sum X[s][i] * Y[s][j]
-//   b[i]    = sum (explicit: X, implicit: Y)[s][i] * Y[s][k]
-//   cnt     = sum Y[s][k+1]
-// A block is G groups of k + 1 threads. Thread i < k of a group owns row i of A
-// and b[i] (X[s][i] loaded once, Y[s] read four columns at a time); thread k owns
-// cnt. Group g takes slots g, g + G, ... of each tile.
-template <typename T, bool IMPLICIT, int KMAX>
-__global__ void __launch_bounds__(THREADS) normal_eq_parts(
-    const int* __restrict__ idx, const float* __restrict__ rat,
-    const float* __restrict__ msk, const T* __restrict__ V,
-    const float* __restrict__ vs, float* __restrict__ A, float* __restrict__ b,
-    float* __restrict__ cnt, float* __restrict__ part_out, int D, int n_opp, int k,
-    int splits, int seg, float alpha) {
-  constexpr bool BF16 = sizeof(T) == 2;
-  extern __shared__ __align__(16) float smem[];
-  const int KS = row_stride(k);
-  const int R = k + 1;                  // threads per group
-  const int G = blockDim.x / R;         // groups
-  const int E = k * k + k + 1;
-  float* X = smem;
-  float* Y = X + TILE * KS;
-  float* red = Y + TILE * KS;           // [G][E]
-  float* s_m = red + G * E;
-  float* s_r = s_m + TILE;
-  int* s_idx = reinterpret_cast<int*>(s_r + TILE);
+struct Args {
+  const int* idx;     // (n_b, D)
+  const float* rat;   // (n_b, D)
+  const float* msk;   // (n_b, D)
+  const void* V;      // (n_opp, k)
+  const float* vs;    // (n_opp,) int8 row scales, else null
+  float* A;           // (n_b, k, k)
+  float* b;           // (n_b, k)
+  float* cnt;         // (n_b,)
+  float* parts;       // (n_b, splits, k*k + k + 1) when splits > 1
+  int n_b, D, n_opp, k, splits, seg, tiles;
+  float alpha;
+};
 
-  const long long row = blockIdx.x / splits;
-  const int part = blockIdx.x - static_cast<int>(row) * splits;
-  const int d0 = part * seg;
-  const int d1 = min(D, d0 + seg);
-  const int tid = threadIdx.x;
-  const int g = tid / R;
-  const int i = tid - g * R;            // this thread's row (k: the count)
+enum Kind { KIND_A, KIND_B, KIND_CNT, KIND_NONE };
 
-  float acc[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) acc[j] = 0.f;
-  float accb = 0.f;
-  const float am = alpha;
-
-  for (int t0 = d0; t0 < d1; t0 += TILE) {
-    const int n = min(TILE, d1 - t0);
-    for (int t = tid; t < TILE; t += blockDim.x) {
-      float m = 0.f, r = 0.f;
-      int v = 0;
-      if (t < n) {
-        const long long o = row * D + t0 + t;
-        m = msk[o];
-        r = rat[o];
-        v = idx[o];
-        v = v < 0 ? 0 : (v >= n_opp ? n_opp - 1 : v);  // clamped, as XLA's gather
-      }
-      s_idx[t] = v;
-      s_m[t] = m;
-      s_r[t] = r;
-    }
-    __syncthreads();
-    for (int u = tid; u < n * KS; u += blockDim.x) {
-      const int s = u / KS;
-      const int c = u - s * KS;
-      const float m = s_m[s];
-      float xv = 0.f, yv = 0.f;
-      if (m != 0.f && c < k + 2) {
-        const float r = s_r[s];
-        const float wm = BF16 ? bf16r(m) : m;
-        if (c < k) {
-          const long long row_v = s_idx[s];
-          float gv = load(V, row_v * k + c);
-          if (vs != nullptr) gv = __fmul_rn(gv, vs[row_v]);
-          if (IMPLICIT) {
-            const float cw = BF16 ? bf16r(__fmul_rn(bf16r(__fmul_rn(am, r)), wm))
-                                  : __fmul_rn(__fmul_rn(am, r), wm);
-            xv = BF16 ? bf16r(__fmul_rn(gv, cw)) : __fmul_rn(gv, cw);
-            yv = gv;
-          } else {
-            xv = BF16 ? bf16r(__fmul_rn(gv, wm)) : __fmul_rn(gv, wm);
-            yv = xv;
-          }
-        } else if (c == k) {
-          if (IMPLICIT) {
-            const float cb = __fadd_rn(1.f, __fmul_rn(am, r));
-            yv = BF16 ? bf16r(__fmul_rn(bf16r(cb), wm)) : __fmul_rn(cb, wm);
-          } else {
-            yv = BF16 ? bf16r(r) : r;
-          }
-        } else {
-          yv = IMPLICIT ? 0.f : m;
-        }
-      }
-      X[u] = xv;
-      Y[u] = yv;
-    }
-    __syncthreads();
-    if (g < G) {
-      for (int s = g; s < n; s += G) {
-        const float* ys = Y + s * KS;
-        if (i < k) {
-          const float x = X[s * KS + i];
-          const float4* y4 = reinterpret_cast<const float4*>(ys);
-#pragma unroll
-          for (int c = 0; c < KMAX / 4; ++c) {
-            if (4 * c < k) {
-              const float4 y = y4[c];
-              acc[4 * c + 0] = fmaf(x, y.x, acc[4 * c + 0]);
-              acc[4 * c + 1] = fmaf(x, y.y, acc[4 * c + 1]);
-              acc[4 * c + 2] = fmaf(x, y.z, acc[4 * c + 2]);
-              acc[4 * c + 3] = fmaf(x, y.w, acc[4 * c + 3]);
-            }
-          }
-          accb = fmaf(IMPLICIT ? ys[i] : x, ys[k], accb);
-        } else {
-          accb += ys[k + 1];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // each group's sums, then the groups folded in group order
-  if (g < G) {
-    float* mine = red + g * E;
-    if (i < k) {
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < k) mine[i * k + j] = acc[j];
-      mine[k * k + i] = accb;
+// Accumulator t: explicit A enumerates i <= j row by row, then b, then cnt;
+// implicit A all k^2, then b.
+__device__ void decode(int t, int k, bool implicit, Kind& kind, int& i, int& j) {
+  const int n_a = implicit ? k * k : k * (k + 1) / 2;
+  i = j = 0;
+  if (t < n_a) {
+    kind = KIND_A;
+    if (implicit) {
+      i = t / k;
+      j = t - i * k;
     } else {
-      mine[k * k + k] = accb;
+      while (t >= k - i) {
+        t -= k - i;
+        ++i;
+      }
+      j = i + t;
     }
-  }
-  __syncthreads();
-  for (int e = tid; e < E; e += blockDim.x) {
-    float v = 0.f;
-    for (int gg = 0; gg < G; ++gg) v += red[gg * E + e];
-    if (splits > 1) {
-      part_out[(row * splits + part) * E + e] = v;
-    } else if (e < k * k) {
-      A[row * k * k + e] = v;
-    } else if (e < k * k + k) {
-      b[row * k + (e - k * k)] = v;
-    } else {
-      cnt[row] = v;
-    }
+  } else if (t < n_a + k) {
+    kind = KIND_B;
+    i = t - n_a;
+  } else {
+    kind = !implicit && t == n_a + k ? KIND_CNT : KIND_NONE;
   }
 }
 
-// one thread per (row, output): the parts summed in part order
-__global__ void normal_eq_fold(const float* __restrict__ parts, float* __restrict__ A,
-                               float* __restrict__ b, float* __restrict__ cnt, int n_b,
-                               int k, int splits) {
-  const int kk = k * k;
-  const int E = kk + k + 1;
+// The record entries whose product accumulator t adds a slot.
+__device__ void operands(int t, int k, bool implicit, int& x, int& y) {
+  const int g = implicit ? k : 0, bw = implicit ? 2 * k : k;
+  Kind kind;
+  int i, j;
+  decode(t, k, implicit, kind, i, j);
+  switch (kind) {
+    case KIND_A:  // explicit W_i W_j, implicit X_i g_j
+      x = i;
+      y = g + j;
+      break;
+    case KIND_B:  // explicit W_i * r, implicit g_i * ((1 + alpha*r) m)
+      x = g + i;
+      y = bw;
+      break;
+    case KIND_CNT:  // m * 1
+      x = bw + 1;
+      y = bw + 2;
+      break;
+    default:  // past the last: summed, never stored
+      x = y = bw + 2;
+  }
+}
+
+template <bool IMPLICIT>
+__device__ void store_sum(const Args& a, long long row, int t, float v) {
+  const int k = a.k;
+  Kind kind;
+  int i, j;
+  decode(t, k, IMPLICIT, kind, i, j);
+  if (kind == KIND_A) {
+    float* Ae = a.A + row * k * k;
+    Ae[i * k + j] = v;
+    if (!IMPLICIT) Ae[j * k + i] = v;
+  } else if (kind == KIND_B) {
+    a.b[row * k + i] = v;
+  } else if (kind == KIND_CNT) {
+    a.cnt[row] = v;
+  }
+}
+
+// The warp's M accumulators a lane over nl staged records, slot after slot.
+template <int M>
+__device__ __forceinline__ void sum_records(const float* rec, int P, int nl, const int (&x)[M],
+                                            const int (&y)[M], float (&acc)[M]) {
+#pragma unroll 4
+  for (int t = 0; t < nl; ++t) {
+    const float* rt = rec + t * P;
+#pragma unroll
+    for (int mi = 0; mi < M; ++mi) acc[mi] = fmaf(rt[x[mi]], rt[y[mi]], acc[mi]);
+  }
+}
+
+// One batch's slot metadata, a lane a slot (m = 0 past `end`).
+struct Meta {
+  float m, r;
+  int o;
+};
+
+__device__ __forceinline__ Meta load_meta(const Args& a, long long off, int d, int end, int rows) {
+  const int lane = threadIdx.x & 31;
+  Meta t{0.f, 0.f, 0};
+  if (lane < rows && d + lane < end) {
+    t.m = a.msk[off + d + lane];
+    t.r = a.rat[off + d + lane];
+    t.o = a.idx[off + d + lane];
+  }
+  return t;
+}
+
+// Keeps the batch's live slots (m != 0), in slot order: their clamped row ids,
+// ratings and masks into ids, rs, ms. Returns how many.
+__device__ __forceinline__ int compact(const Args& a, const Meta& t, int* ids, float* rs, float* ms) {
+  const int lane = threadIdx.x & 31;
+  const bool live = t.m != 0.f;
+  const unsigned bal = __ballot_sync(FULL, live);
+  if (live) {
+    const int p = __popc(bal & ((1u << lane) - 1u));
+    ids[p] = t.o < 0 ? 0 : (t.o >= a.n_opp ? a.n_opp - 1 : t.o);  // clamped, as XLA's gather
+    rs[p] = t.r;
+    ms[p] = t.m;
+  }
+  return __popc(bal);
+}
+
+// Value q of a batch is slot q / k, column q % k; a lane steps 32 values at a time.
+struct Step {
+  int s, c, ds, dc, k;
+  __device__ __forceinline__ void next() {
+    s += ds;
+    c += dc;
+    if (c >= k) {
+      c -= k;
+      ++s;
+    }
+  }
+};
+
+__device__ __forceinline__ Step first_step(int k) {
+  const int lane = threadIdx.x & 31;
+  return Step{lane / k, lane % k, 32 / k, 32 % k, k};
+}
+
+// One staged value: the gathered g (widened, scaled) weighted with the reference's
+// cast points into the record of slot s, column c.
+template <bool IMPLICIT, bool BF16>
+__device__ __forceinline__ void put(float* rec, int P, int k, int s, int c, float gv, float r,
+                                    float m, float am) {
+  const float wm = BF16 ? bf16r(m) : m;
+  if (IMPLICIT) {
+    const float cw = BF16 ? bf16r(__fmul_rn(bf16r(__fmul_rn(am, r)), wm))
+                          : __fmul_rn(__fmul_rn(am, r), wm);
+    rec[s * P + c] = BF16 ? bf16r(__fmul_rn(gv, cw)) : __fmul_rn(gv, cw);
+    rec[s * P + k + c] = gv;
+  } else {
+    rec[s * P + c] = BF16 ? bf16r(__fmul_rn(gv, wm)) : __fmul_rn(gv, wm);
+  }
+}
+
+// A slot's scalars: the b weight, m and 1.
+template <bool IMPLICIT, bool BF16>
+__device__ __forceinline__ void put_scalars(float* rec, int bw, float r, float m, float am) {
+  float bwv;
+  if (IMPLICIT) {
+    const float wm = BF16 ? bf16r(m) : m;
+    const float cb = __fadd_rn(1.f, __fmul_rn(am, r));
+    bwv = BF16 ? bf16r(__fmul_rn(bf16r(cb), wm)) : __fmul_rn(cb, wm);
+  } else {
+    bwv = BF16 ? bf16r(r) : r;
+  }
+  rec[bw] = bwv;
+  rec[bw + 1] = m;
+  rec[bw + 2] = 1.f;
+}
+
+// One warp adds the live slots among [first, end) of `row`, taken `rows` at a time
+// and `stride` apart, into its accumulators, batch after batch in slot order; the
+// next batch's metadata is in flight while this one is staged and summed.
+template <typename T, bool IMPLICIT, int M>
+__device__ __forceinline__ void sum_slots(const Args& a, long long row, int first, int end,
+                                          int stride, float* rec, int* ids, float* rs, float* ms,
+                                          const int (&x)[M], const int (&y)[M], float (&acc)[M]) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  const int lane = threadIdx.x & 31;
+  const int k = a.k, P = record(k, IMPLICIT), rows = batch_rows(k, IMPLICIT);
+  const int bw = IMPLICIT ? 2 * k : k;
+  const T* V = static_cast<const T*>(a.V);
+  const long long off = row * a.D;
+  Meta nx = load_meta(a, off, first, end, rows);
+  for (int base = first; base < end; base += stride) {
+    const Meta cur = nx;
+    nx = load_meta(a, off, base + stride, end, rows);
+    const int nl = compact(a, cur, ids, rs, ms);
+    if (nl == 0) continue;  // uniform over the warp
+    __syncwarp();
+    Step st = first_step(k);
+    for (int q = lane; q < nl * k; q += 32, st.next()) {
+      const int vo = ids[st.s];
+      float gv = load(V, static_cast<long long>(vo) * k + st.c);
+      if (a.vs != nullptr) gv = __fmul_rn(gv, a.vs[vo]);
+      put<IMPLICIT, BF16>(rec, P, k, st.s, st.c, gv, rs[st.s], ms[st.s], a.alpha);
+    }
+    if (lane < nl) put_scalars<IMPLICIT, BF16>(rec + lane * P, bw, rs[lane], ms[lane], a.alpha);
+    __syncwarp();
+    sum_records<M>(rec, P, nl, x, y, acc);
+    __syncwarp();  // the records are read before the next batch overwrites them
+  }
+}
+
+// Narrow rows: a warp per (row, tile), eight a block.
+template <typename T, bool IMPLICIT, int M>
+__global__ void __launch_bounds__(THREADS, 4) normal_eq_rows(Args a) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k = a.k, P = record(k, IMPLICIT), rows = batch_rows(k, IMPLICIT);
+  const long long task = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (task >= static_cast<long long>(a.n_b) * a.tiles) return;  // only warp-level syncs below
+  const long long row = task / a.tiles;
+  const int tile = static_cast<int>(task - row * a.tiles);
+  float* rec = smem + warp * warp_floats(k, IMPLICIT);
+  int* ids = reinterpret_cast<int*>(rec + rows * P);
+  float* rs = rec + rows * P + 32;
+  float* ms = rs + 32;
+  int x[M], y[M];
+  float acc[M];
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) {
+    operands(tile * 32 * M + mi * 32 + lane, k, IMPLICIT, x[mi], y[mi]);
+    acc[mi] = 0.f;
+  }
+  sum_slots<T, IMPLICIT, M>(a, row, 0, a.D, rows, rec, ids, rs, ms, x, y, acc);
+  const int E = accumulators(k, IMPLICIT);
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) {
+    const int t = tile * 32 * M + mi * 32 + lane;
+    if (t < E) store_sum<IMPLICIT>(a, row, t, acc[mi]);
+  }
+  if (IMPLICIT && tile == 0 && lane == 0) a.cnt[row] = 0.f;
+}
+
+// Wide rows: a block per (row, part, tile); the part's batches go to the warps in
+// turn, and the warps' sums are folded in warp order.
+template <typename T, bool IMPLICIT, int M>
+__global__ void __launch_bounds__(THREADS, 4) normal_eq_parts(Args a) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k = a.k, P = record(k, IMPLICIT), rows = batch_rows(k, IMPLICIT);
+  const int tile = blockIdx.x % a.tiles;
+  const long long rp = blockIdx.x / a.tiles;
+  const long long row = rp / a.splits;
+  const int part = static_cast<int>(rp - row * a.splits);
+  float* rec = smem + warp * warp_floats(k, IMPLICIT);
+  int* ids = reinterpret_cast<int*>(rec + rows * P);
+  float* rs = rec + rows * P + 32;
+  float* ms = rs + 32;
+  float* sums = smem + WARPS * warp_floats(k, IMPLICIT);  // [WARPS][32 * M]
+  int x[M], y[M];
+  float acc[M];
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) {
+    operands(tile * 32 * M + mi * 32 + lane, k, IMPLICIT, x[mi], y[mi]);
+    acc[mi] = 0.f;
+  }
+  const int d0 = part * a.seg, d1 = min(a.D, d0 + a.seg);
+  sum_slots<T, IMPLICIT, M>(a, row, d0 + warp * rows, d1, rows * WARPS, rec, ids, rs, ms, x, y,
+                            acc);
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) sums[warp * 32 * M + mi * 32 + lane] = acc[mi];
+  __syncthreads();
+  const int E = accumulators(k, IMPLICIT);
+  if (threadIdx.x < 32 * M) {
+    float v = 0.f;
+    for (int w = 0; w < WARPS; ++w) v += sums[w * 32 * M + threadIdx.x];
+    const int t = tile * 32 * M + threadIdx.x;
+    if (t < E) {
+      if (a.splits > 1)
+        a.parts[(row * a.splits + part) * (k * k + k + 1) + t] = v;
+      else
+        store_sum<IMPLICIT>(a, row, t, v);
+    }
+    if (IMPLICIT && a.splits == 1 && t == 0) a.cnt[row] = 0.f;
+  }
+}
+
+// one thread per (row, accumulator): the parts summed in part order
+template <bool IMPLICIT>
+__global__ void normal_eq_fold(Args a) {
+  const int E = accumulators(a.k, IMPLICIT);
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(n_b) * E) return;
+  if (t >= static_cast<long long>(a.n_b) * E) return;
   const long long row = t / E;
   const int e = static_cast<int>(t - row * E);
-  const float* p = parts + row * splits * E + e;
+  const float* p = a.parts + row * a.splits * (a.k * a.k + a.k + 1) + e;
   float v = 0.f;
-  for (int s = 0; s < splits; ++s) v += p[static_cast<long long>(s) * E];
-  if (e < kk) {
-    A[row * kk + e] = v;
-  } else if (e < kk + k) {
-    b[row * k + (e - kk)] = v;
-  } else {
-    cnt[row] = v;
+  for (int s = 0; s < a.splits; ++s) v += p[static_cast<long long>(s) * (a.k * a.k + a.k + 1)];
+  store_sum<IMPLICIT>(a, row, e, v);
+  if (IMPLICIT && e == 0) a.cnt[row] = 0.f;
+}
+
+// Accumulators a lane: as few as hold one row's in one tile, at most MAX_PER_LANE.
+int per_lane(int k, bool implicit) {
+  const int m = (accumulators(k, implicit) + 31) / 32;
+  return m < MAX_PER_LANE ? m : MAX_PER_LANE;
+}
+
+template <typename T, bool IMPLICIT, int M>
+cudaError_t launch_m(Args a, bool narrow, cudaStream_t stream) {
+  a.tiles = (accumulators(a.k, IMPLICIT) + 32 * M - 1) / (32 * M);
+  const size_t warps_smem = sizeof(float) * WARPS * warp_floats(a.k, IMPLICIT);
+  if (narrow) {
+    const long long blocks = (static_cast<long long>(a.n_b) * a.tiles + WARPS - 1) / WARPS;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    normal_eq_rows<T, IMPLICIT, M>
+        <<<static_cast<unsigned>(blocks), THREADS, warps_smem, stream>>>(a);
+    return cudaGetLastError();
   }
-}
-
-// Dynamic shared memory above 48 KB needs an opt-in, made once per kernel: the
-// device's opt-in limit less the kernel's static shared memory.
-template <typename T, bool IMPLICIT, int KMAX>
-cudaError_t opt_in_smem() {
-  static const cudaError_t err = [] {
-    int dev = 0, optin = 0;
-    cudaFuncAttributes attr;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, normal_eq_parts<T, IMPLICIT, KMAX>);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(normal_eq_parts<T, IMPLICIT, KMAX>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - static_cast<int>(attr.sharedSizeBytes));
-    return e;
-  }();
-  return err;
-}
-
-template <typename T, bool IMPLICIT, int KMAX>
-cudaError_t launch_parts(const int* idx, const float* rat, const float* msk, const T* V,
-                         const float* vs, float* A, float* b, float* cnt, float* parts,
-                         int n_b, int D, int n_opp, int k, int splits, int seg,
-                         float alpha, cudaStream_t stream) {
-  const int G = groups(k);
-  const int E = k * k + k + 1;
-  const size_t smem = sizeof(float) * (2 * TILE * row_stride(k) + G * E + 2 * TILE) +
-                      sizeof(int) * TILE;
-  const long long blocks = static_cast<long long>(n_b) * splits;
+  const long long blocks = static_cast<long long>(a.n_b) * a.splits * a.tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = opt_in_smem<T, IMPLICIT, KMAX>();
-    if (e != cudaSuccess) return e;
-  }
-  normal_eq_parts<T, IMPLICIT, KMAX>
-      <<<static_cast<unsigned>(blocks), G * (k + 1), smem, stream>>>(
-          idx, rat, msk, V, vs, A, b, cnt, parts, D, n_opp, k, splits, seg, alpha);
+  normal_eq_parts<T, IMPLICIT, M><<<static_cast<unsigned>(blocks), THREADS,
+                                    warps_smem + sizeof(float) * WARPS * 32 * M, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  const long long n = static_cast<long long>(a.n_b) * accumulators(a.k, IMPLICIT);
+  normal_eq_fold<IMPLICIT><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, bool IMPLICIT>
-cudaError_t launch_rank(const int* idx, const float* rat, const float* msk, const T* V,
-                        const float* vs, float* A, float* b, float* cnt, float* parts,
-                        int n_b, int D, int n_opp, int k, int splits, int seg,
-                        float alpha, cudaStream_t stream) {
-  if (k <= 16)
-    return launch_parts<T, IMPLICIT, 16>(idx, rat, msk, V, vs, A, b, cnt, parts, n_b, D,
-                                         n_opp, k, splits, seg, alpha, stream);
-  if (k <= 32)
-    return launch_parts<T, IMPLICIT, 32>(idx, rat, msk, V, vs, A, b, cnt, parts, n_b, D,
-                                         n_opp, k, splits, seg, alpha, stream);
-  return launch_parts<T, IMPLICIT, 64>(idx, rat, msk, V, vs, A, b, cnt, parts, n_b, D,
-                                       n_opp, k, splits, seg, alpha, stream);
+cudaError_t launch_mode(const Args& a, bool narrow, cudaStream_t stream) {
+  switch (per_lane(a.k, IMPLICIT)) {
+    case 1:
+      return launch_m<T, IMPLICIT, 1>(a, narrow, stream);
+    case 2:
+      return launch_m<T, IMPLICIT, 2>(a, narrow, stream);
+    case 3:
+      return launch_m<T, IMPLICIT, 3>(a, narrow, stream);
+    default:
+      return launch_m<T, IMPLICIT, 4>(a, narrow, stream);
+  }
 }
 
 template <typename T>
-cudaError_t launch(const int* idx, const float* rat, const float* msk, const void* V,
-                   const float* vs, float* A, float* b, float* cnt, float* parts,
-                   int n_b, int D, int n_opp, int k, int splits, int seg, int implicit,
-                   float alpha, cudaStream_t stream) {
-  const T* Vt = static_cast<const T*>(V);
-  cudaError_t err =
-      implicit ? launch_rank<T, true>(idx, rat, msk, Vt, vs, A, b, cnt, parts, n_b, D,
-                                      n_opp, k, splits, seg, alpha, stream)
-               : launch_rank<T, false>(idx, rat, msk, Vt, vs, A, b, cnt, parts, n_b, D,
-                                       n_opp, k, splits, seg, alpha, stream);
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long n = static_cast<long long>(n_b) * (k * k + k + 1);
-  const unsigned grid = static_cast<unsigned>((n + 255) / 256);
-  normal_eq_fold<<<grid, 256, 0, stream>>>(parts, A, b, cnt, n_b, k, splits);
-  return cudaGetLastError();
+cudaError_t launch(const Args& a, bool narrow, bool implicit, cudaStream_t stream) {
+  return implicit ? launch_mode<T, true>(a, narrow, stream)
+                  : launch_mode<T, false>(a, narrow, stream);
 }
 
 }  // namespace
@@ -332,29 +455,30 @@ const char* pio_train_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 f32, 1 bf16, 2 int8 (v_scale required). parts: n_b * splits * (k*k+k+1)
-// floats when splits > 1, else unused. Launches on `stream` and does not
-// synchronise; returns a cudaError_t.
+// dtype: 0 f32, 1 bf16, 2 int8 (v_scale required). narrow: a warp a row (splits must
+// be 1), else a block per (row, part). parts: n_b * splits * (k*k+k+1) floats when
+// splits > 1, else unused. Launches on `stream` and does not synchronise; returns a
+// cudaError_t.
 int pio_train_normal_eq(const int* idx, const float* rat, const float* msk,
                         const void* V, const float* v_scale, float* A, float* b,
                         float* cnt, float* parts, int n_b, int D, int n_opp, int k,
-                        int splits, int seg, int dtype, int implicit, float alpha,
+                        int narrow, int splits, int seg, int dtype, int implicit, float alpha,
                         void* stream) {
-  if (k < 1 || k > MAX_RANK || n_b < 1 || D < 1 || splits < 1 || seg < 1 ||
-      static_cast<long long>(splits) * seg < D || (splits > 1 && parts == nullptr))
+  if (k < 1 || k > MAX_RANK || n_b < 1 || D < 1 || n_opp < 1 || splits < 1 || seg < 1 ||
+      static_cast<long long>(splits) * seg < D || (splits > 1 && parts == nullptr) ||
+      (narrow && splits != 1))
     return cudaErrorInvalidValue;
+  Args a{idx, rat, msk, V, nullptr, A, b, cnt, parts, n_b, D, n_opp, k, splits, seg, 0, alpha};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(idx, rat, msk, V, nullptr, A, b, cnt, parts, n_b, D, n_opp, k,
-                           splits, seg, implicit, alpha, s);
+      return launch<float>(a, narrow != 0, implicit != 0, s);
     case 1:
-      return launch<__nv_bfloat16>(idx, rat, msk, V, nullptr, A, b, cnt, parts, n_b, D,
-                                   n_opp, k, splits, seg, implicit, alpha, s);
+      return launch<__nv_bfloat16>(a, narrow != 0, implicit != 0, s);
     case 2:
       if (v_scale == nullptr) return cudaErrorInvalidValue;
-      return launch<int8_t>(idx, rat, msk, V, v_scale, A, b, cnt, parts, n_b, D, n_opp,
-                            k, splits, seg, implicit, alpha, s);
+      a.vs = v_scale;
+      return launch<int8_t>(a, narrow != 0, implicit != 0, s);
     default:
       return cudaErrorInvalidValue;
   }

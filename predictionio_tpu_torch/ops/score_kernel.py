@@ -6,9 +6,10 @@ Replaces the Pallas kernel ``predictionio_tpu/ops/score_kernel.py``
 ``fused_gather_score_topk``. The kernel is ``csrc/score_topk.cu``, built
 with ``nvcc`` for ``sm_90a`` at first use (``ops/_build.py``) and called
 through ``ctypes``; its source note says what bounds it and how it is laid
-out. In short: pass 1 scores one ``BLOCK_I``-item chunk per thread block
-for eight rows and keeps each (row, chunk)'s top ``min(k, BLOCK_I)``; pass 2
-merges a row's chunk lists into its top ``k`` — two launches per call.
+out. In short, one launch: each block scores one slice of the catalog
+(:func:`slice_plan`) for up to eight rows, keeping only the items above each
+row's running k-th best, and the last block of a row group to finish merges
+the group's slice lists into its top ``k``.
 
 :func:`fused_gather_score_topk` routes by device and nothing else:
 
@@ -19,8 +20,8 @@ merges a row's chunk lists into its top ``k`` — two launches per call.
 
 There is no ``try`` that falls back and no environment variable that picks
 the plain version on the card. :data:`launches` counts the kernel's
-launches (one per call, two CUDA grids) so a run can show that its main
-path went through the kernel.
+launches (one per call) so a run can show that its main path went through
+the kernel.
 """
 
 from __future__ import annotations
@@ -33,12 +34,23 @@ import torch
 
 from predictionio_tpu_torch.ops.topk import top_k_with_mask
 
-# Items per pass-1 chunk (the C source's CHUNK). Catalogs pad to a multiple
-# of it, as the JAX package pads to its BLOCK_I, so one layout serves both.
+# Catalogs pad to a multiple of the JAX package's BLOCK_I, so one layout
+# serves both packages.
 BLOCK_I = 512
-# Largest k pass 2 holds in shared memory (a 2·next_pow2(k)-entry buffer
-# of 8-byte pairs inside the 227 KB a block may use).
+# Largest k (a block's buffer of 2·next_pow2(k) 8-byte keys inside the 227 KB
+# a block may use), the largest k a warp selects for alone (eight rows a
+# block), and the largest rank (the C source's MAX_K, WARP_MAX_K, MAX_RANK,
+# MAX_SLICES).
 MAX_K = 8192
+WARP_MAX_K = 512
+MAX_RANK = 256
+# Most slices a call cuts the catalog into (a lane's lists are one 32-bit mask)
+MAX_SLICES = 1024
+# Rows a block takes when each row has a warp, the blocks per SM a call aims
+# for, and the granularity of a slice of the catalog, in items.
+ROWS_PER_BLOCK = 8
+BLOCKS_PER_SM = 2
+SLICE_ALIGN = 32
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -75,6 +87,37 @@ def pad_block_items(n_items: int) -> int:
     if base <= BLOCK_I:
         return base
     return -(-n_items // BLOCK_I) * BLOCK_I
+
+
+def slice_plan(batch: int, n_items: int, k: int, n_sm: int) -> tuple[int, int, int]:
+    """``(rows, slices, slice_items)``: the kernel's grid for one call.
+
+    A block takes ``rows`` batch rows (up to :data:`ROWS_PER_BLOCK`, a warp
+    each, while ``k`` ≤ :data:`WARP_MAX_K`; else one row and the whole
+    block) and one slice of ``slice_items`` consecutive items (the last may
+    be shorter). The catalog is cut into as many slices as give the card's
+    ``n_sm`` SMs :data:`BLOCKS_PER_SM` blocks each (or more: a slice is a
+    multiple of :data:`SLICE_ALIGN` items, rounded down); past ``WARP_MAX_K`` a slice holds at least
+    ``k`` items, so its list of ``k`` is not mostly empty.
+    """
+    rows = min(ROWS_PER_BLOCK, batch) if k <= WARP_MAX_K else 1
+    groups = -(-batch // rows)
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // groups))
+    per = max(SLICE_ALIGN, n_items // want // SLICE_ALIGN * SLICE_ALIGN)
+    if k > WARP_MAX_K:
+        per = max(per, -(-k // SLICE_ALIGN) * SLICE_ALIGN)
+    per = max(per, -(-(-(-n_items // MAX_SLICES)) // SLICE_ALIGN) * SLICE_ALIGN)
+    return rows, -(-n_items // per), per
+
+
+def buffer_cap(k: int) -> int:
+    """Keys of one selection's buffer (the C source's ``buffer_cap``). Up to
+    :data:`WARP_MAX_K` a warp keeps its best ``max(64, next_pow2(k))`` keys in
+    registers and appends as many to its buffer before it merges the two;
+    past it a block's buffer holds ``2·next_pow2(k)`` keys and is cut back to
+    its best ``k`` when a round could overflow it."""
+    q = 1 << max(0, k - 1).bit_length()
+    return max(64, q) if k <= WARP_MAX_K else 2 * q
 
 
 def _dequantize(F: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
@@ -130,16 +173,34 @@ def _library():
 
             lib = ctypes.CDLL(str(_build.library("score_topk")))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.pio_score_topk.argtypes = [p] * 10 + [i] * 6 + [p]
+            lib.pio_score_topk.argtypes = [p] * 10 + [i] * 8 + [p]
             lib.pio_score_topk.restype = i
-            lib.pio_score_topk_chunk.argtypes = []
-            lib.pio_score_topk_chunk.restype = i
+            lib.pio_score_topk_limits.argtypes = [p] * 4
+            lib.pio_score_topk_limits.restype = i
             lib.pio_error_string.argtypes = [i]
             lib.pio_error_string.restype = ctypes.c_char_p
-            if lib.pio_score_topk_chunk() != BLOCK_I:
-                raise RuntimeError("score_topk.cu CHUNK disagrees with BLOCK_I")
+            limits = [ctypes.c_int() for _ in range(4)]
+            lib.pio_score_topk_limits(*(ctypes.byref(x) for x in limits))
+            if tuple(x.value for x in limits) != (MAX_K, WARP_MAX_K, MAX_RANK, MAX_SLICES):
+                raise RuntimeError("score_topk.cu limits disagree with Python's")
             _lib = lib
         return _lib
+
+
+# One zeroed ticket counter a row group, per (device, stream): the kernel's
+# merging blocks set their counters back to 0, and launches on one stream run
+# one after another, so a buffer serves every call on its stream.
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_buffer(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    with _lib_lock:
+        buf = _tickets.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+            _tickets[key] = buf
+        return buf
 
 
 def _check(t: Optional[torch.Tensor], name: str, device, dtypes, shape) -> None:
@@ -198,11 +259,12 @@ def fused_gather_score_topk(
     _check(item_mask, "item_mask", device, (torch.bool,), (n_items,))
     _check(u_scale, "u_scale", device, (torch.float32,), (n_users, 1))
     _check(v_scale, "v_scale", device, (torch.float32,), (n_items, 1))
+    if rank > MAX_RANK:
+        raise ValueError(f"rank {rank} is above the score kernel's {MAX_RANK}")
     lib = _library()
-    n_chunks = -(-n_items // BLOCK_I)
-    kc = min(k, BLOCK_I)
-    cand_v = torch.empty((batch, n_chunks, kc), dtype=torch.float32, device=device)
-    cand_i = torch.empty((batch, n_chunks, kc), dtype=torch.int32, device=device)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    rows, slices, per = slice_plan(batch, n_items, k, n_sm)
+    cand = torch.empty((batch, slices, k), dtype=torch.int64, device=device)
     vals = torch.empty((batch, k), dtype=torch.float32, device=device)
     idx = torch.empty((batch, k), dtype=torch.int32, device=device)
 
@@ -211,10 +273,11 @@ def fused_gather_score_topk(
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        tickets = _ticket_buffer(device, stream, -(-batch // rows))
         rc = lib.pio_score_topk(
             ptr(U), ptr(u_scale), ptr(V), ptr(v_scale), ptr(u_idx),
-            ptr(item_mask), ptr(cand_v), ptr(cand_i), ptr(vals), ptr(idx),
-            n_users, rank, n_items, batch, k, _DTYPE_CODE[U.dtype], stream,
+            ptr(item_mask), ptr(cand), ptr(tickets), ptr(vals), ptr(idx),
+            n_users, rank, n_items, batch, k, slices, per, _DTYPE_CODE[U.dtype], stream,
         )
     if rc != 0:
         msg = lib.pio_error_string(rc).decode()

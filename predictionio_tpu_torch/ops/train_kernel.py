@@ -8,10 +8,13 @@ bucket of the dense solver, gather the opposite factors ``V[idx]``
 (int8 rows times their per-row scale) and accumulate ``A``, ``b`` and
 ``cnt``. The kernel is ``csrc/train_normal_eq.cu``, built with ``nvcc`` for
 ``sm_90a`` at first use (``ops/_build.py``) and called through ``ctypes``;
-its source note says what bounds it and how it is laid out. In short: one
-thread block per (row, part) stages 64 slots at a time in shared memory;
-rows wider than one part are cut into parts and summed in part order by a
-second launch, so every sum has one order and one seed gives one model.
+its source note says what bounds it and how it is laid out. In short: a
+warp sums a row's live slots, 32 at a time, into its share of the row's
+sums (explicit A only for i ≤ j, stored twice); rows of at most
+:data:`NARROW_MAX` slots take a warp each, wider rows a block each, cut into
+parts when the bucket has few rows and summed in part order by a second
+grid (:func:`dense_plan`), so every sum has one order and one seed gives
+one model.
 
 **Kernel 3** replaces ``_gather_rows_kernel``, reached through
 ``fused_gather_rows``: ``V[idx]`` widened to float32 (int8 rows times their
@@ -63,10 +66,12 @@ import torch
 from predictionio_tpu_torch.ops.score_kernel import LaunchCounter
 from predictionio_tpu_torch.ops.segment import segment_sum
 
-# Slots one thread block stages in shared memory per step, and the largest
-# rank the kernel takes (the C source's TILE and MAX_RANK).
+# The grain of a wide row's parts, in slots, and the largest rank the kernel
+# takes (the C source's TILE and MAX_RANK).
 TILE = 64
 MAX_RANK = 64
+# Widest row a warp takes alone; wider rows take a block.
+NARROW_MAX = 512
 # Slots one thread block takes of a row before the row is cut into parts,
 # and the blocks per SM a launch aims for when it cuts wide rows.
 SEG_MIN = 2048
@@ -154,7 +159,7 @@ def _library():
             lib = ctypes.CDLL(str(_build.library("train_normal_eq")))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.pio_train_normal_eq.argtypes = (
-                [p] * 9 + [i] * 8 + [ctypes.c_float, p]
+                [p] * 9 + [i] * 9 + [ctypes.c_float, p]
             )
             lib.pio_train_normal_eq.restype = i
             lib.pio_train_normal_eq_limits.argtypes = [p, p]
@@ -178,6 +183,16 @@ def split_plan(n_b: int, D: int, n_sm: int) -> tuple[int, int]:
     splits = max(1, min(-(-D // SEG_MIN), want))
     seg = -(-(-(-D // splits)) // TILE) * TILE
     return -(-D // seg), seg
+
+
+def dense_plan(n_b: int, D: int, n_sm: int) -> tuple[bool, int, int]:
+    """``(narrow, splits, seg)``: how the kernel deals one bucket's rows.
+    Rows of at most :data:`NARROW_MAX` slots take a warp each, eight to a
+    block (``narrow``, one part of D slots); wider rows take a block each,
+    cut by :func:`split_plan`."""
+    if D <= NARROW_MAX:
+        return True, 1, D
+    return (False, *split_plan(n_b, D, n_sm))
 
 
 def _check(t: Optional[torch.Tensor], name: str, device, dtypes, shape) -> None:
@@ -237,7 +252,7 @@ def fused_train_normal_eq(
     _check(v_scale, "v_scale", device, (torch.float32,), (n_opp, 1))
     lib = _library()
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    splits, seg = split_plan(n_b, D, n_sm)
+    narrow, splits, seg = dense_plan(n_b, D, n_sm)
     A = torch.empty((n_b, k, k), dtype=torch.float32, device=device)
     b = torch.empty((n_b, k), dtype=torch.float32, device=device)
     cnt = torch.empty((n_b,), dtype=torch.float32, device=device)
@@ -252,7 +267,7 @@ def fused_train_normal_eq(
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.pio_train_normal_eq(
             ptr(idx), ptr(rat), ptr(msk), ptr(V), ptr(v_scale), ptr(A), ptr(b),
-            ptr(cnt), ptr(parts), n_b, D, n_opp, k, splits, seg,
+            ptr(cnt), ptr(parts), n_b, D, n_opp, k, int(narrow), splits, seg,
             _DTYPE_CODE[V.dtype], int(bool(implicit)), _f32(alpha), stream,
         )
     if rc != 0:

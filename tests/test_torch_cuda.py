@@ -58,22 +58,83 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-def test_score_kernel_matches_plain_version_on_card(card):
-    rng = np.random.default_rng(11)
+def _score_case(name, seed=11):
+    """(U, V, u_idx, k, mask, tol) of one score-kernel case: integer-valued
+    cases (every dot product exact) are held with tol 0."""
+    rng = np.random.default_rng(seed)
+    n, batch, k, mask, tol = 3000, 64, 100, None, 1e-5
+    if name == "random":
+        n = 1100
+    elif name == "k=8192":
+        n, batch, k = 10_000, 5, 8192
+    elif name == "k=n_items":
+        n, k = 1100, 1100
     U = rng.standard_normal((300, 10)).astype(np.float32)
-    V = rng.standard_normal((1100, 10)).astype(np.float32)
-    V[1090] = V[3]
-    u = torch.arange(64, dtype=torch.int32, device=card)
-    Ut, Vt = torch.from_numpy(U).to(card), torch.from_numpy(V).to(card)
+    V = rng.standard_normal((n, 10)).astype(np.float32)
+    if name == "random":
+        V[1090] = V[3]
+    elif name == "ascending":  # every item beats the running threshold
+        U = np.zeros((300, 10), np.float32)
+        U[:, 0] = np.arange(1, 301)
+        V = np.zeros((n, 10), np.float32)
+        V[:, 0] = np.arange(n)
+        tol = 0.0
+    elif name == "tied":  # all scores equal: indices 0..k-1
+        U = rng.integers(-3, 4, (300, 10)).astype(np.float32)
+        V = np.tile(rng.integers(1, 4, (1, 10)), (n, 1)).astype(np.float32)
+        tol = 0.0
+    elif name == "mask-leaves-5":
+        mask = np.ones(n, bool)
+        mask[[7, 600, 1500, 2222, 2999]] = False
+    elif name == "B=13":
+        batch = 13
+    elif name == "k=1":
+        k = 1
+    u = rng.integers(0, 300, batch).astype(np.int32)
+    return U, V, u, k, mask, tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ("random", "ascending", "tied", "mask-leaves-5", "B=13",
+                                  "k=1", "k=8192", "k=n_items"))
+def test_score_kernel_matches_plain_version_on_card(card, case, dtype):
+    U, V, u, k, mask, tol = _score_case(case)
+    if dtype == "int8" and tol == 0.0:
+        tol = 1e-5  # int8 rescales the rows: the dot products are no longer exact
+    Uq, us = quantize_factors_torch(torch.from_numpy(U).to(card), dtype)
+    Vq, vs = quantize_factors_torch(torch.from_numpy(V).to(card), dtype)
+    u = torch.from_numpy(u).to(card)
+    m = None if mask is None else torch.from_numpy(mask).to(card)
     before = score_kernel.launches.count
-    kv, ki = score_kernel.fused_gather_score_topk(Ut, Vt, u, 100)
-    rv, ri = score_kernel.gather_score_topk_reference(Ut, Vt, u, 100)
+    kv, ki = score_kernel.fused_gather_score_topk(Uq, Vq, u, k, m, u_scale=us, v_scale=vs)
+    rv, ri = score_kernel.gather_score_topk_reference(Uq, Vq, u, k, m, u_scale=us, v_scale=vs)
     torch.cuda.synchronize()
     assert score_kernel.launches.count == before + 1
     bad = topk_mismatches(kv.cpu().numpy(), ki.cpu().numpy(),
-                          rv.cpu().numpy(), ri.cpu().numpy(), 1e-5)
+                          rv.cpu().numpy(), ri.cpu().numpy(), tol)
     assert not bad, bad[:3]
+    if case == "tied" and dtype != "int8":
+        assert (ki.cpu().numpy() == np.arange(k)).all()
+    # a second call on the same stream: the kernel left its tickets at zero
+    kv2, ki2 = score_kernel.fused_gather_score_topk(Uq, Vq, u, k, m, u_scale=us, v_scale=vs)
+    assert torch.equal(kv, kv2) and torch.equal(ki, ki2)
+
+
+# (n_b, D, n_opp, rank): narrow rows (a warp each, widths 1, 24, 31, 33, 65,
+# 300), wide rows (a block each, cut into parts at 20,000), ranks 1, 10, 63, 64
+TRAIN_CASES = ((13, 24, 37, 10), (3, 20_000, 1000, 10), (5, 300, 50, 64), (40, 1, 9, 10),
+               (17, 31, 30, 1), (17, 33, 30, 63), (9, 65, 40, 10), (6, 700, 80, 63))
+
+
+def _bucket_on(card, rng, n_b, D, n_opp, k):
+    idx = torch.from_numpy(rng.integers(0, n_opp, (n_b, D)).astype(np.int32)).to(card)
+    rat = torch.from_numpy(rng.uniform(1, 5, (n_b, D)).astype(np.float32)).to(card)
+    msk = (rng.uniform(size=(n_b, D)) < 0.7).astype(np.float32)
+    msk[n_b // 2] = 0.0  # a fully masked row: A = 0, b = 0, cnt = 0
+    msk = torch.from_numpy(msk).to(card)
+    V = torch.from_numpy(rng.normal(size=(n_opp, k)).astype(np.float32)).to(card)
+    return idx, rat, msk, V
 
 
 @pytest.mark.cuda
@@ -81,11 +142,8 @@ def test_score_kernel_matches_plain_version_on_card(card):
 @pytest.mark.parametrize("implicit", (False, True))
 def test_train_kernel_matches_plain_version_on_card(card, dtype, implicit):
     rng = np.random.default_rng(1)
-    for n_b, D, n_opp, k in ((13, 24, 37, 10), (3, 20_000, 1000, 10), (5, 300, 50, 64)):
-        idx = torch.from_numpy(rng.integers(0, n_opp, (n_b, D)).astype(np.int32)).to(card)
-        rat = torch.from_numpy(rng.uniform(1, 5, (n_b, D)).astype(np.float32)).to(card)
-        msk = torch.from_numpy((rng.uniform(size=(n_b, D)) < 0.7).astype(np.float32)).to(card)
-        V = torch.from_numpy(rng.normal(size=(n_opp, k)).astype(np.float32)).to(card)
+    for n_b, D, n_opp, k in TRAIN_CASES:
+        idx, rat, msk, V = _bucket_on(card, rng, n_b, D, n_opp, k)
         q, s = quantize_factors_torch(V, dtype)
         before = train_kernel.launches.count
         got = train_kernel.fused_train_normal_eq(idx, rat, msk, q, s, implicit=implicit, alpha=2.0)
@@ -98,6 +156,25 @@ def test_train_kernel_matches_plain_version_on_card(card, dtype, implicit):
         assert train_kernel.launches.count == before + 1
         assert not normal_eq_mismatches(got, ref, mag, rtol=KERNEL_VS_PLAIN_RTOL), (n_b, D, k)
         assert not normal_eq_mismatches(got, exact, mag, rtol=KERNEL_VS_FLOAT64_RTOL), (n_b, D, k)
+        empty = n_b // 2
+        assert not any(bool(t[empty].any()) for t in got), (n_b, D, k)
+        if not implicit:  # explicit A is summed for i <= j and mirrored: exactly symmetric
+            assert torch.equal(got[0], got[0].transpose(1, 2)), (n_b, D, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("implicit", (False, True))
+def test_train_kernel_is_deterministic_on_card(card, implicit):
+    """Two launches on the same inputs give the same bytes: every sum has one
+    order, narrow rows and wide rows cut into parts alike."""
+    rng = np.random.default_rng(3)
+    for n_b, D, n_opp, k in TRAIN_CASES:
+        idx, rat, msk, V = _bucket_on(card, rng, n_b, D, n_opp, k)
+        first = train_kernel.fused_train_normal_eq(idx, rat, msk, V, implicit=implicit, alpha=2.0)
+        again = train_kernel.fused_train_normal_eq(idx, rat, msk, V, implicit=implicit, alpha=2.0)
+        torch.cuda.synchronize()
+        for x, y in zip(first, again):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32)), (n_b, D, k)
 
 
 @pytest.mark.cuda
