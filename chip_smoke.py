@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``predictionio_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --ab PARENT_TREE   # only kernels 1 and 2, parent vs this tree
+    python3 chip_smoke.py --ab PARENT_TREE   # only kernels 1, 2, 4, 5, 6: parent vs this tree
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Every phase prints one JSON line; any failed check raises, so the exit
@@ -107,8 +107,11 @@ code is not 0 and the last line is never printed.
              256, 50), the template's batchSize at that width (128, 256, 256,
              50), (16, 512, 512, 16), (8, 1024, 1024, 64), (4, 2048, 2048,
              128) and two T_q != T_kv shapes, causal and not, with
-             ``torch.backends.cuda.matmul.allow_tf32 = False``. Times the first
-             two, causal: kernel, plain version, bound and
+             ``torch.backends.cuda.matmul.allow_tf32 = False``; every case
+             launched twice must give the same bytes. Then the split plan at
+             the serving shape (one launch of at least 64 blocks of at most
+             64 keys). Times the first two, causal: kernel, device µs, host µs
+             a launch, plain version, bound (3xTF32 and, as before, f32) and
              ``F.scaled_dot_product_attention(..., is_causal=True)`` (timed only).
 7. sasrec-serving — a SASRec at the width of Kang & McAuley's MovieLens-1M
              setting (d = 50, 2 blocks, 1 head, 3,416 items; maxLen 256, the
@@ -124,7 +127,8 @@ code is not 0 and the last line is never printed.
              queries whose history holds a catalog item.
 8. sasrec-bwd-kernel — the two flash-attention backward kernels (dq; dk and
              dv) against the plain backward (and the plain backward in float64)
-             at every sasrec-kernel shape, causal and not, TF32 off; then the
+             at every sasrec-kernel shape, causal and not, TF32 off, each
+             launched twice for the same bytes; then the
              ring's composition with a global lse (block pairs of 128, each fed
              the whole forward's o and lse, summing to the whole backward).
              Times each kernel at the training shape (128, 256, 256, 50) and at
@@ -178,7 +182,9 @@ also written to ``chiprun_out/chip_smoke.json``.
 
 ``--ab PARENT_TREE`` runs nothing of the above: it times kernels 1 and 2
 (every rung × dtype of the serving shape; each side's buckets of the first
-half-step, f32) of the tree unpacked at PARENT_TREE (``git archive`` of the
+half-step, f32) and the flash kernels (4 at (1, 256, 256, 50) and (128,
+256, 256, 50), 5 and 6 at (128, 256, 256, 50) and (8, 1024, 1024, 64),
+causal; ms and device µs) of the tree unpacked at PARENT_TREE (``git archive`` of the
 parent commit, under a directory ``.gitignore`` lists) and of this tree, in
 turns on one card (parent, change, change, parent), each in a process of its
 own, and writes ``chiprun_out/ab.json``.
@@ -207,6 +213,8 @@ TRAIN_ITERS = 20  # the recommendation template's numIterations default
 # tensor cores (the kernel's arithmetic is defined in f32, no TF32)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# TF32 on the tensor cores (dense); a 3xTF32 product makes three of them
+PEAK_TF32_OPS_S = 495e12
 
 
 def emit(obj) -> None:
@@ -233,6 +241,21 @@ def cuda_ms(fn, n: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def host_us(fn, n: int) -> float:
+    """Host microseconds a call of ``fn``, which only enqueues work: the
+    queue is drained before and after, not between calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def device_us(fn, n: int = 20, tries: int = 2) -> dict:
@@ -1631,13 +1654,20 @@ def visible_pairs(t_q, t_kv, causal):
     return int(np.minimum(np.arange(t_q) + 1, t_kv).sum()) if causal else t_q * t_kv
 
 
-def flash_bound(bh, t_q, t_kv, h, causal):
+def flash_bound(bh, t_q, t_kv, h, causal, products_on="tf32x3"):
     """Least time: q, k, v read once, o and lse written once (f32); two
-    products of h multiply-adds over each visible (query, key) pair, f32
-    outside the tensor cores."""
+    products of h multiply-adds over each visible (query, key) pair and one
+    exponential a pair. ``products_on`` "tf32x3": the products on the tensor
+    cores as three TF32 products each (the committed kernel 4), the
+    exponentials at the f32 rate; "f32": everything at the f32 rate outside
+    the tensor cores (the bound of the earlier FMA kernel, for comparison)."""
+    pairs = bh * visible_pairs(t_q, t_kv, causal)
     nbytes = 4 * bh * (2 * t_q * h + 2 * t_kv * h + t_q)
-    ops = 4 * bh * h * visible_pairs(t_q, t_kv, causal)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    t_bytes = nbytes / PEAK_BYTES_S
+    if products_on == "f32":
+        t_ops = 4 * h * pairs / PEAK_F32_OPS_S
+    else:
+        t_ops = 4 * h * pairs / (PEAK_TF32_OPS_S / 3) + pairs / PEAK_F32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1678,6 +1708,7 @@ def phase_sasrec_kernel(seed, device):
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in full f32
     rng = np.random.default_rng(seed + 7)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     cases, max_o, max_lse = [], 0.0, 0.0
     inputs = {}
     for bh, t_q, t_kv, h in FLASH_SHAPES:
@@ -1686,11 +1717,13 @@ def phase_sasrec_kernel(seed, device):
         inputs[(bh, t_q, t_kv, h)] = (q, k, v)
         for causal in (True, False):
             o, lse = fa.flash_block_fwd(q, k, v, causal)
+            o2, lse2 = fa.flash_block_fwd(q, k, v, causal)  # a relaunch: the same bytes
             ro, rlse = fa.flash_attention_reference(q, k, v, causal)
             o64, lse64 = fa.flash_attention_reference(q.double(), k.double(), v.double(), causal)
             torch.cuda.synchronize()
             what = f"flash ({bh}, {t_q}, {t_kv}, {h}) causal={causal}"
             require(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()), f"{what}: finite")
+            require(torch.equal(o, o2) and torch.equal(lse, lse2), f"{what}: a relaunch gives other bytes")
             for got, ref, tol, name in ((o, ro, FLASH_O_TOL, "o"), (lse, rlse, FLASH_LSE_TOL, "lse")):
                 excess = float(((got - ref).abs() - (tol + tol * ref.abs())).max())
                 require(excess <= 0, f"{what}: {name} disagrees with the plain version by {excess} past tolerance")
@@ -1704,9 +1737,17 @@ def phase_sasrec_kernel(seed, device):
             }
             max_o = max(max_o, gap["o_kernel_vs_plain"])
             max_lse = max(max_lse, gap["lse_kernel_vs_plain"])
-            cases.append({"shape": [bh, t_q, t_kv, h], "causal": causal, **gap})
+            cases.append({"shape": [bh, t_q, t_kv, h], "causal": causal,
+                          "plan": fa.split_plan(bh, t_q, t_kv, causal, n_sm), **gap})
     emit({"phase": "sasrec-kernel", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "cases": cases, "max_abs_err_o": max_o, "max_abs_err_lse": max_lse, "ok": True})
+          "cases": cases, "max_abs_err_o": max_o, "max_abs_err_lse": max_lse,
+          "relaunch_identical": True, "ok": True})
+    # the serving shape's grid: one launch of key splits that fills the card
+    q_rows, ks, blocks = fa.split_plan(*FLASH_SHAPES[0][:3], True, n_sm)
+    require(blocks >= 64 and ks <= 64, f"serving-shape plan {q_rows, ks, blocks}: at least 64 "
+                                       f"blocks of at most 64 keys")
+    emit({"phase": "sasrec-split-plan", "shape": list(FLASH_SHAPES[0]), "causal": True, "sms": n_sm,
+          "q_rows": q_rows, "keys_a_split": ks, "blocks": blocks, "ok": True})
 
     rows = []
     for shape in FLASH_SHAPES[:2]:
@@ -1718,14 +1759,19 @@ def phase_sasrec_kernel(seed, device):
         def sdpa():
             return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
 
+        scale = fa._f32(1.0 / h ** 0.5)
         rows.append({
             "shape": list(shape), "causal": True,
+            "plan": fa.split_plan(bh, t_q, t_kv, True, n_sm),
             "ms": cuda_ms(lambda: fa.flash_block_fwd(q, k, v, True), 200),
             "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, True), 100),
             "library_ms": cuda_ms(sdpa, 200),
             "library_backend": sdpa_backend(sdpa),
             "bound_ms": bms, "bound_by": by,
+            "bound_f32_ms": flash_bound(bh, t_q, t_kv, h, True, "f32")[0],
             "kernel_device_us": device_us(lambda: fa.flash_block_fwd(q, k, v, True)),
+            # host µs a call of the wrapper's launch (allocation, plan, ctypes)
+            "launch_host_us": host_us(lambda: fa._launch(q, k, v, True, scale), 300),
         })
         emit({"phase": "sasrec-kernel-time", **rows[-1]})
     return rows, max_o
@@ -1959,18 +2005,24 @@ BWD_TIMED = ((128, 256, 256, 50), (8, 1024, 1024, 64))
 BWD_RTOL, BWD_ATOL = 2e-4, 2e-5  # the JAX package's own gradient test
 
 
-def flash_bwd_bounds(bh, t_q, t_kv, h, causal):
+def flash_bwd_bounds(bh, t_q, t_kv, h, causal, dkv_on="tf32x3"):
     """Least time of each backward kernel, (ms, "bytes" | "operations"):
     inputs read once and outputs written once (f32); kernel 5 (dq) makes
-    three products of h multiply-adds over each visible pair (s, dp, ds·k),
-    kernel 6 (dk, dv) four (s, dp, pᵀ·do, dsᵀ·q)."""
-    pairs = visible_pairs(t_q, t_kv, causal)
+    three products of h multiply-adds over each visible pair (s, dp, ds·k)
+    at the f32 rate, kernel 6 (dk, dv) four (s, dp, pᵀ·do, dsᵀ·q), on the
+    tensor cores as three TF32 products each when ``dkv_on`` is "tf32x3"
+    (the committed kernel), and one exponential a pair at the f32 rate;
+    "f32" gives kernel 6's bound at the f32 rate, for comparison with the
+    earlier FMA kernel."""
+    pairs = visible_pairs(t_q, t_kv, causal) * bh
     out = {}
-    for name, nbytes, ops in (
-        ("dq", 4 * bh * (3 * t_q * h + 2 * t_kv * h + 2 * t_q), 6 * h * pairs * bh),
-        ("dkv", 4 * bh * (2 * t_q * h + 4 * t_kv * h + 2 * t_q), 8 * h * pairs * bh),
+    for name, nbytes, t_ops in (
+        ("dq", 4 * bh * (3 * t_q * h + 2 * t_kv * h + 2 * t_q), 6 * h * pairs / PEAK_F32_OPS_S),
+        ("dkv", 4 * bh * (2 * t_q * h + 4 * t_kv * h + 2 * t_q),
+         8 * h * pairs / PEAK_F32_OPS_S if dkv_on == "f32"
+         else 8 * h * pairs / (PEAK_TF32_OPS_S / 3) + pairs / PEAK_F32_OPS_S),
     ):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+        t_bytes = nbytes / PEAK_BYTES_S
         out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
     return out
 
@@ -2025,10 +2077,13 @@ def phase_sasrec_bwd_kernel(seed, device):
         for causal in (True, False):
             o, lse = fa.flash_attention_reference(q, k, v, causal)
             got = fa.flash_block_bwd(q, k, v, o, lse, do, causal)
+            again = fa.flash_block_bwd(q, k, v, o, lse, do, causal)  # a relaunch: the same bytes
             ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
             exact = fa.flash_attention_bwd_reference(*(x.double() for x in (q, k, v, o, lse, do)), causal)
             torch.cuda.synchronize()
             what = f"flash backward {shape} causal={causal}"
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"{what}: a relaunch gives other bytes")
             gap = {}
             for name, g, r, e in zip(("dq", "dk", "dv"), got, ref, exact):
                 require(bool(torch.isfinite(g).all()), f"{what}: {name} finite")
@@ -2042,7 +2097,8 @@ def phase_sasrec_bwd_kernel(seed, device):
             if causal and shape in BWD_TIMED:
                 inputs[shape] = (q, k, v, o, lse, do)
     emit({"phase": "sasrec-bwd-kernel", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "cases": cases, "max_abs_err": worst, "rtol": BWD_RTOL, "atol": BWD_ATOL, "ok": True})
+          "cases": cases, "max_abs_err": worst, "rtol": BWD_RTOL, "atol": BWD_ATOL,
+          "relaunch_identical": True, "ok": True})
 
     # the ring's composition: block pairs fed the whole forward's o and lse
     ring = []
@@ -2093,6 +2149,7 @@ def phase_sasrec_bwd_kernel(seed, device):
             "library_backend": sdpa_backend(sdpa_fwd_bwd),
             "dq_bound_ms": bounds["dq"][0], "dq_bound_by": bounds["dq"][1],
             "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1],
+            "dkv_bound_f32_ms": flash_bwd_bounds(bh, t_q, t_kv, h, True, "f32")["dkv"][0],
         }
         rows.append(row)
         emit({"phase": "sasrec-bwd-time", **row})
@@ -2473,11 +2530,46 @@ def phase_sasrec_train_workflow(seed, device):
 # -- A/B: kernels 1 and 2 of two trees, on one card ---------------------------
 
 
+# (B·H, T_q, T_kv, h) of the A/B's flash timings, causal: kernel 4 at the
+# serving and training shapes, kernels 5 and 6 at BWD_TIMED
+AB_FWD = ((1, 256, 256, 50), (128, 256, 256, 50))
+
+
+def time_flash(seed, device):
+    """Kernels 4, 5 and 6 at AB_FWD / BWD_TIMED, causal: ms a call (CUDA
+    events) and device µs a call (the trace), through the wrappers whose
+    signatures the parent tree shares."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(seed + 12)
+    out = []
+    for shape in dict.fromkeys(AB_FWD + BWD_TIMED):
+        bh, t_q, t_kv, h = shape
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, t, h)).astype(np.float32)).to(device)
+                       for t in (t_q, t_kv, t_kv, t_q))
+        o, lse = fa.flash_attention_reference(q, k, v, True)
+        delta, scale = (do * o).sum(-1), fa._f32(1.0 / h ** 0.5)
+        calls = {}
+        if shape in AB_FWD:
+            calls["fwd"] = lambda: fa.flash_block_fwd(q, k, v, True)
+        if shape in BWD_TIMED:
+            calls["dq"] = lambda: fa._launch_bwd_dq(q, k, v, do, lse, delta, True, scale)
+            calls["dkv"] = lambda: fa._launch_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+        for kernel, fn in calls.items():
+            out.append({"kernel": kernel, "shape": list(shape), "ms": cuda_ms(fn, 200),
+                        "device_us": sum(device_us(fn, 50).values())})
+    return out
+
+
 def time_kernels(seed, device, data_path):
-    """Kernel 1 at every rung × dtype of the ML-25M serving shape and kernel 2
-    over each side's buckets of the first half-step (f32, explicit), through
-    whichever ``predictionio_tpu_torch`` is first on ``sys.path``. Uses only
-    the wrappers' signatures, which the parent tree shares. The buckets are
+    """Kernel 1 at every rung × dtype of the ML-25M serving shape, kernel 2
+    over each side's buckets of the first half-step (f32, explicit) and the
+    flash kernels 4, 5 and 6 (``time_flash``), through whichever
+    ``predictionio_tpu_torch`` is first on ``sys.path``. Uses only the
+    wrappers' signatures, which the parent tree shares. The buckets are
     drawn once and kept in ``data_path`` for the other runs of the A/B."""
     import numpy as np
     import torch
@@ -2485,8 +2577,9 @@ def time_kernels(seed, device, data_path):
     from predictionio_tpu_torch.ops import _build, train_kernel
 
     t0 = time.perf_counter()
-    _build.build_all(("score_topk", "train_normal_eq"))
+    _build.build_all(("score_topk", "train_normal_eq", "flash_fwd", "flash_bwd"))
     out = {"build_s": time.perf_counter() - t0, "score": [], "train": []}
+    out["flash"] = time_flash(seed, device)
     rng = np.random.default_rng(seed)
     U = rng.standard_normal((N_USERS, RANK)).astype(np.float32)
     V = rng.standard_normal((N_ITEMS, RANK)).astype(np.float32)
@@ -2544,7 +2637,7 @@ def time_kernels(seed, device, data_path):
 
 
 def ab(parent, seed):
-    """Kernels 1 and 2 of the tree at ``parent`` (an unpacked ``git archive``
+    """Kernels 1, 2, 4, 5 and 6 of the tree at ``parent`` (an unpacked ``git archive``
     of the parent commit, under a directory ``.gitignore`` lists) and of this
     tree, in turns on one card: parent, change, change, parent. Each run is a
     process of its own that puts its tree first on ``sys.path`` and builds
@@ -2563,7 +2656,9 @@ def ab(parent, seed):
         emit({"phase": "ab-run", "tree": label,
               "score_b64_ms": {r["dtype"]: r["ms"] for r in runs[-1]["score"] if r["batch"] == RUNGS[-1]},
               "train_half_step_ms": {r["side"]: r["ms"] for r in runs[-1]["train"]},
-              "train_half_step_device_us": {r["side"]: r["device_us"] for r in runs[-1]["train"]}})
+              "train_half_step_device_us": {r["side"]: r["device_us"] for r in runs[-1]["train"]},
+              "flash": [{k: r[k] for k in ("kernel", "shape", "ms", "device_us")}
+                        for r in runs[-1]["flash"]]})
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ab.json"), "w") as f:
@@ -2575,7 +2670,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", metavar="PARENT_TREE",
-                    help="only time kernels 1 and 2 of PARENT_TREE and of this tree, in turns")
+                    help="only time kernels 1, 2, 4, 5 and 6 of PARENT_TREE and of this tree, in turns")
     ap.add_argument("--time-kernels", metavar="TREE", help=argparse.SUPPRESS)
     ap.add_argument("--data", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -14,49 +14,49 @@
 //   dq[r]   = (sum_c ds[r,c] * k[c,:]) * scale        scale applied once at the end, as the TPU kernel
 //   dk[c]   = (sum_r ds[r,c] * q[r,:]) * scale        (the TPU kernel scales per 128-row query tile)
 //   dv[c]   = sum_r p[r,c] * do[r,:]
-// Plain f32 FMAs and expf: no TF32, no fast math. No atomics: each output row is
-// owned by one block, which loops over the other axis itself.
+// Kernel 5 uses plain f32 FMAs, kernel 6 the tensor cores in the 3xTF32 form
+// (csrc/mma_tf32.cuh), at float32 accuracy; both expf, no fast math. No atomics:
+// each output row is owned by one block, which loops over the other axis itself.
 //
 // What bounds them: inputs read once and outputs written once, kernel 5 moves
 // 4*BH*(3*T_q*h + 2*T_kv*h + 2*T_q) bytes against 6*h*pairs*BH f32 operations
 // (three products over each visible (query, key) pair: s, dp, ds·k), kernel 6
 // 4*BH*(2*T_q*h + 4*T_kv*h + 2*T_q) bytes against 8*h*pairs*BH (s, dp, p·do,
-// ds·q). At the SASRec training shape (BH = 128, T = 256, h = 50, causal) that is
-// 33 MB against 1.26 GFLOP and 40 MB against 1.68 GFLOP: operations bound both,
-// at 18.9 and 25.1 us on 67 TFLOP/s (the bytes alone take 9.9 and 11.8 us).
+// ds·q), each of which its tensor cores run as three TF32 products, plus one
+// exponential a pair. At the SASRec training shape (BH = 128, T = 256, h = 50,
+// causal) that is 33 MB against 1.26 GFLOP and 40 MB against 1.68 GFLOP: operations
+// bound kernel 5 at 18.9 us on 67 TFLOP/s; kernel 6's bytes (11.8 us) bound it.
 //
 // Design. The TPU kernels walk (q block, k block) grids of 128 x 128 tiles, dq
 // with the key axis innermost and dk/dv with the query axis innermost, carrying
-// the sums in VMEM scratch. On Hopper both take kernel 4's layout
-// (csrc/flash_fwd.cu):
-//   - one block of 256 threads per (batch·head, 64-row tile) of the axis it
-//     owns; the other axis is a loop inside the block, so the sums live in
-//     registers: dq 4 x 4*NJ floats a thread, dk and dv 2 x 4 x 4*NJ;
-//   - operand tiles are staged transposed in shared memory, [d][68], and read as
-//     float4s by a 16 x 16 thread grid that owns 4 x 4 entries of each 64 x 64
-//     score tile; staging reads each tile's contiguous rows*d floats one scalar at
-//     a time, so head width 50 needs no special case;
-//   - the two score products of a tile (s and dp) and the accumulation read three
-//     layouts of the moving operands; they take turns in ONE staging buffer
-//     (transposed for the products, row-major [64][round4(d)] for the
-//     accumulation), so a head width of 256 fits in 221 KB of shared memory;
-//   - p (kernel 6) and ds go through shared memory once per tile, laid out so the
-//     accumulation reads them as float4s;
-//   - causal tiles wholly above the diagonal are skipped (kernel 5: key tiles past
-//     the query tile; kernel 6: query tiles before the key tile), and so are the
-//     diagonal tile's keys that no query row of kernel 5's block sees. In the TPU
-//     kernels those scores are -1e30 and exp(-1e30 - lse) is exactly 0, so the
-//     sums come out the same;
-//   - heaviest tiles first: kernel 5 runs the last query tiles first, kernel 6
-//     the first key tiles.
-// Head widths 1..256 through NJ = ceil(h / 64) in {1, 2, 3, 4}; kernel 6 holds
-// 32*NJ accumulators a thread (128 at NJ = 4), with 256 threads at most 255
-// registers each (nvcc -Xptxas -v reports registers and spills per NJ). Tensor
-// cores (wgmma), TMA and a fused single-pass backward are later work.
+// the sums in VMEM scratch. On Hopper:
+//   - kernel 5 (plain f32 FMAs): one block of 256 threads per (batch·head,
+//     64-row query tile), looping over key tiles; operand tiles staged transposed
+//     in shared memory, [d][68], and read as float4s by a 16 x 16 thread grid that
+//     owns 4 x 4 entries of each 64 x 64 score tile; the two score products and
+//     the accumulation take turns in ONE staging buffer; ds goes through shared
+//     memory once per tile; key tiles past the query tile are skipped, and so are
+//     the diagonal tile's keys no row of the block sees; last query tiles first.
+//     Head widths 1..256 through NJ = ceil(h / 64) in {1, 2, 3, 4};
+//   - kernel 6: one block of four warps per (batch·head, 64-key tile, 64-column
+//     slice of the head), each warp owning 16 keys and their dk, dv accumulators
+//     as mma C fragments (64 registers a thread at any head width: a head wider
+//     than 64 takes ceil(h / 64) slices, each block recomputing s and dp over the
+//     whole width); k and v staged once, then 32-query tiles of q, do, lse and
+//     delta staged by cp.async in a two-stage ring (one stage when the head is too
+//     wide for two), row-major with a row stride of 64*ceil(h / 64) + 4 and zero
+//     columns past h, one __syncthreads a tile; the four products read that one
+//     copy (see the kernel); 8-query steps before a warp's first key under a
+//     causal mask are skipped (their p is exactly 0), query tiles before the key
+//     tile too; the first key tiles, the heaviest, first.
+// In the TPU kernels skipped scores are -1e30 and exp(-1e30 - lse) is exactly 0,
+// so the sums come out the same.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -229,115 +229,194 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   }
 }
 
-// Kernel 6: dk and dv. One block per (batch·head, 64-row key tile); the thread
-// grid's rows are keys and its columns queries (the transposed score tile).
-template <int NJ>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int n_bh,
-    int t_q, int t_kv, int d, int causal, float scale) {
-  const int ds = (d + 3) & ~3;
+// Kernel 6: dk and dv. One block of four warps per (batch·head, 64-key tile, 64-wide
+// slice of the head), warp w owning keys 16w..16w+15 of the tile; the block loops
+// over 32-query tiles staged by cp.async in a two-stage ring (q and do row-major,
+// lse and delta beside them), one __syncthreads a tile. The four products run on
+// the tensor cores in the 3xTF32 form (csrc/mma_tf32.cuh) from that one copy:
+// sᵀ = k (q·scale)ᵀ and dpᵀ = v doᵀ with q and do as B operands, then dv += pᵀ do
+// and dk += dsᵀ q with pᵀ and dsᵀ taken straight from the score fragments. Neither
+// goes through shared memory.
+constexpr int KV_THREADS = 128;   // four warps of 16 keys
+constexpr int KV_QT = 32;         // queries a staged tile
+constexpr int KV_SLICE = 64;      // head columns a block accumulates
+
+struct KvArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;
+  const float* delta;
+  float* dk;
+  float* dv;
+  int n_bh, t_q, t_kv, d, causal;
+  float scale;
+  int n_kt, n_js, stages, vec;
+};
+
+// Three blocks an SM: ptxas keeps the kernel within 170 registers a thread, with
+// no spill at the widths the paths use; two blocks an SM ran slower.
+__global__ void __launch_bounds__(KV_THREADS, 3) flash_bwd_dkv_kernel(const KvArgs a) {
+  using namespace pio_mma;
   extern __shared__ __align__(16) float smem[];
-  float* kT = smem;              // [d][TS]  k, transposed
-  float* vT = kT + d * TS;       // [d][TS]  v, transposed
-  float* buf = vT + d * TS;      // q·scale or do transposed, then do or q row-major
-  float* wT = buf + stage_floats(d);   // [TILE][TS]  p, then ds: wT[row][key]
+  // rows of 64 * n_js floats and 4 more: the unrolled accumulation reads zeros past h
+  const int DW = KV_SLICE * a.n_js, DS = DW + 4, nd = pad8(a.d) / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  const int bh = blockIdx.x % n_bh;
-  const int kt = blockIdx.x / n_bh;   // the first key tiles are the heaviest under a causal mask
+  const int bh = blockIdx.x % a.n_bh;
+  const int rest = blockIdx.x / a.n_bh;
+  const int js = rest % a.n_js;
+  const int kt = rest / a.n_js;   // the first key tiles are the heaviest under a causal mask
   const int k0 = kt * TILE;
-  const int nk = min(TILE, t_kv - k0);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long key0 = static_cast<long long>(bh) * t_kv + k0;
-  const float* qb = q + static_cast<long long>(bh) * t_q * d;
-  const float* ob = dout + static_cast<long long>(bh) * t_q * d;
+  const int nk = min(TILE, a.t_kv - k0);
+  const int col0 = KV_SLICE * js;
+  const long long key0 = static_cast<long long>(bh) * a.t_kv + k0;
+  const float* qb = a.q + static_cast<long long>(bh) * a.t_q * a.d;
+  const float* ob = a.dout + static_cast<long long>(bh) * a.t_q * a.d;
+  const float* lb = a.lse + static_cast<long long>(bh) * a.t_q;
+  const float* db = a.delta + static_cast<long long>(bh) * a.t_q;
 
-  stage_t(kT, k + key0 * d, nk, d, 1.f, false);
-  stage_t(vT, v + key0 * d, nk, d, 1.f, false);
+  float* ks = smem;                  // [TILE][DS]  k
+  float* vs = ks + TILE * DS;        // [TILE][DS]  v
+  float* ring = vs + TILE * DS;      // stages x {q [KV_QT][DS], do [KV_QT][DS], lse [KV_QT], delta [KV_QT]}
+  const int stage_floats = 2 * KV_QT * DS + 2 * KV_QT;
 
-  const int n_qt = (t_q + TILE - 1) / TILE;
-  const int qt0 = causal ? kt : 0;   // query tiles before the key tile see none of it
+  const int qs_first = a.causal ? k0 / KV_QT : 0;   // query tiles before the key tile see none of it
+  const int n_it = max(0, (a.t_q + KV_QT - 1) / KV_QT - qs_first);
 
-  float dk_acc[4][4 * NJ], dv_acc[4][4 * NJ];
+  zero_pad_columns(ks, DS, 2 * TILE, a.d, DW);
+  for (int s = 0; s < a.stages; ++s) zero_pad_columns(ring + s * stage_floats, DS, 2 * KV_QT, a.d, DW);
+  auto issue = [&](int it, int stage) {
+    const int q0 = (qs_first + it) * KV_QT, nq = min(KV_QT, a.t_q - q0);
+    float* st = ring + stage * stage_floats;
+    pio_mma::stage_rows(st, DS, qb + static_cast<long long>(q0) * a.d, KV_QT, nq, a.d, a.vec);
+    pio_mma::stage_rows(st + KV_QT * DS, DS, ob + static_cast<long long>(q0) * a.d, KV_QT, nq, a.d, a.vec);
+    stage_vector(st + 2 * KV_QT * DS, lb + q0, KV_QT, nq);
+    stage_vector(st + 2 * KV_QT * DS + KV_QT, db + q0, KV_QT, nq);
+  };
+  pio_mma::stage_rows(ks, DS, a.k + key0 * a.d, TILE, nk, a.d, a.vec);
+  pio_mma::stage_rows(vs, DS, a.v + key0 * a.d, TILE, nk, a.d, a.vec);
+  if (n_it > 0) issue(0, 0);
+  cp_async_commit();
+
+  const int wk0 = k0 + 16 * warp;   // this warp's first key; this thread's keys wk0 + g, + 8
+  float dk_acc[8][4], dv_acc[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4 * NJ; ++e) {
-      dk_acc[i][e] = 0.f;
-      dv_acc[i][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_all();
+    __syncthreads();   // tile `it` is in; every warp is done with the stage refilled below
+    if (a.stages == 2 && it + 1 < n_it) {
+      issue(it + 1, (it + 1) & 1);
+      cp_async_commit();
     }
+    const float* st = ring + (a.stages == 2 ? (it & 1) : 0) * stage_floats;
+    const float* qsm = st;
+    const float* dos = st + KV_QT * DS;
+    const float* lse_s = st + 2 * KV_QT * DS;
+    const float* del_s = lse_s + KV_QT;
+    const int q0 = (qs_first + it) * KV_QT;
+    // 8-query steps [j0, j1): past t_q, and before this warp's first key under a causal mask, none
+    const int j1 = min(KV_QT / 8, (a.t_q - q0 + 7) / 8);
+    const int j0 = a.causal ? min(j1, max(0, (wk0 - q0) / 8)) : 0;
 
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * TILE;
-    const int nq = min(TILE, t_q - q0);
-    const long long row0 = static_cast<long long>(bh) * t_q + q0;
-    float lr[4], dl[4];   // per query column 4tx+j; rows past t_q get p = 0
+    if (j0 < j1) {
+      float s[KV_QT / 8][4], dp[KV_QT / 8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = 4 * tx + j;
-      lr[j] = r < nq ? lse[row0 + r] : INFINITY;
-      dl[j] = r < nq ? delta[row0 + r] : 0.f;
-    }
-    float s[4][4], dp[4][4];
-    __syncthreads();   // the previous tile's readers are done with buf and wT
-    stage_t(buf, qb + static_cast<long long>(q0) * d, nq, d, scale, true);
-    __syncthreads();
-    tile_product(s, kT, buf, d, ty, tx);   // s[key i][query j]
-    __syncthreads();
-    stage_t(buf, ob + static_cast<long long>(q0) * d, nq, d, 1.f, false);
-    __syncthreads();
-    tile_product(dp, vT, buf, d, ty, tx);
+      for (int j = 0; j < KV_QT / 8; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = k0 + 4 * ty + i;
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      const float* kr = ks + (16 * warp + g) * DS + t;
+      const float* vr = vs + (16 * warp + g) * DS + t;
+      for (int kk = 0; kk < nd; ++kk) {
+        FragA ak, av;
+        ak.set(kr[8 * kk], kr[8 * DS + 8 * kk], kr[8 * kk + 4], kr[8 * DS + 8 * kk + 4]);
+        av.set(vr[8 * kk], vr[8 * DS + 8 * kk], vr[8 * kk + 4], vr[8 * DS + 8 * kk + 4]);
+        FragB bq[KV_QT / 8], bo[KV_QT / 8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = q0 + 4 * tx + j;
-        float sv = s[i][j];
-        if (c >= t_kv) {
-          sv = -INFINITY;
-        } else if (causal && r < c) {
-          sv = NEG_INF;
+        for (int j = 0; j < KV_QT / 8; ++j) {   // unguarded, so the 8 chains interleave
+          const float* qr = qsm + (8 * j + g) * DS + 8 * kk + t;
+          const float* orow = dos + (8 * j + g) * DS + 8 * kk + t;
+          bq[j].set(__fmul_rn(qr[0], a.scale), __fmul_rn(qr[4], a.scale));
+          bo[j].set(orow[0], orow[4]);
         }
-        s[i][j] = expf(sv - lr[j]);   // p
-        dp[i][j] = s[i][j] * (dp[i][j] - dl[j]);   // ds
+        mma3_pair<KV_QT / 8>(s, ak, bq, dp, av, bo);
       }
-    }
+      // pᵀ and dsᵀ: key rows wk0 + g (e = 0, 1) and + 8 (e = 2, 3), query columns 8j + 2t (+1)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(wT + (4 * tx + j) * TS + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();   // p written; everyone is done reading do from buf
-    stage_rows(buf, ob + static_cast<long long>(q0) * d, nq, d, ds);
-    __syncthreads();
-    accumulate<NJ>(dv_acc, wT, buf, nq, d, ds, ty, tx);   // dv += pᵀ do
-    __syncthreads();   // done reading p and do
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(wT + (4 * tx + j) * TS + 4 * ty) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
-    stage_rows(buf, qb + static_cast<long long>(q0) * d, nq, d, ds);
-    __syncthreads();
-    accumulate<NJ>(dk_acc, wT, buf, nq, d, ds, ty, tx);   // dk += dsᵀ q
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = 4 * ty + i;
-    if (c < nk) {
-      float* ko = dk + (key0 + c) * d;
-      float* vo = dv + (key0 + c) * d;
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
+      for (int j = 0; j < KV_QT / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = 64 * jj + 4 * tx + e;
-          if (col < d) {
-            ko[col] = dk_acc[i][4 * jj + e] * scale;
-            vo[col] = dv_acc[i][4 * jj + e];
+          const int c = wk0 + g + 8 * (e >> 1);
+          const int rl = 8 * j + 2 * t + (e & 1);
+          const int r = q0 + rl;
+          float p = 0.f, ds = 0.f;
+          if (r < a.t_q) {
+            float sv = s[j][e];
+            if (c >= a.t_kv) {
+              sv = -INFINITY;
+            } else if (a.causal && r < c) {
+              sv = NEG_INF;
+            }
+            p = expf(sv - lse_s[rl]);
+            ds = p * (dp[j][e] - del_s[rl]);
+          }
+          s[j][e] = p;
+          dp[j][e] = ds;
+        }
+      }
+      // dv += pᵀ do, dk += dsᵀ q over this slice's columns
+#pragma unroll
+      for (int j = 0; j < KV_QT / 8; ++j) {
+        if (j >= j0 && j < j1) {
+          FragA ap, ads;
+          ap.set(s[j][0], s[j][2], s[j][1], s[j][3]);
+          ads.set(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
+          const float* orow = dos + (8 * j + 2 * t) * DS + col0 + g;
+          const float* qr = qsm + (8 * j + 2 * t) * DS + col0 + g;
+#pragma unroll
+          for (int nb = 0; nb < 8; nb += 4) {   // unguarded: columns past h are zeros
+            FragB bo[4], bq[4];
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              bo[n].set(orow[8 * (nb + n)], orow[DS + 8 * (nb + n)]);
+              bq[n].set(qr[8 * (nb + n)], qr[DS + 8 * (nb + n)]);
+            }
+            mma3_pair<4>(dv_acc + nb, ap, bo, dk_acc + nb, ads, bq);
           }
         }
+      }
+    }
+    if (a.stages == 1 && it + 1 < n_it) {
+      __syncthreads();   // every warp is done with the only stage
+      issue(it + 1, 0);
+      cp_async_commit();
+    }
+  }
+
+  cp_async_wait_all();   // a block no query sees still has its k and v copies in flight
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = 16 * warp + g + 8 * h;
+    if (c >= nk) continue;
+    float* ko = a.dk + (key0 + c) * a.d;
+    float* vo = a.dv + (key0 + c) * a.d;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = col0 + 8 * n + 2 * t;
+      if (col < a.d) {
+        ko[col] = dk_acc[n][2 * h] * a.scale;
+        vo[col] = dv_acc[n][2 * h];
+      }
+      if (col + 1 < a.d) {
+        ko[col + 1] = dk_acc[n][2 * h + 1] * a.scale;
+        vo[col + 1] = dv_acc[n][2 * h + 1];
+      }
     }
   }
 }
@@ -363,12 +442,6 @@ cudaError_t opt_in_dq() {
   return err;
 }
 
-template <int NJ>
-cudaError_t opt_in_dkv() {
-  static const cudaError_t err = opt_in_smem(flash_bwd_dkv_kernel<NJ>);
-  return err;
-}
-
 size_t smem_bytes(int d) {
   return sizeof(float) * (2 * static_cast<size_t>(d) * TS + stage_floats(d) + TILE * TS);
 }
@@ -390,20 +463,44 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v, const floa
   return cudaGetLastError();
 }
 
-template <int NJ>
-cudaError_t launch_dkv(const float* q, const float* k, const float* v, const float* dout,
-                       const float* lse, const float* delta, float* dk, float* dv, int n_bh,
-                       int t_q, int t_kv, int d, int causal, float scale, cudaStream_t stream) {
-  const int n_kt = (t_kv + TILE - 1) / TILE;
-  const long long blocks = static_cast<long long>(n_bh) * n_kt;
+// Kernel 6's dynamic shared-memory limit: the device's opt-in limit less the
+// kernel's static shared memory, set once.
+int dkv_smem_limit() {
+  static const int limit = [] {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes attr;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+        cudaFuncGetAttributes(&attr, flash_bwd_dkv_kernel) != cudaSuccess)
+      return -1;
+    const int lim = optin - static_cast<int>(attr.sharedSizeBytes);
+    if (cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lim) !=
+        cudaSuccess)
+      return -1;
+    return lim;
+  }();
+  return limit;
+}
+
+cudaError_t launch_dkv(KvArgs a, cudaStream_t stream) {
+  const int limit = dkv_smem_limit();
+  if (limit < 0) return cudaErrorInvalidValue;
+  a.n_kt = (a.t_kv + TILE - 1) / TILE;
+  a.n_js = (a.d + KV_SLICE - 1) / KV_SLICE;
+  const void* bases[4] = {a.q, a.k, a.v, a.dout};
+  a.vec = pio_mma::copy_vec(a.d, bases, 4);
+  const long long blocks = static_cast<long long>(a.n_bh) * a.n_kt * a.n_js;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = opt_in_dkv<NJ>();
-    if (e != cudaSuccess) return e;
+  const size_t ds = KV_SLICE * a.n_js + 4;
+  const size_t stage = 2 * KV_QT * ds + 2 * KV_QT;
+  size_t smem = sizeof(float) * (2 * TILE * ds + 2 * stage);
+  a.stages = 2;
+  if (smem > static_cast<size_t>(limit)) {
+    a.stages = 1;
+    smem -= sizeof(float) * stage;
+    if (smem > static_cast<size_t>(limit)) return cudaErrorInvalidValue;
   }
-  flash_bwd_dkv_kernel<NJ><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, n_bh, t_q, t_kv, d, causal, scale);
+  flash_bwd_dkv_kernel<<<static_cast<unsigned>(blocks), KV_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -450,17 +547,8 @@ int pio_flash_bwd_dkv(const float* q, const float* k, const float* v, const floa
                       const float* lse, const float* delta, float* dk, float* dv, int n_bh,
                       int t_q, int t_kv, int d, int causal, float scale, void* stream) {
   if (bad_shape(n_bh, t_q, t_kv, d)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 63) / 64) {
-    case 1:
-      return launch_dkv<1>(q, k, v, dout, lse, delta, dk, dv, n_bh, t_q, t_kv, d, causal, scale, s);
-    case 2:
-      return launch_dkv<2>(q, k, v, dout, lse, delta, dk, dv, n_bh, t_q, t_kv, d, causal, scale, s);
-    case 3:
-      return launch_dkv<3>(q, k, v, dout, lse, delta, dk, dv, n_bh, t_q, t_kv, d, causal, scale, s);
-    default:
-      return launch_dkv<4>(q, k, v, dout, lse, delta, dk, dv, n_bh, t_q, t_kv, d, causal, scale, s);
-  }
+  KvArgs a{q, k, v, dout, lse, delta, dk, dv, n_bh, t_q, t_kv, d, causal != 0, scale};
+  return launch_dkv(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,8 +8,10 @@ seconds, not minutes):
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
 
 The output lands under ``build/torch_kernels/`` at the repository root (a
-directory ``.gitignore`` lists), named by a hash of the source, so a
-changed source builds anew and an unchanged one is reused.
+directory ``.gitignore`` lists), named by a hash of the source and of the
+headers it includes from ``csrc/`` (``#include "x.cuh"``, followed
+through the headers' own includes), so a changed source or header builds
+anew and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
 for them together.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,9 +52,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path) -> list[Path]:
+    """``path`` and every header it includes by a quoted name from its own
+    directory, transitively, each once, in the order first met."""
+    out, todo = [], [path]
+    while todo:
+        p = todo.pop(0)
+        if p in out:
+            continue
+        out.append(p)
+        for inc in _INCLUDE.findall(p.read_bytes()):
+            dep = p.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return out
+
+
+def _target(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    h = hashlib.sha256()
+    for p in _sources(csrc / f"{name}.cu"):
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return build_dir / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, tuple[Path, float, str]]:

@@ -6,15 +6,17 @@ Replaces the three Pallas kernels of ``predictionio_tpu/ops/flash_attention.py``
 * ``_flash_kernel`` (the forward), reached through ``_flash_2d_res`` from
   ``flash_attention`` (every SASRec layer at a flash-eligible length) and
   ``flash_block_fwd`` (one block pair of ring attention), by
-  ``csrc/flash_fwd.cu``: one thread block per (batch·head, 64-row query
-  tile) keeps the online-softmax state (m, l, acc) in float32 registers and
-  loops over 64-row key/value tiles staged in shared memory, skipping the
-  tiles a causal mask hides entirely;
+  ``csrc/flash_fwd.cu``: a block per (batch·head, query tile, split of the
+  tile's keys) from :func:`split_plan`, a warp per 16 rows keeping the
+  online-softmax state (m, l, acc) in mma fragments, key/value tiles staged
+  by ``cp.async``, products on the tensor cores in the 3xTF32 form; the
+  last block of a split tile merges the splits' partials in split order;
 * ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the recomputation-form
   backward), reached through ``_flash_2d_bwd`` from the custom VJP and
   ``flash_block_bwd``, by ``csrc/flash_bwd.cu``: one block per (batch·head,
-  64-row query tile) for dq and one per (batch·head, 64-row key tile) for
-  dk and dv, each looping over the other axis, so no sum crosses blocks.
+  64-row query tile) for dq and one per (batch·head, 64-key tile, 64-column
+  slice of the head) for dk and dv, each looping over the other axis, so no
+  sum crosses blocks.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` at first use
 (``ops/_build.py``) and called through ``ctypes``; each source note says
@@ -45,6 +47,7 @@ whatever the batch·head count).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional
 
@@ -62,6 +65,10 @@ BLOCK_K = 128
 # it takes (the C source's TILE and MAX_HEAD).
 TILE = 64
 MAX_HEAD = 256
+# The forward's smallest query tile (one warp's rows), and the most splits
+# :func:`split_plan` cuts a tile's keys into.
+MIN_Q_ROWS = 16
+MAX_SPLITS = 8
 
 launches = LaunchCounter()  # the forward kernel (4)
 bwd_dq_launches = LaunchCounter()  # the backward's dq kernel (5)
@@ -72,6 +79,57 @@ def use_flash_default(t: int, device) -> bool:
     """The JAX package's shape policy for the flash path: long 128-aligned
     blocks on the accelerator; short blocks and the CPU stay dense."""
     return t >= 256 and t % BLOCK_Q == 0 and torch.device(device).type == "cuda"
+
+
+def _tile_keys(t_q: int, t_kv: int, causal: bool, q_rows: int) -> list[int]:
+    """Keys some row of each query tile of ``q_rows`` rows sees, tile 0
+    first: all of them, or under a causal mask those up to its last row."""
+    return [min(t_kv, q0 + q_rows, t_q) if causal else t_kv for q0 in range(0, t_q, q_rows)]
+
+
+def plan_blocks(n_bh: int, t_q: int, t_kv: int, causal: bool, q_rows: int, ks: int):
+    """The forward kernel's grid in launch order, one ``(bh, query tile,
+    split, first key, end key)`` a block: the last (heaviest) query tiles
+    first, then split, then batch·head, as ``csrc/flash_fwd.cu`` maps
+    ``blockIdx.x``."""
+    keys = _tile_keys(t_q, t_kv, causal, q_rows)
+    return [(bh, qt, split, split * ks, min(keys[qt], (split + 1) * ks))
+            for qt in reversed(range(len(keys)))
+            for split in range(-(-keys[qt] // ks))
+            for bh in range(n_bh)]
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(n_bh: int, t_q: int, t_kv: int, causal: bool, n_sm: int) -> tuple[int, int, int]:
+    """``(q_rows, ks, blocks)``: the forward kernel's query-tile rows, keys a
+    split and grid for one call.
+
+    When 64-row query tiles alone give the card's ``n_sm`` SMs half a block
+    each or more, a tile's keys are one split. Otherwise tiles shrink to
+    :data:`MIN_Q_ROWS` rows (a warp) and their keys are cut into runs of
+    ``ks`` keys, the longest of ``t_kv``, 256, 128, 64, 32 and 16 that gives
+    ``n_sm // 2`` blocks (at most :data:`MAX_SPLITS` splits a tile). A run
+    of ``ks`` starts at a multiple of ``ks``, so every row of a 16-row tile
+    sees the first key of each of its splits.
+    """
+    n_qt = -(-t_q // TILE)
+    if n_bh * n_qt >= n_sm // 2:
+        return TILE, t_kv, n_bh * n_qt
+    keys = _tile_keys(t_q, t_kv, causal, MIN_Q_ROWS)
+
+    def blocks(ks):
+        return n_bh * sum(-(-n // ks) for n in keys)
+
+    ks = t_kv
+    for cand in (t_kv, 256, 128, 64, 32, MIN_Q_ROWS):
+        if cand > t_kv:
+            continue
+        if -(-t_kv // cand) > MAX_SPLITS:
+            break
+        ks = cand
+        if blocks(ks) >= n_sm // 2:
+            break
+    return MIN_Q_ROWS, ks, blocks(ks)
 
 
 def _f32(x: float) -> float:
@@ -200,7 +258,7 @@ def _library(name: str):
             lib = ctypes.CDLL(str(_build.library(name)))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             if name == "flash_fwd":
-                lib.pio_flash_fwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
+                lib.pio_flash_fwd.argtypes = [p] * 7 + [i] * 5 + [f, i, i, ctypes.c_longlong, p]
                 lib.pio_flash_fwd.restype = i
                 limits = lib.pio_flash_fwd_limits
             else:
@@ -239,23 +297,62 @@ def _raise_on(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {lib.pio_flash_error_string(rc).decode()} ({rc})")
 
 
+# One zeroed ticket counter a query tile, per (device, stream): the merging
+# block of a split tile sets its counter back to 0, and launches on one
+# stream run one after another, so a buffer serves every call on its stream.
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_buffer(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    with _lib_lock:
+        buf = _tickets.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+            _tickets[key] = buf
+        return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(q, k, v, causal: bool, scale: float):
-    """One forward launch over the flattened batch·head dimension."""
+    """One forward launch over the flattened batch·head dimension. The host
+    work is kept to what the launch needs: one allocation holds o, lse and
+    the split scratch, the plan is cached, and the device is made current
+    only when it is not."""
     device = _check_operands(q=q, k=k, v=v)
     t_q, d = q.shape[-2:]
     t_kv = k.shape[-2]
     bh = q.numel() // (t_q * d)
     if bh == 0:
         raise ValueError("empty batch·head dimension")
-    lib = _library("flash_fwd")
-    o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.pio_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            bh, t_q, t_kv, d, int(bool(causal)), scale, stream,
-        )
+    lib = _libs.get("flash_fwd") or _library("flash_fwd")
+    causal = bool(causal)
+    index = device.index
+    q_rows, ks, blocks = split_plan(bh, t_q, t_kv, causal, _sm_count(index))
+    n_qt = -(-t_q // q_rows)
+    n_o, n_lse = bh * t_q * d, bh * t_q
+    at = -(-(n_o + n_lse) // 4) * 4  # the scratch starts 16-byte aligned
+    n_part = bh * n_qt * -(-t_kv // ks) * q_rows * (d + 2) if blocks > bh * n_qt else 0
+    buf = torch.empty(at + n_part, dtype=torch.float32, device=device)
+    o = buf.as_strided(q.shape, q.stride())  # q is contiguous: so are o and lse
+    lse = buf.as_strided(q.shape[:-1], tuple(st // d for st in q.stride()[:-1]), n_o)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    base = buf.data_ptr()
+    part = tickets = None
+    if n_part:  # some query tile has more than one split
+        part = base + 4 * at
+        tickets = _ticket_buffer(device, stream, bh * n_qt).data_ptr()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), base, base + 4 * n_o, part, tickets,
+            bh, t_q, t_kv, d, int(causal), scale, q_rows, ks, blocks, stream)
+    if index == torch.cuda.current_device():
+        rc = lib.pio_flash_fwd(*args)
+    else:
+        with torch.cuda.device(index):
+            rc = lib.pio_flash_fwd(*args)
     _raise_on(lib, rc, "flash_fwd")
     launches.bump()
     return o, lse

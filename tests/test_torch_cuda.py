@@ -324,6 +324,7 @@ def test_segment_train_on_card_matches_cpu(card, implicit, monkeypatch):
 @pytest.mark.parametrize("bh, t_q, t_kv, h", [
     (1, 256, 256, 50), (3, 128, 128, 64), (2, 8, 8, 16), (2, 384, 384, 128),
     (1, 256, 512, 50), (2, 512, 256, 32), (1, 256, 256, 256), (2, 100, 100, 1),
+    (70, 64, 64, 256),  # 64-row tiles at the widest head: a one-stage ring
 ])
 def test_flash_kernel_matches_plain_version_on_card(card, causal, bh, t_q, t_kv, h):
     rng = np.random.default_rng(bh * 1000 + t_q + h)
@@ -336,6 +337,54 @@ def test_flash_kernel_matches_plain_version_on_card(card, causal, bh, t_q, t_kv,
     assert flash_attention.launches.count == before + 1
     torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", (False, True))
+@pytest.mark.parametrize("bh, t_q, t_kv, h", [
+    (1, 256, 256, 50), (1, 256, 256, 64), (4, 256, 1024, 50), (4, 1024, 256, 64),
+    (1, 100, 100, 7), (1, 128, 128, 256), (2, 16, 4096, 50),
+])
+def test_flash_kernel_with_key_splits_matches_plain_version_on_card(card, causal, bh, t_q, t_kv, h):
+    """Shapes whose split plan takes 16-row query tiles, most of them cut
+    into key splits: the merged partials against the plain version, a second
+    launch byte for byte, and the tickets back at zero."""
+    rng = np.random.default_rng(bh * 7 + t_q + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, t, h)).astype(np.float32)).to(card)
+               for t in (t_q, t_kv, t_kv))
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    assert flash_attention.split_plan(bh, t_q, t_kv, causal, n_sm)[0] == flash_attention.MIN_Q_ROWS
+    o, lse = flash_attention.flash_block_fwd(q, k, v, causal)
+    o2, lse2 = flash_attention.flash_block_fwd(q, k, v, causal)
+    ro, rlse = flash_attention.flash_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    tickets = flash_attention._tickets.get((card.index, stream))
+    assert tickets is None or int(tickets.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_flash_serving_shape_plan_fills_the_card(card):
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    q_rows, ks, blocks = flash_attention.split_plan(1, 256, 256, True, n_sm)
+    assert blocks >= 64 and ks <= 64, (q_rows, ks, blocks)
+    assert flash_attention.split_plan(128, 256, 256, True, n_sm)[1] == 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh, t_q, t_kv, h", [(128, 256, 256, 50), (8, 1024, 1024, 64), (2, 128, 128, 192)])
+def test_flash_kernels_give_the_same_bytes_twice_on_card(card, bh, t_q, t_kv, h):
+    q, k, v, o, lse, do = _bwd_inputs(card, 21, bh, t_q, t_kv, h, True)
+    fwd = [flash_attention.flash_block_fwd(q, k, v, True) for _ in range(2)]
+    bwd = [flash_attention.flash_block_bwd(q, k, v, o, lse, do, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*fwd):
+        assert torch.equal(a, b)
+    for a, b in zip(*bwd):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
