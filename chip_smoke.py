@@ -126,14 +126,16 @@ code is not 0 and the last line is never printed.
              on the card, and the flash kernel must launch 2 (layers) × the
              queries whose history holds a catalog item.
 8. sasrec-bwd-kernel — the two flash-attention backward kernels (dq; dk and
-             dv) against the plain backward (and the plain backward in float64)
+             dv) against the plain backward (and the plain backward in float64,
+             each gradient's gap to it printed beside the plain version's)
              at every sasrec-kernel shape, causal and not, TF32 off, each
              launched twice for the same bytes; then the
              ring's composition with a global lse (block pairs of 128, each fed
              the whole forward's o and lse, summing to the whole backward).
              Times each kernel at the training shape (128, 256, 256, 50) and at
-             (8, 1024, 1024, 64), causal: kernel, device µs, the plain backward,
-             the SDPA backward (timed only, its backend named) and the bounds.
+             (8, 1024, 1024, 64), causal: kernel, device µs, dq's grid, the plain
+             backward, the SDPA backward (timed only, its backend named) and the
+             bounds (3xTF32 and, as before, f32).
 9. sasrec-train — the training main path at the paper's ML-1M width: 6,040
              users × 3,416 items, 1,000,209 view events drawn from ``--seed``
              (every user at least 20, items Zipf-Mandelbrot s = 1.1, q = 50,
@@ -2005,25 +2007,29 @@ BWD_TIMED = ((128, 256, 256, 50), (8, 1024, 1024, 64))
 BWD_RTOL, BWD_ATOL = 2e-4, 2e-5  # the JAX package's own gradient test
 
 
-def flash_bwd_bounds(bh, t_q, t_kv, h, causal, dkv_on="tf32x3"):
+def flash_bwd_bounds(bh, t_q, t_kv, h, causal, dkv_on="tf32x3", dq_on="tf32x3"):
     """Least time of each backward kernel, (ms, "bytes" | "operations"):
     inputs read once and outputs written once (f32); kernel 5 (dq) makes
-    three products of h multiply-adds over each visible pair (s, dp, ds·k)
-    at the f32 rate, kernel 6 (dk, dv) four (s, dp, pᵀ·do, dsᵀ·q), on the
-    tensor cores as three TF32 products each when ``dkv_on`` is "tf32x3"
-    (the committed kernel), and one exponential a pair at the f32 rate;
-    "f32" gives kernel 6's bound at the f32 rate, for comparison with the
-    earlier FMA kernel."""
+    three products of h multiply-adds over each visible pair (s, dp, ds·k),
+    kernel 6 (dk, dv) four (s, dp, pᵀ·do, dsᵀ·q), each with one exponential
+    a pair at the f32 rate. ``dq_on`` / ``dkv_on`` "tf32x3": the products on
+    the tensor cores as three TF32 products each (the committed kernels);
+    "f32": everything at the f32 rate outside the tensor cores (the bound of
+    the earlier FMA kernels, for comparison)."""
     pairs = visible_pairs(t_q, t_kv, causal) * bh
+
+    def t_ops(products, on):
+        if on == "f32":
+            return 2 * products * h * pairs / PEAK_F32_OPS_S
+        return 2 * products * h * pairs / (PEAK_TF32_OPS_S / 3) + pairs / PEAK_F32_OPS_S
+
     out = {}
-    for name, nbytes, t_ops in (
-        ("dq", 4 * bh * (3 * t_q * h + 2 * t_kv * h + 2 * t_q), 6 * h * pairs / PEAK_F32_OPS_S),
-        ("dkv", 4 * bh * (2 * t_q * h + 4 * t_kv * h + 2 * t_q),
-         8 * h * pairs / PEAK_F32_OPS_S if dkv_on == "f32"
-         else 8 * h * pairs / (PEAK_TF32_OPS_S / 3) + pairs / PEAK_F32_OPS_S),
+    for name, nbytes, t_op in (
+        ("dq", 4 * bh * (3 * t_q * h + 2 * t_kv * h + 2 * t_q), t_ops(3, dq_on)),
+        ("dkv", 4 * bh * (2 * t_q * h + 4 * t_kv * h + 2 * t_q), t_ops(4, dkv_on)),
     ):
         t_bytes = nbytes / PEAK_BYTES_S
-        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+        out[name] = (max(t_bytes, t_op) * 1e3, "bytes" if t_bytes >= t_op else "operations")
     return out
 
 
@@ -2098,6 +2104,10 @@ def phase_sasrec_bwd_kernel(seed, device):
                 inputs[shape] = (q, k, v, o, lse, do)
     emit({"phase": "sasrec-bwd-kernel", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cases": cases, "max_abs_err": worst, "rtol": BWD_RTOL, "atol": BWD_ATOL,
+          # the largest gap to float64 over the cases, kernel beside the plain version
+          "vs_f64": {name: {"kernel": max(c[f"{name}_kernel_vs_f64"] for c in cases),
+                            "plain": max(c[f"{name}_plain_vs_f64"] for c in cases)}
+                     for name in ("dq", "dk", "dv")},
           "relaunch_identical": True, "ok": True})
 
     # the ring's composition: block pairs fed the whole forward's o and lse
@@ -2149,7 +2159,9 @@ def phase_sasrec_bwd_kernel(seed, device):
             "library_backend": sdpa_backend(sdpa_fwd_bwd),
             "dq_bound_ms": bounds["dq"][0], "dq_bound_by": bounds["dq"][1],
             "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1],
-            "dkv_bound_f32_ms": flash_bwd_bounds(bh, t_q, t_kv, h, True, "f32")["dkv"][0],
+            "dq_bound_f32_ms": flash_bwd_bounds(bh, t_q, t_kv, h, True, dq_on="f32")["dq"][0],
+            "dkv_bound_f32_ms": flash_bwd_bounds(bh, t_q, t_kv, h, True, dkv_on="f32")["dkv"][0],
+            "dq_plan": dict(zip(("q_rows", "blocks"), fa.dq_plan(bh, t_q, h, fa._sm_count(q.device.index)))),
         }
         rows.append(row)
         emit({"phase": "sasrec-bwd-time", **row})

@@ -14,30 +14,45 @@
 //   dq[r]   = (sum_c ds[r,c] * k[c,:]) * scale        scale applied once at the end, as the TPU kernel
 //   dk[c]   = (sum_r ds[r,c] * q[r,:]) * scale        (the TPU kernel scales per 128-row query tile)
 //   dv[c]   = sum_r p[r,c] * do[r,:]
-// Kernel 5 uses plain f32 FMAs, kernel 6 the tensor cores in the 3xTF32 form
-// (csrc/mma_tf32.cuh), at float32 accuracy; both expf, no fast math. No atomics:
-// each output row is owned by one block, which loops over the other axis itself.
+// Both run every product on the tensor cores in the 3xTF32 form (csrc/mma_tf32.cuh),
+// each 8-deep step's three products summed from zero and added to a float32 sum
+// rounded to nearest, at float32 accuracy; expf, no fast math. No atomics: each
+// output element is summed by one block in one fixed order, so a relaunch gives
+// the same bytes.
 //
 // What bounds them: inputs read once and outputs written once, kernel 5 moves
-// 4*BH*(3*T_q*h + 2*T_kv*h + 2*T_q) bytes against 6*h*pairs*BH f32 operations
-// (three products over each visible (query, key) pair: s, dp, ds·k), kernel 6
+// 4*BH*(3*T_q*h + 2*T_kv*h + 2*T_q) bytes against 6*h*pairs*BH operations (three
+// products over each visible (query, key) pair: s, dp, ds·k), kernel 6
 // 4*BH*(2*T_q*h + 4*T_kv*h + 2*T_q) bytes against 8*h*pairs*BH (s, dp, p·do,
-// ds·q), each of which its tensor cores run as three TF32 products, plus one
-// exponential a pair. At the SASRec training shape (BH = 128, T = 256, h = 50,
-// causal) that is 33 MB against 1.26 GFLOP and 40 MB against 1.68 GFLOP: operations
-// bound kernel 5 at 18.9 us on 67 TFLOP/s; kernel 6's bytes (11.8 us) bound it.
+// ds·q); the tensor cores run each product as three TF32 products (495/3 TFLOP/s),
+// and each pair takes one exponential at the f32 rate (67 TFLOP/s). At the SASRec
+// training shape (BH = 128, T = 256, h = 50, causal) kernel 5 moves 33 MB (9.9 us)
+// against 1.26 GFLOP (7.7 us + 0.06 us): bytes bound it; kernel 6's bytes too.
 //
 // Design. The TPU kernels walk (q block, k block) grids of 128 x 128 tiles, dq
 // with the key axis innermost and dk/dv with the query axis innermost, carrying
-// the sums in VMEM scratch. On Hopper:
-//   - kernel 5 (plain f32 FMAs): one block of 256 threads per (batch·head,
-//     64-row query tile), looping over key tiles; operand tiles staged transposed
-//     in shared memory, [d][68], and read as float4s by a 16 x 16 thread grid that
-//     owns 4 x 4 entries of each 64 x 64 score tile; the two score products and
-//     the accumulation take turns in ONE staging buffer; ds goes through shared
-//     memory once per tile; key tiles past the query tile are skipped, and so are
-//     the diagonal tile's keys no row of the block sees; last query tiles first.
-//     Head widths 1..256 through NJ = ceil(h / 64) in {1, 2, 3, 4};
+// the sums in VMEM scratch. On Hopper, a block loops over the other axis itself:
+//   - kernel 5: a block of four warps owns q_rows (64, 32 or 16) query rows and a
+//     64-column slice of dq (a head wider than 64 takes ceil(h / 64) slices, each
+//     block recomputing s and dp over the whole width). q_rows / 16 row groups of
+//     16 rows times 64 / q_rows key groups: a warp owns one row group's dq
+//     accumulators as mma C fragments and the keys of its group, 32 of every
+//     32 * (64 / q_rows) (ops/flash_attention.dq_plan picks q_rows: 64 where those
+//     tiles give every SM a block, fewer rows and more key groups where not).
+//     q·scale (rounded once) and do are staged once a block by cp.async and, where
+//     that costs no block an SM, split into TF32 hi and lo once, in shared memory,
+//     for every key tile; else (the SASRec training shape, where the split copy
+//     leaves two blocks an SM instead of three, and ran slower) kept as float32 and
+//     split where a fragment is formed. k and v come by cp.async in a two-stage
+//     ring (one stage when two do not fit), row-major with a row stride of
+//     64*ceil(h / 64) + 4 and zero columns past h, one __syncthreads a staged
+//     tile; a warp's lse and delta stay in registers. s = (q·scale) kᵀ and dp = do vᵀ take k and v as B operands, ds
+//     goes from the score fragments straight into the A operand of dq += ds k, with
+//     k read again as B from the same copy (mma_tf32.cuh says how). 8-key steps
+//     past a warp's last row under a causal mask are skipped (p is exactly 0), and
+//     so are key tiles past the block's; the last (heaviest) query tiles first.
+//     Key groups' partial sums meet in shared memory at the end, added in group
+//     order;
 //   - kernel 6: one block of four warps per (batch·head, 64-key tile, 64-column
 //     slice of the head), each warp owning 16 keys and their dk, dv accumulators
 //     as mma C fragments (64 registers a thread at any head width: a head wider
@@ -61,172 +76,244 @@
 namespace {
 
 constexpr int TILE = 64;        // rows of a query and of a key/value tile
-constexpr int THREADS = 256;    // a 16 x 16 thread grid
 constexpr int MAX_HEAD = 256;
-constexpr int TS = TILE + 4;    // row stride of the transposed tiles: float4-aligned
 constexpr float NEG_INF = -1e30f;
 
-// rows*d contiguous floats of src → dst[c][TS] transposed (times mul), zeros past nr
-__device__ __forceinline__ void stage_t(float* dst, const float* src, int nr, int d, float mul,
-                                        bool scaled) {
-  for (int u = threadIdx.x; u < TILE * d; u += THREADS) {
-    const int r = u / d, c = u - r * d;
-    dst[c * TS + r] = r < nr ? (scaled ? __fmul_rn(src[u], mul) : src[u]) : 0.f;
-  }
-}
+// Kernel 5: dq. One block of four warps per (batch·head, tile of q_rows query
+// rows, 64-wide slice of the head); warp w owns rows 16*(w % R)..+15 of the tile
+// (R = q_rows / 16 row groups) and key group w / R: keys 32*(w / R)..+31 of every
+// staged chunk of 32 * (4 / R) keys.
+constexpr int DQ_THREADS = 128;
+constexpr int DQ_KT = 32;         // keys a warp takes from a staged chunk
+constexpr int DQ_SLICE = 64;      // dq columns a block accumulates
 
-// rows*d contiguous floats of src → dst[r][ds] row-major; rows past nr are not read
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int nr, int d, int ds) {
-  for (int u = threadIdx.x; u < nr * d; u += THREADS) {
-    const int r = u / d, c = u - r * d;
-    dst[r * ds + c] = src[u];
-  }
-}
+struct DqArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;
+  const float* delta;
+  float* dq;
+  int n_bh, t_q, t_kv, d, causal;
+  float scale;
+  int q_rows, n_qt, n_js, stages, vec;
+};
 
-// out[i][j] = sum_c aT[c][4*ty + i] * bT[c][4*tx + j]
-__device__ __forceinline__ void tile_product(float out[4][4], const float* aT, const float* bT,
-                                             int d, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < d; ++c) {
-    const float4 a = *reinterpret_cast<const float4*>(aT + c * TS + 4 * ty);
-    const float4 b = *reinterpret_cast<const float4*>(bT + c * TS + 4 * tx);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] = fmaf(av[i], bv[j], out[i][j]);
-  }
-}
-
-// acc[i][4*jj + e] += sum_{n < count} wT[n][4*ty + i] * rows[n][64*jj + 4*tx + e]
-template <int NJ>
-__device__ __forceinline__ void accumulate(float acc[4][4 * NJ], const float* wT, const float* rows,
-                                           int count, int d, int ds, int ty, int tx) {
-  for (int n = 0; n < count; ++n) {
-    const float4 a = *reinterpret_cast<const float4*>(wT + n * TS + 4 * ty);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      if (64 * jj + 4 * tx < d) {
-        const float4 b = *reinterpret_cast<const float4*>(rows + n * ds + 64 * jj + 4 * tx);
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][4 * jj + e] = fmaf(av[i], bv[e], acc[i][4 * jj + e]);
-      }
-    }
-  }
-}
-
-// the staging buffer holds a transposed [d][TS] tile or a row-major [TILE][ds] one
-__host__ __device__ inline int stage_floats(int d) {
-  const int ds = (d + 3) & ~3;
-  return d * TS > TILE * ds ? d * TS : TILE * ds;
-}
-
-// Kernel 5: dq. One block per (batch·head, 64-row query tile).
-template <int NJ>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int n_bh, int n_qt, int t_q,
-    int t_kv, int d, int causal, float scale) {
-  const int ds = (d + 3) & ~3;
+// SPLIT: q·scale and do held as TF32 hi and lo in shared memory (four arrays),
+// else as float32 (two arrays), split where a fragment is formed.
+template <bool SPLIT>
+__global__ void __launch_bounds__(DQ_THREADS, SPLIT ? 2 : 3) flash_bwd_dq_kernel(const DqArgs a) {
+  using namespace pio_mma;
   extern __shared__ __align__(16) float smem[];
-  float* qT = smem;              // [d][TS]  q * scale, transposed
-  float* doT = qT + d * TS;      // [d][TS]  do, transposed
-  float* buf = doT + d * TS;     // k or v transposed, then k row-major
-  float* dsT = buf + stage_floats(d);   // [TILE][TS]  ds, transposed: dsT[key][row]
+  // rows of 64 * n_js floats and 4 more: the unrolled products read zeros past h
+  const int DW = DQ_SLICE * a.n_js, DS = DW + 4, nd = pad8(a.d) / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_rg = a.q_rows / 16, n_kg = 4 / n_rg;
+  const int rg = warp % n_rg, kg = warp / n_rg;
+  const int chunk = DQ_KT * n_kg;   // keys a staged tile
 
-  const int bh = blockIdx.x % n_bh;
-  const int qt = n_qt - 1 - blockIdx.x / n_bh;   // heaviest tiles first
-  const int q0 = qt * TILE;
-  const int nq = min(TILE, t_q - q0);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long row0 = static_cast<long long>(bh) * t_q + q0;
-  const float* kb = k + static_cast<long long>(bh) * t_kv * d;
-  const float* vb = v + static_cast<long long>(bh) * t_kv * d;
+  const int bh = blockIdx.x % a.n_bh;
+  const int rest = blockIdx.x / a.n_bh;
+  const int js = rest % a.n_js;
+  const int qt = a.n_qt - 1 - rest / a.n_js;   // the last (heaviest) query tiles first
+  const int q0 = qt * a.q_rows;
+  const int nq = min(a.q_rows, a.t_q - q0);
+  const int col0 = DQ_SLICE * js;
+  const long long row0 = static_cast<long long>(bh) * a.t_q + q0;
+  const int visible = a.causal ? min(a.t_kv, q0 + nq) : a.t_kv;   // keys some row of the tile sees
+  const int n_it = (visible + chunk - 1) / chunk;
 
-  stage_t(qT, q + row0 * d, nq, d, scale, true);
-  stage_t(doT, dout + row0 * d, nq, d, 1.f, false);
-  float lr[4], dl[4];   // rows past t_q: lse +inf makes their p exactly 0
+  constexpr int N_A = SPLIT ? 4 : 2;
+  float* aop = smem;                          // SPLIT: q hi, q lo, do hi, do lo; else q, do; [q_rows][DS]
+  float* ring = aop + N_A * a.q_rows * DS;    // stages x {k [chunk][DS], v [chunk][DS]}
+  const int stage_floats = 2 * chunk * DS;
+  const float* kbase = a.k + static_cast<long long>(bh) * a.t_kv * a.d;
+  const float* vbase = a.v + static_cast<long long>(bh) * a.t_kv * a.d;
+
+  const int n_a = a.q_rows * DS;   // floats of one A-operand array
+  float* qs = aop;                                  // q, then q·scale (its hi part where SPLIT)
+  float* os = aop + (SPLIT ? 2 : 1) * n_a;          // do (its hi part where SPLIT)
+  zero_pad_columns(aop, DS, N_A * a.q_rows, a.d, DW);
+  for (int s = 0; s < a.stages; ++s) zero_pad_columns(ring + s * stage_floats, DS, 2 * chunk, a.d, DW);
+  auto issue = [&](int it, int stage) {
+    // every row of the chunk: rows past t_kv are zeros, so no product reads garbage
+    const int k0 = it * chunk, nk = min(chunk, a.t_kv - k0);
+    float* st = ring + stage * stage_floats;
+    stage_rows(st, DS, kbase + static_cast<long long>(k0) * a.d, chunk, nk, a.d, a.vec);
+    stage_rows(st + chunk * DS, DS, vbase + static_cast<long long>(k0) * a.d, chunk, nk, a.d, a.vec);
+  };
+  // q and do (rows past t_q as zeros: such a row has lse +inf below, so its p is 0)
+  stage_rows(qs, DS, a.q + row0 * a.d, a.q_rows, nq, a.d, a.vec);
+  stage_rows(os, DS, a.dout + row0 * a.d, a.q_rows, nq, a.d, a.vec);
+  issue(0, 0);
+  cp_async_commit();
+
+  const int rl0 = 16 * rg + g;   // this thread's rows of the tile: rl0 and rl0 + 8
+  const bool has_rows = 16 * rg < nq;
+  const int warp_last = q0 + min(16 * rg + 15, nq - 1);
+  float lr[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    lr[i] = r < nq ? lse[row0 + r] : INFINITY;
-    dl[i] = r < nq ? delta[row0 + r] : 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const bool in = rl0 + 8 * h < nq;
+    lr[h] = in ? a.lse[row0 + rl0 + 8 * h] : INFINITY;
+    dl[h] = in ? a.delta[row0 + rl0 + 8 * h] : 0.f;
   }
 
-  int n_kt = (t_kv + TILE - 1) / TILE;
-  if (causal) n_kt = min(n_kt, (q0 + nq - 1) / TILE + 1);
-
-  float acc[4][4 * NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4 * NJ; ++e) acc[i][e] = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TILE;
-    const int nk = min(TILE, t_kv - k0);
-    const float* kt_b = kb + static_cast<long long>(k0) * d;
-    float s[4][4], dp[4][4];
-    __syncthreads();   // the previous tile's readers are done with buf and dsT
-    stage_t(buf, kt_b, nk, d, 1.f, false);
-    __syncthreads();
-    tile_product(s, qT, buf, d, ty, tx);
-    __syncthreads();
-    stage_t(buf, vb + static_cast<long long>(k0) * d, nk, d, 1.f, false);
-    __syncthreads();
-    tile_product(dp, doT, buf, d, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + 4 * tx + j;
-        float sv = s[i][j];
-        if (c >= t_kv) {
-          sv = -INFINITY;
-        } else if (causal && r < c) {
-          sv = NEG_INF;
-        }
-        const float p = expf(sv - lr[i]);
-        s[i][j] = p * (dp[i][j] - dl[i]);
+  // q·scale (rounded once) and, where SPLIT, both operands split into TF32 hi
+  // and lo, once a block: each thread converts the elements it copied, which
+  // its own wait makes visible to it; the loop's first barrier publishes them
+  cp_async_wait_all();
+  for_each_2d(a.q_rows, a.d / a.vec, [&](int r, int p) {
+    for (int e = 0; e < a.vec; ++e) {
+      const int i = r * DS + a.vec * p + e;
+      const float x = __fmul_rn(qs[i], a.scale);
+      if constexpr (SPLIT) {
+        uint32_t hi, lo;
+        split(x, hi, lo);
+        qs[i] = __uint_as_float(hi);
+        qs[n_a + i] = __uint_as_float(lo);
+        split(os[i], hi, lo);
+        os[i] = __uint_as_float(hi);
+        os[n_a + i] = __uint_as_float(lo);
+      } else {
+        qs[i] = x;
       }
     }
+  });
+  float acc[8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(dsT + (4 * tx + j) * TS + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();   // dsT written; everyone is done reading v from buf
-    stage_rows(buf, kt_b, nk, d, ds);
-    __syncthreads();
-    // dq += ds k over the keys some row of this block sees
-    const int nc = causal ? min(nk, q0 + nq - k0) : nk;
-    accumulate<NJ>(acc, dsT, buf, nc, d, ds, ty, tx);
-  }
+  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
+  const int a_row = (16 * rg + g) * DS + t;   // this thread's A-fragment element of row g, column t
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_all();
+    __syncthreads();   // tile `it` is in (and q, do converted); every warp is done with the stage refilled below
+    if (a.stages == 2 && it + 1 < n_it) {
+      issue(it + 1, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const float* kt_s = ring + (a.stages == 2 ? (it & 1) : 0) * stage_floats + kg * DQ_KT * DS;
+    const float* vt_s = kt_s + chunk * DS;
+    const int k0 = it * chunk + kg * DQ_KT;
+    // 8-key steps holding a key some row of this warp sees
+    int nj = k0 < visible ? min(DQ_KT / 8, (visible - k0 + 7) / 8) : 0;
+    if (a.causal) nj = warp_last < k0 ? 0 : min(nj, (warp_last - k0) / 8 + 1);
+    if (!has_rows) nj = 0;
+
+    if (nj > 0) {
+      // all 4 key steps, unguarded, so their chains interleave; steps past nj are masked
+      float s[DQ_KT / 8][4], dp[DQ_KT / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (r < nq) {
-      float* out = dq + (row0 + r) * d;
+      for (int j = 0; j < DQ_KT / 8; ++j)
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int kk = 0; kk < nd; ++kk) {
+        const int off[4] = {a_row + 8 * kk, a_row + 8 * DS + 8 * kk, a_row + 8 * kk + 4,
+                            a_row + 8 * DS + 8 * kk + 4};
+        FragA aq, ao;
+        if constexpr (SPLIT) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            aq.hi[i] = __float_as_uint(qs[off[i]]);
+            aq.lo[i] = __float_as_uint(qs[n_a + off[i]]);
+            ao.hi[i] = __float_as_uint(os[off[i]]);
+            ao.lo[i] = __float_as_uint(os[n_a + off[i]]);
+          }
+        } else {
+          aq.set(qs[off[0]], qs[off[1]], qs[off[2]], qs[off[3]]);
+          ao.set(os[off[0]], os[off[1]], os[off[2]], os[off[3]]);
+        }
+        FragB bk[DQ_KT / 8], bv[DQ_KT / 8];
+#pragma unroll
+        for (int j = 0; j < DQ_KT / 8; ++j) {
+          const float* kr = kt_s + (8 * j + g) * DS + 8 * kk + t;
+          const float* vr = vt_s + (8 * j + g) * DS + 8 * kk + t;
+          bk[j].set(kr[0], kr[4]);
+          bv[j].set(vr[0], vr[4]);
+        }
+        mma3_pair<DQ_KT / 8>(s, aq, bk, dp, ao, bv);
+      }
+      // ds of rows q0 + rl0 (e = 0, 1) and + 8 (e = 2, 3), keys k0 + 8j + 2t (+1)
+#pragma unroll
+      for (int j = 0; j < DQ_KT / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = 64 * jj + 4 * tx + e;
-          if (col < d) out[col] = acc[i][4 * jj + e] * scale;
+          const int c = k0 + 8 * j + 2 * t + (e & 1);
+          const int r = q0 + rl0 + 8 * (e >> 1);
+          float sv = s[j][e];
+          if (j >= nj || c >= a.t_kv) {
+            sv = -INFINITY;   // past t_kv, or hidden from every row of the warp
+          } else if (a.causal && r < c) {
+            sv = NEG_INF;
+          }
+          const float p = expf(sv - lr[e >> 1]);
+          dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
         }
+      }
+      // dq += ds k over this slice's columns: ds straight from the C fragments,
+      // k's rows read as 2t, 2t + 1
+#pragma unroll
+      for (int j = 0; j < DQ_KT / 8; ++j) {
+        if (j < nj) {
+          FragA ads;
+          ads.set(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
+          const float* kr = kt_s + (8 * j + 2 * t) * DS + col0 + g;
+#pragma unroll
+          for (int nb = 0; nb < 8; nb += 4) {   // unguarded: columns past h are zeros
+            FragB bk[4];
+#pragma unroll
+            for (int n = 0; n < 4; ++n) bk[n].set(kr[8 * (nb + n)], kr[DS + 8 * (nb + n)]);
+            mma3<4>(acc + nb, ads, bk);
+          }
+        }
+      }
+    }
+    if (a.stages == 1 && it + 1 < n_it) {
+      __syncthreads();   // every warp is done with the only stage
+      issue(it + 1, 0);
+      cp_async_commit();
     }
   }
+
+  if (n_kg == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = rl0 + 8 * h;
+      if (rl >= nq) continue;
+      float* out = a.dq + (row0 + rl) * a.d;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = col0 + 8 * n + 2 * t;
+        if (col < a.d) out[col] = acc[n][2 * h] * a.scale;
+        if (col + 1 < a.d) out[col + 1] = acc[n][2 * h + 1] * a.scale;
+      }
+    }
+    return;
+  }
+  // key groups' partial sums, [n_kg][q_rows][DQ_SLICE + 4] in the ring's space,
+  // added in group order
+  constexpr int PS = DQ_SLICE + 4;
+  cp_async_wait_all();
+  __syncthreads();   // every warp is done with the ring
+  float* part = ring;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* row = part + (kg * a.q_rows + rl0 + 8 * h) * PS + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      row[8 * n] = acc[n][2 * h];
+      row[8 * n + 1] = acc[n][2 * h + 1];
+    }
+  }
+  __syncthreads();
+  float* ob = a.dq + row0 * a.d + col0;
+  for_each_2d(nq, min(DQ_SLICE, a.d - col0), [&](int r, int c) {
+    float sum = part[r * PS + c];
+    for (int x = 1; x < n_kg; ++x) sum += part[(x * a.q_rows + r) * PS + c];
+    ob[r * a.d + c] = sum * a.scale;
+  });
 }
 
 // Kernel 6: dk and dv. One block of four warps per (batch·head, 64-key tile, 64-wide
@@ -421,64 +508,85 @@ __global__ void __launch_bounds__(KV_THREADS, 3) flash_bwd_dkv_kernel(const KvAr
   }
 }
 
-// Dynamic shared memory above 48 KB needs an opt-in, made once per kernel: the
-// device's opt-in limit less the kernel's static shared memory.
+// The device's shared-memory opt-in limit less a kernel's static shared memory,
+// set once per kernel as its dynamic limit (asking for the whole opt-in limit
+// fails every launch); -1 when it cannot be set.
 template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel) {
+int smem_limit_of(Kernel kernel) {
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin - static_cast<int>(attr.sharedSizeBytes));
-  return e;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess)
+    return -1;
+  const int lim = optin - static_cast<int>(attr.sharedSizeBytes);
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lim) != cudaSuccess)
+    return -1;
+  return lim;
 }
 
-template <int NJ>
-cudaError_t opt_in_dq() {
-  static const cudaError_t err = opt_in_smem(flash_bwd_dq_kernel<NJ>);
-  return err;
+template <bool SPLIT>
+int dq_smem_limit() {
+  static const int limit = smem_limit_of(flash_bwd_dq_kernel<SPLIT>);
+  return limit;
 }
 
-size_t smem_bytes(int d) {
-  return sizeof(float) * (2 * static_cast<size_t>(d) * TS + stage_floats(d) + TILE * TS);
-}
+// Shared memory, stages and blocks an SM of kernel 5 as SPLIT or not; blocks
+// an SM 0 when it does not fit.
+struct DqLaunch {
+  size_t smem;
+  int stages, per_sm;
+};
 
-template <int NJ>
-cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
-                      const float* lse, const float* delta, float* dq, int n_bh, int t_q,
-                      int t_kv, int d, int causal, float scale, cudaStream_t stream) {
-  const int n_qt = (t_q + TILE - 1) / TILE;
-  const long long blocks = static_cast<long long>(n_bh) * n_qt;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = opt_in_dq<NJ>();
-    if (e != cudaSuccess) return e;
+template <bool SPLIT>
+cudaError_t dq_config(const DqArgs& a, DqLaunch& c) {
+  const int limit = dq_smem_limit<SPLIT>();
+  if (limit < 0) return cudaErrorInvalidValue;
+  const size_t ds = DQ_SLICE * a.n_js + 4;
+  const size_t chunk = DQ_KT * (4 / (a.q_rows / 16));
+  const size_t stage = sizeof(float) * 2 * chunk * ds;
+  c.smem = sizeof(float) * (SPLIT ? 4 : 2) * a.q_rows * ds + 2 * stage;
+  c.stages = 2;
+  c.per_sm = 0;
+  if (c.smem > static_cast<size_t>(limit)) {
+    c.stages = 1;
+    c.smem -= stage;
+    if (c.smem > static_cast<size_t>(limit)) return cudaSuccess;
   }
-  flash_bwd_dq_kernel<NJ><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, n_bh, n_qt, t_q, t_kv, d, causal, scale);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, flash_bwd_dq_kernel<SPLIT>, DQ_THREADS,
+                                                       c.smem);
+}
+
+// q and do are split once a block in shared memory where that costs no block an
+// SM (by shared memory and registers), else where a fragment is formed: at the
+// SASRec training shape the split copy would leave two blocks an SM instead of
+// three, and ran slower.
+cudaError_t launch_dq(DqArgs a, long long blocks, cudaStream_t stream) {
+  a.n_qt = (a.t_q + a.q_rows - 1) / a.q_rows;
+  a.n_js = (a.d + DQ_SLICE - 1) / DQ_SLICE;
+  const void* bases[4] = {a.q, a.k, a.v, a.dout};
+  a.vec = pio_mma::copy_vec(a.d, bases, 4);
+  if (blocks != static_cast<long long>(a.n_bh) * a.n_qt * a.n_js || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  DqLaunch split, plain;
+  cudaError_t e = dq_config<true>(a, split);
+  if (e == cudaSuccess) e = dq_config<false>(a, plain);
+  if (e != cudaSuccess) return e;
+  if (split.per_sm > 0 && split.per_sm >= plain.per_sm) {
+    a.stages = split.stages;
+    flash_bwd_dq_kernel<true><<<static_cast<unsigned>(blocks), DQ_THREADS, split.smem, stream>>>(a);
+  } else if (plain.per_sm > 0) {
+    a.stages = plain.stages;
+    flash_bwd_dq_kernel<false><<<static_cast<unsigned>(blocks), DQ_THREADS, plain.smem, stream>>>(a);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
-// Kernel 6's dynamic shared-memory limit: the device's opt-in limit less the
-// kernel's static shared memory, set once.
+// Kernel 6's dynamic shared-memory limit, set once.
 int dkv_smem_limit() {
-  static const int limit = [] {
-    int dev = 0, optin = 0;
-    cudaFuncAttributes attr;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
-        cudaFuncGetAttributes(&attr, flash_bwd_dkv_kernel) != cudaSuccess)
-      return -1;
-    const int lim = optin - static_cast<int>(attr.sharedSizeBytes);
-    if (cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lim) !=
-        cudaSuccess)
-      return -1;
-    return lim;
-  }();
+  static const int limit = smem_limit_of(flash_bwd_dkv_kernel);
   return limit;
 }
 
@@ -523,23 +631,18 @@ const char* pio_flash_error_string(int err) {
 }
 
 // q, dout (n_bh, t_q, d), k and v (n_bh, t_kv, d), lse and delta (n_bh, t_q),
-// dq (n_bh, t_q, d): float32, contiguous. Launches on `stream` and does not
+// dq (n_bh, t_q, d): float32, contiguous. q_rows (16, 32 or 64; 64 for a head
+// wider than 128) and blocks are ops/flash_attention.dq_plan's: blocks must equal
+// n_bh * ceil(t_q / q_rows) * ceil(d / 64). Launches on `stream` and does not
 // synchronise; returns a cudaError_t.
 int pio_flash_bwd_dq(const float* q, const float* k, const float* v, const float* dout,
                      const float* lse, const float* delta, float* dq, int n_bh, int t_q,
-                     int t_kv, int d, int causal, float scale, void* stream) {
+                     int t_kv, int d, int causal, float scale, int q_rows, long long blocks,
+                     void* stream) {
   if (bad_shape(n_bh, t_q, t_kv, d)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 63) / 64) {
-    case 1:
-      return launch_dq<1>(q, k, v, dout, lse, delta, dq, n_bh, t_q, t_kv, d, causal, scale, s);
-    case 2:
-      return launch_dq<2>(q, k, v, dout, lse, delta, dq, n_bh, t_q, t_kv, d, causal, scale, s);
-    case 3:
-      return launch_dq<3>(q, k, v, dout, lse, delta, dq, n_bh, t_q, t_kv, d, causal, scale, s);
-    default:
-      return launch_dq<4>(q, k, v, dout, lse, delta, dq, n_bh, t_q, t_kv, d, causal, scale, s);
-  }
+  if (q_rows != 16 && q_rows != 32 && q_rows != TILE) return cudaErrorInvalidValue;
+  DqArgs a{q, k, v, dout, lse, delta, dq, n_bh, t_q, t_kv, d, causal != 0, scale, q_rows};
+  return launch_dq(a, blocks, static_cast<cudaStream_t>(stream));
 }
 
 // The same inputs; dk and dv (n_bh, t_kv, d), float32, contiguous.

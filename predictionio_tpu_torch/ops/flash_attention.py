@@ -14,9 +14,10 @@ Replaces the three Pallas kernels of ``predictionio_tpu/ops/flash_attention.py``
 * ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the recomputation-form
   backward), reached through ``_flash_2d_bwd`` from the custom VJP and
   ``flash_block_bwd``, by ``csrc/flash_bwd.cu``: one block per (batch·head,
-  64-row query tile) for dq and one per (batch·head, 64-key tile, 64-column
-  slice of the head) for dk and dv, each looping over the other axis, so no
-  sum crosses blocks.
+  query tile of :func:`dq_plan`'s rows, 64-column slice of the head) for dq
+  and one per (batch·head, 64-key tile, 64-column slice) for dk and dv, each
+  looping over the other axis, so no sum crosses blocks; both run their
+  products on the tensor cores in the 3xTF32 form.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` at first use
 (``ops/_build.py``) and called through ``ctypes``; each source note says
@@ -130,6 +131,66 @@ def split_plan(n_bh: int, t_q: int, t_kv: int, causal: bool, n_sm: int) -> tuple
         if blocks(ks) >= n_sm // 2:
             break
     return MIN_Q_ROWS, ks, blocks(ks)
+
+
+# dq's column slice a block accumulates and the keys a warp takes from a
+# staged chunk (the C source's DQ_SLICE and DQ_KT); a head wider than
+# DQ_WIDE_HEAD keeps 64-row tiles, whose staged keys fit in shared memory
+DQ_SLICE = 64
+DQ_KT = 32
+DQ_WIDE_HEAD = 128
+
+
+@functools.lru_cache(maxsize=256)
+def dq_plan(n_bh: int, t_q: int, d: int, n_sm: int) -> tuple[int, int]:
+    """``(q_rows, blocks)``: the dq kernel's query-tile rows and grid.
+
+    A block is four warps over ``q_rows`` rows and one 64-column slice of
+    the head: ``q_rows // 16`` row groups times ``64 // q_rows`` key groups
+    (:func:`dq_warp_keys`). Tiles of 64 rows when they give each of the
+    card's ``n_sm`` SMs a block, else 32, else 16: fewer rows a block and
+    more key groups, so a long sequence at a small batch·head count still
+    fills the card. A head wider than :data:`DQ_WIDE_HEAD` takes 64: more
+    key groups would not fit its staged keys in shared memory.
+    """
+    n_js = -(-d // DQ_SLICE)
+    q_rows = TILE
+    if d <= DQ_WIDE_HEAD:
+        while q_rows > MIN_Q_ROWS and n_bh * -(-t_q // q_rows) * n_js < n_sm:
+            q_rows //= 2
+    return q_rows, n_bh * -(-t_q // q_rows) * n_js
+
+
+def dq_warp_keys(t_q: int, t_kv: int, causal: bool, q_rows: int, qt: int, warp: int):
+    """The key runs ``[k_begin, k_end)`` warp ``warp`` of query tile ``qt``
+    sums dq over, in its order, and its rows ``[r_begin, r_end)``.
+
+    Warp w owns row group ``w % R`` (R = ``q_rows // 16``) and key group
+    ``w // R``: 32 keys of every staged chunk of ``32 · (4 // R)`` keys, cut
+    at the keys some row of the tile sees and, in 8-key steps, at the
+    warp's last row under a causal mask. The kernel adds the key groups'
+    sums in group order.
+    """
+    n_rg = q_rows // MIN_Q_ROWS
+    rg, kg = warp % n_rg, warp // n_rg
+    q0 = qt * q_rows
+    nq = min(q_rows, t_q - q0)
+    r_begin, r_end = q0 + MIN_Q_ROWS * rg, q0 + min(MIN_Q_ROWS * (rg + 1), nq)
+    if r_begin >= r_end:
+        return (r_begin, r_begin), []
+    visible = min(t_kv, q0 + nq) if causal else t_kv
+    chunk = DQ_KT * (4 // n_rg)
+    runs = []
+    for c0 in range(0, visible, chunk):
+        k0 = c0 + DQ_KT * kg
+        if k0 >= visible:
+            continue
+        steps = min(DQ_KT // 8, -(-(visible - k0) // 8))
+        if causal:
+            steps = 0 if r_end - 1 < k0 else min(steps, (r_end - 1 - k0) // 8 + 1)
+        if steps:
+            runs.append((k0, min(k0 + 8 * steps, visible)))
+    return (r_begin, r_end), runs
 
 
 def _f32(x: float) -> float:
@@ -262,7 +323,7 @@ def _library(name: str):
                 lib.pio_flash_fwd.restype = i
                 limits = lib.pio_flash_fwd_limits
             else:
-                lib.pio_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + [f, p]
+                lib.pio_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + [f, i, ctypes.c_longlong, p]
                 lib.pio_flash_bwd_dq.restype = i
                 lib.pio_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + [f, p]
                 lib.pio_flash_bwd_dkv.restype = i
@@ -392,15 +453,18 @@ def _bwd_geometry(q, k, v, do, lse, delta):
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
-    """Kernel 5: dq, one launch over the flattened batch·head dimension."""
+    """Kernel 5: dq, one launch over the flattened batch·head dimension,
+    on the grid of :func:`dq_plan`."""
     device, bh, t_q, t_kv, d = _bwd_geometry(q, k, v, do, lse, delta)
     lib = _library("flash_bwd")
     dq = torch.empty_like(q)
+    q_rows, blocks = dq_plan(bh, t_q, d, _sm_count(device.index))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.pio_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), bh, t_q, t_kv, d, int(bool(causal)), scale, stream,
+            delta.data_ptr(), dq.data_ptr(), bh, t_q, t_kv, d, int(bool(causal)), scale,
+            q_rows, blocks, stream,
         )
     _raise_on(lib, rc, "flash_bwd_dq")
     bwd_dq_launches.bump()

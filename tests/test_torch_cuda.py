@@ -445,6 +445,33 @@ def test_flash_backward_kernels_match_plain_version_on_card(card, causal, bh, t_
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", (False, True))
+@pytest.mark.parametrize("bh, t_q, t_kv, h", [
+    (4, 256, 256, 50), (8, 1024, 1024, 64), (2, 384, 384, 128), (1, 256, 256, 256),
+    (2, 128, 256, 50),  # a ring block pair: T_q != T_kv
+])
+def test_flash_dq_kernel_matches_plain_and_float64_and_relaunches_on_card(card, causal, bh, t_q, t_kv, h):
+    """Kernel 5 alone: dq against the plain backward and against float64 at
+    the gradient tolerance, through every ``dq_plan`` tile height the shapes
+    give, and the same bytes when launched again."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, o, lse, do = _bwd_inputs(card, bh + t_q + t_kv + h, bh, t_q, t_kv, h, causal)
+    delta = (do * o).sum(-1)
+    scale = flash_attention._f32(1.0 / h ** 0.5)
+    before = flash_attention.bwd_dq_launches.count
+    got = flash_attention._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    again = flash_attention._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    want = flash_attention.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)[0]
+    exact = flash_attention.flash_attention_bwd_reference(
+        *(x.double() for x in (q, k, v, o, lse, do)), causal)[0]
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_dq_launches.count == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got.double(), exact, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", (False, True))
 def test_flash_backward_with_a_global_lse_splits_over_blocks_on_card(card, causal):
     """Block pairs of 128 (the ring's composition: causal on the diagonal,
     full below it, skipped above it), each fed the global o and lse, sum to

@@ -18,7 +18,14 @@ cut into splits of ``ks`` keys when the tiles alone cannot fill the card;
   not, and a plan whose splits leave rows with no key, which carry
   m = -1e30 and must weigh exactly 0.
 
-The kernel itself runs only on a card (``tests/test_torch_cuda.py``).
+The dq kernel's plan, ``dq_plan`` (query tiles of 64, 32 or 16 rows, each
+warp a row group and a key group, ``dq_warp_keys``): every visible (query,
+key) pair is summed by exactly one warp, each warp's key runs in increasing
+order and, under a causal mask, none past its last row; 64-row tiles at the
+SASRec training shape, 32 at (8, 1024, 1024, 64), 64 for heads wider than
+128; T_q != T_kv both ways.
+
+The kernels themselves run only on a card (``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -81,6 +88,40 @@ def test_plan_with_unequal_lengths(t_q, t_kv):
         q_rows, ks, blocks = fa.split_plan(4, t_q, t_kv, causal, N_SM)
         assert blocks == len(fa.plan_blocks(4, t_q, t_kv, causal, q_rows, ks))
         assert blocks >= N_SM // 2
+
+
+@pytest.mark.parametrize("causal", (False, True))
+@pytest.mark.parametrize("n_bh, t_q, t_kv, d, n_sm", [
+    (128, 256, 256, 50, N_SM), (8, 1024, 1024, 64, N_SM), (1, 256, 1024, 50, N_SM),
+    (4, 1024, 256, 64, N_SM), (2, 100, 100, 16, N_SM), (1, 8, 8, 16, N_SM),
+    (4, 2048, 2048, 128, N_SM), (2, 128, 128, 192, N_SM), (3, 200, 136, 33, 1000),
+])
+def test_dq_plan_covers_every_visible_pair_once(causal, n_bh, t_q, t_kv, d, n_sm):
+    q_rows, blocks = fa.dq_plan(n_bh, t_q, d, n_sm)
+    n_qt = -(-t_q // q_rows)
+    assert q_rows in (16, 32, 64) and blocks == n_bh * n_qt * -(-d // fa.DQ_SLICE)
+    covered = np.zeros((t_q, t_kv), np.int32)
+    for qt in range(n_qt):
+        for warp in range(4):
+            (r0, r1), runs = fa.dq_warp_keys(t_q, t_kv, causal, q_rows, qt, warp)
+            assert qt * q_rows <= r0 <= r1 <= min((qt + 1) * q_rows, t_q)
+            assert runs == sorted(runs)  # one fixed order, keys increasing
+            for k0, k1 in runs:
+                assert 0 <= k0 < k1 <= t_kv and k1 - k0 <= fa.DQ_KT
+                assert not causal or k0 <= r1 - 1  # no run past the warp's last row
+                covered[r0:r1, k0:k1] += 1
+    visible = np.ones((t_q, t_kv), bool)
+    if causal:
+        visible = np.arange(t_q)[:, None] >= np.arange(t_kv)[None, :]
+    assert (covered[visible] == 1).all() and covered.max() <= 1
+
+
+def test_dq_plan_shapes():
+    assert fa.dq_plan(128, 256, 50, N_SM) == (64, 512)  # the SASRec training shape
+    assert fa.dq_plan(8, 1024, 64, N_SM) == (32, 256)  # 64-row tiles: 128 blocks, fewer than SMs
+    assert fa.dq_plan(1, 256, 50, N_SM) == (16, 16)
+    assert fa.dq_plan(1, 256, 256, N_SM) == (64, 16)  # a head past 128 keeps 64 rows
+    assert fa.dq_plan(2, 512, 128, N_SM)[0] == 16
 
 
 def _split_partial(q, k, v, rows, k_begin, k_end, causal, scale):
