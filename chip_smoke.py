@@ -157,6 +157,38 @@ code is not 0 and the last line is never printed.
              (maxLen 256) → COMPLETED → ``QueryServer`` answers 20 queries, each
              held against the plain forward.
 
+12. quickstart-cli — the reference quickstart through the port's own CLI
+             (``python -m predictionio_tpu_torch.tools.cli``) on the
+             zero-config sqlite store of a fresh ``PIO_FS_BASEDIR``: ``status``,
+             ``app new QuickstartML``, ``accesskey new QuickstartML rate``; a
+             random 100,000 of the ML-1M draw of phase 9 (1,000,209 events,
+             6,040 users × 3,416 items; cut to ML-100K's scale because the full
+             draw's load and reads took most of the run, printed as step ``cut``)
+             as rate events (1-5 stars) with 1 in 20 a buy, bulk-loaded by
+             ``SqliteLEvents.insert_batch`` (the role of ``pio import``), timed;
+             ``eventserver --stats`` as a subprocess taking 2,000 more events in
+             40 batches of 50 and 100 alone, refusing a batch of 51 (400) and a
+             buy under the rate-only key (403), a filtered reversed GET, GET and
+             DELETE by id, ``/stats.json`` counting all of it, ``POST /stop``;
+             ``template get``, ``build`` and ``train --device cuda`` in this
+             process (kernel 2 launches buckets × 20 times; wall time and its
+             sqlite read), the factors bit-equal to ``train_als`` on what that
+             read returned; ``train`` again under ``PIO_ALS_SOLVER=segment`` (segment
+             kernel 2 × 20, gather and kernel 2 none); ``deploy --batching
+             --device cuda`` as a subprocess (deploy-to-ready time), 1,000 single
+             ``/queries.json`` (HTTP latency p50 and p99) and concurrent bursts of
+             8 and 64 requests (the batcher forms what it can of them over HTTP:
+             the rungs that ran are printed), every answer held against
+             ``torch.topk(U[u] @ V.T)`` on the CPU on the factors of the
+             instance's sealed blob; kernel 1's launches are the difference of the
+             server's ``scoreKernelLaunches`` from readiness to the end and must
+             equal its fast path's dispatches; ``undeploy`` (exit 0, port freed). Then
+             ``app new QuickstartSeq``, phase 11's 300 users' view events through
+             the event server, ``template get sequentialrecommendation``,
+             ``train`` (maxLen 256, 30 steps: kernels 4, 5, 6 launch 2 × 30
+             times each), ``deploy`` and 20 queries read live from sqlite, each
+             held against the plain forward on the history.
+
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
 that tolerance of each other
@@ -2539,6 +2571,475 @@ def phase_sasrec_train_workflow(seed, device):
     return out
 
 
+# -- the quickstart through the port's CLI -------------------------------------
+
+CLI = [sys.executable, "-m", "predictionio_tpu_torch.tools.cli"]
+QS_APP, QS_SEQ_APP = "QuickstartML", "QuickstartSeq"
+QS_BUY_EVERY = 20  # 1 in 20 events is a buy, the rest rate 1-5
+QS_BATCHES, QS_SINGLES = 40, 100  # events through the event server: 40 × 50, then 100 alone
+QS_BULK, QS_BULK_CHUNK = 100_000, 50_000  # bulk-loaded events (of the ML-1M draw), a chunk
+QS_SINGLE_QUERIES = 1000  # one at a time: p99 with 10 samples beyond it
+QS_BURSTS = ((8, 8), (64, 4))  # (concurrent queries, bursts)
+QS_SAS_STEPS = 30
+
+
+def cli_run(*argv) -> str:
+    """``pio <argv>`` in this process (so the kernels' counters see its
+    launches); its standard output, and a failed check unless it exits 0."""
+    import contextlib
+    import io
+
+    from predictionio_tpu_torch.tools import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    out = buf.getvalue()
+    require(rc == 0, f"pio {' '.join(argv)} exited {rc}: {out}")
+    return out
+
+
+def http_json(url, body=None, method=None, timeout=60):
+    """(status, JSON body) of one request, error statuses included."""
+    import urllib.error
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class CliServer:
+    """``pio <argv>`` as a real subprocess serving on 127.0.0.1:port; its
+    standard error goes to a log the checks quote."""
+
+    def __init__(self, tmp, name, *argv):
+        self.port = free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.log = os.path.join(tmp, f"{name}.log")
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        self.t_spawn = time.perf_counter()
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                CLI + list(argv) + ["--ip", "127.0.0.1", "--port", str(self.port)],
+                cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log)
+
+    def tail(self) -> str:
+        with open(self.log) as f:
+            return f.read()[-2000:]
+
+    def wait_ready(self, deadline_s=300) -> float:
+        """Seconds from the spawn to the first 200 on /readyz."""
+        t_end = time.monotonic() + deadline_s
+        while time.monotonic() < t_end:
+            require(self.proc.poll() is None, f"{self.log} exited {self.proc.returncode}: {self.tail()}")
+            try:
+                with urllib.request.urlopen(f"{self.base}/readyz", timeout=5) as r:
+                    if r.status == 200:
+                        return time.perf_counter() - self.t_spawn
+            except OSError:
+                pass
+            time.sleep(0.02)
+        raise RuntimeError(f"check failed: {self.base}/readyz never answered 200: {self.tail()}")
+
+    def wait_exit(self, timeout=60) -> None:
+        rc = self.proc.wait(timeout=timeout)
+        require(rc == 0, f"{self.log} exited {rc}: {self.tail()}")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def post_batches(base, key, events):
+    """POST ``events`` to /batch/events.json in requests of 50; every item
+    must be written."""
+    for b in range(0, len(events), 50):
+        status, body = http_json(f"{base}/batch/events.json?accessKey={key}", events[b:b + 50])
+        require(status == 200 and all(x["status"] == 201 for x in body),
+                f"batch {b // 50}: {status} {str(body)[:300]}")
+
+
+def fill_engine_json(path, app, algorithms, **datasource):
+    with open(path) as f:
+        variant = json.load(f)
+    variant["datasource"]["params"] = {"appName": app, **datasource}
+    variant["algorithms"] = algorithms
+    with open(path, "w") as f:
+        json.dump(variant, f, indent=2)
+    return variant
+
+
+def phase_quickstart_cli(seed, device):
+    """The reference quickstart through ``python -m predictionio_tpu_torch.
+    tools.cli`` on the card, on the zero-config sqlite store of a fresh
+    ``PIO_FS_BASEDIR``: see the module docstring, phase 12."""
+    import re
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.templates.recommendation import (
+        RecommendationEngine,
+        _merge_part_reads,
+    )
+    from predictionio_tpu_torch.templates.sequentialrecommendation import (
+        SequentialRecommendationEngine,
+    )
+    from predictionio_tpu_torch.testing import topk_mismatches
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pio-quickstart-")
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("PIO_STORAGE_") or k in ("PIO_FS_BASEDIR", "PIO_ALS_SOLVER")}
+    for k in saved:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    Storage.reset_instance()
+    store.set_storage(None)
+    servers = []
+    ctx = DeviceContext.create(device=device)
+    key_of = re.compile(r"Access Key: (\S+)")
+    out = {"phase": "quickstart-cli"}
+    try:
+        # 1. storage and apps
+        status = cli_run("status")
+        require(status.count("(type sqlite)") == 3 and "all ready to go" in status, status)
+        key = key_of.search(cli_run("app", "new", QS_APP)).group(1)
+        rate_key = key_of.search(cli_run("accesskey", "new", QS_APP, "rate")).group(1)
+        storage = Storage.instance()
+        require(isinstance(storage.get_l_events(), sqlite.SqliteLEvents), "zero-config sqlite events")
+        app_id = storage.get_meta_data_apps().get_by_name(QS_APP).id
+
+        # 2a. the bulk load (the role of `pio import`) through insert_batch,
+        # of a random QS_BULK of the ML-1M draw: on an H100 host the full
+        # draw loaded at ~94 µs a row and each `pio train` read it back at
+        # ~43 µs a row, 275 s for the phase
+        inter, _ = ml1m_interactions(seed)
+        rng = np.random.default_rng(seed + 21)
+        pick = np.sort(rng.choice(len(inter.user), QS_BULK, replace=False))
+        b_user, b_item, b_t = inter.user[pick], inter.item[pick], inter.t[pick]
+        emit({"phase": "quickstart-cli", "step": "cut", "bulk_events": QS_BULK,
+              "of_ml1m_draw": len(inter.user), "users": len(np.unique(b_user)),
+              "items": len(np.unique(b_item)),
+              "reason": "ML-100K scale: the full draw's bulk load and its reads by "
+                        "pio train took 275 s, most of the run's time"})
+        del inter
+        n_bulk = QS_BULK
+        buy = rng.integers(0, QS_BUY_EVERY, n_bulk) == 0
+        stars = rng.integers(1, 6, n_bulk)
+        le = storage.get_l_events()
+        t0 = time.perf_counter()
+        for c in range(0, n_bulk, QS_BULK_CHUNK):
+            le.insert_batch([
+                Event(event="buy" if buy[k] else "rate", entity_type="user",
+                      entity_id=f"u{b_user[k]}", target_entity_type="item",
+                      target_entity_id=f"si{b_item[k]}",
+                      properties=None if buy[k] else {"rating": int(stars[k])},
+                      event_time=float(b_t[k]), creation_time=float(b_t[k]))
+                for k in range(c, min(c + QS_BULK_CHUNK, n_bulk))], app_id)
+        bulk_s = time.perf_counter() - t0
+
+        # 2b. more events through the event server, a real subprocess
+        es = CliServer(tmp, "eventserver", "eventserver", "--stats")
+        servers.append(es)
+        es.wait_ready()
+        weights = zipf_mandelbrot_weights(SAS_ITEMS, 1.1)
+        n_more = QS_BATCHES * 50 + QS_SINGLES
+        more = [{"event": "buy", "entityType": "user", "entityId": f"u{int(u)}",
+                 "targetEntityType": "item", "targetEntityId": f"si{int(i)}",
+                 "eventTime": 1_767_225_600 + 10_000_000 + k}
+                if k % QS_BUY_EVERY == 0 else
+                {"event": "rate", "entityType": "user", "entityId": f"u{int(u)}",
+                 "targetEntityType": "item", "targetEntityId": f"si{int(i)}",
+                 "properties": {"rating": int(r)}, "eventTime": 1_767_225_600 + 10_000_000 + k}
+                for k, (u, i, r) in enumerate(zip(rng.integers(0, ML1M_USERS, n_more),
+                                                  rng.choice(SAS_ITEMS, n_more, p=weights),
+                                                  rng.integers(1, 6, n_more)))]
+        t0 = time.perf_counter()
+        post_batches(es.base, key, more[:QS_BATCHES * 50])
+        batch_s = time.perf_counter() - t0
+        singles = []
+        t0 = time.perf_counter()
+        for d in more[QS_BATCHES * 50:]:
+            status, body = http_json(f"{es.base}/events.json?accessKey={key}", d)
+            require(status == 201 and len(body["eventId"]) == 32, f"single POST {status} {body}")
+            singles.append(body["eventId"])
+        single_s = time.perf_counter() - t0
+        status, body = http_json(f"{es.base}/batch/events.json?accessKey={key}", more[:51])
+        require(status == 400 and "less than or equal to 50" in body["message"], f"batch of 51: {status} {body}")
+        status, body = http_json(f"{es.base}/events.json?accessKey={rate_key}", more[0])
+        require(status == 403 and body == {"message": "buy events are not allowed"},
+                f"buy under the rate-only key: {status} {body}")
+        user = more[QS_BATCHES * 50]["entityId"]
+        status, found = http_json(
+            f"{es.base}/events.json?accessKey={key}&entityType=user&entityId={user}&reversed=true&limit=5")
+        times = [e["eventTime"] for e in found] if status == 200 else []
+        require(status == 200 and 1 <= len(found) <= 5 and times == sorted(times, reverse=True)
+                and all(e["entityId"] == user for e in found), f"filtered GET {status} {found}")
+        eid = singles[0]
+        status, got = http_json(f"{es.base}/events/{eid}.json?accessKey={key}")
+        require(status == 200 and got["eventId"] == eid, f"GET by id {status} {got}")
+        require(http_json(f"{es.base}/events/{eid}.json?accessKey={key}", method="DELETE")
+                == (200, {"message": "Found"}), "DELETE by id")
+        require(http_json(f"{es.base}/events/{eid}.json?accessKey={key}")[0] == 404, "deleted")
+        status, stats = http_json(f"{es.base}/stats.json?accessKey={key}")
+        counts = {(s["event"], s["status"]): s["count"] for s in stats["statusCount"]}
+        want = {("rate", 201): sum(d["event"] == "rate" for d in more),
+                ("buy", 201): sum(d["event"] == "buy" for d in more), ("buy", 403): 1}
+        require(counts == want, f"/stats.json {counts} vs {want}")
+        require(http_json(f"{es.base}/stop", method="POST")[0] == 202, "POST /stop")
+        es.wait_exit()
+        n_events = n_bulk + n_more - 1
+        out["events"] = {"bulk": n_bulk, "bulk_insert_s": bulk_s, "bulk_rows_per_s": n_bulk / bulk_s,
+                         "server_batches": QS_BATCHES, "server_batch_s": batch_s,
+                         "server_singles": QS_SINGLES, "server_single_s": single_s,
+                         "stored": n_events}
+        emit({"phase": "quickstart-cli", "step": "events", **out["events"]})
+
+        # 3. train: dense (the default) in this process, then the segment solver
+        eng = os.path.join(tmp, "recommendation")
+        cli_run("template", "get", "recommendation", "--directory", eng)
+        variant = fill_engine_json(os.path.join(eng, "engine.json"), QS_APP, [
+            {"name": "als", "params": {"rank": RANK, "numIterations": TRAIN_ITERS}}])
+        cli_run("build", "--engine-dir", eng)
+        read_s, reads = [], []
+        find_interactions = sqlite.SqlitePEvents.find_interactions
+
+        def timed_read(self, *a, **kw):
+            t = time.perf_counter()
+            try:
+                reads.append(find_interactions(self, *a, **kw))
+                return reads[-1]
+            finally:
+                read_s.append(time.perf_counter() - t)
+
+        sqlite.SqlitePEvents.find_interactions = timed_read
+        try:
+            train_kernel.launches.reset()  # the path's window
+            t0 = time.perf_counter()
+            trained = cli_run("train", "--engine-dir", eng, "--device", device.type)
+            train_s = time.perf_counter() - t0
+            launches = train_kernel.launches.count
+        finally:
+            sqlite.SqlitePEvents.find_interactions = find_interactions
+        iid = re.search(r"Engine instance ID: (\S+)", trained).group(1)
+        engine = RecommendationEngine.apply()
+        inst = storage.get_meta_data_engine_instances().get(iid)
+        require(inst.status == "COMPLETED", f"pio train instance {inst.status}")
+        _, _, _, models = workflow.prepare_deploy(engine, inst, storage=storage, ctx=ctx)
+        model = models[0]
+        # what pio train's sqlite reads returned, merged as the data source
+        # merges them, then train_als on the card from the same seed
+        read = _merge_part_reads(lambda r: r, reads)
+        cfg = engine.make_algorithms(engine.params_from_variant(variant))[0]._config()
+        ub, ib, _, _ = als._dense_blocks_for(read, cfg)
+        n_buckets = len(ub.widths) + len(ib.widths)
+        require(launches == n_buckets * TRAIN_ITERS,
+                f"pio train: kernel 2 launched {launches} times vs {n_buckets} buckets × {TRAIN_ITERS}")
+        require(len(read) == n_events, f"{len(read)} ratings read vs {n_events}")
+        ref = als.train_als(ctx, read, cfg)
+        gaps = [float(np.abs(a - b).max()) for a, b in ((model.user_factors, ref.user_factors),
+                                                         (model.item_factors, ref.item_factors))]
+        bit_equal = all(np.array_equal(a, b) for a, b in ((model.user_factors, ref.user_factors),
+                                                           (model.item_factors, ref.item_factors)))
+        require(bit_equal and model.user_map.inverse[0] == ref.user_map.inverse[0],
+                f"pio train's factors vs train_als on the same read: largest gaps {gaps}")
+        out["train"] = {"instance": iid, "ratings": len(read), "buckets": n_buckets,
+                        "iterations": TRAIN_ITERS, "launches": launches, "wall_s": train_s,
+                        "sqlite_read_s": sum(read_s), "sqlite_reads": len(read_s),
+                        "sqlite_read_share": sum(read_s) / train_s,
+                        "bit_equal_to_train_als": bit_equal,
+                        "max_abs_gap": max(gaps)}
+        emit({"phase": "quickstart-cli", "step": "train", **out["train"]})
+
+        # the segment solver under its own engine variant, so deploy serves the dense one
+        seg = os.path.join(tmp, "recommendation-segment")
+        shutil.copytree(eng, seg)
+        with open(os.path.join(seg, "engine.json")) as f:
+            seg_variant = json.load(f)
+        seg_variant["id"] = "segment"
+        with open(os.path.join(seg, "engine.json"), "w") as f:
+            json.dump(seg_variant, f)
+        os.environ["PIO_ALS_SOLVER"] = "segment"
+        try:
+            for c in (train_kernel.launches, train_kernel.gather_launches,
+                      train_kernel.segment_launches):
+                c.reset()
+            t0 = time.perf_counter()
+            cli_run("train", "--engine-dir", seg, "--device", device.type)
+            seg_s = time.perf_counter() - t0
+            seg_counts = {"segment": train_kernel.segment_launches.count,
+                          "gather": train_kernel.gather_launches.count,
+                          "dense": train_kernel.launches.count}
+        finally:
+            del os.environ["PIO_ALS_SOLVER"]
+        require(seg_counts == {"segment": 2 * TRAIN_ITERS, "gather": 0, "dense": 0},
+                f"PIO_ALS_SOLVER=segment pio train launches {seg_counts}")
+        out["train_segment"] = {"wall_s": seg_s, "launches": seg_counts}
+        emit({"phase": "quickstart-cli", "step": "train-segment", **out["train_segment"]})
+
+        # 4. serve: deploy --batching as a real subprocess
+        qs = CliServer(tmp, "deploy", "deploy", "--engine-dir", eng, "--batching", "--device", device.type)
+        servers.append(qs)
+        ready_s = qs.wait_ready()
+        status, ready = http_json(f"{qs.base}/readyz")
+        require(ready["engineInstanceId"] == iid, f"deployed {ready} vs the dense instance {iid}")
+        launched_at_ready = http_json(f"{qs.base}/")[1]["scoreKernelLaunches"]  # after the warm-up
+        q_rng = np.random.default_rng(seed + 22)
+        n_users = len(model.user_map)
+
+        def query():
+            return {"user": model.user_map.inverse[int(q_rng.integers(n_users))],
+                    "num": int(q_rng.integers(1, K + 1))}
+
+        def post(q):
+            t = time.perf_counter()
+            status, a = http_json(f"{qs.base}/queries.json", q)
+            require(status == 200, f"/queries.json {status} {a}")
+            return q, a, time.perf_counter() - t
+
+        answers, latency = [], []
+        for _ in range(QS_SINGLE_QUERIES):
+            q, a, dt = post(query())
+            answers.append((q, a))
+            latency.append(dt)
+        with ThreadPoolExecutor(max(size for size, _ in QS_BURSTS)) as pool:
+            for size, count in QS_BURSTS:
+                for _ in range(count):
+                    answers += [(q, a) for q, a, _ in pool.map(post, [query() for _ in range(size)])]
+        status, info = http_json(f"{qs.base}/")
+        fp = info["fastpath"][0]
+        hits = {int(b): h for b, h in fp["bucket_hits"].items()}
+        require(fp["calls"] == sum(hits.values()) > 0 and any(h for b, h in hits.items() if b > 1),
+                f"dispatches {fp['calls']}, rungs {hits}: a rung above 1 formed")
+        require(fp["queries"] == len(answers), f"{fp['queries']} queries served vs {len(answers)}")
+        score_launches = info["scoreKernelLaunches"] - launched_at_ready
+        require(score_launches == fp["calls"],
+                f"kernel 1 launched {score_launches} times vs {fp['calls']} fast-path dispatches")
+        U, V = (torch.from_numpy(np.ascontiguousarray(F)) for F in (model.user_factors, model.item_factors))
+        users = torch.tensor([model.user_map[q["user"]] for q, _ in answers])
+        rv, ri = (t.numpy() for t in torch.topk(U[users] @ V.T, K, dim=1))
+        bad = []
+        for j, (q, a) in enumerate(answers):
+            n = q["num"]
+            got_i = np.array([[model.item_map[x["item"]] for x in a["itemScores"]]])
+            got_v = np.array([[x["score"] for x in a["itemScores"]]])
+            bad += topk_mismatches(got_v, got_i, rv[j:j + 1, :n], ri[j:j + 1, :n], TOL)
+        require(not bad, f"served answers disagree with the plain version: {bad[:3]}")
+        cli_run("undeploy", "--port", str(qs.port))
+        qs.wait_exit()
+        try:
+            socket.create_connection(("127.0.0.1", qs.port), timeout=5).close()
+            require(False, f"port {qs.port} still listening after undeploy")
+        except ConnectionRefusedError:
+            pass
+        lat_ms = np.asarray(latency) * 1e3
+        top = 100.0 * (1 - 10 / len(lat_ms))
+        out["serve"] = {"deploy_to_ready_s": ready_s, "queries": len(answers),
+                        "single_queries": len(lat_ms), "bursts": [list(b) for b in QS_BURSTS],
+                        "http_ms_p50": float(np.percentile(lat_ms, 50)),
+                        f"http_ms_p{top:g}": float(np.percentile(lat_ms, top)),
+                        "dispatches": fp["calls"], "launches": score_launches,
+                        "bucket_hits": fp["bucket_hits"],
+                        "rungs_run": sorted(b for b, h in hits.items() if h),
+                        "topk_mismatches": 0}
+        emit({"phase": "quickstart-cli", "step": "serve", **out["serve"]})
+
+        # 5. SASRec through the same verbs
+        seq_key = key_of.search(cli_run("app", "new", QS_SEQ_APP)).group(1)
+        rng = np.random.default_rng(seed + 15)  # phase_sasrec_train_workflow's draw
+        w = zipf_mandelbrot_weights(1000, 1.1)
+        histories = {f"wu{u}": [f"wi{int(i)}" for i in rng.choice(1000, int(rng.integers(20, 301)), p=w)]
+                     for u in range(300)}
+        views = [{"event": "view", "entityType": "user", "entityId": u, "targetEntityType": "item",
+                  "targetEntityId": i, "eventTime": 1_767_225_600.0 + t}
+                 for u, items in histories.items() for t, i in enumerate(items)]
+        es = CliServer(tmp, "eventserver-seq", "eventserver")
+        servers.append(es)
+        es.wait_ready()
+        t0 = time.perf_counter()
+        post_batches(es.base, seq_key, views)
+        seq_post_s = time.perf_counter() - t0
+        require(http_json(f"{es.base}/stop", method="POST")[0] == 202, "POST /stop")
+        es.wait_exit()
+        seng = os.path.join(tmp, "sequentialrecommendation")
+        cli_run("template", "get", "sequentialrecommendation", "--directory", seng)
+        fill_engine_json(os.path.join(seng, "engine.json"), QS_SEQ_APP, [
+            {"name": "sasrec", "params": {
+                "appName": QS_SEQ_APP, "eventNames": ["view"], "dModel": SAS_D,
+                "numLayers": SAS_LAYERS, "numHeads": SAS_HEADS, "maxLen": SAS_MAX_LEN,
+                "epochs": QS_SAS_STEPS, "batchSize": SAS_BATCH, "lr": SAS_LR, "seed": seed}}],
+            eventNames=["view"])
+        cli_run("build", "--engine-dir", seng)
+        reset_flash_counts()  # the path's window
+        t0 = time.perf_counter()
+        trained = cli_run("train", "--engine-dir", seng, "--device", device.type)
+        sas_train_s = time.perf_counter() - t0
+        counts = flash_counts()
+        want = SAS_LAYERS * QS_SAS_STEPS
+        require(counts == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
+                f"pio train (SASRec) flash launches {counts} vs {SAS_LAYERS} layers × {QS_SAS_STEPS} steps")
+        sas_iid = re.search(r"Engine instance ID: (\S+)", trained).group(1)
+        qs = CliServer(tmp, "deploy-seq", "deploy", "--engine-dir", seng, "--device", device.type)
+        servers.append(qs)
+        sas_ready_s = qs.wait_ready()
+        users = list(histories)[:20]
+        nums = {u: int(rng.integers(1, 51)) for u in users}
+        sas_answers = []
+        for u in users:
+            status, a = http_json(f"{qs.base}/queries.json", {"user": u, "num": nums[u]})
+            require(status == 200 and len(a["itemScores"]) == nums[u], f"{u}: {status} {a}")
+            sas_answers.append((u, a))
+        cli_run("undeploy", "--port", str(qs.port))
+        qs.wait_exit()
+        sas_engine = SequentialRecommendationEngine.apply()
+        sas_inst = storage.get_meta_data_engine_instances().get(sas_iid)
+        _, _, _, sas_models = workflow.prepare_deploy(sas_engine, sas_inst, storage=storage, ctx=ctx)
+        gap, _, _ = hold_answers(sas_models[0], device, {u: histories[u] for u in users},
+                                 sas_answers, nums)
+        out["sasrec"] = {"events": len(views), "users": len(histories), "post_s": seq_post_s,
+                         "steps": QS_SAS_STEPS, "train_wall_s": sas_train_s, "launches": counts,
+                         "deploy_to_ready_s": sas_ready_s, "queries": len(sas_answers),
+                         "max_abs_err_answers": gap, "tol": SAS_TOL}
+    finally:
+        for srv in servers:
+            srv.kill()
+        Storage.reset_instance()
+        sqlite.close_all_dbs()
+        os.environ.pop("PIO_FS_BASEDIR", None)
+        os.environ.pop("PIO_ALS_SOLVER", None)
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(seconds=time.perf_counter() - t_phase, ok=True)
+    emit(out)
+    return out
+
+
 # -- A/B: kernels 1 and 2 of two trees, on one card ---------------------------
 
 
@@ -2744,6 +3245,17 @@ def main(argv=None) -> int:
     sas_train = phase_sasrec_train(args.seed, device)
     phase_sasrec_train_parity(args.seed, device)
     sas_flow = phase_sasrec_train_workflow(args.seed, device)
+    quick = phase_quickstart_cli(args.seed, device)
+    # each kernel's launches on the CLI path, counted as the CLI drove it
+    cli_launches = {
+        "fused_gather_score_topk": quick["serve"]["launches"],
+        "fused_train_normal_eq": quick["train"]["launches"],
+        "flash_attention_fwd": quick["sasrec"]["launches"]["fwd"],
+        "flash_attention_bwd_dq": quick["sasrec"]["launches"]["bwd_dq"],
+        "flash_attention_bwd_dkv": quick["sasrec"]["launches"]["bwd_dkv"],
+        "fused_gather_rows": quick["train_segment"]["launches"]["gather"],
+        "fused_segment_normal_eq": quick["train_segment"]["launches"]["segment"],
+    }
 
     top = next(r for r in rows if r["dtype"] == "f32" and r["batch"] == RUNGS[-1])
     # the training kernel's line: one iteration's normal equations (both
@@ -2827,6 +3339,8 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in seg_rows) else "operations",
         "library_ms": None,
     }]}
+    for k in kernels["kernels"]:
+        k["cli_launches"] = cli_launches[k["name"]]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -2837,7 +3351,8 @@ def main(argv=None) -> int:
                    "segment_parity": seg_parity, "segment_phases_s": segment_s,
                    "flash": flash_rows, "sasrec": sasrec,
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
-                   "sasrec_train_workflow": sas_flow, **kernels}, f, indent=1)
+                   "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
+                   **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)
     emit(kernels)

@@ -11,3 +11,5 @@ Entry points place tensors on the CUDA device unless the caller passes
 launches the hand-written kernel under ``csrc/``; a tensor on the CPU takes
 the kernel's plain PyTorch version instead.
 """
+
+__version__ = "0.1.0"

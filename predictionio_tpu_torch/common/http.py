@@ -129,7 +129,15 @@ class HttpService:
         return json_response(404, {"message": "not found"})
 
     # -- server lifecycle ---------------------------------------------------
-    def start(self, host: str = "0.0.0.0", port: int = 7070) -> int:
+    def start(
+        self,
+        host: str = "0.0.0.0",
+        port: int = 7070,
+        cert_path: Optional[str] = None,
+        key_path: Optional[str] = None,
+    ) -> int:
+        """Start serving; TLS when a certificate is given (parity: the
+        reference servers' optional HTTPS, common SSLConfiguration)."""
         service = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -190,7 +198,19 @@ class HttpService:
             def do_POST(self):
                 self._handle("POST")
 
+            def do_DELETE(self):
+                self._handle("DELETE")
+
+            def do_PUT(self):
+                self._handle("PUT")
+
         self._server = _Server((host, port), Handler)
+        if cert_path:
+            import ssl
+
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(cert_path, key_path)
+            self._server.socket = ctx.wrap_socket(self._server.socket, server_side=True)
         actual_port = self._server.server_address[1]
         self._thread = threading.Thread(
             target=self._server.serve_forever, name=f"{self.name}-http", daemon=True

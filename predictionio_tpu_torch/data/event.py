@@ -2,10 +2,11 @@
 at <time>".
 
 Counterpart of ``predictionio_tpu/data/event.py`` (parity: ``Event.scala``
-and ``DataMap.scala``), cut to what the training read needs: the immutable
-:class:`Event`, its :class:`DataMap` of properties and the validation every
-event passes at construction (``EventValidation``). The JSON codec and the
-property snapshots (``PropertyMap``) come with the event server.
+and ``DataMap.scala``), cut to what the training read and the event server need: the immutable
+:class:`Event`, its :class:`DataMap` of properties, the validation every
+event passes at construction (``EventValidation``) and the JSON codec the
+event server and the sqlite rows use. The property snapshots
+(``PropertyMap``) come with the property aggregation.
 """
 
 from __future__ import annotations
@@ -36,6 +37,14 @@ def _parse_time(v: Any) -> _dt.datetime:
         d = _dt.datetime.fromisoformat(v.replace("Z", "+00:00"))
         return d if d.tzinfo else d.replace(tzinfo=UTC)
     raise ValueError(f"cannot parse time: {v!r}")
+
+
+def parse_time_or_none(v: Any) -> Optional[_dt.datetime]:
+    return None if v is None else _parse_time(v)
+
+
+def format_time(d: _dt.datetime) -> str:
+    return d.astimezone(UTC).isoformat(timespec="milliseconds").replace("+00:00", "Z")
 
 
 class DataMap(Mapping[str, Any]):
@@ -150,3 +159,55 @@ class Event:
 
     def with_id(self, event_id: str) -> "Event":
         return replace(self, event_id=event_id)
+
+    # JSON codec (parity: EventJson4sSupport.scala APISerializer/DBSerializer)
+    def to_dict(self, include_id: bool = True) -> dict[str, Any]:
+        d: dict[str, Any] = {
+            "event": self.event,
+            "entityType": self.entity_type,
+            "entityId": self.entity_id,
+            "properties": self.properties.to_dict(),
+            "eventTime": format_time(self.event_time),
+            "tags": list(self.tags),
+            "prId": self.pr_id,
+            "creationTime": format_time(self.creation_time),
+        }
+        if self.target_entity_type is not None:
+            d["targetEntityType"] = self.target_entity_type
+            d["targetEntityId"] = self.target_entity_id
+        if include_id and self.event_id is not None:
+            d["eventId"] = self.event_id
+        return d
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "Event":
+        if "event" not in d or not isinstance(d["event"], str):
+            raise ValueError("field event is required and must be a string")
+        kwargs: dict[str, Any] = dict(
+            event=d["event"],
+            entity_type=d.get("entityType", ""),
+            entity_id=str(d.get("entityId", "")),
+            target_entity_type=d.get("targetEntityType"),
+            target_entity_id=(
+                None
+                if d.get("targetEntityId") is None
+                else str(d.get("targetEntityId"))
+            ),
+            properties=DataMap(d.get("properties") or {}),
+            tags=tuple(d.get("tags") or ()),
+            pr_id=d.get("prId"),
+        )
+        if d.get("eventTime") is not None:
+            kwargs["event_time"] = _parse_time(d["eventTime"])
+        if d.get("creationTime") is not None:
+            kwargs["creation_time"] = _parse_time(d["creationTime"])
+        if d.get("eventId") is not None:
+            kwargs["event_id"] = d["eventId"]
+        return cls(**kwargs)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Event":
+        return cls.from_dict(json.loads(s))

@@ -122,6 +122,12 @@ class LEvents(abc.ABC):
         :meth:`insert`."""
         return [self.insert(e, app_id, channel_id) for e in events]
 
+    def batch_insert(
+        self, events: Sequence[Event], app_id: int, channel_id: Optional[int] = None
+    ) -> list[str]:
+        """Alias of :meth:`insert_batch` (what ``PEvents.write`` calls)."""
+        return self.insert_batch(events, app_id, channel_id)
+
     @abc.abstractmethod
     def get(
         self, event_id: str, app_id: int, channel_id: Optional[int] = None

@@ -9,11 +9,12 @@ configuration contract (parity: ``Storage.scala:146-466``):
 * ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_SOURCE`` —
   binds each repository to a named source.
 
-The port ships the ``memory`` driver (events, apps, access keys, channels,
+The port ships the ``sqlite`` driver (every repository, the zero-config
+default), the ``memory`` driver (events, apps, access keys, channels,
 sequences, engine instances and models) and the ``localfs`` driver
-(models). The JAX package's zero-config default
-is a sqlite file; the port has no sqlite driver yet, so an environment that
-names no source is an error here rather than a silent in-memory store.
+(models). An environment that names no source gets source ``DEFAULT`` of
+type sqlite, the file ``default.sqlite`` under ``PIO_FS_BASEDIR``, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import os
 from typing import Callable, Optional
 
-from predictionio_tpu_torch.data.storage import base, localfs, memory
+from predictionio_tpu_torch.data.storage import base, localfs, memory, sqlite
 
 METADATA = "METADATA"
 EVENTDATA = "EVENTDATA"
@@ -38,6 +39,16 @@ DRIVERS: dict[str, dict[str, Callable]] = {
         "Channels": memory.MemoryChannels,
         "EngineInstances": memory.MemoryEngineInstances,
         "Sequences": memory.MemorySequences,
+    },
+    "sqlite": {
+        "LEvents": sqlite.SqliteLEvents,
+        "PEvents": sqlite.SqlitePEvents,
+        "Models": sqlite.SqliteModels,
+        "Apps": sqlite.SqliteApps,
+        "AccessKeys": sqlite.SqliteAccessKeys,
+        "Channels": sqlite.SqliteChannels,
+        "EngineInstances": sqlite.SqliteEngineInstances,
+        "Sequences": sqlite.SqliteSequences,
     },
     "localfs": {"Models": localfs.LocalFSModels},
 }
@@ -65,6 +76,10 @@ class Storage:
             cls._instance = Storage()
         return cls._instance
 
+    @classmethod
+    def reset_instance(cls) -> None:
+        cls._instance = None
+
     # -- env parsing (parity: Storage.scala:158-223) -----------------------
     def _parse_sources(self) -> dict[str, dict]:
         prefix = "PIO_STORAGE_SOURCES_"
@@ -79,10 +94,8 @@ class Storage:
             sources.setdefault(name, {})[attr.lower()] = v
         out = {n: a for n, a in sources.items() if "type" in a}
         if not out:
-            raise StorageError(
-                "no storage source configured: set PIO_STORAGE_SOURCES_"
-                "<NAME>_TYPE to one of " + ", ".join(sorted(DRIVERS))
-            )
+            # zero-config default: sqlite under PIO_FS_BASEDIR
+            out["DEFAULT"] = {"type": "sqlite"}
         return out
 
     def _parse_repositories(self) -> dict[str, str]:
@@ -97,6 +110,13 @@ class Storage:
                 )
             repos[repo] = src
         return repos
+
+    def repository_bindings(self) -> dict[str, tuple[str, str]]:
+        """repository → (source name, driver type), for ``pio status``."""
+        return {
+            repo: (source, self._sources[source].get("type"))
+            for repo, source in self._repos.items()
+        }
 
     # -- DAO resolution (parity: Storage.getDataObject:310-359) ------------
     def get_data_object(self, repo: str, dao: str):
@@ -141,3 +161,25 @@ class Storage:
 
     def get_meta_data_sequences(self) -> base.Sequences:
         return self.get_data_object(METADATA, "Sequences")
+
+    # -- smoke check (parity: Storage.verifyAllDataObjects:372-394) --------
+    def verify_all_data_objects(self) -> bool:
+        """Touch every repository, then write, read and delete one event."""
+        from predictionio_tpu_torch.data.event import Event
+
+        self.get_meta_data_apps()
+        self.get_meta_data_access_keys()
+        self.get_meta_data_channels()
+        self.get_meta_data_engine_instances()
+        self.get_model_data_models()
+        levents = self.get_l_events()
+        levents.init(0)
+        eid = levents.insert(
+            Event(event="$set", entity_type="pio_pr", entity_id="1",
+                  properties={"pio_storage_verification": True}),
+            0,
+        )
+        ok = levents.get(eid, 0) is not None
+        levents.delete(eid, 0)
+        levents.remove(0)
+        return ok

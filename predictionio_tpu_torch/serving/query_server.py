@@ -8,7 +8,8 @@ arguments ``pio deploy`` passes and these routes:
   ``serving.serve``. With ``batching=True`` queries go through a
   :class:`~predictionio_tpu_torch.serving.batching.MicroBatcher` into one
   ``Algorithm.batch_predict`` per batch (for ALS: one kernel launch).
-* ``GET /`` — server info, batcher and fast-path counters.
+* ``GET /`` — server info, batcher and fast-path counters, and the score
+  kernel's launch count in this process (``scoreKernelLaunches``).
 * ``GET /readyz`` — 200 once a model is deployed and warm.
 * ``POST /stop`` — undeploy.
 
@@ -38,6 +39,7 @@ from predictionio_tpu_torch.core.workflow import (
 )
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.ops import score_kernel
 
 logger = logging.getLogger(__name__)
 
@@ -252,6 +254,7 @@ class QueryServer:
                 self._batcher.stats() if self._batcher is not None else None
             )
             info["fastpath"] = self._fastpath_stats(d) or None
+            info["scoreKernelLaunches"] = score_kernel.launches.count
             with self._lock:
                 info["inflight"] = self._inflight
             return json_response(200, info)
@@ -302,8 +305,14 @@ class QueryServer:
             return json_response(200, {"message": "Shutting down."})
 
     # -- lifecycle ---------------------------------------------------------------
-    def start(self, host: str = "0.0.0.0", port: int = 8000) -> int:
-        actual = self.service.start(host, port)
+    def start(
+        self,
+        host: str = "0.0.0.0",
+        port: int = 8000,
+        cert_path: Optional[str] = None,
+        key_path: Optional[str] = None,
+    ) -> int:
+        actual = self.service.start(host, port, cert_path=cert_path, key_path=key_path)
         logger.info("query server listening on %s:%s", host, actual)
         return actual
 

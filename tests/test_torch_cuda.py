@@ -29,6 +29,8 @@ trained on the card against the same steps on the CPU, rtol = atol = 1e-4.
 """
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -552,3 +554,137 @@ def _leaves(params):
     for layer in params["layers"]:
         out += [layer[key] for key in sorted(layer)]
     return out
+
+
+def _cli_quickstart_store(tmp_path, monkeypatch):
+    """A zero-config sqlite store under ``tmp_path`` holding app ``CardQS``
+    with 3,000 rate/buy events, and an engine directory for it."""
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.tools import cli
+
+    for k in [k for k in os.environ if k.startswith("PIO_STORAGE_")]:
+        monkeypatch.delenv(k)
+    monkeypatch.delenv("PIO_ALS_SOLVER", raising=False)
+    monkeypatch.delenv("PIO_ALS_COMPUTE_DTYPE", raising=False)
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "base"))
+    Storage.reset_instance()
+    store.set_storage(None)
+    storage = Storage.instance()
+    app_id = storage.get_meta_data_apps().insert(App(0, "CardQS"))
+    rng = np.random.default_rng(21)
+    storage.get_l_events().insert_batch([
+        Event(event="buy" if k % 5 == 0 else "rate", entity_type="user",
+              entity_id=f"u{int(rng.integers(120))}", target_entity_type="item",
+              target_entity_id=f"i{int(rng.integers(90))}",
+              properties=None if k % 5 == 0 else {"rating": int(rng.integers(1, 6))},
+              event_time=1_767_225_600 + k) for k in range(3000)], app_id)
+    eng = tmp_path / "engine"
+    eng.mkdir()
+    (eng / "engine.json").write_text(json.dumps({
+        "engineFactory": cli.BUILTIN_TEMPLATES["recommendation"],
+        "datasource": {"params": {"appName": "CardQS"}},
+        "algorithms": [{"name": "als", "params": {"rank": 8, "numIterations": 5, "seed": 2}}]}))
+    return storage, eng
+
+
+@pytest.fixture()
+def cli_store(card, tmp_path, monkeypatch):
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.registry import Storage
+
+    yield _cli_quickstart_store(tmp_path, monkeypatch)
+    Storage.reset_instance()
+    sqlite.close_all_dbs()
+
+
+@pytest.mark.cuda
+def test_cli_train_on_card_gives_train_als_factors(card, cli_store, capsys):
+    """``pio train --device cuda`` from a sqlite store: the stored factors
+    equal ``train_als`` on the card on the same read, bit for bit."""
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
+    from predictionio_tpu_torch.tools import cli
+
+    storage, eng = cli_store
+    before = train_kernel.launches.count
+    assert cli.main(["train", "--engine-dir", str(eng), "--device", "cuda"]) == 0
+    launches = train_kernel.launches.count - before
+    iid = capsys.readouterr().out.split("Engine instance ID: ")[1].strip()
+    engine = RecommendationEngine.apply()
+    ctx = DeviceContext.create(device=card)
+    inst = storage.get_meta_data_engine_instances().get(iid)
+    model = workflow.prepare_deploy(engine, inst, storage=storage, ctx=ctx)[3][0]
+    params = engine.params_from_variant(json.loads((eng / "engine.json").read_text()))
+    pd = engine.prepare_data(ctx, params)
+    cfg = engine.make_algorithms(params)[0]._config()
+    ub, ib, _, _ = als._dense_blocks_for(pd.interactions, cfg)
+    assert launches == (len(ub.widths) + len(ib.widths)) * cfg.iterations
+    ref = als.train_als(ctx, pd.interactions, cfg)
+    assert np.array_equal(model.user_factors, ref.user_factors)
+    assert np.array_equal(model.item_factors, ref.item_factors)
+
+
+@pytest.mark.cuda
+def test_cli_deploy_batching_on_card_answers_the_plain_version(card, cli_store, capsys):
+    """``pio deploy --batching --device cuda``: concurrent answers through
+    the score kernel equal ``torch.topk(U[u] @ V.T)`` on the CPU."""
+    import socket
+    import threading
+    import time
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
+    from predictionio_tpu_torch.tools import cli
+
+    storage, eng = cli_store
+    assert cli.main(["train", "--engine-dir", str(eng), "--device", "cuda"]) == 0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    server = threading.Thread(target=cli.main, daemon=True, args=([
+        "deploy", "--engine-dir", str(eng), "--ip", "127.0.0.1", "--port", str(port),
+        "--batching", "--device", "cuda"],))
+    server.start()
+    base = f"http://127.0.0.1:{port}"
+
+    def get(path, body=None):
+        data = json.dumps(body).encode() if body is not None else None
+        with urllib.request.urlopen(urllib.request.Request(
+                base + path, data=data, headers={"Content-Type": "application/json"}),
+                timeout=60) as r:
+            return json.loads(r.read())
+
+    for _ in range(600):
+        try:
+            ready = get("/readyz")
+            break
+        except OSError:
+            time.sleep(0.1)
+    launched_at_ready = get("/")["scoreKernelLaunches"]  # after the warm-up
+    inst = storage.get_meta_data_engine_instances().get(ready["engineInstanceId"])
+    model = workflow.prepare_deploy(RecommendationEngine.apply(), inst, storage=storage,
+                                    ctx=DeviceContext.create(device="cpu"))[3][0]
+    rng = np.random.default_rng(3)
+    queries = [{"user": model.user_map.inverse[int(u)], "num": int(n)}
+               for u, n in zip(rng.integers(0, len(model.user_map), 96), rng.integers(1, 40, 96))]
+    with ThreadPoolExecutor(32) as pool:
+        answers = list(pool.map(lambda q: get("/queries.json", q), queries))
+    info = get("/")
+    calls = info["fastpath"][0]["calls"]
+    assert info["scoreKernelLaunches"] - launched_at_ready == calls
+    assert cli.main(["undeploy", "--port", str(port)]) == 0
+    server.join(30)
+    U, V = torch.from_numpy(model.user_factors), torch.from_numpy(model.item_factors)
+    bad = []
+    for q, a in zip(queries, answers):
+        rv, ri = torch.topk(U[model.user_map[q["user"]]] @ V.T, q["num"])
+        got_i = np.array([[model.item_map[x["item"]] for x in a["itemScores"]]])
+        got_v = np.array([[x["score"] for x in a["itemScores"]]])
+        bad += topk_mismatches(got_v, got_i, rv.numpy()[None], ri.numpy()[None], 1e-5)
+    assert not bad, bad[:3]
+    assert 0 < calls <= len(queries) and not server.is_alive()

@@ -72,6 +72,9 @@ print(" ".join(names))
         "predictionio_tpu_torch.templates.sequentialrecommendation",
         # the segment solver's slice
         "predictionio_tpu_torch.ops.segment",
+        # the quickstart's operator surface
+        "predictionio_tpu_torch.data.storage.sqlite", "predictionio_tpu_torch.data.api.stats",
+        "predictionio_tpu_torch.data.api.event_server", "predictionio_tpu_torch.tools.cli",
     } <= names
     # the SASRec training and segment slices' names, by attribute
     code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "

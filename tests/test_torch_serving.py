@@ -353,7 +353,7 @@ class TestPersistenceAndStorage:
         dao.delete("a/b")
         assert dao.get("a/b") is None
 
-    def test_env_contract(self, tmp_path):
+    def test_env_contract(self, tmp_path, monkeypatch):
         env = {
             "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
             "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
@@ -368,8 +368,14 @@ class TestPersistenceAndStorage:
         with pytest.raises(StorageError, match="does not implement"):
             Storage(env={**env, "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "FS"}) \
                 .get_meta_data_engine_instances()
-        with pytest.raises(StorageError, match="no storage source"):
-            Storage(env={})
+        # no source named: the zero-config sqlite source under PIO_FS_BASEDIR
+        monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "base"))
+        zero = Storage(env={})
+        assert zero.repository_bindings() == {
+            r: ("DEFAULT", "sqlite") for r in ("METADATA", "EVENTDATA", "MODELDATA")}
+        zero.get_model_data_models().insert(Model(id="z", models=b"0"))
+        assert (tmp_path / "base" / "default.sqlite").exists()
+        assert zero.get_model_data_models().get("z").models == b"0"
         with pytest.raises(StorageError, match="unknown storage type"):
             Storage(env={"PIO_STORAGE_SOURCES_X_TYPE": "hbase"}).get_model_data_models()
 
