@@ -188,6 +188,33 @@ code is not 0 and the last line is never printed.
              ``train`` (maxLen 256, 30 steps: kernels 4, 5, 6 launch 2 × 30
              times each), ``deploy`` and 20 queries read live from sqlite, each
              held against the plain forward on the history.
+13. serving-ops — the deployed ALS server as operators run it: the
+             full-width model of phase 4 published into the sqlite store of
+             a fresh ``PIO_FS_BASEDIR``, ``eventserver --stats`` and ``deploy
+             --batching --feedback`` against it (subprocesses; feedback
+             posts a ``predict`` event per answer), and ``pio loadtest`` with
+             this process as the client: closed loops of 2,000 requests, Zipf
+             over all 162,541 users, at concurrency 1, 16 and 64; open loops
+             ``steady:rate=R,duration=6`` at 200, 800 and 3,200 req/s over
+             64 connections (the rate the client really issued printed beside
+             each). Each load prints client p50/p99 and QPS, the batches by
+             size and rung, the fast path's dispatches, the card's busy share
+             and utilization against the card's row of the peak table (from
+             the server's accountant, the CUDA events around each launch, and
+             from the rungs dispatched times phase 3's device µs a rung), and
+             at concurrency 1 the median of each trace stage. Held: 300
+             sampled answers against the plain version; 0 degraded answers
+             and 0 query errors; kernel 1's launches equal to the fast path's
+             dispatches; every answer's feedback event in sqlite, less the
+             ones the bounded queue dropped (counted); ``PIO_RESULT_CACHE=1
+             PIO_COALESCE=1`` in this process: answers equal to the cache-off
+             server's, launches fewer by the hits, a held burst of 8 × 8
+             identical queries scored as 8 rows; a corrupt newer instance:
+             ``POST /reload`` keeps the live one (``reload_failed`` 1), a new
+             ``deploy`` cold-starts on the last-known-good one (and serves a
+             closed loop at 64 without feedback); SIGTERM to that deploy under
+             load and ``loadtest --kill-after`` (POST /stop) to the first: each
+             drains, exits 0 and answers no 5xx beyond 503 sheds.
 
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
@@ -1512,9 +1539,11 @@ def phase_segment_parity(seed, device):
 ALS_VARIANT = {"algorithms": [{"name": "als", "params": {"rank": RANK}}]}
 
 
-def publish(storage, engine, model, variant=ALS_VARIANT, factory=ALS_FACTORY):
+def publish(storage, engine, model, variant=ALS_VARIANT, factory=ALS_FACTORY,
+            engine_id="default"):
     """Write ``model`` as a COMPLETED engine instance with its sealed blob,
-    the steps the training workflow takes after training."""
+    the steps the training workflow takes after training. ``pio deploy``
+    looks instances up under ``engine_id`` = the engine.json's factory."""
     import datetime as dt
 
     from predictionio_tpu_torch.core import persistence
@@ -1526,7 +1555,7 @@ def publish(storage, engine, model, variant=ALS_VARIANT, factory=ALS_FACTORY):
     now = dt.datetime.now(tz=dt.timezone.utc)
     inst = EngineInstance(
         id="", status=instances.STATUS_INIT, start_time=now, end_time=now,
-        engine_id="default", engine_version="default", engine_variant="default",
+        engine_id=engine_id, engine_version="default", engine_variant="default",
         engine_factory=factory, **params.to_json_strings(),
     )
     iid = instances.insert(inst)
@@ -3040,6 +3069,428 @@ def phase_quickstart_cli(seed, device):
     return out
 
 
+# -- serving-ops: the deployed ALS server as operators run it -----------------
+
+OPS_APP = "ServingOps"
+OPS_REQUESTS = 2000  # each closed-loop load
+OPS_CONCURRENCY = (1, 16, 64)
+OPS_RATES = (200, 800, 3200)  # open-loop arrival rates, req/s
+OPS_RATE_S = 6  # seconds each open-loop rate runs
+OPS_CLIENTS = 64  # the open loop's workers (one keep-alive connection each)
+OPS_SLO_MS = 50.0  # the p99 limit PERF.md §2 sets for /queries.json
+OPS_SAMPLED = 300  # answers held against the plain version
+OPS_NUM = 10  # items a query asks for (the loadtest's default query)
+# requests of the loads a drain cuts short (SIGTERM, --kill-after): more
+# than the 1.5 s before the stop can serve, few enough that the refused
+# rest costs the client little
+OPS_TAIL = 5000
+OPS_STAGES = ("decode", "queue_wait", "batch_assembly", "h2d", "device_compute", "d2h",
+              "serialize", "other")
+
+
+def run_loadtest_cli(*argv) -> tuple[int, dict]:
+    """``pio loadtest <argv>`` with this process as the client (the server
+    runs in a process of its own): its exit code and JSON report. In this
+    process because ``--sample user=<every user>`` is longer than one
+    command-line argument may be."""
+    import contextlib
+    import io
+
+    from predictionio_tpu_torch.tools import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["loadtest", *argv])
+    lines = buf.getvalue().strip().splitlines()
+    require(bool(lines), f"pio loadtest {argv[:4]} printed nothing (exit {rc})")
+    return rc, json.loads(lines[-1])
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def _device_totals(info: dict) -> dict:
+    """Busy seconds, FLOPs and bytes the fast path's accountant holds (its
+    window spans the whole phase, ``PIO_DEVPROF_WINDOW``)."""
+    d = (info["fastpath"][0] or {}).get("devprof") or {}
+    el = d.get("elapsed_s") or 0.0
+    return {"busy_s": d.get("busy_s") or 0.0, "flops": (d.get("flops_per_s") or 0.0) * el,
+            "bytes": (d.get("hbm_gbps") or 0.0) * 1e9 * el, "platform": d.get("platform")}
+
+
+def ops_load_row(before: dict, after: dict, report: dict, rung_us: dict) -> dict:
+    """One load's server-side view from ``GET /`` before and after it: the
+    batches it formed by size and rung, the fast path's dispatches and the
+    score kernel's launches, and the card's busy share and utilization
+    over the load's wall time, from the accountant's device time (the CUDA
+    events around each launch) and, as a check, from the rungs dispatched
+    times the kernel's device µs a rung in this run's trace (``rung_us``)."""
+    from predictionio_tpu_torch.obs.devprof import peak_for
+
+    fa, fb = after["fastpath"][0], before["fastpath"][0]
+    da, db = _device_totals(after), _device_totals(before)
+    wall = report["wallSec"]
+    peak = peak_for(da["platform"])
+    busy = da["busy_s"] - db["busy_s"]
+    flops, nbytes = da["flops"] - db["flops"], da["bytes"] - db["bytes"]
+    hits = _delta(fa["bucket_hits"], fb["bucket_hits"])
+    traced = sum(n * rung_us[int(b)] for b, n in hits.items()) * 1e-6
+    return {
+        "batch_sizes": _delta(after["batching"]["batch_sizes"], before["batching"]["batch_sizes"]),
+        "rung_hits": hits,
+        "dispatches": fa["calls"] - fb["calls"],
+        "launches": after["scoreKernelLaunches"] - before["scoreKernelLaunches"],
+        "device_busy_s": busy,
+        "device_busy_share": busy / wall if wall else None,
+        "kernel_busy_share_from_trace": traced / wall if wall else None,
+        "flops_per_s": flops / wall if wall else None,
+        "bytes_per_s": nbytes / wall if wall else None,
+        "utilization_vs": da["platform"],
+        "flops_util": flops / wall / peak["flops"] if peak and wall else None,
+        "bytes_util": nbytes / wall / peak["hbm_gbps"] if peak and wall else None,
+    }
+
+
+def trace_stage_medians(traces: list) -> dict:
+    """Median ms of each trace stage over sampled ``POST /queries.json``."""
+    import numpy as np
+
+    qs = [t for t in traces if t.get("name") == "POST /queries.json" and t.get("status") == 200]
+    require(len(qs) >= 20, f"{len(qs)} sampled /queries.json traces")
+    out = {"traces": len(qs), "wall_ms": float(np.median([t["wallMs"] for t in qs])),
+           "kernel_event_us": float(np.median([t["meta"]["device_us"] for t in qs
+                                              if "device_us" in t.get("meta", {})]))}
+    for st in OPS_STAGES:
+        out[f"{st}_ms"] = float(np.median([t["stagesMs"].get(st, 0.0) for t in qs]))
+    return out
+
+
+def phase_serving_ops(model, seed, device, kernel_rows):
+    """The deployed ALS server as operators run it: see the module
+    docstring, phase 13. ``kernel_rows``: phase 3's timings, whose f32
+    rows give the kernel's device µs a rung."""
+    import re
+    import shutil
+    import signal
+    import sqlite3
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.base import Model
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.ops import score_kernel
+    from predictionio_tpu_torch.serving.query_server import QueryServer
+    from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
+    from predictionio_tpu_torch.testing import topk_mismatches
+
+    t_phase = time.perf_counter()
+    rung_us = {r["batch"]: sum(r["kernel_device_us"].values()) for r in kernel_rows
+               if r.get("case", "ml25m") == "ml25m" and r["dtype"] == "f32"}
+    tmp = tempfile.mkdtemp(prefix="pio-serving-ops-")
+    knobs = ("PIO_FS_BASEDIR", "PIO_DEVPROF_WINDOW", "PIO_RESULT_CACHE", "PIO_COALESCE",
+             "PIO_TRACE_SAMPLE")
+    saved = {k: v for k, v in os.environ.items() if k.startswith("PIO_STORAGE_") or k in knobs}
+    for k in saved:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    # one accountant window for the whole phase, so its busy seconds add up
+    # across the loads; the deployed servers inherit it
+    os.environ["PIO_DEVPROF_WINDOW"] = "3600"
+    Storage.reset_instance()
+    store.set_storage(None)
+    servers = []
+    out = {"phase": "serving-ops"}
+    users = [model.user_map.inverse[j] for j in range(len(model.user_map))]
+    sample = "user=" + ",".join(users)
+    query = json.dumps({"user": users[0], "num": OPS_NUM})
+    try:
+        # 1. the store, the model and the two servers
+        key = re.search(r"Access Key: (\S+)", cli_run("app", "new", OPS_APP)).group(1)
+        storage = Storage.instance()
+        app_id = storage.get_meta_data_apps().get_by_name(OPS_APP).id
+        engine = RecommendationEngine.apply()
+        eng = os.path.join(tmp, "recommendation")
+        cli_run("template", "get", "recommendation", "--directory", eng)
+        fill_engine_json(os.path.join(eng, "engine.json"), OPS_APP, ALS_VARIANT["algorithms"])
+        t0 = time.perf_counter()
+        iid = publish(storage, engine, model, engine_id=ALS_FACTORY)
+        publish_s = time.perf_counter() - t0
+        es = CliServer(tmp, "eventserver", "eventserver", "--stats")
+        servers.append(es)
+        es.wait_ready()
+        qs = CliServer(tmp, "deploy", "deploy", "--engine-dir", eng, "--batching", "--feedback",
+                       "--event-server-ip", "127.0.0.1", "--event-server-port", str(es.port),
+                       "--accesskey", key, "--device", device.type)
+        servers.append(qs)
+        ready_s = qs.wait_ready()
+
+        def info(srv=qs):
+            return http_json(f"{srv.base}/")[1]
+
+        at_ready = info()
+        require(at_ready["engineInstanceId"] == iid and at_ready["feedback"], f"deployed {at_ready}")
+        emit({"phase": "serving-ops", "step": "deploy", "t": time.perf_counter() - t_phase,
+              "users": len(users),
+              "items": len(model.item_map), "publish_s": publish_s, "deploy_to_ready_s": ready_s})
+
+        # 2. closed loops: zipf over every user, at three concurrencies
+        closed = []
+        for c in OPS_CONCURRENCY:
+            before = info()
+            rc, rep = run_loadtest_cli(
+                "--port", str(qs.port), "--query", query, "--requests", str(OPS_REQUESTS),
+                "--concurrency", str(c), "--dist", "zipf", "--sample", sample, "--scrape-metrics")
+            after = info()
+            require(rc == 0 and rep["ok"] == OPS_REQUESTS and rep["http5xx"] == 0,
+                    f"closed loop c={c}: exit {rc}, {rep}")
+            row = {"concurrency": c, "requests": rep["requests"], "ok": rep["ok"],
+                   "issued_per_s": rep["requests"] / rep["wallSec"], "qps": rep["qps"],
+                   "p50_ms": rep["p50Ms"], "p90_ms": rep["p90Ms"], "p99_ms": rep["p99Ms"],
+                   "shed": rep["shed"], "distinct_users": rep["perKey"]["distinctKeys"],
+                   **ops_load_row(before, after, rep, rung_us),
+                   "scrape": {k: rep["serverMetrics"].get(k) for k in (
+                       "deviceBusyFraction", "deviceMfu", "deviceHbmUtil", "kernelBackend",
+                       "kernelFactorDtype", "kernelIntensity", "batcherQueries")}}
+            if c == 1:
+                traces = http_json(f"{qs.base}/trace/recent.json?limit=256")[1]["traces"]
+                row["trace_stages"] = trace_stage_medians(traces)
+            closed.append(row)
+            emit({"phase": "serving-ops", "step": "closed-loop", "t": time.perf_counter() - t_phase,
+                  **row})
+
+        # 3. open loops: steady arrivals over every user in turn
+        opened = []
+        for rate in OPS_RATES:
+            before = info()
+            rc, rep = run_loadtest_cli(
+                "--port", str(qs.port), "--query", query, "--sample", sample,
+                "--scenario", f"steady:rate={rate},duration={OPS_RATE_S}",
+                "--concurrency", str(OPS_CLIENTS), "--seed", str(seed), "--scrape-metrics")
+            after = info()
+            require(rc == 0 and rep["errors"] == 0, f"open loop {rate}/s: exit {rc}, {rep}")
+            ph = rep["phases"][0]
+            row = {"rate": rate, "requests": rep["requests"], "ok": rep["ok"],
+                   "issued_per_s": rep["issuedPerSec"], "worst_lag_s": rep["worstLagS"],
+                   "qps": ph["qps"], "p50_ms": ph["p50Ms"], "p99_ms": ph["p99Ms"],
+                   "shed": rep["shed"], **ops_load_row(before, after, rep, rung_us)}
+            opened.append(row)
+            emit({"phase": "serving-ops", "step": "open-loop", "t": time.perf_counter() - t_phase,
+                  **row})
+        within = [r["rate"] for r in opened if r["p99_ms"] <= OPS_SLO_MS]
+
+        # 4. sampled answers against the plain version on the card
+        rng = np.random.default_rng(seed + 41)
+        picks = [(users[int(j)], int(rng.integers(1, K + 1)))
+                 for j in rng.integers(0, len(users), OPS_SAMPLED)]
+        answers = []
+        for u, n in picks:
+            status, a = http_json(f"{qs.base}/queries.json", {"user": u, "num": n})
+            require(status == 200 and "prId" in a, f"{u}: {status} {a}")
+            answers.append(a)
+        plain = Inputs(model.user_factors, model.item_factors, "f32", device)
+        u_idx = torch.tensor([model.user_map[u] for u, _ in picks], dtype=torch.int32, device=device)
+        rv, ri = (t.cpu().numpy() for t in plain.plain(u_idx, K))
+        bad = []
+        for j, ((_, n), a) in enumerate(zip(picks, answers)):
+            got_i = np.array([[model.item_map[x["item"]] for x in a["itemScores"]]])
+            got_v = np.array([[x["score"] for x in a["itemScores"]]])
+            bad += topk_mismatches(got_v, got_i, rv[j:j + 1, :n], ri[j:j + 1, :n], TOL)
+        require(not bad, f"served answers disagree with the plain version: {bad[:3]}")
+
+        # 5. the counters of everything served so far
+        served = info()
+        counters = served["resilience"]["counters"]
+        launches = served["scoreKernelLaunches"] - at_ready["scoreKernelLaunches"]
+        dispatches = served["fastpath"][0]["calls"] - at_ready["fastpath"][0]["calls"]
+        require(counters["degraded"] == 0 and counters["query_errors"] == 0,
+                f"degraded / query errors: {counters}")
+        require(launches == dispatches > 0,
+                f"kernel 1 launched {launches} times vs {dispatches} fast-path dispatches")
+
+        # 6. feedback: every answer's predict event lands in sqlite, less
+        # what the bounded queue dropped (counted) and failed posts
+        t_end = time.monotonic() + 60
+        db = os.path.join(os.environ["PIO_FS_BASEDIR"], "default.sqlite")
+        while True:
+            now = info()
+            c = now["resilience"]["counters"]
+            expect = (now["requestCount"] - now["feedbackDropped"] - c["feedback_errors"]
+                      - c["breaker_open"])
+            with sqlite3.connect(db, timeout=30) as conn:
+                landed = conn.execute(
+                    "SELECT COUNT(*) FROM events WHERE app_id = ? AND event = 'predict' "
+                    "AND entity_type = 'pio_pr'", (app_id,)).fetchone()[0]
+            if (landed == expect and now["feedbackQueued"] == 0) or time.monotonic() > t_end:
+                break
+            time.sleep(0.2)
+        require(landed == expect and landed > 0,
+                f"feedback: {landed} predict events in sqlite vs {expect} expected "
+                f"({now['requestCount']} answered, {now['feedbackDropped']} dropped, {c})")
+        out["feedback"] = {"answered": now["requestCount"], "predict_events": landed,
+                           "dropped": now["feedbackDropped"], "errors": c["feedback_errors"],
+                           "breaker_open": c["breaker_open"]}
+        emit({"phase": "serving-ops", "step": "feedback", "t": time.perf_counter() - t_phase,
+              **out["feedback"]})
+
+        # 7. result cache and coalescing, in this process on the card,
+        # against the answers of the cache-off server above
+        os.environ.update(PIO_RESULT_CACHE="1", PIO_COALESCE="1")
+        try:
+            cq = QueryServer(engine, storage=storage, ctx=DeviceContext.create(device=device),
+                             engine_id=ALS_FACTORY, batching=True)
+        finally:
+            del os.environ["PIO_RESULT_CACHE"], os.environ["PIO_COALESCE"]
+        cbase = f"http://127.0.0.1:{cq.start('127.0.0.1', 0)}"
+        try:
+            hot = [users[int(j)] for j in rng.integers(0, len(users), 50)]
+            seq = [{"user": hot[int(j)], "num": OPS_NUM} for j in rng.integers(0, len(hot), 400)]
+            score_kernel.launches.reset()  # the cache path's window
+            got = [http_json(f"{cbase}/queries.json", q)[1] for q in seq]
+            seq_launches = score_kernel.launches.count
+            hits = cq._result_cache.stats()["hits"]
+            require(seq_launches == len(seq) - hits and hits >= len(seq) - len(hot),
+                    f"one at a time: {seq_launches} launches for {len(seq)} queries, {hits} hits")
+            # bursts of identical queries held so they arrive together:
+            # one leader a user takes a row, the followers ride it
+            burst_users = [users[int(j)] for j in rng.integers(0, len(users), 8)]
+            burst = [{"user": u, "num": OPS_NUM} for u in burst_users for _ in range(8)]
+            rows_before = cq._fastpath_stats()["queries"]
+            with ThreadPoolExecutor(len(burst)) as pool:
+                with cq._batcher.held():
+                    futs = [pool.submit(http_json, f"{cbase}/queries.json", q) for q in burst]
+                    t_hold = time.monotonic() + 20
+                    while cq._inflight < len(burst) and time.monotonic() < t_hold:
+                        time.sleep(0.002)
+                    time.sleep(0.02)
+                got += [f.result()[1] for f in futs]
+            coalesced = cq._batcher.stats()["coalesced"]
+            burst_rows = cq._fastpath_stats()["queries"] - rows_before
+            launches_c = score_kernel.launches.count
+            cstats = cq._result_cache.stats()
+        finally:
+            cq.stop()
+        require(burst_rows == len(set(burst_users)) and coalesced == len(burst) - burst_rows,
+                f"coalescing: {burst_rows} rows, {coalesced} followers for {len(burst)} queries")
+        bad = []
+        for q, a in zip(seq + burst, got):
+            _, ref = http_json(f"{qs.base}/queries.json", q)
+            ri_ = np.array([[model.item_map[x["item"]] for x in ref["itemScores"]]])
+            rv_ = np.array([[x["score"] for x in ref["itemScores"]]])
+            gi = np.array([[model.item_map[x["item"]] for x in a["itemScores"]]])
+            gv = np.array([[x["score"] for x in a["itemScores"]]])
+            bad += topk_mismatches(gv, gi, rv_, ri_, TOL)
+        require(not bad, f"cached/coalesced answers vs the cache-off server: {bad[:3]}")
+        out["cache"] = {"queries": len(seq) + len(burst), "hits": cstats["hits"],
+                        "misses": cstats["misses"], "coalesced": coalesced,
+                        "launches": launches_c, "one_at_a_time_launches": seq_launches,
+                        "burst_rows": burst_rows}
+        emit({"phase": "serving-ops", "step": "cache", "t": time.perf_counter() - t_phase,
+              **out["cache"]})
+
+        # 8. a corrupt newer instance: the live server keeps its generation,
+        # a fresh deploy cold-starts on the last-known-good one
+        bad_iid = publish(storage, engine, model, engine_id=ALS_FACTORY)
+        row = storage.get_model_data_models().get(bad_iid)
+        storage.get_model_data_models().insert(Model(id=bad_iid, models=row.models[:-7] + b"garbage"))
+        status, rl = http_json(f"{qs.base}/reload", method="POST")
+        _, rz = http_json(f"{qs.base}/readyz")
+        require(status == 200 and rl["engineInstanceId"] == iid and rz["reloadDegraded"]
+                and info()["resilience"]["counters"]["reload_failed"] == 1,
+                f"reload onto a corrupt instance: {status} {rl}, readyz {rz}")
+        cold = CliServer(tmp, "deploy-cold", "deploy", "--engine-dir", eng, "--batching",
+                         "--device", device.type)
+        servers.append(cold)
+        cold_ready_s = cold.wait_ready()
+        _, cz = http_json(f"{cold.base}/readyz")
+        require(cz["engineInstanceId"] == iid and cz["reloadDegraded"],
+                f"cold start next to a corrupt newest instance: {cz}")
+        # the same closed loop at 64 on this deploy, which posts no
+        # feedback: what the feedback worker costs the server
+        before = info(cold)
+        rc, rep = run_loadtest_cli(
+            "--port", str(cold.port), "--query", query, "--requests", str(OPS_REQUESTS),
+            "--concurrency", str(OPS_CONCURRENCY[-1]), "--dist", "zipf", "--sample", sample)
+        require(rc == 0 and rep["ok"] == OPS_REQUESTS, f"closed loop without feedback: {rep}")
+        out["closed_no_feedback"] = {
+            "concurrency": OPS_CONCURRENCY[-1], "qps": rep["qps"], "p50_ms": rep["p50Ms"],
+            "p99_ms": rep["p99Ms"], **ops_load_row(before, info(cold), rep, rung_us)}
+        emit({"phase": "serving-ops", "step": "closed-no-feedback",
+              "t": time.perf_counter() - t_phase, **out["closed_no_feedback"]})
+
+        # 9. SIGTERM to that deploy during a loadtest: it drains, exits 0,
+        # and answers no 5xx beyond 503 sheds
+        term = {}
+
+        def load_cold():
+            term["rc"], term["report"] = run_loadtest_cli(
+                "--port", str(cold.port), "--query", query, "--requests", str(OPS_TAIL),
+                "--concurrency", "16", "--sample", sample)
+
+        th = threading.Thread(target=load_cold)
+        th.start()
+        time.sleep(1.5)
+        cold.proc.send_signal(signal.SIGTERM)
+        cold.wait_exit()
+        th.join(120)
+        rep = term["report"]
+        require(rep["ok"] > 0 and rep["http5xx"] == 0, f"SIGTERM drain under load: {rep}")
+        out["sigterm"] = {"ok": rep["ok"], "shed": rep["shed"], "http5xx": rep["http5xx"],
+                          "connection_errors": rep["errors"], "exit": 0,
+                          "cold_start_s": cold_ready_s}
+        emit({"phase": "serving-ops", "step": "sigterm", "t": time.perf_counter() - t_phase,
+              **out["sigterm"]})
+
+        # 10. --kill-after: the load test posts /stop; the server drains
+        final = info()
+        launches = final["scoreKernelLaunches"] - at_ready["scoreKernelLaunches"]
+        dispatches = final["fastpath"][0]["calls"] - at_ready["fastpath"][0]["calls"]
+        require(launches == dispatches, f"kernel 1 {launches} launches vs {dispatches} dispatches")
+        exited = {}
+        watch = threading.Thread(target=lambda: exited.update(
+            rc=qs.proc.wait(), t=time.perf_counter() - t_phase), daemon=True)
+        watch.start()
+        rc, rep = run_loadtest_cli("--port", str(qs.port), "--query", query,
+                                   "--requests", str(OPS_TAIL), "--concurrency", "16",
+                                   "--sample", sample, "--kill-after", "1.5")
+        t_load = time.perf_counter() - t_phase
+        qs.wait_exit()
+        watch.join(5)
+        t_exit = exited.get("t")
+        require(rc == 0 and rep["stopPosted"] and rep["http5xx"] == 0 and rep["ok"] > 0,
+                f"--kill-after drain: exit {rc}, {rep}")
+        require(http_json(f"{es.base}/stop", method="POST")[0] == 202, "event server POST /stop")
+        es.wait_exit()
+        out["kill_after"] = {"ok": rep["ok"], "shed": rep["shed"], "after_stop": rep["afterStop"],
+                             "http5xx": rep["http5xx"], "exit": 0, "load_wall_s": rep["wallSec"],
+                             "t_load_done": t_load, "t_deploy_exited": t_exit,
+                             "t_eventserver_exited": time.perf_counter() - t_phase}
+        emit({"phase": "serving-ops", "step": "kill-after", **out["kill_after"]})
+        out.update(deploy_to_ready_s=ready_s, closed=closed, open=opened,
+                   highest_rate_p99_within_slo=max(within) if within else None,
+                   slo_p99_ms=OPS_SLO_MS, sampled=len(answers), topk_mismatches=0,
+                   degraded=0, query_errors=0, launches=launches, dispatches=dispatches,
+                   reload_failed=1, cold_start_instance=iid)
+    finally:
+        for srv in servers:
+            srv.kill()
+        Storage.reset_instance()
+        sqlite.close_all_dbs()
+        for k in knobs:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(seconds=time.perf_counter() - t_phase, ok=True)
+    emit(out)
+    return out
+
+
 # -- A/B: kernels 1 and 2 of two trees, on one card ---------------------------
 
 
@@ -3246,6 +3697,7 @@ def main(argv=None) -> int:
     phase_sasrec_train_parity(args.seed, device)
     sas_flow = phase_sasrec_train_workflow(args.seed, device)
     quick = phase_quickstart_cli(args.seed, device)
+    ops = phase_serving_ops(model, args.seed, device, rows)
     # each kernel's launches on the CLI path, counted as the CLI drove it
     cli_launches = {
         "fused_gather_score_topk": quick["serve"]["launches"],
@@ -3341,6 +3793,9 @@ def main(argv=None) -> int:
     }]}
     for k in kernels["kernels"]:
         k["cli_launches"] = cli_launches[k["name"]]
+    # kernel 1 on the operators' path: the deployed server's launches from
+    # readiness to the drain (serving-ops)
+    kernels["kernels"][0]["ops_launches"] = ops["launches"]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -3352,6 +3807,7 @@ def main(argv=None) -> int:
                    "flash": flash_rows, "sasrec": sasrec,
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
                    "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
+                   "serving_ops": ops,
                    **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)

@@ -1,8 +1,11 @@
 """Minimal threaded HTTP service kit for the REST planes.
 
-Copy of ``predictionio_tpu/common/http.py`` without its fault-injection,
-tracing and telemetry hooks and without chunked streaming bodies (the
-slices that need them bring them). Stdlib only.
+Copy of ``predictionio_tpu/common/http.py`` with its telemetry and trace
+hooks (an installed :class:`~predictionio_tpu_torch.obs.Telemetry` counts
+every request and records its sampled trace), without its fault-injection
+shim (a chaos item of its own) and without chunked streaming bodies (the
+slices that need them bring them). One difference: ``stop()`` also shuts
+the connections still open. Stdlib only.
 """
 
 from __future__ import annotations
@@ -10,12 +13,15 @@ from __future__ import annotations
 import email.utils
 import json
 import re
+import socket
 import threading
 import time
 import urllib.parse
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional
+
+from predictionio_tpu_torch.obs import tracing as _tracing
 
 
 @dataclass
@@ -26,11 +32,18 @@ class Request:
     headers: Any
     body: bytes
     match: Optional[re.Match] = None
+    # the sampled obs trace riding this request (None when unsampled or
+    # telemetry is not installed); handlers pass it to async stages
+    trace: Any = None
 
     def json(self) -> Any:
         if not self.body:
             return None
         return json.loads(self.body.decode("utf-8"))
+
+    def form(self) -> dict[str, str]:
+        pairs = urllib.parse.parse_qsl(self.body.decode("utf-8"))
+        return dict(pairs)
 
 
 @dataclass
@@ -99,6 +112,12 @@ class HttpService:
         self._exact: dict[tuple[str, str], Callable[[Request], Response]] = {}
         self._server: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # obs.Telemetry installed via Telemetry.install(service); the hot
+        # loop pays ONE attribute check when absent
+        self.telemetry = None
+        # open client connections, closed by stop() (see there)
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
 
     def route(self, method: str, pattern: str):
         regex = re.compile("^" + pattern + "$")
@@ -146,23 +165,65 @@ class HttpService:
             def log_message(self, fmt, *args):  # silence default stderr spam
                 pass
 
+            def setup(self):
+                super().setup()
+                with service._conns_lock:
+                    service._conns.add(self.connection)
+
+            def finish(self):
+                try:
+                    super().finish()
+                finally:
+                    with service._conns_lock:
+                        service._conns.discard(self.connection)
+
             def _handle(self, method: str):
                 parsed = urllib.parse.urlsplit(self.path)
                 params = dict(urllib.parse.parse_qsl(parsed.query))
                 length = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(length) if length else b""
+                tel = service.telemetry
+                trace = None
+                if tel is not None:
+                    t_req = time.perf_counter()
+                    trace = tel.tracer.begin(
+                        request_id=self.headers.get(_tracing.TRACE_HEADER),
+                        name=f"{method} {parsed.path}",
+                    )
                 req = Request(
                     method=method, path=parsed.path, params=params,
-                    headers=self.headers, body=body,
+                    headers=self.headers, body=body, trace=trace,
                 )
                 try:
-                    resp = service.dispatch(req)
+                    if trace is not None:
+                        # active-trace scope: downstream stage() calls see it
+                        with _tracing.scope((trace,)):
+                            resp = service.dispatch(req)
+                    else:
+                        resp = service.dispatch(req)
                 except json.JSONDecodeError as e:
                     resp = json_response(400, {"message": f"invalid JSON: {e}"})
                 except Exception as e:  # the route table's boundary: answer 500
                     resp = json_response(500, {"message": str(e)})
+                if trace is not None:
+                    resp.headers.setdefault(_tracing.TRACE_HEADER, trace.request_id)
                 try:
-                    self._send(resp)
+                    if tel is None:
+                        self._send(resp)
+                    else:
+                        t_send = time.perf_counter()
+                        try:
+                            self._send(resp)
+                        finally:
+                            if trace is not None:
+                                trace.add_stage("serialize", time.perf_counter() - t_send)
+                                trace.finish(status=resp.status)
+                                tel.tracer.record(trace)
+                            tel.observe_http(
+                                method, parsed.path, resp.status,
+                                time.perf_counter() - t_req,
+                                (method, parsed.path) in service._exact,
+                            )
                 except (BrokenPipeError, ConnectionResetError):
                     # client went away mid-response; nothing to salvage
                     self.close_connection = True
@@ -219,8 +280,19 @@ class HttpService:
         return actual_port
 
     def stop(self) -> None:
+        """Stop accepting, then shut the connections still open: a client
+        on a keep-alive connection learns at once that the server is gone
+        (it would otherwise wait out its own timeout while the process
+        exits), and ``server_close`` need not wait for its handler."""
         if self._server is not None:
             self._server.shutdown()
+            with self._conns_lock:
+                conns = list(self._conns)
+            for conn in conns:
+                try:
+                    conn.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass  # already closed by its client
             self._server.server_close()
             self._server = None
 

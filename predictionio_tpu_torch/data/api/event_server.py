@@ -13,15 +13,20 @@ Counterpart of the plain path of ``predictionio_tpu/data/api/event_server.py``
   a status per item and partial success;
 * ``GET /stats.json`` under ``stats=True``; ``GET /``, ``/healthz``,
   ``/readyz``; ``POST /stop``;
-* input blocker and sniffer plugins (:class:`EventServerPlugin`).
+* input blocker and sniffer plugins (:class:`EventServerPlugin`);
+* ``GET /metrics`` and ``GET /trace/recent.json`` when telemetry is on
+  (the default, as in the JAX server; ``PIO_TELEMETRY=0`` turns it off);
+* every committed write bumps the serving result cache's invalidation
+  generations (``result_cache.notify_event``; a delete,
+  ``notify_delete``), as the JAX server does;
+* ``drain()`` (SIGTERM, ``POST /stop``): refuse new writes, close the
+  event writer, stop listening.
 
 Not ported yet, and raising an error that names the ROADMAP item that
 brings them when asked for: the write-behind ingest buffer (an
 ``ingest_mode`` other than ``"off"``) and its WAL, and webhooks (item 14);
 ``PIO_STREAMING=1``, whose delta sinks and publisher the port lacks
-(item 8); ``/metrics`` telemetry (item 6). Where the JAX server bumps the serving result cache's
-generations on every committed write, the port has no result cache yet
-(item 6): :class:`ResultCacheHook` counts those notifications instead.
+(item 8).
 """
 
 from __future__ import annotations
@@ -33,10 +38,13 @@ import threading
 import time
 from typing import Optional
 
+from predictionio_tpu_torch import obs
 from predictionio_tpu_torch.common.http import HttpService, Request, Response, json_response
 from predictionio_tpu_torch.data.api.stats import Stats
 from predictionio_tpu_torch.data.event import Event, parse_time_or_none
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.obs import bridges as _bridges
+from predictionio_tpu_torch.serving.result_cache import notify_delete, notify_event
 
 logger = logging.getLogger(__name__)
 
@@ -69,26 +77,6 @@ class EventServerPlugin:
         """Blockers raise to reject the event; sniffers observe."""
 
 
-class ResultCacheHook:
-    """The serving result cache's invalidation hook, a counted no-op until
-    the cache is ported (ROADMAP §1 item 6): ``events`` counts committed
-    events, ``deletes`` deletions by id (the JAX server's ``notify_event``
-    and ``notify_delete`` calls)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.events = 0
-        self.deletes = 0
-
-    def notify_events(self, events: list) -> None:
-        with self._lock:
-            self.events += len(events)
-
-    def notify_delete(self) -> None:
-        with self._lock:
-            self.deletes += 1
-
-
 class EventServer:
     def __init__(
         self,
@@ -96,7 +84,7 @@ class EventServer:
         stats: bool = False,
         plugins: Optional[list[EventServerPlugin]] = None,
         ingest_mode: Optional[str] = None,
-        telemetry: bool = False,
+        telemetry: bool = True,
         wal_dir: Optional[str] = None,
     ):
         mode = ingest_mode if ingest_mode is not None else os.environ.get(
@@ -110,19 +98,55 @@ class EventServer:
             raise _not_ported("the fast-ack write-ahead log", 14)
         if os.environ.get("PIO_STREAMING", "0") == "1":
             raise _not_ported("streaming micro-generations (PIO_STREAMING=1)", 8)
-        if telemetry:
-            raise _not_ported("event-server telemetry (/metrics)", 6)
         self.storage = storage or Storage.instance()
         self.stats_enabled = stats
         self.stats = Stats()
         self.plugins = list(plugins or [])
         self.max_batch_size = _env_int("PIO_MAX_BATCH_SIZE", MAX_BATCH_SIZE)
-        self.result_cache_hook = ResultCacheHook()
         self._draining = False
         self._stopped = False
         self._stop_lock = threading.Lock()
         self.service = HttpService("eventserver")
+        # /metrics + /trace/recent.json, and the bridges that put the
+        # ingestion stats behind the one registry
+        self.telemetry = (
+            obs.Telemetry("eventserver").install(self.service)
+            if telemetry and obs.telemetry_enabled()
+            else None
+        )
+        if self.telemetry is not None:
+            self._register_metrics()
         self._register_routes()
+
+    def _register_metrics(self) -> None:
+        reg = self.telemetry.registry
+        _bridges.bridge_event_stats(reg, self.stats)
+        reg.gauge_fn(
+            "pio_stats_enabled",
+            "1 when per-app ingestion stats collection is on.",
+            lambda: 1.0 if self.stats_enabled else 0.0,
+        )
+        reg.gauge_fn(
+            "pio_ingest_buffer_enabled",
+            "1 when the group-commit write-behind buffer is active.",
+            lambda: 0.0,  # the buffer is ROADMAP §1 item 14
+        )
+        reg.gauge_fn(
+            "pio_draining",
+            "1 while the server is draining toward shutdown.",
+            lambda: 1.0 if self._draining else 0.0,
+        )
+
+    @staticmethod
+    def _notify_committed(events: list) -> None:
+        """Committed writes → serving-cache invalidation bumps. Called at
+        commit time on every write path; never allowed to fail a write
+        that already landed."""
+        try:
+            for event in events:
+                notify_event(event)
+        except Exception:
+            logger.exception("cache-invalidation hook failed; TTL backstop bounds staleness")
 
     # -- auth (parity: withAccessKey, EventServer.scala:92-130) ------------
     def _authenticate(self, req: Request) -> tuple[Optional[dict], Optional[Response]]:
@@ -195,7 +219,7 @@ class EventServer:
         le = self.storage.get_l_events()
         le.init(auth["app_id"], auth["channel_id"])
         event_id = le.insert(event, auth["app_id"], auth["channel_id"])
-        self.result_cache_hook.notify_events([event])
+        self._notify_committed([event])
         self.stats_update(auth, event.event, 201)
         return json_response(201, {"eventId": event_id})
 
@@ -245,7 +269,7 @@ class EventServer:
                     continue
             self.stats_update(auth, event.event, 201)
             results[i] = {"eventId": eid, "status": 201}
-            self.result_cache_hook.notify_events([event])
+            self._notify_committed([event])
         return results
 
     def stats_update(self, auth: dict, event_name: str, status: int) -> None:
@@ -272,7 +296,7 @@ class EventServer:
 
         @svc.route("POST", r"/stop")
         def stop_route(req):
-            threading.Thread(target=self._delayed_stop, daemon=True).start()
+            threading.Thread(target=self._delayed_drain, daemon=True).start()
             return json_response(202, {"message": "draining"})
 
         @svc.route("POST", r"/events\.json")
@@ -346,7 +370,7 @@ class EventServer:
             )
             if not found:
                 return json_response(404, {"message": "Not Found"})
-            self.result_cache_hook.notify_delete()
+            notify_delete()
             return json_response(200, {"message": "Found"})
 
         @svc.route("POST", r"/batch/events\.json")
@@ -380,10 +404,6 @@ class EventServer:
                 return err
             return json_response(200, self.stats.get(auth["app_id"]))
 
-        @svc.route("GET", r"/metrics")
-        def metrics(req):
-            raise _not_ported("event-server telemetry (/metrics)", 6)
-
         @svc.route("POST", r"/webhooks/(?P<name>[^/]+)\.(?:json|form)")
         def webhook(req):
             raise _not_ported("webhook connectors", 14)
@@ -411,23 +431,31 @@ class EventServer:
             headers={"Retry-After": "1"},
         )
 
-    def _delayed_stop(self) -> None:
+    def _delayed_drain(self) -> None:
         # let the POST /stop response leave the socket first
         time.sleep(0.3)
-        self.stop()
+        self.drain()
 
-    def stop(self) -> None:
-        """Refuse new writes, close the event writer (checkpointing its WAL)
-        and stop listening. Every write is committed before it is answered,
-        so nothing acknowledged is left to flush; the JAX server's drain of
-        a write-behind buffer comes with that buffer (item 14)."""
+    def drain(self, timeout_ms: Optional[float] = None) -> bool:
+        """Graceful shutdown: refuse new writes, close the event writer
+        (checkpointing its WAL) and stop listening. Every write is
+        committed before it is answered, so nothing acknowledged is left to
+        flush and the budget ``timeout_ms`` is never needed: the JAX
+        server's drain of a write-behind buffer comes with that buffer
+        (item 14). Returns True: nothing is abandoned."""
+        del timeout_ms
         with self._stop_lock:
             if self._stopped:
-                return
+                return True
             self._draining = True
             self._stopped = True
         try:
             self.storage.get_l_events().close()
         except Exception:
-            logger.exception("LEvents close failed during stop")
+            logger.exception("LEvents close failed during drain")
         self.service.stop()
+        return True
+
+    def stop(self) -> None:
+        """Shutdown with the drain's semantics."""
+        self.drain()

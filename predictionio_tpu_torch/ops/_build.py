@@ -14,6 +14,12 @@ through the headers' own includes), so a changed source or header builds
 anew and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
 for them together.
+
+:class:`KernelError` is the one exception type of the kernels' wrappers: a
+refusal of their inputs, a build or launch that fails, and (through
+:func:`as_kernel_error`) an error the card reports afterwards. The query
+server lets it through as a 500 where it serves a degraded answer for other
+failures, so a broken card never hides behind a stale answer.
 """
 
 from __future__ import annotations
@@ -26,6 +32,26 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+class KernelError(ValueError, RuntimeError):
+    """A kernel refused its inputs, did not build or launch, or the card
+    reported an error. It is a ValueError and a RuntimeError, the two
+    types the wrappers raised before it, so existing handlers still match."""
+
+
+def as_kernel_error(exc: BaseException, what: str) -> BaseException:
+    """``exc`` as a :class:`KernelError` when the card reported it, else
+    ``exc`` itself (the caller re-raises it unchanged). A sticky CUDA error
+    surfaces at the next synchronizing call, such as a readback, as
+    ``torch.AcceleratorError`` (torch 2.11), or a RuntimeError naming CUDA."""
+    if isinstance(exc, KernelError):
+        return exc
+    card = type(exc).__name__ == "AcceleratorError" or (
+        isinstance(exc, RuntimeError)
+        and ("CUDA error" in str(exc) or "CUDA driver error" in str(exc))
+    )
+    return KernelError(f"{what}: {exc}") if card else exc
+
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -49,7 +75,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    raise KernelError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
@@ -102,7 +128,7 @@ def build_all(names=SOURCES) -> dict[str, tuple[Path, float, str]]:
         for name, (proc, tmp, target) in procs.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+                raise KernelError(f"nvcc failed for {name}.cu:\n{out}")
             os.replace(tmp, target)
             build_log[name] = (target, time.perf_counter() - t0, out)
         return {n: build_log[n] for n in names}

@@ -55,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.ops._build import KernelError
 from predictionio_tpu_torch.ops.score_kernel import LaunchCounter
 
 NEG_INF = -1e30
@@ -202,23 +203,23 @@ def _check_lengths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """The JAX function's refusals at its default blocks, plus the shapes
     and head width the port takes; the same on every device."""
     if q.dim() < 2 or k.dim() != q.dim() or v.shape != k.shape:
-        raise ValueError(
+        raise KernelError(
             f"q, k, v must be (..., T, D) of one rank with k and v alike, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     if q.shape[:-2] != k.shape[:-2] or q.shape[-1] != k.shape[-1]:
-        raise ValueError(
+        raise KernelError(
             f"q {tuple(q.shape)} and k {tuple(k.shape)} differ outside the length"
         )
     t_q, t_kv, d = q.shape[-2], k.shape[-2], q.shape[-1]
     block_q, block_k = min(BLOCK_Q, t_q), min(BLOCK_K, t_kv)
     if t_q == 0 or t_kv == 0 or t_q % block_q or t_kv % block_k:
-        raise ValueError(
+        raise KernelError(
             f"sequence lengths ({t_q}, {t_kv}) must divide block sizes "
             f"({block_q}, {block_k})"
         )
     if not 1 <= d <= MAX_HEAD:
-        raise ValueError(f"head width {d} is outside the flash kernel's range 1..{MAX_HEAD}")
+        raise KernelError(f"head width {d} is outside the flash kernel's range 1..{MAX_HEAD}")
 
 
 def flash_attention_reference(
@@ -335,7 +336,7 @@ def _library(name: str):
             tile, max_head = ctypes.c_int(), ctypes.c_int()
             limits(ctypes.byref(tile), ctypes.byref(max_head))
             if (tile.value, max_head.value) != (TILE, MAX_HEAD):
-                raise RuntimeError(f"{name}.cu TILE/MAX_HEAD disagree with Python")
+                raise KernelError(f"{name}.cu TILE/MAX_HEAD disagree with Python")
             _libs[name] = lib
         return lib
 
@@ -345,17 +346,17 @@ def _check_operands(**tensors) -> torch.device:
     device = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
+            raise KernelError(f"{name} is on {t.device}, expected {device}")
         if t.dtype != torch.float32:
-            raise ValueError(f"{name} has dtype {t.dtype}; the flash kernels take float32")
+            raise KernelError(f"{name} has dtype {t.dtype}; the flash kernels take float32")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise KernelError(f"{name} must be contiguous")
     return device
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: {lib.pio_flash_error_string(rc).decode()} ({rc})")
+        raise KernelError(f"{what} kernel launch failed: {lib.pio_flash_error_string(rc).decode()} ({rc})")
 
 
 # One zeroed ticket counter a query tile, per (device, stream): the merging
@@ -389,7 +390,7 @@ def _launch(q, k, v, causal: bool, scale: float):
     t_kv = k.shape[-2]
     bh = q.numel() // (t_q * d)
     if bh == 0:
-        raise ValueError("empty batch·head dimension")
+        raise KernelError("empty batch·head dimension")
     lib = _libs.get("flash_fwd") or _library("flash_fwd")
     causal = bool(causal)
     index = device.index
@@ -439,7 +440,7 @@ def flash_block_fwd(
     if device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
     if device.type != "cuda":
-        raise ValueError(f"no flash kernel for device {device}")
+        raise KernelError(f"no flash kernel for device {device}")
     return _launch(q, k, v, causal, scale)
 
 
@@ -448,7 +449,7 @@ def _bwd_geometry(q, k, v, do, lse, delta):
     t_q, d = q.shape[-2:]
     bh = q.numel() // (t_q * d)
     if bh == 0:
-        raise ValueError("empty batch·head dimension")
+        raise KernelError("empty batch·head dimension")
     return device, bh, t_q, k.shape[-2], d
 
 
@@ -511,7 +512,7 @@ def flash_block_bwd(
     """
     _check_lengths(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:-1]:
-        raise ValueError(
+        raise KernelError(
             f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse {tuple(lse.shape)} "
             f"do not match q {tuple(q.shape)}"
         )
@@ -521,7 +522,7 @@ def flash_block_bwd(
     if device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal, scale)
     if device.type != "cuda":
-        raise ValueError(f"no flash kernel for device {device}")
+        raise KernelError(f"no flash kernel for device {device}")
     _check_operands(o=o)
     # Σ_d do·o, the softmax-Jacobian row term: a torch op, as the JAX
     # package computes it in plain XLA outside its kernels

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from predictionio_tpu_torch.ops._build import KernelError
 from predictionio_tpu_torch.ops.topk import top_k_with_mask
 
 # Catalogs pad to a multiple of the JAX package's BLOCK_I, so one layout
@@ -145,7 +146,7 @@ def gather_score_topk_reference(
     """
     n_items = V.shape[0]
     if not 0 < k <= n_items:
-        raise ValueError(f"k={k} out of range for {n_items} items")
+        raise KernelError(f"k={k} out of range for {n_items} items")
     Uf = _dequantize(U, u_scale)
     Vf = _dequantize(V, None)
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -182,7 +183,7 @@ def _library():
             limits = [ctypes.c_int() for _ in range(4)]
             lib.pio_score_topk_limits(*(ctypes.byref(x) for x in limits))
             if tuple(x.value for x in limits) != (MAX_K, WARP_MAX_K, MAX_RANK, MAX_SLICES):
-                raise RuntimeError("score_topk.cu limits disagree with Python's")
+                raise KernelError("score_topk.cu limits disagree with Python's")
             _lib = lib
         return _lib
 
@@ -207,13 +208,13 @@ def _check(t: Optional[torch.Tensor], name: str, device, dtypes, shape) -> None:
     if t is None:
         return
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+        raise KernelError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+        raise KernelError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        raise KernelError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise KernelError(f"{name} must be contiguous")
 
 
 def fused_gather_score_topk(
@@ -225,6 +226,7 @@ def fused_gather_score_topk(
     *,
     u_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    timing: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k scores: ``(values (B, k) f32, indices (B, k) int32)``.
 
@@ -233,7 +235,9 @@ def fused_gather_score_topk(
     (n_items, 1) f32. ``u_idx`` is (B,) int32, ``item_mask`` (n_items,)
     bool with True for excluded items. Values sort descending, ties go to
     the smaller index. A user index outside ``[0, n_users)`` is clamped,
-    as XLA's gather clamps it.
+    as XLA's gather clamps it. ``timing``, a pair of CUDA events made with
+    ``enable_timing=True``, is recorded on the launch's stream just before
+    and just after the kernel (the plain version on the CPU ignores it).
     """
     device = V.device
     if device.type == "cpu":
@@ -241,18 +245,18 @@ def fused_gather_score_topk(
             U, V, u_idx, k, item_mask, u_scale=u_scale, v_scale=v_scale
         )
     if device.type != "cuda":
-        raise ValueError(f"no score kernel for device {device}")
+        raise KernelError(f"no score kernel for device {device}")
     n_users, rank = U.shape
     n_items = V.shape[0]
     batch = u_idx.shape[0]
     if U.dtype not in _DTYPE_CODE or V.dtype != U.dtype:
-        raise ValueError(f"U/V dtypes {U.dtype}/{V.dtype} not supported")
+        raise KernelError(f"U/V dtypes {U.dtype}/{V.dtype} not supported")
     if U.dtype == torch.int8 and (u_scale is None or v_scale is None):
-        raise ValueError("int8 factors need u_scale and v_scale")
+        raise KernelError("int8 factors need u_scale and v_scale")
     if not 0 < k <= n_items or k > MAX_K:
-        raise ValueError(f"k={k} out of range for {n_items} items (max {MAX_K})")
+        raise KernelError(f"k={k} out of range for {n_items} items (max {MAX_K})")
     if batch == 0:
-        raise ValueError("empty u_idx")
+        raise KernelError("empty u_idx")
     _check(U, "U", device, (U.dtype,), (n_users, rank))
     _check(V, "V", device, (U.dtype,), (n_items, rank))
     _check(u_idx, "u_idx", device, (torch.int32,), (batch,))
@@ -260,7 +264,7 @@ def fused_gather_score_topk(
     _check(u_scale, "u_scale", device, (torch.float32,), (n_users, 1))
     _check(v_scale, "v_scale", device, (torch.float32,), (n_items, 1))
     if rank > MAX_RANK:
-        raise ValueError(f"rank {rank} is above the score kernel's {MAX_RANK}")
+        raise KernelError(f"rank {rank} is above the score kernel's {MAX_RANK}")
     lib = _library()
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     rows, slices, per = slice_plan(batch, n_items, k, n_sm)
@@ -274,13 +278,17 @@ def fused_gather_score_topk(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         tickets = _ticket_buffer(device, stream, -(-batch // rows))
+        if timing is not None:
+            timing[0].record()
         rc = lib.pio_score_topk(
             ptr(U), ptr(u_scale), ptr(V), ptr(v_scale), ptr(u_idx),
             ptr(item_mask), ptr(cand), ptr(tickets), ptr(vals), ptr(idx),
             n_users, rank, n_items, batch, k, slices, per, _DTYPE_CODE[U.dtype], stream,
         )
+        if timing is not None:
+            timing[1].record()
     if rc != 0:
         msg = lib.pio_error_string(rc).decode()
-        raise RuntimeError(f"score_topk kernel launch failed: {msg} ({rc})")
+        raise KernelError(f"score_topk kernel launch failed: {msg} ({rc})")
     launches.bump()
     return vals, idx

@@ -79,15 +79,17 @@ def gather_score_topk(
     *,
     u_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    timing: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gather → score → masked top-k: ``(values (B, k), indices (B, k))``.
 
     ``U[u_idx] @ V.T`` then a masked top-k, with U dequantized BEFORE the
     dot and the item scale applied AFTER it (the reference op order).
-    ``item_mask`` is True for slots that must never win.
+    ``item_mask`` is True for slots that must never win. ``timing``: a
+    pair of CUDA events recorded around the kernel's launch.
     """
     from predictionio_tpu_torch.ops import score_kernel
 
     return score_kernel.fused_gather_score_topk(
-        U, V, u_idx, k, item_mask, u_scale=u_scale, v_scale=v_scale
+        U, V, u_idx, k, item_mask, u_scale=u_scale, v_scale=v_scale, timing=timing
     )

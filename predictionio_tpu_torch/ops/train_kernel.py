@@ -63,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.ops._build import KernelError
 from predictionio_tpu_torch.ops.score_kernel import LaunchCounter
 from predictionio_tpu_torch.ops.segment import segment_sum
 
@@ -169,7 +170,7 @@ def _library():
             tile, max_rank = ctypes.c_int(), ctypes.c_int()
             lib.pio_train_normal_eq_limits(ctypes.byref(tile), ctypes.byref(max_rank))
             if (tile.value, max_rank.value) != (TILE, MAX_RANK):
-                raise RuntimeError("train_normal_eq.cu TILE/MAX_RANK disagree with Python")
+                raise KernelError("train_normal_eq.cu TILE/MAX_RANK disagree with Python")
             _lib = lib
         return _lib
 
@@ -199,13 +200,13 @@ def _check(t: Optional[torch.Tensor], name: str, device, dtypes, shape) -> None:
     if t is None:
         return
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+        raise KernelError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+        raise KernelError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        raise KernelError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise KernelError(f"{name} must be contiguous")
 
 
 def fused_train_normal_eq(
@@ -228,7 +229,7 @@ def fused_train_normal_eq(
     """
     n_opp, k = V.shape
     if not 1 <= k <= MAX_RANK:
-        raise ValueError(
+        raise KernelError(
             f"rank {k} is outside the training kernel's range 1..{MAX_RANK}"
         )
     device = V.device
@@ -237,13 +238,13 @@ def fused_train_normal_eq(
             idx, rat, msk, V, v_scale, implicit=implicit, alpha=alpha
         )
     if device.type != "cuda":
-        raise ValueError(f"no training kernel for device {device}")
+        raise KernelError(f"no training kernel for device {device}")
     if V.dtype not in _DTYPE_CODE:
-        raise ValueError(f"V dtype {V.dtype} not supported")
+        raise KernelError(f"V dtype {V.dtype} not supported")
     if (V.dtype == torch.int8) != (v_scale is not None):
-        raise ValueError("v_scale goes with int8 V, and only with it")
+        raise KernelError("v_scale goes with int8 V, and only with it")
     if idx.dim() != 2 or idx.shape[0] == 0 or idx.shape[1] == 0:
-        raise ValueError(f"idx must be a non-empty (n_b, D) matrix, got {tuple(idx.shape)}")
+        raise KernelError(f"idx must be a non-empty (n_b, D) matrix, got {tuple(idx.shape)}")
     n_b, D = idx.shape
     _check(idx, "idx", device, (torch.int32,), (n_b, D))
     _check(rat, "rat", device, (torch.float32,), (n_b, D))
@@ -272,7 +273,7 @@ def fused_train_normal_eq(
         )
     if rc != 0:
         msg = lib.pio_train_error_string(rc).decode()
-        raise RuntimeError(f"train_normal_eq kernel launch failed: {msg} ({rc})")
+        raise KernelError(f"train_normal_eq kernel launch failed: {msg} ({rc})")
     launches.bump()
     return A, b, cnt
 
@@ -312,7 +313,7 @@ def _gather_library():
             most = ctypes.c_longlong()
             lib.pio_gather_rows_limits(ctypes.byref(most))
             if most.value != MAX_ELEMENTS:
-                raise RuntimeError("gather_rows.cu MAX_ELEMENTS disagrees with Python")
+                raise KernelError("gather_rows.cu MAX_ELEMENTS disagrees with Python")
             _gather_lib = lib
         return _gather_lib
 
@@ -329,22 +330,22 @@ def fused_gather_rows(
     and launches nothing.
     """
     if V.dim() != 2 or V.shape[0] == 0 or V.shape[1] == 0:
-        raise ValueError(f"V must be a non-empty (n_opp, k) matrix, got {tuple(V.shape)}")
+        raise KernelError(f"V must be a non-empty (n_opp, k) matrix, got {tuple(V.shape)}")
     if V.dtype not in _DTYPE_CODE:
-        raise ValueError(f"V dtype {V.dtype} not supported")
+        raise KernelError(f"V dtype {V.dtype} not supported")
     if (V.dtype == torch.int8) != (v_scale is not None):
-        raise ValueError("v_scale goes with int8 V, and only with it")
+        raise KernelError("v_scale goes with int8 V, and only with it")
     if idx.dim() != 1 or idx.dtype != torch.int32:
-        raise ValueError(f"idx must be a (n,) int32 vector, got {idx.dtype} {tuple(idx.shape)}")
+        raise KernelError(f"idx must be a (n,) int32 vector, got {idx.dtype} {tuple(idx.shape)}")
     n_opp, k = V.shape
     (n,) = idx.shape
     if n * k > MAX_ELEMENTS:
-        raise ValueError(f"{n} rows of rank {k} exceed the gather kernel's {MAX_ELEMENTS} values")
+        raise KernelError(f"{n} rows of rank {k} exceed the gather kernel's {MAX_ELEMENTS} values")
     device = V.device
     if device.type == "cpu":
         return gather_rows_reference(V, idx, v_scale)
     if device.type != "cuda":
-        raise ValueError(f"no gather kernel for device {device}")
+        raise KernelError(f"no gather kernel for device {device}")
     _check(idx, "idx", device, (torch.int32,), (n,))
     _check(V, "V", device, (V.dtype,), (n_opp, k))
     _check(v_scale, "v_scale", device, (torch.float32,), (n_opp, 1))
@@ -361,7 +362,7 @@ def fused_gather_rows(
         )
     if rc != 0:
         msg = lib.pio_gather_rows_error_string(rc).decode()
-        raise RuntimeError(f"gather_rows kernel launch failed: {msg} ({rc})")
+        raise KernelError(f"gather_rows kernel launch failed: {msg} ({rc})")
     gather_launches.bump()
     return out
 
@@ -416,11 +417,11 @@ def segment_layout(
     JAX package's ``min(length, _CHUNK)``), which sets the runs."""
     length = local.shape[0]
     if length > MAX_SLOTS:
-        raise ValueError(
+        raise KernelError(
             f"{length} slots exceed the segment kernel's {MAX_SLOTS} (its offsets are int32)"
         )
     if not bool(((mask == 0) | (mask == 1)).all()):
-        raise ValueError("the segment layout takes a 0/1 mask")
+        raise KernelError("the segment layout takes a 0/1 mask")
     device = local.device
     # intermediates are freed as soon as they are used: on the card this
     # runs beside the other side's layout
@@ -430,7 +431,7 @@ def segment_layout(
     del real, order
     nnz = pos.shape[0]
     if nnz and (int(entity[0]) < 0 or int(entity[-1]) >= n_entity):
-        raise ValueError(f"entity ids must lie in [0, {n_entity})")
+        raise KernelError(f"entity ids must lie in [0, {n_entity})")
     other_s, rating_s = other[pos].to(torch.int32), rating[pos].to(torch.float32)
     run_chunk = torch.div(pos, chunk, rounding_mode="floor")
     del pos
@@ -528,7 +529,7 @@ def _segment_library():
             rank = ctypes.c_int()
             lib.pio_segment_normal_eq_limits(ctypes.byref(rank))
             if rank.value != MAX_SEGMENT_RANK:
-                raise RuntimeError("segment_normal_eq.cu MAX_RANK disagrees with Python")
+                raise KernelError("segment_normal_eq.cu MAX_RANK disagrees with Python")
             _segment_lib = lib
         return _segment_lib
 
@@ -551,24 +552,24 @@ def fused_segment_normal_eq(
     launch sums the sorted layout, and the two are equal bit for bit.
     """
     if V.dim() != 2 or V.shape[0] == 0 or V.shape[1] == 0:
-        raise ValueError(f"V must be a non-empty (n_opp, k) matrix, got {tuple(V.shape)}")
+        raise KernelError(f"V must be a non-empty (n_opp, k) matrix, got {tuple(V.shape)}")
     if V.dtype not in _DTYPE_CODE:
-        raise ValueError(f"V dtype {V.dtype} not supported")
+        raise KernelError(f"V dtype {V.dtype} not supported")
     if (V.dtype == torch.int8) != (v_scale is not None):
-        raise ValueError("v_scale goes with int8 V, and only with it")
+        raise KernelError("v_scale goes with int8 V, and only with it")
     n_opp, k = V.shape
     if k > MAX_SEGMENT_RANK:
-        raise ValueError(
+        raise KernelError(
             f"rank {k} is outside the segment kernel's range 1..{MAX_SEGMENT_RANK}")
     n = layout.n_entity
     device = V.device
     if device.type == "cpu":
         if layout.stream is None:
-            raise ValueError("V is on the CPU but the layout was built on another device")
+            raise KernelError("V is on the CPU but the layout was built on another device")
         return segment_normal_eq_reference(
             *layout.stream, n, V, v_scale, implicit=implicit, alpha=alpha, chunk=layout.chunk)
     if device.type != "cuda":
-        raise ValueError(f"no segment kernel for device {device}")
+        raise KernelError(f"no segment kernel for device {device}")
     nnz = layout.other.shape[0]
     n_runs = layout.run_offsets.shape[0] - 1
     _check(layout.other, "other", device, (torch.int32,), (nnz,))
@@ -579,7 +580,7 @@ def fused_segment_normal_eq(
     _check(layout.heavy, "heavy", device, (torch.int32,), (n_heavy,))
     _check(layout.light, "light", device, (torch.int32,), (n_light,))
     if n_heavy + n_light != n:
-        raise ValueError(f"heavy and light list {n_heavy + n_light} entities, expected {n}")
+        raise KernelError(f"heavy and light list {n_heavy + n_light} entities, expected {n}")
     _check(V, "V", device, (V.dtype,), (n_opp, k))
     _check(v_scale, "v_scale", device, (torch.float32,), (n_opp, 1))
     A = torch.empty((n, k, k), dtype=torch.float32, device=device)
@@ -602,6 +603,6 @@ def fused_segment_normal_eq(
         )
     if rc != 0:
         msg = lib.pio_segment_error_string(rc).decode()
-        raise RuntimeError(f"segment_normal_eq kernel launch failed: {msg} ({rc})")
+        raise KernelError(f"segment_normal_eq kernel launch failed: {msg} ({rc})")
     segment_launches.bump()
     return A, b, cnt

@@ -1,25 +1,45 @@
 """Request micro-batching: coalesce concurrent queries into one device pass.
 
-Copy of ``predictionio_tpu/serving/batching.py`` ``MicroBatcher``, without
-its tracing hooks and without single-flight coalescing (``submit(key=)``),
-which returns with the result-cache slice.
+Counterpart of ``predictionio_tpu/serving/batching.py`` ``MicroBatcher``,
+with its trace hooks and single-flight coalescing. Serving throughput comes
+from batching: one launch of the score kernel over B users costs barely more
+than over one. The reference has no analogue (its predict path is
+per-request JVM work, ``CreateServer.scala:508``).
 
-Handlers enqueue a query and block; a worker drains the queue, coalesces a
-batch, routes it through ``Algorithm.batch_predict`` (which ALS vectorizes
-into one kernel launch) and wakes each handler with its result. Errors are
-delivered per request. The accumulation window is ADAPTIVE:
+:class:`MicroBatcher` sits between HTTP handler threads and the engine:
+handlers enqueue (query, event) pairs and block; a worker drains the queue,
+coalesces a batch, routes it through ``Algorithm.batch_predict`` (which
+engines like ALS vectorize on device), and wakes each handler with its
+result.  Errors are delivered per-request.
+
+The accumulation window is ADAPTIVE, not a fixed sleep:
 
 * TRICKLE BYPASS: a request arriving to an empty queue with no run in
-  flight executes inline on its own handler thread — zero added latency.
-  Batches form exactly when they can help: while a run is in flight,
-  arrivals queue up and dispatch together.
-* The wait budget is ``min(window_ms, EWMA(batch run time))``: a request
-  is only worth delaying by about the cost of one extra device pass.
+  flight executes inline on its own handler thread — zero added latency
+  over the unbatched path.  Batches form exactly when they can help:
+  while a run is in flight, arrivals queue up and dispatch together.
+* A request is only worth delaying by about the cost of one extra device
+  pass, so the wait budget is ``min(window_ms, EWMA(batch run time))`` —
+  on a fast local backend the window collapses toward zero, on a
+  remote-tunnel backend (ms-scale round trips) it opens up to the cap.
 * Within the budget the worker stops as soon as the arrival stream goes
-  quiet (``EWMA(inter-arrival gap) × GAP_MULT`` past the last arrival).
-* Dispatch drains to a BUCKET BOUNDARY of the fast path's rung ladder
-  (``serving/fastpath.py``): a 9-deep queue dispatches 8 + carries 1
-  instead of padding 9→16, and the carried tail leads the next batch.
+  quiet: it waits for the next item at most ``EWMA(inter-arrival gap) ×
+  GAP_MULT`` past the last arrival (burst over ⇒ dispatch now).
+* Dispatch drains to a BUCKET BOUNDARY of the rung ladder
+  (``serving/fastpath.py``'s rungs): a 9-deep queue dispatches 8 + carries 1
+  instead of padding 9→16, so device occupancy stays ≥ 50% by
+  construction and the carried tail leads the next batch (FIFO).
+
+SINGLE-FLIGHT COALESCING (opt-in via ``submit(key=...)``): identical
+in-flight queries — same canonical fingerprint — attach to ONE pending
+slot.  The first arrival is the leader and occupies a device row; later
+identical arrivals become followers and never enter the queue at all.
+When the leader's batch delivers, the one result fans out to every
+follower (errors too: a failed batch fails all attached waiters, none
+hang).  Under Zipf traffic a hot key therefore costs one device slot per
+batch regardless of popularity.  If the leader's deadline lapses before
+dispatch, a live follower is PROMOTED to leader so the survivors don't
+inherit a 504 they didn't earn.
 """
 
 from __future__ import annotations
@@ -34,10 +54,11 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 from predictionio_tpu_torch.common.resilience import Deadline, DeadlineExceeded
+from predictionio_tpu_torch.obs import tracing as _tracing
 
 logger = logging.getLogger(__name__)
 
-# default ladder mirrors serving/fastpath.BUCKETS
+# default ladder mirrors serving/fastpath.BUCKETS without importing torch here
 _DEFAULT_BUCKETS = (1, 8, 16, 32, 64)
 
 
@@ -48,6 +69,14 @@ class _Pending:
     event: threading.Event = field(default_factory=threading.Event)
     result: Any = None
     error: Optional[BaseException] = None
+    # obs trace riding this query (captured from the submitting thread's
+    # active scope) + enqueue stamp for the queue_wait stage
+    trace: Any = None
+    t_enq: float = 0.0
+    # single-flight: the coalescing key this pending leads (None = not
+    # coalescable) and the identical-query followers its result fans out to
+    key: Any = None
+    followers: list = field(default_factory=list)
 
 
 class MicroBatcher:
@@ -81,11 +110,18 @@ class MicroBatcher:
         self._ewma_run = 0.0
         # held for the duration of every batch run (worker or inline)
         self._busy = threading.Lock()
+        # single-flight: key → leader pending currently in flight.  The
+        # lock guards the map AND every leader's followers list; delivery
+        # pops the key first, so a follower can never attach to a pending
+        # whose result already fanned out.
+        self._key_lock = threading.Lock()
+        self._inflight_keys: dict[Any, _Pending] = {}
         # counters (read by stats())
         self._stats_lock = threading.Lock()
         self._n_batches = 0
         self._n_queries = 0
         self._n_inline = 0
+        self._n_coalesced = 0  # followers served by a leader's device slot
         self._n_expired = 0  # pendings dropped un-executed (deadline lapsed)
         self._size_hist: collections.Counter = collections.Counter()
         self._wait_s_total = 0.0
@@ -99,30 +135,75 @@ class MicroBatcher:
         query: Any,
         timeout: float = 30.0,
         deadline: Optional[Deadline] = None,
+        key: Any = None,
     ) -> Any:
         """Enqueue one query; block until its batch runs or the deadline
         passes.
 
         The effective deadline is ``min(request deadline, now + timeout)``
         and travels WITH the pending: a request whose deadline lapses while
-        queued is dropped at dispatch (never executed on the device) and
-        its waiter gets :class:`DeadlineExceeded`.
+        queued is dropped at dispatch (never executed on device — the
+        waiter already gave up, running it would burn a device pass on an
+        answer nobody reads) and its waiter gets :class:`DeadlineExceeded`.
+
+        ``key`` opts this query into single-flight coalescing: when an
+        identical key is already in flight, this call attaches to the
+        leader's pending and shares its result instead of occupying a
+        device row of its own.  The key the server passes is the
+        tenant-NAMESPACED canonical fingerprint (tenant + variant +
+        engine instance prefix — ``result_cache.canonical_fingerprint``):
+        two tenants sending byte-identical bodies must never share a
+        leader slot, or one tenant's answer leaks to the other.
         """
         now = time.perf_counter()
         with self._arr_lock:
             if self._last_arrival is not None:
-                # clamp: one window of silence already means "quiet"
+                # clamp: an idle night must not blow the estimator past any
+                # useful scale — one window of silence already means "quiet"
                 gap = min(now - self._last_arrival, self.window_s)
                 self._ewma_gap += self.ALPHA * (gap - self._ewma_gap)
             self._last_arrival = now
         eff = Deadline.min(deadline, Deadline.after_ms(timeout * 1e3))
-        p = _Pending(query, deadline=eff)
+        active = _tracing.active_traces()
+        p = _Pending(
+            query, deadline=eff,
+            trace=active[0] if active else None, t_enq=now, key=key,
+        )
         if eff.expired():
+            # already over budget at arrival: shed before any queue/device
+            # work (the admission layer normally catches this first)
             with self._stats_lock:
                 self._n_expired += 1
             raise DeadlineExceeded("query deadline expired before dispatch")
+        if key is not None:
+            with self._key_lock:
+                leader = self._inflight_keys.get(key)
+                if leader is not None:
+                    # FOLLOWER: ride the leader's device slot; its delivery
+                    # fans the one result (or error) out to us
+                    leader.followers.append(p)
+                else:
+                    self._inflight_keys[key] = p
+            if leader is not None:
+                with self._stats_lock:
+                    self._n_coalesced += 1
+                if p.trace is not None:
+                    # flight-recorder context: this request rode another
+                    # identical query's device slot — its trace must NOT
+                    # carry device stages (charged once, to the leader)
+                    p.trace.annotate(coalesce="follower")
+                if not p.event.wait(eff.remaining_s()):
+                    # the leader's batch will still resolve this pending
+                    # (harmlessly, after we've gone) — nothing dangles
+                    raise DeadlineExceeded("coalesced query timed out")
+                if p.error is not None:
+                    raise p.error
+                return p.result
         # TRICKLE BYPASS: nothing queued and no run in flight — execute the
-        # singleton inline on this handler thread
+        # singleton inline on this handler thread.  A lone request then pays
+        # exactly the direct-path cost (no worker hop, no window), while
+        # coalescing still happens whenever a run IS in flight: arrivals
+        # pile into the queue and the worker drains them as one batch.
         if (
             self._queue.empty()
             and not self._carry
@@ -138,7 +219,8 @@ class MicroBatcher:
         self._queue.put(p)
         if not p.event.wait(eff.remaining_s()):
             # the pending stays queued, but its deadline has passed — the
-            # worker is GUARANTEED to drop it at dispatch (same clock)
+            # worker is GUARANTEED to drop it at dispatch (same monotonic
+            # clock), so the device never runs an abandoned query
             raise DeadlineExceeded("batched query timed out")
         if p.error is not None:
             raise p.error
@@ -163,9 +245,9 @@ class MicroBatcher:
                 pending.append(self._queue.get_nowait())
             except queue.Empty:
                 break
+        err = RuntimeError("server shutting down")
         for p in pending:
-            p.error = RuntimeError("server shutting down")
-            p.event.set()
+            self._resolve(p, error=err)
 
     def depth(self) -> int:
         """Queued + carried pendings (admission-control signal)."""
@@ -179,6 +261,7 @@ class MicroBatcher:
                 "batches": n_b,
                 "queries": n_q,
                 "inline_batches": self._n_inline,
+                "coalesced": self._n_coalesced,
                 "expired_dropped": self._n_expired,
                 "depth": self.depth(),
                 "avg_batch": round(n_q / n_b, 3) if n_b else None,
@@ -242,53 +325,140 @@ class MicroBatcher:
                     if nxt is None:
                         break
                     batch.append(nxt)
-                # cut to a rung boundary; the tail leads the next batch
+                # cut to a rung boundary; the tail leads
+                # the next batch instead of padding this one
                 size = self._boundary(len(batch))
                 self._carry.extendleft(reversed(batch[size:]))
                 batch = batch[:size]
                 waited = time.perf_counter() - t_first
                 self._execute(batch, waited)
 
+    def _resolve(
+        self,
+        p: _Pending,
+        result: Any = None,
+        error: Optional[BaseException] = None,
+    ) -> None:
+        """Deliver one outcome to a pending AND its coalesced followers.
+
+        The key is detached from the in-flight map FIRST (under the key
+        lock), so no new follower can attach to a pending whose result has
+        already fanned out — late identical arrivals become fresh leaders.
+        A shared error fails every attached waiter; nobody hangs.
+        """
+        followers: list[_Pending] = []
+        if p.key is not None:
+            with self._key_lock:
+                if self._inflight_keys.get(p.key) is p:
+                    del self._inflight_keys[p.key]
+                followers, p.followers = p.followers, []
+        for waiter in [p, *followers]:
+            waiter.result = result
+            waiter.error = error
+            waiter.event.set()
+
+    def _expire_leader(self, p: _Pending) -> Optional[_Pending]:
+        """An expired coalescing leader's followers must not inherit its
+        504: promote the first still-live follower to leader (it takes the
+        batch slot and the remaining followers) and return it; expired
+        followers fail with the leader.  None when nobody survives."""
+        with self._key_lock:
+            owns_key = self._inflight_keys.get(p.key) is p
+            followers, p.followers = p.followers, []
+            promoted = None
+            for i, f in enumerate(followers):
+                if f.deadline is None or not f.deadline.expired():
+                    promoted = f
+                    promoted.followers = followers[i + 1:]
+                    dead = followers[:i]
+                    break
+            else:
+                dead = followers
+            if owns_key:
+                if promoted is not None:
+                    self._inflight_keys[p.key] = promoted
+                else:
+                    del self._inflight_keys[p.key]
+        if promoted is not None and promoted.trace is not None:
+            # flight-recorder: this request entered as a follower and took
+            # over an abandoned leader's batch slot — `coalesce` flips to
+            # "leader" at dispatch, `promoted` records why (the routing
+            # tier hedges leaders away; the invariant test pins that the
+            # device is still charged exactly once, to the promoted trace)
+            promoted.trace.annotate(promoted=True)
+        err = DeadlineExceeded("query deadline expired in queue")
+        for waiter in [p, *dead]:
+            waiter.result = None
+            waiter.error = err
+            waiter.event.set()
+        with self._stats_lock:
+            self._n_expired += 1 + len(dead)
+        return promoted
+
     def _execute(self, batch: list, waited: float, inline: bool = False) -> None:
         """Run one batch and deliver results/errors to every waiter.
 
         Expired pendings are dropped HERE, at dispatch: their waiters have
-        already raised, so running them would spend a device pass on a
-        result nobody reads.
+        already raised (or are about to), so executing them would spend a
+        device pass on a result nobody will read.
         """
-        live = []
+        live, expired = [], []
         for p in batch:
             if p.deadline is not None and p.deadline.expired():
+                expired.append(p)
+            else:
+                live.append(p)
+        for p in expired:
+            if p.key is not None:
+                promoted = self._expire_leader(p)
+                if promoted is not None:
+                    live.append(promoted)
+            else:
                 p.error = DeadlineExceeded("query deadline expired in queue")
                 p.event.set()
                 with self._stats_lock:
                     self._n_expired += 1
-            else:
-                live.append(p)
         batch = live
         if not batch:
             return
         t_run = time.perf_counter()
+        traces = [p.trace for p in batch if p.trace is not None]
+        for p in batch:
+            if p.trace is not None:
+                # time between enqueue and dispatch: the coalescing window
+                # the request paid for (≈0 on the inline bypass)
+                p.trace.add_stage("queue_wait", t_run - p.t_enq)
+                # flight-recorder context: how this request's batch formed
+                p.trace.annotate(
+                    batch=len(batch),
+                    dispatch="inline" if inline else "window",
+                    **({"coalesce": "leader"} if p.key is not None else {}),
+                )
         results: Optional[list] = None
         run_error: Optional[BaseException] = None
         try:
-            results = self._run_batch([p.query for p in batch])
+            # the worker thread runs ONE batch for many requests: install
+            # every member's trace so shared stages (assembly, h2d, device
+            # compute) are charged to each of them
+            with _tracing.scope(traces):
+                results = self._run_batch([p.query for p in batch])
             if len(results) != len(batch):
                 raise RuntimeError(
                     f"batch_predict returned {len(results)} results for "
                     f"{len(batch)} queries"
                 )
-        except Exception as e:  # propagate to EVERY waiter
+        except BaseException as e:  # propagate to EVERY waiter
             run_error = e
         run_dt = time.perf_counter() - t_run
+        # both the worker thread and the trickle bypass land here; the
+        # estimator shares _arr_lock with the gap EWMA
         with self._arr_lock:
             self._ewma_run += self.ALPHA * (run_dt - self._ewma_run)
         for i, p in enumerate(batch):
             if run_error is not None:
-                p.error = run_error
+                self._resolve(p, error=run_error)
             else:
-                p.result = results[i]
-            p.event.set()
+                self._resolve(p, result=results[i])
         with self._stats_lock:
             self._n_batches += 1
             self._n_queries += len(batch)

@@ -21,6 +21,20 @@ hand-written kernel).
   top ``PIO_HOTSET_SIZE`` users' top-k through the top rung, answering
   those users from host memory with no device work.
 
+* **Trace stages and device accounting** — each dispatch charges ``h2d``
+  (the index upload), ``device_compute`` and ``d2h`` to every active obs
+  trace, and records its device time on a :class:`~predictionio_tpu_torch.
+  obs.devprof.DeviceUtilization` annotated per rung with the analytic cost
+  of the kernel (``fused_score_cost``; ``score_cost`` for the plain version
+  on the CPU). On the card the device time is a pair of CUDA events that
+  the kernel's wrapper records on its stream just before and just after
+  the launch, read after the readback, which waits for the kernel anyway:
+  the path gains no synchronization. As in the JAX package,
+  ``device_compute`` is the launch's host time and then the kernel (the
+  event time), ``d2h`` the copies after it; each trace also carries the
+  event time as ``device_us``. On the CPU the plain version runs inside
+  the launch call, whose wall is the device time.
+
 The sharded placement, IVF retrieval and in-place delta rows come with
 later slices.
 """
@@ -30,12 +44,16 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.obs import devprof as _devprof
+from predictionio_tpu_torch.obs import tracing as _tracing
+from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import score_kernel as _score_kernel
 from predictionio_tpu_torch.ops.quantize import factors_to_tensor
 from predictionio_tpu_torch.ops.topk import gather_score_topk
@@ -114,6 +132,27 @@ class BucketedScorer:
         self.hot_hits = 0
         self.hot_misses = 0
         self.hot_refreshes = 0
+        # the hand-written kernel on the card, its plain version on the CPU
+        self.backend = "fused" if self.ctx.device.type == "cuda" else "reference"
+        # device-utilization accountant: each rung is cost-annotated here,
+        # each dispatch records its device time, and the query server's
+        # bridge exports the windowed pio_device_* gauges. One scorer is one
+        # model generation, so the window never mixes generations.
+        self.devprof = _devprof.DeviceUtilization(
+            platform=_devprof.platform_for(self.ctx.device)
+        )
+        rank = self._U.shape[1]
+        for b in self.buckets:
+            if self.backend == "fused":
+                flops, nbytes = _devprof.fused_score_cost(
+                    b, self._n_items_pad, rank, self.k, self.factor_dtype
+                )
+                self.devprof.set_cost(b, flops, nbytes, source="analytic-fused")
+            else:
+                flops, nbytes = _devprof.score_cost(
+                    b, self._n_items_pad, rank, dtype=self.factor_dtype
+                )
+                self.devprof.set_cost(b, flops, nbytes, source="analytic")
         # warm-up: build the kernel and launch every rung once, before the
         # first request; a failure here raises to the deploy
         self.warmup_executions = 0
@@ -217,10 +256,7 @@ class BucketedScorer:
             b = bucket_for(len(chunk), self.buckets)
             padded = np.zeros(b, np.int32)
             padded[: len(chunk)] = chunk
-            vals, idx = self._launch(padded)
-            # the readback waits for the kernel
-            idx_h = idx.cpu().numpy()
-            val_h = vals.cpu().numpy()
+            idx_h, val_h = self._dispatch(b, padded)
             with self._lock:
                 self.hits[b] += 1
                 self.queries += len(chunk)
@@ -229,6 +265,45 @@ class BucketedScorer:
             idx_parts.append(idx_h[: len(chunk), :k])
             val_parts.append(val_h[: len(chunk), :k])
         return np.concatenate(idx_parts), np.concatenate(val_parts)
+
+    def _dispatch(self, b: int, padded: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """One traced, accounted launch at rung ``b``; host (idx, vals)."""
+        for t in _tracing.active_traces():
+            t.annotate(bucket=b)
+        dev = self.ctx.device
+        on_card = dev.type == "cuda"
+        try:
+            with _tracing.stage("h2d"):
+                u_dev = torch.from_numpy(padded).to(dev)
+            timing = (
+                (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                if on_card else None
+            )
+            t0 = time.perf_counter()
+            vals, idx = gather_score_topk(
+                self._U, self._V, u_dev, self.k, item_mask=self._item_pad_mask,
+                u_scale=self._Uscale, v_scale=self._Vscale, timing=timing,
+            )
+            t1 = time.perf_counter()
+            # the readback waits for the kernel
+            idx_h = idx.cpu().numpy()
+            val_h = vals.cpu().numpy()
+            t2 = time.perf_counter()
+            device_s = timing[0].elapsed_time(timing[1]) / 1e3 if on_card else t1 - t0
+        except Exception as e:
+            err = _build.as_kernel_error(e, "score kernel dispatch")
+            if err is e:
+                raise
+            raise err from e
+        # device_compute: the launch's host time, then the kernel; d2h: the
+        # copies after it (on the CPU the plain version ran inside the call)
+        compute_s = min(t2 - t0, (t1 - t0) + device_s) if on_card else t1 - t0
+        for t in _tracing.active_traces():
+            t.add_stage("device_compute", compute_s)
+            t.add_stage("d2h", (t2 - t0) - compute_s)
+            t.annotate(device_us=round(device_s * 1e6, 2))
+        self.devprof.record(b, device_s)
+        return idx_h, val_h
 
     def score_topk_filtered(
         self,
@@ -314,16 +389,26 @@ class BucketedScorer:
                 if hot_lookups
                 else None,
             }
+            top_cost = self.devprof.costs().get(self.buckets[-1]) or {}
+            flops, nbytes = top_cost.get("flops"), top_cost.get("bytes")
             return {
                 "buckets": list(self.buckets),
                 "top_k": self.k,
                 "kernel": {
+                    "backend": self.backend,
                     "device": str(self.ctx.device),
                     "factor_dtype": self.factor_dtype,
                     "resident_factor_bytes": self.resident_factor_bytes,
                     "block_items": min(_score_kernel.BLOCK_I, self._n_items_pad),
                     "warmup_executions": self.warmup_executions,
+                    # top-rung arithmetic intensity: the roofline position
+                    "intensity_flops_per_byte": (
+                        round(flops / nbytes, 3) if flops and nbytes else None
+                    ),
                 },
+                # eager PyTorch compiles nothing per rung (the kernel is
+                # built once a process); the series stays for parity
+                "compile_count": 0,
                 "bucket_hits": {str(b): h for b, h in hits.items()},
                 "calls": sum(hits.values()),
                 "queries": self.queries,
@@ -334,4 +419,5 @@ class BucketedScorer:
                 if self.queries
                 else None,
                 "hotset": hotset if self.hot_size else None,
+                "devprof": self.devprof.snapshot(),
             }

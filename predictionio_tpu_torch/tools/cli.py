@@ -2,24 +2,24 @@
 
 Counterpart of ``predictionio_tpu/tools/cli.py`` (parity:
 ``tools/.../console/Console.scala:134-827``), with the verbs the quickstart
-runs and the same argument names and ``[INFO]``/``[ERROR]`` lines:
-``version``, ``status``, ``build``, ``app``, ``accesskey``, ``train``,
-``deploy``, ``undeploy``, ``eventserver`` and ``template``.
+and its operators run and the same argument names and ``[INFO]``/``[ERROR]``
+lines: ``version``, ``status``, ``build``, ``app``, ``accesskey``, ``train``,
+``deploy``, ``undeploy``, ``eventserver``, ``template`` and ``loadtest``.
 
     python -m predictionio_tpu_torch.tools.cli <verb> ...
 
 ``train`` and ``deploy`` run on the CUDA card unless given ``--device cpu``;
 without a card they exit non-zero with the ``DeviceContext`` error (the
 JAX package pins its platform from ``JAX_PLATFORMS`` instead). The device
-is never read from ``engine.json``.
+is never read from ``engine.json``. SIGTERM drains either server (in-flight
+work finishes inside ``PIO_DRAIN_TIMEOUT_MS``) and exits 0.
 
 Not ported yet, and failing with an error that names the ROADMAP item that
-brings them: the other templates (item 11), ``deploy --feedback`` (item 6),
-the fleet options of ``deploy`` (item 13), and ``eventserver
---ingest-buffer``/``--wal-dir`` (item 14). The options that only tune those
-features (``deploy --event-server-ip/--event-server-port/--accesskey``,
-``eventserver --flush-ms/--buffer-max``) come with them, and the parser
-rejects them until then; the other verbs of the JAX CLI are not here at all.
+brings them: the other templates (item 11), the fleet options of
+``deploy`` (item 13), and ``eventserver --ingest-buffer``/``--wal-dir``
+(item 14). The options that only tune those features (``eventserver
+--flush-ms/--buffer-max``) come with them, and the parser rejects them until
+then; the other verbs of the JAX CLI are not here at all.
 """
 
 from __future__ import annotations
@@ -98,12 +98,18 @@ def make_ctx(variant: dict, device: str):
     return DeviceContext.create(conf=variant.get("mesh") or {}, device=device)
 
 
-def load_plugins(paths: list[str]) -> list:
-    """``--plugin dotted.path.Class`` instances; discovery by entry point
-    comes with the plugin registry (ROADMAP §1 item 6)."""
+def load_plugins(paths: list[str], group: Optional[str] = None) -> list:
+    """Explicit ``--plugin dotted.path.Class`` instances + auto-discovered
+    entry-point/``PIO_PLUGINS`` plugins (the ServiceLoader role,
+    EngineServerPluginContext.scala:34-97 — ``serving/plugins.py``)."""
     from predictionio_tpu_torch.core.persistence import resolve_class
+    from predictionio_tpu_torch.serving.plugins import ENGINE_GROUP, discover_plugins
 
-    return [resolve_class(p)() for p in paths or []]
+    explicit = [resolve_class(p)() for p in paths or []]
+    seen = {type(p) for p in explicit}
+    return explicit + [
+        p for p in discover_plugins(group or ENGINE_GROUP) if type(p) not in seen
+    ]
 
 
 BUILTIN_TEMPLATES = {
@@ -120,13 +126,14 @@ WAITING_TEMPLATES = (
 )
 
 
-def _install_stop_handler(server) -> None:
-    """SIGTERM → ``server.stop()`` → exit 0. The JAX CLI drains here; the
-    drain (finish in-flight work in a budget) comes with item 6."""
+def _install_drain_handler(server) -> None:
+    """SIGTERM → graceful drain → exit 0 (the orchestrator contract: a
+    TERM'd server finishes in-flight work inside PIO_DRAIN_TIMEOUT_MS and
+    exits 0, instead of dropping it on the floor)."""
     import signal
 
     def _term(signum, frame):
-        server.stop()
+        server.drain()
         raise SystemExit(0)
 
     try:
@@ -304,7 +311,7 @@ def cmd_deploy(args) -> int:
     from predictionio_tpu_torch.serving.query_server import QueryServer
 
     for flag, item in (("fleet", 13), ("autoscale", 13), ("canary", 13),
-                       ("tenants", 13), ("pipeline", 13), ("feedback", 6)):
+                       ("tenants", 13), ("pipeline", 13)):
         if getattr(args, flag):
             raise _not_ported(f"deploy --{flag}", item)
     variant = load_variant(args)
@@ -317,17 +324,24 @@ def cmd_deploy(args) -> int:
         engine_id=engine_id,
         engine_version=engine_version,
         engine_variant=engine_variant,
+        feedback=args.feedback,
+        event_server_url=(
+            f"http://{args.event_server_ip}:{args.event_server_port}"
+            if args.feedback
+            else None
+        ),
+        access_key=args.accesskey,
         plugins=load_plugins(args.plugin),
         batching=args.batching,
     )
     port = qs.start(args.ip, args.port, cert_path=args.cert_path, key_path=args.key_path)
-    _install_stop_handler(qs)
+    _install_drain_handler(qs)
     print(f"[INFO] Engine is deployed and running. Engine API is live at "
           f"http://{args.ip}:{port}.", flush=True)
     try:
         qs.service.serve_forever()
     except KeyboardInterrupt:
-        qs.stop()
+        qs.drain()
     return 0
 
 
@@ -352,22 +366,104 @@ def cmd_undeploy(args) -> int:
 
 def cmd_eventserver(args) -> int:
     from predictionio_tpu_torch.data.api.event_server import EventServer
+    from predictionio_tpu_torch.serving.plugins import EVENT_GROUP
 
     es = EventServer(
         storage=_storage(),
         stats=args.stats,
-        plugins=load_plugins(args.plugin),
+        plugins=load_plugins(args.plugin, group=EVENT_GROUP),
         ingest_mode=args.ingest_buffer,
         wal_dir=args.wal_dir,
     )
     port = es.start(args.ip, args.port, cert_path=args.cert_path, key_path=args.key_path)
-    _install_stop_handler(es)
+    _install_drain_handler(es)
     print(f"[INFO] Event Server is listening at http://{args.ip}:{port}", flush=True)
     try:
         es.service.serve_forever()
     except KeyboardInterrupt:
-        es.stop()
+        es.drain()
     return 0
+
+
+def cmd_loadtest(args) -> int:
+    from predictionio_tpu_torch.tools.loadtest import run_ingest_loadtest, run_loadtest
+
+    url = f"http://{args.ip}:{args.port}"
+
+    def attach_metrics(result: dict) -> dict:
+        if not args.scrape_metrics:
+            return result
+        from predictionio_tpu_torch.tools.loadtest import scrape_metrics, summarize_metrics
+
+        try:
+            result["serverMetrics"] = summarize_metrics(scrape_metrics(url))
+        except Exception as e:  # report, don't fail the loadtest itself
+            result["serverMetrics"] = {"error": str(e)}
+        return result
+
+    if args.events:
+        # ingest mode: hammer a live Event Server instead of a query server
+        if not args.access_key:
+            print("[ERROR] --events mode needs --access-key")
+            return 1
+        result = run_ingest_loadtest(
+            url=url,
+            access_key=args.access_key,
+            events=args.events,
+            concurrency=args.concurrency,
+            batch_size=args.batch_size,
+            channel=args.channel,
+            kill_after_s=args.kill_after,
+        )
+        print(json.dumps(attach_metrics(result)))
+        return 0 if result["errors"] == 0 else 1
+    samples = {}
+    for spec in args.sample or []:
+        field, _, vals = spec.partition("=")
+        # drop empties (trailing comma) so '' never enters the rotation
+        values = [v for v in vals.split(",") if v]
+        if not field or not values:
+            print(f"[ERROR] --sample expects FIELD=v1,v2,..., got {spec!r}")
+            return 1
+        samples[field] = values
+    if args.scenario:
+        # scenario mode: a time-varying open-loop traffic program with
+        # per-phase SLO accounting instead of constant closed-loop load
+        from predictionio_tpu_torch.tools.scenarios import parse_scenario, run_scenario
+
+        try:
+            program = parse_scenario(args.scenario)
+        except ValueError as e:
+            print(f"[ERROR] bad --scenario: {e}")
+            return 1
+        result = run_scenario(
+            url=url,
+            query=json.loads(args.query),
+            program=program,
+            samples=samples or None,
+            concurrency=args.concurrency,
+            deadline_ms=args.deadline_ms,
+            seed=args.seed,
+            zipf_q=args.zipf_q,
+            slo_p99_ms=args.slo_p99_ms,
+        )
+        print(json.dumps(attach_metrics(result)))
+        ok = result["errors"] == 0 and result.get("sloHeld", True)
+        return 0 if ok else 1
+    result = run_loadtest(
+        url=url,
+        query=json.loads(args.query),
+        requests=args.requests,
+        concurrency=args.concurrency,
+        samples=samples or None,
+        deadline_ms=args.deadline_ms,
+        kill_after_s=args.kill_after,
+        dist=args.dist,
+        zipf_s=args.zipf_s,
+        zipf_q=args.zipf_q,
+    )
+    print(json.dumps(attach_metrics(result)))
+    return 0 if result["errors"] == 0 else 1
 
 
 def cmd_template(args) -> int:
@@ -469,6 +565,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--ip", default="0.0.0.0")
     sp.add_argument("--port", type=int, default=8000)
     sp.add_argument("--feedback", action="store_true")
+    sp.add_argument("--event-server-ip", default="0.0.0.0")
+    sp.add_argument("--event-server-port", type=int, default=7070)
+    sp.add_argument("--accesskey", default=None)
     sp.add_argument("--plugin", action="append", default=[])
     sp.add_argument("--cert-path", default=None)
     sp.add_argument("--key-path", default=None)
@@ -496,6 +595,73 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--ingest-buffer", choices=["off", "durable", "fast"], default=None)
     sp.add_argument("--wal-dir", default=None)
     sp.set_defaults(func=cmd_eventserver)
+
+    sp = sub.add_parser("loadtest")
+    sp.add_argument("--ip", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8000)
+    sp.add_argument("--query", default='{"user": "u1", "num": 10}')
+    sp.add_argument("--requests", type=int, default=200)
+    sp.add_argument("--concurrency", type=int, default=8)
+    sp.add_argument(
+        "--sample", action="append", metavar="FIELD=V1,V2,...",
+        help="rotate FIELD through the listed values round-robin, one per "
+        "request (mixed-key tail latency instead of one hot payload)",
+    )
+    sp.add_argument(
+        "--dist", choices=("roundrobin", "zipf"), default="roundrobin",
+        help="how --sample values are drawn: roundrobin cycles them "
+        "evenly; zipf draws Zipf-Mandelbrot skew (early values hottest) "
+        "and adds per-key latency percentiles to the report",
+    )
+    sp.add_argument("--zipf-s", type=float, default=1.1,
+                    help="Zipf-Mandelbrot exponent for --dist zipf (higher = hotter head)")
+    sp.add_argument("--zipf-q", type=float, default=50.0,
+                    help="Zipf-Mandelbrot shift for --dist zipf (higher = flatter head)")
+    sp.add_argument(
+        "--deadline-ms", type=float, default=None,
+        help="per-request X-Request-Deadline budget; over-budget requests "
+        "are shed by the server (503/504) and reported separately",
+    )
+    sp.add_argument(
+        "--events", type=int, default=None,
+        help="ingest mode: POST this many events at an Event Server "
+        "(reports events/s + ack p50/p99) instead of querying",
+    )
+    sp.add_argument("--access-key", default=None, help="access key for --events mode")
+    sp.add_argument(
+        "--batch-size", type=int, default=1,
+        help="--events mode: events per request (1 = /events.json, "
+        ">1 = /batch/events.json)",
+    )
+    sp.add_argument("--channel", default=None, help="--events mode: target channel name")
+    sp.add_argument(
+        "--scrape-metrics", action="store_true",
+        help="after the run, GET /metrics off the server under test and "
+        "include a server-side summary in the JSON report",
+    )
+    sp.add_argument(
+        "--kill-after", type=float, default=None, metavar="SECONDS",
+        help="POST /stop to the server this many seconds into the run — "
+        "exercises graceful drain under live load; post-stop connection "
+        "failures are reported as afterStop, not errors",
+    )
+    sp.add_argument(
+        "--scenario", default=None, metavar="SPEC",
+        help="open-loop traffic program instead of constant load: "
+        "';'-separated phases of kind:key=val,... (steady, ramp, sine, "
+        "flash, zipfdrift, mixshift); reports p50/p99/shed/error per phase",
+    )
+    sp.add_argument(
+        "--slo-p99-ms", type=float, default=None,
+        help="--scenario mode: per-phase p99 SLO bound; each phase gets "
+        "a sloHeld verdict and the exit code fails if any phase breaks it",
+    )
+    sp.add_argument(
+        "--seed", type=int, default=0,
+        help="--scenario mode: seed for the pre-drawn workload schedule "
+        "(zipf draws, tenant-mix picks) — same seed, same workload",
+    )
+    sp.set_defaults(func=cmd_loadtest)
 
     sp = sub.add_parser("template")
     t_sub = sp.add_subparsers(dest="template_command", required=True)

@@ -1,0 +1,562 @@
+"""Serving load test: concurrent queries against a deployed engine.
+
+Counterpart of ``predictionio_tpu/tools/loadtest.py`` (``pio loadtest``);
+the query report also counts ``http5xx`` (before and after a stop alike) and
+samples the error messages. Under ``--kill-after``, once the stopped server
+refuses a connection the workers count the requests left as ``afterStop``
+without trying them: reconnecting in a tight loop to a port just closed
+runs into the server side's TIME_WAIT entries, and each such connect
+waits for SYN retries or its whole timeout.
+Fires N concurrent workers at
+``/queries.json`` and reports client-side latency quantiles + QPS; the
+server's own histogram (its ``GET /`` route) gives the service-side view.
+
+Each worker holds ONE persistent HTTP/1.1 connection (keep-alive) for its
+whole run — the realistic client shape (SDKs pool connections), and the
+only shape that measures the server rather than the TCP handshake: a
+fresh connect per request adds a connect+thread-spawn tax that dwarfs
+sub-millisecond serve times.  A failed request closes and re-opens the
+worker's connection; the failure is still counted.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import threading
+import time
+import urllib.parse
+
+
+def zipf_mandelbrot_weights(n: int, s: float = 1.1, q: float = 50.0):
+    """Zipf-Mandelbrot pmf ``P(k) ∝ (k+q)^-s`` over ranks ``[0, n)``.
+
+    The q shift matches real catalogs: at s=1.1, q=50 the hottest of ~59k
+    ids draws ~0.4% of traffic, like ML-25M's ~0.32% — a pure Zipf head
+    would take ~10%, which no real workload does.  The same weights as the
+    JAX package's, so both packages' load tests agree on what "skewed"
+    means.  Returns a normalized float64 numpy array (numpy is
+    imported lazily: round-robin load tests stay stdlib-only).
+    """
+    import numpy as np
+
+    ranks = np.arange(1, n + 1, dtype=np.float64)
+    p = (ranks + q) ** -s
+    return p / p.sum()
+
+
+def scrape_metrics(url: str, timeout: float = 10.0) -> dict:
+    """Scrape ``GET /metrics`` off the server under test and return the
+    parsed series as ``{(name, ((label, value), ...)): value}``.
+
+    The load test's client-side quantiles say what callers experienced;
+    the scrape says what the server *did* (batch occupancy, fastpath
+    compile count, shed counters).  Run it after the load so the deltas
+    reflect the run.  Raises on transport errors or an invalid
+    exposition — a loadtest that can't trust its telemetry should say so
+    rather than report half a picture.
+    """
+    from predictionio_tpu_torch.obs.metrics import parse_prometheus
+
+    parsed = urllib.parse.urlsplit(url)
+    host = parsed.hostname
+    port = parsed.port or (443 if parsed.scheme == "https" else 80)
+    conn_cls = (
+        http.client.HTTPSConnection
+        if parsed.scheme == "https"
+        else http.client.HTTPConnection
+    )
+    conn = conn_cls(host, port, timeout=timeout)
+    try:
+        conn.request("GET", (parsed.path.rstrip("/") or "") + "/metrics")
+        resp = conn.getresponse()
+        body = resp.read().decode("utf-8", "replace")
+        if resp.status != 200:
+            raise RuntimeError(f"GET /metrics -> HTTP {resp.status}")
+        return parse_prometheus(body)
+    finally:
+        conn.close()
+
+
+def summarize_metrics(series: dict) -> dict:
+    """Condense a :func:`scrape_metrics` result to the handful of series a
+    loadtest report cares about (JSON-friendly, stable keys)."""
+
+    def total(name: str, **want: str) -> float:
+        return sum(
+            v
+            for (n, labels), v in series.items()
+            if n == name
+            and all(dict(labels).get(k) == val for k, val in want.items())
+        )
+
+    out = {
+        "seriesCount": len(series),
+        "httpRequests": total("pio_http_requests_total"),
+        "fastpathCompiles": total("pio_fastpath_compiles_total"),
+        "batcherQueries": total("pio_batcher_queries_total"),
+        "eventsIngested": total("pio_events_ingested_total"),
+    }
+    # skew-path families only exist when the serving caches are on — a
+    # zipf loadtest without these keys means the server isn't configured
+    # to absorb the hot head
+    if total("pio_result_cache_enabled"):
+        out["resultCacheHits"] = total(
+            "pio_result_cache_lookups_total", outcome="hit"
+        )
+        out["resultCacheMisses"] = total(
+            "pio_result_cache_lookups_total", outcome="miss"
+        )
+    if ("pio_batcher_coalesced_total", ()) in series:
+        out["coalesced"] = total("pio_batcher_coalesced_total")
+    if total("pio_hotset_size"):
+        out["hotsetHits"] = total("pio_hotset_lookups_total", outcome="hit")
+        out["hotsetResident"] = total("pio_hotset_resident")
+    # device-utilization families only exist once the scorer has
+    # recorded at least one cost-annotated dispatch; they carry a
+    # {generation} label, so take the max across label sets — after a
+    # reload the freshest generation is the one that describes this run
+    def latest(name: str):
+        vals = [v for (n, _labels), v in series.items() if n == name]
+        return max(vals) if vals else None
+
+    if latest("pio_device_busy_fraction") is not None:
+        out["deviceBusyFraction"] = latest("pio_device_busy_fraction")
+        out["deviceFlopsPerSec"] = latest("pio_device_flops_per_s")
+        out["deviceHbmGbps"] = latest("pio_device_hbm_gbps")
+        if latest("pio_device_mfu") is not None:
+            out["deviceMfu"] = latest("pio_device_mfu")
+        if latest("pio_device_hbm_util") is not None:
+            out["deviceHbmUtil"] = latest("pio_device_hbm_util")
+    if ("pio_slow_trace_retained", ()) in series:
+        out["slowTraces"] = total("pio_slow_trace_retained")
+    # score-kernel identity: which backend actually served this run and at
+    # what factor dtype — a card's loadtest that reports backend=reference
+    # ran the plain version (a CPU deploy)
+    for (name, labels), v in series.items():
+        if name == "pio_kernel_info" and v:
+            lbl = dict(labels)
+            out["kernelBackend"] = lbl.get("backend", "")
+            out["kernelFactorDtype"] = lbl.get("dtype", "")
+    if latest("pio_kernel_resident_factor_bytes") is not None:
+        out["kernelResidentFactorBytes"] = latest(
+            "pio_kernel_resident_factor_bytes"
+        )
+        out["kernelIntensity"] = latest("pio_kernel_intensity_flops_per_byte")
+    # retrieval identity: pio_ivf_* emits only while an IVF
+    # index is live, so its presence IS the backend signal — a deploy
+    # meant to serve IVF that reports "exact" degraded at load/resolve
+    if "kernelBackend" in out:
+        out["retrievalBackend"] = "exact"
+    for (name, labels), v in series.items():
+        if name == "pio_ivf_info" and v:
+            out["retrievalBackend"] = "ivf"
+    if latest("pio_ivf_nprobe") is not None:
+        out["ivfNprobe"] = latest("pio_ivf_nprobe")
+        out["ivfScannedFraction"] = latest("pio_ivf_scanned_fraction")
+    for (name, labels), v in sorted(series.items()):
+        if name.endswith("_breaker_state"):
+            out.setdefault("breakerStates", {})[
+                ",".join(f"{k}={val}" for k, val in labels)
+            ] = v
+    # progressive delivery: pio_canary_info exists only behind
+    # a canary-armed router; its labels say whether this run's traffic hit
+    # a fleet mid-canary, and the quarantine gauge says whether any model
+    # generation is blocked from deployment right now
+    for (name, labels), v in series.items():
+        if name == "pio_canary_info" and v:
+            lbl = dict(labels)
+            out["canaryState"] = lbl.get("state", "")
+            out["canaryGeneration"] = lbl.get("candidate", "")
+    if latest("pio_canary_quarantined_generations") is not None:
+        out["quarantinedGenerations"] = latest(
+            "pio_canary_quarantined_generations"
+        )
+    return out
+
+
+def _schedule_stop(
+    parsed, conn_cls, kill_after_s: float, stop_state: dict,
+    timeout: float = 5.0,
+) -> threading.Timer:
+    """``--kill-after``: POST /stop at the server mid-run so the load test
+    exercises graceful drain under live traffic. ``stop_state['posted']``
+    flips once the stop landed; workers then classify connection failures
+    as ``afterStop`` instead of errors (an intentionally-stopped server
+    refusing connections is the expected outcome, not a failure)."""
+    host = parsed.hostname
+    port = parsed.port or (443 if parsed.scheme == "https" else 80)
+    path = (parsed.path.rstrip("/") or "") + "/stop"
+
+    def _post_stop():
+        conn = conn_cls(host, port, timeout=timeout)
+        try:
+            conn.request("POST", path, body=b"")
+            conn.getresponse().read()
+            stop_state["posted"] = True
+        except Exception as e:
+            stop_state["error"] = str(e)
+        finally:
+            conn.close()
+
+    timer = threading.Timer(kill_after_s, _post_stop)
+    timer.daemon = True
+    timer.start()
+    return timer
+
+
+def _per_key_summary(key_lats: dict, top_n: int = 8) -> dict:
+    """Per-key latency percentiles: the ``top_n`` most-requested keys
+    individually, the rest folded into one ``coldTail`` aggregate.  Under
+    skew this is the interesting split — hot keys should ride the cache
+    (p50 well under the cold tail's) and the cold tail should not be
+    starved by them."""
+
+    def pct(lats: list, p: float) -> float:
+        return round(lats[min(int(p * len(lats)), len(lats) - 1)] * 1e3, 3)
+
+    ranked = sorted(key_lats.items(), key=lambda kv: -len(kv[1]))
+    hot, cold = ranked[:top_n], ranked[top_n:]
+    out = {
+        "distinctKeys": len(key_lats),
+        "hotKeys": [
+            {"key": k, "n": len(v), "p50Ms": pct(sorted(v), 0.50),
+             "p99Ms": pct(sorted(v), 0.99)}
+            for k, v in hot
+        ],
+    }
+    cold_all = sorted(dt for _, v in cold for dt in v)
+    if cold_all:
+        out["coldTail"] = {
+            "keys": len(cold), "n": len(cold_all),
+            "p50Ms": pct(cold_all, 0.50), "p99Ms": pct(cold_all, 0.99),
+        }
+    return out
+
+
+def run_loadtest(
+    url: str,
+    query: dict,
+    requests: int = 200,
+    concurrency: int = 8,
+    timeout: float = 30.0,
+    samples: dict = None,
+    deadline_ms: float = None,
+    kill_after_s: float = None,
+    dist: str = "roundrobin",
+    zipf_s: float = 1.1,
+    zipf_q: float = 50.0,
+    seed: int = 0,
+) -> dict:
+    """``samples`` maps a query FIELD to a list of values; request ``i``
+    sends the query with ``field = values[i % len(values)]`` (round-robin,
+    deterministic). One fixed payload measures one warm jit path and one
+    hot cache line — p50 flatters; mixed keys are what tail latency
+    means. Without ``samples`` the single payload is sent verbatim.
+
+    ``dist="zipf"`` replaces the round-robin rotation with Zipf-Mandelbrot
+    draws (``P(k) ∝ (k+q)^-s``, early sample values hottest) — the shape
+    real traffic has, and the one the serving hot path (result cache,
+    single-flight, hot-set) is built to exploit.  Draws are seeded, so a
+    run is reproducible.  With ``samples`` set, the summary also carries
+    ``perKey``: per-key latency percentiles for the hottest keys plus a
+    cold-tail aggregate, which is where a skew win (hot keys far below
+    the cold p50) or a skew bug (hot keys starving the tail) shows up.
+
+    ``deadline_ms`` attaches an ``X-Request-Deadline`` budget to every
+    request; the server sheds (503) or deadline-504s what it can't serve
+    in time, and both are broken out of ``errors`` in the result."""
+    if dist not in ("roundrobin", "zipf"):
+        raise ValueError(f"dist must be roundrobin|zipf, got {dist!r}")
+    # request i's value index per sample field (zipf pre-draws the whole
+    # schedule up front so worker interleaving can't change the workload)
+    sample_idx: dict = {}
+    if dist == "zipf" and samples:
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        for field, values in samples.items():
+            weights = zipf_mandelbrot_weights(len(values), zipf_s, zipf_q)
+            sample_idx[field] = rng.choice(
+                len(values), size=requests, p=weights
+            ).tolist()
+
+    latencies: list[float] = []
+    key_lats: dict = {}  # sampled-field values → successful latencies
+    errors: list[str] = []
+    shed = [0]  # 503: admission control turned the request away
+    deadline_exceeded = [0]  # 504: budget lapsed before/while serving
+    after_stop = [0]  # failures once --kill-after stopped the server
+    # server errors (5xx other than a 503 shed or a 504 deadline), counted
+    # before and after a stop alike: a drain must never answer one
+    http5xx = [0]
+    stop_state: dict = {"posted": False}
+    lock = threading.Lock()
+    counter = {"next": 0}
+
+    parsed = urllib.parse.urlsplit(url)
+    host = parsed.hostname
+    port = parsed.port or (443 if parsed.scheme == "https" else 80)
+    path = (parsed.path.rstrip("/") or "") + "/queries.json"
+    conn_cls = (
+        http.client.HTTPSConnection
+        if parsed.scheme == "https"
+        else http.client.HTTPConnection
+    )
+    if kill_after_s is not None:
+        _schedule_stop(parsed, conn_cls, kill_after_s, stop_state)
+    headers = {"Content-Type": "application/json"}
+    if deadline_ms is not None:
+        headers["X-Request-Deadline"] = f"{deadline_ms:g}"
+
+    fixed_payload = json.dumps(query).encode()
+
+    def payload_for(i: int) -> tuple:
+        if not samples:
+            return fixed_payload, None
+        q = dict(query)
+        picked = []
+        for field, values in samples.items():
+            idx = sample_idx[field][i] if field in sample_idx else i % len(values)
+            q[field] = values[idx]
+            picked.append(str(values[idx]))
+        return json.dumps(q).encode(), "|".join(picked)
+
+    def worker():
+        conn = conn_cls(host, port, timeout=timeout)
+        try:
+            while True:
+                with lock:
+                    if counter["next"] >= requests:
+                        return
+                    if stop_state.get("gone"):
+                        # the stopped server refused a connection: every
+                        # request left fails the same way, uncounted tries
+                        after_stop[0] += requests - counter["next"]
+                        counter["next"] = requests
+                        return
+                    i = counter["next"]
+                    counter["next"] += 1
+                body, key = payload_for(i)
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", path, body=body, headers=headers)
+                    resp = conn.getresponse()
+                    resp.read()  # drain so the connection can be reused
+                    if resp.status == 503:
+                        with lock:
+                            shed[0] += 1
+                        continue  # shed, not broken: connection stays warm
+                    if resp.status == 504:
+                        with lock:
+                            deadline_exceeded[0] += 1
+                        continue
+                    if resp.status >= 400:
+                        raise RuntimeError(f"HTTP {resp.status}")
+                    dt = time.perf_counter() - t0
+                    with lock:
+                        latencies.append(dt)
+                        if key is not None:
+                            key_lats.setdefault(key, []).append(dt)
+                except Exception as e:
+                    with lock:
+                        if str(e).startswith("HTTP 5"):
+                            http5xx[0] += 1
+                        if stop_state["posted"]:
+                            after_stop[0] += 1
+                            if isinstance(e, ConnectionRefusedError):
+                                stop_state["gone"] = True
+                        else:
+                            errors.append(str(e))
+                    conn.close()  # next request reconnects cleanly
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    latencies.sort()
+
+    def q(p: float) -> float:
+        if not latencies:
+            return float("nan")
+        return latencies[min(int(p * len(latencies)), len(latencies) - 1)] * 1e3
+
+    out = {
+        "requests": requests,
+        "concurrency": concurrency,
+        "dist": dist,
+        "ok": len(latencies),
+        "errors": len(errors),
+        "shed": shed[0],
+        "deadlineExceeded": deadline_exceeded[0],
+        "http5xx": http5xx[0],
+        "wallSec": round(wall, 3),
+        "qps": round(len(latencies) / wall, 1) if wall > 0 else 0.0,
+        "p50Ms": round(q(0.50), 3),
+        "p90Ms": round(q(0.90), 3),
+        "p99Ms": round(q(0.99), 3),
+    }
+    if errors:
+        out["errorSamples"] = sorted(set(errors))[:5]
+    if key_lats:
+        out["perKey"] = _per_key_summary(key_lats)
+    if kill_after_s is not None:
+        out["killAfterSec"] = kill_after_s
+        out["stopPosted"] = stop_state["posted"]
+        out["afterStop"] = after_stop[0]
+    return out
+
+
+def run_ingest_loadtest(
+    url: str,
+    access_key: str,
+    events: int = 1000,
+    concurrency: int = 8,
+    batch_size: int = 1,
+    timeout: float = 30.0,
+    event_template: dict = None,
+    channel: str = None,
+    kill_after_s: float = None,
+) -> dict:
+    """Ingest-side load test: POST events at a live Event Server.
+
+    ``batch_size=1`` drives ``POST /events.json`` (one event per request
+    — the write-behind buffer's shape); larger sizes drive
+    ``POST /batch/events.json`` with ``batch_size`` events per request
+    (the vectorized endpoint's shape).  Entity ids rotate per event so the
+    workload isn't one hot row.  Latency quantiles are per-REQUEST ack
+    times; ``eventsPerSec`` is the headline ingest throughput.  503s count
+    as ``shed`` (buffer backpressure), not errors, mirroring
+    :func:`run_loadtest`.
+    """
+    template = dict(event_template or {
+        "event": "rate",
+        "entityType": "user",
+        "targetEntityType": "item",
+        "properties": {"rating": 5},
+    })
+    batch_size = max(1, int(batch_size))
+    n_requests = (events + batch_size - 1) // batch_size
+
+    latencies: list[float] = []
+    errors: list[str] = []
+    shed = [0]
+    acked = [0]
+    after_stop = [0]
+    stop_state: dict = {"posted": False}
+    lock = threading.Lock()
+    counter = {"next": 0}
+
+    parsed = urllib.parse.urlsplit(url)
+    host = parsed.hostname
+    port = parsed.port or (443 if parsed.scheme == "https" else 80)
+    qs = urllib.parse.urlencode(
+        {"accessKey": access_key, **({"channel": channel} if channel else {})}
+    )
+    path = (parsed.path.rstrip("/") or "") + (
+        "/batch/events.json" if batch_size > 1 else "/events.json"
+    ) + "?" + qs
+    conn_cls = (
+        http.client.HTTPSConnection
+        if parsed.scheme == "https"
+        else http.client.HTTPConnection
+    )
+    if kill_after_s is not None:
+        _schedule_stop(parsed, conn_cls, kill_after_s, stop_state)
+    headers = {"Content-Type": "application/json"}
+
+    def payload_for(i: int) -> tuple[bytes, int]:
+        lo = i * batch_size
+        n = min(batch_size, events - lo)
+        items = [
+            dict(template, entityId=f"u{lo + j}", targetEntityId=f"i{(lo + j) % 97}")
+            for j in range(n)
+        ]
+        body = items if batch_size > 1 else items[0]
+        return json.dumps(body).encode(), n
+
+    def worker():
+        conn = conn_cls(host, port, timeout=timeout)
+        try:
+            while True:
+                with lock:
+                    if counter["next"] >= n_requests:
+                        return
+                    if stop_state.get("gone"):
+                        # the stopped server refused a connection: every
+                        # request left fails the same way, uncounted tries
+                        after_stop[0] += n_requests - counter["next"]
+                        counter["next"] = n_requests
+                        return
+                    i = counter["next"]
+                    counter["next"] += 1
+                body, n = payload_for(i)
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", path, body=body, headers=headers)
+                    resp = conn.getresponse()
+                    raw = resp.read()
+                    if resp.status == 503:
+                        with lock:
+                            shed[0] += 1
+                        continue
+                    if resp.status >= 400:
+                        raise RuntimeError(f"HTTP {resp.status}")
+                    ok_items = n
+                    if batch_size > 1:
+                        ok_items = sum(
+                            1 for r in json.loads(raw.decode())
+                            if r.get("status") in (201, 202)
+                        )
+                    with lock:
+                        latencies.append(time.perf_counter() - t0)
+                        acked[0] += ok_items
+                except Exception as e:
+                    with lock:
+                        if stop_state["posted"]:
+                            after_stop[0] += 1
+                            if isinstance(e, ConnectionRefusedError):
+                                stop_state["gone"] = True
+                        else:
+                            errors.append(str(e))
+                    conn.close()
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    latencies.sort()
+
+    def q(p: float) -> float:
+        if not latencies:
+            return float("nan")
+        return latencies[min(int(p * len(latencies)), len(latencies) - 1)] * 1e3
+
+    out = {
+        "events": events,
+        "batchSize": batch_size,
+        "requests": n_requests,
+        "concurrency": concurrency,
+        "acked": acked[0],
+        "errors": len(errors),
+        "shed": shed[0],
+        "wallSec": round(wall, 3),
+        "eventsPerSec": round(acked[0] / wall, 1) if wall > 0 else 0.0,
+        "ackP50Ms": round(q(0.50), 3),
+        "ackP99Ms": round(q(0.99), 3),
+    }
+    if kill_after_s is not None:
+        out["killAfterSec"] = kill_after_s
+        out["stopPosted"] = stop_state["posted"]
+        out["afterStop"] = after_stop[0]
+    return out

@@ -323,7 +323,7 @@ def test_train_and_deploy_need_a_card_unless_told_cpu(tmp_path, verb):
     (["template", "get", "universalrecommender"], 11),
     (["deploy", "--fleet", "2"], 13),
     (["deploy", "--canary"], 13),
-    (["deploy", "--feedback"], 6),
+    (["deploy", "--autoscale"], 13),
     (["eventserver", "--ingest-buffer", "durable"], 14),
     (["eventserver", "--wal-dir", "w"], 14),
     (["eventserver", "--ingest-buffer", "fast"], 14),
@@ -341,18 +341,29 @@ def test_waiting_options_name_their_roadmap_item(tmp_path, monkeypatch, capsys, 
 
 
 @pytest.mark.parametrize("argv", [
-    ["deploy", "--event-server-ip", "127.0.0.1"],
-    ["deploy", "--event-server-port", "7070"],
-    ["deploy", "--accesskey", "k"],
     ["eventserver", "--flush-ms", "3"],
     ["eventserver", "--buffer-max", "64"],
 ])
 def test_options_of_waiting_features_are_rejected_by_the_parser(capsys, argv):
-    # they only tune feedback (item 6) or the ingest buffer (item 14)
+    # they only tune the ingest buffer (item 14)
     with pytest.raises(SystemExit) as e:
         port_cli.main(argv)
     assert e.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["deploy", "--feedback", "--event-server-ip", "127.0.0.1"],
+    ["deploy", "--event-server-port", "7071"],
+    ["deploy", "--accesskey", "k", "--plugin", "a.B"],
+])
+def test_feedback_options_parse_as_in_jax(argv):
+    """The feedback loop's options (ported with the loop) parse to the JAX
+    parser's values."""
+    port = vars(port_cli.build_parser().parse_args(argv))
+    jax = vars(jax_cli.build_parser().parse_args(argv))
+    for key in ("feedback", "event_server_ip", "event_server_port", "accesskey", "plugin"):
+        assert port[key] == jax[key], key
 
 
 def test_version_and_template_list(capsys):
@@ -365,8 +376,7 @@ def test_version_and_template_list(capsys):
 
 
 def test_sigterm_stops_a_server_cleanly(tmp_path):
-    """SIGTERM → ``stop()`` → exit 0 (the JAX CLI drains there; the drain
-    comes with ROADMAP §1 item 6)."""
+    """SIGTERM → ``drain()`` → exit 0, as in the JAX CLI."""
     import signal
 
     port = free_port()

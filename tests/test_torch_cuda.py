@@ -688,3 +688,62 @@ def test_cli_deploy_batching_on_card_answers_the_plain_version(card, cli_store, 
         bad += topk_mismatches(got_v, got_i, rv.numpy()[None], ri.numpy()[None], 1e-5)
     assert not bad, bad[:3]
     assert 0 < calls <= len(queries) and not server.is_alive()
+
+
+STICKY_PROBE = """
+import json
+import numpy as np
+import torch
+from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.ops._build import KernelError
+from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+rng = np.random.default_rng(0)
+scorer = BucketedScorer(DeviceContext.create(device="cuda"),
+                        rng.standard_normal((50, 4)).astype(np.float32),
+                        rng.standard_normal((300, 4)).astype(np.float32), max_k=10)
+out = {}
+x = torch.zeros(4, device="cuda")
+try:  # an index past the end: a device-side assert, sticky for the process
+    x[torch.tensor([7], device="cuda")].sum().item()
+except Exception as e:
+    out["first"] = [c.__name__ for c in type(e).__mro__]
+try:
+    scorer.score_topk(np.array([1, 2], np.int32), 5)
+except Exception as e:
+    out["dispatch"] = {"type": type(e).__name__, "kernel_error": isinstance(e, KernelError),
+                       "cause": [c.__name__ for c in type(e.__cause__).__mro__]
+                       if e.__cause__ is not None else None}
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_a_sticky_card_error_reaches_the_fast_path_as_kernel_error(card):
+    """After the card reports an error (sticky for the process), the fast
+    path's next dispatch raises ``KernelError``, which the query server
+    answers 500 and never serves a degraded answer for. Run in a process
+    of its own: the error poisons the CUDA context."""
+    import subprocess
+    import sys
+
+    r = subprocess.run([sys.executable, "-c", STICKY_PROBE], capture_output=True, text=True,
+                       timeout=300, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    print(out)
+    assert "RuntimeError" in out["first"], out
+    assert out["dispatch"]["kernel_error"], out
+
+
+@pytest.mark.cuda
+def test_score_kernel_refusals_are_kernel_errors(card):
+    from predictionio_tpu_torch.ops._build import KernelError
+
+    U = torch.zeros((10, 4), device=card)
+    V = torch.zeros((64, 4), device=card)
+    u = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(KernelError, match="out of range"):
+        score_kernel.fused_gather_score_topk(U, V, u, 65)
+    with pytest.raises(KernelError, match="dtype"):
+        score_kernel.fused_gather_score_topk(U.double(), V.double(), u, 5)

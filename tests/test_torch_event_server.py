@@ -11,7 +11,8 @@ channel, batches with partial success and the 50-event limit, filtered
 ``GET /events.json``, ``GET``/``DELETE`` by id, ``/stats.json``, a
 blocking plugin and ``POST /stop``.
 
-The parts that wait for a later ROADMAP item raise naming it.
+The parts that wait for a later ROADMAP item raise naming it; telemetry
+(``/metrics``) and the result cache's invalidation hooks are ported.
 """
 
 import base64
@@ -34,6 +35,8 @@ from predictionio_tpu_torch.data.api import stats as port_stats
 from predictionio_tpu_torch.data.storage import base as port_base
 from predictionio_tpu_torch.data.storage import sqlite as port_sqlite
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.obs import metrics as port_metrics
+from predictionio_tpu_torch.serving import result_cache as port_rc
 
 KEY, RATE_KEY = "key-all-0123456789", "key-rate-0123456789"
 ID = re.compile(r"^[0-9a-f]{32}$")
@@ -236,9 +239,16 @@ def test_stats_off_and_max_batch_size(tmp_path, monkeypatch):
 def test_waiting_parts_name_their_roadmap_item(tmp_path, monkeypatch):
     storage = _storage(Storage, port_base, tmp_path / "w.db")
     for kw, item in (({"ingest_mode": "durable"}, 14), ({"ingest_mode": "fast"}, 14),
-                     ({"wal_dir": str(tmp_path)}, 14), ({"telemetry": True}, 6)):
+                     ({"wal_dir": str(tmp_path)}, 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             port_es.EventServer(storage=storage, **kw)
+    # telemetry is ported: on by default, as in the JAX server, and off
+    # under PIO_TELEMETRY=0 or telemetry=False
+    assert port_es.EventServer(storage=storage, telemetry=True).telemetry is not None
+    assert port_es.EventServer(storage=storage, telemetry=False).telemetry is None
+    monkeypatch.setenv("PIO_TELEMETRY", "0")
+    assert port_es.EventServer(storage=storage).telemetry is None
+    monkeypatch.delenv("PIO_TELEMETRY")
     with pytest.raises(ValueError, match="off|durable|fast"):
         port_es.EventServer(storage=storage, ingest_mode="sometimes")
     monkeypatch.setenv("PIO_INGEST_BUFFER", "durable")
@@ -255,16 +265,26 @@ def test_waiting_parts_name_their_roadmap_item(tmp_path, monkeypatch):
     base = f"http://127.0.0.1:{srv.start('127.0.0.1', 0)}"
     try:
         for method, path, item in (("POST", "/webhooks/segmentio.json", 14),
-                                   ("GET", "/webhooks/mailchimp.form", 14),
-                                   ("GET", "/metrics", 6)):
+                                   ("GET", "/webhooks/mailchimp.form", 14)):
             status, body = call(base, method, f"{path}?accessKey={KEY}", {})
             assert status == 500 and f"item {item}" in body["message"], (path, body)
-        # the result cache's hook counts what it would invalidate
+        # committed writes bump the result cache's invalidation index: two
+        # events of user u1 (batch) and one more (single) by entity, the
+        # delete globally — the JAX server's notify_event / notify_delete
+        before = port_rc.INVALIDATIONS.stats()
         status, body = call(base, "POST", f"/batch/events.json?accessKey={KEY}", [ev(), ev("buy")])
         assert status == 200
         call(base, "POST", f"/events.json?accessKey={KEY}", ev())
         call(base, "DELETE", f"/events/{body[0]['eventId']}.json?accessKey={KEY}")
-        assert (srv.result_cache_hook.events, srv.result_cache_hook.deletes) == (3, 1)
+        after = port_rc.INVALIDATIONS.stats()
+        # each event names its user and its item: two entity bumps apiece
+        assert after["entity_bumps"] - before["entity_bumps"] == 3 * 2
+        assert after["global_bumps"] - before["global_bumps"] == 1
+        # /metrics is ported: the ingestion stats' family, parsed strictly
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+            series = port_metrics.parse_prometheus(r.read().decode())
+        assert any(name == "pio_http_requests_total" for name, _ in series)
+        assert ("pio_draining", ()) in series
     finally:
         srv.stop()
         port_sqlite.close_all_dbs()

@@ -75,8 +75,17 @@ print(" ".join(names))
         # the quickstart's operator surface
         "predictionio_tpu_torch.data.storage.sqlite", "predictionio_tpu_torch.data.api.stats",
         "predictionio_tpu_torch.data.api.event_server", "predictionio_tpu_torch.tools.cli",
+        # the operators' serving slice
+        "predictionio_tpu_torch.common.resilience", "predictionio_tpu_torch.common.http",
+        "predictionio_tpu_torch.utils.profiling", "predictionio_tpu_torch.obs",
+        "predictionio_tpu_torch.obs.metrics", "predictionio_tpu_torch.obs.tracing",
+        "predictionio_tpu_torch.obs.devprof", "predictionio_tpu_torch.obs.bridges",
+        "predictionio_tpu_torch.serving.result_cache", "predictionio_tpu_torch.serving.batching",
+        "predictionio_tpu_torch.serving.fastpath", "predictionio_tpu_torch.serving.plugins",
+        "predictionio_tpu_torch.serving.query_server", "predictionio_tpu_torch.tools.loadtest",
+        "predictionio_tpu_torch.tools.scenarios",
     } <= names
-    # the SASRec training and segment slices' names, by attribute
+    # the SASRec training, segment and operators' slices' names, by attribute
     code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "
             "from predictionio_tpu_torch.ops.flash_attention import _FlashAttention, flash_block_bwd, "
             "flash_attention_bwd_reference, bwd_dq_launches, bwd_dkv_launches; "
@@ -84,7 +93,15 @@ print(" ".join(names))
             "_moe_ffn, _loss_fn, train_step; "
             "from predictionio_tpu_torch.ops.train_kernel import fused_gather_rows, "
             "gather_rows_reference, gather_launches; "
-            "from predictionio_tpu_torch.models.als import _make_blocks, _half_step")
+            "from predictionio_tpu_torch.models.als import _make_blocks, _half_step; "
+            "from predictionio_tpu_torch.common.resilience import CircuitBreaker, RetryPolicy, "
+            "call_with_resilience, deadline_scope, ErrorCounters, RateLimitedLogger; "
+            "from predictionio_tpu_torch.obs import Telemetry, telemetry_enabled, maybe_install; "
+            "from predictionio_tpu_torch.obs.devprof import DeviceUtilization, PEAKS, peak_for; "
+            "from predictionio_tpu_torch.serving.result_cache import ResultCache, notify_event; "
+            "from predictionio_tpu_torch.tools.scenarios import parse_scenario, run_scenario; "
+            "from predictionio_tpu_torch.tools.loadtest import run_loadtest, run_ingest_loadtest; "
+            "from predictionio_tpu_torch.ops._build import KernelError")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
