@@ -215,6 +215,40 @@ code is not 0 and the last line is never printed.
              closed loop at 64 without feedback); SIGTERM to that deploy under
              load and ``loadtest --kill-after`` (POST /stop) to the first: each
              drains, exits 0 and answers no 5xx beyond 503 sheds.
+14. publish-eval — publish, resume and evaluate, in a fresh ``PIO_FS_BASEDIR``
+             sqlite store: the full-width model of phase 4 published as a
+             ``CheckpointedALSModel`` (``persistMode: "checkpoint"``) under
+             ``PIO_QUANT_DTYPE=int8`` and ``bf16`` (each gate's top-100 overlap and
+             seconds printed; a variant the default gate of 0.98 refuses is
+             published again under ``PIO_QUANT_MIN_OVERLAP=0.95``, both printed),
+             and once under a ``PIO_QUANT_MIN_OVERLAP`` above the
+             measured overlap, which must leave no ``quant.blob``; ``deploy
+             --batching`` of each dtype as a subprocess, whose ``GET /`` and
+             ``/metrics`` must report the dtype asked for, closed loops of 2,000
+             requests (Zipf over every user) at concurrency 1 and 64 beside phase
+             13's f32 server, 300 sampled answers held against kernel 1's plain
+             version at that dtype, and kernel 1's launches equal to the server's
+             dispatches; ``pio batchpredict`` of 1,000 queries against the int8
+             instance (kernel 1: one warm-up launch at the top rung and one a chunk of 64), each
+             line held against the int8 server's answer; ``PIO_QUANT_DTYPE=f32`` at
+             deploy (the rollback) and a corrupt ``quant.blob`` must serve f32, the
+             latter with its warning. Then ``train_als`` on phase 9's ML-1M draw
+             (ratings 1-5 drawn from the seed) for 10 iterations with checkpoints
+             every 5, then 20 from the same directory: kernel 2 launches buckets ×
+             10 times in the second run, whose factors must equal an uninterrupted
+             20-iteration run's (bit for bit, else within rtol = atol = 1e-4), and a
+             permuted copy of the draw must start fresh. SASRec at phase 11's shape
+             (maxLen 256): 4 steps with checkpoints every 2, then 8 from the
+             directory: the flash kernels launch 2 × 4 times after the resume, each
+             step's loss within rtol 1e-5 of an uninterrupted run's (the embedding
+             backward's atomics make bit equality impossible). Last ``pio eval`` of
+             ``RecommendationEvaluation`` (ranks 4 and 8, 3 folds, 5 iterations,
+             Precision/NDCG/MAP@10) over a random 100,000 of the ML-1M draw loaded
+             with ``insert_batch``, ``--output-best``: kernel 2 launches Σ buckets ×
+             5 times, kernel 1 one warm-up launch a trained model plus ⌈test users /
+             64⌉ a fold, every batch-predicted answer held against ``torch.topk(U[u]
+             @ V.T)`` on the CPU on that fold's factors, the EvaluationInstance
+             EVALCOMPLETED in sqlite and ``best.json`` naming the best rank.
 
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
@@ -1540,10 +1574,12 @@ ALS_VARIANT = {"algorithms": [{"name": "als", "params": {"rank": RANK}}]}
 
 
 def publish(storage, engine, model, variant=ALS_VARIANT, factory=ALS_FACTORY,
-            engine_id="default"):
+            engine_id="default", engine_variant="default"):
     """Write ``model`` as a COMPLETED engine instance with its sealed blob,
     the steps the training workflow takes after training. ``pio deploy``
-    looks instances up under ``engine_id`` = the engine.json's factory."""
+    looks instances up under ``engine_id`` = the engine.json's factory and
+    ``engine_variant`` = its ``id``. A ``PersistentModel`` saves itself and
+    the blob holds its manifest (checkpoint mode)."""
     import datetime as dt
 
     from predictionio_tpu_torch.core import persistence
@@ -1555,7 +1591,7 @@ def publish(storage, engine, model, variant=ALS_VARIANT, factory=ALS_FACTORY,
     now = dt.datetime.now(tz=dt.timezone.utc)
     inst = EngineInstance(
         id="", status=instances.STATUS_INIT, start_time=now, end_time=now,
-        engine_id=engine_id, engine_version="default", engine_variant="default",
+        engine_id=engine_id, engine_version="default", engine_variant=engine_variant,
         engine_factory=factory, **params.to_json_strings(),
     )
     iid = instances.insert(inst)
@@ -3491,6 +3527,492 @@ def phase_serving_ops(model, seed, device, kernel_rows):
     return out
 
 
+# -- publish-eval: checkpoint mode, the quantized gate, resume and pio eval ----
+
+PE_APP = "default"  # the app RecommendationEvaluation reads
+PE_DTYPES = ("int8", "bf16")
+PE_CONCURRENCY = (1, 64)  # closed loops of OPS_REQUESTS, Zipf over every user
+PE_BATCH_QUERIES = 1000  # pio batchpredict's input lines
+PE_ALS_ITERS, PE_ALS_INTERVAL = 20, 5  # resume: 10 iterations, then 20
+PE_SAS_EPOCHS, PE_SAS_INTERVAL = 8, 2  # resume: two intervals (4 steps), then 8
+EVAL_RANKS, EVAL_FOLDS, EVAL_ITERS, EVAL_K = (4, 8), 3, 5, 10  # RecommendationEvaluation
+EVAL_CLASS = "predictionio_tpu_torch.templates.recommendation.RecommendationEvaluation"
+
+
+def write_engine_json(directory, variant_id, params):
+    """``pio template get recommendation`` into ``directory``, filled with
+    the app, one ALS algorithm and the engine variant's ``id``."""
+    cli_run("template", "get", "recommendation", "--directory", directory)
+    path = os.path.join(directory, "engine.json")
+    variant = fill_engine_json(path, PE_APP, [{"name": "als", "params": params}])
+    variant["id"] = variant_id
+    with open(path, "w") as f:
+        json.dump(variant, f, indent=2)
+    return variant
+
+
+def hold_topk(got_answers, U, V, users, nums, item_index, what):
+    """Each answer (``itemScores`` lists) against ``torch.topk(U[u] @ V.T)``
+    on the CPU, by ``topk_mismatches`` at TOL; returns the largest score gap."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.testing import topk_mismatches
+
+    Ut, Vt = (torch.from_numpy(np.ascontiguousarray(F, np.float32)) for F in (U, V))
+    k = max(nums)
+    rv, ri = (t.numpy() for t in torch.topk(Ut[torch.as_tensor(users)] @ Vt.T, k, dim=1))
+    bad, gap = [], 0.0
+    for j, (a, n) in enumerate(zip(got_answers, nums)):
+        gi = np.array([[item_index[x["item"]] for x in a]])
+        gv = np.array([[x["score"] for x in a]])
+        bad += topk_mismatches(gv, gi, rv[j:j + 1, :n], ri[j:j + 1, :n], TOL)
+        if len(a):
+            gap = max(gap, float(np.abs(gv[0] - rv[j, :len(a)]).max()))
+    require(not bad, f"{what}: answers disagree with torch.topk(U[u] @ V.T): {bad[:3]}")
+    return gap
+
+
+def phase_publish_eval(model, seed, device, kernel_rows, ops):
+    """Publish, resume and evaluate on the card: see the module docstring,
+    phase 14. ``kernel_rows``: phase 3's timings (device µs a rung by
+    dtype); ``ops``: phase 13's result (the f32 server's loads)."""
+    import dataclasses
+    import logging
+    import math
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.core import checkpoint, evaluation
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.batch import interactions_from_arrays
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als, sequential
+    from predictionio_tpu_torch.ops import score_kernel, train_kernel
+    from predictionio_tpu_torch.serving.query_server import QueryServer
+    from predictionio_tpu_torch.templates import recommendation as rec
+    from predictionio_tpu_torch.testing import topk_mismatches
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pio-publish-eval-")
+    knobs = ("PIO_FS_BASEDIR", "PIO_DEVPROF_WINDOW", "PIO_QUANT_DTYPE", "PIO_QUANT_MIN_OVERLAP",
+             "PIO_QUANT_EVAL_USERS", "PIO_ALS_SOLVER", "PIO_ALS_COMPUTE_DTYPE", "PIO_RESULT_CACHE",
+             "PIO_COALESCE", "PIO_HOTSET_SIZE")
+    saved = {k: v for k, v in os.environ.items() if k.startswith("PIO_STORAGE_") or k in knobs}
+    for k in saved:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    os.environ["PIO_DEVPROF_WINDOW"] = "3600"
+    Storage.reset_instance()
+    store.set_storage(None)
+    servers, patches = [], []
+    ctx = DeviceContext.create(device=device)
+    out = {"phase": "publish-eval"}
+    users = [model.user_map.inverse[j] for j in range(len(model.user_map))]
+    item_index = {model.item_map.inverse[j]: j for j in range(len(model.item_map))}
+    sample = "user=" + ",".join(users)
+    query = json.dumps({"user": users[0], "num": OPS_NUM})
+
+    def step(name, **row):
+        row["t"] = time.perf_counter() - t_phase
+        emit({"phase": "publish-eval", "step": name, **row})
+        return row
+
+    try:
+        storage = Storage.instance()
+        engine = rec.RecommendationEngine.apply()
+        ckpt_model = als.CheckpointedALSModel(model.user_factors, model.item_factors,
+                                              model.user_map, model.item_map, model.config)
+
+        # 1. publish: checkpoint mode under PIO_QUANT_DTYPE, once a dtype
+        def quant_record(iid):
+            d = als.CheckpointedALSModel._dir(iid)
+            with open(os.path.join(d, "maps.pkl"), "rb") as f:
+                return pickle.load(f)["quant"], os.path.exists(os.path.join(d, "quant.blob"))
+
+        engines, pubs = {}, {}
+        for dtype in PE_DTYPES:
+            engines[dtype] = os.path.join(tmp, f"engine-{dtype}")
+            variant = write_engine_json(engines[dtype], dtype,
+                                        {"rank": RANK, "persistMode": "checkpoint"})
+            os.environ["PIO_QUANT_DTYPE"] = dtype
+            t0 = time.perf_counter()
+            iid = publish(storage, engine, ckpt_model, variant=variant, engine_id=ALS_FACTORY,
+                          engine_variant=dtype)
+            publish_s = time.perf_counter() - t0
+            rec_, blob = quant_record(iid)
+            # the gate at its default threshold must pass the variant
+            require(rec_["dtype"] == dtype and blob, f"{dtype} publish: {rec_}, blob {blob}")
+            pubs[dtype] = step("publish", dtype=dtype, instance=iid, overlap=rec_["topk_overlap"],
+                               threshold=rec_["threshold"], k=rec_["k"], publish_s=publish_s)
+        over = pubs["int8"]["overlap"]
+        os.environ.update(PIO_QUANT_DTYPE="int8", PIO_QUANT_MIN_OVERLAP=repr(over + 1e-3))
+        refuse_dir = os.path.join(tmp, "engine-refused")
+        variant = write_engine_json(refuse_dir, "refused", {"rank": RANK, "persistMode": "checkpoint"})
+        iid = publish(storage, engine, ckpt_model, variant=variant, engine_id=ALS_FACTORY,
+                      engine_variant="refused")
+        del os.environ["PIO_QUANT_DTYPE"], os.environ["PIO_QUANT_MIN_OVERLAP"]
+        rec_, blob = quant_record(iid)
+        require(rec_.get("refused") == "int8" and rec_["dtype"] == "f32" and not blob,
+                f"a publish above the measured overlap {over}: {rec_}, blob {blob}")
+        out["refused"] = step("publish-refused", threshold=over + 1e-3, record=rec_, quant_blob=blob)
+        out["publish"] = pubs
+
+        # 2. deploy --batching of each dtype: the server reports what it serves
+        f32_rows = {r["concurrency"]: r for r in ops["closed"]}
+        f32_rows[OPS_CONCURRENCY[-1]] = dict(ops["closed_no_feedback"], feedback=False)
+        rng = np.random.default_rng(seed + 61)
+        deployed = {}
+        for dtype in PE_DTYPES:
+            rung_us = {r["batch"]: sum(r["kernel_device_us"].values()) for r in kernel_rows
+                       if r.get("case", "ml25m") == "ml25m" and r["dtype"] == dtype}
+            qs = CliServer(tmp, f"deploy-{dtype}", "deploy", "--engine-dir", engines[dtype],
+                           "--batching", "--device", device.type)
+            servers.append(qs)
+            ready_s = qs.wait_ready()
+
+            def info(srv=qs):
+                return http_json(f"{srv.base}/")[1]
+
+            at_ready = info()
+            served = at_ready["fastpath"][0]["kernel"]["factor_dtype"]
+            with urllib.request.urlopen(f"{qs.base}/metrics", timeout=30) as r:
+                metric_text = r.read().decode()
+            require(at_ready["engineInstanceId"] == pubs[dtype]["instance"] and served == dtype
+                    and f'dtype="{dtype}"' in metric_text,
+                    f"deploy of the {dtype} instance serves {served}: {at_ready.get('fastpath')}")
+            loads = []
+            for c in PE_CONCURRENCY:
+                before = info()
+                rc, rep = run_loadtest_cli(
+                    "--port", str(qs.port), "--query", query, "--requests", str(OPS_REQUESTS),
+                    "--concurrency", str(c), "--dist", "zipf", "--sample", sample)
+                after = info()
+                require(rc == 0 and rep["ok"] == OPS_REQUESTS and rep["http5xx"] == 0,
+                        f"{dtype} closed loop c={c}: exit {rc}, {rep}")
+                f32 = f32_rows.get(c, {})
+                loads.append(step("closed-loop", dtype=dtype, concurrency=c, qps=rep["qps"],
+                                  p50_ms=rep["p50Ms"], p99_ms=rep["p99Ms"],
+                                  rung_device_us=rung_us, **ops_load_row(before, after, rep, rung_us),
+                                  f32_phase13={k: f32.get(k) for k in (
+                                      "qps", "p50_ms", "p99_ms", "rung_hits", "feedback")}))
+            picks = [(users[int(j)], int(rng.integers(1, K + 1)))
+                     for j in rng.integers(0, len(users), OPS_SAMPLED)]
+            answers = []
+            for u, n in picks:
+                status, a = http_json(f"{qs.base}/queries.json", {"user": u, "num": n})
+                require(status == 200, f"{u}: {status} {a}")
+                answers.append(a)
+            plain = Inputs(model.user_factors, model.item_factors, dtype, device)
+            u_idx = torch.tensor([model.user_map[u] for u, _ in picks], dtype=torch.int32,
+                                 device=device)
+            rv, ri = (t.cpu().numpy() for t in plain.plain(u_idx, K))
+            del plain
+            bad = []
+            for j, ((_, n), a) in enumerate(zip(picks, answers)):
+                got_i = np.array([[item_index[x["item"]] for x in a["itemScores"]]])
+                got_v = np.array([[x["score"] for x in a["itemScores"]]])
+                bad += topk_mismatches(got_v, got_i, rv[j:j + 1, :n], ri[j:j + 1, :n], TOL)
+            require(not bad, f"{dtype} served answers vs the plain version at {dtype}: {bad[:3]}")
+            deployed[dtype] = {"server": qs, "info": info, "at_ready": at_ready, "loads": loads,
+                               "ready_s": ready_s}
+
+        # 3. pio batchpredict against the int8 instance, its lines against
+        # the int8 server's answers to the same queries
+        qs = deployed["int8"]["server"]
+        bq = [{"user": users[int(j)], "num": OPS_NUM}
+              for j in rng.integers(0, len(users), PE_BATCH_QUERIES)]
+        q_path, o_path = os.path.join(tmp, "queries.jsonl"), os.path.join(tmp, "predicted.jsonl")
+        with open(q_path, "w") as f:
+            f.writelines(json.dumps(q) + "\n" for q in bq)
+        score_kernel.launches.reset()  # the batchpredict path's window
+        t0 = time.perf_counter()
+        printed = cli_run("batchpredict", "--engine-dir", engines["int8"], "--input", q_path,
+                          "--output", o_path, "--device", device.type)
+        bp_s = time.perf_counter() - t0
+        bp_launches = score_kernel.launches.count
+        with open(o_path) as f:
+            lines = [json.loads(x) for x in f]
+        chunks = math.ceil(PE_BATCH_QUERIES / RUNGS[-1])
+        require(len(lines) == PE_BATCH_QUERIES and f"{PE_BATCH_QUERIES} predictions" in printed,
+                f"batchpredict wrote {len(lines)} lines: {printed}")
+        require(bp_launches == 1 + chunks,
+                f"batchpredict: kernel 1 launched {bp_launches} times vs 1 warm-up "
+                f"+ {chunks} chunks of {RUNGS[-1]}")
+        bad, exact = [], 0
+        for q, line in zip(bq, lines):
+            require(line["query"] == q, f"line order: {line['query']} vs {q}")
+            ref = http_json(f"{qs.base}/queries.json", q)[1]["itemScores"]
+            got = line["prediction"]["itemScores"]
+            exact += got == ref
+            bad += topk_mismatches(
+                np.array([[x["score"] for x in got]]), np.array([[item_index[x["item"]] for x in got]]),
+                np.array([[x["score"] for x in ref]]), np.array([[item_index[x["item"]] for x in ref]]),
+                TOL)
+        require(not bad, f"batchpredict lines vs the int8 server's answers: {bad[:3]}")
+        out["batchpredict"] = step("batchpredict", queries=PE_BATCH_QUERIES, wall_s=bp_s,
+                                   launches=bp_launches, chunks=chunks,
+                                   lines_equal_to_server=exact, topk_mismatches=0)
+
+        # the two servers' counters over everything they served
+        out["deploy"] = {}
+        for dtype in PE_DTYPES:
+            dep = deployed[dtype]
+            final = dep["info"]()
+            launches = final["scoreKernelLaunches"] - dep["at_ready"]["scoreKernelLaunches"]
+            dispatches = final["fastpath"][0]["calls"] - dep["at_ready"]["fastpath"][0]["calls"]
+            require(launches == dispatches > 0,
+                    f"{dtype}: kernel 1 launched {launches} times vs {dispatches} dispatches")
+            cli_run("undeploy", "--port", str(dep["server"].port))
+            dep["server"].wait_exit()
+            out["deploy"][dtype] = {"deploy_to_ready_s": dep["ready_s"], "served_dtype": dtype,
+                                    "resident_factor_bytes": dep["at_ready"]["fastpath"][0]["kernel"]
+                                    ["resident_factor_bytes"],
+                                    "launches": launches, "dispatches": dispatches,
+                                    "sampled": OPS_SAMPLED, "topk_mismatches": 0,
+                                    "closed": dep["loads"]}
+
+        # 4. the rollback and a corrupt quant.blob, deployed in this process
+        def served_dtype(variant_id):
+            qsrv = QueryServer(engine, storage=storage, ctx=ctx, engine_id=ALS_FACTORY,
+                               engine_variant=variant_id, batching=True)
+            base = f"http://127.0.0.1:{qsrv.start('127.0.0.1', 0)}"
+            try:
+                return http_json(f"{base}/")[1]["fastpath"][0]["kernel"]["factor_dtype"]
+            finally:
+                qsrv.stop()
+
+        os.environ["PIO_QUANT_DTYPE"] = "f32"
+        try:
+            rollback = served_dtype("int8")
+        finally:
+            del os.environ["PIO_QUANT_DTYPE"]
+        blob = os.path.join(als.CheckpointedALSModel._dir(pubs["int8"]["instance"]), "quant.blob")
+        with open(blob, "rb") as f:
+            data = f.read()
+        with open(blob, "wb") as f:
+            f.write(data[:-7] + b"garbage")
+        warned = []
+        handler = logging.Handler()
+        handler.emit = lambda record: warned.append(record.getMessage())
+        logging.getLogger("predictionio_tpu_torch.models.als").addHandler(handler)
+        try:
+            corrupt = served_dtype("int8")
+        finally:
+            logging.getLogger("predictionio_tpu_torch.models.als").removeHandler(handler)
+        require(rollback == "f32" and corrupt == "f32"
+                and any("quantized factors unavailable" in m for m in warned),
+                f"rollback serves {rollback}, a corrupt quant.blob {corrupt}, warnings {warned}")
+        out["degrade"] = step("degrade", rollback_serves=rollback, corrupt_blob_serves=corrupt,
+                              warning=next(m for m in warned if "unavailable" in m))
+
+        # 5. ALS resume on phase 9's ML-1M draw (ratings 1-5 drawn from the seed)
+        inter, _ = ml1m_interactions(seed)
+        inter = dataclasses.replace(inter, rating=np.random.default_rng(seed + 62).integers(
+            1, 6, len(inter.user)).astype(np.float32))
+
+        def als_cfg(iters, d=None):
+            return als.ALSConfig(rank=RANK, iterations=iters, checkpoint_dir=d,
+                                 checkpoint_interval=PE_ALS_INTERVAL, solver="dense",
+                                 compute_dtype="f32")
+
+        def buckets(data, cfg):
+            ub, ib, _, _ = als._dense_blocks_for(data, cfg)
+            return len(ub.widths) + len(ib.widths)
+
+        n_buckets = buckets(inter, als_cfg(PE_ALS_ITERS))
+        d = os.path.join(tmp, "als-checkpoints")
+        half = PE_ALS_ITERS // 2
+        runs = {}
+        for name, data, cfg in (("first", inter, als_cfg(half, d)),
+                                ("resumed", inter, als_cfg(PE_ALS_ITERS, d)),
+                                ("uninterrupted", inter, als_cfg(PE_ALS_ITERS))):
+            train_kernel.launches.reset()
+            t0 = time.perf_counter()
+            m = als.train_als(ctx, data, cfg)
+            runs[name] = (m, train_kernel.launches.count, time.perf_counter() - t0)
+            if name == "first":
+                steps_after_first = checkpoint.CheckpointManager(d).steps()
+        (first, l_first, _), (resumed, l_resumed, s_resumed), (full, _, s_full) = (
+            runs["first"], runs["resumed"], runs["uninterrupted"])
+        require(steps_after_first == [half - PE_ALS_INTERVAL, half] and l_first == n_buckets * half,
+                f"first run: steps {steps_after_first}, {l_first} launches")
+        require(l_resumed == n_buckets * (PE_ALS_ITERS - half),
+                f"resumed run launched kernel 2 {l_resumed} times vs {n_buckets} buckets × "
+                f"{PE_ALS_ITERS - half}: it did not resume at step {half}")
+        bit_equal = all(np.array_equal(a, b) for a, b in (
+            (resumed.user_factors, full.user_factors), (resumed.item_factors, full.item_factors)))
+        gap = max(float(np.abs(resumed.user_factors - full.user_factors).max()),
+                  float(np.abs(resumed.item_factors - full.item_factors).max()))
+        require(bit_equal or all(np.allclose(a, b, rtol=1e-4, atol=1e-4) for a, b in (
+            (resumed.user_factors, full.user_factors), (resumed.item_factors, full.item_factors))),
+            f"resumed factors vs the uninterrupted run: largest gap {gap}")
+        perm = np.random.default_rng(seed + 63).permutation(len(inter.user))
+        permuted = dataclasses.replace(inter, user=inter.user[perm], item=inter.item[perm],
+                                       rating=inter.rating[perm], t=inter.t[perm])
+        train_kernel.launches.reset()
+        als.train_als(ctx, permuted, als_cfg(PE_ALS_ITERS, d))
+        l_perm = train_kernel.launches.count
+        n_perm = buckets(permuted, als_cfg(PE_ALS_ITERS))
+        require(l_perm == n_perm * PE_ALS_ITERS,
+                f"a permuted copy launched {l_perm} times vs {n_perm} × {PE_ALS_ITERS}: it resumed")
+        out["resume_als"] = step("resume-als", ratings=len(inter), buckets=n_buckets,
+                                 launches_first=l_first, launches_resumed=l_resumed,
+                                 resumed_at=half, bit_equal=bit_equal, max_abs_gap=gap,
+                                 resumed_s=s_resumed, uninterrupted_s=s_full,
+                                 permuted_launches=l_perm, permuted_resumed=False)
+        del runs, first, resumed, full, permuted
+
+        # 6. SASRec resume at phase 11's shape (maxLen 256)
+        srng = np.random.default_rng(seed + 15)  # phase_sasrec_train_workflow's draw
+        w = zipf_mandelbrot_weights(1000, 1.1)
+        hist = [srng.choice(1000, int(srng.integers(20, 301)), p=w) for _ in range(300)]
+        s_user = np.repeat(np.arange(300), [len(h) for h in hist])
+        s_t = np.concatenate([np.arange(len(h), dtype=np.float64) for h in hist])
+        s_inter = interactions_from_arrays(
+            s_user, np.concatenate(hist), np.ones(len(s_user)), 1_767_225_600.0 + s_t,
+            (f"wu{u}" for u in range(300)), (f"wi{i}" for i in range(1000)))
+        scfg = sequential.SASRecConfig(d_model=SAS_D, n_layers=SAS_LAYERS, n_heads=SAS_HEADS,
+                                       max_len=SAS_MAX_LEN, batch_size=SAS_BATCH, lr=SAS_LR,
+                                       seed=seed, epochs=PE_SAS_EPOCHS)
+        sd = os.path.join(tmp, "sasrec-checkpoints")
+        stop_at = 2 * PE_SAS_INTERVAL
+        full_s = sequential.train_sasrec(ctx, s_inter, scfg)
+        sequential.train_sasrec(ctx, s_inter, dataclasses.replace(
+            scfg, epochs=stop_at, checkpoint_dir=sd, checkpoint_interval=PE_SAS_INTERVAL))
+        reset_flash_counts()  # the resumed run's window
+        resumed_s = sequential.train_sasrec(ctx, s_inter, dataclasses.replace(
+            scfg, checkpoint_dir=sd, checkpoint_interval=PE_SAS_INTERVAL))
+        counts = flash_counts()
+        want = SAS_LAYERS * (PE_SAS_EPOCHS - stop_at)
+        require(counts == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
+                f"resumed SASRec flash launches {counts} vs {SAS_LAYERS} layers × "
+                f"{PE_SAS_EPOCHS - stop_at} steps")
+        rel = np.abs(resumed_s.losses - full_s.losses[stop_at:]) / np.abs(full_s.losses[stop_at:])
+        require(len(resumed_s.losses) == PE_SAS_EPOCHS - stop_at and float(rel.max()) <= 1e-5,
+                f"resumed losses {resumed_s.losses} vs {full_s.losses[stop_at:]}")
+        out["resume_sasrec"] = step("resume-sasrec", events=len(s_user), stopped_at=stop_at,
+                                    epochs=PE_SAS_EPOCHS, launches=counts,
+                                    loss_max_rel_gap=float(rel.max()),
+                                    losses_resumed=[float(x) for x in resumed_s.losses],
+                                    losses_uninterrupted=[float(x) for x in full_s.losses])
+
+        # 7. pio eval: a random QS_BULK of the ML-1M draw in sqlite
+        cli_run("app", "new", PE_APP)
+        app_id = storage.get_meta_data_apps().get_by_name(PE_APP).id
+        erng = np.random.default_rng(seed + 21)  # the quickstart's cut
+        pick = np.sort(erng.choice(len(inter.user), QS_BULK, replace=False))
+        buy = erng.integers(0, QS_BUY_EVERY, QS_BULK) == 0
+        stars = erng.integers(1, 6, QS_BULK)
+        le = storage.get_l_events()
+        t0 = time.perf_counter()
+        for c in range(0, QS_BULK, QS_BULK_CHUNK):
+            le.insert_batch([
+                Event(event="buy" if buy[k] else "rate", entity_type="user",
+                      entity_id=f"u{inter.user[pick[k]]}", target_entity_type="item",
+                      target_entity_id=f"si{inter.item[pick[k]]}",
+                      properties=None if buy[k] else {"rating": int(stars[k])},
+                      event_time=float(inter.t[pick[k]]), creation_time=float(inter.t[pick[k]]))
+                for k in range(c, min(c + QS_BULK_CHUNK, QS_BULK))], app_id)
+        load_s = time.perf_counter() - t0
+        del inter
+        trained, predicted, reads, results = [], [], [], []
+        orig_train, orig_bp = rec.train_als, rec.ALSAlgorithm.batch_predict
+        orig_read = rec.RecommendationDataSource.read_eval
+        orig_eval = evaluation.MetricEvaluator.evaluate_base
+
+        def timed(log, fn):
+            def wrapped(*a, **kw):
+                t = time.perf_counter()
+                r = fn(*a, **kw)
+                log.append((a, r, time.perf_counter() - t))
+                return r
+            return wrapped
+
+        patches += [(rec, "train_als", orig_train),
+                    (rec.ALSAlgorithm, "batch_predict", orig_bp),
+                    (rec.RecommendationDataSource, "read_eval", orig_read),
+                    (evaluation.MetricEvaluator, "evaluate_base", orig_eval)]
+        rec.train_als = timed(trained, orig_train)
+        rec.ALSAlgorithm.batch_predict = timed(predicted, orig_bp)
+        rec.RecommendationDataSource.read_eval = timed(reads, orig_read)
+        evaluation.MetricEvaluator.evaluate_base = timed(results, orig_eval)
+        score_kernel.launches.reset()  # the eval path's window
+        train_kernel.launches.reset()
+        best_path = os.path.join(tmp, "best.json")
+        t0 = time.perf_counter()
+        printed = cli_run("eval", EVAL_CLASS, "--output-best", best_path, "--device", device.type)
+        eval_s = time.perf_counter() - t0
+        k1, k2 = score_kernel.launches.count, train_kernel.launches.count
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        patches.clear()
+        require(len(reads) == 1 and len(trained) == len(EVAL_RANKS) * EVAL_FOLDS
+                and len(predicted) == len(EVAL_RANKS) * EVAL_FOLDS,
+                f"{len(reads)} reads, {len(trained)} trainings, {len(predicted)} batch predictions")
+        want_k2 = sum(buckets(a[1], a[2]) * a[2].iterations for a, _, _ in trained)
+        chunk_calls = sum(math.ceil(len(a[2]) / RUNGS[-1]) for a, _, _ in predicted)
+        want_k1 = len(predicted) + chunk_calls  # a top-rung warm-up a trained model
+        require(k2 == want_k2, f"pio eval: kernel 2 launched {k2} times vs Σ buckets × "
+                               f"{EVAL_ITERS} = {want_k2}")
+        require(k1 == want_k1, f"pio eval: kernel 1 launched {k1} times vs {len(predicted)} "
+                               f"warm-ups + {chunk_calls} chunks")
+        gap = 0.0
+        for (algo, m, queries), answers, _ in predicted:
+            got = dict(answers)
+            gap = max(gap, hold_topk(
+                [[{"item": s.item, "score": s.score} for s in got[i].itemScores] for i, _ in queries],
+                m.user_factors, m.item_factors, [m.user_map[q.user] for _, q in queries],
+                [q.num for _, q in queries],
+                {m.item_map.inverse[j]: j for j in range(len(m.item_map))}, "pio eval"))
+        iid = printed.split("Instance ID: ")[1].split()[0]
+        inst = storage.get_meta_data_evaluation_instances().get(iid)
+        with open(best_path) as f:
+            best = json.load(f)
+        result = results[0][1]
+        scores = [r.score for r in result.all_results]
+        best_rank = best["bestEngineParams"]["algorithmParamsList"][0]["params"]["rank"]
+        require(inst is not None and inst.status == "EVALCOMPLETED"
+                and json.loads(inst.evaluator_results_json) == best
+                and best_rank == EVAL_RANKS[int(np.argmax(scores))],
+                f"evaluation instance {inst and inst.status}, best rank {best_rank}, scores {scores}")
+        headers = [result_metric.header for result_metric in
+                   [rec.PrecisionAtK(EVAL_K), rec.NDCGAtK(EVAL_K), rec.MAPAtK(EVAL_K)]]
+        candidates = [{"rank": rank, **dict(zip(headers, [r.score] + list(r.other_scores)))}
+                      for rank, r in zip(EVAL_RANKS, result.all_results)]
+        train_s = sum(s for _, _, s in trained)
+        predict_s = sum(s for _, _, s in predicted)
+        out["eval"] = step(
+            "pio-eval", events=QS_BULK, bulk_insert_s=load_s, candidates=candidates,
+            best_rank=best_rank, instance=iid, wall_s=eval_s, read_eval_s=reads[0][2],
+            train_s=train_s, batch_predict_s=predict_s,
+            rest_s=eval_s - reads[0][2] - train_s - predict_s,
+            test_users=[len(a[2]) for a, _, _ in predicted[:EVAL_FOLDS]],
+            kernel2_launches=k2, kernel1_launches=k1, kernel1_chunks=chunk_calls,
+            kernel1_warmups=len(predicted), max_abs_err_answers=gap)
+    finally:
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        for srv in servers:
+            srv.kill()
+        Storage.reset_instance()
+        sqlite.close_all_dbs()
+        for k in knobs:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(seconds=time.perf_counter() - t_phase, ok=True)
+    emit(out)
+    return out
+
+
 # -- A/B: kernels 1 and 2 of two trees, on one card ---------------------------
 
 
@@ -3698,6 +4220,7 @@ def main(argv=None) -> int:
     sas_flow = phase_sasrec_train_workflow(args.seed, device)
     quick = phase_quickstart_cli(args.seed, device)
     ops = phase_serving_ops(model, args.seed, device, rows)
+    pub = phase_publish_eval(model, args.seed, device, rows, ops)
     # each kernel's launches on the CLI path, counted as the CLI drove it
     cli_launches = {
         "fused_gather_score_topk": quick["serve"]["launches"],
@@ -3796,6 +4319,20 @@ def main(argv=None) -> int:
     # kernel 1 on the operators' path: the deployed server's launches from
     # readiness to the drain (serving-ops)
     kernels["kernels"][0]["ops_launches"] = ops["launches"]
+    # publish-eval: kernel 1 served by dtype, kernel 2 resumed and evaluated,
+    # the flash kernels after a SASRec resume; kernel 1's B = 64 times by dtype
+    kernels["kernels"][0]["publish_eval_launches"] = {
+        "deploy_int8": pub["deploy"]["int8"]["launches"],
+        "deploy_bf16": pub["deploy"]["bf16"]["launches"],
+        "batchpredict_int8": pub["batchpredict"]["launches"],
+        "eval_f32": pub["eval"]["kernel1_launches"]}
+    kernels["kernels"][0]["by_dtype_b64"] = {
+        r["dtype"]: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for r in rows if r.get("case", "ml25m") == "ml25m" and r["batch"] == RUNGS[-1]}
+    kernels["kernels"][1]["publish_eval_launches"] = {
+        "resume": pub["resume_als"]["launches_resumed"], "eval": pub["eval"]["kernel2_launches"]}
+    for k, part in zip(kernels["kernels"][2:5], ("fwd", "bwd_dq", "bwd_dkv")):
+        k["publish_eval_launches"] = {"resume": pub["resume_sasrec"]["launches"][part]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -3807,7 +4344,7 @@ def main(argv=None) -> int:
                    "flash": flash_rows, "sasrec": sasrec,
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
                    "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
-                   "serving_ops": ops,
+                   "serving_ops": ops, "publish_eval": pub,
                    **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)

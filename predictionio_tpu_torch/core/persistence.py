@@ -7,16 +7,25 @@ auto-pickled into MODELDATA, saved by its own ``PersistentModel.save``
 behind a manifest, or retrained on deploy (:data:`RETRAIN`).
 
 A blob pickles the PORT's classes (``predictionio_tpu_torch.models.als.
-ALSModel``). A blob written by the JAX package names the JAX package's
-classes and does not load here. Generation quarantine waits for the canary
-slice.
+ALSModel``). The sqlite store is shared with the JAX package, so a blob, a
+manifest or an ``engineFactory`` the JAX package wrote can reach the port;
+none of them may import ``predictionio_tpu`` (and with it jax) into this
+process. :data:`JAX_COUNTERPARTS` maps each JAX class such a record can
+name to the port's class, :func:`load_models_blob` unpickles through that
+table, and :func:`resolve_class` resolves dotted paths through it. Any
+other ``predictionio_tpu`` path, and any jax, orbax or ml_dtypes one, is
+refused with an error that names it. Generation quarantine waits for the
+canary slice.
 """
 
 from __future__ import annotations
 
 import abc
+import dataclasses
 import hashlib
 import importlib
+import importlib.util
+import io
 import os
 import pickle
 from typing import Any
@@ -105,13 +114,124 @@ def class_path(obj_or_cls) -> str:
     return f"{cls.__module__}.{cls.__qualname__}"
 
 
+_JAX = "predictionio_tpu"
+_PORT = "predictionio_tpu_torch"
+
+# The JAX package's classes a MODELDATA blob, a manifest or an engine.json
+# can name, and the port's counterpart of each. Blobs hold host arrays
+# only (numpy), so the port's class reads their state as it is.
+JAX_COUNTERPARTS = {
+    f"{_JAX}.models.als.ALSModel": f"{_PORT}.models.als.ALSModel",
+    f"{_JAX}.models.als.ALSConfig": f"{_PORT}.models.als.ALSConfig",
+    f"{_JAX}.data.bimap.BiMap": f"{_PORT}.data.bimap.BiMap",
+    f"{_JAX}.models.sequential.SASRecModel": f"{_PORT}.models.sequential.SASRecModel",
+    f"{_JAX}.models.sequential.SASRecConfig": f"{_PORT}.models.sequential.SASRecConfig",
+}
+
+# JAX classes that have no counterpart yet, with why
+_REFUSED = {
+    f"{_JAX}.models.als.CheckpointedALSModel": (
+        "a checkpoint-mode instance of the JAX package keeps its factors in an "
+        "orbax checkpoint, which predictionio_tpu_torch cannot read (it does not "
+        "import orbax); retrain it with the port, or publish it in auto mode"
+    ),
+    f"{_JAX}.serving.sharding.ShardingPlan": (
+        "sharded serving is not ported to predictionio_tpu_torch yet "
+        "(ROADMAP §1 item 10)"
+    ),
+    f"{_JAX}.ops.ivf.IVFIndex": (
+        "IVF retrieval is not ported to predictionio_tpu_torch yet "
+        "(ROADMAP §1 item 9)"
+    ),
+}
+
+# top-level packages the port never imports (rule 1)
+_FOREIGN = (_JAX, "jax", "jaxlib", "orbax", "ml_dtypes", "flax", "optax")
+
+
+class ForeignClassError(ImportError):
+    """A stored record names a class of the JAX package (or of jax) that
+    has no counterpart in the port."""
+
+
+def port_path(path: str) -> str:
+    """The port's dotted path for ``path``: a JAX class of
+    :data:`JAX_COUNTERPARTS` or a ``predictionio_tpu.templates.*`` name maps
+    to the port's; any other ``predictionio_tpu``, jax or orbax path raises
+    :class:`ForeignClassError` naming it. Every other path is returned as is."""
+    top = path.split(".", 1)[0]
+    if top not in _FOREIGN:
+        return path
+    if path in JAX_COUNTERPARTS:
+        return JAX_COUNTERPARTS[path]
+    if path in _REFUSED:
+        raise ForeignClassError(f"{path}: {_REFUSED[path]}")
+    if path.startswith(f"{_JAX}.templates."):
+        module_name = _PORT + path[len(_JAX):].rpartition(".")[0]
+        if importlib.util.find_spec(module_name) is not None:
+            return _PORT + path[len(_JAX):]
+        raise ForeignClassError(
+            f"{path}: this template is not ported to predictionio_tpu_torch "
+            "yet (ROADMAP §1 item 11)"
+        )
+    raise ForeignClassError(
+        f"{path} is a class of {top}, which predictionio_tpu_torch does not "
+        "import, and it has no counterpart in the port"
+    )
+
+
 def resolve_class(path: str):
-    """Import ``pkg.mod.Class`` (the Python replacement for JVM reflection)."""
-    module_name, _, cls_name = path.rpartition(".")
+    """Import ``pkg.mod.Class`` (the Python replacement for JVM reflection),
+    after :func:`port_path`: a JAX-package path resolves to the port's
+    counterpart or raises, never importing the JAX package."""
+    module_name, _, cls_name = port_path(path).rpartition(".")
     obj: Any = importlib.import_module(module_name)
     for part in cls_name.split("."):
         obj = getattr(obj, part)
     return obj
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Resolves every global of a blob through :func:`port_path`."""
+
+    def find_class(self, module: str, name: str):
+        path = port_path(f"{module}.{name}")
+        module, _, name = path.rpartition(".")
+        return super().find_class(module, name)
+
+
+def load_models_blob(blob: bytes) -> Any:
+    """Unpickle a MODELDATA blob (the slot list, or a model inside it)
+    without importing the JAX package: see :func:`port_path`."""
+    try:
+        return _PortUnpickler(io.BytesIO(blob)).load()
+    except ForeignClassError as e:
+        raise ForeignClassError(f"model blob refused: {e}") from None
+
+
+def reconcile_state(obj, state: dict, drop: tuple = ()) -> None:
+    """Set a dataclass's pickled ``state`` on ``obj`` when the writer's
+    class had other fields (the JAX package's, or an older port's):
+    missing fields take their defaults, the extra fields named in ``drop``
+    go, and any other extra field must be None. Unpickling runs no
+    ``__init__``, so the caller normalizes what ``__post_init__`` would."""
+    fields = {f.name: f for f in dataclasses.fields(obj)}
+    state = dict(state)
+    for name, f in fields.items():
+        if name in state:
+            continue
+        if f.default is not dataclasses.MISSING:
+            state[name] = f.default
+        elif f.default_factory is not dataclasses.MISSING:
+            state[name] = f.default_factory()
+    for key in [k for k in state if k not in fields]:
+        value = state.pop(key)
+        if key not in drop and value is not None:
+            raise ValueError(
+                f"{type(obj).__name__} state has field {key!r} = {value!r}, "
+                "which the port's class does not have"
+            )
+    obj.__dict__.update(state)
 
 
 def serialize_models(
@@ -145,7 +265,7 @@ def deserialize_models(
 
     Parity: ``Engine.prepareDeploy`` (``Engine.scala:198-267``).
     """
-    slots = pickle.loads(blob)
+    slots = load_models_blob(blob)
     models: list = []
     retrain_idx: list[int] = []
     for i, ((kind, payload), algo, params) in enumerate(

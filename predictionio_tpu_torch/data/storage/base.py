@@ -8,12 +8,13 @@ serving and training slices use:
   :class:`~predictionio_tpu_torch.data.batch.EventBatch`, with
   ``find_interactions`` for training reads (parity: ``PEvents.scala``);
 * :class:`Apps`, :class:`AccessKeys`, :class:`Channels`, :class:`Sequences`,
-  :class:`EngineInstances`, :class:`Models` and their records.
+  :class:`EngineInstances`, :class:`EvaluationInstances`, :class:`Models`
+  and their records.
 
 One card reads every row, so ``find`` has no ``shard`` argument; bulk
 writes and deletes through ``PEvents`` (writers use ``LEvents``), free-text
-search, property aggregation and evaluation instances come with later
-slices.
+search, property aggregation and the instances' field queries come with
+later slices.
 """
 
 from __future__ import annotations
@@ -86,6 +87,26 @@ class EngineInstance:
     preparator_params: str = ""
     algorithms_params: str = ""
     serving_params: str = ""
+
+
+@dataclass
+class EvaluationInstance:
+    """One evaluation run's record (parity: ``EvaluationInstances.scala``).
+
+    Status lifecycle INIT → EVALUATING → EVALCOMPLETED (or ABORTED)."""
+
+    id: str
+    status: str
+    start_time: _dt.datetime
+    end_time: _dt.datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: dict = field(default_factory=dict)
+    mesh_conf: dict = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
 
 
 @dataclass
@@ -315,6 +336,33 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, instance: EngineInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+
+class EvaluationInstances(abc.ABC):
+    STATUS_INIT = "INIT"
+    STATUS_EVALUATING = "EVALUATING"
+    STATUS_COMPLETED = "EVALCOMPLETED"
+    STATUS_ABORTED = "ABORTED"
+
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str:
+        """Insert, assigning id if empty; returns id."""
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> list[EvaluationInstance]:
+        """Completed evaluations, newest first."""
+
+    @abc.abstractmethod
+    def update(self, instance: EvaluationInstance) -> bool: ...
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...

@@ -1,7 +1,7 @@
 """In-memory storage driver (``PIO_STORAGE_SOURCES_*_TYPE=memory``).
 
 Counterpart of ``predictionio_tpu/data/storage/memory.py`` (events, apps,
-access keys, channels, sequences, models and engine instances), with the
+access keys, channels, sequences, models, engine and evaluation instances), with the
 same process-wide keyed singletons: separately constructed DAOs over one
 source name share state, as many clients share one database.
 """
@@ -31,6 +31,7 @@ class _Store:
         self.access_keys: dict[str, base.AccessKey] = {}
         self.channels: dict[int, base.Channel] = {}
         self.engine_instances: dict[str, base.EngineInstance] = {}
+        self.evaluation_instances: dict[str, base.EvaluationInstance] = {}
         self.seq = itertools.count(1)
         self.sequences: dict[str, int] = {}
 
@@ -381,3 +382,42 @@ class MemoryEngineInstances(base.EngineInstances):
     def delete(self, instance_id: str) -> bool:
         with self._s.lock:
             return self._s.engine_instances.pop(instance_id, None) is not None
+
+
+class MemoryEvaluationInstances(base.EvaluationInstances):
+    def __init__(self, source_name: str = "default", **_):
+        self._s = get_store(source_name)
+
+    def insert(self, instance: base.EvaluationInstance) -> str:
+        iid = instance.id or secrets.token_hex(8)
+        instance.id = iid
+        with self._s.lock:
+            self._s.evaluation_instances[iid] = copy.deepcopy(instance)
+        return iid
+
+    def get(self, instance_id: str):
+        with self._s.lock:
+            got = self._s.evaluation_instances.get(instance_id)
+            return copy.deepcopy(got) if got is not None else None
+
+    def get_all(self):
+        with self._s.lock:
+            return [copy.deepcopy(i) for i in self._s.evaluation_instances.values()]
+
+    def get_completed(self):
+        with self._s.lock:
+            out = [copy.deepcopy(i) for i in self._s.evaluation_instances.values()
+                   if i.status == self.STATUS_COMPLETED]
+        out.sort(key=lambda i: i.start_time, reverse=True)
+        return out
+
+    def update(self, instance: base.EvaluationInstance) -> bool:
+        with self._s.lock:
+            if instance.id not in self._s.evaluation_instances:
+                return False
+            self._s.evaluation_instances[instance.id] = copy.deepcopy(instance)
+            return True
+
+    def delete(self, instance_id: str) -> bool:
+        with self._s.lock:
+            return self._s.evaluation_instances.pop(instance_id, None) is not None

@@ -11,7 +11,7 @@ configuration contract (parity: ``Storage.scala:146-466``):
 
 The port ships the ``sqlite`` driver (every repository, the zero-config
 default), the ``memory`` driver (events, apps, access keys, channels,
-sequences, engine instances and models) and the ``localfs`` driver
+sequences, engine and evaluation instances, models) and ``localfs``
 (models). An environment that names no source gets source ``DEFAULT`` of
 type sqlite, the file ``default.sqlite`` under ``PIO_FS_BASEDIR``, as in
 the JAX package.
@@ -38,6 +38,7 @@ DRIVERS: dict[str, dict[str, Callable]] = {
         "AccessKeys": memory.MemoryAccessKeys,
         "Channels": memory.MemoryChannels,
         "EngineInstances": memory.MemoryEngineInstances,
+        "EvaluationInstances": memory.MemoryEvaluationInstances,
         "Sequences": memory.MemorySequences,
     },
     "sqlite": {
@@ -48,6 +49,7 @@ DRIVERS: dict[str, dict[str, Callable]] = {
         "AccessKeys": sqlite.SqliteAccessKeys,
         "Channels": sqlite.SqliteChannels,
         "EngineInstances": sqlite.SqliteEngineInstances,
+        "EvaluationInstances": sqlite.SqliteEvaluationInstances,
         "Sequences": sqlite.SqliteSequences,
     },
     "localfs": {"Models": localfs.LocalFSModels},
@@ -158,6 +160,9 @@ class Storage:
 
     def get_meta_data_engine_instances(self) -> base.EngineInstances:
         return self.get_data_object(METADATA, "EngineInstances")
+
+    def get_meta_data_evaluation_instances(self) -> base.EvaluationInstances:
+        return self.get_data_object(METADATA, "EvaluationInstances")
 
     def get_meta_data_sequences(self) -> base.Sequences:
         return self.get_data_object(METADATA, "Sequences")

@@ -4,13 +4,13 @@ zero-config default store.
 Counterpart of ``predictionio_tpu/data/storage/sqlite.py`` (parity: the
 reference's ``storage/jdbc/`` driver), with the same schema, so one
 ``pio.db`` opens in either package: events, apps, access keys, channels,
-engine instances, models and sequences, filter predicates pushed into SQL
+engine and evaluation instances, models and sequences, filter predicates pushed into SQL
 (``JDBCPEvents.find``). One file-backed database per source, WAL mode so
 the event server's writers and the trainer's bulk reader coexist.
 
 Not ported yet, and raising an error that names the ROADMAP item that
 brings them: the sharded bulk read (``PEvents.find(shard=...)``, item 10),
-free-text ``search`` (item 14) and evaluation instances (item 11).
+and free-text ``search`` (item 14).
 """
 
 from __future__ import annotations
@@ -658,12 +658,83 @@ class SqliteEngineInstances(_SqliteDAO, base.EngineInstances):
         return self._write("DELETE FROM engine_instances WHERE id = ?", (instance_id,)) > 0
 
 
-class SqliteEvaluationInstances(_SqliteDAO):
-    """The ``evaluation_instances`` table's DAO waits for the evaluation
-    workflow (the table itself is in the schema, so files stay shared)."""
+class SqliteEvaluationInstances(_SqliteDAO, base.EvaluationInstances):
+    """The ``evaluation_instances`` table (the JAX package's schema and
+    column order, ``predictionio_tpu/data/storage/sqlite.py:894``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "evaluation instances are not ported to predictionio_tpu_torch "
-            "yet (ROADMAP §1 item 11)"
+    _COLS = (
+        "id, status, start_time, end_time, evaluation_class, "
+        "engine_params_generator_class, batch, env, mesh_conf, "
+        "evaluator_results, evaluator_results_html, evaluator_results_json"
+    )
+
+    @staticmethod
+    def _row(r) -> base.EvaluationInstance:
+        return base.EvaluationInstance(
+            id=r[0],
+            status=r[1],
+            start_time=_dt_from(r[2]),
+            end_time=_dt_from(r[3]),
+            evaluation_class=r[4],
+            engine_params_generator_class=r[5],
+            batch=r[6],
+            env=json.loads(r[7]),
+            mesh_conf=json.loads(r[8]),
+            evaluator_results=r[9],
+            evaluator_results_html=r[10],
+            evaluator_results_json=r[11],
         )
+
+    @staticmethod
+    def _vals(i: base.EvaluationInstance) -> tuple:
+        return (
+            i.id,
+            i.status,
+            _ts(i.start_time),
+            _ts(i.end_time),
+            i.evaluation_class,
+            i.engine_params_generator_class,
+            i.batch,
+            json.dumps(i.env),
+            json.dumps(i.mesh_conf),
+            i.evaluator_results,
+            i.evaluator_results_html,
+            i.evaluator_results_json,
+        )
+
+    def insert(self, instance: base.EvaluationInstance) -> str:
+        instance.id = instance.id or secrets.token_hex(8)
+        self._write(
+            f"INSERT OR REPLACE INTO evaluation_instances VALUES ({','.join('?' * 12)})",
+            self._vals(instance),
+        )
+        return instance.id
+
+    def get(self, instance_id: str):
+        r = self._one(
+            f"SELECT {self._COLS} FROM evaluation_instances WHERE id = ?", (instance_id,))
+        return self._row(r) if r else None
+
+    def get_all(self):
+        return [self._row(r) for r in self._all(f"SELECT {self._COLS} FROM evaluation_instances")]
+
+    def get_completed(self):
+        rows = self._all(
+            f"SELECT {self._COLS} FROM evaluation_instances WHERE status = ? "
+            "ORDER BY start_time DESC",
+            (self.STATUS_COMPLETED,),
+        )
+        return [self._row(r) for r in rows]
+
+    def update(self, instance: base.EvaluationInstance) -> bool:
+        return self._write(
+            "UPDATE evaluation_instances SET status=?, start_time=?, end_time=?, "
+            "evaluation_class=?, engine_params_generator_class=?, batch=?, env=?, "
+            "mesh_conf=?, evaluator_results=?, evaluator_results_html=?, "
+            "evaluator_results_json=? WHERE id=?",
+            self._vals(instance)[1:] + (instance.id,),
+        ) > 0
+
+    def delete(self, instance_id: str) -> bool:
+        return self._write(
+            "DELETE FROM evaluation_instances WHERE id = ?", (instance_id,)) > 0

@@ -16,10 +16,14 @@ Counterpart of ``predictionio_tpu/models/als.py`` on one card:
   normal equations in the JAX package's chunk order, and the same solve.
   There is no mesh: one card holds
   every entity, so the blocks have no shard dimension (the JAX package's
-  ``n_shards = 1`` layout). Mid-training checkpoints come with a later
-  slice (ROADMAP §1 item 7) and raise until then;
+  ``n_shards = 1`` layout). With ``checkpoint_dir`` set, the factors are
+  saved every ``checkpoint_interval`` iterations and a rerun resumes from
+  the last matching step (``core/checkpoint.py``; ``:954-1030``);
 * :class:`ALSModel` (``:132``) and :func:`als_model_from_arrays`, which
   carries factors and id lists across from anywhere else;
+* :class:`CheckpointedALSModel` (``:1379-1748``): checkpoint-mode
+  persistence, the factors in a sealed numpy store and the quantized
+  serving variant behind its publish gate (``PIO_QUANT_DTYPE``);
 * serving (``:1757-2000``): :class:`ALSScorer`.
 
 :class:`ALSConfig` resolves a ``compute_dtype`` or ``solver`` left at None
@@ -52,10 +56,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.core import persistence as _persistence
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.ops import quantize as _quantize
+from predictionio_tpu_torch.ops import score_kernel as _score_kernel
 from predictionio_tpu_torch.ops import train_kernel as _train_kernel
+from predictionio_tpu_torch.ops._build import KernelError
 from predictionio_tpu_torch.ops.topk import NEG_INF
 
 logger = logging.getLogger(__name__)
@@ -71,8 +78,11 @@ class ALSConfig:
     implicit: bool = False
     alpha: float = 1.0  # implicit confidence scale
     seed: int = 3
-    # mid-training checkpoint/resume: not ported yet (ROADMAP §1 item 7)
+    # mid-training checkpoint/resume: factors + step saved every
+    # checkpoint_interval iterations under checkpoint_dir; training resumes
+    # from the latest matching step found there
     checkpoint_dir: Optional[str] = None
+    checkpoint_interval: int = 5
     # dtype of the GATHERED opposite factors ("f32" | "bf16" | "int8"): bf16
     # gathers the opposite matrix in bfloat16, int8 quantizes it per
     # half-step with per-row scales; every contraction accumulates f32.
@@ -101,11 +111,12 @@ class ALSConfig:
             )
         if self.solver not in ("dense", "segment"):
             raise ValueError(f"solver must be 'dense' or 'segment', got {self.solver!r}")
-        if self.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir (mid-training checkpoints) is not ported yet "
-                "(ROADMAP §1 item 7)"
-            )
+
+    def __setstate__(self, state):
+        # a JAX-package config also holds train_kernel, which chooses a
+        # kernel the port always launches on the card
+        _persistence.reconcile_state(self, state, drop=("train_kernel",))
+        self.__post_init__()
 
 
 @dataclasses.dataclass
@@ -125,6 +136,11 @@ class ALSModel:
     user_scale: Optional[np.ndarray] = None
     item_factors_q: Optional[np.ndarray] = None
     item_scale: Optional[np.ndarray] = None
+
+    def __setstate__(self, state):
+        # a JAX-package model also holds sharding_plan and ivf_index, None
+        # unless sharded serving or IVF (not ported) declared them
+        _persistence.reconcile_state(self, state)
 
     def predict_rating(self, user_idx: int, item_idx: int) -> float:
         return float(self.user_factors[user_idx] @ self.item_factors[item_idx])
@@ -424,6 +440,37 @@ def _initial_factors(cfg: ALSConfig, n: int, gen: torch.Generator) -> np.ndarray
     return (torch.randn((n, cfg.rank), generator=gen, dtype=torch.float32) * scale).numpy()
 
 
+def _checkpoint_fingerprint(interactions, cfg: ALSConfig) -> np.ndarray:
+    """What ties a checkpoint to this config and dataset: the JAX package's
+    fields (``models/als.py:954-975``) at one shard, so no padding. A
+    foreign or permuted dataset (another digest) starts fresh."""
+    from predictionio_tpu_torch.core.checkpoint import dataset_digest
+
+    rating = interactions.rating.astype(np.float32)
+    return np.array(
+        [
+            interactions.n_users,
+            interactions.n_items,
+            len(rating),
+            cfg.rank,
+            int(cfg.implicit),
+            cfg.seed,
+            dataset_digest(
+                interactions.user.astype(np.int64),
+                interactions.item.astype(np.int64),
+                rating,
+            ),
+            float(cfg.reg),
+            float(cfg.alpha),
+            # rebalance, solver and shard count set the saved row order
+            int(cfg.rebalance),
+            int(cfg.solver == "dense"),
+            1,
+        ],
+        dtype=np.float64,
+    )
+
+
 def train_als(
     ctx: DeviceContext,
     interactions,
@@ -444,6 +491,12 @@ def train_als(
     device every bucket of every dense half-step launches the training
     kernel, and every segment half-step the segment kernel once; on the CPU
     they run the kernels' plain versions.
+
+    With ``config.checkpoint_dir`` the factors are saved (as host arrays,
+    in the solver's row order) after every ``checkpoint_interval``
+    iterations and the last; a run that finds a step whose fingerprint
+    matches resumes there and launches the kernels only for the
+    iterations left.
     """
     cfg = config or ALSConfig()
     device = ctx.device
@@ -477,12 +530,28 @@ def train_als(
             for blk in (ub, ib)
         )
         half_step = _dense_half_step
-    U = torch.from_numpy(np.ascontiguousarray(U0)).to(device)
-    V = torch.from_numpy(np.ascontiguousarray(V0)).to(device)
-    for _ in range(cfg.iterations):
+    start_iter, manager, fingerprint = 0, None, None
+    if cfg.checkpoint_dir:
+        from predictionio_tpu_torch.core import checkpoint as _checkpoint
+
+        _checkpoint.validate_interval(cfg.checkpoint_interval)
+        manager = _checkpoint.CheckpointManager(cfg.checkpoint_dir)
+        fingerprint = _checkpoint_fingerprint(interactions, cfg)
+        start_iter, state = _checkpoint.resume_from(manager, fingerprint, cfg.iterations)
+        if state is not None:
+            # the saved factors are in this solver's row order (the
+            # fingerprint names the solver)
+            U0, V0 = state["U"], state["V"]
+    U = torch.from_numpy(np.ascontiguousarray(U0, np.float32)).to(device)
+    V = torch.from_numpy(np.ascontiguousarray(V0, np.float32)).to(device)
+    for it in range(start_iter, cfg.iterations):
         # u-solve gathers ITEM factors, v-solve gathers USER factors
         U = half_step(u_blocks, V, _gram(V) if cfg.implicit else None, cfg)
         V = half_step(i_blocks, U, _gram(U) if cfg.implicit else None, cfg)
+        if manager is not None and _checkpoint.save_due(
+            it + 1, cfg.checkpoint_interval, cfg.iterations
+        ):
+            manager.save(it + 1, {"U": U, "V": V, "fingerprint": fingerprint})
     U_host, V_host = U.cpu().numpy(), V.cpu().numpy()
     if u_perm is not None:
         U_host, V_host = U_host[u_perm], V_host[i_perm]
@@ -493,6 +562,181 @@ def train_als(
         item_map=interactions.item_map,
         config=cfg,
     )
+
+
+class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
+    """ALSModel persisted through the PersistentModel protocol (checkpoint
+    mode, ``persistMode: "checkpoint"``).
+
+    Counterpart of ``predictionio_tpu/models/als.py:1379-1748`` (parity: the
+    reference's mode-2 persistence, ``PersistentModel.save`` + manifest):
+    only a manifest naming this class goes into MODELDATA. The factors live
+    under ``$PIO_FS_BASEDIR/persistent_models/<instance>/`` in a sealed
+    numpy store (``factors.blob``; the JAX package writes an orbax
+    checkpoint there, which the port cannot read, nor the JAX package this
+    store), the id maps and publish records in ``maps.pkl``, and the
+    quantized variant, when its gate passed, in ``quant.blob``. Deploy calls
+    :meth:`load`.
+    """
+
+    FACTORS = "factors.blob"
+    MAPS = "maps.pkl"
+    QUANT = "quant.blob"
+
+    @staticmethod
+    def _dir(instance_id: str) -> str:
+        from predictionio_tpu_torch.utils.fs import pio_base_dir
+
+        return os.path.join(pio_base_dir(), "persistent_models", instance_id)
+
+    def save(self, instance_id: str, params) -> bool:
+        import pickle
+
+        from predictionio_tpu_torch.core.checkpoint import save_state
+
+        _refuse_unported_publish_knobs()
+        d = self._dir(instance_id)
+        os.makedirs(d, exist_ok=True)
+        save_state(
+            os.path.join(d, self.FACTORS),
+            {"user_factors": self.user_factors, "item_factors": self.item_factors},
+        )
+        quant_meta = self._publish_quantized(d)
+        with open(os.path.join(d, self.MAPS), "wb") as f:
+            # the plan and IVF records as the JAX package writes them with
+            # their knobs unset: replicated, exact
+            pickle.dump(
+                {"user_map": self.user_map, "item_map": self.item_map,
+                 "config": self.config, "quant": quant_meta,
+                 "sharding": {"n_shards": 0}, "ivf": {"nlist": 0}},
+                f,
+            )
+        return True  # manifest mode: MODELDATA stores only the class path
+
+    def _publish_quantized(self, d: str) -> dict:
+        """Offline quantize step at model publish (``PIO_QUANT_DTYPE``).
+
+        Produces the bf16/int8 factor variant, measures its top-k overlap
+        against fp32 (:func:`core.evaluation.quantized_topk_overlap`), and
+        only if the overlap clears ``PIO_QUANT_MIN_OVERLAP`` (0.98) seals
+        the variant as ``quant.blob``. A refused variant leaves no blob and
+        serving keeps fp32. Returns the manifest record (always written, so
+        a refusal and its measured overlap stay auditable).
+        """
+        import pickle
+
+        from predictionio_tpu_torch.core import evaluation as _evaluation
+
+        dtype = (os.environ.get("PIO_QUANT_DTYPE") or "auto").strip().lower()
+        if dtype in ("auto", "f32", ""):
+            return {"dtype": "f32"}
+        user_q, user_scale = _quantize.quantize_factors(self.user_factors, dtype)
+        item_q, item_scale = _quantize.quantize_factors(self.item_factors, dtype)
+        k = min(100, self.item_factors.shape[0])
+        threshold = float(os.environ.get("PIO_QUANT_MIN_OVERLAP", "0.98"))
+        sample = int(os.environ.get("PIO_QUANT_EVAL_USERS", "256") or 256)
+        overlap = _evaluation.quantized_topk_overlap(
+            self.user_factors, self.item_factors,
+            user_q, user_scale, item_q, item_scale, k=k, sample=sample,
+        )
+        if overlap < threshold:
+            logger.warning(
+                "quantized publish REFUSED: %s top-%d overlap %.4f < %.4f "
+                "(PIO_QUANT_MIN_OVERLAP); serving keeps fp32",
+                dtype, k, overlap, threshold,
+            )
+            return {"dtype": "f32", "refused": dtype, "topk_overlap": overlap,
+                    "threshold": threshold, "k": k}
+        payload = pickle.dumps(
+            {"dtype": dtype, "user_factors_q": user_q, "user_scale": user_scale,
+             "item_factors_q": item_q, "item_scale": item_scale},
+            protocol=pickle.HIGHEST_PROTOCOL,
+        )
+        _persistence.seal_blob_file(os.path.join(d, self.QUANT), payload)
+        logger.info(
+            "quantized publish: %s factors sealed (top-%d overlap %.4f >= %.4f)",
+            dtype, k, overlap, threshold,
+        )
+        return {"dtype": dtype, "topk_overlap": overlap, "threshold": threshold, "k": k}
+
+    @classmethod
+    def load(cls, instance_id: str, params, ctx) -> "CheckpointedALSModel":
+        from predictionio_tpu_torch.core.checkpoint import restore_state
+
+        d = cls._dir(instance_id)
+        arrays = restore_state(os.path.join(d, cls.FACTORS))
+        with open(os.path.join(d, cls.MAPS), "rb") as f:
+            meta = _persistence.load_models_blob(f.read())
+        model = cls(
+            user_factors=np.asarray(arrays["user_factors"], np.float32),
+            item_factors=np.asarray(arrays["item_factors"], np.float32),
+            user_map=meta["user_map"],
+            item_map=meta["item_map"],
+            config=meta["config"],
+        )
+        cls._load_quantized(model, d, meta.get("quant") or {})
+        return model
+
+    @classmethod
+    def _load_quantized(cls, model: "CheckpointedALSModel", d: str, quant: dict) -> None:
+        """Attach the published quantized variant, if any and wanted.
+
+        ``PIO_QUANT_DTYPE`` at deploy: ``auto`` (default) serves whatever
+        dtype the manifest recorded; ``f32`` is the rollback switch; an
+        explicit ``bf16``/``int8`` must match the artifact or fp32 is served
+        with a warning. A missing or corrupt ``quant.blob`` degrades to
+        fp32 with a warning (the score kernel serves either on the card).
+        """
+        import pickle
+
+        recorded = quant.get("dtype", "f32")
+        want = (os.environ.get("PIO_QUANT_DTYPE") or "auto").strip().lower()
+        effective = recorded if want in ("auto", "") else want
+        if effective == "f32" or recorded == "f32":
+            if want in ("bf16", "int8") and recorded != want:
+                logger.warning(
+                    "PIO_QUANT_DTYPE=%s but artifact records %s; serving fp32",
+                    want, recorded,
+                )
+            return
+        if effective != recorded:
+            logger.warning(
+                "PIO_QUANT_DTYPE=%s but artifact records %s; serving fp32", want, recorded,
+            )
+            return
+        try:
+            payload = _persistence.load_models_blob(
+                _persistence.open_blob_file(os.path.join(d, cls.QUANT))
+            )
+            model.factor_dtype = payload["dtype"]
+            model.user_factors_q = payload["user_factors_q"]
+            model.user_scale = payload["user_scale"]
+            model.item_factors_q = payload["item_factors_q"]
+            model.item_scale = payload["item_scale"]
+            logger.info(
+                "loaded %s quantized factors (top-k overlap %.4f at publish)",
+                payload["dtype"], quant.get("topk_overlap", -1.0),
+            )
+        except (
+            _persistence.ModelIntegrityError, OSError, KeyError,
+            pickle.UnpicklingError, EOFError,
+        ) as e:
+            logger.warning("quantized factors unavailable (%s); serving fp32", e)
+
+
+def _refuse_unported_publish_knobs() -> None:
+    """A publish that asks for sharded serving or IVF retrieval raises: the
+    plan and IVF gates come with those slices."""
+    for knobs, what, item in (
+        (("PIO_SHARD_COUNT", "PIO_SHARD_HBM_BUDGET"), "a sharding plan", 10),
+        (("PIO_IVF_NLIST",), "an IVF index", 9),
+    ):
+        set_ = [k for k in knobs if os.environ.get(k, "").strip()]
+        if set_:
+            raise NotImplementedError(
+                f"{', '.join(set_)} asks the publish for {what}, which is not "
+                f"ported to predictionio_tpu_torch yet (ROADMAP §1 item {item})"
+            )
 
 
 class ALSScorer:
@@ -531,38 +775,64 @@ class ALSScorer:
             # per-query calls score through the fast path's factors
             self.enable_fastpath()
 
-    def enable_fastpath(self, max_k: Optional[int] = None):
+    def enable_fastpath(
+        self, max_k: Optional[int] = None, warm_buckets: Optional[tuple] = None
+    ):
         """Build the bucketed serving fast path (deploy/reload time).
 
-        Places the factors on the card and warms every rung; idempotent and
-        thread-safe. Built even when ``on_device`` is False: the batched
-        serve path amortizes the round trip that makes single queries
-        prefer the host.
+        Places the factors on the card and warms every rung (or only
+        ``warm_buckets``); idempotent and thread-safe. Built even when
+        ``on_device`` is False: the batched serve path amortizes the round
+        trip that makes single queries prefer the host.
         """
         fp = getattr(self, "_fastpath", None)
         if fp is None:
             with self._batch_init_lock:
                 fp = getattr(self, "_fastpath", None)
                 if fp is None:
-                    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
-
-                    m = self.model
-                    if m.factor_dtype != "f32" and m.user_factors_q is not None:
-                        # published quantized variant: narrow factors on the
-                        # card, upcast inside the kernel
-                        fp = BucketedScorer(
-                            self.ctx, m.user_factors_q, m.item_factors_q,
-                            max_k=max_k or self.max_k,
-                            factor_dtype=m.factor_dtype,
-                            user_scale=m.user_scale, item_scale=m.item_scale,
-                        )
-                    else:
-                        fp = BucketedScorer(
-                            self.ctx, m.user_factors, m.item_factors,
-                            max_k=max_k or self.max_k,
-                        )
+                    fp = self._new_scorer(max_k or self.max_k, warm_buckets)
                     self._fastpath = fp
         return fp
+
+    def _new_scorer(self, max_k: int, warm_buckets: Optional[tuple]):
+        from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+        m = self.model
+        if m.factor_dtype != "f32" and m.user_factors_q is not None:
+            # published quantized variant: narrow factors on the card,
+            # upcast inside the kernel
+            return BucketedScorer(
+                self.ctx, m.user_factors_q, m.item_factors_q, max_k=max_k,
+                factor_dtype=m.factor_dtype,
+                user_scale=m.user_scale, item_scale=m.item_scale,
+                warm_buckets=warm_buckets,
+            )
+        return BucketedScorer(
+            self.ctx, m.user_factors, m.item_factors, max_k=max_k,
+            warm_buckets=warm_buckets,
+        )
+
+    def _batch_fastpath(self, k: int):
+        """The card's scorer for a batch at top-``k``: the serving fast path
+        when it is (or would be) wide enough, else one of its own at width
+        ``k``. Either is warmed at the top rung only, the one batches use."""
+        from predictionio_tpu_torch.serving.fastpath import BUCKETS
+
+        if k > _score_kernel.MAX_K:
+            raise KernelError(
+                f"num={k} is above the score kernel's top-k limit {_score_kernel.MAX_K}"
+            )
+        top = BUCKETS[-1:]
+        fp = getattr(self, "_fastpath", None)
+        if fp is None and k <= self.max_k:
+            return self.enable_fastpath(warm_buckets=top)
+        if fp is not None and k <= fp.k:
+            return fp
+        with self._batch_init_lock:
+            wide = getattr(self, "_wide_fastpath", None)
+            if wide is None or wide.k < k:
+                wide = self._wide_fastpath = self._new_scorer(k, top)
+        return wide
 
     def fastpath_stats(self) -> Optional[dict]:
         fp = getattr(self, "_fastpath", None)
@@ -573,10 +843,19 @@ class ALSScorer:
     ) -> tuple[np.ndarray, np.ndarray]:
         """Unfiltered top-num for MANY users in one pass.
 
+        On the card the batch goes through the fast path, built on first
+        use whatever :attr:`HOST_THRESHOLD` says (it decides single queries
+        only), so the score kernel runs in top-rung chunks: the JAX
+        package's on-device batch program (``models/als.py:1904-1925``). A
+        ``num`` past the fast path's width gets a scorer of its own at that
+        width; one past the kernel's limit raises. On the CPU the host
+        product serves unless the fast path was built.
         Returns (idx (B, k), scores (B, k)).
         """
         users = np.asarray(user_indices, np.int64)
         k = min(max(num, 1), self.n_items)
+        if self.ctx.device.type == "cuda":
+            return self._batch_fastpath(k).score_topk(users, k)
         fp = getattr(self, "_fastpath", None)
         if fp is not None and k <= fp.k:
             return fp.score_topk(users, k)

@@ -24,13 +24,15 @@ sequence (causal cross-entropy).
   (:func:`_moe_ffn`), whose load-balancing loss joins the training loss.
 * :func:`train_sasrec` trains on one device: ``build_sequences``, the
   ``>= 2 events`` filter, the JAX package's numpy batch sampler, one Adam
-  step per epoch.
+  step per epoch. With ``checkpoint_dir`` the params and Adam state are
+  saved every ``checkpoint_interval`` epochs (``core/checkpoint.py``) and a
+  rerun resumes from the last step whose fingerprint matches.
 * :func:`sasrec_params_from_jax` carries a JAX param tree across;
   :func:`init_params` draws params on numpy with the JAX scales.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP item
 that brings them: ``seq_parallel`` and sharded (multi-host) interactions
-(item 10) and ``checkpoint_dir`` (item 7).
+(item 10).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.core import persistence as _persistence
 from predictionio_tpu_torch.data.batch import Interactions
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.ops.flash_attention import flash_attention, use_flash_default
@@ -69,7 +72,9 @@ class SASRecConfig:
     moe_aux_weight: float = 0.01
     # ring attention over a `model` mesh axis: not ported yet (item 10)
     seq_parallel: bool = False
-    # mid-training checkpoint/resume: not ported yet (item 7)
+    # mid-training checkpoint/resume: params + Adam state saved every
+    # checkpoint_interval epochs under checkpoint_dir; a restart resumes
+    # from the latest matching step
     checkpoint_dir: Optional[str] = None
     checkpoint_interval: int = 10
 
@@ -340,7 +345,8 @@ class SASRecModel:
         return {k: v for k, v in self.__dict__.items() if k not in ("_net", "_lock")}
 
     def __setstate__(self, state):
-        self.__dict__.update(state)
+        # a JAX-package model has no losses
+        _persistence.reconcile_state(self, state)
         self.__post_init__()
 
     def bind(self, device) -> SASRecNet:
@@ -451,18 +457,14 @@ def train_sasrec(
     (a host param tree, e.g. the JAX ``_init_params`` draw as numpy), else
     :func:`init_params` from ``seed``. On the card at a flash-eligible
     ``max_len`` every layer's attention runs the flash kernels, backward
-    included. Returns host float32 params and each step's loss.
+    included. Returns host float32 params and each step's loss (of the
+    steps this call ran: a resumed run starts at its checkpoint's epoch).
     """
     cfg = config or SASRecConfig()
     if cfg.seq_parallel:
         raise NotImplementedError(
             "seq_parallel (ring attention across devices) is not ported yet "
             "(ROADMAP §1 item 10)"
-        )
-    if cfg.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint_dir (mid-training checkpoints) is not ported yet "
-            "(ROADMAP §1 item 7)"
         )
     if not isinstance(interactions, Interactions):
         raise NotImplementedError(
@@ -473,14 +475,47 @@ def train_sasrec(
     n = len(seqs)
     batch = min(cfg.batch_size, n)
     start = init_params if init_params is not None else _draw_params(cfg.seed, cfg, interactions.n_items)
+    start_epoch, manager, fingerprint, restored = 0, None, None, None
+    if cfg.checkpoint_dir:
+        from predictionio_tpu_torch.core import checkpoint as _checkpoint
+
+        _checkpoint.validate_interval(cfg.checkpoint_interval)
+        manager = _checkpoint.CheckpointManager(cfg.checkpoint_dir)
+        # the JAX package's fields (models/sequential.py:525-545), one host
+        fingerprint = np.array(
+            [interactions.n_items, n, batch, cfg.d_model, cfg.n_layers, cfg.n_heads,
+             cfg.max_len, float(cfg.lr), cfg.seed, cfg.n_experts,
+             float(cfg.expert_capacity), float(cfg.moe_aux_weight),
+             _checkpoint.dataset_digest(seqs), int(cfg.seq_parallel)],
+            dtype=np.float64,
+        )
+        start_epoch, restored = _checkpoint.resume_from(manager, fingerprint, cfg.epochs)
+        if restored is not None:
+            start = restored["params"]
     net = SASRecNet(start, cfg, ctx.device, trainable=True)
     opt = adam(net, cfg)
+    if restored is not None:
+        opt.load_state_dict({
+            "state": {int(i): {k: torch.from_numpy(np.asarray(v)) for k, v in st.items()}
+                      for i, st in restored["opt"].items()},
+            "param_groups": opt.state_dict()["param_groups"],
+        })
     rows = torch.from_numpy(seqs.astype(np.int64)).to(ctx.device)
     rng = np.random.default_rng(cfg.seed)
-    losses = [
-        train_step(net, opt, rows[torch.from_numpy(rng.integers(0, n, batch)).to(ctx.device)], cfg)
-        for _ in range(cfg.epochs)
-    ]
+    for _ in range(start_epoch):  # resume: fast-forward the batch sampler
+        rng.integers(0, n, batch)
+    losses = []
+    for epoch in range(start_epoch, cfg.epochs):
+        picks = torch.from_numpy(rng.integers(0, n, batch)).to(ctx.device)
+        losses.append(train_step(net, opt, rows[picks], cfg))
+        if manager is not None and _checkpoint.save_due(
+            epoch + 1, cfg.checkpoint_interval, cfg.epochs
+        ):
+            manager.save(epoch + 1, {
+                "params": net.host_params(),
+                "opt": {str(i): st for i, st in opt.state_dict()["state"].items()},
+                "fingerprint": fingerprint,
+            })
     return SASRecModel(
         params=net.host_params(),
         item_map=interactions.item_map,

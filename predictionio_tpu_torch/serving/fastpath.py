@@ -88,6 +88,7 @@ class BucketedScorer:
         factor_dtype: str = "f32",
         user_scale: Optional[np.ndarray] = None,
         item_scale: Optional[np.ndarray] = None,
+        warm_buckets: Optional[tuple] = None,
     ):
         self.ctx = ctx
         self.n_users = user_factors.shape[0]
@@ -153,10 +154,11 @@ class BucketedScorer:
                     b, self._n_items_pad, rank, dtype=self.factor_dtype
                 )
                 self.devprof.set_cost(b, flops, nbytes, source="analytic")
-        # warm-up: build the kernel and launch every rung once, before the
-        # first request; a failure here raises to the deploy
+        # warm-up: build the kernel and launch every rung once (or only the
+        # rungs ``warm_buckets`` names), before the first request; a failure
+        # here raises to the deploy
         self.warmup_executions = 0
-        for b in self.buckets:
+        for b in self.buckets if warm_buckets is None else warm_buckets:
             self._launch(np.zeros(b, np.int32))
             self.warmup_executions += 1
         if self.ctx.device.type == "cuda":

@@ -2,25 +2,30 @@
 
 Counterpart of ``predictionio_tpu/templates/recommendation.py`` (parity:
 ``examples/scala-parallel-recommendation/``): the DataSource reads ``rate``
-(graded) and ``buy`` (weight 4.0) events, or the ``eventRatings`` mapping;
+(graded) and ``buy`` (weight 4.0) events, or the ``eventRatings`` mapping,
+and splits them into k folds for evaluation (``read_eval``);
 :class:`ExcludeItemsPreparator` drops file-listed items;
 ``ALSAlgorithm.train`` runs :func:`~predictionio_tpu_torch.models.als.
 train_als` (the dense solver through the training kernel, or, under
 ``PIO_ALS_SOLVER=segment``, the segment solver through the gather kernel)
 and its deploy and predict
 methods serve through the score kernel; :class:`FileFilterServing` filters
-a per-query disabled-items file.
+a per-query disabled-items file. ``persistMode: "checkpoint"`` publishes a
+:class:`~predictionio_tpu_torch.models.als.CheckpointedALSModel` (and with
+it the quantized variant behind its gate). :class:`PrecisionAtK`,
+:class:`NDCGAtK`, :class:`MAPAtK` and :class:`RecommendationEvaluation`
+are what ``pio eval`` runs.
 
 Not ported yet, and raising an error that names the ROADMAP item that
-brings them: a set ``eventWindow`` (the self-cleaning data source) and
-``read_eval`` (ROADMAP §1 item 11), and ``persistMode: "checkpoint"``
-(ROADMAP §1 item 7).
+brings it: a set ``eventWindow`` (the self-cleaning data source, ROADMAP
+§1 item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import Optional
 
 import numpy as np
@@ -35,11 +40,19 @@ from predictionio_tpu_torch.core import (
     Serving,
 )
 from predictionio_tpu_torch.core.controller import SanityCheck
+from predictionio_tpu_torch.core.evaluation import EngineParamsGenerator, Evaluation
+from predictionio_tpu_torch.core.metrics import OptionAverageMetric
 from predictionio_tpu_torch.core.persistence import RETRAIN
 from predictionio_tpu_torch.data import store
 from predictionio_tpu_torch.data.batch import Interactions, merge_interactions
 from predictionio_tpu_torch.device import DeviceContext
-from predictionio_tpu_torch.models.als import ALSConfig, ALSModel, ALSScorer, train_als
+from predictionio_tpu_torch.models.als import (
+    ALSConfig,
+    ALSModel,
+    ALSScorer,
+    CheckpointedALSModel,
+    train_als,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -150,9 +163,36 @@ class RecommendationDataSource(DataSource):
         )
 
     def read_eval(self, ctx):
-        raise NotImplementedError(
-            "read_eval (evaluation) is not ported yet (ROADMAP §1 item 11)"
+        """k-fold split (parity: DataSource.scala:83 readEval kFold): row i
+        is held out in fold i % kFold; each held-out user becomes one query
+        whose actual is its held-out items."""
+        ep = self.params.evalParams or {}
+        k_fold = int(ep.get("kFold", 3))
+        query_num = int(ep.get("queryNum", 10))
+        inter = _merge_part_reads(
+            lambda p: store.PEventStore.find_interactions(self.params.appName, **p),
+            self._part_filters(),
         )
+        fold_of = np.arange(len(inter)) % k_fold
+        inv_u, inv_i = inter.user_map.inverse, inter.item_map.inverse
+        folds = []
+        for f in range(k_fold):
+            train_sel = fold_of != f
+            td = TrainingData(inter.subset(train_sel))
+            # group held-out items per user in one sorted pass
+            tu, ti = inter.user[~train_sel], inter.item[~train_sel]
+            order = np.argsort(tu, kind="stable")
+            tu, ti = tu[order], ti[order]
+            qa = []
+            if len(tu):
+                bounds = np.flatnonzero(np.diff(tu)) + 1
+                for us, items in zip(np.split(tu, bounds), np.split(ti, bounds)):
+                    qa.append((
+                        Query(user=inv_u[int(us[0])], num=query_num),
+                        [inv_i[int(i)] for i in items],  # actual: held out
+                    ))
+            folds.append((td, qa))
+        return folds
 
 
 # -- Preparator (customize-data-prep variant) -------------------------------
@@ -232,10 +272,14 @@ class ALSAlgorithmParams(Params):
     implicitPrefs: bool = False
     alpha: float = 1.0
     seed: Optional[int] = None
+    # mid-training checkpoint/resume (reference knob: ALS
+    # setCheckpointInterval, ALSAlgorithm.scala:85; here it persists progress)
     checkpointDir: Optional[str] = None
-    # bound so engine.json files bind; read by nothing until mid-training
-    # checkpoints are ported (ROADMAP §1 item 7)
     checkpointInterval: int = 5
+    # deploy-time persistence mode (the reference's three modes):
+    #   auto       — pickled blob in MODELDATA (default)
+    #   checkpoint — PersistentModel manifest + sealed factor store
+    #   retrain    — retrain on deploy (Unit-model mode)
     persistMode: str = "auto"
 
     json_aliases = {"lambda": "reg"}
@@ -259,10 +303,6 @@ class ALSAlgorithm(Algorithm):
             raise ValueError(
                 f"persistMode {p.persistMode!r} not in {self.VALID_PERSIST_MODES}"
             )
-        if p.persistMode == "checkpoint":
-            raise NotImplementedError(
-                'persistMode "checkpoint" is not ported yet (ROADMAP §1 item 7)'
-            )
         return ALSConfig(
             rank=p.rank,
             iterations=p.numIterations,
@@ -271,6 +311,7 @@ class ALSAlgorithm(Algorithm):
             alpha=p.alpha,
             seed=3 if p.seed is None else p.seed,
             checkpoint_dir=p.checkpointDir,
+            checkpoint_interval=p.checkpointInterval,
         )
 
     def train(self, ctx, pd: PreparedData) -> ALSModel:
@@ -280,6 +321,11 @@ class ALSAlgorithm(Algorithm):
                 "ALSAlgorithm.scala:44-50)", self.params.numIterations,
             )
         model = train_als(ctx, pd.interactions, self._config())
+        if self.params.persistMode == "checkpoint":
+            model = CheckpointedALSModel(
+                model.user_factors, model.item_factors,
+                model.user_map, model.item_map, model.config,
+            )
         self._scorers[id(model)] = ALSScorer(ctx, model)
         return model
 
@@ -368,6 +414,105 @@ class ALSAlgorithm(Algorithm):
                 for i, s in zip(idx, scores)
             ]
         )
+
+
+# -- Evaluation (parity: examples/.../Evaluation.scala Precision@K) ----------
+
+
+class PrecisionAtK(OptionAverageMetric):
+    """Fraction of top-k recommendations that are in the held-out actuals.
+
+    Users with no recommendations score None and are excluded, matching the
+    reference's OptionAverageMetric usage.
+    """
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    @property
+    def header(self) -> str:
+        return f"Precision@{self.k}"
+
+    def calculate_one(self, query, prediction, actual) -> Optional[float]:
+        if not prediction.itemScores:
+            return None
+        top = [s.item for s in prediction.itemScores[: self.k]]
+        positives = set(actual)
+        if not top or not positives:
+            return None
+        # tp / min(k, |positives|) — reference formula (Evaluation.scala)
+        tp = sum(1 for it in top if it in positives)
+        return tp / min(self.k, len(positives))
+
+
+class NDCGAtK(OptionAverageMetric):
+    """Normalized discounted cumulative gain over the top-k ranking: gain 1
+    for each held-out actual, ideal DCG over min(k, |positives|)."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    @property
+    def header(self) -> str:
+        return f"NDCG@{self.k}"
+
+    def calculate_one(self, query, prediction, actual) -> Optional[float]:
+        top = [s.item for s in prediction.itemScores[: self.k]]
+        positives = set(actual)
+        if not top or not positives:
+            return None
+        dcg = sum(1.0 / math.log2(i + 2) for i, it in enumerate(top) if it in positives)
+        ideal = sum(1.0 / math.log2(i + 2) for i in range(min(self.k, len(positives))))
+        return dcg / ideal
+
+
+class MAPAtK(OptionAverageMetric):
+    """Mean average precision at k (average of precision at each hit rank)."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    @property
+    def header(self) -> str:
+        return f"MAP@{self.k}"
+
+    def calculate_one(self, query, prediction, actual) -> Optional[float]:
+        top = [s.item for s in prediction.itemScores[: self.k]]
+        positives = set(actual)
+        if not top or not positives:
+            return None
+        hits = 0
+        precision_sum = 0.0
+        for i, it in enumerate(top):
+            if it in positives:
+                hits += 1
+                precision_sum += hits / (i + 1)
+        return precision_sum / min(self.k, len(positives))
+
+
+_METRICS = {"precision": PrecisionAtK, "ndcg": NDCGAtK, "map": MAPAtK}
+
+
+class RecommendationEvaluation(Evaluation, EngineParamsGenerator):
+    """Grid over ALS rank (parity: Evaluation.scala + ParamsList): kFold 3,
+    5 iterations a candidate. ``metric`` selects the tuning objective
+    ("precision", "ndcg", "map"); the other two report beside it."""
+
+    def __init__(self, app_name: str = "default", ranks=(4, 8), k: int = 10,
+                 metric: str = "precision"):
+        if metric not in _METRICS:
+            raise ValueError(f"metric must be one of {sorted(_METRICS)}, got {metric!r}")
+        self.engine = RecommendationEngine.apply()
+        self.metric = _METRICS[metric](k=k)
+        self.metrics = [cls(k=k) for name, cls in _METRICS.items() if name != metric]
+        self.engine_params_list = [
+            self.engine.params_from_variant({
+                "datasource": {"params": {
+                    "appName": app_name, "evalParams": {"kFold": 3, "queryNum": k}}},
+                "algorithms": [{"name": "als", "params": {"rank": r, "numIterations": 5}}],
+            })
+            for r in ranks
+        ]
 
 
 # -- Engine factory ---------------------------------------------------------

@@ -4,11 +4,13 @@ Counterpart of ``predictionio_tpu/tools/cli.py`` (parity:
 ``tools/.../console/Console.scala:134-827``), with the verbs the quickstart
 and its operators run and the same argument names and ``[INFO]``/``[ERROR]``
 lines: ``version``, ``status``, ``build``, ``app``, ``accesskey``, ``train``,
-``deploy``, ``undeploy``, ``eventserver``, ``template`` and ``loadtest``.
+``eval``, ``deploy``, ``undeploy``, ``batchpredict``, ``eventserver``,
+``template`` and ``loadtest``.
 
     python -m predictionio_tpu_torch.tools.cli <verb> ...
 
-``train`` and ``deploy`` run on the CUDA card unless given ``--device cpu``;
+``train``, ``eval``, ``deploy`` and ``batchpredict`` run on the CUDA card
+unless given ``--device cpu``;
 without a card they exit non-zero with the ``DeviceContext`` error (the
 JAX package pins its platform from ``JAX_PLATFORMS`` instead). The device
 is never read from ``engine.json``. SIGTERM drains either server (in-flight
@@ -32,6 +34,7 @@ import sys
 from typing import Optional
 
 from predictionio_tpu_torch import __version__
+from predictionio_tpu_torch.core.persistence import ForeignClassError
 
 logger = logging.getLogger("pio")
 
@@ -307,6 +310,46 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    from predictionio_tpu_torch.core.evaluation import run_evaluation
+
+    # an explicit variant supplies the conf recorded on the instance
+    variant = load_variant(args) if (args.variant or args.engine_dir) else {}
+    result = run_evaluation(
+        evaluation_class=args.evaluation_class,
+        engine_params_generator_class=args.engine_params_generator_class,
+        storage=_storage(),
+        ctx=make_ctx(variant, args.device),
+        batch=args.batch or "",
+        output_path=args.output_best,
+    )
+    print(f"[INFO] Evaluation completed. Instance ID: {result.instance_id}")
+    print(result.summary)
+    if args.output_best:
+        print(f"[INFO] Best engine params written to {args.output_best}")
+    return 0
+
+
+def cmd_batchpredict(args) -> int:
+    from predictionio_tpu_torch.serving.batch_predict import run_batch_predict
+
+    variant = load_variant(args)
+    engine = resolve_engine_from_variant(variant)
+    engine_id, engine_version, engine_variant = engine_identity(variant)
+    n, written = run_batch_predict(
+        engine,
+        args.input,
+        args.output,
+        storage=_storage(),
+        ctx=make_ctx(variant, args.device),
+        engine_id=engine_id,
+        engine_version=engine_version,
+        engine_variant=engine_variant,
+    )
+    print(f"[INFO] Batch predict completed: {n} predictions -> {written}")
+    return 0
+
+
 def cmd_deploy(args) -> int:
     from predictionio_tpu_torch.serving.query_server import QueryServer
 
@@ -559,6 +602,19 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--stop-after-prepare", action="store_true")
     sp.set_defaults(func=cmd_train)
 
+    sp = sub.add_parser("eval")
+    sp.add_argument("evaluation_class")
+    sp.add_argument("engine_params_generator_class", nargs="?", default=None)
+    add_engine_args(sp)
+    add_device_arg(sp)
+    sp.add_argument("--batch", default="")
+    sp.add_argument(
+        "--output-best", default=None, metavar="PATH",
+        help="write the best engine params as JSON (parity: "
+        "MetricEvaluator.saveEngineJson best.json, MetricEvaluator.scala:193)",
+    )
+    sp.set_defaults(func=cmd_eval)
+
     sp = sub.add_parser("deploy")
     add_engine_args(sp)
     add_device_arg(sp)
@@ -584,6 +640,13 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--ip", default="127.0.0.1")
     sp.add_argument("--port", type=int, default=8000)
     sp.set_defaults(func=cmd_undeploy)
+
+    sp = sub.add_parser("batchpredict")
+    add_engine_args(sp)
+    add_device_arg(sp)
+    sp.add_argument("--input", required=True)
+    sp.add_argument("--output", required=True)
+    sp.set_defaults(func=cmd_batchpredict)
 
     sp = sub.add_parser("eventserver")
     sp.add_argument("--ip", default="0.0.0.0")
@@ -686,8 +749,10 @@ def main(argv: Optional[list[str]] = None) -> int:
         devnull = os.open(os.devnull, os.O_WRONLY)
         os.dup2(devnull, sys.stdout.fileno())
         return 0
-    except (FileNotFoundError, ValueError, RuntimeError) as e:
-        # NotImplementedError (a waiting ROADMAP item) is a RuntimeError
+    except (FileNotFoundError, ValueError, RuntimeError, ForeignClassError) as e:
+        # NotImplementedError (a waiting ROADMAP item) is a RuntimeError;
+        # ForeignClassError names a stored class of the JAX package the port
+        # refuses (any other ImportError keeps its traceback)
         return _die(str(e))
 
 

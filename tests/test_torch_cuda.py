@@ -747,3 +747,116 @@ def test_score_kernel_refusals_are_kernel_errors(card):
         score_kernel.fused_gather_score_topk(U, V, u, 65)
     with pytest.raises(KernelError, match="dtype"):
         score_kernel.fused_gather_score_topk(U.double(), V.double(), u, 5)
+
+
+# -- publish, resume and evaluate on the card ---------------------------------
+
+
+def _small_als_model(n_users=300, n_items=700, rank=10, seed=5):
+    rng = np.random.default_rng(seed)
+    return als.als_model_from_arrays(
+        rng.standard_normal((n_users, rank)).astype(np.float32),
+        rng.standard_normal((n_items, rank)).astype(np.float32),
+        [f"u{i}" for i in range(n_users)], [f"i{i}" for i in range(n_items)])
+
+
+@pytest.mark.cuda
+def test_batch_recommend_on_card_runs_the_kernel_in_top_rung_chunks(card):
+    """On the card a batch builds the fast path on first use (whatever
+    HOST_THRESHOLD says), warms its top rung only, and launches the score
+    kernel once a chunk of 64."""
+    m = _small_als_model()
+    scorer = als.ALSScorer(DeviceContext.create(device=card), m)
+    assert not scorer.on_device  # the catalog is below HOST_THRESHOLD
+    score_kernel.launches.reset()
+    users = np.arange(150)
+    idx, vals = scorer.recommend_batch(users, 10)
+    assert score_kernel.launches.count == 1 + 3  # the top rung's warm-up + ⌈150 / 64⌉
+    s = torch.from_numpy(m.user_factors[users]) @ torch.from_numpy(m.item_factors).T
+    rv, ri = torch.topk(s, 10, dim=1)
+    assert not topk_mismatches(vals, idx, rv.numpy(), ri.numpy(), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [150, 700, 900])
+def test_batch_recommend_on_card_past_the_serving_width(card, num):
+    """A ``num`` past the fast path's width (100) scores on the card through
+    a scorer of its own at that width, not on the host; the serving fast
+    path keeps its width. ``num`` past the catalog serves the whole catalog."""
+    m = _small_als_model()
+    scorer = als.ALSScorer(DeviceContext.create(device=card), m)
+    serving = scorer.enable_fastpath()
+    k = min(num, m.item_factors.shape[0])
+    score_kernel.launches.reset()
+    users = np.arange(150)
+    idx, vals = scorer.recommend_batch(users, num)
+    assert score_kernel.launches.count == 1 + 3  # the wide scorer's warm-up + ⌈150 / 64⌉
+    assert idx.shape == (150, k) and serving.k == 100 and scorer._wide_fastpath.k == k
+    s = torch.from_numpy(m.user_factors[users]) @ torch.from_numpy(m.item_factors).T
+    rv, ri = torch.topk(s, k, dim=1)
+    assert not topk_mismatches(vals, idx, rv.numpy(), ri.numpy(), 1e-5)
+
+
+@pytest.mark.cuda
+def test_batch_recommend_on_card_past_the_kernel_limit_raises(card):
+    from predictionio_tpu_torch.ops._build import KernelError
+
+    rng = np.random.default_rng(2)
+    n_items = score_kernel.MAX_K + 10
+    m = als.als_model_from_arrays(
+        rng.standard_normal((20, 4)).astype(np.float32),
+        rng.standard_normal((n_items, 4)).astype(np.float32),
+        [f"u{i}" for i in range(20)], [f"i{i}" for i in range(n_items)])
+    scorer = als.ALSScorer(DeviceContext.create(device=card), m)
+    with pytest.raises(KernelError, match=f"top-k limit {score_kernel.MAX_K}"):
+        scorer.recommend_batch(np.arange(5), score_kernel.MAX_K + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "segment"])
+def test_als_resume_on_card_equals_the_uninterrupted_run(card, tmp_path, solver):
+    rng = np.random.default_rng(1)
+    n = 20_000
+    inter = interactions_from_arrays(
+        rng.integers(0, 900, n), rng.zipf(1.3, n) % 400, rng.integers(1, 6, n).astype(np.float32),
+        np.zeros(n), [f"u{i}" for i in range(900)], [f"i{i}" for i in range(400)])
+    ctx = DeviceContext.create(device=card)
+    kw = dict(rank=10, solver=solver, compute_dtype="f32", checkpoint_interval=5)
+    full = als.train_als(ctx, inter, als.ALSConfig(iterations=20, **kw))
+    d = str(tmp_path)
+    als.train_als(ctx, inter, als.ALSConfig(iterations=10, checkpoint_dir=d, **kw))
+    counter = train_kernel.launches if solver == "dense" else train_kernel.segment_launches
+    counter.reset()
+    resumed = als.train_als(ctx, inter, als.ALSConfig(iterations=20, checkpoint_dir=d, **kw))
+    if solver == "segment":
+        assert counter.count == 2 * 10
+    np.testing.assert_array_equal(resumed.user_factors, full.user_factors)
+    np.testing.assert_array_equal(resumed.item_factors, full.item_factors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_checkpoint_publish_serves_the_quantized_variant_on_card(card, tmp_path, monkeypatch,
+                                                                  dtype):
+    from predictionio_tpu_torch.ops.quantize import factors_to_tensor, quantize_factors
+
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path))
+    monkeypatch.setenv("PIO_QUANT_DTYPE", dtype)
+    m = _small_als_model()
+    ck = als.CheckpointedALSModel(m.user_factors, m.item_factors, m.user_map, m.item_map, m.config)
+    assert ck.save("inst", None)
+    monkeypatch.delenv("PIO_QUANT_DTYPE")
+    loaded = als.CheckpointedALSModel.load("inst", None, None)
+    assert loaded.factor_dtype == dtype
+    fp = als.ALSScorer(DeviceContext.create(device=card), loaded).enable_fastpath()
+    assert fp.stats()["kernel"]["factor_dtype"] == dtype and fp.backend == "fused"
+    users = np.arange(64)
+    idx, vals = fp.score_topk(users, 20)
+    uq, us = quantize_factors(m.user_factors, dtype)
+    vq, vs = quantize_factors(m.item_factors, dtype)
+    s = factors_to_tensor(uq, "cpu").float()[users] * (1.0 if us is None else torch.from_numpy(us[users]))
+    s = s @ factors_to_tensor(vq, "cpu").float().T
+    if vs is not None:
+        s = s * torch.from_numpy(vs).reshape(1, -1)
+    rv, ri = torch.topk(s, 20, dim=1)
+    assert not topk_mismatches(vals, idx, rv.numpy(), ri.numpy(), 1e-5)

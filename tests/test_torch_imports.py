@@ -84,6 +84,10 @@ print(" ".join(names))
         "predictionio_tpu_torch.serving.fastpath", "predictionio_tpu_torch.serving.plugins",
         "predictionio_tpu_torch.serving.query_server", "predictionio_tpu_torch.tools.loadtest",
         "predictionio_tpu_torch.tools.scenarios",
+        # publish, resume and evaluate
+        "predictionio_tpu_torch.core.checkpoint", "predictionio_tpu_torch.core.evaluation",
+        "predictionio_tpu_torch.core.metrics", "predictionio_tpu_torch.core.cross_validation",
+        "predictionio_tpu_torch.serving.batch_predict",
     } <= names
     # the SASRec training, segment and operators' slices' names, by attribute
     code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "
@@ -147,3 +151,116 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_jax_written_instance_deploys_with_jax_blocked(tmp_path, monkeypatch):
+    """The fault this guards: the sqlite store is shared, and a JAX-written
+    blob, manifest or engineFactory used to import ``predictionio_tpu`` (and
+    jax) into the port's process. The JAX package writes an auto-mode and a
+    checkpoint-mode instance here; a subprocess with jax and
+    ``predictionio_tpu`` blocked deploys the first with the port and serves
+    the JAX model's answers (``topk_mismatches``, 1e-5), and refuses the
+    second (orbax factors) and a foreign class path with errors that name
+    them."""
+    import json
+
+    import numpy as np
+
+    from predictionio_tpu.core import persistence as jax_persistence
+    from predictionio_tpu.data.event import Event
+    from predictionio_tpu.data.storage import sqlite as jax_sqlite
+    from predictionio_tpu.data.storage.registry import Storage as JaxStorage
+    from predictionio_tpu.templates import recommendation as jax_rec
+    from predictionio_tpu.tools import cli as jax_cli
+    from predictionio_tpu_torch.testing import topk_mismatches
+
+    for k in list(os.environ):
+        if k.startswith(("PIO_STORAGE_", "PIO_ALS_", "PIO_QUANT_")):
+            monkeypatch.delenv(k)
+    base = tmp_path / "base"
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(base))
+    factory = "predictionio_tpu.templates.recommendation.RecommendationEngine"
+    JaxStorage.reset_instance()
+    try:
+        assert jax_cli.main(["app", "new", "Shared"]) == 0
+        storage = JaxStorage.instance()
+        app_id = storage.get_meta_data_apps().get_by_name("Shared").id
+        rng = np.random.default_rng(2)
+        storage.get_l_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=f"u{int(u)}",
+                  target_entity_type="item", target_entity_id=f"i{int(i)}",
+                  properties={"rating": int(r)}, event_time=1_767_225_600.0 + k)
+            for k, (u, i, r) in enumerate(zip(rng.integers(0, 25, 500), rng.integers(0, 20, 500),
+                                              rng.integers(1, 6, 500)))], app_id)
+        for variant, mode in (("default", "auto"), ("ckpt", "checkpoint")):
+            d = tmp_path / variant
+            d.mkdir()
+            (d / "engine.json").write_text(json.dumps({
+                "id": variant, "engineFactory": factory,
+                "datasource": {"params": {"appName": "Shared"}},
+                "algorithms": [{"name": "als", "params": {
+                    "rank": 4, "numIterations": 3, "persistMode": mode}}]}))
+            assert jax_cli.main(["train", "--engine-dir", str(d)]) == 0
+        inst = storage.get_meta_data_engine_instances().get_latest_completed(
+            factory, "default", "default")
+        params = jax_rec.ALSAlgorithmParams()
+        model = jax_persistence.deserialize_models(
+            jax_persistence.open_model_blob(storage.get_model_data_models().get(inst.id).models),
+            inst.id, [jax_rec.ALSAlgorithm(params)], [params], None)[0][0]
+    finally:
+        JaxStorage.reset_instance()
+        jax_sqlite.close_all_dbs()
+
+    code = f"""
+import json, sys, threading
+sys.modules['jax'] = None
+sys.modules['predictionio_tpu'] = None
+from predictionio_tpu_torch.core import persistence
+from predictionio_tpu_torch.core.workflow import resolve_engine
+from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.serving.query_server import QueryServer
+out = {{}}
+engine = resolve_engine({factory!r})
+storage = Storage.instance()
+ctx = DeviceContext.create(device="cpu")
+qs = QueryServer(engine, storage=storage, ctx=ctx, engine_id={factory!r}, batching=True)
+import urllib.request
+base = f"http://127.0.0.1:{{qs.start('127.0.0.1', 0)}}"
+def post(q):
+    req = urllib.request.Request(base + "/queries.json", data=json.dumps(q).encode(),
+                                 headers={{"Content-Type": "application/json"}})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read())
+out["instance"] = qs._deployed.instance_id
+out["answers"] = {{f"u{{k}}": post({{"user": f"u{{k}}", "num": 5}}) for k in range(25)}}
+qs.stop()
+try:
+    QueryServer(engine, storage=storage, ctx=ctx, engine_id={factory!r}, engine_variant="ckpt")
+except Exception as e:
+    out["checkpoint_error"] = f"{{type(e).__name__}}: {{e}}"
+try:
+    persistence.resolve_class("predictionio_tpu.models.cooccurrence.CooccurrenceModel")
+except ImportError as e:
+    out["foreign_error"] = str(e)
+bad = [m for m, mod in sys.modules.items() if mod is not None
+       and m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'orbax', 'predictionio_tpu')]
+out["foreign_modules"] = bad
+print(json.dumps(out, default=str))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["foreign_modules"] == [] and out["instance"] == inst.id
+    assert "orbax" in out["checkpoint_error"] and "CheckpointedALSModel" in out["checkpoint_error"]
+    assert "predictionio_tpu.models.cooccurrence.CooccurrenceModel" in out["foreign_error"]
+    for u, answer in out["answers"].items():
+        got = answer["itemScores"]
+        row = model.user_factors[model.user_map[u]] @ model.item_factors.T
+        ref = np.argsort(-row, kind="stable")[:5]
+        bad = topk_mismatches(np.array([[x["score"] for x in got]]),
+                              np.array([[model.item_map[x["item"]] for x in got]]),
+                              row[ref][None], ref[None], 1e-5)
+        assert not bad, (u, bad[:3])

@@ -241,7 +241,8 @@ def test_not_ported_parts_name_their_roadmap_item():
         seq.sasrec_params_from_jax(params)
     with pytest.raises(NotImplementedError, match="item 10"):
         seq.train_sasrec(CPU, None, seq.SASRecConfig(seq_parallel=True))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # checkpoints are ported: only the sharded input stops this one
+    with pytest.raises(NotImplementedError, match="item 10"):
         seq.train_sasrec(CPU, None, seq.SASRecConfig(checkpoint_dir="/nowhere"))
     with pytest.raises(NotImplementedError, match="item 10"):
         seq.train_sasrec(CPU, None)

@@ -371,8 +371,15 @@ def test_waiting_parts_name_their_roadmap_item(tmp_path):
     assert len(s.get_p_events().find(1, shard=(0, 1))) == 0  # one shard is the whole read
     with pytest.raises(NotImplementedError, match="item 14"):
         s.get_l_events().search(1, "x")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_sqlite.SqliteEvaluationInstances(path=str(tmp_path / "w.db"))
+    # evaluation instances are ported: a round trip on the JAX schema
+    ev = s.get_meta_data_evaluation_instances()
+    now = dt.datetime.now(tz=dt.timezone.utc)
+    rec = port_base.EvaluationInstance(id="", status=ev.STATUS_INIT, start_time=now, end_time=now,
+                                  evaluation_class="E", env={"a": "1"})
+    iid = ev.insert(rec)
+    rec.status, rec.evaluator_results_json = ev.STATUS_COMPLETED, '{"bestScore": 1}'
+    assert ev.update(rec) and ev.get(iid) == rec
+    assert [i.id for i in ev.get_completed()] == [iid] and ev.delete(iid) and ev.get(iid) is None
     port_sqlite.close_all_dbs()
 
 

@@ -200,7 +200,7 @@ def test_failed_train_marks_instance_aborted(stores):
     port_storage, _ = stores
     engine = rec.RecommendationEngine.apply()
     for variant, err in (
-        (_variant(persistMode="checkpoint"), NotImplementedError),
+        (_variant(persistMode="bogus"), ValueError),
         (_variant(rank=65), ValueError),
         ({"datasource": {"params": {"appName": "missing"}}}, ValueError),
     ):
