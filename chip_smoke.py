@@ -249,6 +249,33 @@ code is not 0 and the last line is never printed.
              64⌉ a fold, every batch-predicted answer held against ``torch.topk(U[u]
              @ V.T)`` on the CPU on that fold's factors, the EvaluationInstance
              EVALCOMPLETED in sqlite and ``best.json`` naming the best rank.
+15. streaming — streaming micro-generations, in a fresh sqlite store under
+             ``PIO_STREAMING=1``: the full-width model of phase 4 published
+             in auto mode (f32) and in checkpoint mode under
+             ``PIO_QUANT_DTYPE=int8``, both deployed with ``pio deploy
+             --batching`` as subprocesses (one base fingerprint, one delta
+             log); the port's ``EventServer(ingest_mode="fast")`` with its
+             WAL in this process, its delta publisher on a copy of the
+             model. Traffic, as ``bench.py``'s freshness bench: 10 batches of
+             24 ``rate`` events for existing users (Zipf s 1.1, q 50, over
+             users and items) POSTed to ``/events.json`` (each a 202), each
+             folded once committed (fold, gate against the float64 solve,
+             seal), its blob pushed to both replicas with ``POST /delta`` in
+             place of the router; then 512 events, folded when the 512th
+             commits (``PIO_DELTA_MAX_EVENTS``); all under a closed loop of
+             ``/queries.json`` at concurrency 16 over both replicas, which
+             must see no error. Each event is visible when both replicas
+             answer its user as the plain version of kernel 1 does on U′
+             (the base plus every sealed delta's rows read back from the
+             log, re-quantized at int8); p50/p99 of 202 → visible, fold +
+             gate + seal ms, push ms and each replica's patch time (CUDA
+             events) are printed. 200 sampled answers of each replica
+             against the plain version on U′; every fast-acked id read back
+             from sqlite by a fresh process; a third ``pio deploy`` of the
+             f32 instance must answer ``/readyz`` 200 first at the log's
+             epoch and then as the first replica does; on every replica
+             kernel 1's launches equal its dispatches and its warm-ups and
+             kernel builds stay as at readiness.
 
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
@@ -2664,13 +2691,14 @@ def cli_run(*argv) -> str:
     return out
 
 
-def http_json(url, body=None, method=None, timeout=60):
-    """(status, JSON body) of one request, error statuses included."""
+def http_json(url, body=None, method=None, timeout=60, raw=None):
+    """(status, JSON body) of one request, error statuses included; ``raw``
+    bytes go as ``application/octet-stream`` instead of a JSON ``body``."""
     import urllib.error
 
-    data = json.dumps(body).encode() if body is not None else None
-    req = urllib.request.Request(url, data=data, method=method,
-                                 headers={"Content-Type": "application/json"})
+    data = raw if raw is not None else json.dumps(body).encode() if body is not None else None
+    ctype = "application/octet-stream" if raw is not None else "application/json"
+    req = urllib.request.Request(url, data=data, method=method, headers={"Content-Type": ctype})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, json.loads(r.read())
@@ -4013,6 +4041,396 @@ def phase_publish_eval(model, seed, device, kernel_rows, ops):
     return out
 
 
+# -- streaming micro-generations (phase 15) -----------------------------------
+
+
+ST_BATCHES, ST_PER_BATCH = 10, 24  # bench.py's freshness defaults: batches × rate events
+ST_MAX_EVENTS = 512  # PIO_DELTA_MAX_EVENTS: the size-triggered fold
+ST_CONCURRENCY = 16  # the closed loop of /queries.json while the deltas land
+ST_SAMPLED = 200  # answers a server holds against the plain version at the end
+ST_VISIBLE_S = 10.0  # an event not visible this long after its delta's push fails
+ST_APP = "StreamApp"
+
+
+def phase_streaming(model, seed, device):
+    """Streaming micro-generations on the card: see the module docstring,
+    phase 15."""
+    import copy
+    import http.client
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.core import delta as delta_mod
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.api.event_server import EventServer
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.base import AccessKey, App
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+    from predictionio_tpu_torch.templates import recommendation as rec
+    from predictionio_tpu_torch.testing import topk_mismatches
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pio-streaming-")
+    knobs = ("PIO_FS_BASEDIR", "PIO_STREAMING", "PIO_DELTA_DIR", "PIO_DELTA_CATCHUP_MS",
+             "PIO_DELTA_FLUSH_MS", "PIO_DELTA_MAX_EVENTS", "PIO_DELTA_MIN_OVERLAP",
+             "PIO_DELTA_GATE_SAMPLE", "PIO_FRESHNESS_SLO_MS", "PIO_QUANT_DTYPE",
+             "PIO_QUANT_MIN_OVERLAP", "PIO_RESULT_CACHE", "PIO_COALESCE", "PIO_HOTSET_SIZE",
+             "PIO_INGEST_BUFFER", "PIO_WAL_DIR", "PIO_ALS_SOLVER", "PIO_ALS_COMPUTE_DTYPE")
+    saved = {k: v for k, v in os.environ.items() if k.startswith("PIO_STORAGE_") or k in knobs}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(
+        PIO_FS_BASEDIR=os.path.join(tmp, "base"), PIO_STREAMING="1",
+        PIO_DELTA_DIR=os.path.join(tmp, "deltas"),
+        # the push is the path measured (the router's hop): the replicas'
+        # catch-up poll and the publisher's paced flush are parked, and the
+        # phase folds each batch as soon as it has committed, as bench.py does
+        PIO_DELTA_CATCHUP_MS="60000", PIO_DELTA_FLUSH_MS="60000")
+    Storage.reset_instance()
+    store.set_storage(None)
+    servers, es, stop_load, loaders = [], None, threading.Event(), []
+    out = {"phase": "streaming"}
+    users = [model.user_map.inverse[j] for j in range(len(model.user_map))]
+    items = [model.item_map.inverse[j] for j in range(len(model.item_map))]
+    item_index = {it: j for j, it in enumerate(items)}
+
+    def step(name, **row):
+        row["t"] = time.perf_counter() - t_phase
+        emit({"phase": "streaming", "step": name, **row})
+        return row
+
+    try:
+        storage = Storage.instance()
+        engine = rec.RecommendationEngine.apply()
+        # 1. publish the base generation twice: f32 (auto mode) and int8
+        # (checkpoint mode, through the quantized gate); deploy both
+        dirs = {d: os.path.join(tmp, f"engine-{d}") for d in ("f32", "int8")}
+        inst = {"f32": publish(storage, engine, model, engine_id=ALS_FACTORY, engine_variant="f32",
+                               variant=write_engine_json(dirs["f32"], "f32", {"rank": RANK}))}
+        os.environ["PIO_QUANT_DTYPE"] = "int8"
+        ckpt = als.CheckpointedALSModel(model.user_factors, model.item_factors, model.user_map,
+                                        model.item_map, model.config)
+        inst["int8"] = publish(storage, engine, ckpt, engine_id=ALS_FACTORY, engine_variant="int8",
+                               variant=write_engine_json(dirs["int8"], "int8",
+                                                         {"rank": RANK, "persistMode": "checkpoint"}))
+        del os.environ["PIO_QUANT_DTYPE"]
+        deploy = {d: CliServer(tmp, f"stream-{d}", "deploy", "--engine-dir", dirs[d], "--batching",
+                               "--device", device.type) for d in dirs}
+        servers += deploy.values()
+        ready_s = {d: srv.wait_ready() for d, srv in deploy.items()}
+        fp = delta_mod.model_fingerprint(model.user_factors, model.item_factors)
+        at_ready = {}
+        for d, srv in deploy.items():
+            info = http_json(f"{srv.base}/")[1]
+            dstats = http_json(f"{srv.base}/delta/stats")[1]
+            served = info["fastpath"][0]["kernel"]["factor_dtype"]
+            require(served == d and dstats["fingerprint"] == fp and dstats["applied_epoch"] == 0,
+                    f"{d} replica serves {served}, fingerprint {dstats.get('fingerprint')} vs {fp}")
+            at_ready[d] = info
+        log = delta_mod.DeltaLog(dstats["dir"])
+        step("deploy", ready_s=ready_s, fingerprint=fp, instances=inst, delta_dir=dstats["dir"])
+
+        # 2. the event plane: the fast-ack event server in this process, its
+        # publisher on its own copy of the base generation
+        app_id = storage.get_meta_data_apps().insert(App(0, ST_APP))
+        key = storage.get_meta_data_access_keys().insert(AccessKey("", app_id, []))
+        es = EventServer(storage=storage, ingest_mode="fast", wal_dir=os.path.join(tmp, "wal"),
+                         ingest_flush_ms=5.0, telemetry=False)
+        es_base = f"http://127.0.0.1:{es.start('127.0.0.1', 0)}"
+        sealed_at = {}
+        pub = es.enable_delta_publisher(
+            copy.deepcopy(model), max_events=ST_MAX_EVENTS,
+            on_receipt=lambda r: sealed_at.setdefault(r.get("epoch"), (time.perf_counter(), r)))
+        require(pub is not None and pub.base_fingerprint == fp and pub.log.directory == log.directory,
+                f"publisher base {pub and pub.base_fingerprint} vs the replicas' {fp}")
+
+        # U′ on the card, as each replica should hold it: the base, patched
+        # with every sealed delta's rows read back from the log
+        truth = {d: Inputs(model.user_factors, model.item_factors, d, device) for d in dirs}
+
+        def land(dl):
+            idx = torch.from_numpy(np.asarray(dl.user_idx, np.int64)).to(device)
+            for d, inp in truth.items():
+                q, s = quantize_factors(dl.user_rows, d)
+                inp.U[idx] = torch.from_numpy(q).to(device)
+                if s is not None:
+                    inp.us[idx] = torch.from_numpy(s).to(device)
+
+        def want(d, uidx, num):
+            vals, idx = truth[d].plain(torch.tensor(uidx, dtype=torch.int32, device=device), num)
+            return vals.cpu().numpy(), idx.cpu().numpy()
+
+        def post(conn, path, body):
+            conn.request("POST", path, body=json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+
+        # 3. a closed loop of /queries.json at concurrency 16 over both
+        # replicas (Zipf over every user) while the deltas land
+        w_users = zipf_mandelbrot_weights(len(users), 1.1)
+        w_items = zipf_mandelbrot_weights(len(items), 1.1)
+        load = {"ok": 0, "errors": 0, "error_samples": []}
+        load_lock = threading.Lock()
+
+        def loader(t):
+            srv = list(deploy.values())[t % 2]
+            draws = np.random.default_rng(seed + 1500 + t).choice(len(users), 20_000, p=w_users)
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=30)
+            n = 0
+            while not stop_load.is_set():
+                u = users[int(draws[n % len(draws)])]
+                n += 1
+                try:
+                    status, body = post(conn, "/queries.json", {"user": u, "num": OPS_NUM})
+                    ok = status == 200 and len(body["itemScores"]) == OPS_NUM
+                except Exception as e:  # a dropped connection counts, then reconnects
+                    conn.close()
+                    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=30)
+                    ok, body = False, repr(e)
+                with load_lock:
+                    load["ok" if ok else "errors"] += 1
+                    if not ok and len(load["error_samples"]) < 5:
+                        load["error_samples"].append(str(body)[:300])
+            conn.close()
+
+        loaders += [threading.Thread(target=loader, args=(t,), daemon=True)
+                    for t in range(ST_CONCURRENCY)]
+        for t in loaders:
+            t.start()
+
+        # 4. the traffic: batches of rate events for existing users (Zipf),
+        # each folded once committed, pushed to both replicas, then watched
+        # until every event's user is answered from the patched rows
+        erng = np.random.default_rng(seed + 1501)
+        es_conn = http.client.HTTPConnection("127.0.0.1", int(es_base.rsplit(":", 1)[1]), timeout=30)
+        acked, visible, epochs = [], {}, []
+        poll = ThreadPoolExecutor(8)
+
+        def visible_at(d, u, wv, wi, deadline):
+            """perf_counter of the first answer for ``u`` on replica ``d``
+            that equals the plain version on U′ (``wv``, ``wi``)."""
+            conn = http.client.HTTPConnection("127.0.0.1", deploy[d].port, timeout=30)
+            try:
+                while time.perf_counter() < deadline:
+                    status, a = post(conn, "/queries.json", {"user": u, "num": OPS_NUM})
+                    now = time.perf_counter()
+                    if status == 200:
+                        gi = np.array([[item_index[x["item"]] for x in a["itemScores"]]])
+                        gv = np.array([[x["score"] for x in a["itemScores"]]])
+                        if not topk_mismatches(gv, gi, wv, wi, TOL):
+                            return now
+            finally:
+                conn.close()
+            return None
+
+        def run_epoch(n_events, batch_no):
+            uu = erng.choice(len(users), n_events, p=w_users)
+            ii = erng.choice(len(items), n_events, p=w_items)
+            rr = erng.integers(1, 6, n_events)
+            epoch = log.last_epoch() + 1
+            t_ack = []
+            for j in range(n_events):
+                eid = f"st-{batch_no:02d}-{j:04d}"
+                status, body = post(es_conn, f"/events.json?accessKey={key}", {
+                    "event": "rate", "entityType": "user", "entityId": users[uu[j]],
+                    "targetEntityType": "item", "targetEntityId": items[ii[j]],
+                    "properties": {"rating": int(rr[j])}, "eventId": eid})
+                require(status == 202 and body["eventId"] == eid, f"POST {eid}: {status} {body}")
+                t_ack.append(time.perf_counter())
+                acked.append(eid)
+            t_last = t_ack[-1]
+            if n_events >= ST_MAX_EVENTS:
+                # the size-triggered fold runs inline on the ingest flusher
+                deadline = time.perf_counter() + 60
+                while epoch not in sealed_at and time.perf_counter() < deadline:
+                    time.sleep(0.001)
+                t_committed = None
+                require(epoch in sealed_at, f"the {n_events}-event fold never sealed")
+                t_sealed, receipt = sealed_at[epoch]
+                seal_ms = None
+            else:
+                deadline = time.perf_counter() + 30
+                while pub.pending() < n_events and time.perf_counter() < deadline:
+                    time.sleep(0.0005)
+                t_committed = time.perf_counter()
+                receipt = pub.flush()
+                t_sealed = time.perf_counter()
+                seal_ms = (t_sealed - t_committed) * 1e3
+            require(bool(receipt and receipt.get("sealed")) and receipt["epoch"] == epoch,
+                    f"batch {batch_no}: {receipt}")
+            blob = open(log.path(epoch), "rb").read()
+            land(log.read(epoch))
+            push_ms, apply = {}, {}
+            for d, srv in deploy.items():
+                t0 = time.perf_counter()
+                status, ack = http_json(f"{srv.base}/delta", method="POST", raw=blob)
+                push_ms[d] = (time.perf_counter() - t0) * 1e3
+                require(status == 200 and ack.get("applied") and ack["epoch"] == epoch,
+                        f"{d} replica's ack of epoch {epoch}: {status} {ack}")
+                apply[d] = http_json(f"{srv.base}/delta/stats")[1]["last_apply"]
+                require(apply[d]["warmup_executions"]
+                        == at_ready[d]["fastpath"][0]["kernel"]["warmup_executions"]
+                        and apply[d]["kernel_builds"] == at_ready[d]["kernelBuilds"],
+                        f"{d} replica warmed or built again at epoch {epoch}: {apply[d]}")
+            t_pushed = time.perf_counter()
+            deadline = t_pushed + ST_VISIBLE_S
+            uniq = sorted(set(int(u) for u in uu))
+            expect = {d: want(d, uniq, OPS_NUM) for d in dirs}
+            seen = {(d, u): poll.submit(visible_at, d, users[u], expect[d][0][j:j + 1],
+                                        expect[d][1][j:j + 1], deadline)
+                    for d in dirs for j, u in enumerate(uniq)}
+            first = {}
+            for (d, u), f in seen.items():
+                t = f.result()
+                require(t is not None, f"epoch {epoch}: {users[u]} never answered from U′ on {d}")
+                first[u] = max(first.get(u, 0.0), t)
+            vis = [(first[int(u)] - ta) * 1e3 for u, ta in zip(uu, t_ack)]
+            visible.setdefault("fold" if n_events >= ST_MAX_EVENTS else "batches", []).extend(vis)
+            row = {"epoch": epoch, "events": n_events, "users": int(receipt["users"]),
+                   "overlap": receipt["overlap"],
+                   "commit_ms": None if t_committed is None else (t_committed - t_last) * 1e3,
+                   "fold_gate_seal_ms": seal_ms, "last_ack_to_sealed_ms": (t_sealed - t_last) * 1e3,
+                   "push_ms": push_ms, "apply_device_ms": {d: a["device_ms"] for d, a in apply.items()},
+                   "visible_ms_max": max(vis), "visible_ms_min": min(vis)}
+            epochs.append(row)
+            return row
+
+        for b in range(ST_BATCHES):
+            step("epoch", **run_epoch(ST_PER_BATCH, b))
+        step("epoch", **run_epoch(ST_MAX_EVENTS, ST_BATCHES))
+        stop_load.set()
+        for t in loaders:
+            t.join(60)
+        poll.shutdown()
+        es_conn.close()
+        require(load["errors"] == 0 and load["ok"] > 0,
+                f"query errors while the deltas landed: {load}")
+        head = log.last_epoch()
+        require(head == ST_BATCHES + 1 and pub.stats()["sealed"] == head,
+                f"log epoch {head}, publisher {pub.stats()}")
+
+        # 5. sampled answers of both replicas against the plain version on U′
+        srng = np.random.default_rng(seed + 1502)
+        patched = sorted(set().union(*(set(log.read(e).user_idx.tolist()) for e in log.epochs())))
+        sample = list(srng.choice(patched, ST_SAMPLED // 2, replace=False)) + \
+            list(srng.integers(0, len(users), ST_SAMPLED // 2))
+        mism = {}
+        for d, srv in deploy.items():
+            wv, wi = want(d, [int(u) for u in sample], K)
+            bad = []
+            for j, u in enumerate(sample):
+                n = 1 + j % K
+                status, a = http_json(f"{srv.base}/queries.json", {"user": users[int(u)], "num": n})
+                require(status == 200, f"{d}: {status} {a}")
+                gi = np.array([[item_index[x["item"]] for x in a["itemScores"]]])
+                gv = np.array([[x["score"] for x in a["itemScores"]]])
+                bad += topk_mismatches(gv, gi, wv[j:j + 1, :n], wi[j:j + 1, :n], TOL)
+            mism[d] = len(bad)
+            require(not bad, f"{d} replica vs torch.topk(U′[u] @ V.T): {bad[:3]}")
+
+        # 6. the event plane drains; a fresh process reads every acked id back
+        es.stop()
+        es = None
+        probe = subprocess.run(
+            [sys.executable, "-c", (
+                "import json, sys; sys.modules['jax'] = None\n"
+                "from predictionio_tpu_torch.data.storage.registry import Storage\n"
+                f"ids = [e.event_id for e in Storage().get_l_events().find({app_id})]\n"
+                "print(json.dumps(ids))")],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+            timeout=120)
+        require(probe.returncode == 0, f"fresh reader: {probe.stderr[-2000:]}")
+        stored = set(json.loads(probe.stdout.strip().splitlines()[-1]))
+        lost = [i for i in acked if i not in stored]
+        require(not lost, f"{len(lost)} fast-acked events lost: {lost[:5]}")
+
+        # 7. a restarted replica: ready only at the log's epoch, then answers
+        # as the first f32 replica does
+        again = CliServer(tmp, "stream-restart", "deploy", "--engine-dir", dirs["f32"],
+                          "--batching", "--device", device.type)
+        servers.append(again)
+        t_end, first_ready = time.monotonic() + 300, None
+        while first_ready is None and time.monotonic() < t_end:
+            require(again.proc.poll() is None, f"restart exited: {again.tail()}")
+            try:
+                status, rz = http_json(f"{again.base}/readyz", timeout=5)
+                if status == 200:
+                    first_ready = rz
+            except OSError:
+                time.sleep(0.02)
+        require(first_ready is not None and first_ready["deltaEpoch"] == head
+                and first_ready["deltaLogEpoch"] == head,
+                f"restarted replica's first ready answer: {first_ready}")
+        restart_at = http_json(f"{again.base}/")[1]
+        same = 0
+        for u in sample[: ST_SAMPLED // 2]:
+            q = {"user": users[int(u)], "num": OPS_NUM}
+            a, b = (http_json(f"{s.base}/queries.json", q)[1] for s in (again, deploy["f32"]))
+            require(a["itemScores"] == b["itemScores"], f"restart vs first replica for {q}: {a} {b}")
+            same += 1
+
+        # 8. kernel 1 on each replica: launches = dispatches; no warm-up or build
+        launches = {}
+        for d, srv, start in (("f32", deploy["f32"], at_ready["f32"]),
+                              ("int8", deploy["int8"], at_ready["int8"]),
+                              ("restart", again, restart_at)):
+            final = http_json(f"{srv.base}/")[1]
+            n = final["scoreKernelLaunches"] - start["scoreKernelLaunches"]
+            calls = final["fastpath"][0]["calls"] - start["fastpath"][0]["calls"]
+            require(n == calls > 0, f"{d}: kernel 1 launched {n} times vs {calls} dispatches")
+            require(final["fastpath"][0]["kernel"]["warmup_executions"]
+                    == start["fastpath"][0]["kernel"]["warmup_executions"]
+                    and final["kernelBuilds"] == start["kernelBuilds"],
+                    f"{d}: warm-ups or builds moved: {final['fastpath'][0]['kernel']}")
+            launches[d] = {"launches": n, "dispatches": calls,
+                           "deltas": final["fastpath"][0]["deltas"]}
+            cli_run("undeploy", "--port", str(srv.port))
+            srv.wait_exit()
+        seal = [r["fold_gate_seal_ms"] for r in epochs if r["fold_gate_seal_ms"] is not None]
+        applies = {d: [r["apply_device_ms"][d] for r in epochs] for d in dirs}
+        out.update(
+            batches=ST_BATCHES, events_per_batch=ST_PER_BATCH, size_fold_events=ST_MAX_EVENTS,
+            concurrency=ST_CONCURRENCY, events=len(acked), epochs_sealed=head,
+            epochs_applied={d: head for d in dirs}, lost_acked_events=len(lost),
+            query_ok=load["ok"], query_errors=load["errors"],
+            # 202 → answered from U′: the 24-event batches, then the
+            # size-triggered fold, whose first events wait for its last
+            visible_ms={kind: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99)),
+                               "max": float(max(v)), "n": len(v)} for kind, v in visible.items()},
+            fold_gate_seal_ms={"median": float(np.median(seal)), "max": float(max(seal))},
+            size_fold_ms=epochs[-1]["last_ack_to_sealed_ms"],
+            apply_device_ms={d: {"median": float(np.median(v)), "max": float(max(v))}
+                             for d, v in applies.items()},
+            push_ms={d: float(np.median([r["push_ms"][d] for r in epochs])) for d in dirs},
+            topk_mismatches=mism, sampled=ST_SAMPLED, restart_first_ready=first_ready,
+            restart_answers_equal=same, kernel1=launches, deploy_to_ready_s=ready_s,
+            epochs=epochs)
+    finally:
+        stop_load.set()
+        for t in loaders:
+            t.join(10)
+        if es is not None:
+            es.stop()
+        for srv in servers:
+            srv.kill()
+        Storage.reset_instance()
+        sqlite.close_all_dbs()
+        for k in knobs:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(seconds=time.perf_counter() - t_phase, ok=True)
+    emit(out)
+    return out
+
+
 # -- A/B: kernels 1 and 2 of two trees, on one card ---------------------------
 
 
@@ -4221,6 +4639,7 @@ def main(argv=None) -> int:
     quick = phase_quickstart_cli(args.seed, device)
     ops = phase_serving_ops(model, args.seed, device, rows)
     pub = phase_publish_eval(model, args.seed, device, rows, ops)
+    stream = phase_streaming(model, args.seed, device)
     # each kernel's launches on the CLI path, counted as the CLI drove it
     cli_launches = {
         "fused_gather_score_topk": quick["serve"]["launches"],
@@ -4326,6 +4745,10 @@ def main(argv=None) -> int:
         "deploy_bf16": pub["deploy"]["bf16"]["launches"],
         "batchpredict_int8": pub["batchpredict"]["launches"],
         "eval_f32": pub["eval"]["kernel1_launches"]}
+    # streaming: kernel 1 on the f32 and int8 replicas while deltas land, and
+    # on the restarted replica (launches = each server's dispatches)
+    kernels["kernels"][0]["streaming_launches"] = {
+        d: row["launches"] for d, row in stream["kernel1"].items()}
     kernels["kernels"][0]["by_dtype_b64"] = {
         r["dtype"]: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in rows if r.get("case", "ml25m") == "ml25m" and r["batch"] == RUNGS[-1]}
@@ -4344,7 +4767,7 @@ def main(argv=None) -> int:
                    "flash": flash_rows, "sasrec": sasrec,
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
                    "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
-                   "serving_ops": ops, "publish_eval": pub,
+                   "serving_ops": ops, "publish_eval": pub, "streaming": stream,
                    **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)

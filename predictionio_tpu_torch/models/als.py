@@ -564,6 +564,61 @@ def train_als(
     )
 
 
+def _fold_in_gather(rows: np.ndarray, compute_dtype: str, acc_dt) -> np.ndarray:
+    """Gathered item rows in the fold-in's ``compute_dtype``, widened to
+    ``acc_dt``: bf16 rounds each value to nearest even, as ``ml_dtypes``'
+    ``astype(bfloat16)`` does in the JAX package (``_fold_in_dtype``);
+    every other dtype gathers float32 (int8 included, as there)."""
+    if compute_dtype == "bf16":
+        rows = _quantize.bf16_bits_to_f32(_quantize.f32_to_bf16_bits(rows))
+    return rows.astype(acc_dt)
+
+
+def fold_in_users(item_factors, interactions, *, rank, reg,
+                  implicit=False, alpha=1.0, compute_dtype="f32"):
+    """Streaming user-side fold-in: re-solve user rows against FIXED items.
+
+    Counterpart of ``predictionio_tpu/models/als.py:555-597``, in numpy on
+    the host as there: the micro-generation delta pipeline
+    (``core/delta.py``) calls it with each user's ``[(item_idx, rating),
+    ...]`` history and gets replacement user rows without touching the item
+    side, the normal equations of one ALS half-step restricted to those
+    users (batches are small; a device round trip would cost more than the
+    solve).
+
+    ``compute_dtype`` degrades the gathered item rows as the training
+    knob does ("f32" | "bf16"; "f64" is the full-fidelity reference the
+    publish gate compares against); accumulation and solve run in at least
+    float32.
+
+    Returns an (n_users, rank) float32 array ordered by sorted user index.
+    """
+    V = np.asarray(item_factors, dtype=np.float32)
+    acc_dt = np.float64 if compute_dtype == "f64" else np.float32
+    eye = np.eye(rank, dtype=acc_dt)
+    gram = None
+    if implicit:
+        Vg = _fold_in_gather(V, compute_dtype, acc_dt)
+        gram = Vg.T @ Vg
+    rows = np.zeros((len(interactions), rank), dtype=np.float32)
+    for j, uidx in enumerate(sorted(interactions)):
+        pairs = interactions[uidx]
+        idx = np.array([i for i, _ in pairs], dtype=np.int64)
+        r = np.array([x for _, x in pairs], dtype=acc_dt)
+        Vu = _fold_in_gather(V[idx], compute_dtype, acc_dt)
+        if implicit:
+            # confidence c = 1 + alpha*r: A = VᵀV + Vuᵀ diag(alpha·r) Vu
+            # + reg·I, b = Vuᵀ c  (Hu-Koren-Volinsky fold-in)
+            A = gram + (Vu * (alpha * r)[:, None]).T @ Vu + reg * eye
+            b = Vu.T @ (1.0 + alpha * r)
+        else:
+            # λ·n_u ridge, matching _solve_normal_equations' explicit path
+            A = Vu.T @ Vu + (reg * len(pairs) + 1e-6) * eye
+            b = Vu.T @ r
+        rows[j] = np.linalg.solve(A, b).astype(np.float32)
+    return rows
+
+
 class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
     """ALSModel persisted through the PersistentModel protocol (checkpoint
     mode, ``persistMode: "checkpoint"``).
@@ -837,6 +892,18 @@ class ALSScorer:
     def fastpath_stats(self) -> Optional[dict]:
         fp = getattr(self, "_fastpath", None)
         return fp.stats() if fp is not None else None
+
+    def apply_delta_rows(self, user_idx, user_rows, item_idx=None, item_rows=None):
+        """Patch a streaming delta's rows into every scorer built on the
+        card (the serving fast path and a wide batch scorer); the caller
+        patches the host model, which scorers built later read. Returns the
+        fast path's receipt, or None when it is not built."""
+        out = None
+        for name in ("_wide_fastpath", "_fastpath"):
+            fp = getattr(self, name, None)
+            if fp is not None:
+                out = fp.apply_delta_rows(user_idx, user_rows, item_idx, item_rows)
+        return out
 
     def recommend_batch(
         self, user_indices: np.ndarray, num: int

@@ -2,8 +2,9 @@
 
 Counterpart of ``predictionio_tpu/obs/bridges.py`` with the bridges of the
 components the port has: the batcher, the fast path, devprof, the result
-cache, error counters, resilience (breakers), the event-server stats and the
-latency histogram. The others come with their components.
+cache, error counters, resilience (breakers), the event-server stats, the
+ingest buffer with its WAL and the latency histogram. The others come with
+their components.
 
 Every load-bearing runtime layer predates the registry and already keeps
 its own thread-safe counters (``MicroBatcher.stats()``, fastpath
@@ -507,6 +508,112 @@ def bridge_event_stats(registry: MetricsRegistry, stats) -> None:
                 samples,
             )
         ]
+
+    registry.register_collector(collect)
+
+
+# -- ingest: the write-behind buffer and its WAL ----------------------------
+
+def bridge_ingest_buffer(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """Write-behind ingest buffer → depth gauge, flow counters, and the
+    flush batch-size histogram."""
+
+    def collect():
+        s = stats_fn()
+        if not s:
+            return []
+        fams = [
+            _fam(
+                "pio_ingest_buffer_depth", "gauge",
+                "Events currently buffered awaiting flush.",
+                [("", (), _num(s.get("buffered")))],
+            ),
+            _fam(
+                "pio_ingest_buffer_capacity", "gauge",
+                "Configured buffer bound (overflow == shed).",
+                [("", (), _num(s.get("buffer_max")))],
+            ),
+            _fam(
+                "pio_ingest_events_total", "counter",
+                "Buffered-ingest events by outcome.",
+                [
+                    ("", (("outcome", "accepted"),),
+                     _num(s.get("accepted"))),
+                    ("", (("outcome", "flushed"),), _num(s.get("flushed"))),
+                    ("", (("outcome", "overflow"),),
+                     _num(s.get("overflows"))),
+                ],
+            ),
+            _fam(
+                "pio_ingest_flushes_total", "counter",
+                "Group-commit flushes executed.",
+                [("", (), _num(s.get("flushes")))],
+            ),
+            _fam(
+                "pio_ingest_flush_retries_total", "counter",
+                "Flush attempts retried under the resilience policy.",
+                [("", (), _num(s.get("retries")))],
+            ),
+            _fam(
+                "pio_ingest_flush_errors_total", "counter",
+                "Flushes that exhausted retries and failed their tickets.",
+                [("", (), _num(s.get("flush_errors")))],
+            ),
+        ]
+        hist = s.get("flush_batch_hist")
+        if isinstance(hist, dict) and hist:
+            fams.append(
+                _fam(
+                    "pio_ingest_flush_batch_total", "counter",
+                    "Flushes by batch-size bucket.",
+                    [
+                        ("", (("size", str(k)),), _num(v))
+                        for k, v in hist.items()
+                    ],
+                )
+            )
+        wal = s.get("wal")
+        if isinstance(wal, dict):
+            fams.extend([
+                _fam(
+                    "pio_wal_depth", "gauge",
+                    "WAL records journaled but not yet flush-committed.",
+                    [("", (), _num(wal.get("depth")))],
+                ),
+                _fam(
+                    "pio_wal_segments", "gauge",
+                    "WAL segment files currently on disk.",
+                    [("", (), _num(wal.get("segments")))],
+                ),
+                _fam(
+                    "pio_wal_records_total", "counter",
+                    "WAL record flow (appended / committed / replayed).",
+                    [
+                        ("", (("op", "appended"),), _num(wal.get("appended"))),
+                        ("", (("op", "committed"),),
+                         _num(wal.get("committed"))),
+                        ("", (("op", "replayed"),), _num(wal.get("replayed"))),
+                    ],
+                ),
+                _fam(
+                    "pio_wal_syncs_total", "counter",
+                    "fsync calls issued by the WAL (policy-dependent).",
+                    [("", (), _num(wal.get("synced")))],
+                ),
+                _fam(
+                    "pio_wal_truncated_tails_total", "counter",
+                    "Torn segment tails truncated during replay.",
+                    [("", (), _num(wal.get("truncated_tails")))],
+                ),
+                _fam(
+                    "pio_wal_reclaimed_segments_total", "counter",
+                    "Fully-committed segments reclaimed (unlinked).",
+                    [("", (), _num(wal.get("reclaimed_segments")))],
+                ),
+            ])
+        return fams
 
     registry.register_collector(collect)
 

@@ -35,8 +35,17 @@ hand-written kernel).
   event time as ``device_us``. On the CPU the plain version runs inside
   the launch call, whose wall is the device time.
 
-The sharded placement, IVF retrieval and in-place delta rows come with
-later slices.
+* **Delta rows** — :meth:`BucketedScorer.apply_delta_rows` patches a
+  streaming micro-generation's user (and item) rows into the resident
+  factors: int8 rows re-quantized row-wise with their scales, bf16 rows
+  rounded to nearest even, as the JAX package's ``astype(bfloat16)``. It
+  clones the tensors it patches, copies the rows in, waits for the copies
+  and then swaps all four factor tensors in one rebind. A launch reads
+  that tuple once, so it sees the rows before or after a patch, never half
+  of them, and no tensor a launch may still read is written. No scorer is
+  built, no rung warmed and no kernel built again.
+
+The sharded placement and IVF retrieval come with later slices.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from predictionio_tpu_torch.obs import devprof as _devprof
 from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import score_kernel as _score_kernel
+from predictionio_tpu_torch.ops import quantize as _quantize
 from predictionio_tpu_torch.ops.quantize import factors_to_tensor
 from predictionio_tpu_torch.ops.topk import gather_score_topk
 
@@ -110,6 +120,10 @@ class BucketedScorer:
             if t is not None
         )
         self._lock = threading.Lock()
+        # serializes delta applies: each clones the factors the last one swapped in
+        self._patch_lock = threading.Lock()
+        self.delta_applies = 0
+        self.delta_rows = 0
         self.hits: dict[int, int] = {b: 0 for b in self.buckets}
         self.queries = 0
         self.padded_rows = 0
@@ -172,24 +186,40 @@ class BucketedScorer:
         dev = self.ctx.device
         self._n_items_pad = _score_kernel.pad_block_items(self.n_items)
         pad_i = self._n_items_pad - self.n_items
-        self._U = factors_to_tensor(np.asarray(user_factors), dev)
-        self._V = factors_to_tensor(
-            np.pad(np.asarray(item_factors), ((0, pad_i), (0, 0))), dev
-        )
+        U = factors_to_tensor(np.asarray(user_factors), dev)
+        V = factors_to_tensor(np.pad(np.asarray(item_factors), ((0, pad_i), (0, 0))), dev)
+        Us = Vs = None
         if self.factor_dtype == "int8":
-            self._Uscale = self.ctx.replicate(np.asarray(user_scale, np.float32))
-            self._Vscale = self.ctx.replicate(
+            Us = self.ctx.replicate(np.asarray(user_scale, np.float32))
+            Vs = self.ctx.replicate(
                 np.pad(
                     np.asarray(item_scale, np.float32),
                     ((0, pad_i), (0, 0)),
                     constant_values=1.0,
                 )
             )
-        else:
-            self._Uscale = self._Vscale = None
+        # (U, V, U scales, V scales): rebound whole by apply_delta_rows and
+        # read once a launch, so a launch never mixes two generations' rows
+        self._factors = (U, V, Us, Vs)
         self._item_pad_mask = self.ctx.replicate(
             np.arange(self._n_items_pad) >= self.n_items
         )
+
+    @property
+    def _U(self) -> torch.Tensor:
+        return self._factors[0]
+
+    @property
+    def _V(self) -> torch.Tensor:
+        return self._factors[1]
+
+    @property
+    def _Uscale(self) -> Optional[torch.Tensor]:
+        return self._factors[2]
+
+    @property
+    def _Vscale(self) -> Optional[torch.Tensor]:
+        return self._factors[3]
 
     def _launch(
         self, padded: np.ndarray, item_mask: Optional[torch.Tensor] = None
@@ -197,10 +227,8 @@ class BucketedScorer:
         u_dev = torch.from_numpy(padded).to(self.ctx.device)
         if item_mask is None:
             item_mask = self._item_pad_mask
-        return gather_score_topk(
-            self._U, self._V, u_dev, self.k, item_mask=item_mask,
-            u_scale=self._Uscale, v_scale=self._Vscale,
-        )
+        U, V, Us, Vs = self._factors
+        return gather_score_topk(U, V, u_dev, self.k, item_mask=item_mask, u_scale=Us, v_scale=Vs)
 
     def score_topk(
         self, user_indices: np.ndarray, k: int
@@ -281,10 +309,11 @@ class BucketedScorer:
                 (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                 if on_card else None
             )
+            U, V, Us, Vs = self._factors
             t0 = time.perf_counter()
             vals, idx = gather_score_topk(
-                self._U, self._V, u_dev, self.k, item_mask=self._item_pad_mask,
-                u_scale=self._Uscale, v_scale=self._Vscale, timing=timing,
+                U, V, u_dev, self.k, item_mask=self._item_pad_mask,
+                u_scale=Us, v_scale=Vs, timing=timing,
             )
             t1 = time.perf_counter()
             # the readback waits for the kernel
@@ -358,6 +387,7 @@ class BucketedScorer:
         follows traffic drift rather than all-time popularity."""
         with self._lock:
             counts = self._hot_counts.copy()
+            applies = self.delta_applies
         n = self.hot_size
         if n < len(counts):
             cand = np.argpartition(-counts, n - 1)[:n]
@@ -369,11 +399,82 @@ class BucketedScorer:
         cand = np.sort(cand).astype(np.int32)
         idx, vals = self._device_topk(cand, self.k)
         with self._lock:
+            if self.delta_applies != applies:
+                return  # a delta landed meanwhile: the next refresh ranks its rows
             self._hot_rows = {int(u): i for i, u in enumerate(cand)}
             self._hot_table_idx = idx
             self._hot_table_val = vals
             self.hot_refreshes += 1
             self._hot_counts *= 0.5
+
+    # -- streaming micro-generations (core/delta.py) -------------------------
+    def apply_delta_rows(self, user_idx, user_rows, item_idx=None, item_rows=None) -> dict:
+        """Patch a delta's factor rows into the resident factors.
+
+        Counterpart of ``predictionio_tpu/serving/fastpath.py:553-605`` for
+        the replicated placement (the port's only one, so an item's slot is
+        its index). Rows past the factor matrices are dropped; the item
+        tail's pad rows and mask are never touched. Quantized factors are
+        re-quantized row-wise as at publish. The patched users fall out of
+        the hot-set table. Returns ``{"users", "items"}`` with the scorer's
+        ``warmup_executions`` and the kernels built in this process, both
+        unchanged by any delta, and ``device_ms``, the patch's time on the
+        device (CUDA events on the card, the host's clock on the CPU).
+        """
+        users = np.asarray(user_idx, np.int64).reshape(-1)
+        u_rows = np.asarray(user_rows, np.float32).reshape(len(users), -1)
+        keep = users < self.n_users
+        users, u_rows = users[keep], u_rows[keep]
+        items = np.asarray(() if item_idx is None else item_idx, np.int64).reshape(-1)
+        i_rows = None
+        if len(items):
+            i_rows = np.asarray(item_rows, np.float32).reshape(len(items), -1)
+            keep = items < self.n_items
+            items, i_rows = items[keep], i_rows[keep]
+        dev = self.ctx.device
+        # quantize and upload first: the timed span holds the card's copies
+        patches = []
+        for which, idx, rows in ((0, users, u_rows), (1, items, i_rows)):
+            if len(idx):
+                q, scale = _quantize.quantize_factors(rows, self.factor_dtype)
+                patches.append((which, torch.from_numpy(idx).to(dev), factors_to_tensor(q, dev),
+                                None if scale is None else torch.from_numpy(scale).to(dev)))
+        on_card = dev.type == "cuda"
+        with self._patch_lock:
+            t0 = time.perf_counter()
+            if on_card:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            factors = list(self._factors)
+            for which, at, q, scale in patches:
+                factors[which] = factors[which].clone().index_copy_(0, at, q)
+                if scale is not None:
+                    factors[which + 2] = factors[which + 2].clone().index_copy_(0, at, scale)
+            if on_card:
+                end.record()
+                try:
+                    # the new rows are in memory before any launch can read
+                    # them, whatever stream it runs on
+                    end.synchronize()
+                except Exception as e:
+                    err = _build.as_kernel_error(e, "delta row patch")
+                    if err is e:
+                        raise
+                    raise err from e
+                device_ms = start.elapsed_time(end)
+            else:
+                device_ms = (time.perf_counter() - t0) * 1e3
+            self._factors = tuple(factors)
+        with self._lock:
+            for u in users:
+                self._hot_rows.pop(int(u), None)
+            self.delta_applies += 1
+            self.delta_rows += len(users) + len(items)
+        return {
+            "users": int(len(users)), "items": int(len(items)),
+            "warmup_executions": self.warmup_executions,
+            "kernel_builds": len(_build.build_log), "device_ms": device_ms,
+        }
 
     def stats(self) -> dict:
         """Counters for ``GET /`` stats."""
@@ -421,5 +522,6 @@ class BucketedScorer:
                 if self.queries
                 else None,
                 "hotset": hotset if self.hot_size else None,
+                "deltas": {"applied": self.delta_applies, "rows": self.delta_rows},
                 "devprof": self.devprof.snapshot(),
             }

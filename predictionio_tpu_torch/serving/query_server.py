@@ -20,6 +20,24 @@ arguments ``pio deploy`` passes and these routes:
   instance; a failed reload keeps the live generation (counted, flagged).
 * ``GET /plugins.json``; ``POST /stop`` — drain, then undeploy.
 * ``GET /metrics`` and ``GET /trace/recent.json`` when telemetry is on.
+* ``POST /delta`` and ``GET /delta/stats`` under ``PIO_STREAMING=1``.
+
+**Streaming micro-generations** (``PIO_STREAMING=1``, ``core/delta.py``).
+After every successful reload the server fingerprints the deployed ALS
+model's float32 factors and fences a :class:`~predictionio_tpu_torch.core.
+delta.DeltaApplier` on the sealed log under ``PIO_DELTA_DIR/<fingerprint>``,
+catching up with it before the reload returns, so a restarted replica is
+ready only at the log's epoch. ``POST /delta`` takes a sealed blob (the
+router's push; a torn or foreign one is a refusal receipt, never a 5xx),
+and a catch-up worker replays the log every ``PIO_DELTA_CATCHUP_MS``. A
+delta patches the card's resident factor rows in place
+(``BucketedScorer.apply_delta_rows``: no new scorer, warm-up or build),
+then the host model, and invalidates only its users' cached answers. An
+answer served while the log's oldest unapplied epoch is older than
+``PIO_FRESHNESS_SLO_MS`` carries ``"degraded": true`` and ``staleness_ms``;
+``/readyz`` reports ``deltaEpoch``, ``deltaLogEpoch`` and ``stalenessMs``
+and answers 503 while the replica is behind a log it can read. A card
+error in an apply raises as ``KernelError``, as a launch's does.
 
 **Degraded answers.** As in the JAX server, a scorer or model failure
 serves the newest good answer flagged ``"degraded": true`` (counted)
@@ -40,9 +58,9 @@ card would hide a kernel that failed to build or launch.
 
 Waiting for their ROADMAP items, and raising an error that names them:
 tenancy (``tenants``/``PIO_TENANTS``) and pipelines (``pipeline``/
-``PIO_PIPELINE``), item 13; streaming micro-generations
-(``PIO_STREAMING=1``), item 8; pod serving and its lockstep
-(``PIO_POD_GROUP``), item 10. Fault injection waits for a chaos item of its own,
+``PIO_PIPELINE``), item 13; pod serving and its lockstep
+(``PIO_POD_GROUP``), item 10. The router's push of a delta to a fleet is
+item 13. Fault injection waits for a chaos item of its own,
 ``POST /debug/profile`` for item 15, and quarantined generations (which
 ``reload(force=True)`` overrides in the JAX server) for the canary, item
 13: until then no generation is quarantined.
@@ -61,6 +79,8 @@ import time
 import urllib.request
 from typing import Any, Optional
 
+import numpy as np
+
 from predictionio_tpu_torch import obs
 from predictionio_tpu_torch.common.http import HttpService, Request, Response, json_response
 from predictionio_tpu_torch.common.resilience import (
@@ -76,7 +96,9 @@ from predictionio_tpu_torch.common.resilience import (
     deadline_scope,
     parse_deadline_header,
 )
+from predictionio_tpu_torch.core import delta as _delta
 from predictionio_tpu_torch.core.engine import Engine
+from predictionio_tpu_torch.core.persistence import open_model_blob
 from predictionio_tpu_torch.core.workflow import (
     get_latest_completed_instance,
     prepare_deploy,
@@ -85,12 +107,15 @@ from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.obs import bridges as _bridges
 from predictionio_tpu_torch.obs import tracing as _tracing
-from predictionio_tpu_torch.ops import score_kernel
+from predictionio_tpu_torch.ops import _build, score_kernel
 from predictionio_tpu_torch.ops._build import KernelError
+from predictionio_tpu_torch.models.cooccurrence import fold_increments
+from predictionio_tpu_torch.ops import quantize as _quantize
 from predictionio_tpu_torch.serving.result_cache import (
     canonical_fingerprint,
     coalesce_from_env,
     entity_ids_from,
+    notify_delta,
     result_cache_from_env,
 )
 from predictionio_tpu_torch.utils.profiling import LatencyHistogram
@@ -190,8 +215,6 @@ class QueryServer:
             raise _not_ported("multi-tenancy (tenants / PIO_TENANTS)", 13)
         if pipeline is not None or os.environ.get("PIO_PIPELINE", "").strip():
             raise _not_ported("composed pipelines (pipeline / PIO_PIPELINE)", 13)
-        if os.environ.get("PIO_STREAMING", "0") == "1":
-            raise _not_ported("streaming micro-generations (PIO_STREAMING=1)", 8)
         if os.environ.get("PIO_POD_GROUP", "").strip():
             raise _not_ported("pod serving and its lockstep (PIO_POD_GROUP)", 10)
         self.engine = engine
@@ -267,6 +290,11 @@ class QueryServer:
         # model-generation tag: every successful swap increments it, so
         # cached answers from the previous generation never validate
         self._serving_gen = 0
+        # streaming micro-generations (PIO_STREAMING=1): the delta state
+        # enable_streaming() builds after each successful reload; None when
+        # streaming is off or no factor model is live, and every streaming
+        # touchpoint does nothing on None
+        self._streaming: Optional[dict] = None
         self._register_routes()
         self.reload()
         self._batcher = None
@@ -348,6 +376,9 @@ class QueryServer:
             instance_id=instance.id, algorithms=algorithms, serving=serving,
             models=models, start_time=time.time(),
         ), degraded=False)
+        # a new base generation subsumes every earlier micro-generation:
+        # re-base the delta pipeline on the factors just deployed
+        self.enable_streaming()
         logger.info("deployed engine instance %s", instance.id)
         return instance.id
 
@@ -434,6 +465,166 @@ class QueryServer:
             )
             return deployed
         return None
+
+    # -- streaming micro-generations (crash-safe delta pipeline) -------------
+    def enable_streaming(self, delta_dir: Optional[str] = None) -> Optional[dict]:
+        """Wire this replica into the sealed delta log (``PIO_STREAMING=1``).
+
+        Fingerprints the first deployed factor model's base generation and
+        fences a :class:`~predictionio_tpu_torch.core.delta.DeltaApplier` on
+        its log. Catch-up runs here, synchronously, before the caller lets
+        ``/readyz`` go ready, so a restarted replica is admitted only at the
+        log's epoch. Returns the applier's stats, or None when streaming is
+        off or no factor model is deployed.
+        """
+        self._stop_streaming()
+        if not _delta.streaming_enabled():
+            return None
+        with self._lock:
+            d = self._deployed
+        if d is None:
+            return None
+        target = next(
+            ((algo, model) for algo, model in zip(d.algorithms, d.models)
+             if all(getattr(model, a, None) is not None
+                    for a in ("user_factors", "item_factors", "user_map"))),
+            None,
+        )
+        if target is None:
+            return None
+        algo, model = target
+        fp = _delta.model_fingerprint(model.user_factors, model.item_factors)
+        directory = delta_dir or _delta.delta_dir_for(fp)
+        delta_log = _delta.DeltaLog(directory)
+        st: dict = {
+            "algo": algo,
+            "model": model,
+            "log": delta_log,
+            "dir": directory,
+            "fingerprint": fp,
+            # replica-local cooccurrence count accumulator (pair -> count)
+            "cooc": {},
+            "slo_ms": float(os.environ.get("PIO_FRESHNESS_SLO_MS", "5000")),
+            "degraded_served": 0,
+            "staleness_ms": 0.0,
+            "staleness_checked": 0.0,
+            "wedged": None,
+            "last_apply": None,
+            "wake": threading.Event(),
+            "stop": threading.Event(),
+            "thread": None,
+        }
+        st["applier"] = _delta.DeltaApplier(
+            fp, lambda dl: self._apply_streaming_delta(st, dl), delta_log=delta_log,
+        )
+        # one rebind on the reload thread before the worker starts: readers
+        # see None or the whole state
+        self._streaming = st
+        # catch-up before readmission: replay every epoch already sealed
+        self._streaming_catch_up(st)
+        t = threading.Thread(
+            target=self._catchup_loop, args=(st,), name="queryserver-delta-catchup",
+            daemon=True,
+        )
+        st["thread"] = t
+        t.start()
+        logger.info(
+            "streaming enabled: base %s, delta log %s, epoch %d",
+            fp, directory, st["applier"].applied_epoch,
+        )
+        return st["applier"].stats()
+
+    def _stop_streaming(self) -> None:
+        st = self._streaming
+        self._streaming = None
+        if st is not None:
+            st["stop"].set()
+            st["wake"].set()
+
+    def _apply_streaming_delta(self, st: dict, dl) -> None:
+        """One fenced delta in place (the applier's ``apply_fn``): the
+        card's resident rows first, then the host model (its quantized
+        variant too, which a scorer built later reads), the cooccurrence
+        counts, and the result cache's entries of the delta's users."""
+        algo, model = st["algo"], st["model"]
+        user_idx = np.asarray(dl.user_idx, np.int64)
+        item_idx = np.asarray(() if dl.item_idx is None else dl.item_idx, np.int64)
+        patch = getattr(algo, "apply_delta_rows", None)
+        if patch is not None:
+            st["last_apply"] = patch(
+                model, dl.user_idx, dl.user_rows, item_idx=dl.item_idx, item_rows=dl.item_rows,
+            )
+        quantized = getattr(model, "factor_dtype", "f32") != "f32"
+        for side, idx, rows in (("user", user_idx, dl.user_rows), ("item", item_idx, dl.item_rows)):
+            if not idx.size:
+                continue
+            host = getattr(model, f"{side}_factors")
+            host[idx] = np.asarray(rows, dtype=host.dtype)
+            if quantized and getattr(model, f"{side}_factors_q", None) is not None:
+                q, scale = _quantize.quantize_factors(rows, model.factor_dtype)
+                getattr(model, f"{side}_factors_q")[idx] = q
+                if scale is not None:
+                    getattr(model, f"{side}_scale")[idx] = scale
+        if dl.cooc_updates is not None and len(dl.cooc_updates):
+            fold_increments(dl.cooc_updates, st["cooc"])
+        # entity-targeted: only the users this delta rewrote lose their
+        # cached answers; everyone else stays hot
+        notify_delta(dl.user_ids)
+
+    def _streaming_staleness_ms(self) -> float:
+        """Age of the oldest sealed-but-unapplied epoch, cached for 250 ms
+        so the per-query SLO check never turns into a per-query listdir."""
+        st = self._streaming
+        if st is None:
+            return 0.0
+        now = time.monotonic()
+        if now - st["staleness_checked"] >= 0.25:
+            try:
+                age = st["log"].oldest_unapplied_age_s(st["applier"].applied_epoch)
+            except OSError:
+                age = 0.0
+            st["staleness_ms"] = age * 1000.0
+            st["staleness_checked"] = now
+        return st["staleness_ms"]
+
+    def _catchup_loop(self, st: dict) -> None:
+        """Catch-up worker: paces on ``PIO_DELTA_CATCHUP_MS`` (woken early
+        by ``/readyz`` or an SLO breach) and replays the log."""
+        pace_s = float(os.environ.get("PIO_DELTA_CATCHUP_MS", "1000")) / 1e3
+        while not st["stop"].is_set():
+            st["wake"].wait(pace_s)
+            st["wake"].clear()
+            if st["stop"].is_set():
+                return
+            self._streaming_catch_up(st)
+
+    def _streaming_catch_up(self, st: dict) -> None:
+        try:
+            rc = st["applier"].catch_up()
+        except Exception:
+            self._rl_log.exception("delta", "delta catch-up failed")
+            return
+        # a refused catch-up (torn blob, fence, gap) wedges at the last good
+        # epoch: remember it so /readyz stops holding the replica out; it
+        # serves degraded instead of flapping on a replay that cannot succeed
+        st["wedged"] = rc if rc.get("refused") else None
+
+    def streaming_stats(self) -> Optional[dict]:
+        st = self._streaming
+        if st is None:
+            return None
+        out = st["applier"].stats()
+        out.update(
+            log_epoch=st["log"].last_epoch(),
+            staleness_ms=self._streaming_staleness_ms(),
+            slo_ms=st["slo_ms"],
+            degraded_served=st["degraded_served"],
+            cooc_pairs=len(st["cooc"]),
+            fingerprint=st["fingerprint"],
+            dir=st["dir"],
+            last_apply=st["last_apply"],
+        )
+        return out
 
     # -- observability -------------------------------------------------------
     def _fastpath_stats(self) -> Optional[dict]:
@@ -536,6 +727,57 @@ class QueryServer:
             ]
 
         reg.register_collector(_serving_families)
+
+        def _streaming_families():
+            # only while streaming is live: with PIO_STREAMING=0 /metrics
+            # is the server's without streaming, byte for byte
+            st = self._streaming
+            if st is None:
+                return []
+            a = st["applier"].stats()
+            refused = a["refused"] or {}
+            F = _bridges.Family
+            return [
+                F("pio_delta_epoch", "gauge",
+                  "Micro-generation epoch applied by this replica.",
+                  [("", (), float(a["applied_epoch"]))]),
+                F("pio_delta_log_epoch", "gauge",
+                  "Newest epoch sealed in this replica's delta log.",
+                  [("", (), float(st["log"].last_epoch()))]),
+                F("pio_delta_applied_total", "counter",
+                  "Deltas applied in place on the serving factors.",
+                  [("", (), float(a["applied"]))]),
+                F("pio_delta_noop_total", "counter",
+                  "Replayed already-applied epochs acked as no-ops "
+                  "(the exactly-once path).",
+                  [("", (), float(a["noops"]))]),
+                F("pio_delta_refused_total", "counter",
+                  "Deltas refused by reason (fingerprint fence, gap, "
+                  "integrity).",
+                  [("", (("reason", r),), float(n))
+                   for r, n in sorted(refused.items())] or
+                  [("", (("reason", "none"),), 0.0)]),
+                F("pio_delta_cooc_pending", "gauge",
+                  "Distinct cooccurrence pairs accumulated from applied "
+                  "deltas since the last full retrain.",
+                  [("", (), float(len(st["cooc"])))]),
+                F("pio_freshness_staleness_ms", "gauge",
+                  "Age of the oldest sealed-but-unapplied delta epoch.",
+                  [("", (), float(self._streaming_staleness_ms()))]),
+                F("pio_freshness_slo_ms", "gauge",
+                  "Configured freshness SLO (PIO_FRESHNESS_SLO_MS).",
+                  [("", (), float(st["slo_ms"]))]),
+                F("pio_freshness_visible_p99_ms", "gauge",
+                  "p99 event-committed to prediction-visible latency "
+                  "over recent applied deltas.",
+                  [("", (), float(a["visible_p99_ms"]))]),
+                F("pio_freshness_degraded_total", "counter",
+                  "Answers served with degraded:true because staleness "
+                  "exceeded the freshness SLO.",
+                  [("", (), float(st["degraded_served"]))]),
+            ]
+
+        reg.register_collector(_streaming_families)
 
     # -- batched path: one Algorithm.batch_predict pass for N queries --------
     def _run_query_batch(self, queries: list) -> list:
@@ -648,6 +890,19 @@ class QueryServer:
                 # caller and run on every hit; degraded answers are never
                 # cached (they would outlive the failure)
                 cache.put(fp, result, entity_ids_from(data, cache.key_fields), generation)
+        # freshness SLO: while the sealed log is ahead of this replica by
+        # more than PIO_FRESHNESS_SLO_MS the answer is still served,
+        # annotated, never failed. After cache.put (the cache copies, so the
+        # annotation never sticks to the cached answer), and on hits too: a
+        # cached answer is as stale as the factors that computed it.
+        st = self._streaming
+        if st is not None and isinstance(result, dict):
+            stale = self._streaming_staleness_ms()
+            if stale > st["slo_ms"]:
+                result["degraded"] = True
+                result["staleness_ms"] = round(stale, 1)
+                st["degraded_served"] += 1
+                st["wake"].set()
         # plugins see JSON values, as in the reference (JValue-based process)
         for p in self.plugins:
             if p.plugin_type == EngineServerPlugin.OUTPUT_BLOCKER:
@@ -785,6 +1040,8 @@ class QueryServer:
                     fp.append(s)
             info["fastpath"] = fp or None
             info["scoreKernelLaunches"] = score_kernel.launches.count
+            # kernels built in this process: a delta patch builds none
+            info["kernelBuilds"] = len(_build.build_log)
             with self._inflight_lock:
                 info["inflight"] = self._inflight
             info["resilience"] = {
@@ -824,12 +1081,36 @@ class QueryServer:
                 "fastpathWarm": warm,
                 "engineInstanceId": dep.instance_id if dep else None,
             }
+            # streaming: the applied epoch and the staleness tell a router
+            # where this replica sits in the delta sequence
+            st = self._streaming
+            delta_behind = False
+            if st is not None:
+                applied = st["applier"].applied_epoch
+                head = st["log"].last_epoch()
+                body["deltaEpoch"] = applied
+                body["deltaLogEpoch"] = head
+                body["stalenessMs"] = round(self._streaming_staleness_ms(), 1)
+                # a wedged log (a torn blob, a fence refusal, no progress
+                # since) must not hold the replica out forever: it rejoins at
+                # its last good epoch and serves degraded instead
+                wedged = st.get("wedged")
+                stuck = wedged is not None and applied <= int(wedged.get("applied_epoch", -1))
+                if stuck:
+                    body["deltaWedged"] = wedged.get("reason")
+                delta_behind = head > applied and not stuck
             # every not-ready answer carries Retry-After, as the shed paths do
             if self._draining:
                 body["status"] = "draining"
                 return Response(status=503, body=body, headers=self._retry_headers())
             if dep is None:
                 body["status"] = "no engine instance deployed"
+                return Response(status=503, body=body, headers=self._retry_headers())
+            if delta_behind:
+                # catch-up before readmission: wake the worker and refuse
+                # traffic until this replica reaches the log's epoch
+                st["wake"].set()
+                body["status"] = "delta catch-up"
                 return Response(status=503, body=body, headers=self._retry_headers())
             if inflight >= self.max_inflight:
                 body["status"] = "overloaded"
@@ -891,6 +1172,34 @@ class QueryServer:
             force = (req.params.get("force") or "") in ("1", "true", "yes")
             iid = self.reload(instance_id=target, force=force)
             return json_response(200, {"message": "Reloaded", "engineInstanceId": iid})
+
+        @svc.route("POST", r"/delta")
+        def delta_route(req: Request):
+            # router → replica hop: the body is the sealed envelope as is.
+            # Every answer is a receipt; a torn or forged payload is an
+            # integrity REFUSAL (200 + receipt), not a 5xx: the replica keeps
+            # serving its last good epoch
+            st = self._streaming
+            if st is None:
+                return json_response(409, {
+                    "refused": True, "reason": "streaming disabled",
+                    "streaming": _delta.streaming_enabled(),
+                })
+            try:
+                dl = _delta.Delta.from_payload(open_model_blob(req.body))
+            except Exception as e:
+                return json_response(200, st["applier"].refuse("integrity", error=str(e)))
+            receipt = st["applier"].apply(dl)
+            if receipt.get("applied"):
+                st["wedged"] = None
+            return json_response(200, receipt)
+
+        @svc.route("GET", r"/delta/stats")
+        def delta_stats_route(req: Request):
+            stats = self.streaming_stats()
+            if stats is None:
+                return json_response(404, {"message": "streaming disabled"})
+            return json_response(200, stats)
 
         @svc.route("POST", r"/stop")
         def stop_route(req: Request):
@@ -955,6 +1264,7 @@ class QueryServer:
         return abandoned == 0
 
     def stop(self) -> None:
+        self._stop_streaming()
         if self._batcher is not None:
             self._batcher.stop()
         if self._feedback_worker is not None:

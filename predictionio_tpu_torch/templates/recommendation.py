@@ -358,6 +358,16 @@ class ALSAlgorithm(Algorithm):
         scorer = self._scorers.get(id(model))
         return scorer.fastpath_stats() if scorer is not None else None
 
+    def apply_delta_rows(self, model: ALSModel, user_idx, user_rows, item_idx=None,
+                         item_rows=None) -> Optional[dict]:
+        """A streaming delta's rows into the card's scorers of ``model``
+        (the query server's apply; the JAX server looks for a ``_fastpath``
+        on the algorithm, which this template does not have)."""
+        scorer = self._scorers.get(id(model))
+        if scorer is None:
+            return None
+        return scorer.apply_delta_rows(user_idx, user_rows, item_idx, item_rows)
+
     def batch_predict(self, model: ALSModel, queries):
         """Filter-free known-user queries score in ONE device pass; the rest
         fall back to per-query predict."""

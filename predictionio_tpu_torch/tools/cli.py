@@ -16,12 +16,16 @@ JAX package pins its platform from ``JAX_PLATFORMS`` instead). The device
 is never read from ``engine.json``. SIGTERM drains either server (in-flight
 work finishes inside ``PIO_DRAIN_TIMEOUT_MS``) and exits 0.
 
+``eventserver --ingest-buffer off|durable|fast`` puts single-event POSTs
+through the write-behind buffer (``--flush-ms``, ``--buffer-max``), and
+``--wal-dir`` journals fast-acked events for replay at the next start.
+Streaming micro-generations need no option: ``PIO_STREAMING=1`` turns them
+on in ``deploy``, and the event plane's publisher is attached through
+``EventServer.enable_delta_publisher``, as in the JAX package.
+
 Not ported yet, and failing with an error that names the ROADMAP item that
-brings them: the other templates (item 11), the fleet options of
-``deploy`` (item 13), and ``eventserver --ingest-buffer``/``--wal-dir``
-(item 14). The options that only tune those features (``eventserver
---flush-ms/--buffer-max``) come with them, and the parser rejects them until
-then; the other verbs of the JAX CLI are not here at all.
+brings them: the other templates (item 11) and the fleet options of
+``deploy`` (item 13); the other verbs of the JAX CLI are not here at all.
 """
 
 from __future__ import annotations
@@ -416,6 +420,8 @@ def cmd_eventserver(args) -> int:
         stats=args.stats,
         plugins=load_plugins(args.plugin, group=EVENT_GROUP),
         ingest_mode=args.ingest_buffer,
+        ingest_flush_ms=args.flush_ms,
+        ingest_buffer_max=args.buffer_max,
         wal_dir=args.wal_dir,
     )
     port = es.start(args.ip, args.port, cert_path=args.cert_path, key_path=args.key_path)
@@ -655,8 +661,20 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--plugin", action="append", default=[])
     sp.add_argument("--cert-path", default=None)
     sp.add_argument("--key-path", default=None)
-    sp.add_argument("--ingest-buffer", choices=["off", "durable", "fast"], default=None)
-    sp.add_argument("--wal-dir", default=None)
+    sp.add_argument(
+        "--ingest-buffer", choices=["off", "durable", "fast"], default=None,
+        help="group-commit write-behind for single-event POSTs "
+        "(default: PIO_INGEST_BUFFER env or off)",
+    )
+    sp.add_argument("--flush-ms", type=float, default=None,
+                    help="write-behind flush interval (PIO_INGEST_FLUSH_MS)")
+    sp.add_argument("--buffer-max", type=int, default=None,
+                    help="write-behind capacity; beyond it single-event "
+                    "POSTs shed 503 (PIO_INGEST_BUFFER_MAX)")
+    sp.add_argument("--wal-dir", default=None,
+                    help="fast-mode durability: journal fast-acked events "
+                    "to this write-ahead-log directory and replay them on "
+                    "startup (PIO_WAL_DIR; fsync via PIO_WAL_FSYNC)")
     sp.set_defaults(func=cmd_eventserver)
 
     sp = sub.add_parser("loadtest")

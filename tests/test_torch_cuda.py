@@ -860,3 +860,98 @@ def test_checkpoint_publish_serves_the_quantized_variant_on_card(card, tmp_path,
         s = s * torch.from_numpy(vs).reshape(1, -1)
     rv, ri = torch.topk(s, 20, dim=1)
     assert not topk_mismatches(vals, idx, rv.numpy(), ri.numpy(), 1e-5)
+
+
+def _patch_pair(dtype, seed=23):
+    """Base factors, the rows a delta writes over users 0..1999, and the
+    scorers that serve each version alone (each answer is the kernel's own,
+    so the live scorer's answers are compared bit for bit)."""
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+
+    rng = np.random.default_rng(seed)
+    U = rng.standard_normal((5000, 10)).astype(np.float32)
+    V = rng.standard_normal((3000, 10)).astype(np.float32)
+    users = np.arange(2000)
+    rows = rng.standard_normal((2000, 10)).astype(np.float32) * 2
+    U2 = U.copy()
+    U2[users] = rows
+    return U, V, U2, users, rows, quantize_factors
+
+
+def _scorer(card, U, V, dtype, quantize_factors):
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+    uq, us = quantize_factors(U, dtype)
+    vq, vs = quantize_factors(V, dtype)
+    return BucketedScorer(DeviceContext.create(device=card), uq, vq, max_k=50,
+                          factor_dtype=dtype, user_scale=us, item_scale=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_a_delta_patch_never_reaches_a_launch_half_done(card, dtype):
+    """Launches from eight threads while another patches 2,000 user rows
+    back and forth: every batch's answer is the base scorer's or the
+    patched scorer's, whole; never a mix of rows (or of int8 rows and
+    their scales) from the two."""
+    import threading
+
+    U, V, U2, users, rows, qf = _patch_pair(dtype)
+    live = _scorer(card, U, V, dtype, qf)
+    want = {}
+    for name, F in (("base", U), ("patched", U2)):
+        s = _scorer(card, F, V, dtype, qf)
+        want[name] = {b: s.score_topk(users[b * 64:(b + 1) * 64], 50) for b in range(31)}
+    base_rows = U[users]
+    stop, errors, seen = threading.Event(), [], {"base": 0, "patched": 0}
+
+    def reader(t):
+        rng = np.random.default_rng(t)
+        while not stop.is_set():
+            b = int(rng.integers(31))
+            idx, vals = live.score_topk(users[b * 64:(b + 1) * 64], 50)
+            for name in ("base", "patched"):
+                wi, wv = want[name][b]
+                if np.array_equal(idx, wi) and np.array_equal(vals, wv):
+                    seen[name] += 1
+                    break
+            else:
+                errors.append(b)
+
+    threads = [threading.Thread(target=reader, args=(t,)) for t in range(8)]
+    for t in threads:
+        t.start()
+    try:
+        for n in range(40):
+            live.apply_delta_rows(users, rows if n % 2 == 0 else base_rows)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+    assert not errors, f"{len(errors)} answers matched neither version"
+    assert seen["base"] and seen["patched"], seen
+
+
+@pytest.mark.cuda
+def test_int8_rows_and_scales_patch_together_on_card(card):
+    """An int8 patch writes each row's codes and its scale as
+    ``quantize_factors`` gives them, builds and warms nothing, and serves
+    what a scorer built on the patched factors serves."""
+    from predictionio_tpu_torch.ops import _build
+
+    U, V, U2, users, rows, qf = _patch_pair("int8", seed=29)
+    live = _scorer(card, U, V, "int8", qf)
+    warm, builds = live.warmup_executions, len(_build.build_log)
+    before = score_kernel.launches.count
+    rc = live.apply_delta_rows(users, rows)
+    assert rc["users"] == len(users) and rc["device_ms"] > 0
+    assert (rc["warmup_executions"], rc["kernel_builds"]) == (warm, builds)
+    assert score_kernel.launches.count == before  # a patch launches no kernel
+    q, s = qf(rows, "int8")
+    assert torch.equal(live._U[:2000].cpu(), torch.from_numpy(q))
+    assert torch.equal(live._Uscale[:2000].cpu(), torch.from_numpy(s))
+    fresh = _scorer(card, U2, V, "int8", qf)
+    for b in range(0, 5000, 64):
+        gi, gv = live.score_topk(np.arange(b, min(b + 64, 5000)), 50)
+        ri, rv = fresh.score_topk(np.arange(b, min(b + 64, 5000)), 50)
+        assert np.array_equal(gi, ri) and np.array_equal(gv, rv)

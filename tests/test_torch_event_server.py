@@ -238,10 +238,14 @@ def test_stats_off_and_max_batch_size(tmp_path, monkeypatch):
 
 def test_waiting_parts_name_their_roadmap_item(tmp_path, monkeypatch):
     storage = _storage(Storage, port_base, tmp_path / "w.db")
-    for kw, item in (({"ingest_mode": "durable"}, 14), ({"ingest_mode": "fast"}, 14),
-                     ({"wal_dir": str(tmp_path)}, 14)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            port_es.EventServer(storage=storage, **kw)
+    # the ingest buffer, its WAL and streaming are ported (items 14, 8): the
+    # modes and knobs that raised now build what they name, as in JAX
+    for kw, mode in (({"ingest_mode": "durable"}, "durable"), ({"ingest_mode": "fast"}, "fast"),
+                     ({"ingest_mode": "fast", "wal_dir": str(tmp_path / "wal")}, "fast")):
+        srv = port_es.EventServer(storage=storage, telemetry=False, **kw)
+        assert srv.ingest_buffer.stats()["mode"] == mode
+        assert (srv.wal is not None) == ("wal_dir" in kw)
+        srv.stop()
     # telemetry is ported: on by default, as in the JAX server, and off
     # under PIO_TELEMETRY=0 or telemetry=False
     assert port_es.EventServer(storage=storage, telemetry=True).telemetry is not None
@@ -252,16 +256,18 @@ def test_waiting_parts_name_their_roadmap_item(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="off|durable|fast"):
         port_es.EventServer(storage=storage, ingest_mode="sometimes")
     monkeypatch.setenv("PIO_INGEST_BUFFER", "durable")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        port_es.EventServer(storage=storage)
+    srv = port_es.EventServer(storage=storage, telemetry=False)
+    assert srv.ingest_mode == "durable" and srv.ingest_buffer is not None
+    srv.stop()
     monkeypatch.setenv("PIO_INGEST_BUFFER", "off")
     monkeypatch.setenv("PIO_STREAMING", "1")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_es.EventServer(storage=storage)
+    srv = port_es.EventServer(storage=storage, telemetry=False)
+    assert srv._recent_committed is not None  # the committed-event ring
+    srv.stop()
     monkeypatch.delenv("PIO_STREAMING")
     srv = port_es.EventServer(storage=storage)
-    # the JAX server's delta-sink API is absent, not stubbed
-    assert not hasattr(srv, "attach_delta_sink") and not hasattr(srv, "enable_delta_publisher")
+    # the JAX server's delta-sink API is ported
+    assert callable(srv.attach_delta_sink) and callable(srv.enable_delta_publisher)
     base = f"http://127.0.0.1:{srv.start('127.0.0.1', 0)}"
     try:
         for method, path, item in (("POST", "/webhooks/segmentio.json", 14),

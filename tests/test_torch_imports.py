@@ -88,6 +88,10 @@ print(" ".join(names))
         "predictionio_tpu_torch.core.checkpoint", "predictionio_tpu_torch.core.evaluation",
         "predictionio_tpu_torch.core.metrics", "predictionio_tpu_torch.core.cross_validation",
         "predictionio_tpu_torch.serving.batch_predict",
+        # streaming micro-generations and the ingest front door
+        "predictionio_tpu_torch.common.faults", "predictionio_tpu_torch.data.api.wal",
+        "predictionio_tpu_torch.data.api.ingest_buffer", "predictionio_tpu_torch.core.delta",
+        "predictionio_tpu_torch.models.cooccurrence",
     } <= names
     # the SASRec training, segment and operators' slices' names, by attribute
     code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "
@@ -105,7 +109,17 @@ print(" ".join(names))
             "from predictionio_tpu_torch.serving.result_cache import ResultCache, notify_event; "
             "from predictionio_tpu_torch.tools.scenarios import parse_scenario, run_scenario; "
             "from predictionio_tpu_torch.tools.loadtest import run_loadtest, run_ingest_loadtest; "
-            "from predictionio_tpu_torch.ops._build import KernelError")
+            "from predictionio_tpu_torch.ops._build import KernelError; "
+            "from predictionio_tpu_torch.core.delta import Delta, DeltaLog, DeltaApplier, "
+            "DeltaPublisher, model_fingerprint, streaming_enabled, delta_dir_for; "
+            "from predictionio_tpu_torch.data.api.ingest_buffer import IngestBuffer, Ticket, "
+            "BufferFull, wal_encode, wal_decode; "
+            "from predictionio_tpu_torch.data.api.wal import WriteAheadLog; "
+            "from predictionio_tpu_torch.common.faults import crash_point, active, install; "
+            "from predictionio_tpu_torch.models.cooccurrence import cooccurrence_increments, "
+            "fold_increments; "
+            "from predictionio_tpu_torch.models.als import fold_in_users; "
+            "from predictionio_tpu_torch.obs.bridges import bridge_ingest_buffer")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr

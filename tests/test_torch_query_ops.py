@@ -451,9 +451,15 @@ def test_waiting_options_name_their_item(sides, kw, item):
 
 @pytest.mark.parametrize("env,item", [("PIO_TENANTS", 13), ("PIO_PIPELINE", 13), ("PIO_STREAMING", 8),
                                       ("PIO_POD_GROUP", 10)])
-def test_waiting_env_knobs_name_their_item(sides, monkeypatch, env, item):
+def test_waiting_env_knobs_name_their_item(sides, monkeypatch, env, item, tmp_path):
     side = sides["port"]
     side.publish()
     monkeypatch.setenv(env, "1")
+    if env == "PIO_STREAMING":
+        # item 8 is ported: the knob turns streaming on, as in the JAX server
+        monkeypatch.setenv("PIO_DELTA_DIR", str(tmp_path / "deltas"))
+        qs, _ = side.server()
+        assert qs._streaming is not None and qs.streaming_stats()["applied_epoch"] == 0
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         side.server()
