@@ -276,6 +276,47 @@ code is not 0 and the last line is never printed.
              epoch and then as the first replica does; on every replica
              kernel 1's launches equal its dispatches and its warm-ups and
              kernel builds stay as at readiness.
+16. ivf — IVF retrieval, in a fresh sqlite store: the full-width model of
+             phase 4 published under ``PIO_IVF_NLIST=256`` (≈ √59,047) with
+             the default nprobe (32) and ``PIO_IVF_MIN_RECALL`` (0.95), in
+             checkpoint mode behind the recall gate (sealing ``ivf.blob`` or
+             refusing with its receipt) and in auto mode with the index
+             declared as ``train_als`` declares it (no gate). A refused gate
+             runs ``pio ivf rebuild --nlist 256 --nprobe N`` with N doubled
+             from 64 until it seals (full probing always does: recall 1.0),
+             then ``POST /reload``; every recall and N is printed. Both
+             instances served by ``pio deploy --batching`` (subprocesses),
+             and the auto instance a third time under ``PIO_RETRIEVAL=exact``
+             (the rollback: no ``pio_ivf_*`` series; the exact path's
+             yardstick under the same loads). Each server:
+             ``pio loadtest`` closed loops of 2,000 at concurrency 1 and 16
+             (rung hits, the scanned fraction by rung and realized), ``pio ivf
+             show``, ``GET /`` and the ``pio_ivf_*`` series of ``/metrics``;
+             200 sampled answers of each, one at a time (rung 1, asserted),
+             against the plain version (of the probe mode, or of the exact
+             mode for the rollback) on the card, 0
+             ``topk_mismatches``; kernel 1's launches equal each server's
+             dispatches. Then, in this process, f32/bf16/int8 scorers at every
+             rung: the probe mode at full probe (nprobe = nlist) equals the
+             exact mode bit for bit and at the default nprobe equals its
+             plain version, one probe-mode launch a dispatch; a streaming
+             delta (2,000 user rows, 600 item rows) patched into the f32 and
+             int8 IVF scorers, their answers equal to the plain version on
+             the patched factors, with no warm-up or kernel build. Then
+             ``bench.py``'s ``_retrieval_bench`` recipe on the port (a
+             clustered Gaussian mixture from seed 16; 96 queries at b = 1,
+             k = 10): at its defaults (8,192 items, rank 16, nlist 64) recall@10
+             ≥ 0.95 and a scanned fraction ≤ 0.2 (the JAX gate, asserted), and
+             at 262,144 items with nlist 256 (reported), with the host k-means
+             seconds. Last, kernel 1's probe mode against the exact mode at b =
+             1, 8 and 64 on the ML-25M index and the 262,144-item catalog: the
+             dispatch (probe selection and one launch) and the launch alone
+             (CUDA events), kernel 1's launches a dispatch by its counter
+             (one, asserted), device µs a launch by kernel from a trace,
+             the plain version, ``torch.topk(U[u] @ V_probed.T)`` over the
+             probed clusters' real rows (timed only), the exact kernel on the
+             whole catalog, and the bound over the probed clusters' real
+             rows (the padding share, P_b·cap_pad over those rows, beside it).
 
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
@@ -4431,6 +4472,526 @@ def phase_streaming(model, seed, device):
     return out
 
 
+# -- IVF retrieval ------------------------------------------------------------
+
+
+IVF_NLIST = 256  # ≈ √59,047 clusters for the ML-25M catalog
+IVF_REQUESTS = 2000  # each closed loop
+IVF_CONCURRENCY = (1, 16)
+IVF_SAMPLED = 200  # answers each server holds against the plain version
+IVF_TIMED = (1, 8, 64)  # rungs of the probe mode's timings
+IVF_DELTA = (2000, 600)  # user rows, item rows of the streaming delta
+# bench.py _retrieval_bench: (items, rank, nlist) at its defaults, then a
+# catalog where pruning matters; 96 queries, k = 10, seed 16
+IVF_RECIPE = ((8192, 16, 64), (262_144, 16, 256))
+IVF_RECIPE_QUERIES, IVF_RECIPE_K, IVF_RECIPE_SEED = 96, 10, 16
+
+
+class IvfInputs:
+    """One catalog on the card in an IVF index's cluster layout, as the fast
+    path lays it out, with the probe-mode dispatch and its plain version."""
+
+    def __init__(self, U, V, index, dtype, device, k=K):
+        import numpy as np
+        import torch
+
+        from predictionio_tpu_torch.ops.quantize import factors_to_tensor, quantize_factors
+        from predictionio_tpu_torch.ops.score_kernel import pad_block_items
+        from predictionio_tpu_torch.serving import sharding
+
+        layout = sharding.build_layout(index.plan, pad_block_items)
+        Uq, us = quantize_factors(U, dtype)
+        Vq, vs = quantize_factors(V, dtype)
+        self.index, self.dtype, self.cap, self.rank = index, dtype, layout.cap_pad, U.shape[1]
+        self.exact_pad = pad_block_items(V.shape[0])
+        self.U = factors_to_tensor(Uq, device)
+        self.V = factors_to_tensor(layout.take_rows(Vq), device)
+        self.us = None if us is None else torch.from_numpy(us).to(device)
+        self.vs = None if vs is None else torch.from_numpy(layout.take_rows(vs, fill=1.0)).to(device)
+        self.C = torch.from_numpy(np.ascontiguousarray(index.centroids, np.float32)).to(device)
+        self.gid = torch.from_numpy(layout.gid).to(device)
+        self.mask = torch.from_numpy(layout.pad_mask).to(device)
+        sizes = np.sort(index.plan.shard_sizes())
+        self.min_probes = int(np.searchsorted(np.cumsum(sizes), k) + 1)
+
+    def probes(self, b, nprobe=None):
+        """P_b of the fast path at rung ``b``."""
+        nprobe = self.index.nprobe if nprobe is None else nprobe
+        return min(self.index.nlist, max(self.min_probes, nprobe * b))
+
+    def args(self, u_idx, k, n_probes):
+        return (self.U, self.V, self.C, self.gid, self.mask, u_idx, k, n_probes, self.cap)
+
+    def dispatch(self, u_idx, k, n_probes):
+        from predictionio_tpu_torch.ops.score_kernel import ivf_score_topk
+
+        return ivf_score_topk(*self.args(u_idx, k, n_probes), u_scale=self.us, v_scale=self.vs)
+
+    def plain(self, u_idx, k, n_probes):
+        from predictionio_tpu_torch.ops.score_kernel import ivf_score_topk_reference
+
+        return ivf_score_topk_reference(*self.args(u_idx, k, n_probes), u_scale=self.us,
+                                        v_scale=self.vs)
+
+
+def ivf_bound(batch, real_rows, n_probes, rank, k, dtype):
+    """Least time of one probe-mode launch: the probed clusters' real rows
+    read once (factors, global ids, int8 scales), the probe table and the B
+    user rows, the (B, k) answer written; 2·B·rank operations a real row.
+    Pad slots and the pad mask are the layout's cost, not the function's,
+    and the centroid product is the probe selection's, not the kernel's."""
+    from predictionio_tpu_torch.ops.quantize import FACTOR_BYTES
+
+    e = FACTOR_BYTES[dtype]
+    nbytes = real_rows * (rank * e + 4) + n_probes * 4 + batch * (rank * e + 4) + batch * k * 8
+    if dtype == "int8":
+        nbytes += (real_rows + batch) * 4
+    ops = 2 * batch * rank * real_rows
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_probe_mode(U, V, index, device, seed, what, k=K):
+    """Kernel 1's probe mode against the exact mode at ``IVF_TIMED`` rungs,
+    f32: the dispatch (probe selection + one launch) and the launch alone
+    by CUDA events, kernel 1's launches a dispatch by its counter, device
+    µs a launch by kernel from a trace (each kernel's traced time over the
+    launches the trace kept: ``torch.profiler`` may drop events), the plain
+    version, ``torch.topk(U[u] @ V_probed.T)`` over the gathered real rows of
+    the probed clusters, the exact kernel on the whole catalog, and the
+    bound over those real rows, with the padding share beside it."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import score_kernel
+
+    ivf_in = IvfInputs(U, V, index, "f32", device, k)
+    exact = Inputs(U, V, "f32", device)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b in IVF_TIMED:
+        u = torch.from_numpy(rng.integers(0, U.shape[0], b).astype(np.int32)).to(device)
+        p_b = ivf_in.probes(b)
+        probes = score_kernel.select_probes(ivf_in.U, u, ivf_in.C, p_b)
+        slots = (probes.long()[:, None] * ivf_in.cap
+                 + torch.arange(ivf_in.cap, device=device)).reshape(-1)
+        real = slots[~ivf_in.mask[slots]]
+        Vp = ivf_in.V[real].contiguous()
+        Uf = ivf_in.U
+
+        def launch():
+            return score_kernel.fused_probed_score_topk(
+                ivf_in.U, ivf_in.V, u, k, probes, ivf_in.gid, ivf_in.cap, ivf_in.mask)
+
+        def per_launch(traced):
+            return {name: us / traced["launches"][name] for name, us in traced["kernels"].items()
+                    if traced["launches"].get(name)}
+
+        before = score_kernel.ivf_launches.count
+        for _ in range(10):
+            ivf_in.dispatch(u, k, p_b)
+        torch.cuda.synchronize()
+        per_dispatch = (score_kernel.ivf_launches.count - before) / 10
+        require(per_dispatch == 1.0, f"{what} b={b}: {per_dispatch} probe-mode launches a dispatch")
+        traced = op_device_us(lambda: ivf_in.dispatch(u, k, p_b), n=10)
+        n_real = int(real.numel())
+        bound_ms, bound_by = ivf_bound(b, n_real, p_b, ivf_in.rank, k, "f32")
+        rows.append({
+            "catalog": what, "batch": b, "probes": p_b, "cap_pad": ivf_in.cap,
+            "scanned_rows": p_b * ivf_in.cap, "real_rows": n_real,
+            "padding_share": p_b * ivf_in.cap / n_real, "exact_rows": ivf_in.exact_pad,
+            "scanned_fraction": p_b * ivf_in.cap / ivf_in.exact_pad,
+            "ms": cuda_ms(lambda: ivf_in.dispatch(u, k, p_b), 50),
+            "kernel_ms": cuda_ms(launch, 50),
+            "device_us_per_launch": per_launch(traced),
+            "traced_launches_per_dispatch": traced["launches"],
+            "kernel1_launches_per_dispatch": per_dispatch,
+            "plain_ms": cuda_ms(lambda: ivf_in.plain(u, k, p_b), 3),
+            "library_ms": cuda_ms(lambda: torch.topk(Uf[u.long()] @ Vp.T, k, dim=1), 50),
+            "exact_ms": cuda_ms(lambda: exact.kernel(u, k), 50),
+            "exact_device_us_per_launch": per_launch(op_device_us(lambda: exact.kernel(u, k), n=10)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        emit({"phase": "ivf", "step": "probe-mode-times", **rows[-1]})
+    return rows
+
+
+def retrieval_recipe(n_items, rank, nlist, device):
+    """``bench.py``'s ``_retrieval_bench`` on the port: a clustered Gaussian
+    mixture (seed 16), the exact and the IVF scorer at the default nprobe,
+    recall@10 of 96 queries served one at a time, the scanned fraction from
+    the scorer's own accounting, and the host k-means seconds."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.evaluation import recall_at_k
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.ops import ivf
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+    k = IVF_RECIPE_K
+    rng = np.random.default_rng(IVF_RECIPE_SEED)
+    centers = (rng.normal(size=(nlist, rank)) * 4.0).astype(np.float32)
+    V = (centers[rng.integers(0, nlist, size=n_items)]
+         + rng.normal(size=(n_items, rank)) * 0.25).astype(np.float32)
+    U = (centers[rng.integers(0, nlist, size=IVF_RECIPE_QUERIES)]
+         + rng.normal(size=(IVF_RECIPE_QUERIES, rank)) * 0.25).astype(np.float32)
+    t0 = time.perf_counter()
+    index = ivf.build_index(V, nlist)
+    kmeans_s = time.perf_counter() - t0
+    ctx = DeviceContext.create(device=device)
+    exact_sc = BucketedScorer(ctx, U, V, max_k=k)
+    ivf_sc = BucketedScorer(ctx, U, V, max_k=k, ivf_index=index, retrieval="ivf")
+    exact_rows, approx_rows = [], []
+    for u in range(IVF_RECIPE_QUERIES):
+        one = np.array([u])
+        exact_rows.append(exact_sc.score_topk(one, k)[0][0])
+        approx_rows.append(ivf_sc.score_topk(one, k)[0][0])
+    recall = recall_at_k(np.stack(exact_rows), np.stack(approx_rows), k)
+    st = ivf_sc.stats()["retrieval"]
+    return {"n_items": n_items, "rank": rank, "k": k, "queries": IVF_RECIPE_QUERIES,
+            "nlist": st["nlist"], "nprobe": st["nprobe"], "min_probes": st["min_probes"],
+            "cap_pad": st["cap_pad"], "recall_at_10": float(recall),
+            "scanned_fraction_b1": st["scanned_fraction"],
+            "jax_gate_pass": bool(recall >= 0.95 and st["scanned_fraction"] <= 0.2),
+            "kmeans_s": kmeans_s, "fingerprint": st["fingerprint"]}, U, V, index
+
+
+def phase_ivf(model, seed, device):
+    """IVF retrieval on the card: see the module docstring, phase 16."""
+    import contextlib
+    import dataclasses
+    import io
+    import pickle
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import _build, ivf, score_kernel
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+    from predictionio_tpu_torch.templates import recommendation as rec
+    from predictionio_tpu_torch.tools import cli
+    from predictionio_tpu_torch.testing import topk_mismatches
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pio-ivf-")
+    knobs = ("PIO_FS_BASEDIR", "PIO_DEVPROF_WINDOW", "PIO_IVF_NLIST", "PIO_IVF_NPROBE",
+             "PIO_IVF_MIN_RECALL", "PIO_IVF_EVAL_USERS", "PIO_RETRIEVAL", "PIO_QUANT_DTYPE",
+             "PIO_QUANT_MIN_OVERLAP", "PIO_RESULT_CACHE", "PIO_COALESCE", "PIO_HOTSET_SIZE",
+             "PIO_STREAMING", "PIO_ALS_SOLVER", "PIO_ALS_COMPUTE_DTYPE")
+    saved = {k: v for k, v in os.environ.items() if k.startswith("PIO_STORAGE_") or k in knobs}
+    for k in saved:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    os.environ["PIO_DEVPROF_WINDOW"] = "3600"
+    Storage.reset_instance()
+    store.set_storage(None)
+    servers = []
+    ctx = DeviceContext.create(device=device)
+    out = {"phase": "ivf"}
+    U, V = model.user_factors, model.item_factors
+    users = [model.user_map.inverse[j] for j in range(len(model.user_map))]
+    item_index = {model.item_map.inverse[j]: j for j in range(len(model.item_map))}
+    sample = "user=" + ",".join(users)
+    query = json.dumps({"user": users[0], "num": OPS_NUM})
+    rng = np.random.default_rng(seed + 71)
+    exact_pad = score_kernel.pad_block_items(V.shape[0])
+
+    def step(name, **row):
+        row["t"] = time.perf_counter() - t_phase
+        emit({"phase": "ivf", "step": name, **row})
+        return row
+
+    def pio(*argv):
+        """(exit code, stdout, stderr) of ``pio <argv>`` in this process."""
+        o, e = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+            rc = cli.main(list(argv))
+        return rc, o.getvalue(), e.getvalue()
+
+    try:
+        storage = Storage.instance()
+        engine = rec.RecommendationEngine.apply()
+        dirs = {m: os.path.join(tmp, f"engine-{m}") for m in ("checkpoint", "auto")}
+
+        # 1. publish twice under PIO_IVF_NLIST: checkpoint mode behind the
+        # recall gate, auto mode with the index declared as train_als declares it
+        os.environ["PIO_IVF_NLIST"] = str(IVF_NLIST)
+        ckpt = als.CheckpointedALSModel(U, V, model.user_map, model.item_map, model.config)
+        t0 = time.perf_counter()
+        inst = {"checkpoint": publish(
+            storage, engine, ckpt, engine_id=ALS_FACTORY, engine_variant="checkpoint",
+            variant=write_engine_json(dirs["checkpoint"], "checkpoint",
+                                      {"rank": RANK, "persistMode": "checkpoint"}))}
+        publish_s = time.perf_counter() - t0
+        d_ckpt = als.CheckpointedALSModel._dir(inst["checkpoint"])
+        with open(os.path.join(d_ckpt, "maps.pkl"), "rb") as f:
+            record = pickle.load(f)["ivf"]
+        sealed = os.path.exists(os.path.join(d_ckpt, "ivf.blob"))
+        require(sealed == bool(record.get("nlist")) and ("refused" in record) != sealed,
+                f"checkpoint publish: record {record}, blob {sealed}")
+        out["publish_checkpoint"] = step("publish-checkpoint", record=record, sealed=sealed,
+                                         publish_s=publish_s)
+        t0 = time.perf_counter()
+        auto = als._declare_ivf_partition(als.ALSModel(
+            user_factors=U, item_factors=V, user_map=model.user_map, item_map=model.item_map,
+            config=model.config))
+        declare_s = time.perf_counter() - t0
+        require(auto.ivf_index is not None and auto.ivf_index.nlist == IVF_NLIST
+                and auto.ivf_index.nprobe == ivf.default_nprobe(IVF_NLIST),
+                f"auto declaration: {auto.ivf_index and auto.ivf_index.describe()}")
+        if sealed:
+            require(record["fingerprint"] == auto.ivf_index.fingerprint,
+                    "one k-means, two fingerprints")
+        inst["auto"] = publish(storage, engine, auto, engine_id=ALS_FACTORY,
+                               engine_variant="auto",
+                               variant=write_engine_json(dirs["auto"], "auto", {"rank": RANK}))
+        del os.environ["PIO_IVF_NLIST"]
+        sizes = auto.ivf_index.plan.shard_sizes()
+        out["index"] = step("declare-auto", declare_s=declare_s, **auto.ivf_index.describe(),
+                            cluster_sizes_p50=float(np.median(sizes)))
+
+        # 2. pio deploy --batching of both instances, and of the auto
+        # instance once more under PIO_RETRIEVAL=exact: the rollback, and the
+        # exact path's yardstick under the same loads
+        deploy, at_ready = {}, {}
+        dirs["exact"], inst["exact"] = dirs["auto"], inst["auto"]
+        for m in ("checkpoint", "auto", "exact"):  # all three start at once
+            if m == "exact":
+                os.environ["PIO_RETRIEVAL"] = "exact"
+            qs = CliServer(tmp, f"deploy-{m}", "deploy", "--engine-dir", dirs[m], "--batching",
+                           "--device", device.type)
+            os.environ.pop("PIO_RETRIEVAL", None)
+            servers.append(qs)
+            deploy[m] = {"server": qs}
+        for m, d in deploy.items():
+            qs = d["server"]
+            d["ready_s"] = qs.wait_ready()
+            at_ready[m] = http_json(f"{qs.base}/")[1]
+            require(at_ready[m]["engineInstanceId"] == inst[m], f"{m}: {at_ready[m]}")
+        backend = {m: at_ready[m]["fastpath"][0]["retrieval_backend"] for m in at_ready}
+        require(backend == {"checkpoint": "ivf" if sealed else "exact", "auto": "ivf",
+                            "exact": "exact"}, f"deployed backends {backend}")
+
+        # 3. a refused gate: pio ivf rebuild with nprobe doubled from 64 until
+        # it seals, then POST /reload
+        rebuilds = []
+        n = 64
+        while not sealed:
+            rc, so, se = pio("ivf", "rebuild", "--instance", inst["checkpoint"], "--nlist",
+                             str(IVF_NLIST), "--nprobe", str(n))
+            if rc == 0:
+                recall = json.loads(so.split("\n[INFO]")[0])["recall_at_publish"]
+            else:
+                m_ = re.search(r"recall@10 ([0-9.]+) <", se)
+                require(m_ is not None, f"pio ivf rebuild --nprobe {n}: {rc} {se}")
+                recall = float(m_.group(1))
+            rebuilds.append(step("ivf-rebuild", nprobe=n, exit=rc, recall=recall))
+            sealed = rc == 0
+            require(sealed or n < IVF_NLIST, "a full-probe rebuild refused")
+            n = min(2 * n, IVF_NLIST)
+        out["rebuilds"] = rebuilds
+        if rebuilds:
+            qs = deploy["checkpoint"]["server"]
+            status, body = http_json(f"{qs.base}/reload", {}, method="POST")
+            require(status == 200, f"POST /reload: {status} {body}")
+            at_ready["checkpoint"] = http_json(f"{qs.base}/")[1]
+            require(at_ready["checkpoint"]["fastpath"][0]["retrieval_backend"] == "ivf",
+                    f"after the rebuild and reload: {at_ready['checkpoint']['fastpath'][0]}")
+        indices = {"checkpoint": ivf.load_index(os.path.join(d_ckpt, "ivf.blob")),
+                   "auto": auto.ivf_index}
+
+        # 4. each server: closed loops, pio ivf show, GET /, /metrics, sampled
+        # answers against the plain version, launches against dispatches
+        served = {}
+        for m in ("checkpoint", "auto", "exact"):
+            qs = deploy[m]["server"]
+            info = http_json(f"{qs.base}/")[1]
+            rv_ = info["fastpath"][0]["retrieval"]
+            require(m == "exact" or rv_["fingerprint"] == indices[m].fingerprint,
+                    f"{m} serves {rv_}, sealed {indices.get(m)}")
+            loads = []
+            for c in IVF_CONCURRENCY:
+                before = http_json(f"{qs.base}/")[1]
+                rc, rep = run_loadtest_cli(
+                    "--port", str(qs.port), "--query", query, "--requests", str(IVF_REQUESTS),
+                    "--concurrency", str(c), "--dist", "zipf", "--sample", sample,
+                    "--scrape-metrics")
+                after = http_json(f"{qs.base}/")[1]
+                require(rc == 0 and rep["ok"] == IVF_REQUESTS and rep["http5xx"] == 0,
+                        f"{m} closed loop c={c}: exit {rc}, {rep}")
+                rb = before["fastpath"][0]["retrieval"] or {"scanned_rows": 0, "dispatches": 0}
+                ra = after["fastpath"][0]["retrieval"] or {"scanned_rows": 0, "dispatches": 0}
+                disp = ra["dispatches"] - rb["dispatches"]
+                hits = _delta(after["fastpath"][0]["bucket_hits"], before["fastpath"][0]["bucket_hits"])
+                loads.append(step(
+                    "closed-loop", server=m, concurrency=c, qps=rep["qps"], p50_ms=rep["p50Ms"],
+                    p99_ms=rep["p99Ms"], rung_hits=hits,
+                    scanned_fraction=(ra["scanned_rows"] - rb["scanned_rows"])
+                    / (disp * exact_pad) if disp else None,
+                    scanned_fraction_by_rung={b: ra["probes_per_rung"][b] * ra["cap_pad"]
+                                              / exact_pad for b in hits} if disp else None,
+                    launches=after["scoreKernelLaunches"] - before["scoreKernelLaunches"],
+                    dispatches=after["fastpath"][0]["calls"] - before["fastpath"][0]["calls"],
+                    retrieval_summary={k: (rep.get("serverMetrics") or {}).get(k) for k in (
+                        "retrievalBackend", "ivfNprobe", "ivfScannedFraction")}))
+            shown = pio("ivf", "show", "--instance", inst[m])
+            require(shown[0] == 0, f"pio ivf show {m}: {shown}")
+            with urllib.request.urlopen(f"{qs.base}/metrics", timeout=30) as r:
+                ivf_series = [x for x in r.read().decode().splitlines()
+                              if x.startswith("pio_ivf_")]
+            require(not ivf_series if m == "exact" else any(
+                x.startswith(f'pio_ivf_info{{fingerprint="{indices[m].fingerprint}"}}')
+                for x in ivf_series), f"{m} /metrics: {ivf_series}")
+            # the sampled answers, one at a time: each a dispatch at rung 1
+            before = http_json(f"{qs.base}/")[1]
+            picks = [(int(j), int(rng.integers(1, K + 1)))
+                     for j in rng.integers(0, len(users), IVF_SAMPLED)]
+            answers = []
+            for j, num in picks:
+                status, a = http_json(f"{qs.base}/queries.json", {"user": users[j], "num": num})
+                require(status == 200, f"{users[j]}: {status} {a}")
+                answers.append(a["itemScores"])
+            after = http_json(f"{qs.base}/")[1]
+            hits = _delta(after["fastpath"][0]["bucket_hits"], before["fastpath"][0]["bucket_hits"])
+            require(hits == {"1": IVF_SAMPLED}, f"{m}: sampled queries went to rungs {hits}")
+            if m == "exact":
+                plain = Inputs(U, V, "f32", device)
+
+                def answer(u):
+                    return plain.plain(u, K)
+            else:
+                plain = IvfInputs(U, V, indices[m], "f32", device)
+                p1 = after["fastpath"][0]["retrieval"]["probes_per_rung"]["1"]
+                require(p1 == plain.probes(1), f"{m}: P_1 {p1} vs {plain.probes(1)}")
+
+                def answer(u):
+                    return plain.plain(u, K, p1)
+            bad = []
+            for (j, num), got in zip(picks, answers):
+                u = torch.tensor([j], dtype=torch.int32, device=device)
+                rv, ri = (t.cpu().numpy() for t in answer(u))
+                bad += topk_mismatches(
+                    np.array([[x["score"] for x in got]]),
+                    np.array([[item_index[x["item"]] for x in got]]), rv[:, :num], ri[:, :num], TOL)
+            require(not bad, f"{m}: served answers vs the plain version: {bad[:3]}")
+            del plain
+            final = http_json(f"{qs.base}/")[1]
+            launches = final["scoreKernelLaunches"] - at_ready[m]["scoreKernelLaunches"]
+            calls = final["fastpath"][0]["calls"] - at_ready[m]["fastpath"][0]["calls"]
+            require(launches == calls > 0,
+                    f"{m}: kernel 1 launched {launches} times vs {calls} dispatches")
+            served[m] = step("served", server=m, instance=inst[m], ready_s=deploy[m]["ready_s"],
+                             launches=launches, dispatches=calls, topk_mismatches=0,
+                             sampled=IVF_SAMPLED, loads=loads, ivf_show=shown[1].strip(),
+                             metrics=ivf_series, retrieval=final["fastpath"][0]["retrieval"])
+            cli_run("undeploy", "--port", str(qs.port))
+            qs.wait_exit()
+        out["served"] = served
+
+        # 5. parity on the card: full probe equals the exact mode bit for bit,
+        # the default nprobe equals the plain version, every rung and dtype
+        index = indices["auto"]
+        parity, scorers = {}, {}
+        for dtype in DTYPES:
+            Uq, us = quantize_factors(U, dtype)
+            Vq, vs = quantize_factors(V, dtype)
+            kw = dict(max_k=K, factor_dtype=dtype, user_scale=us, item_scale=vs)
+            exact = BucketedScorer(ctx, Uq, Vq, **kw)
+            full = BucketedScorer(ctx, Uq, Vq, retrieval="ivf", **kw,
+                                  ivf_index=dataclasses.replace(index, nprobe=index.nlist))
+            pruned = BucketedScorer(ctx, Uq, Vq, ivf_index=index, retrieval="ivf", **kw)
+            gaps = []
+            for b in RUNGS:
+                who = rng.integers(0, len(users), b)
+                before = score_kernel.ivf_launches.count
+                ei, ev = exact.score_topk(who, K)
+                fi, fv = full.score_topk(who, K)
+                pi, pv = pruned.score_topk(who, K)
+                require(score_kernel.ivf_launches.count == before + 2,
+                        f"{dtype} b={b}: {score_kernel.ivf_launches.count - before} probe launches")
+                require(np.array_equal(ei, fi) and ev.tobytes() == fv.tobytes(),
+                        f"{dtype} b={b}: full probe differs from the exact mode")
+                f = pruned._factors
+                rv, ri = score_kernel.ivf_score_topk_reference(
+                    f[0], f[1], f[4], f[5], f[6], torch.from_numpy(who.astype(np.int32)).to(device),
+                    K, pruned._probes[b], pruned._ivf_layout.cap_pad, u_scale=f[2], v_scale=f[3])
+                rv, ri = rv.cpu().numpy(), ri.cpu().numpy()
+                bad = topk_mismatches(pv, pi, rv, ri, TOL)
+                require(not bad, f"{dtype} b={b}: probe mode vs plain version: {bad[:3]}")
+                gaps.append(float(np.abs(pv - rv).max()))
+            parity[dtype] = {"full_probe_bitwise": True, "topk_mismatches": 0,
+                             "max_abs_err": max(gaps)}
+            scorers[dtype] = pruned
+            del exact, full
+        out["parity"] = step("parity", **parity)
+
+        # 6. a streaming delta on the IVF replicas (f32 and int8): user and
+        # item rows patched in place, answers from the patched rows
+        deltas = {}
+        for dtype in ("f32", "int8"):
+            sc = scorers[dtype]
+            who_u = rng.choice(len(users), IVF_DELTA[0], replace=False)
+            who_i = rng.choice(V.shape[0], IVF_DELTA[1], replace=False)
+            U2, V2 = U.copy(), V.copy()
+            U2[who_u] = rng.normal(size=(len(who_u), RANK)).astype(np.float32)
+            V2[who_i] = rng.normal(size=(len(who_i), RANK)).astype(np.float32) * 2
+            warm, builds = sc.warmup_executions, len(_build.build_log)
+            receipt = sc.apply_delta_rows(who_u, U2[who_u], who_i, V2[who_i])
+            require((receipt["warmup_executions"], receipt["kernel_builds"]) == (warm, builds)
+                    and receipt["users"] == len(who_u) and receipt["items"] == len(who_i),
+                    f"{dtype} delta: {receipt}")
+            plain = IvfInputs(U2, V2, index, dtype, device)
+            bad = []
+            for b in RUNGS:
+                who = np.concatenate([who_u[:b], rng.integers(0, len(users), b)])[:b]
+                gi, gv = sc.score_topk(who, K)
+                rv, ri = (t.cpu().numpy() for t in plain.plain(
+                    torch.from_numpy(who.astype(np.int32)).to(device), K, plain.probes(b)))
+                bad += topk_mismatches(gv, gi, rv, ri, TOL)
+            require(not bad, f"{dtype} IVF delta vs the plain version on U', V': {bad[:3]}")
+            require(sc.warmup_executions == warm and len(_build.build_log) == builds,
+                    f"{dtype}: a delta warmed or built")
+            deltas[dtype] = {"users": receipt["users"], "items": receipt["items"],
+                             "device_ms": receipt["device_ms"], "topk_mismatches": 0}
+        del scorers
+        out["delta"] = step("delta", **deltas)
+
+        # 7. the JAX package's own IVF gate recipe on the port, then kernel 1's
+        # probe mode against the exact mode
+        recipes = []
+        for n_items, rank, nlist in IVF_RECIPE:
+            row, rU, rV, rindex = retrieval_recipe(n_items, rank, nlist, device)
+            recipes.append(step("recipe", **row))
+        require(recipes[0]["jax_gate_pass"],
+                f"the JAX gate at bench.py's defaults: {recipes[0]}")
+        out["recipes"] = recipes
+        times = time_probe_mode(U, V, index, device, seed + 73, "ml25m")
+        times += time_probe_mode(rU, rV, rindex, device, seed + 79, f"recipe-{rV.shape[0]}",
+                                 k=IVF_RECIPE_K)
+        out["times"] = times
+    finally:
+        for srv in servers:
+            srv.kill()
+        Storage.reset_instance()
+        sqlite.close_all_dbs()
+        for k in knobs:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(seconds=time.perf_counter() - t_phase, ok=True)
+    emit({k: v for k, v in out.items() if k not in ("served", "times")})
+    return out
+
+
 # -- A/B: kernels 1 and 2 of two trees, on one card ---------------------------
 
 
@@ -4640,6 +5201,7 @@ def main(argv=None) -> int:
     ops = phase_serving_ops(model, args.seed, device, rows)
     pub = phase_publish_eval(model, args.seed, device, rows, ops)
     stream = phase_streaming(model, args.seed, device)
+    ivf_out = phase_ivf(model, args.seed, device)
     # each kernel's launches on the CLI path, counted as the CLI drove it
     cli_launches = {
         "fused_gather_score_topk": quick["serve"]["launches"],
@@ -4749,6 +5311,15 @@ def main(argv=None) -> int:
     # on the restarted replica (launches = each server's dispatches)
     kernels["kernels"][0]["streaming_launches"] = {
         d: row["launches"] for d, row in stream["kernel1"].items()}
+    # IVF: kernel 1's probe mode on both deployed IVF servers (launches =
+    # each server's dispatches) and its times at the ML-25M index by rung
+    kernels["kernels"][0]["ivf_launches"] = {
+        m: ivf_out["served"][m]["launches"] for m in ("checkpoint", "auto")}
+    kernels["kernels"][0]["ivf_by_rung"] = {
+        r["batch"]: {key: r[key] for key in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "exact_ms", "scanned_fraction",
+                                             "real_rows", "padding_share")}
+        for r in ivf_out["times"] if r["catalog"] == "ml25m"}
     kernels["kernels"][0]["by_dtype_b64"] = {
         r["dtype"]: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in rows if r.get("case", "ml25m") == "ml25m" and r["batch"] == RUNGS[-1]}
@@ -4767,7 +5338,7 @@ def main(argv=None) -> int:
                    "flash": flash_rows, "sasrec": sasrec,
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
                    "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
-                   "serving_ops": ops, "publish_eval": pub, "streaming": stream,
+                   "serving_ops": ops, "publish_eval": pub, "streaming": stream, "ivf": ivf_out,
                    **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)

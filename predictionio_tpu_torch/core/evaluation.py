@@ -6,6 +6,7 @@ Counterpart of ``predictionio_tpu/core/evaluation.py``. Parity:
 * :func:`quantized_topk_overlap` — the ``PIO_QUANT_MIN_OVERLAP`` publish
   gate's metric, in host numpy as in the JAX package (``:38-80``), so both
   packages refuse the same generations;
+* :func:`recall_at_k` — the ``PIO_IVF_MIN_RECALL`` publish gate's metric;
 * :class:`Evaluation` — binds an engine to metric(s)
   (``controller/Evaluation.scala:34``);
 * :class:`EngineParamsGenerator` — the candidate grid
@@ -23,8 +24,8 @@ Each candidate trains one model a fold on ``ctx.device`` (the training
 kernel on the card) and scores the fold's queries through the algorithm's
 ``batch_predict`` (the score kernel, in chunks of the top rung). One card
 is one process, so the coordinator-only writes of the JAX package's
-multi-host runs have no counterpart. ``recall_at_k`` (the IVF publish
-gate's metric) comes with IVF retrieval (ROADMAP §1 item 9).
+multi-host runs have no counterpart. :func:`recall_at_k` is the IVF
+publish gate's metric (``:82-118``), in host numpy like the overlap.
 """
 
 from __future__ import annotations
@@ -109,6 +110,38 @@ class Evaluation:
         extra = self.metrics or []
         return [self.metric] + [m for m in extra if m is not self.metric]
 
+
+
+def recall_at_k(exact_idx, approx_idx, k: int) -> float:
+    """Mean recall@k of an approximate ranking against the exact one.
+
+    ``exact_idx``/``approx_idx`` are ``(rows, ≥k)`` integer id matrices.
+    Per row, recall is ``|exact[:k] ∩ approx[:k]| / min(k, real exact
+    ids)``: padding slots (negative ids, or ``PAD_SENTINEL``) are left out
+    of both sides and the denominator shrinks with them. Set intersection
+    makes the metric independent of tie order. The ``PIO_IVF_MIN_RECALL``
+    publish gate's metric, parallel to :func:`quantized_topk_overlap`.
+    """
+    import numpy as np
+
+    from predictionio_tpu_torch.serving.sharding import PAD_SENTINEL
+
+    exact = np.atleast_2d(np.asarray(exact_idx, np.int64))[:, :k]
+    approx = np.atleast_2d(np.asarray(approx_idx, np.int64))[:, :k]
+    if exact.shape[0] != approx.shape[0]:
+        raise ValueError(
+            f"row mismatch: exact has {exact.shape[0]}, approx has {approx.shape[0]}"
+        )
+    recalls = []
+    for e_row, a_row in zip(exact, approx):
+        e = np.unique(e_row[(e_row >= 0) & (e_row < int(PAD_SENTINEL))])
+        a = np.unique(a_row[(a_row >= 0) & (a_row < int(PAD_SENTINEL))])
+        denom = min(int(k), len(e))
+        if denom == 0:
+            recalls.append(1.0)  # nothing retrievable, so nothing missed
+            continue
+        recalls.append(len(np.intersect1d(e, a, assume_unique=True)) / denom)
+    return float(np.mean(recalls))
 
 @dataclasses.dataclass
 class MetricScores:

@@ -126,6 +126,10 @@ JAX_COUNTERPARTS = {
     f"{_JAX}.data.bimap.BiMap": f"{_PORT}.data.bimap.BiMap",
     f"{_JAX}.models.sequential.SASRecModel": f"{_PORT}.models.sequential.SASRecModel",
     f"{_JAX}.models.sequential.SASRecConfig": f"{_PORT}.models.sequential.SASRecConfig",
+    # an auto-mode ALSModel's IVF index and its cluster partition; a model
+    # whose sharding_plan is set is still refused (ALSModel.__setstate__)
+    f"{_JAX}.ops.ivf.IVFIndex": f"{_PORT}.ops.ivf.IVFIndex",
+    f"{_JAX}.serving.sharding.ShardingPlan": f"{_PORT}.serving.sharding.ShardingPlan",
 }
 
 # JAX classes that have no counterpart yet, with why
@@ -134,14 +138,6 @@ _REFUSED = {
         "a checkpoint-mode instance of the JAX package keeps its factors in an "
         "orbax checkpoint, which predictionio_tpu_torch cannot read (it does not "
         "import orbax); retrain it with the port, or publish it in auto mode"
-    ),
-    f"{_JAX}.serving.sharding.ShardingPlan": (
-        "sharded serving is not ported to predictionio_tpu_torch yet "
-        "(ROADMAP §1 item 10)"
-    ),
-    f"{_JAX}.ops.ivf.IVFIndex": (
-        "IVF retrieval is not ported to predictionio_tpu_torch yet "
-        "(ROADMAP §1 item 9)"
     ),
 }
 

@@ -56,12 +56,33 @@
 //     best keys of all, which the ticket order cannot change: a ticket counts
 //     arrivals, it sums no values. The merging block sets its ticket back to 0
 //     for the next call on the stream.
+//
+// Probe-table mode (IVF retrieval, pio_score_topk_probed). The item factors lie
+// in blocks of block_items rows, one a cluster, each block's real rows ascending
+// by global item id and its padding (masked) after them; gid[slot] is the slot's
+// global id (2^31 - 1 on padding). A call takes a table of n_probes block ids
+// and scans only those blocks, as one catalog of n_probes * block_items rows:
+// row r of it is slot probes[r / block_items] * block_items + r % block_items.
+// The slices, staging, selection and merge are the exact mode's (one kernel
+// template, instantiated with ProbedArgs); the tile stages the scanned rows'
+// gids beside their scales (a staged run never crosses a block), and a key
+// carries the slot's gid where the exact mode carries the row. The exact
+// mode's instantiations take the plain Args and compile as they did before
+// the probe mode existed. So the selection orders by (value desc, global id asc) over the probed
+// rows, and the answer's indices are global ids: the JAX package's per-probe
+// top-k followed by merge_topk (ops/score_kernel.py ivf_score_topk_reference),
+// since a block's slot order is its gid order and each probe's best
+// min(k, block_items) hold every candidate of the union's best k. With every
+// block probed it is the exact mode's answer bit for bit: the same scores, the
+// same keys.
 // Making it faster (a cheaper first threshold, wgmma for wide ranks) is later
 // work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -326,6 +347,21 @@ __device__ void stage_bytes(unsigned char* dst, const unsigned char* src, int nb
   }
 }
 
+// stage_bytes for a run that may start anywhere in a tile (the probe mode's): the
+// destination's alignment is checked too.
+__device__ void stage_bytes_any(unsigned char* dst, const unsigned char* src, int nbytes) {
+  const unsigned align = static_cast<unsigned>(reinterpret_cast<uintptr_t>(src)) |
+                         static_cast<unsigned>(reinterpret_cast<uintptr_t>(dst)) |
+                         static_cast<unsigned>(nbytes);
+  if ((align & 15u) == 0) {
+    for (int c = threadIdx.x * 16; c < nbytes; c += blockDim.x * 16) cp_async16(dst + c, src + c);
+  } else if ((align & 3u) == 0) {
+    for (int c = threadIdx.x * 4; c < nbytes; c += blockDim.x * 4) cp_async4(dst + c, src + c);
+  } else {
+    for (int c = threadIdx.x; c < nbytes; c += blockDim.x) dst[c] = src[c];
+  }
+}
+
 struct Args {
   const void* U;
   const float* us;            // (n_users,) or null
@@ -340,6 +376,17 @@ struct Args {
   int n_users, rank, n_items, batch, k, slices, slice_items, rows, tile_items, cap;
 };
 
+// The probe-table mode's arguments: n_items is the scanned rows, n_probes *
+// block_items; V, vs, mask and gid hold n_blocks * block_items slots.
+struct ProbedArgs : Args {
+  const int* gid;     // (n_blocks * block_items,) global ids, 2^31 - 1 on padding
+  const int* probes;  // (n_items / block_items,) block ids
+  int block_items, n_blocks;
+};
+
+template <typename A>
+constexpr bool kProbed = std::is_same<A, ProbedArgs>::value;
+
 __host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
 
 // one staged tile: V's rows, then the mask bytes, then the item scales
@@ -348,6 +395,10 @@ __host__ __device__ __forceinline__ int tile_v_bytes(int tile_items, int rank, i
 }
 __host__ __device__ __forceinline__ int tile_bytes(int tile_items, int rank, int elem) {
   return tile_v_bytes(tile_items, rank, elem) + round16(tile_items) + 4 * tile_items;
+}
+// the probe mode's tile: the exact mode's, then the rows' global ids
+__host__ __device__ __forceinline__ int probed_tile_bytes(int tile_items, int rank, int elem) {
+  return tile_bytes(tile_items, rank, elem) + 4 * tile_items;
 }
 
 template <typename T>
@@ -359,6 +410,32 @@ __device__ void stage_tile(const Args& a, unsigned char* dst, int i0, int n) {
   if (a.vs != nullptr)
     stage_bytes(dst + vb + round16(a.tile_items), reinterpret_cast<const unsigned char*>(a.vs + i0),
                 4 * n);
+  cp_async_commit();
+}
+
+// The probe mode's staging of scanned rows [i0, i0 + n): one run a block the rows
+// cross, each from its probed block (ids clamped into [0, n_blocks)), with the
+// rows' global ids after the scales.
+template <typename T>
+__device__ void stage_probed_tile(const ProbedArgs& a, unsigned char* dst, int i0, int n) {
+  const int vb = tile_v_bytes(a.tile_items, a.rank, sizeof(T));
+  const int row = a.rank * static_cast<int>(sizeof(T));
+  for (int r0 = 0; r0 < n;) {  // uniform over the block
+    const int blk = (i0 + r0) / a.block_items, off = i0 + r0 - blk * a.block_items;
+    int b = a.probes[blk];
+    b = b < 0 ? 0 : (b >= a.n_blocks ? a.n_blocks - 1 : b);
+    const size_t src = static_cast<size_t>(b) * a.block_items + off;
+    const int m = min(n - r0, a.block_items - off);
+    stage_bytes_any(dst + static_cast<size_t>(r0) * row,
+                    static_cast<const unsigned char*>(a.V) + src * row, m * row);
+    if (a.mask != nullptr) stage_bytes_any(dst + vb + r0, a.mask + src, m);
+    if (a.vs != nullptr)
+      stage_bytes_any(dst + vb + round16(a.tile_items) + 4 * r0,
+                      reinterpret_cast<const unsigned char*>(a.vs + src), 4 * m);
+    stage_bytes_any(dst + tile_bytes(a.tile_items, a.rank, sizeof(T)) + 4 * r0,
+                    reinterpret_cast<const unsigned char*>(a.gid + src), 4 * m);
+    r0 += m;
+  }
   cp_async_commit();
 }
 
@@ -395,14 +472,16 @@ __device__ __forceinline__ void score_chunk(const Args& a, const float* u, const
 // ---- the kernel ------------------------------------------------------------------
 
 // grid (slices, row groups). G = 1: a.rows rows a block, a warp each, a queue of
-// 32 R keys; G = WARPS: one row a block, one buffer of a.cap keys.
-template <typename T, int G, int R>
-__global__ void __launch_bounds__(THREADS) score_select(Args a) {
+// 32 R keys; G = WARPS: one row a block, one buffer of a.cap keys. A: Args (the
+// exact mode) or ProbedArgs (the probe-table mode).
+template <typename T, int G, int R, typename A>
+__global__ void __launch_bounds__(THREADS) score_select(A a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int me = G == 1 ? lane : static_cast<int>(threadIdx.x);
   const int rows = G == 1 ? a.rows : 1;
-  const int tb = tile_bytes(a.tile_items, a.rank, sizeof(T));
+  const int tb = kProbed<A> ? probed_tile_bytes(a.tile_items, a.rank, sizeof(T))
+                            : tile_bytes(a.tile_items, a.rank, sizeof(T));
   unsigned char* tiles = smem;  // two staged tiles; the merge reuses them
   Key* bufs = reinterpret_cast<Key*>(smem + 2 * tb);
   float* urows = reinterpret_cast<float*>(bufs + (G == 1 ? rows : 1) * a.cap);
@@ -437,18 +516,25 @@ __global__ void __launch_bounds__(THREADS) score_select(Args a) {
   const int i0 = slice * a.slice_items;
   const int i1 = min(a.n_items, i0 + a.slice_items);
   const int n_tiles = (i1 - i0 + a.tile_items - 1) / a.tile_items;
-  stage_tile<T>(a, tiles, i0, min(a.tile_items, i1 - i0));
+  if constexpr (kProbed<A>) stage_probed_tile<T>(a, tiles, i0, min(a.tile_items, i1 - i0));
+  else stage_tile<T>(a, tiles, i0, min(a.tile_items, i1 - i0));
   for (int t = 0; t < n_tiles; ++t) {
     const int it0 = i0 + t * a.tile_items;
     if (t + 1 < n_tiles) {
       const int nx = it0 + a.tile_items;
-      stage_tile<T>(a, tiles + ((t + 1) & 1) * tb, nx, min(a.tile_items, i1 - nx));
+      if constexpr (kProbed<A>)
+        stage_probed_tile<T>(a, tiles + ((t + 1) & 1) * tb, nx, min(a.tile_items, i1 - nx));
+      else
+        stage_tile<T>(a, tiles + ((t + 1) & 1) * tb, nx, min(a.tile_items, i1 - nx));
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t (and, the first time, the U rows) visible to all
     const int n = min(a.tile_items, i1 - it0);
+    // the probe mode's keys carry each row's global id, staged after its scale
+    const int* tile_gid = reinterpret_cast<const int*>(
+        tiles + (t & 1) * tb + tile_bytes(a.tile_items, a.rank, sizeof(T)));
     for (int c0 = 0; active && c0 < n; c0 += ITEMS * 32 * G) {
       float sc[ITEMS];
       score_chunk<T, G>(a, u, tiles + (t & 1) * tb, c0, n, sc);
@@ -457,7 +543,7 @@ __global__ void __launch_bounds__(THREADS) score_select(Args a) {
         if (c0 + q * 32 * G < n) {  // uniform over the group
           const int p = c0 + q * 32 * G + me;
           const bool ok = p < n;
-          const Key key = ok ? make_key(sc[q], it0 + p) : 0;
+          const Key key = ok ? make_key(sc[q], kProbed<A> ? tile_gid[p] : it0 + p) : 0;
           if constexpr (G == 1) offer_warp(ws, ok, key); else offer_block(bs, ok, key);
         }
       }
@@ -563,7 +649,7 @@ size_t smem_bytes(int rows, int cap, int rank, int tile_items, int elem, bool wa
 // Dynamic shared memory above 48 KB needs an opt-in, made once per kernel: the
 // device's opt-in limit less the kernel's static shared memory (the limit covers
 // both, so asking for the whole of it fails every launch).
-template <typename T, int G, int R>
+template <typename T, int G, int R, typename A>
 cudaError_t opt_in_smem(size_t smem) {
   static const int limit = [] {
     int dev = 0, optin = 0;
@@ -571,10 +657,10 @@ cudaError_t opt_in_smem(size_t smem) {
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
             cudaSuccess ||
-        cudaFuncGetAttributes(&attr, score_select<T, G, R>) != cudaSuccess)
+        cudaFuncGetAttributes(&attr, score_select<T, G, R, A>) != cudaSuccess)
       return -1;
     const int most = optin - static_cast<int>(attr.sharedSizeBytes);
-    if (cudaFuncSetAttribute(score_select<T, G, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (cudaFuncSetAttribute(score_select<T, G, R, A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              most) != cudaSuccess)
       return -1;
     return most;
@@ -583,8 +669,8 @@ cudaError_t opt_in_smem(size_t smem) {
   return smem <= static_cast<size_t>(limit) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T, int G, int R>
-cudaError_t launch_route(Args a, cudaStream_t stream) {
+template <typename T, int G, int R, typename A>
+cudaError_t launch_route(A a, cudaStream_t stream) {
   a.rows = G == 1 ? (a.batch < WARPS ? a.batch : WARPS) : 1;
   a.cap = buffer_cap(a.k);
   // as many items as TILE_BYTES hold, at most MAX_TILE_ITEMS and no more than a
@@ -593,31 +679,46 @@ cudaError_t launch_route(Args a, cudaStream_t stream) {
   ti = min(ti, min(MAX_TILE_ITEMS, (a.slice_items + 31) / 32 * 32)) / 32 * 32;
   a.tile_items = ti < 32 ? 32 : ti;
   const size_t smem = smem_bytes(a.rows, a.cap, a.rank, a.tile_items,
-                                 static_cast<int>(sizeof(T)), G == 1);
+                                 static_cast<int>(sizeof(T)), G == 1) +
+                      (kProbed<A> ? 8 * static_cast<size_t>(a.tile_items) : 0);  // two tiles' gids
   if (smem > 48 * 1024) {
-    const cudaError_t e = opt_in_smem<T, G, R>(smem);
+    const cudaError_t e = opt_in_smem<T, G, R, A>(smem);
     if (e != cudaSuccess) return e;
   }
   const int groups = (a.batch + a.rows - 1) / a.rows;
   if (groups > 65535) return cudaErrorInvalidValue;
   const dim3 grid(a.slices, groups);
-  score_select<T, G, R><<<grid, 32 * (G == 1 ? a.rows : G), smem, stream>>>(a);
+  score_select<T, G, R, A><<<grid, 32 * (G == 1 ? a.rows : G), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <typename T, typename A>
+cudaError_t launch(const A& a, cudaStream_t stream) {
   switch (a.k <= WARP_MAX_K ? buffer_cap(a.k) : 0) {
     case 64:
-      return launch_route<T, 1, 2>(a, stream);
+      return launch_route<T, 1, 2, A>(a, stream);
     case 128:
-      return launch_route<T, 1, 4>(a, stream);
+      return launch_route<T, 1, 4, A>(a, stream);
     case 256:
-      return launch_route<T, 1, 8>(a, stream);
+      return launch_route<T, 1, 8, A>(a, stream);
     case 512:
-      return launch_route<T, 1, 16>(a, stream);
+      return launch_route<T, 1, 16, A>(a, stream);
     default:
-      return launch_route<T, WARPS, 1>(a, stream);
+      return launch_route<T, WARPS, 1, A>(a, stream);
+  }
+}
+
+template <typename A>
+cudaError_t launch_dtype(const A& a, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return launch<float>(a, s);
+    case 1:
+      return launch<__nv_bfloat16>(a, s);
+    case 2:
+      return launch<int8_t>(a, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -653,17 +754,34 @@ int pio_score_topk(const void* U, const float* u_scale, const void* V, const flo
     return cudaErrorInvalidValue;
   Args a{U, u_scale, V, v_scale, u_idx, mask, static_cast<Key*>(cand), tickets, out_v, out_i,
          n_users, rank, n_items, batch, k, slices, slice_items, 0, 0, 0};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(a, s);
-    case 1:
-      return launch<__nv_bfloat16>(a, s);
-    case 2:
-      return launch<int8_t>(a, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_dtype(a, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Probe-table mode: V, v_scale, mask and gid hold n_blocks * block_items slots;
+// probes the n_probes block ids to scan (each clamped into [0, n_blocks)). The
+// call scans n_probes * block_items rows, cut into `slices` slices of
+// `slice_items`, and writes (value, global id) pairs; cand holds
+// batch * slices * k keys. Otherwise as pio_score_topk.
+int pio_score_topk_probed(const void* U, const float* u_scale, const void* V,
+                          const float* v_scale, const int* u_idx, const unsigned char* mask,
+                          const int* gid, const int* probes, void* cand, int* tickets,
+                          float* out_v, int* out_i, int n_users, int rank, int n_blocks,
+                          int block_items, int n_probes, int batch, int k, int slices,
+                          int slice_items, int dtype, void* stream) {
+  const long long rows = static_cast<long long>(n_probes) * block_items;
+  if (gid == nullptr || probes == nullptr || n_blocks < 1 || block_items < 1 || n_probes < 1 ||
+      rows > 0x7fffffffLL || static_cast<long long>(n_blocks) * block_items > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int n_items = static_cast<int>(rows);
+  if (n_users < 1 || rank < 1 || rank > MAX_RANK || batch < 1 || k < 1 || k > n_items ||
+      k > MAX_K || slices < 1 || slices > MAX_SLICES || slice_items < 1 ||
+      static_cast<long long>(slices) * slice_items < n_items ||
+      static_cast<long long>(slices - 1) * slice_items >= n_items)
+    return cudaErrorInvalidValue;
+  ProbedArgs a{{U, u_scale, V, v_scale, u_idx, mask, static_cast<Key*>(cand), tickets, out_v,
+                out_i, n_users, rank, n_items, batch, k, slices, slice_items, 0, 0, 0},
+               gid, probes, block_items, n_blocks};
+  return launch_dtype(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -22,8 +22,13 @@ Counterpart of ``predictionio_tpu/models/als.py`` on one card:
 * :class:`ALSModel` (``:132``) and :func:`als_model_from_arrays`, which
   carries factors and id lists across from anywhere else;
 * :class:`CheckpointedALSModel` (``:1379-1748``): checkpoint-mode
-  persistence, the factors in a sealed numpy store and the quantized
-  serving variant behind its publish gate (``PIO_QUANT_DTYPE``);
+  persistence, the factors in a sealed numpy store, the quantized serving
+  variant behind its publish gate (``PIO_QUANT_DTYPE``) and the IVF index
+  behind its recall gate (``PIO_IVF_NLIST``, ``PIO_IVF_MIN_RECALL``);
+* the IVF declaration (``:1351-1377``): :func:`train_als` attaches a
+  k-means coarse partition (``ops/ivf.py``) when ``PIO_IVF_NLIST`` is set,
+  which an auto-mode model pickles with it and ``pio deploy --batching``
+  serves through the score kernel's probe-table mode;
 * serving (``:1757-2000``): :class:`ALSScorer`.
 
 :class:`ALSConfig` resolves a ``compute_dtype`` or ``solver`` left at None
@@ -136,10 +141,20 @@ class ALSModel:
     user_scale: Optional[np.ndarray] = None
     item_factors_q: Optional[np.ndarray] = None
     item_scale: Optional[np.ndarray] = None
+    # publish-time IVF coarse-retrieval index (ops/ivf.py), declared when
+    # PIO_IVF_NLIST asks for an approximate scan; None serves exact.
+    # Recall-gated at publish and sealed as ivf.blob (checkpoint mode).
+    ivf_index: Optional[object] = None
 
     def __setstate__(self, state):
-        # a JAX-package model also holds sharding_plan and ivf_index, None
-        # unless sharded serving or IVF (not ported) declared them
+        # a JAX-package model also holds sharding_plan, None unless sharded
+        # serving (not ported) declared it
+        if state.get("sharding_plan") is not None:
+            raise _persistence.ForeignClassError(
+                "predictionio_tpu.serving.sharding.ShardingPlan: the model declares a "
+                "sharding plan, and sharded serving is not ported to "
+                "predictionio_tpu_torch yet (ROADMAP §1 item 10)"
+            )
         _persistence.reconcile_state(self, state)
 
     def predict_rating(self, user_idx: int, item_idx: int) -> float:
@@ -555,13 +570,37 @@ def train_als(
     U_host, V_host = U.cpu().numpy(), V.cpu().numpy()
     if u_perm is not None:
         U_host, V_host = U_host[u_perm], V_host[i_perm]
-    return ALSModel(
+    return _declare_ivf_partition(ALSModel(
         user_factors=U_host,
         item_factors=V_host,
         user_map=interactions.user_map,
         item_map=interactions.item_map,
         config=cfg,
-    )
+    ))
+
+
+def _declare_ivf_partition(model: ALSModel) -> ALSModel:
+    """Publish-time IVF declaration (``PIO_IVF_NLIST``; no-op unset).
+
+    Trains the k-means coarse partition over the item factors
+    (``ops/ivf.py``, host numpy) and attaches it to the model; the recall
+    gate runs at publish (``CheckpointedALSModel._publish_ivf``), not here.
+    A failed declaration publishes exact-only with a warning.
+    """
+    from predictionio_tpu_torch.ops import ivf as _ivf
+
+    try:
+        index = _ivf.index_from_env(model.item_factors)
+    except ValueError as e:
+        logger.warning("IVF index declaration failed (%s); publishing exact-only", e)
+        return model
+    if index is not None:
+        model.ivf_index = index
+        logger.info(
+            "declared IVF index %s: nlist=%d nprobe=%d",
+            index.fingerprint, index.nlist, index.nprobe,
+        )
+    return model
 
 
 def _fold_in_gather(rows: np.ndarray, compute_dtype: str, acc_dt) -> np.ndarray:
@@ -629,14 +668,15 @@ class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
     under ``$PIO_FS_BASEDIR/persistent_models/<instance>/`` in a sealed
     numpy store (``factors.blob``; the JAX package writes an orbax
     checkpoint there, which the port cannot read, nor the JAX package this
-    store), the id maps and publish records in ``maps.pkl``, and the
-    quantized variant, when its gate passed, in ``quant.blob``. Deploy calls
-    :meth:`load`.
+    store), the id maps and publish records in ``maps.pkl``, the quantized
+    variant, when its gate passed, in ``quant.blob``, and the IVF index,
+    when its recall gate passed, in ``ivf.blob``. Deploy calls :meth:`load`.
     """
 
     FACTORS = "factors.blob"
     MAPS = "maps.pkl"
     QUANT = "quant.blob"
+    IVF = "ivf.blob"
 
     @staticmethod
     def _dir(instance_id: str) -> str:
@@ -657,16 +697,60 @@ class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
             {"user_factors": self.user_factors, "item_factors": self.item_factors},
         )
         quant_meta = self._publish_quantized(d)
+        ivf_meta = self._publish_ivf(d)
         with open(os.path.join(d, self.MAPS), "wb") as f:
-            # the plan and IVF records as the JAX package writes them with
-            # their knobs unset: replicated, exact
+            # the plan record as the JAX package writes it with its knobs
+            # unset: replicated
             pickle.dump(
                 {"user_map": self.user_map, "item_map": self.item_map,
                  "config": self.config, "quant": quant_meta,
-                 "sharding": {"n_shards": 0}, "ivf": {"nlist": 0}},
+                 "sharding": {"n_shards": 0}, "ivf": ivf_meta},
                 f,
             )
         return True  # manifest mode: MODELDATA stores only the class path
+
+    def _publish_ivf(self, d: str) -> dict:
+        """Recall-gate and seal the IVF index at publish (``ivf.blob``).
+
+        Measures recall@10 of the IVF-pruned ranking against the exact one
+        (:func:`ops.ivf.measure_recall`, f32 factors, b = 1 probing) and
+        only if it clears ``PIO_IVF_MIN_RECALL`` (0.95) seals the index: the
+        ``PIO_QUANT_MIN_OVERLAP`` contract. A refused index leaves no blob
+        and serving stays exact; the manifest record is always written. A
+        model built without :func:`train_als` can still declare one through
+        ``PIO_IVF_NLIST`` here.
+        """
+        from predictionio_tpu_torch.ops import ivf as _ivf
+
+        index = getattr(self, "ivf_index", None)
+        if index is None:
+            try:
+                index = _ivf.index_from_env(self.item_factors)
+            except ValueError as e:
+                logger.warning("IVF index declaration failed (%s); publishing exact-only", e)
+                return {"nlist": 0}
+        if index is None:
+            return {"nlist": 0}
+        threshold = float(os.environ.get("PIO_IVF_MIN_RECALL", "0.95"))
+        sample = int(os.environ.get("PIO_IVF_EVAL_USERS", "256") or 256)
+        sealed, record = _ivf.gate_index(
+            self.user_factors, self.item_factors, index, threshold, sample=sample
+        )
+        self.ivf_index = sealed
+        if sealed is None:
+            logger.warning(
+                "IVF publish REFUSED: recall@%d %.4f < %.4f (PIO_IVF_MIN_RECALL); "
+                "serving stays exact",
+                record["k"], record["recall"], threshold,
+            )
+            return record
+        _ivf.save_index(os.path.join(d, self.IVF), sealed)
+        logger.info(
+            "IVF index sealed: nlist=%d nprobe=%d recall@%d %.4f >= %.4f, fingerprint %s",
+            sealed.nlist, sealed.nprobe, record["k"], record["recall"], threshold,
+            sealed.fingerprint,
+        )
+        return record
 
     def _publish_quantized(self, d: str) -> dict:
         """Offline quantize step at model publish (``PIO_QUANT_DTYPE``).
@@ -730,7 +814,47 @@ class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
             config=meta["config"],
         )
         cls._load_quantized(model, d, meta.get("quant") or {})
+        cls._load_ivf(model, d, meta.get("ivf") or {})
         return model
+
+    @classmethod
+    def _load_ivf(cls, model: "CheckpointedALSModel", d: str, rec: dict) -> None:
+        """Attach the published IVF index, degrading on any damage.
+
+        A torn or missing ``ivf.blob``, a checksum mismatch or a
+        fingerprint that disagrees with the manifest logs a warning and
+        leaves ``ivf_index`` unset: the server serves the exact scan and the
+        deploy never fails. ``PIO_RETRIEVAL=exact`` is the rollback: the
+        sealed index is ignored even when present and valid.
+        """
+        import pickle
+
+        from predictionio_tpu_torch.ops import ivf as _ivf
+
+        if not rec or not rec.get("nlist"):
+            return
+        want = (os.environ.get("PIO_RETRIEVAL") or "auto").strip().lower()
+        if want == "exact":
+            logger.info("PIO_RETRIEVAL=exact: ignoring sealed IVF index; serving exact")
+            return
+        try:
+            index = _ivf.load_index(os.path.join(d, cls.IVF))
+            want_fp = rec.get("fingerprint")
+            if want_fp and index.fingerprint != want_fp:
+                raise _persistence.ModelIntegrityError(
+                    f"IVF fingerprint {index.fingerprint} != manifest {want_fp}"
+                )
+            model.ivf_index = index
+            logger.info(
+                "loaded IVF index %s: nlist=%d nprobe=%d (recall@%s %.4f at publish)",
+                index.fingerprint, index.nlist, index.nprobe,
+                rec.get("k"), rec.get("recall", -1.0),
+            )
+        except (
+            _persistence.ModelIntegrityError, OSError, KeyError,
+            pickle.UnpicklingError, EOFError, ValueError,
+        ) as e:
+            logger.warning("IVF index unavailable (%s); serving exact", e)
 
     @classmethod
     def _load_quantized(cls, model: "CheckpointedALSModel", d: str, quant: dict) -> None:
@@ -780,18 +904,14 @@ class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
 
 
 def _refuse_unported_publish_knobs() -> None:
-    """A publish that asks for sharded serving or IVF retrieval raises: the
-    plan and IVF gates come with those slices."""
-    for knobs, what, item in (
-        (("PIO_SHARD_COUNT", "PIO_SHARD_HBM_BUDGET"), "a sharding plan", 10),
-        (("PIO_IVF_NLIST",), "an IVF index", 9),
-    ):
-        set_ = [k for k in knobs if os.environ.get(k, "").strip()]
-        if set_:
-            raise NotImplementedError(
-                f"{', '.join(set_)} asks the publish for {what}, which is not "
-                f"ported to predictionio_tpu_torch yet (ROADMAP §1 item {item})"
-            )
+    """A publish that asks for sharded serving raises: the plan's gate comes
+    with that slice."""
+    set_ = [k for k in ("PIO_SHARD_COUNT", "PIO_SHARD_HBM_BUDGET") if os.environ.get(k, "").strip()]
+    if set_:
+        raise NotImplementedError(
+            f"{', '.join(set_)} asks the publish for a sharding plan, which is not "
+            "ported to predictionio_tpu_torch yet (ROADMAP §1 item 10)"
+        )
 
 
 class ALSScorer:
@@ -853,6 +973,9 @@ class ALSScorer:
         from predictionio_tpu_torch.serving.fastpath import BucketedScorer
 
         m = self.model
+        # a published IVF index selects the pruned retrieval path per
+        # PIO_RETRIEVAL
+        ivf_index = getattr(m, "ivf_index", None)
         if m.factor_dtype != "f32" and m.user_factors_q is not None:
             # published quantized variant: narrow factors on the card,
             # upcast inside the kernel
@@ -860,11 +983,11 @@ class ALSScorer:
                 self.ctx, m.user_factors_q, m.item_factors_q, max_k=max_k,
                 factor_dtype=m.factor_dtype,
                 user_scale=m.user_scale, item_scale=m.item_scale,
-                warm_buckets=warm_buckets,
+                warm_buckets=warm_buckets, ivf_index=ivf_index,
             )
         return BucketedScorer(
             self.ctx, m.user_factors, m.item_factors, max_k=max_k,
-            warm_buckets=warm_buckets,
+            warm_buckets=warm_buckets, ivf_index=ivf_index,
         )
 
     def _batch_fastpath(self, k: int):

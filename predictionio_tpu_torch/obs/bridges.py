@@ -1,10 +1,10 @@
 """Bridges: existing component stats → registry Families at scrape time.
 
 Counterpart of ``predictionio_tpu/obs/bridges.py`` with the bridges of the
-components the port has: the batcher, the fast path, devprof, the result
-cache, error counters, resilience (breakers), the event-server stats, the
-ingest buffer with its WAL and the latency histogram. The others come with
-their components.
+components the port has: the batcher, the fast path, IVF retrieval,
+devprof, the result cache, error counters, resilience (breakers), the
+event-server stats, the ingest buffer with its WAL and the latency
+histogram. The others come with their components.
 
 Every load-bearing runtime layer predates the registry and already keeps
 its own thread-safe counters (``MicroBatcher.stats()``, fastpath
@@ -250,6 +250,68 @@ def bridge_fastpath(
 
 
 # -- device utilization -------------------------------------------------------
+
+
+def bridge_ivf(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """IVF retrieval accounting → pio_ivf_* series.
+
+    Emits nothing while the scorer serves the exact scan (no ``retrieval``
+    block in its stats), so the families appear exactly while an IVF index
+    is live. ``pio_ivf_scanned_fraction`` is the realized ratio of the rows
+    the probe scans read to the rows the exact scans of the same dispatches
+    would have read.
+    """
+
+    def collect():
+        s = stats_fn()
+        rv = (s or {}).get("retrieval")
+        if not isinstance(rv, dict):
+            return []
+        return [
+            _fam(
+                "pio_ivf_info", "gauge",
+                "Active IVF index (info gauge; value is the cluster "
+                "count, labels carry the index identity).",
+                [("", (("fingerprint", str(rv.get("fingerprint", ""))),),
+                  _num(rv.get("nlist")))],
+            ),
+            _fam(
+                "pio_ivf_nprobe", "gauge",
+                "Serving-time probe budget per query (PIO_IVF_NPROBE "
+                "override, else the publish-time default).",
+                [("", (), _num(rv.get("nprobe")))],
+            ),
+            _fam(
+                "pio_ivf_probed_blocks_total", "counter",
+                "Cluster blocks scanned across all dispatches (rung "
+                "probe budgets summed).",
+                [("", (), _num(rv.get("probed_blocks")))],
+            ),
+            _fam(
+                "pio_ivf_scanned_fraction", "gauge",
+                "Realized scan-bytes fraction vs the exact path for the "
+                "same dispatches (probe rows / full-catalog rows).",
+                [("", (), _num(rv.get("scanned_fraction")))],
+            ),
+            _fam(
+                "pio_ivf_recall_at_publish", "gauge",
+                "Recall@k the sealed index measured at its publish gate "
+                "(PIO_IVF_MIN_RECALL receipt).",
+                [("", (), _num(rv.get("recall_at_publish")))],
+            ),
+            _fam(
+                "pio_ivf_resident_extra_bytes", "gauge",
+                "Device-resident bytes the IVF layout adds over the "
+                "replicated exact placement (centroids, id map, pad "
+                "mask).",
+                [("", (), _num(rv.get("resident_extra_bytes")))],
+            ),
+        ]
+
+    registry.register_collector(collect)
+
 
 def bridge_devprof(
     registry: MetricsRegistry,

@@ -22,6 +22,18 @@ There is no ``try`` that falls back and no environment variable that picks
 the plain version on the card. :data:`launches` counts the kernel's
 launches (one per call) so a run can show that its main path went through
 the kernel.
+
+IVF retrieval runs the same kernel in its probe-table mode, over the
+clusters' item blocks that a batch probes (the JAX package's
+``serving/fastpath.py:721-819`` ``_compile_ivf`` step, a ``lax.scan`` of
+one Pallas call a probe): :func:`select_probes` picks the blocks on the
+card (torch ops, as the JAX package computes them outside Pallas), and
+:func:`fused_probed_score_topk` scans all of them in ONE launch, answering
+in global ids. :func:`ivf_score_topk` is the two together, one dispatch;
+:func:`probed_score_topk_reference` and :func:`ivf_score_topk_reference`
+are the plain versions, the JAX step written out (a loop over probes of
+:func:`gather_score_topk_reference`, then ``merge_topk``). A probe-mode
+launch counts in :data:`launches` and in :data:`ivf_launches`.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ from typing import Optional
 import torch
 
 from predictionio_tpu_torch.ops._build import KernelError
-from predictionio_tpu_torch.ops.topk import top_k_with_mask
+from predictionio_tpu_torch.ops.topk import merge_topk, sort_two_key, top_k_with_mask
 
 # Catalogs pad to a multiple of the JAX package's BLOCK_I, so one layout
 # serves both packages.
@@ -78,6 +90,8 @@ class LaunchCounter:
 
 
 launches = LaunchCounter()
+# the probe-table mode's launches (IVF retrieval), also counted in launches
+ivf_launches = LaunchCounter()
 
 
 def pad_block_items(n_items: int) -> int:
@@ -176,6 +190,8 @@ def _library():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.pio_score_topk.argtypes = [p] * 10 + [i] * 8 + [p]
             lib.pio_score_topk.restype = i
+            lib.pio_score_topk_probed.argtypes = [p] * 12 + [i] * 10 + [p]
+            lib.pio_score_topk_probed.restype = i
             lib.pio_score_topk_limits.argtypes = [p] * 4
             lib.pio_score_topk_limits.restype = i
             lib.pio_error_string.argtypes = [i]
@@ -239,11 +255,17 @@ def fused_gather_score_topk(
     ``enable_timing=True``, is recorded on the launch's stream just before
     and just after the kernel (the plain version on the CPU ignores it).
     """
-    device = V.device
-    if device.type == "cpu":
+    if V.device.type == "cpu":
         return gather_score_topk_reference(
             U, V, u_idx, k, item_mask, u_scale=u_scale, v_scale=v_scale
         )
+    return _launch(U, V, u_idx, k, item_mask, u_scale, v_scale, timing)
+
+
+def _launch(U, V, u_idx, k, item_mask, u_scale, v_scale, timing, probed=None):
+    """Check the operands and launch the kernel once: the exact mode, or
+    with ``probed = (probes, gid, block_items)`` the probe-table mode."""
+    device = V.device
     if device.type != "cuda":
         raise KernelError(f"no score kernel for device {device}")
     n_users, rank = U.shape
@@ -253,7 +275,16 @@ def fused_gather_score_topk(
         raise KernelError(f"U/V dtypes {U.dtype}/{V.dtype} not supported")
     if U.dtype == torch.int8 and (u_scale is None or v_scale is None):
         raise KernelError("int8 factors need u_scale and v_scale")
-    if not 0 < k <= n_items or k > MAX_K:
+    scanned = n_items
+    if probed is not None:
+        probes, gid, block_items = probed
+        if block_items < 1 or n_items % block_items:
+            raise KernelError(f"{n_items} slots are not blocks of {block_items}")
+        check_probe_plan(n_items // block_items, block_items, probes.shape[0], k, rank)
+        _check(probes, "probes", device, (torch.int32,), (probes.shape[0],))
+        _check(gid, "gid", device, (torch.int32,), (n_items,))
+        scanned = probes.shape[0] * block_items
+    elif not 0 < k <= n_items or k > MAX_K:
         raise KernelError(f"k={k} out of range for {n_items} items (max {MAX_K})")
     if batch == 0:
         raise KernelError("empty u_idx")
@@ -267,7 +298,7 @@ def fused_gather_score_topk(
         raise KernelError(f"rank {rank} is above the score kernel's {MAX_RANK}")
     lib = _library()
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    rows, slices, per = slice_plan(batch, n_items, k, n_sm)
+    rows, slices, per = slice_plan(batch, scanned, k, n_sm)
     cand = torch.empty((batch, slices, k), dtype=torch.int64, device=device)
     vals = torch.empty((batch, k), dtype=torch.float32, device=device)
     idx = torch.empty((batch, k), dtype=torch.int32, device=device)
@@ -280,15 +311,193 @@ def fused_gather_score_topk(
         tickets = _ticket_buffer(device, stream, -(-batch // rows))
         if timing is not None:
             timing[0].record()
-        rc = lib.pio_score_topk(
-            ptr(U), ptr(u_scale), ptr(V), ptr(v_scale), ptr(u_idx),
-            ptr(item_mask), ptr(cand), ptr(tickets), ptr(vals), ptr(idx),
-            n_users, rank, n_items, batch, k, slices, per, _DTYPE_CODE[U.dtype], stream,
-        )
+        head = (ptr(U), ptr(u_scale), ptr(V), ptr(v_scale), ptr(u_idx), ptr(item_mask))
+        tail = (ptr(cand), ptr(tickets), ptr(vals), ptr(idx))
+        if probed is None:
+            rc = lib.pio_score_topk(
+                *head, *tail, n_users, rank, n_items, batch, k, slices, per,
+                _DTYPE_CODE[U.dtype], stream,
+            )
+        else:
+            rc = lib.pio_score_topk_probed(
+                *head, ptr(gid), ptr(probes), *tail, n_users, rank, n_items // block_items,
+                block_items, probes.shape[0], batch, k, slices, per, _DTYPE_CODE[U.dtype], stream,
+            )
         if timing is not None:
             timing[1].record()
     if rc != 0:
         msg = lib.pio_error_string(rc).decode()
-        raise KernelError(f"score_topk kernel launch failed: {msg} ({rc})")
+        mode = "" if probed is None else " probe-mode"
+        raise KernelError(f"score_topk{mode} kernel launch failed: {msg} ({rc})")
     launches.bump()
+    if probed is not None:
+        ivf_launches.bump()
     return vals, idx
+
+
+# ---- probe-table mode (IVF retrieval) ------------------------------------------
+
+# Largest slot count of a probed layout (the kernel's rows are int32)
+MAX_PROBED_SLOTS = 2**31 - 1
+
+
+def check_probe_plan(n_blocks: int, block_items: int, n_probes: int, k: int, rank: int) -> None:
+    """Raise :class:`KernelError` unless the probe-table mode takes a layout
+    of ``n_blocks`` blocks of ``block_items`` slots scanned ``n_probes`` at a
+    time for top-``k`` at ``rank``; the scorer calls this for every rung
+    when it is built, so no query meets the refusal."""
+    if n_blocks < 1 or block_items < 1 or not 1 <= n_probes <= n_blocks:
+        raise KernelError(
+            f"probe plan of {n_probes} probes over {n_blocks} blocks of {block_items}"
+        )
+    if n_blocks * block_items > MAX_PROBED_SLOTS:
+        raise KernelError(
+            f"{n_blocks} blocks of {block_items} slots exceed the probe mode's "
+            f"{MAX_PROBED_SLOTS} rows"
+        )
+    if not 0 < k <= min(MAX_K, n_probes * block_items):
+        raise KernelError(
+            f"k={k} out of range for {n_probes} probes of {block_items} slots (max {MAX_K})"
+        )
+    if rank > MAX_RANK:
+        raise KernelError(f"rank {rank} is above the score kernel's {MAX_RANK}")
+
+
+def select_probes(
+    U: torch.Tensor,
+    u_idx: torch.Tensor,
+    C: torch.Tensor,
+    n_probes: int,
+    u_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The batch's ``n_probes`` clusters, ``(n_probes,)`` int32 on the
+    factors' device: the dequantized query rows score against the centroids
+    ``C`` (nlist, rank) f32, each cluster takes its best score over the
+    batch, and the best ``n_probes`` clusters win in ``lax.top_k`` order
+    (value descending, then the smaller id). The scores are float64 products
+    rounded to float32, so no TF32 and no process-global flag is involved:
+    serving threads call this on every dispatch."""
+    rows = u_idx.long()
+    q = U[rows].to(torch.float32)
+    if u_scale is not None:
+        q = q * u_scale[rows]
+    agg = (q.double() @ C.double().T).to(torch.float32).amax(dim=0)  # (nlist,)
+    _, order = sort_two_key(agg.reshape(1, -1))
+    return order[0, :n_probes].contiguous()
+
+
+def probed_score_topk_reference(
+    U: torch.Tensor,
+    V: torch.Tensor,
+    u_idx: torch.Tensor,
+    k: int,
+    probes: torch.Tensor,
+    gid: torch.Tensor,
+    block_items: int,
+    item_mask: Optional[torch.Tensor] = None,
+    *,
+    u_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The probe-table mode's plain version, the JAX step written out: for
+    each probe, :func:`gather_score_topk_reference` over its block for the
+    best ``min(k, block_items)``, slots mapped through ``gid``; then
+    ``merge_topk`` of the candidates in (value desc, global id asc) order."""
+    cap = int(block_items)
+    lk = min(k, cap)
+    pv, pg = [], []
+    for p in probes.tolist():
+        s = int(p) * cap
+        mb = None if item_mask is None else item_mask[s : s + cap]
+        vsb = None if v_scale is None else v_scale[s : s + cap]
+        vals, idx = gather_score_topk_reference(
+            U, V[s : s + cap], u_idx, lk, mb, u_scale=u_scale, v_scale=vsb
+        )
+        pv.append(vals)
+        pg.append(gid[s : s + cap][idx.long()])
+    batch = u_idx.shape[0]
+    cand_v = torch.stack(pv, dim=1).reshape(batch, -1)
+    cand_g = torch.stack(pg, dim=1).reshape(batch, -1)
+    return merge_topk(cand_v, cand_g, k)
+
+
+def fused_probed_score_topk(
+    U: torch.Tensor,
+    V: torch.Tensor,
+    u_idx: torch.Tensor,
+    k: int,
+    probes: torch.Tensor,
+    gid: torch.Tensor,
+    block_items: int,
+    item_mask: Optional[torch.Tensor] = None,
+    *,
+    u_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the probed blocks: ``(values (B, k) f32, global ids (B, k)
+    int32)``, in one launch of the kernel's probe-table mode.
+
+    ``V`` (n_blocks·block_items, rank) lies in blocks of ``block_items``
+    slots, ``gid`` (same length, int32) gives each slot's global id, and
+    ``item_mask`` (bool) is True on padded or excluded slots; ``probes``
+    ``(P,)`` int32 on the card names the blocks to scan. Otherwise as
+    :func:`fused_gather_score_topk`. On the CPU the plain version runs.
+    """
+    if V.device.type == "cpu":
+        return probed_score_topk_reference(
+            U, V, u_idx, k, probes, gid, block_items, item_mask,
+            u_scale=u_scale, v_scale=v_scale,
+        )
+    return _launch(U, V, u_idx, k, item_mask, u_scale, v_scale, None,
+                   probed=(probes, gid, block_items))
+
+
+def ivf_score_topk(
+    U: torch.Tensor,
+    V: torch.Tensor,
+    C: torch.Tensor,
+    gid: torch.Tensor,
+    item_mask: torch.Tensor,
+    u_idx: torch.Tensor,
+    k: int,
+    n_probes: int,
+    block_items: int,
+    *,
+    u_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    timing: Optional[tuple] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One IVF dispatch: :func:`select_probes` on the device, then
+    :func:`fused_probed_score_topk` over those blocks (one kernel launch;
+    the probe ids never leave the device). ``timing``, a pair of CUDA
+    events, brackets both. Returns ``(values, global ids)``, each (B, k)."""
+    if timing is not None:
+        timing[0].record()
+    probes = select_probes(U, u_idx, C, n_probes, u_scale)
+    out = fused_probed_score_topk(
+        U, V, u_idx, k, probes, gid, block_items, item_mask, u_scale=u_scale, v_scale=v_scale
+    )
+    if timing is not None:
+        timing[1].record()
+    return out
+
+
+def ivf_score_topk_reference(
+    U: torch.Tensor,
+    V: torch.Tensor,
+    C: torch.Tensor,
+    gid: torch.Tensor,
+    item_mask: torch.Tensor,
+    u_idx: torch.Tensor,
+    k: int,
+    n_probes: int,
+    block_items: int,
+    *,
+    u_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`ivf_score_topk`, on any device."""
+    probes = select_probes(U, u_idx, C, n_probes, u_scale)
+    return probed_score_topk_reference(
+        U, V, u_idx, k, probes, gid, block_items, item_mask, u_scale=u_scale, v_scale=v_scale
+    )

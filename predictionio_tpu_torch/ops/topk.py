@@ -1,9 +1,10 @@
 """Top-k selection with masking — the serving-side ranking primitive.
 
 Counterpart of ``predictionio_tpu/ops/topk.py``. :func:`gather_score_topk`
-is the ONE entry point of the serving score path: the fast path, the
-per-query scorer and the tests all call through it, and it calls the
-hand-written kernel's wrapper (``ops/score_kernel.py``). That wrapper
+is the ONE entry point of the exact serving score path: the fast path, the
+per-query scorer and the tests all call through it (IVF retrieval calls the
+kernel's probe-table mode, ``ops/score_kernel.ivf_score_topk``), and it calls
+the hand-written kernel's wrapper (``ops/score_kernel.py``). That wrapper
 launches the CUDA kernel for tensors on the card and takes the plain
 PyTorch version for tensors on the CPU. There is no backend switch and no
 environment variable that swaps the two on the card.

@@ -40,12 +40,28 @@ hand-written kernel).
   factors: int8 rows re-quantized row-wise with their scales, bf16 rows
   rounded to nearest even, as the JAX package's ``astype(bfloat16)``. It
   clones the tensors it patches, copies the rows in, waits for the copies
-  and then swaps all four factor tensors in one rebind. A launch reads
-  that tuple once, so it sees the rows before or after a patch, never half
-  of them, and no tensor a launch may still read is written. No scorer is
-  built, no rung warmed and no kernel built again.
+  and then swaps the factor tuple in one rebind. A launch reads that tuple
+  once, so it sees the rows before or after a patch, never half of them,
+  and no tensor a launch may still read is written. No scorer is built, no
+  rung warmed and no kernel built again.
 
-The sharded placement and IVF retrieval come with later slices.
+* **IVF retrieval** (``PIO_RETRIEVAL``, ``ops/ivf.py``; the JAX package's
+  ``:197-232, 361-445, 721-819``) — with a published
+  :class:`~predictionio_tpu_torch.ops.ivf.IVFIndex` the item factors (and
+  int8 scales) lie in the index's cluster blocks of ``cap_pad`` slots
+  (``serving/sharding.build_layout``), with the centroids, each slot's
+  global id and the pad mask beside them on the card. A dispatch at rung
+  b probes ``P_b = min(nlist, max(min_probes, nprobe·b))`` clusters, picked
+  on the card by the batch's best centroid scores, and scans them in ONE
+  launch of the score kernel's probe-table mode
+  (``ops/score_kernel.ivf_score_topk``), which answers in global ids.
+  ``min_probes`` (the fewest clusters sure to hold k real items) keeps
+  padding out of every answer; ``PIO_IVF_NPROBE`` overrides the published
+  probe count, clamped to ``[1, nlist]``. Per-query filtered calls probe
+  every cluster, so they stay exact. Delta item rows land in their
+  cluster slots.
+
+The sharded placement (``plan=``) comes with ROADMAP §1 item 10.
 """
 
 from __future__ import annotations
@@ -63,10 +79,12 @@ from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.obs import devprof as _devprof
 from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.ops import _build
+from predictionio_tpu_torch.ops import ivf as _ivf
 from predictionio_tpu_torch.ops import score_kernel as _score_kernel
 from predictionio_tpu_torch.ops import quantize as _quantize
 from predictionio_tpu_torch.ops.quantize import factors_to_tensor
 from predictionio_tpu_torch.ops.topk import gather_score_topk
+from predictionio_tpu_torch.serving import sharding as _sharding
 
 logger = logging.getLogger(__name__)
 
@@ -99,7 +117,15 @@ class BucketedScorer:
         user_scale: Optional[np.ndarray] = None,
         item_scale: Optional[np.ndarray] = None,
         warm_buckets: Optional[tuple] = None,
+        plan=None,
+        ivf_index=None,
+        retrieval: Optional[str] = None,
     ):
+        if plan is not None:
+            raise NotImplementedError(
+                "sharded serving (plan=) is not ported to predictionio_tpu_torch yet "
+                "(ROADMAP §1 item 10)"
+            )
         self.ctx = ctx
         self.n_users = user_factors.shape[0]
         self.n_items = item_factors.shape[0]
@@ -108,17 +134,31 @@ class BucketedScorer:
             raise ValueError("int8 factors require user_scale and item_scale")
         self.k = min(max_k, self.n_items)
         self.buckets = BUCKETS
+        # retrieval path (PIO_RETRIEVAL): IVF prunes the scan to the probed
+        # cluster blocks when the model carries an index
+        self.ivf_index = ivf_index
+        self.retrieval = _ivf.resolve_retrieval(retrieval, index=ivf_index)
         if factor_dtype == "f32":
             user_factors = np.asarray(user_factors, np.float32)
             item_factors = np.asarray(item_factors, np.float32)
-        self._init_replicated_placement(
-            user_factors, item_factors, user_scale, item_scale
-        )
+        self._ivf_extra_bytes = 0
+        if self.retrieval == "ivf":
+            self._init_ivf_placement(user_factors, item_factors, user_scale, item_scale)
+        else:
+            self._init_replicated_placement(
+                user_factors, item_factors, user_scale, item_scale
+            )
         self.resident_factor_bytes = sum(
             t.numel() * t.element_size()
             for t in (self._U, self._V, self._Uscale, self._Vscale)
             if t is not None
-        )
+        ) + self._ivf_extra_bytes
+        # IVF scan accounting: probed blocks and scanned padded rows per
+        # dispatch, against the rows the exact path would have scanned
+        self._ivf_dispatches = 0
+        self._ivf_probed_blocks = 0
+        self._ivf_scanned_rows = 0
+        self._ivf_dispatch_rows = 0
         self._lock = threading.Lock()
         # serializes delta applies: each clones the factors the last one swapped in
         self._patch_lock = threading.Lock()
@@ -158,22 +198,25 @@ class BucketedScorer:
         )
         rank = self._U.shape[1]
         for b in self.buckets:
+            # IVF: a dispatch scans its rung's P_b·cap_pad probed rows for
+            # per-probe lists of min(k, cap_pad), as the JAX package annotates
+            scanned, width = self._n_items_pad, self.k
+            if self.retrieval == "ivf":
+                scanned, width = self._probes[b] * self._ivf_layout.cap_pad, self._local_k
             if self.backend == "fused":
                 flops, nbytes = _devprof.fused_score_cost(
-                    b, self._n_items_pad, rank, self.k, self.factor_dtype
+                    b, scanned, rank, width, self.factor_dtype
                 )
                 self.devprof.set_cost(b, flops, nbytes, source="analytic-fused")
             else:
-                flops, nbytes = _devprof.score_cost(
-                    b, self._n_items_pad, rank, dtype=self.factor_dtype
-                )
+                flops, nbytes = _devprof.score_cost(b, scanned, rank, dtype=self.factor_dtype)
                 self.devprof.set_cost(b, flops, nbytes, source="analytic")
         # warm-up: build the kernel and launch every rung once (or only the
         # rungs ``warm_buckets`` names), before the first request; a failure
         # here raises to the deploy
         self.warmup_executions = 0
         for b in self.buckets if warm_buckets is None else warm_buckets:
-            self._launch(np.zeros(b, np.int32))
+            self._score(torch.zeros(b, dtype=torch.int32, device=self.ctx.device), b)
             self.warmup_executions += 1
         if self.ctx.device.type == "cuda":
             torch.cuda.synchronize(self.ctx.device)
@@ -205,6 +248,65 @@ class BucketedScorer:
             np.arange(self._n_items_pad) >= self.n_items
         )
 
+    def _init_ivf_placement(self, user_factors, item_factors, user_scale, item_scale) -> None:
+        """The item factors in the IVF index's cluster blocks, with the
+        centroids, slot→global id and pad mask on the card.
+
+        ``build_layout`` gives every cluster a block of ``cap_pad`` slots
+        (the kernel's item padding of the largest cluster), real slots
+        ascending by global id. ``_n_items_pad`` becomes the per-probe block
+        size; ``_exact_items_pad`` is what the exact path would scan, the
+        scanned fraction's denominator. Raises ``KernelError`` if the probe
+        mode cannot take some rung's plan.
+        """
+        dev = self.ctx.device
+        index = self.ivf_index
+        index.validate(self.n_items)
+        layout = _sharding.build_layout(index.plan, _score_kernel.pad_block_items)
+        self._ivf_layout = layout
+        self._n_items_pad = layout.cap_pad
+        self._exact_items_pad = _score_kernel.pad_block_items(self.n_items)
+        self._local_k = min(self.k, layout.cap_pad)
+        # deploy-time probe budget: PIO_IVF_NPROBE overrides the published
+        # default, clamped to [1, nlist]
+        env_nprobe = os.environ.get("PIO_IVF_NPROBE", "")
+        nprobe = int(env_nprobe) if env_nprobe.strip() else int(index.nprobe)
+        self._nprobe = max(1, min(nprobe, index.nlist))
+        # fewest probes whose clusters are sure to hold >= k real items (the
+        # P smallest clusters' sizes sum to >= k), so padding never wins
+        sizes = np.sort(index.plan.shard_sizes())
+        self._min_probes = int(np.searchsorted(np.cumsum(sizes), self.k) + 1)
+        self._probes = {
+            b: min(index.nlist, max(self._min_probes, self._nprobe * b)) for b in self.buckets
+        }
+        rank = np.asarray(user_factors).shape[1]
+        for p in self._probes.values():
+            _score_kernel.check_probe_plan(index.nlist, layout.cap_pad, p, self.k, rank)
+        gid = layout.gid
+        pad_mask = layout.pad_mask
+        # global item id -> its slot, for delta rows and per-query filters
+        self._slot_of = np.empty(self.n_items, np.int64)
+        real = np.flatnonzero(~pad_mask)
+        self._slot_of[gid[real]] = real
+        U = factors_to_tensor(np.asarray(user_factors), dev)
+        V = factors_to_tensor(layout.take_rows(np.asarray(item_factors)), dev)
+        Us = Vs = None
+        if self.factor_dtype == "int8":
+            Us = self.ctx.replicate(np.asarray(user_scale, np.float32))
+            Vs = self.ctx.replicate(layout.take_rows(np.asarray(item_scale, np.float32), fill=1.0))
+        C = np.ascontiguousarray(index.centroids, np.float32)
+        self._item_pad_mask = self.ctx.replicate(pad_mask)
+        # (U, V, U scales, V scales, centroids, gid, pad mask): the last
+        # three never change, and a patch swaps the whole tuple
+        self._factors = (U, V, Us, Vs, self.ctx.replicate(C), self.ctx.replicate(gid),
+                         self._item_pad_mask)
+        self._ivf_extra_bytes = int(C.nbytes) + int(gid.nbytes) + int(pad_mask.nbytes)
+
+    def _layout_slots(self) -> Optional[np.ndarray]:
+        """Global item id → laid-out slot under IVF retrieval, else None
+        (the exact placement's slot is the item's index)."""
+        return self._slot_of if self.retrieval == "ivf" else None
+
     @property
     def _U(self) -> torch.Tensor:
         return self._factors[0]
@@ -221,14 +323,23 @@ class BucketedScorer:
     def _Vscale(self) -> Optional[torch.Tensor]:
         return self._factors[3]
 
-    def _launch(
-        self, padded: np.ndarray, item_mask: Optional[torch.Tensor] = None
+    def _score(
+        self, u_dev: torch.Tensor, b: int, timing: Optional[tuple] = None
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        u_dev = torch.from_numpy(padded).to(self.ctx.device)
-        if item_mask is None:
-            item_mask = self._item_pad_mask
-        U, V, Us, Vs = self._factors
-        return gather_score_topk(U, V, u_dev, self.k, item_mask=item_mask, u_scale=Us, v_scale=Vs)
+        """One launch at rung ``b``: the exact scan, or the IVF probe scan
+        (answering in global ids). Reads the factor tuple once."""
+        f = self._factors
+        U, V, Us, Vs = f[:4]
+        if self.retrieval == "ivf":
+            C, gid, mask = f[4:]
+            return _score_kernel.ivf_score_topk(
+                U, V, C, gid, mask, u_dev, self.k, self._probes[b], self._ivf_layout.cap_pad,
+                u_scale=Us, v_scale=Vs, timing=timing,
+            )
+        return gather_score_topk(
+            U, V, u_dev, self.k, item_mask=self._item_pad_mask,
+            u_scale=Us, v_scale=Vs, timing=timing,
+        )
 
     def score_topk(
         self, user_indices: np.ndarray, k: int
@@ -291,6 +402,11 @@ class BucketedScorer:
                 self.hits[b] += 1
                 self.queries += len(chunk)
                 self.padded_rows += b - len(chunk)
+                if self.retrieval == "ivf":
+                    self._ivf_dispatches += 1
+                    self._ivf_probed_blocks += self._probes[b]
+                    self._ivf_scanned_rows += self._probes[b] * self._ivf_layout.cap_pad
+                    self._ivf_dispatch_rows += b
             # padded tail rows are real top-k rows for user 0 — dropped here
             idx_parts.append(idx_h[: len(chunk), :k])
             val_parts.append(val_h[: len(chunk), :k])
@@ -309,12 +425,8 @@ class BucketedScorer:
                 (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                 if on_card else None
             )
-            U, V, Us, Vs = self._factors
             t0 = time.perf_counter()
-            vals, idx = gather_score_topk(
-                U, V, u_dev, self.k, item_mask=self._item_pad_mask,
-                u_scale=Us, v_scale=Vs, timing=timing,
-            )
+            vals, idx = self._score(u_dev, b, timing)
             t1 = time.perf_counter()
             # the readback waits for the kernel
             idx_h = idx.cpu().numpy()
@@ -348,20 +460,39 @@ class BucketedScorer:
         One launch at rung 1 whose exclusion mask is pad | excluded |
         not-in-``candidate_items`` (``None`` means every item is a
         candidate). Bypasses the hot set: the filters make the answer the
-        query's own.
+        query's own. Under IVF retrieval the launch probes every cluster,
+        so the answer is the exact one, as the JAX package's per-query path
+        (which never prunes) gives it.
         """
         if k > self.k:
             raise ValueError(f"k={k} exceeds compiled top-k width {self.k}")
         dev = self.ctx.device
+        slots = self._layout_slots()
+
+        def at(items):
+            items = np.asarray(items, np.int64)
+            return torch.as_tensor(items if slots is None else slots[items], device=dev)
+
         mask = self._item_pad_mask.clone()
         if exclude_items is not None and len(exclude_items):
-            mask[torch.as_tensor(np.asarray(exclude_items, np.int64), device=dev)] = True
+            mask[at(exclude_items)] = True
         if candidate_items is not None:
             keep = torch.zeros_like(mask)
             if len(candidate_items):
-                keep[torch.as_tensor(np.asarray(candidate_items, np.int64), device=dev)] = True
+                keep[at(candidate_items)] = True
             mask |= ~keep
-        vals, idx = self._launch(np.array([user_idx], np.int32), mask)
+        u_dev = torch.tensor([user_idx], dtype=torch.int32, device=dev)
+        f = self._factors
+        if self.retrieval == "ivf":
+            every = torch.arange(self.ivf_index.nlist, dtype=torch.int32, device=dev)
+            vals, idx = _score_kernel.fused_probed_score_topk(
+                f[0], f[1], u_dev, self.k, every, f[5], self._ivf_layout.cap_pad, mask,
+                u_scale=f[2], v_scale=f[3],
+            )
+        else:
+            vals, idx = gather_score_topk(
+                f[0], f[1], u_dev, self.k, item_mask=mask, u_scale=f[2], v_scale=f[3]
+            )
         idx_h = idx.cpu().numpy()
         val_h = vals.cpu().numpy()
         with self._lock:
@@ -411,10 +542,11 @@ class BucketedScorer:
     def apply_delta_rows(self, user_idx, user_rows, item_idx=None, item_rows=None) -> dict:
         """Patch a delta's factor rows into the resident factors.
 
-        Counterpart of ``predictionio_tpu/serving/fastpath.py:553-605`` for
-        the replicated placement (the port's only one, so an item's slot is
-        its index). Rows past the factor matrices are dropped; the item
-        tail's pad rows and mask are never touched. Quantized factors are
+        Counterpart of ``predictionio_tpu/serving/fastpath.py:553-646``: an
+        item row lands in its slot, the item's index under the exact
+        placement and its cluster slot under IVF (``_layout_slots``). Rows
+        past the factor matrices are dropped; pad rows, the mask, the
+        centroids and the global ids are never touched. Quantized factors are
         re-quantized row-wise as at publish. The patched users fall out of
         the hot-set table. Returns ``{"users", "items"}`` with the scorer's
         ``warmup_executions`` and the kernels built in this process, both
@@ -432,9 +564,11 @@ class BucketedScorer:
             keep = items < self.n_items
             items, i_rows = items[keep], i_rows[keep]
         dev = self.ctx.device
+        slots = self._layout_slots()
+        item_at = items if slots is None else slots[items]
         # quantize and upload first: the timed span holds the card's copies
         patches = []
-        for which, idx, rows in ((0, users, u_rows), (1, items, i_rows)):
+        for which, idx, rows in ((0, users, u_rows), (1, item_at, i_rows)):
             if len(idx):
                 q, scale = _quantize.quantize_factors(rows, self.factor_dtype)
                 patches.append((which, torch.from_numpy(idx).to(dev), factors_to_tensor(q, dev),
@@ -494,6 +628,29 @@ class BucketedScorer:
             }
             top_cost = self.devprof.costs().get(self.buckets[-1]) or {}
             flops, nbytes = top_cost.get("flops"), top_cost.get("bytes")
+            retrieval = None
+            if self.retrieval == "ivf":
+                index = self.ivf_index
+                # scanned fraction: rows the probe scans streamed over the rows
+                # the exact path would have streamed for the same dispatches
+                denom = self._ivf_dispatches * self._exact_items_pad
+                retrieval = {
+                    "backend": "ivf",
+                    "nlist": index.nlist,
+                    "nprobe": self._nprobe,
+                    "min_probes": self._min_probes,
+                    "cap_pad": self._ivf_layout.cap_pad,
+                    "probes_per_rung": {str(b): p for b, p in self._probes.items()},
+                    "dispatches": self._ivf_dispatches,
+                    "dispatch_rows": self._ivf_dispatch_rows,
+                    "probed_blocks": self._ivf_probed_blocks,
+                    "scanned_rows": self._ivf_scanned_rows,
+                    "scanned_fraction": round(self._ivf_scanned_rows / denom, 6)
+                    if denom else None,
+                    "resident_extra_bytes": self._ivf_extra_bytes,
+                    "recall_at_publish": index.recall_at_publish,
+                    "fingerprint": index.fingerprint,
+                }
             return {
                 "buckets": list(self.buckets),
                 "top_k": self.k,
@@ -523,5 +680,7 @@ class BucketedScorer:
                 else None,
                 "hotset": hotset if self.hot_size else None,
                 "deltas": {"applied": self.delta_applies, "rows": self.delta_rows},
+                "retrieval_backend": self.retrieval,
+                "retrieval": retrieval,
                 "devprof": self.devprof.snapshot(),
             }

@@ -672,6 +672,9 @@ class QueryServer:
         if self._batcher is not None:
             _bridges.bridge_batcher(reg, self._batcher.stats)
         _bridges.bridge_fastpath(reg, self._fastpath_stats)
+        # pio_ivf_*: emits only while an IVF index is live (the stats block
+        # is absent under exact retrieval)
+        _bridges.bridge_ivf(reg, self._fastpath_stats)
         # live device utilization: the scorer's cost-annotated dispatch
         # accountant, labeled with the generation it serves (the scorer —
         # and its accountant — are rebuilt on every successful reload)

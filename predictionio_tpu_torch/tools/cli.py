@@ -5,7 +5,7 @@ Counterpart of ``predictionio_tpu/tools/cli.py`` (parity:
 and its operators run and the same argument names and ``[INFO]``/``[ERROR]``
 lines: ``version``, ``status``, ``build``, ``app``, ``accesskey``, ``train``,
 ``eval``, ``deploy``, ``undeploy``, ``batchpredict``, ``eventserver``,
-``template`` and ``loadtest``.
+``template``, ``loadtest`` and ``ivf``.
 
     python -m predictionio_tpu_torch.tools.cli <verb> ...
 
@@ -22,6 +22,11 @@ through the write-behind buffer (``--flush-ms``, ``--buffer-max``), and
 Streaming micro-generations need no option: ``PIO_STREAMING=1`` turns them
 on in ``deploy``, and the event plane's publisher is attached through
 ``EventServer.enable_delta_publisher``, as in the JAX package.
+
+``ivf show|rebuild`` inspects or rebuilds a checkpoint-mode instance's IVF
+index (``ivf.blob``); ``rebuild`` reads the instance's sealed factor store,
+re-runs the recall gate and reseals the index, which a live server adopts
+on ``POST /reload``.
 
 Not ported yet, and failing with an error that names the ROADMAP item that
 brings them: the other templates (item 11) and the fleet options of
@@ -515,6 +520,92 @@ def cmd_loadtest(args) -> int:
     return 0 if result["errors"] == 0 else 1
 
 
+
+def cmd_ivf(args) -> int:
+    """Inspect or rebuild a published model's IVF retrieval index.
+
+    ``show`` reads the sealed ``ivf.blob`` beside a checkpoint-mode
+    instance's factors. ``rebuild`` retrains the k-means coarse partition
+    from the instance's ``factors.blob``, re-runs the recall@10 publish gate
+    against the exact ranking and, only if it clears the threshold, reseals
+    ``ivf.blob`` and rewrites ``maps.pkl`` atomically; a live server picks
+    it up on ``POST /reload``. A refused rebuild leaves the deployed
+    artifacts untouched.
+    """
+    import pickle
+
+    from predictionio_tpu_torch.core import persistence
+    from predictionio_tpu_torch.core.checkpoint import restore_state
+    from predictionio_tpu_torch.models.als import CheckpointedALSModel
+    from predictionio_tpu_torch.ops import ivf as _ivf
+    from predictionio_tpu_torch.utils.fs import pio_base_dir
+
+    base = os.path.join(pio_base_dir(), "persistent_models")
+
+    def index_path(iid: str) -> str:
+        return os.path.join(base, iid, CheckpointedALSModel.IVF)
+
+    if args.ivf_command == "show":
+        if args.instance:
+            instances = [args.instance]
+        elif os.path.isdir(base):
+            instances = sorted(os.listdir(base))
+        else:
+            instances = []
+        rows = []
+        for iid in instances:
+            p = index_path(iid)
+            if not os.path.exists(p):
+                if args.instance:
+                    print(f"[INFO] {iid}: no IVF index (exact retrieval)")
+                continue
+            try:
+                rows.append({"instance": iid, **_ivf.load_index(p).describe()})
+            except Exception as e:
+                rows.append({"instance": iid, "error": str(e)})
+        print(json.dumps(rows, indent=2))
+        return 0
+
+    # rebuild
+    iid = args.instance
+    d = os.path.join(base, iid)
+    maps_path = os.path.join(d, CheckpointedALSModel.MAPS)
+    if not os.path.exists(maps_path):
+        return _die(f"no checkpoint-persisted model at {d}")
+    factors = restore_state(os.path.join(d, CheckpointedALSModel.FACTORS))
+    U, V = factors["user_factors"], factors["item_factors"]
+    try:
+        index = _ivf.build_index(V, args.nlist, nprobe=args.nprobe)
+    except ValueError as e:
+        return _die(f"cannot build IVF index: {e}")
+    threshold = float(
+        args.min_recall if args.min_recall is not None
+        else os.environ.get("PIO_IVF_MIN_RECALL", "0.95")
+    )
+    sealed, record = _ivf.gate_index(U, V, index, threshold)
+    if sealed is None:
+        return _die(
+            f"IVF rebuild REFUSED: recall@{record['k']} {record['recall']:.4f} < "
+            f"{threshold:.4f}; the deployed index is untouched"
+        )
+    _ivf.save_index(index_path(iid), sealed)
+    with open(maps_path, "rb") as f:
+        meta = persistence.load_models_blob(f.read())
+    meta["ivf"] = record
+    tmp = f"{maps_path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(meta, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, maps_path)
+    print(json.dumps({"instance": iid, **sealed.describe()}, indent=2))
+    print(
+        "[INFO] Index resealed. POST /reload on the serving deployment to "
+        "pick it up (the LKG machinery guards the swap)."
+    )
+    return 0
+
+
 def cmd_template(args) -> int:
     # parity: `pio template list/get` — templates ship in-tree here
     if args.template_command == "list":
@@ -743,6 +834,29 @@ def build_parser() -> argparse.ArgumentParser:
         "(zipf draws, tenant-mix picks) — same seed, same workload",
     )
     sp.set_defaults(func=cmd_loadtest)
+
+    sp = sub.add_parser(
+        "ivf", help="inspect or rebuild a published model's IVF approximate-retrieval index"
+    )
+    ivf_sub = sp.add_subparsers(dest="ivf_command", required=True)
+    x = ivf_sub.add_parser(
+        "show", help="print the sealed IVF index of one (or every) checkpoint-persisted "
+        "model instance",
+    )
+    x.add_argument("--instance", default=None)
+    x.set_defaults(func=cmd_ivf)
+    x = ivf_sub.add_parser(
+        "rebuild", help="retrain the k-means coarse partition offline, re-run the recall "
+        "gate, and reseal ivf.blob; a live server adopts it on POST /reload",
+    )
+    x.add_argument("--instance", required=True)
+    x.add_argument("--nlist", type=int, required=True,
+                   help="cluster count for the coarse partition")
+    x.add_argument("--nprobe", type=int, default=None,
+                   help="default probe count (default: nlist // 8)")
+    x.add_argument("--min-recall", type=float, default=None,
+                   help="recall@10 gate (default: PIO_IVF_MIN_RECALL or 0.95)")
+    x.set_defaults(func=cmd_ivf)
 
     sp = sub.add_parser("template")
     t_sub = sp.add_subparsers(dest="template_command", required=True)

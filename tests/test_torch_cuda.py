@@ -955,3 +955,145 @@ def test_int8_rows_and_scales_patch_together_on_card(card):
         gi, gv = live.score_topk(np.arange(b, min(b + 64, 5000)), 50)
         ri, rv = fresh.score_topk(np.arange(b, min(b + 64, 5000)), 50)
         assert np.array_equal(gi, ri) and np.array_equal(gv, rv)
+
+
+# -- kernel 1's probe-table mode (IVF retrieval) ----------------------------------------
+
+
+def _probed_case(card, dtype, case, seed=31):
+    """(U, V laid out, u, k, probes, gid, cap, mask, us, vs, tol, nlist) on the
+    card: a catalog's k-means layout (``ops/ivf.py``) and a probe table."""
+    from predictionio_tpu_torch.ops import ivf
+    from predictionio_tpu_torch.serving import sharding
+
+    rng = np.random.default_rng(seed)
+    n, nlist, batch, k, tol = 6000, 24, 64, 100, 1e-5
+    U = rng.standard_normal((400, 10)).astype(np.float32)
+    V = rng.standard_normal((n, 10)).astype(np.float32)
+    if case == "tied":
+        U = rng.integers(-2, 3, (400, 10)).astype(np.float32)
+        V = rng.integers(-2, 3, (n, 10)).astype(np.float32)
+        tol = 0.0 if dtype != "int8" else 1e-5
+    elif case == "small-clusters":  # clusters of ~25 rows, k past one block
+        n, nlist = 1500, 60
+        V = V[:n]
+    elif case == "k=600":  # the block route (k past WARP_MAX_K)
+        k = 600
+    elif case == "B=13":
+        batch = 13
+    index = ivf.build_index(V, nlist)
+    layout = sharding.build_layout(index.plan, score_kernel.pad_block_items)
+    Uq, us = quantize_factors_torch(torch.from_numpy(U).to(card), dtype)
+    Vq, vs = quantize_factors_torch(torch.from_numpy(layout.take_rows(V)).to(card), dtype)
+    if vs is not None:
+        vs[torch.from_numpy(layout.pad_mask).to(card)] = 1.0
+    sizes = index.plan.shard_sizes()
+    order = rng.permutation(index.nlist)
+    n_probes = int(np.searchsorted(np.cumsum(sizes[order]), k) + 1) + 3
+    probes = torch.from_numpy(order[:n_probes].astype(np.int32)).to(card)
+    u = torch.from_numpy(rng.integers(0, 400, batch).astype(np.int32)).to(card)
+    return (Uq, Vq, u, k, probes, torch.from_numpy(layout.gid).to(card), layout.cap_pad,
+            torch.from_numpy(layout.pad_mask).to(card), us, vs, tol, index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ("random", "tied", "small-clusters", "k=600", "B=13"))
+def test_probe_mode_matches_plain_version_in_one_launch_on_card(card, dtype, case):
+    Uq, Vq, u, k, probes, gid, cap, mask, us, vs, tol, _ = _probed_case(card, dtype, case)
+    before, ivf_before = score_kernel.launches.count, score_kernel.ivf_launches.count
+    kv, ki = score_kernel.fused_probed_score_topk(Uq, Vq, u, k, probes, gid, cap, mask,
+                                                  u_scale=us, v_scale=vs)
+    rv, ri = score_kernel.probed_score_topk_reference(Uq, Vq, u, k, probes, gid, cap, mask,
+                                                      u_scale=us, v_scale=vs)
+    torch.cuda.synchronize()
+    assert score_kernel.launches.count == before + 1
+    assert score_kernel.ivf_launches.count == ivf_before + 1
+    bad = topk_mismatches(kv.cpu().numpy(), ki.cpu().numpy(), rv.cpu().numpy(),
+                          ri.cpu().numpy(), tol)
+    assert not bad, bad[:3]
+    assert int(ki.max()) < 2**31 - 1  # padding never wins
+    kv2, ki2 = score_kernel.fused_probed_score_topk(Uq, Vq, u, k, probes, gid, cap, mask,
+                                                    u_scale=us, v_scale=vs)
+    assert torch.equal(kv, kv2) and torch.equal(ki, ki2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_full_probe_equals_the_exact_mode_bit_for_bit_on_card(card, dtype):
+    from predictionio_tpu_torch.ops import ivf
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+    rng = np.random.default_rng(37)
+    U = rng.standard_normal((500, 10)).astype(np.float32)
+    V = rng.standard_normal((5000, 10)).astype(np.float32)
+    Uq, us = quantize_factors(U, dtype)
+    Vq, vs = quantize_factors(V, dtype)
+    ctx = DeviceContext.create(device=str(card))
+    kw = dict(max_k=100, factor_dtype=dtype, user_scale=us, item_scale=vs)
+    exact = BucketedScorer(ctx, Uq, Vq, **kw)
+    index = ivf.build_index(V, 32, nprobe=32)
+    full = BucketedScorer(ctx, Uq, Vq, ivf_index=index, retrieval="ivf", **kw)
+    for b in (1, 8, 16, 32, 64):
+        users = rng.integers(0, 500, b)
+        before = score_kernel.ivf_launches.count
+        ei, ev = exact.score_topk(users, 100)
+        fi, fv = full.score_topk(users, 100)
+        assert score_kernel.ivf_launches.count == before + 1
+        assert np.array_equal(ei, fi) and ev.tobytes() == fv.tobytes(), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("f32", "int8"))
+def test_ivf_scorer_serves_the_plain_version_and_a_delta_on_card(card, dtype):
+    from predictionio_tpu_torch.ops import ivf
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+    rng = np.random.default_rng(41)
+    U = rng.standard_normal((500, 10)).astype(np.float32)
+    V = rng.standard_normal((5000, 10)).astype(np.float32)
+    index = ivf.build_index(V, 40)
+    cpu, ctx = DeviceContext.create(device="cpu"), DeviceContext.create(device=str(card))
+
+    def scorers(U, V):
+        Uq, us = quantize_factors(U, dtype)
+        Vq, vs = quantize_factors(V, dtype)
+        kw = dict(max_k=100, factor_dtype=dtype, user_scale=us, item_scale=vs,
+                  ivf_index=index, retrieval="ivf")
+        return BucketedScorer(ctx, Uq, Vq, **kw), BucketedScorer(cpu, Uq, Vq, **kw)
+
+    live, _ = scorers(U, V)
+    users, items = np.arange(0, 500, 7), np.arange(0, 5000, 13)
+    U2, V2 = U.copy(), V.copy()
+    U2[users] = rng.standard_normal((len(users), 10)) * 2
+    V2[items] = rng.standard_normal((len(items), 10)) * 2
+    rc = live.apply_delta_rows(users, U2[users], items, V2[items])
+    assert rc["users"] == len(users) and rc["items"] == len(items)
+    _, plain = scorers(U2, V2)
+    for b in (1, 8, 64):
+        who = rng.integers(0, 500, b)
+        (gi, gv), (ri, rv) = live.score_topk(who, 100), plain.score_topk(who, 100)
+        assert not topk_mismatches(gv, gi, rv, ri, 1e-5), b
+
+
+@pytest.mark.cuda
+def test_probe_mode_refuses_what_it_does_not_take_on_card(card, monkeypatch):
+    from predictionio_tpu_torch.ops import ivf
+    from predictionio_tpu_torch.ops._build import KernelError
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+    Uq, Vq, u, k, probes, gid, cap, mask, us, vs, _, index = _probed_case(card, "f32", "random")
+    with pytest.raises(KernelError, match="probes"):
+        score_kernel.fused_probed_score_topk(Uq, Vq, u, k, probes.long(), gid, cap, mask)
+    with pytest.raises(KernelError, match="blocks of"):
+        score_kernel.fused_probed_score_topk(Uq, Vq, u, k, probes, gid, cap + 1, mask)
+    monkeypatch.setattr(score_kernel, "MAX_PROBED_SLOTS", 100)
+    rng = np.random.default_rng(2)
+    with pytest.raises(KernelError, match="probe mode"):
+        BucketedScorer(DeviceContext.create(device=str(card)),
+                       rng.standard_normal((40, 10)).astype(np.float32),
+                       rng.standard_normal((600, 10)).astype(np.float32), max_k=10,
+                       ivf_index=ivf.build_index(rng.standard_normal((600, 10)).astype(
+                           np.float32), 6), retrieval="ivf")

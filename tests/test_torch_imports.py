@@ -92,6 +92,8 @@ print(" ".join(names))
         "predictionio_tpu_torch.common.faults", "predictionio_tpu_torch.data.api.wal",
         "predictionio_tpu_torch.data.api.ingest_buffer", "predictionio_tpu_torch.core.delta",
         "predictionio_tpu_torch.models.cooccurrence",
+        # IVF retrieval
+        "predictionio_tpu_torch.ops.ivf", "predictionio_tpu_torch.serving.sharding",
     } <= names
     # the SASRec training, segment and operators' slices' names, by attribute
     code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "
@@ -119,7 +121,15 @@ print(" ".join(names))
             "from predictionio_tpu_torch.models.cooccurrence import cooccurrence_increments, "
             "fold_increments; "
             "from predictionio_tpu_torch.models.als import fold_in_users; "
-            "from predictionio_tpu_torch.obs.bridges import bridge_ingest_buffer")
+            "from predictionio_tpu_torch.obs.bridges import bridge_ingest_buffer, bridge_ivf; "
+            "from predictionio_tpu_torch.ops.ivf import IVFIndex, build_index, measure_recall, "
+            "resolve_retrieval, save_index, load_index; "
+            "from predictionio_tpu_torch.serving.sharding import ShardingPlan, build_layout, "
+            "plan_from_assignment, PAD_SENTINEL; "
+            "from predictionio_tpu_torch.ops.score_kernel import ivf_score_topk, "
+            "ivf_score_topk_reference, fused_probed_score_topk, select_probes, ivf_launches; "
+            "from predictionio_tpu_torch.core.evaluation import recall_at_k; "
+            "from predictionio_tpu_torch.tools.cli import cmd_ivf")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr

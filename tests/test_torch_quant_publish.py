@@ -10,7 +10,8 @@
   rollback, a dtype mismatch) answered the same way by both packages: the
   manifest's quant record, whether a blob exists, the dtype the load
   serves and its arrays, exactly;
-* sharding or IVF knobs at publish raise naming ROADMAP items 10 and 9;
+* sharding knobs at publish raise naming ROADMAP item 10; ``PIO_IVF_NLIST``
+  at publish seals an index whose manifest record equals the JAX package's;
 * a CPU ``pio train`` in checkpoint mode under ``PIO_QUANT_DTYPE=int8``, then
   ``pio deploy --batching --device cpu``: the server reports int8 (``GET /``
   and the ``dtype`` label of ``/metrics``) and its answers equal the JAX
@@ -162,8 +163,7 @@ def test_quant_warnings_name_the_fallback(tmp_path, monkeypatch, caplog):
     assert "quantized factors unavailable" in caplog.text and "serving fp32" in caplog.text
 
 
-@pytest.mark.parametrize("knob,item", [("PIO_SHARD_COUNT", 10), ("PIO_SHARD_HBM_BUDGET", 10),
-                                       ("PIO_IVF_NLIST", 9)])
+@pytest.mark.parametrize("knob,item", [("PIO_SHARD_COUNT", 10), ("PIO_SHARD_HBM_BUDGET", 10)])
 def test_unported_publish_knobs_raise(tmp_path, monkeypatch, knob, item):
     monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path))
     monkeypatch.setenv(knob, "4")
@@ -172,6 +172,26 @@ def test_unported_publish_knobs_raise(tmp_path, monkeypatch, knob, item):
                                  BiMap.string_int(f"i{i}" for i in range(len(V))), None)
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
         m.save("inst", None)
+
+
+def test_ivf_nlist_at_publish_seals_the_jax_record(tmp_path, monkeypatch):
+    for k in ("PIO_IVF_NPROBE", "PIO_IVF_MIN_RECALL", "PIO_IVF_EVAL_USERS", "PIO_RETRIEVAL"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("PIO_IVF_NLIST", "4")
+    monkeypatch.setenv("PIO_IVF_MIN_RECALL", "0")  # the gate seals whatever recall it measures
+    U, V = _factors()
+    metas = {}
+    for pkg, mod, bimap in (("jax", jax_als, JaxBiMap), ("port", als, BiMap)):
+        monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / pkg))
+        m = mod.CheckpointedALSModel(U, V, bimap.string_int(f"u{i}" for i in range(len(U))),
+                                     bimap.string_int(f"i{i}" for i in range(len(V))), None)
+        assert m.save("inst", None) is True
+        d = mod.CheckpointedALSModel._dir("inst")
+        with open(os.path.join(d, "maps.pkl"), "rb") as f:
+            metas[pkg] = pickle.load(f)["ivf"]
+        assert os.path.exists(os.path.join(d, "ivf.blob"))
+    assert metas["port"] == metas["jax"]
+    assert metas["port"]["nlist"] == 4 and metas["port"]["fingerprint"]
 
 
 def test_batch_recommend_stays_on_the_host_on_the_cpu():
