@@ -317,6 +317,51 @@ code is not 0 and the last line is never printed.
              probed clusters' real rows (timed only), the exact kernel on the
              whole catalog, and the bound over the probed clusters' real
              rows (the padding share, P_b·cap_pad over those rows, beside it).
+17. templates — the other templates. (a) ``ur-ml25m``: the Universal
+             Recommender's ``URAlgorithm.train`` (maxCorrelatorsPerItem 50,
+             called directly: a sqlite read of 25 M events would take the
+             run) on the card at full width, on the train phase's ML-25M draw:
+             primary ``buy`` = the ratings ≥ 4.0, indicator ``view`` = every
+             rating, 162,541 users × 59,047 items, so the column-blocked path
+             (15 blocks of 4,096 indicator items, int8 products of up to 8
+             user blocks each). Held: the first and the last column block of
+             each indicator, its counts on the card equal to float64 products
+             of the dense 0/1 incidence (exact integers, another route), and
+             the last block to scipy's int64 counts; 256 indicator items from
+             ``--seed`` (items 0 and 1 among them): their counts equal scipy's
+             and their top-50 lists follow the LLR rule against float64 LLR
+             of those counts; no item lists itself with a positive score in
+             the primary indicator; no padded row wins; 8 seeded users'
+             histories in MEMORY storage answered by ``predict`` as plain host
+             code over the model's arrays answers them (rule 4). Prints the
+             host prep's seconds, the block widths, each indicator's seconds,
+             device µs of the scatter, the products, the LLR and the top-k
+             on each indicator's first column block (one real
+             ``cross_occurrence_block`` and ``score_block`` call traced by
+             the profiler, grouped by aten op; the products' int8 TOP/s
+             against the H100's dense 1,979), and the peak device memory. (b) ``templates-cli``: in a fresh sqlite
+             store, ``QS_BULK`` events of the ML-1M draw as views (1 in 20 also
+             a buy), item categories, the ``unavailableItems`` constraint,
+             20,000 follows and 2,000 labeled users; then e-commerce,
+             similar-product (ALS + LLR co-occurrence, ``deploy --batching``),
+             the Universal Recommender, similar-user and classification (NB and
+             RF; the forest also served as an engine's first algorithm and held
+             against a plain walk of its trees), each through ``pio template get`` → ``build`` → ``train``
+             (in this process) → ``deploy`` (a thread of this process, beside
+             an in-process event server for e-commerce). Every answer equals
+             the deployed instance's model's answer in this process, and the
+             rankings hold by rule 4 against plain host code over the model's
+             arrays; e-commerce also after a ``view`` posted through the event
+             server (the event cache's invalidation drops the item at once)
+             and a ``$set`` of ``unavailableItems``. Kernel 2's launches on
+             each implicit-ALS ``pio train`` equal buckets × iterations;
+             then every bucket of both sides of each of those trainings is
+             held against kernel 2's plain version (``check_normal_eq``, the
+             trained factors as operands), and the factors against a CPU
+             training of the same read from the same seed (rule 4, 1e-4);
+             kernel 2 in implicit mode is timed on the e-commerce data (one
+             iteration's buckets, its bound, the plain version, ``torch.bmm``
+             of the gathered rows, and a whole iteration).
 
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
@@ -330,7 +375,11 @@ reach of a change of summation order, over up to 96,168 slots;
 equal; the largest gap of each is reported. Card-trained factors
 against CPU-trained ones: rtol = atol = 1e-4 (f32, five iterations), 1e-3
 (bf16, int8: every half-step of five iterations, the CPU fed the card's
-previous factors; ``phase_small_parity`` says why). Flash kernel: o within
+previous factors; ``phase_small_parity`` says why). LLR lists (templates):
+values within 8 float32 ulp of T·ln T plus 1e-5 relative of the float64 LLR
+of the exact counts, indices equal except between items whose float64
+values lie within twice that (``testing.llr_topk_mismatches``); counts bit
+for bit. Flash kernel: o within
 rtol = atol = 2e-5 (the JAX package's own flash test), lse within rtol =
 atol = 1e-5. Backward kernels: dq, dk, dv within rtol 2e-4, atol 2e-5 (the
 JAX package's own gradient test). Served SASRec answers: scores within
@@ -4992,6 +5041,962 @@ def phase_ivf(model, seed, device):
     return out
 
 
+# -- templates: the Universal Recommender at ML-25M width, and every ported
+# -- template through the CLI ---------------------------------------------------
+
+UR_K = 50  # maxCorrelatorsPerItem: the UR default
+UR_SAMPLED = 256  # indicator items whose top-50 lists are held to the LLR rule
+UR_QUERIES = 8  # users whose predict answers are held against plain host code
+UR_PEAK_INT8_OPS_S = 1979e12  # H100 SXM data sheet: dense int8 tensor-core rate
+TPL_APP = "Templates"
+TPL_ITERS = 10  # implicit ALS iterations of each template's training
+TPL_FOLLOWS = 20_000  # user → user follow events (two communities)
+TPL_LABELED = 2_000  # users with $set attr0..attr2 and a plan label
+TPL_QUERIES = 12  # queries a deployed template answers, beside the scripted ones
+
+
+def ur_exact_columns(a_p_t, a_s, cols):
+    """Exact int64 cross-occurrence counts of the indicator columns ``cols``
+    (primary items × len(cols)) from the binarized incidences (scipy)."""
+    return (a_p_t @ a_s[:, cols]).toarray()
+
+
+def ur_block_reference64(a_p, a_s, start, width, p_pad, s_pad, device):
+    """One column block's counts from float64 products of the dense 0/1
+    incidence, user block by user block on the card: every partial sum is
+    an integer below 2⁵³, so the result is exact by another route than the
+    int8 product (the rows come from scipy's CSR, not ``block_incidence``)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import cooccurrence as co
+
+    a_s = a_s[:, start:start + width].tocsr()
+    C = torch.zeros((p_pad, s_pad), dtype=torch.float64, device=device)
+    for u0 in range(0, a_p.shape[0], co._USER_BLOCK):
+        dense = []
+        for m, n_pad in ((a_p[u0:u0 + co._USER_BLOCK], p_pad), (a_s[u0:u0 + co._USER_BLOCK], s_pad)):
+            rows = np.repeat(np.arange(m.shape[0]), np.diff(m.indptr))
+            d = torch.zeros((co._USER_BLOCK, n_pad), dtype=torch.float64, device=device)
+            d[torch.from_numpy(rows).to(device), torch.from_numpy(m.indices.astype(np.int64)).to(device)] = 1.0
+            dense.append(d)
+        C += dense[0].T @ dense[1]
+        del dense
+    return C
+
+
+def ur_block_device_us(p_dev, s_dev, p_pad, s_pad, pc, sc, n_items, total, k, exclude_diagonal):
+    """Device µs of one column block as ``cross_occurrence_topn`` computes
+    it: one real ``cross_occurrence_block`` and one real ``score_block``
+    call, each traced by the profiler, their device time grouped by the
+    aten op that launched it. The block call splits into the int8 product
+    (``_int_mm``), the accumulate and the conversions (``add_``, ``copy_``:
+    C to f32, and the incidence's small index arrays to int64) and the
+    scatter (the rest: the zeros of the incidences and of C, the slot
+    indices and ``index_fill_``); the score call into the top-k (``topk``, ``gather``)
+    and the LLR with its masks and the two-key packing (the rest). Beside
+    them, the library's ``torch.topk`` over the same scores (no tie order;
+    timed only)."""
+    import torch
+
+    from predictionio_tpu_torch.models import cooccurrence as co
+
+    def block():
+        return co.cross_occurrence_block(*p_dev, *s_dev, p_pad, s_pad)
+
+    C = block()
+    traced = {"block": op_device_us(block, n=1),
+              "score": op_device_us(lambda: co.score_block(
+                  C, pc, sc, 0, n_items, k, True, total, exclude_diagonal), n=1)}
+    b_ops, s_ops = traced["block"]["ops"], traced["score"]["ops"]
+    require(b_ops.get("aten::_int_mm", 0) > 0 and s_ops.get("aten::topk", 0) > 0,
+            f"ur block trace without device time: {sorted(b_ops)} {sorted(s_ops)}")
+    us = {"product": b_ops["aten::_int_mm"],
+          "accumulate_convert": sum(b_ops.get(op, 0.0) for op in ("aten::add_", "aten::copy_")),
+          "topk": sum(s_ops.get(op, 0.0) for op in ("aten::topk", "aten::gather"))}
+    us["scatter"] = sum(b_ops.values()) - us["product"] - us["accumulate_convert"]
+    us["llr_masks_keys"] = sum(s_ops.values()) - us["topk"]
+    scores = co.llr_cross_scores(C, pc, sc, total)
+    del C
+    us["library_topk"] = sum(device_us(lambda: torch.topk(scores.T, k, dim=1), n=3).values())
+    del scores
+    n_blocks = p_dev[0].shape[0]
+    groups = co.product_groups(n_blocks, p_pad, s_pad)
+    ops = 2.0 * p_pad * s_pad * n_blocks * co._USER_BLOCK
+    rate = ops / (us["product"] * 1e-6)
+    return {"device_us": us, "device_us_by_op": {k_: t["ops"] for k_, t in traced.items()},
+            "device_us_by_kernel": {k_: t["kernels"] for k_, t in traced.items()},
+            "products": len(groups),
+            "users_per_product": (groups[0][1] - groups[0][0]) * co._USER_BLOCK,
+            "product_ops": ops, "product_tops_s": rate / 1e12,
+            "product_share_of_int8_peak": rate / UR_PEAK_INT8_OPS_S}
+
+
+def ur_predict_plain(model, history, black_list=()):
+    """The UR's scores from its arrays, in plain host code: each history
+    item votes its indicator row's positive scores. Returns (scores, keep):
+    bought items, the blacklist and items no vote reached drop out."""
+    import numpy as np
+
+    scores = np.zeros(len(model.item_map), np.float64)
+    keep = np.ones(len(model.item_map), bool)
+    for name, items in history.items():
+        top_items, top_scores = model.indicators[name]
+        for item in items:
+            j = model.item_map.get(item)
+            if j is None:
+                continue
+            if name == model.primary_event:
+                keep[j] = False
+            pos = top_scores[j] > 0
+            np.add.at(scores, top_items[j][pos], top_scores[j][pos].astype(np.float64))
+    for item in black_list:
+        if item in model.item_map:
+            keep[model.item_map[item]] = False
+    return scores, keep & (scores > 0)
+
+
+def phase_ur_ml25m(seed, device, inter):
+    """(a) of the templates phase: ``URAlgorithm.train`` on the card at the
+    ML-25M shape, its counts, LLR lists and answers held (module docstring)."""
+    import collections
+    import uuid
+
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+
+    from predictionio_tpu_torch import testing
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import base
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import cooccurrence as co
+    from predictionio_tpu_torch.templates import universal as ur
+
+    t_phase = time.perf_counter()
+    ctx = DeviceContext.create(device=device)
+    n_users, n_items = len(inter.user_map), len(inter.item_map)
+    buy = inter.subset(inter.rating >= 4.0)
+    td = ur.TrainingData(per_event={"buy": buy, "view": inter}, user_map=inter.user_map,
+                         item_map=inter.item_map, primary_event="buy")
+    td.sanity_check()
+    names = list(td.per_event)
+    rng = np.random.default_rng(seed + 31)
+    sampled = np.sort(np.concatenate([[0, 1], rng.choice(np.arange(2, n_items), UR_SAMPLED - 2,
+                                                          replace=False)]))
+    n_blocks_col = -(-n_items // 4096)
+    checked_blocks = (0, n_blocks_col - 1)
+
+    # host prep and the per-indicator device work, timed by wrapping what
+    # URAlgorithm.train calls; the wrapper of cross_occurrence_block keeps
+    # the checked blocks' counts and the sampled columns (its own time is
+    # taken out of the indicator's)
+    host_s = collections.defaultdict(float)
+    kept, cols_got, per_indicator = {}, {}, []
+    counts = []  # distinct_item_counts' results in call order: primary, then each indicator
+    current = {"name": None, "block": 0, "keep_s": 0.0}
+    real = {"ur.block_incidence": ur.block_incidence, "ur.distinct_item_counts": ur.distinct_item_counts,
+            "co.block_incidence": co.block_incidence, "ur.cross_occurrence_topn": ur.cross_occurrence_topn,
+            "co.cross_occurrence_block": co.cross_occurrence_block}
+
+    def timed_host(key, fn):
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+            finally:
+                host_s[key] += time.perf_counter() - t
+            if key == "distinct_counts":
+                counts.append(out)
+            return out
+        return wrapped
+
+    def block(*a):
+        C = real["co.cross_occurrence_block"](*a)
+        t = time.perf_counter()
+        name, bi = current["name"], current["block"]
+        start = bi * 4096
+        if bi in checked_blocks:
+            kept[(name, bi)] = (start, C.clone())
+        hit = (sampled >= start) & (sampled < start + C.shape[1])
+        if hit.any():
+            cols = torch.from_numpy(sampled[hit] - start).to(C.device)
+            cols_got[name][:, hit] = C[:n_items, cols].cpu().numpy()
+        torch.cuda.synchronize()
+        current["block"] += 1
+        current["keep_s"] += time.perf_counter() - t
+        return C
+
+    def topn(*a, **kw):
+        name = names[len(per_indicator)]
+        current.update(name=name, block=0, keep_s=0.0)
+        cols_got[name] = np.zeros((n_items, len(sampled)), np.float32)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real["ur.cross_occurrence_topn"](*a, **kw)
+        torch.cuda.synchronize()
+        require(current["block"] == n_blocks_col, f"ur {name}: {current['block']} column blocks")
+        per_indicator.append({"indicator": name, "column_blocks": n_blocks_col,
+                              "seconds": time.perf_counter() - t - current["keep_s"]})
+        return res
+
+    ur.block_incidence = timed_host("block_primary", real["ur.block_incidence"])
+    ur.distinct_item_counts = timed_host("distinct_counts", real["ur.distinct_item_counts"])
+    co.block_incidence = timed_host("block_secondary", real["co.block_incidence"])
+    co.cross_occurrence_block = block
+    ur.cross_occurrence_topn = topn
+    algo = ur.URAlgorithm(ur.URAlgorithmParams(appName="URApp", maxCorrelatorsPerItem=UR_K))
+    torch.cuda.synchronize(device)  # the allocator's stats exist once CUDA is up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        t0 = time.perf_counter()
+        model = algo.train(ctx, td)
+        train_s = time.perf_counter() - t0
+    finally:
+        ur.block_incidence = real["ur.block_incidence"]
+        ur.distinct_item_counts = real["ur.distinct_item_counts"]
+        co.block_incidence = real["co.block_incidence"]
+        co.cross_occurrence_block = real["co.cross_occurrence_block"]
+        ur.cross_occurrence_topn = real["ur.cross_occurrence_topn"]
+    peak = torch.cuda.max_memory_allocated(device)
+    n_users_pad = co.pad_to_multiple(n_users, co._USER_BLOCK)
+    primary_blocked = co.block_incidence(buy, n_users_pad)
+    widths = {"primary": int(primary_blocked.local_user.shape[1])}
+    out = {"phase": "templates", "step": "ur-ml25m", "users": n_users, "items": n_items,
+           "events": {"buy": len(buy), "view": len(inter)}, "train_s": train_s,
+           "host_prep_s": dict(host_s), "indicators": per_indicator,
+           "max_memory_allocated": peak,
+           "host_primary_blocked_bytes": sum(a.nbytes for a in (
+               primary_blocked.local_user, primary_blocked.item, primary_blocked.mask))}
+    emit(out)
+
+    # exact counts: scipy int64 of the binarized incidences
+    t0 = time.perf_counter()
+    a = {}
+    for name, x in td.per_event.items():
+        m = sps.csr_matrix((np.ones(len(x), np.int64), (x.user, x.item)), shape=(n_users, n_items))
+        m.sum_duplicates()
+        m.data[:] = 1
+        a[name] = m
+    a_p_t = a["buy"].T.tocsr()
+    p_pad = co.pad_to_multiple(n_items, 128)
+    exact_s = {"scipy_build_s": time.perf_counter() - t0}
+    pc = counts[0]
+    s_counts = dict(zip(names, counts[1:]))
+    atol = testing.llr_atol(n_users)
+    rule = {}
+    for name in names:
+        a_s = a[name].tocsc()
+        for bi in checked_blocks:
+            start, C = kept.pop((name, bi))
+            width = min(4096, n_items - start)
+            t0 = time.perf_counter()
+            ref = ur_block_reference64(a["buy"], a[name], start, width, p_pad, C.shape[1], device)
+            require(torch.equal(C, ref.to(torch.float32)) and float(ref.max()) < 2 ** 24,
+                    f"ur {name} column block {bi}: counts differ from float64 products at "
+                    f"{int((C != ref.to(torch.float32)).sum())} entries")
+            exact_s[f"{name}_{bi}_f64_s"] = time.perf_counter() - t0
+            if bi == checked_blocks[-1]:
+                t0 = time.perf_counter()
+                ex = ur_exact_columns(a_p_t, a_s, np.arange(start, start + width))
+                require(np.array_equal(C[:n_items, :width].cpu().numpy(), ex.astype(np.float32)),
+                        f"ur {name} last column block: counts differ from scipy's int64")
+                exact_s[f"{name}_{bi}_scipy_s"] = time.perf_counter() - t0
+            del C, ref
+        # the sampled indicator items: exact columns, then their lists by the LLR rule
+        ex = ur_exact_columns(a_p_t, a_s, sampled)
+        require(np.array_equal(cols_got[name], ex.astype(np.float32)),
+                f"ur {name}: sampled columns' counts differ from scipy's int64")
+        ref64 = testing.llr_reference64(ex, pc, s_counts[name][sampled], n_users)
+        if name == "buy":
+            ref64[sampled, np.arange(len(sampled))] = -1.0
+        idx, vals = model.indicators[name]
+        bad, gap, share = [], 0.0, 0.0
+        for c, j in enumerate(sampled):
+            bad += [f"item {j}: {m}" for m in testing.llr_topk_mismatches(idx[j], vals[j], ref64[:, c], atol)]
+            ref = np.maximum(ref64[idx[j], c], 0.0)
+            gap = max(gap, float(np.abs(vals[j] - ref).max()))
+            # the gap over its tolerance: how close the rule came to failing
+            share = max(share, float((np.abs(vals[j] - ref) / (atol + testing.LLR_RTOL * ref)).max()))
+        require(not bad, f"ur {name}: LLR rule broken: {bad[:3]}")
+        require(int(idx.max()) < n_items, f"ur {name}: a padded row won")
+        if name == "buy":
+            require(not np.any((idx == np.arange(n_items)[:, None]) & (vals > 0)),
+                    "ur buy: an item lists itself with a positive score")
+        rule[name] = {"sampled": len(sampled), "largest_gap_to_float64": gap, "atol": atol,
+                      "largest_gap_over_tolerance": share,
+                      "positive_share": float((vals > 0).mean())}
+    del a_p_t
+    exact_s["seconds"] = sum(v for v in exact_s.values())
+    emit({"phase": "templates", "step": "ur-ml25m-exact", "checked_blocks": list(checked_blocks),
+          **exact_s, "llr_rule": rule, "ok": True})
+
+    # per-op device times on each indicator's first (widest) column block
+    ops = {}
+    p_dev = co._on_device(primary_blocked, device)
+    pc_dev = torch.from_numpy(np.pad(pc, (0, p_pad - n_items))).to(device)
+    for name, x in td.per_event.items():
+        first = x.subset(x.item < 4096)
+        s_blocked = co.block_incidence(first, n_users_pad)
+        widths[name] = int(s_blocked.local_user.shape[1])
+        sc = s_counts[name][:4096]
+        ops[name] = ur_block_device_us(p_dev, co._on_device(s_blocked, device), p_pad, 4096,
+                                       pc_dev, torch.from_numpy(sc).to(device), n_items,
+                                       float(n_users), UR_K, name == "buy")
+        del s_blocked
+    del p_dev
+    torch.cuda.empty_cache()
+    emit({"phase": "templates", "step": "ur-ml25m-ops", "block_widths": widths, "ops": ops})
+
+    # answers: seeded users' histories in MEMORY storage, through predict
+    name_ = "UR" + uuid.uuid4().hex[:8].upper()
+    mem = Storage(env={f"PIO_STORAGE_SOURCES_{name_}_TYPE": "memory"})
+    app_id = mem.get_meta_data_apps().insert(base.App(0, "URApp"))
+    users = rng.choice(n_users, UR_QUERIES, replace=False)
+    order = np.argsort(inter.user, kind="stable")
+    bounds = np.searchsorted(inter.user[order], np.arange(n_users + 1))
+    inv_u, inv_i = inter.user_map.inverse, inter.item_map.inverse
+    histories, events = {}, []
+    for u in users:
+        rows = order[bounds[u]:bounds[u + 1]]
+        hist = {"buy": [], "view": []}
+        for k, r in enumerate(rows):
+            item = inv_i[int(inter.item[r])]
+            for name in (("buy", "view") if inter.rating[r] >= 4.0 else ("view",)):
+                events.append(Event(event=name, entity_type="user", entity_id=inv_u[int(u)],
+                                    target_entity_type="item", target_entity_id=item,
+                                    event_time=1_767_225_600.0 + k))
+                hist[name].append(item)
+        # the latest maxQueryEvents of each event type, as the live read takes them
+        histories[inv_u[int(u)]] = {n: list(reversed(h))[:algo.params.maxQueryEvents]
+                                    for n, h in hist.items()}
+    mem.get_l_events().insert_batch(events, app_id)
+    store.set_storage(mem)
+    try:
+        gaps = []
+        for user, hist in histories.items():
+            got = algo.predict(model, ur.Query(user=user, num=20))
+            rows = [{"item": x.item, "score": x.score} for x in got.itemScores]
+            scores, keep = ur_predict_plain(model, hist)
+            require(len(rows) > 0, f"ur predict {user}: no answer")
+            gaps.append(hold_topn(rows, scores, keep, 20, model.item_map, f"ur predict {user}"))
+    finally:
+        store.set_storage(None)
+    out = {"phase": "templates", "step": "ur-ml25m-predict", "users": len(histories),
+           "history_events": len(events), "max_abs_err": max(gaps), "tol": 1e-5,
+           "seconds": time.perf_counter() - t_phase, "ok": True}
+    emit(out)
+    return {"train_s": train_s, "host_prep_s": dict(host_s), "indicators": per_indicator,
+            "max_memory_allocated": peak, "block_widths": widths, "ops": ops, "exact": exact_s,
+            "llr_rule": rule, "predict": out, "seconds": time.perf_counter() - t_phase}
+
+
+class ThreadServer:
+    """``pio <argv>`` serving on 127.0.0.1:port in a thread of this process
+    (so the event server's invalidations reach the deployed template's
+    event cache, and the kernels' counters see what it launches)."""
+
+    def __init__(self, *argv):
+        import threading
+
+        from predictionio_tpu_torch.tools import cli
+
+        self.port = free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.rc = []
+        self.thread = threading.Thread(
+            target=lambda: self.rc.append(cli.main(list(argv) + ["--ip", "127.0.0.1",
+                                                                  "--port", str(self.port)])),
+            daemon=True)
+        self.t0 = time.perf_counter()
+        self.thread.start()
+
+    def wait_ready(self, deadline_s=120) -> float:
+        t_end = time.monotonic() + deadline_s
+        while time.monotonic() < t_end:
+            require(self.thread.is_alive(), f"{self.base} exited {self.rc}")
+            try:
+                with urllib.request.urlopen(f"{self.base}/readyz", timeout=5) as r:
+                    if r.status == 200:
+                        return time.perf_counter() - self.t0
+            except OSError:
+                pass
+            time.sleep(0.02)
+        raise RuntimeError(f"check failed: {self.base}/readyz never answered 200")
+
+    def stop(self, verb_argv):
+        cli_run(*verb_argv)
+        self.thread.join(60)
+        require(not self.thread.is_alive() and self.rc == [0], f"{self.base} stop: {self.rc}")
+
+
+def template_events(seed, rng):
+    """The templates-cli draw: ``QS_BULK`` events of the ML-1M draw as views
+    (1 in ``QS_BUY_EVERY`` a buy, which also counts as a view), item
+    categories, the ``unavailableItems`` constraint, ``TPL_FOLLOWS`` follows
+    in two communities and ``TPL_LABELED`` labeled users."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.event import Event
+
+    inter, _ = ml1m_interactions(seed)
+    pick = np.sort(rng.choice(len(inter.user), QS_BULK, replace=False))
+    user, item, t = inter.user[pick], inter.item[pick], inter.t[pick]
+    buy = rng.integers(0, QS_BUY_EVERY, QS_BULK) == 0
+    events = []
+    for k in range(QS_BULK):
+        for name in (("view", "buy") if buy[k] else ("view",)):
+            events.append(Event(event=name, entity_type="user", entity_id=f"u{user[k]}",
+                                target_entity_type="item", target_entity_id=f"si{item[k]}",
+                                event_time=float(t[k]), creation_time=float(t[k])))
+    t_end = float(t.max()) + 1
+    for j in range(SAS_ITEMS):
+        events.append(Event(event="$set", entity_type="item", entity_id=f"si{j}",
+                            properties={"categories": [f"g{j % 5}", "even" if j % 2 == 0 else "odd"]},
+                            event_time=t_end))
+    frm = rng.integers(0, ML1M_USERS, TPL_FOLLOWS)
+    to = (frm % 2 + 2 * rng.integers(0, ML1M_USERS // 2, TPL_FOLLOWS)) % ML1M_USERS
+    for k, (a, b) in enumerate(zip(frm, to)):
+        if a != b:
+            events.append(Event(event="follow", entity_type="user", entity_id=f"u{a}",
+                                target_entity_type="user", target_entity_id=f"u{b}",
+                                event_time=t_end + k))
+    attrs = rng.uniform(0, 10, (TPL_LABELED, 3))
+    for c, (a0, a1, a2) in enumerate(attrs):
+        events.append(Event(event="$set", entity_type="user", entity_id=f"c{c}",
+                            properties={"attr0": float(a0), "attr1": float(a1), "attr2": float(a2),
+                                        "plan": "premium" if a0 + a1 > 10 else "basic"},
+                            event_time=t_end))
+    return events, {"views": QS_BULK, "buys": int(buy.sum()), "items": SAS_ITEMS,
+                    "follows": int((frm != to).sum()), "labeled": TPL_LABELED}
+
+
+def hold_implicit_training(name, inter, model, params, device):
+    """Kernel 2 in implicit mode at an ALS template's own shapes: every
+    bucket of both sides held against its plain version (and float64 sums)
+    by ``check_normal_eq``, the trained factors as the other side; and the
+    factors ``pio train`` made on the card against a CPU training of the
+    same read from the same seed (rule 4: rtol = atol = 1e-4). ``params``
+    are the template algorithm's, turned into its ``ALSConfig``."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+
+    cfg = als.ALSConfig(rank=params.rank, iterations=params.numIterations, reg=params.reg,
+                        implicit=True, alpha=params.alpha,
+                        seed=3 if params.seed is None else params.seed)
+    ub, ib, u_perm, i_perm = als._dense_blocks_for(inter, cfg)
+    U = torch.from_numpy(model.user_factors[np.argsort(u_perm)]).to(device)
+    V = torch.from_numpy(model.item_factors[np.argsort(i_perm)]).to(device)
+    errs = []
+    for side, (blocks, opp) in enumerate(((ub, V), (ib, U))):
+        for j, t in enumerate(zip(blocks.idx, blocks.rat, blocks.msk)):
+            b = [torch.from_numpy(x).to(device) for x in t]
+            errs.append(check_normal_eq(*b, opp, "f32", True,
+                                        f"{name} kernel 2 implicit, side {side} bucket {j}",
+                                        alpha=cfg.alpha))
+    t0 = time.perf_counter()
+    host = als.train_als(DeviceContext.create(device="cpu"), inter, cfg)
+    cpu_s = time.perf_counter() - t0
+    pairs = ((model.user_factors, host.user_factors), (model.item_factors, host.item_factors))
+    diff = max(float(np.abs(a - b).max()) for a, b in pairs)
+    for a, b in pairs:
+        require(np.allclose(a, b, rtol=1e-4, atol=1e-4),
+                f"{name}: card factors vs a CPU training, max |Δ| {diff}")
+    return {"buckets_held": len(errs), "alpha": cfg.alpha,
+            "max_abs_err": max(e["abs"] for e in errs), "max_rel_err": max(e["rel"] for e in errs),
+            "kernel_vs_f64_rel": max(e["kernel_f64"] for e in errs),
+            "plain_vs_f64_rel": max(e["plain_f64"] for e in errs),
+            "factors_vs_cpu_max_abs": diff, "factors_tol": 1e-4, "cpu_training_s": cpu_s}
+
+
+def rf_plain(model, x):
+    """The forest's label for ``x`` by a plain walk of its arrays: bin each
+    feature, follow each tree (an unsplit node routes left), majority vote
+    (the first class on a tie)."""
+    import numpy as np
+
+    xb = [int(np.searchsorted(model.bin_edges[f], x[f], side="right")) for f in range(len(x))]
+    votes = np.zeros(len(model.label_map), np.int64)
+    leaf_base = 2 ** model.max_depth - 1
+    for t in range(model.split_feature.shape[0]):
+        node = 0
+        for _ in range(model.max_depth):
+            f = int(model.split_feature[t, node])
+            node = 2 * node + 1 + int(f >= 0 and xb[f] > model.split_bin[t, node])
+        votes[model.leaf_class[t, node - leaf_base]] += 1
+    return model.label_map.inverse[int(np.argmax(votes))]
+
+
+def same_json(got, want) -> bool:
+    """An HTTP answer against the in-process result (fields that are None
+    are left out by the server's encoder)."""
+    import dataclasses
+
+    def strip(o):
+        if isinstance(o, dict):
+            return {k: strip(v) for k, v in o.items() if v is not None}
+        if isinstance(o, list):
+            return [strip(v) for v in o]
+        return o
+
+    return strip(got) == strip(json.loads(json.dumps(dataclasses.asdict(want))))
+
+
+def hold_topn(rows, scores, keep, num, index, what, field="item"):
+    """Rule 4 (1e-5) of one served ranking against plain host code over the
+    deployed model's arrays: ``scores`` of every entry and ``keep``, the
+    entries the query allows. The answer holds the ``num`` best allowed
+    entries: each row's score is its plain score, and the scores, sorted,
+    are the best plain scores; entries that tie may come in either order.
+    Returns the largest gap."""
+    import numpy as np
+
+    allowed = np.flatnonzero(keep & np.isfinite(scores))
+    n = min(num, len(allowed))
+    require(len(rows) == n, f"{what}: {len(rows)} answers vs {n}")
+    if not n:
+        return 0.0
+    idx = np.array([index[r[field]] for r in rows])
+    got = np.array([r["score"] for r in rows], np.float64)
+    require(len(set(idx.tolist())) == n and bool(keep[idx].all()), f"{what}: {rows}")
+    best = np.sort(scores[allowed])[::-1][:n]
+    gaps = np.concatenate([np.abs(got - scores[idx]), np.abs(np.sort(got)[::-1] - best)])
+    slack = 1e-5 + 1e-5 * np.concatenate([np.abs(scores[idx]), np.abs(best)])
+    require(bool((gaps <= slack).all()), f"{what}: gaps {gaps.max()} beyond rule 4")
+    require(bool(np.all(np.diff(got) <= slack[:n - 1])), f"{what}: not in score order")
+    return float(gaps.max())
+
+
+def phase_templates_cli(seed, device):
+    """(b) of the templates phase: e-commerce, similar-product, the Universal
+    Recommender, similar-user and classification through ``pio template
+    get`` → ``build`` → ``train`` → ``deploy`` (module docstring)."""
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.tools import cli
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pio-templates-")
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("PIO_STORAGE_") or k in ("PIO_FS_BASEDIR", "PIO_ALS_SOLVER",
+                                                       "PIO_ALS_COMPUTE_DTYPE", "PIO_IVF_NLIST")}
+    for k in saved:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    Storage.reset_instance()
+    store.set_storage(None)
+    ctx = DeviceContext.create(device=device)
+    rng = np.random.default_rng(seed + 41)
+    out = {"phase": "templates", "step": "templates-cli", "templates": {}}
+    servers = []
+    try:
+        key = re.search(r"Access Key: (\S+)", cli_run("app", "new", TPL_APP)).group(1)
+        storage = Storage.instance()
+        app_id = storage.get_meta_data_apps().get_by_name(TPL_APP).id
+        t0 = time.perf_counter()
+        events, counts = template_events(seed, rng)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for c in range(0, len(events), QS_BULK_CHUNK):
+            storage.get_l_events().insert_batch(events[c:c + QS_BULK_CHUNK], app_id)
+        out["events"] = {**counts, "stored": len(events), "build_s": build_s,
+                         "insert_s": time.perf_counter() - t0}
+        emit({"phase": "templates", "step": "templates-cli-events", **out["events"]})
+        del events
+
+        reads = []
+        find_interactions = sqlite.SqlitePEvents.find_interactions
+
+        def recording(self, *a, **kw):
+            reads.append(find_interactions(self, *a, **kw))
+            return reads[-1]
+
+        def train(name, algorithms, directory=None, **datasource):
+            """template get → build → train in this process; the instance,
+            its engine and models, and kernel 2's launches."""
+            t_start[0] = time.perf_counter()
+            eng = os.path.join(tmp, directory or name)
+            cli_run("template", "get", name, "--directory", eng)
+            variant = fill_engine_json(os.path.join(eng, "engine.json"), TPL_APP, algorithms,
+                                       **datasource)
+            cli_run("build", "--engine-dir", eng)
+            reads.clear()
+            sqlite.SqlitePEvents.find_interactions = recording
+            train_kernel.launches.reset()
+            try:
+                t0 = time.perf_counter()
+                trained = cli_run("train", "--engine-dir", eng, "--device", device.type)
+                train_s = time.perf_counter() - t0
+            finally:
+                sqlite.SqlitePEvents.find_interactions = find_interactions
+            launches = train_kernel.launches.count
+            iid = re.search(r"Engine instance ID: (\S+)", trained).group(1)
+            inst = storage.get_meta_data_engine_instances().get(iid)
+            require(inst.status == "COMPLETED", f"{name}: pio train instance {inst.status}")
+            engine = cli.resolve_engine_from_variant(variant)
+            ep = engine.params_from_variant(variant)
+            _, _, _, models = workflow.prepare_deploy(engine, inst, storage=storage, ctx=ctx)
+            row = {"instance": iid, "train_s": train_s, "kernel2_launches": launches}
+            if reads:  # an implicit-ALS template: every bucket, every iteration
+                cfg = als.ALSConfig(rank=RANK, iterations=TPL_ITERS, implicit=True)
+                ub, ib, _, _ = als._dense_blocks_for(reads[-1], cfg)
+                buckets = len(ub.widths) + len(ib.widths)
+                row.update(ratings=len(reads[-1]), buckets=buckets, iterations=TPL_ITERS)
+                require(launches == buckets * TPL_ITERS,
+                        f"{name}: kernel 2 launched {launches} times vs {buckets} buckets × {TPL_ITERS}")
+                # after the count: these comparison launches do not count
+                row["kernel2_implicit_held"] = hold_implicit_training(
+                    name, reads[-1], models[0].als, engine.make_algorithms(ep)[0].params, device)
+            else:
+                require(launches == 0, f"{name}: kernel 2 launched {launches} times")
+            return eng, engine, ep, models, row
+
+        t_start = [0.0]  # when the template now under way began
+
+        def in_process(engine, ep, models, query):
+            algos, serving = engine.make_algorithms(ep), engine.make_serving(ep)
+            q = serving.supplement(engine.query_cls(**query))
+            return serving.serve(q, [a.predict(m, q) for a, m in zip(algos, models)])
+
+        def serve_and_hold(name, eng, engine, ep, models, queries, plain=None, batching=False):
+            """Deploy, answer ``queries`` over HTTP, each equal to the same
+            model's answer in this process and, where ``plain`` gives one, to
+            plain host code by rule 4."""
+            qs = ThreadServer("deploy", "--engine-dir", eng, "--device", device.type,
+                              *(["--batching"] if batching else []))
+            servers.append(qs)
+            ready_s = qs.wait_ready()
+            store.set_storage(storage)
+            gap = 0.0
+            try:
+                for q in queries:
+                    status, got = http_json(f"{qs.base}/queries.json", q)
+                    require(status == 200, f"{name} {q}: {status} {got}")
+                    got.pop("degraded", None)
+                    want = in_process(engine, ep, models, q)
+                    require(same_json(got, want), f"{name} {q}: served {got} vs in process {want}")
+                    if plain is not None:
+                        p = plain(q)
+                        if p is not None:
+                            gap = max(gap, p(got))
+            finally:
+                store.set_storage(None)
+            return qs, {"deploy_to_ready_s": ready_s, "queries": len(queries),
+                        "max_abs_err_plain": gap}
+
+        # -- e-commerce: implicit ALS, popular fallback, live business rules
+        eng, engine, ep, models, row = train("ecommercerecommendation", [{
+            "name": "ecomm", "params": {"appName": TPL_APP, "rank": RANK,
+                                        "numIterations": TPL_ITERS, "unseenOnly": True}}])
+        m = models[0]
+        inv = m.als.item_map.inverse
+        cats = {j: set(m.item_categories.get(inv[j], ())) for j in range(len(inv))}
+
+        def seen(user):
+            return {e.target_entity_id for e in storage.get_l_events().find(
+                app_id, entity_type="user", entity_id=user, event_names=["view", "buy"])}
+
+        def unavailable():
+            evs = list(storage.get_l_events().find(
+                app_id, entity_type="constraint", entity_id="unavailableItems",
+                event_names=["$set"], reversed=True, limit=1))
+            return set(evs[0].properties.get("items") or []) if evs else set()
+
+        def ecomm_plain(q):
+            u = m.als.user_map.get(q["user"])
+            scores = (m.als.item_factors.astype(np.float64) @ m.als.user_factors[u] if u is not None
+                      else m.popular.astype(np.float64))
+            drop = seen(q["user"]) | unavailable() | set(q.get("blackList") or ())
+            keep = np.array([inv[j] not in drop for j in range(len(inv))])
+            if q.get("whiteList"):
+                keep &= np.array([inv[j] in set(q["whiteList"]) for j in range(len(inv))])
+            if q.get("categories"):
+                keep &= np.array([bool(cats[j] & set(q["categories"])) for j in range(len(inv))])
+            return lambda got: hold_topn(got["itemScores"], scores, keep, q["num"],
+                                         m.als.item_map, f"ecommerce {q}")
+
+        users = [m.als.user_map.inverse[int(u)] for u in rng.choice(len(m.als.user_map), TPL_QUERIES,
+                                                                     replace=False)]
+        popular_items = [inv[int(j)] for j in np.argsort(-m.popular)[:40]]
+        queries = ([{"user": u, "num": 10} for u in users]
+                   + [{"user": users[0], "num": 8, "categories": ["g1", "even"]},
+                      {"user": users[1], "num": 5, "whiteList": popular_items[::2]},
+                      {"user": users[2], "num": 6, "blackList": popular_items[:10]},
+                      {"user": "no-such-user", "num": 10}])
+        es = ThreadServer("eventserver")
+        servers.append(es)
+        es.wait_ready()
+        qs, serve = serve_and_hold("ecommerce", eng, engine, ep, models, queries, ecomm_plain)
+        # unseenOnly through the event cache: a view posted now drops the
+        # item from that user's next answer (event-driven invalidation)
+        user = users[3]
+        first = http_json(f"{qs.base}/queries.json", {"user": user, "num": 5})[1]["itemScores"]
+        top = first[0]["item"]
+        status, _ = http_json(f"{es.base}/events.json?accessKey={key}", {
+            "event": "view", "entityType": "user", "entityId": user,
+            "targetEntityType": "item", "targetEntityId": top})
+        require(status == 201, f"POST view: {status}")
+        after = http_json(f"{qs.base}/queries.json", {"user": user, "num": 5})[1]["itemScores"]
+        require(top not in {r["item"] for r in after}, f"ecommerce unseenOnly: {top} still served")
+        # the unavailableItems constraint, $set through the event server
+        banned = [r["item"] for r in after[:2]]
+        status, _ = http_json(f"{es.base}/events.json?accessKey={key}", {
+            "event": "$set", "entityType": "constraint", "entityId": "unavailableItems",
+            "properties": {"items": banned}})
+        require(status == 201, f"POST $set constraint: {status}")
+        store.set_storage(storage)
+        try:
+            for q in ({"user": user, "num": 5}, {"user": "no-such-user", "num": 5}):
+                got = http_json(f"{qs.base}/queries.json", q)[1]
+                require(not {r["item"] for r in got["itemScores"]} & set(banned),
+                        f"ecommerce unavailableItems {q}: {got}")
+                serve["max_abs_err_plain"] = max(serve["max_abs_err_plain"], ecomm_plain(q)(got))
+        finally:
+            store.set_storage(None)
+        metrics = urllib.request.urlopen(f"{qs.base}/metrics", timeout=10).read().decode()
+        inval = re.search(r"^pio_event_cache_invalidated_total (\S+)$", metrics, re.M)
+        require(inval is not None and float(inval.group(1)) >= 1,
+                f"pio_event_cache_invalidated_total: {inval}")
+        serve["event_cache_invalidated"] = float(inval.group(1))
+        qs.stop(["undeploy", "--port", str(qs.port)])
+        require(http_json(f"{es.base}/stop", method="POST")[0] == 202, "eventserver POST /stop")
+        es.thread.join(60)
+        row.update(serve)
+
+        # kernel 2, implicit, on this template's training data: one
+        # iteration's buckets (both sides) at f32, against its bound and the
+        # gathered-rows bmm yardstick; then a whole iteration
+        read = reads[-1]
+        cfg = als.ALSConfig(rank=RANK, iterations=TPL_ITERS, implicit=True, seed=3)
+        ub, ib, u_perm, i_perm = als._dense_blocks_for(read, cfg)
+        U = torch.from_numpy(m.als.user_factors[np.argsort(u_perm)]).to(device)
+        V = torch.from_numpy(m.als.item_factors[np.argsort(i_perm)]).to(device)
+        geo, calls, yard = [], [], []
+        for blocks, opp in ((ub, V), (ib, U)):
+            dev_blocks = [tuple(torch.from_numpy(x).to(device) for x in t)
+                          for t in zip(blocks.idx, blocks.rat, blocks.msk)]
+            geo.append(([(mk.shape[0], mk.shape[1], int(mk.sum())) for mk in blocks.msk], opp.shape[0]))
+            calls += [(b, opp) for b in dev_blocks]
+            yard += [(opp[b[0].long()] * b[2][:, :, None]).contiguous() for b in dev_blocks]
+
+        def kern():
+            return [train_kernel.fused_train_normal_eq(*b, opp, implicit=True, alpha=1.0)
+                    for b, opp in calls]
+
+        def iteration():
+            Un = als._dense_half_step([b for b, _ in calls[:len(ub.widths)]], V, als._gram(V), cfg)
+            return als._dense_half_step([b for b, _ in calls[len(ub.widths):]], Un, als._gram(Un), cfg)
+
+        bms = [train_bound(g, n_opp, RANK, "f32") for g, n_opp in geo]
+        iter_s = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iteration()
+            torch.cuda.synchronize()
+            iter_s.append(time.perf_counter() - t0)
+        dev = device_us(kern, 5)
+        row["kernel2_implicit"] = {
+            "buckets": len(calls), "ms": cuda_ms(kern, 10),
+            "device_us": sum(v for k, v in dev.items() if "normal_eq" in k or "train" in k),
+            "device_us_by_kernel": dev,
+            "plain_ms": cuda_ms(lambda: [train_kernel.train_normal_eq_reference(
+                *b, opp, implicit=True, alpha=1.0) for b, opp in calls], 3),
+            "bound_ms": sum(b for b, _ in bms),
+            "bound_by": "bytes" if all(by == "bytes" for _, by in bms) else "operations",
+            "library_ms": cuda_ms(lambda: [torch.bmm(W.transpose(1, 2), W) for W in yard], 10),
+            "iteration_ms": sorted(iter_s)[2] * 1e3, "iteration_ms_all": [s * 1e3 for s in iter_s]}
+        del calls, yard, U, V
+        row["seconds"] = time.perf_counter() - t_start[0]
+        out["templates"]["ecommercerecommendation"] = row
+        emit({"phase": "templates", "step": "ecommercerecommendation", **row})
+
+        # -- similar-product: implicit ALS + LLR co-occurrence, SumServing, batched
+        eng, engine, ep, models, row = train("similarproduct", [
+            {"name": "als", "params": {"rank": RANK, "numIterations": TPL_ITERS}},
+            {"name": "cooccurrence", "params": {"n": 20, "llr": True}}])
+        am, cm = models[0], models[1].cooccurrence
+        inv = am.als.item_map.inverse
+        cats = {j: set(am.item_categories.get(inv[j], ())) for j in range(len(inv))}
+
+        def sp_plain(q):
+            """SumServing adds the ALS list (mean cosine) and the LLR
+            co-occurrence list (summed indicator scores), each cut to ``num``
+            on its own; the plain check holds the ALS algorithm's part and
+            the co-occurrence part in this process, then the served sum."""
+            idx = [am.als.item_map[i] for i in q["items"] if i in am.als.item_map]
+            keep = np.ones(len(inv), bool)
+            keep[idx] = False
+            for i in q.get("blackList") or ():
+                if i in am.als.item_map:
+                    keep[am.als.item_map[i]] = False
+            if q.get("categories"):
+                keep &= np.array([bool(cats[j] & set(q["categories"])) for j in range(len(inv))])
+            sims = am.norm_factors.astype(np.float64) @ am.norm_factors[idx].mean(axis=0)
+            co_scores = np.zeros(len(inv))
+            for j in idx:
+                top_items, top_scores = cm.similar(j, 20)
+                co_scores[top_items] += top_scores
+            algos = engine.make_algorithms(ep)
+            query = engine.query_cls(**q)
+            parts = [algos[0].predict(am, query), algos[1].predict(models[1], query)]
+            gap = max(
+                hold_topn([{"item": x.item, "score": x.score} for x in parts[0].itemScores],
+                          sims, keep, q["num"], am.als.item_map, f"similarproduct als {q}"),
+                hold_topn([{"item": x.item, "score": x.score} for x in parts[1].itemScores],
+                          co_scores, keep & (co_scores > 0), q["num"], am.als.item_map,
+                          f"similarproduct cooccurrence {q}"))
+            total = np.zeros(len(inv))
+            for part in parts:
+                for x in part.itemScores:
+                    total[am.als.item_map[x.item]] += x.score
+            return lambda got: max(gap, hold_topn(got["itemScores"], total, total != 0, q["num"],
+                                                  am.als.item_map, f"similarproduct {q}"))
+
+        items = [inv[int(j)] for j in rng.choice(len(inv), TPL_QUERIES, replace=False)]
+        queries = ([{"items": [i], "num": 10} for i in items]
+                   + [{"items": items[:3], "num": 8},
+                      {"items": [items[0]], "num": 6, "categories": ["g2"]},
+                      {"items": [items[1]], "num": 6, "blackList": items[2:6]}])
+        qs, serve = serve_and_hold("similarproduct", eng, engine, ep, models, queries, sp_plain,
+                                   batching=True)
+        qs.stop(["undeploy", "--port", str(qs.port)])
+        row.update(serve)
+        row["seconds"] = time.perf_counter() - t_start[0]
+        out["templates"]["similarproduct"] = row
+        emit({"phase": "templates", "step": "similarproduct", **row})
+
+        # -- the Universal Recommender: buy + view, answers from live histories
+        eng, engine, ep, models, row = train("universalrecommender", [
+            {"name": "ur", "params": {"appName": TPL_APP, "maxCorrelatorsPerItem": UR_K}}],
+            eventNames=["buy", "view"])
+        um = models[0]
+        buyers = sorted({e.entity_id for e in storage.get_l_events().find(
+            app_id, entity_type="user", event_names=["buy"])})
+        users = [buyers[int(k)] for k in rng.choice(len(buyers), TPL_QUERIES, replace=False)]
+
+        def ur_plain(q):
+            hist = {n: [e.target_entity_id for e in storage.get_l_events().find(
+                app_id, entity_type="user", entity_id=q["user"], event_names=[n],
+                target_entity_type="item", limit=100, reversed=True)] for n in ("buy", "view")}
+            scores, keep = ur_predict_plain(um, hist, q.get("blackList") or ())
+            return lambda got: hold_topn(got["itemScores"], scores, keep, q["num"], um.item_map,
+                                         f"ur {q}")
+
+        queries = [{"user": u, "num": 10} for u in users] + [
+            {"user": users[0], "num": 5, "blackList": [users[0]]}, {"user": "no-such-user", "num": 5}]
+        qs, serve = serve_and_hold("universalrecommender", eng, engine, ep, models, queries, ur_plain)
+        qs.stop(["undeploy", "--port", str(qs.port)])
+        row.update(serve)
+        row["seconds"] = time.perf_counter() - t_start[0]
+        out["templates"]["universalrecommender"] = row
+        emit({"phase": "templates", "step": "universalrecommender", **row})
+
+        # -- similar-user: implicit ALS over follows
+        eng, engine, ep, models, row = train("similaruser", [
+            {"name": "als", "params": {"rank": RANK, "numIterations": TPL_ITERS}}])
+        sm = models[0]
+        finv = sm.als.item_map.inverse
+
+        def su_plain(q):
+            idx = [sm.als.item_map[u] for u in q["users"] if u in sm.als.item_map]
+            if not idx:
+                return None
+            sims = sm.norm_factors.astype(np.float64) @ sm.norm_factors[idx].sum(axis=0)
+            keep = sims > 0
+            keep[idx] = False
+            for u in q.get("blackList") or ():
+                if u in sm.als.item_map:
+                    keep[sm.als.item_map[u]] = False
+            return lambda got: hold_topn(got["similarUserScores"], sims, keep, q["num"],
+                                         sm.als.item_map, f"similaruser {q}", field="user")
+
+        followed = [finv[int(j)] for j in rng.choice(len(finv), TPL_QUERIES, replace=False)]
+        queries = ([{"users": [u], "num": 10} for u in followed]
+                   + [{"users": followed[:2], "num": 8, "blackList": followed[2:5]}])
+        qs, serve = serve_and_hold("similaruser", eng, engine, ep, models, queries, su_plain)
+        qs.stop(["undeploy", "--port", str(qs.port)])
+        row.update(serve)
+        row["seconds"] = time.perf_counter() - t_start[0]
+        out["templates"]["similaruser"] = row
+        emit({"phase": "templates", "step": "similaruser", **row})
+
+        # -- classification: naive Bayes and a random forest over $set properties
+        eng, engine, ep, models, row = train("classification", [
+            {"name": "naive", "params": {"lambda": 1.0}},
+            {"name": "randomforest", "params": {"numTrees": 10, "maxDepth": 5, "seed": seed}}])
+        nb_model, rf_model = models
+        t_cls = t_start[0]
+        feats = rng.uniform(0, 10, (TPL_QUERIES, 3))
+        queries = [{"features": [float(x) for x in f]} for f in feats]
+        qs, serve = serve_and_hold("classification", eng, engine, ep, models, queries)
+        qs.stop(["undeploy", "--port", str(qs.port)])
+        # plain host code: NB's argmax of x·log θᵀ + log prior, and the tree
+        # walk of the forest's first algorithm slot is FirstServing's answer
+        for f in feats:
+            s = f.astype(np.float32) @ nb_model.log_theta.T + nb_model.log_prior
+            want = nb_model.label_map.inverse[int(np.argmax(s))]
+            got = in_process(engine, ep, models, {"features": [float(x) for x in f]}).label
+            require(got == want, f"classification {f}: {got} vs NB argmax {want}")
+        truth = ["premium" if a + b > 10 else "basic" for a, b, _ in feats]
+        row["nb_accuracy_on_queries"] = float(np.mean([
+            nb_model.predict(f.astype(np.float32)) == t for f, t in zip(feats, truth)]))
+        row["rf_accuracy_on_queries"] = float(np.mean([
+            rf_model.predict(f.astype(np.float32)) == t for f, t in zip(feats, truth)]))
+        row.update(serve)
+        # the forest served: an engine whose first algorithm is the forest,
+        # held against the plain tree walk of its arrays
+        eng, engine, ep, models, rf_row = train("classification", [
+            {"name": "randomforest", "params": {"numTrees": 10, "maxDepth": 5, "seed": seed}}],
+            directory="classification-rf")
+        qs, rf_serve = serve_and_hold("classification-rf", eng, engine, ep, models, queries)
+        qs.stop(["undeploy", "--port", str(qs.port)])
+        for f in feats:
+            want = rf_plain(models[0], f.astype(np.float32))
+            got = in_process(engine, ep, models, {"features": [float(x) for x in f]}).label
+            require(got == want, f"classification (forest) {f}: {got} vs tree walk {want}")
+        row["randomforest_served"] = {"train_s": rf_row["train_s"], **rf_serve}
+        row["seconds"] = time.perf_counter() - t_cls
+        out["templates"]["classification"] = row
+        emit({"phase": "templates", "step": "classification", **row})
+    finally:
+        for srv in servers:
+            if srv.thread.is_alive():
+                try:
+                    urllib.request.urlopen(urllib.request.Request(f"{srv.base}/stop", method="POST"),
+                                           timeout=5).close()
+                except OSError:
+                    pass
+                srv.thread.join(30)
+        store.set_storage(None)
+        Storage.reset_instance()
+        sqlite.close_all_dbs()
+        os.environ.pop("PIO_FS_BASEDIR", None)
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(seconds=time.perf_counter() - t_phase, ok=True)
+    emit(out)
+    return out
+
+
 # -- A/B: kernels 1 and 2 of two trees, on one card ---------------------------
 
 
@@ -5184,7 +6189,6 @@ def main(argv=None) -> int:
     gather_rows, gather_err = phase_gather_kernel(args.seed, device, inter)
     seg_rows, seg_err = phase_segment_kernel(args.seed, device, inter)
     seg_train = phase_train_segment(inter, args.seed, device, model, train)
-    del inter
     phase_small_parity(args.seed, device)
     seg_parity = phase_segment_parity(args.seed, device)
     segment_s = time.perf_counter() - t0
@@ -5202,6 +6206,12 @@ def main(argv=None) -> int:
     pub = phase_publish_eval(model, args.seed, device, rows, ops)
     stream = phase_streaming(model, args.seed, device)
     ivf_out = phase_ivf(model, args.seed, device)
+    t0 = time.perf_counter()
+    tpl_ur = phase_ur_ml25m(args.seed, device, inter)
+    del inter
+    tpl_cli = phase_templates_cli(args.seed, device)
+    templates = {"ur_ml25m": tpl_ur, "cli": tpl_cli, "seconds": time.perf_counter() - t0}
+    emit({"phase": "templates", "seconds": templates["seconds"], "ok": True})
     # each kernel's launches on the CLI path, counted as the CLI drove it
     cli_launches = {
         "fused_gather_score_topk": quick["serve"]["launches"],
@@ -5323,6 +6333,30 @@ def main(argv=None) -> int:
     kernels["kernels"][0]["by_dtype_b64"] = {
         r["dtype"]: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in rows if r.get("case", "ml25m") == "ml25m" and r["batch"] == RUNGS[-1]}
+    # templates: kernel 2 in implicit mode on each implicit-ALS template's
+    # `pio train` (launches = buckets × iterations, asserted), and its times
+    # on the e-commerce template's data
+    kernels["kernels"][1]["templates_launches"] = {
+        name: row["kernel2_launches"] for name, row in tpl_cli["templates"].items()
+        if "buckets" in row}
+    kernels["kernels"][1]["implicit_on_templates"] = {
+        key: tpl_cli["templates"]["ecommercerecommendation"]["kernel2_implicit"][key]
+        for key in ("buckets", "ms", "device_us", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "iteration_ms")}
+    # the largest errors of kernel 2 against its plain version over every
+    # bucket of the three implicit-ALS templates, and their factors against
+    # CPU trainings
+    held = [row["kernel2_implicit_held"] for row in tpl_cli["templates"].values()
+            if "kernel2_implicit_held" in row]
+    require(len(held) == 3, f"kernel 2 held on {len(held)} implicit-ALS templates")
+    kernels["kernels"][1]["implicit_on_templates"].update(
+        buckets_held=sum(h["buckets_held"] for h in held),
+        **{key: max(h[key] for h in held) for key in (
+            "max_abs_err", "max_rel_err", "kernel_vs_f64_rel", "plain_vs_f64_rel",
+            "factors_vs_cpu_max_abs")})
+    for key in ("max_abs_err", "max_rel_err", "kernel_vs_f64_rel", "plain_vs_f64_rel"):
+        kernels["kernels"][1][key] = max(kernels["kernels"][1][key],
+                                         kernels["kernels"][1]["implicit_on_templates"][key])
     kernels["kernels"][1]["publish_eval_launches"] = {
         "resume": pub["resume_als"]["launches_resumed"], "eval": pub["eval"]["kernel2_launches"]}
     for k, part in zip(kernels["kernels"][2:5], ("fwd", "bwd_dq", "bwd_dkv")):
@@ -5339,6 +6373,7 @@ def main(argv=None) -> int:
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
                    "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
                    "serving_ops": ops, "publish_eval": pub, "streaming": stream, "ivf": ivf_out,
+                   "templates": templates,
                    **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)

@@ -130,6 +130,28 @@ JAX_COUNTERPARTS = {
     # whose sharding_plan is set is still refused (ALSModel.__setstate__)
     f"{_JAX}.ops.ivf.IVFIndex": f"{_PORT}.ops.ivf.IVFIndex",
     f"{_JAX}.serving.sharding.ShardingPlan": f"{_PORT}.serving.sharding.ShardingPlan",
+    # the other templates' models (ROADMAP §1 item 11)
+    f"{_JAX}.models.cooccurrence.CooccurrenceModel":
+        f"{_PORT}.models.cooccurrence.CooccurrenceModel",
+    f"{_JAX}.models.naive_bayes.MultinomialNBModel":
+        f"{_PORT}.models.naive_bayes.MultinomialNBModel",
+    f"{_JAX}.models.naive_bayes.CategoricalNBModel":
+        f"{_PORT}.models.naive_bayes.CategoricalNBModel",
+    f"{_JAX}.models.random_forest.RandomForestModel":
+        f"{_PORT}.models.random_forest.RandomForestModel",
+    f"{_JAX}.models.random_forest.RFConfig": f"{_PORT}.models.random_forest.RFConfig",
+    f"{_JAX}.models.markov_chain.MarkovChainModel":
+        f"{_PORT}.models.markov_chain.MarkovChainModel",
+    f"{_JAX}.models.binary_vectorizer.BinaryVectorizer":
+        f"{_PORT}.models.binary_vectorizer.BinaryVectorizer",
+    f"{_JAX}.templates.universal.URModel": f"{_PORT}.templates.universal.URModel",
+    f"{_JAX}.templates.similarproduct.SimilarALSModel":
+        f"{_PORT}.templates.similarproduct.SimilarALSModel",
+    f"{_JAX}.templates.similarproduct.SimilarCooccurrenceModel":
+        f"{_PORT}.templates.similarproduct.SimilarCooccurrenceModel",
+    f"{_JAX}.templates.ecommerce.ECommModel": f"{_PORT}.templates.ecommerce.ECommModel",
+    f"{_JAX}.templates.similaruser.SimilarUserModel":
+        f"{_PORT}.templates.similaruser.SimilarUserModel",
 }
 
 # JAX classes that have no counterpart yet, with why
@@ -167,8 +189,7 @@ def port_path(path: str) -> str:
         if importlib.util.find_spec(module_name) is not None:
             return _PORT + path[len(_JAX):]
         raise ForeignClassError(
-            f"{path}: this template is not ported to predictionio_tpu_torch "
-            "yet (ROADMAP §1 item 11)"
+            f"{path}: the template has no counterpart in predictionio_tpu_torch"
         )
     raise ForeignClassError(
         f"{path} is a class of {top}, which predictionio_tpu_torch does not "

@@ -1,7 +1,8 @@
 """Columnar event batches and the integer-indexed triples training reads.
 
 Counterpart of ``predictionio_tpu/data/batch.py``: :class:`EventBatch`
-(``from_events``, ``interactions``), :class:`Interactions` (``subset``,
+(``from_events``, ``select``, ``filter_events``, ``interactions``),
+:class:`Interactions` (``subset``,
 ``drop_items``) and :func:`merge_interactions`, in numpy only. The id maps
 are the port's :class:`~predictionio_tpu_torch.data.bimap.BiMap`, whose
 bulk paths factorize with numpy where the JAX package uses pandas, with the
@@ -58,6 +59,24 @@ class EventBatch:
 
     def __len__(self) -> int:
         return len(self.event)
+
+    def select(self, mask: np.ndarray) -> "EventBatch":
+        idx = np.nonzero(mask)[0]
+        return EventBatch(
+            event=self.event[idx],
+            entity_type=self.entity_type[idx],
+            entity_id=self.entity_id[idx],
+            target_entity_type=self.target_entity_type[idx],
+            target_entity_id=self.target_entity_id[idx],
+            event_time=self.event_time[idx],
+            properties=[self.properties[i] for i in idx],
+        )
+
+    def filter_events(self, names: Sequence[str]) -> "EventBatch":
+        names_set = set(names)
+        return self.select(
+            np.fromiter((e in names_set for e in self.event), dtype=bool, count=len(self))
+        )
 
     def entity_bimap(self) -> BiMap[str, int]:
         return BiMap.string_int(self.entity_id)

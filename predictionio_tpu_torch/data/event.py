@@ -5,8 +5,9 @@ Counterpart of ``predictionio_tpu/data/event.py`` (parity: ``Event.scala``
 and ``DataMap.scala``), cut to what the training read and the event server need: the immutable
 :class:`Event`, its :class:`DataMap` of properties, the validation every
 event passes at construction (``EventValidation``) and the JSON codec the
-event server and the sqlite rows use. The property snapshots
-(``PropertyMap``) come with the property aggregation.
+event server and the sqlite rows use, and the :class:`PropertyMap`
+snapshots that ``data/aggregator.py`` folds ``$set``/``$unset``/``$delete``
+streams into.
 """
 
 from __future__ import annotations
@@ -77,12 +78,39 @@ class DataMap(Mapping[str, Any]):
     def __hash__(self):
         return hash(json.dumps(self._fields, sort_keys=True, default=str))
 
+    # the getters templates read (parity: DataMap.scala get[T] / getOrElse)
+    def require(self, key: str) -> Any:
+        if key not in self._fields:
+            raise KeyError(f"The field {key} is required.")
+        return self._fields[key]
+
+    def get_double(self, key: str) -> float:
+        return float(self.require(key))
+
     def to_dict(self) -> dict[str, Any]:
         return dict(self._fields)
 
     @property
     def is_empty(self) -> bool:
         return not self._fields
+
+
+class PropertyMap(DataMap):
+    """A DataMap snapshot of an entity's properties plus its valid-time range
+    (parity: ``PropertyMap.scala`` ``firstUpdated``/``lastUpdated``)."""
+
+    __slots__ = ("first_updated", "last_updated")
+
+    def __init__(self, fields, first_updated: _dt.datetime, last_updated: _dt.datetime):
+        super().__init__(fields)
+        self.first_updated = first_updated
+        self.last_updated = last_updated
+
+    def __repr__(self) -> str:
+        return (
+            f"PropertyMap({self.to_dict()!r}, first={self.first_updated}, "
+            f"last={self.last_updated})"
+        )
 
 
 class EventValidation:

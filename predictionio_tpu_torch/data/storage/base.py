@@ -11,10 +11,11 @@ serving and training slices use:
   :class:`EngineInstances`, :class:`EvaluationInstances`, :class:`Models`
   and their records.
 
-One card reads every row, so ``find`` has no ``shard`` argument; bulk
-writes and deletes through ``PEvents`` (writers use ``LEvents``), free-text
-search, property aggregation and the instances' field queries come with
-later slices.
+``LEvents.aggregate_properties`` folds ``$set``/``$unset``/``$delete`` into
+entity snapshots (``data/aggregator.py``). One card reads every
+row, so ``find`` has no ``shard`` argument; bulk writes and deletes through
+``PEvents`` (writers use ``LEvents``), free-text search and the instances'
+field queries come with later slices.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ import secrets
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, Sequence
 
+from predictionio_tpu_torch.data.aggregator import aggregate_properties
 from predictionio_tpu_torch.data.batch import EventBatch
-from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.event import Event, EventValidation, PropertyMap
 
 
 @dataclass
@@ -180,6 +182,29 @@ class LEvents(abc.ABC):
         ``target_entity_type``/``target_entity_id`` of the string "None"
         filters for events WITHOUT a target.
         """
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        entity_type: str,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ) -> dict[str, PropertyMap]:
+        """Fold $set/$unset/$delete into snapshots (parity: LEvents:~430),
+        keeping the entities that hold every ``required`` key."""
+        snapshots = aggregate_properties(self.find(
+            app_id,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            event_names=sorted(EventValidation.SPECIAL_EVENTS),
+        ))
+        if not required:
+            return snapshots
+        return {eid: pm for eid, pm in snapshots.items() if all(k in pm for k in required)}
 
 
 class PEvents(abc.ABC):

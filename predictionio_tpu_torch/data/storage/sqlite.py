@@ -385,7 +385,11 @@ class SqliteLEvents(_SqliteDAO, base.LEvents):
             event_names, target_entity_type, target_entity_id,
         )
         order = "DESC" if reversed else "ASC"
-        sql = (f"SELECT * FROM events WHERE {where} "
+        # one entity's rows (a serving-time history or seen-set read) come
+        # from the entity index; left to itself sqlite walks the time index
+        # over the whole app to honour ORDER BY (~70 ms at 130,000 events)
+        table = "events INDEXED BY idx_events_entity" if entity_id is not None else "events"
+        sql = (f"SELECT * FROM {table} WHERE {where} "
                f"ORDER BY event_time {order}, creation_time {order}")
         if limit is not None and limit >= 0:
             sql += f" LIMIT {int(limit)}"

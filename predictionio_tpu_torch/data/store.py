@@ -102,6 +102,28 @@ class PEventStore:
             default_rating=default_rating,
         )
 
+    @staticmethod
+    def aggregate_properties(
+        app_name: str,
+        entity_type: str,
+        channel_name: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ):
+        """entityId → :class:`~predictionio_tpu_torch.data.event.PropertyMap`
+        of the entities of ``entity_type`` (parity: PEventStore.aggregateProperties;
+        the fold reads the rows through the event store's ``LEvents``)."""
+        app_id, channel_id = resolve_app(app_name, channel_name)
+        return get_storage().get_l_events().aggregate_properties(
+            app_id,
+            entity_type,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            required=required,
+        )
+
 
 class LEventStore:
     """Row reads for serving-time lookups (parity: LEventStore.scala:48-265).

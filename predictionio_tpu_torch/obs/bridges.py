@@ -2,8 +2,8 @@
 
 Counterpart of ``predictionio_tpu/obs/bridges.py`` with the bridges of the
 components the port has: the batcher, the fast path, IVF retrieval,
-devprof, the result cache, error counters, resilience (breakers), the
-event-server stats, the ingest buffer with its WAL and the latency
+devprof, the result cache, the template event cache, error counters,
+resilience (breakers), the event-server stats, the ingest buffer with its WAL and the latency
 histogram. The others come with their components.
 
 Every load-bearing runtime layer predates the registry and already keeps
@@ -440,6 +440,53 @@ def bridge_result_cache(
                 "pio_result_cache_hit_rate", "gauge",
                 "Hits / lookups since start.",
                 [("", (), _num(s.get("hit_rate")))],
+            ),
+        ]
+
+    registry.register_collector(collect)
+
+
+# -- serving: template event cache ---------------------------------------------
+
+def bridge_event_cache(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """ServingEventCache ``stats_dict()`` → pio_event_cache_* families
+    (the template-level TTL cache for predict-time storage lookups)."""
+
+    def collect():
+        s = stats_fn()
+        if not s:
+            return []
+        return [
+            _fam(
+                "pio_event_cache_lookups_total", "counter",
+                "Event-cache lookups by outcome.",
+                [
+                    ("", (("outcome", "hit"),), _num(s.get("hits"))),
+                    ("", (("outcome", "miss"),), _num(s.get("misses"))),
+                ],
+            ),
+            _fam(
+                "pio_event_cache_refreshes_total", "counter",
+                "Background refreshes that replaced a stale value.",
+                [("", (), _num(s.get("refreshes")))],
+            ),
+            _fam(
+                "pio_event_cache_invalidated_total", "counter",
+                "Entries reloaded synchronously after an invalidation-"
+                "token change (event-driven).",
+                [("", (), _num(s.get("invalidated")))],
+            ),
+            _fam(
+                "pio_event_cache_evictions_total", "counter",
+                "Stalest-first evictions under the entry bound.",
+                [("", (), _num(s.get("evictions")))],
+            ),
+            _fam(
+                "pio_event_cache_entries", "gauge",
+                "Entries currently resident.",
+                [("", (), _num(s.get("entries")))],
             ),
         ]
 

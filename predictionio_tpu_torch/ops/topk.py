@@ -47,6 +47,26 @@ def sort_two_key(
     return v.gather(1, second), i.gather(1, second).to(torch.int32)
 
 
+def topk_two_key(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k best of each row of a float32 ``values`` in the two-key order
+    (value descending, then smaller index), without sorting whole rows.
+
+    Each entry becomes one distinct 64-bit key, its value's bits in an
+    order-preserving int32 above its complemented column index, so
+    ``torch.topk`` over the keys has no ties to order: it returns
+    ``lax.top_k``'s selection and order. ``-0.0`` counts as ``0.0``, as a
+    float comparison has it.
+    """
+    bits = (values + 0.0).contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    col = torch.arange(values.shape[1], device=values.device, dtype=torch.int64)
+    keys = (ordered << 32) + (0xFFFFFFFF - col)
+    del bits, ordered
+    top = torch.topk(keys, k, dim=1).values
+    idx = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+    return values.gather(1, idx), idx.to(torch.int32)
+
+
 def top_k_with_mask(
     scores: torch.Tensor, k: int, mask: Optional[torch.Tensor] = None
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -642,6 +642,19 @@ class QueryServer:
                 return s
         return None
 
+    def _event_cache_stats(self) -> Optional[dict]:
+        """First deployed algorithm's ServingEventCache stats, if any (the
+        e-commerce template creates one lazily on its first predict)."""
+        with self._lock:
+            d = self._deployed
+        if d is None:
+            return None
+        for algo in d.algorithms:
+            cache = getattr(algo, "_event_cache", None)
+            if cache is not None:
+                return cache.stats_dict()
+        return None
+
     def _register_metrics(self) -> None:
         """Expose every serving stat on the obs registry, making
         ``/metrics`` the single source of truth for this server. Each
@@ -695,6 +708,7 @@ class QueryServer:
             "1 when single-flight coalescing of identical queries is on.",
             lambda: 1.0 if self._coalesce else 0.0,
         )
+        _bridges.bridge_event_cache(reg, self._event_cache_stats)
         _bridges.bridge_resilience(
             reg,
             lambda: {"breakers": [self._feedback_breaker.stats()]},

@@ -14,11 +14,8 @@ a per-query disabled-items file. ``persistMode: "checkpoint"`` publishes a
 :class:`~predictionio_tpu_torch.models.als.CheckpointedALSModel` (and with
 it the quantized variant behind its gate). :class:`PrecisionAtK`,
 :class:`NDCGAtK`, :class:`MAPAtK` and :class:`RecommendationEvaluation`
-are what ``pio eval`` runs.
-
-Not ported yet, and raising an error that names the ROADMAP item that
-brings it: a set ``eventWindow`` (the self-cleaning data source, ROADMAP
-§1 item 11).
+are what ``pio eval`` runs. A set ``eventWindow`` compacts the event store
+before the read (``core/self_cleaning.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +40,7 @@ from predictionio_tpu_torch.core.controller import SanityCheck
 from predictionio_tpu_torch.core.evaluation import EngineParamsGenerator, Evaluation
 from predictionio_tpu_torch.core.metrics import OptionAverageMetric
 from predictionio_tpu_torch.core.persistence import RETRAIN
+from predictionio_tpu_torch.core.self_cleaning import SelfCleaningDataSource
 from predictionio_tpu_torch.data import store
 from predictionio_tpu_torch.data.batch import Interactions, merge_interactions
 from predictionio_tpu_torch.device import DeviceContext
@@ -98,7 +96,8 @@ PreparedData = TrainingData
 class DataSourceParams(Params):
     appName: str = "default"
     evalParams: Optional[dict] = None  # {"kFold": 5, "queryNum": 10}
-    # self-cleaning window: not ported yet (ROADMAP §1 item 11)
+    # SelfCleaningDataSource hook: {"duration": "30 days",
+    # "removeDuplicates": true, "compressProperties": true}
     eventWindow: Optional[dict] = None
     # event name → fixed rating value, replacing the default rate+buy read
     # (reading-custom-events: like→4.0/dislike→1.0; train-with-view-event:
@@ -114,7 +113,7 @@ def _merge_part_reads(read_fn, part_kwargs: list) -> Interactions:
     return reads[0] if len(reads) == 1 else merge_interactions(reads)
 
 
-class RecommendationDataSource(DataSource):
+class RecommendationDataSource(SelfCleaningDataSource, DataSource):
     params_cls = DataSourceParams
 
     BUY_WEIGHT = 4.0  # parity: buy events count as rating 4.0
@@ -149,11 +148,7 @@ class RecommendationDataSource(DataSource):
         ]
 
     def read_training(self, ctx) -> TrainingData:
-        if self.params.eventWindow:
-            raise NotImplementedError(
-                "eventWindow (the self-cleaning data source) is not ported yet "
-                "(ROADMAP §1 item 11)"
-            )
+        self.clean_persisted_events()  # no-op without an eventWindow param
         # one columnar read per event type, merged into shared id maps
         return TrainingData(
             _merge_part_reads(

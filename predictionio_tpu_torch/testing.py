@@ -6,6 +6,15 @@ their indices agree, except where the dot products' summation order may
 swap two near-equal scores. Inputs whose every dot product is exact
 (integer-valued factors) must agree bit for bit, tie order included.
 
+Two LLR top-k lists agree (``llr_topk_mismatches``) when each value is
+within ``llr_atol(T) + LLR_RTOL·|v|`` of the float64 LLR computed from the
+same exact counts, and each index is the float64 reference's, except where
+the two items' float64 values lie within twice that tolerance of each
+other: each side may stand that far off the float64 value. The absolute
+part is ``LLR_ULPS`` ulp of ``T·ln T`` in float32: every entropy term holds
+it, and ``log`` differs in the last bit between XLA, torch's CPU and
+CUDA's ``logf``, so the cancellation leaves a few of its ulp.
+
 Two sets of normal equations agree when each entry of ``A`` and ``b``
 differs by at most ``rtol`` times the sum of the absolute values of the
 products behind it (the bound a change of summation order can reach, which
@@ -69,6 +78,60 @@ def topk_mismatches(
             out.append(
                 f"row {r} slot {c}: index {got_i[r, c]} vs {ref_i[r, c]}"
             )
+    return out
+
+
+LLR_RTOL = 1e-5
+LLR_ULPS = 8
+
+
+def llr_atol(total: float) -> float:
+    """``LLR_ULPS`` float32 ulp of ``T·ln T`` (ROADMAP §3's LLR rule)."""
+    t = float(total)
+    return LLR_ULPS * float(np.spacing(np.float32(t * np.log(t)))) if t > 1 else 0.0
+
+
+def llr_reference64(C, primary_counts, secondary_counts, total) -> np.ndarray:
+    """Dunning's G² in float64 from exact counts: ``C`` (p, s), the distinct
+    user counts of the two sides, ``T`` users (the formula of
+    ``models.cooccurrence.llr_cross_scores``)."""
+    C = np.asarray(C, np.float64)
+    pc = np.asarray(primary_counts, np.float64)[:, None]
+    sc = np.asarray(secondary_counts, np.float64)[None, :]
+    k11, k12, k21 = C, np.maximum(pc - C, 0), np.maximum(sc - C, 0)
+    k22 = np.maximum(float(total) - pc - sc + C, 0)
+
+    def xlogx(x):
+        return np.where(x > 0, x * np.log(np.where(x > 0, x, 1.0)), 0.0)
+
+    def entropy(*ks):
+        return xlogx(sum(ks)) - sum(xlogx(k) for k in ks)
+
+    h = entropy(k11 + k12, k21 + k22) + entropy(k11 + k21, k12 + k22) - entropy(k11, k12, k21, k22)
+    return np.where(C > 0, 2.0 * np.maximum(h, 0.0), 0.0)
+
+
+def llr_topk_mismatches(got_i, got_v, ref_scores, atol: float,
+                        rtol: float = LLR_RTOL) -> list[str]:
+    """Why one indicator's top-k (``got_i``, ``got_v``, scores floored at 0
+    as the models store them) breaks the LLR rule against ``ref_scores``,
+    the float64 scores of every primary item for that indicator (-1 where
+    the item may not be listed: the diagonal, padding); empty when it
+    holds. The reference order is value descending, then smaller index."""
+    got_i = np.asarray(got_i, np.int64)
+    got_v = np.asarray(got_v, np.float64)
+    ref = np.asarray(ref_scores, np.float64)
+    order = np.lexsort((np.arange(len(ref)), -ref))[: len(got_i)]
+    out = []
+    for c, (g, r) in enumerate(zip(got_i, order)):
+        tol = atol + rtol * abs(ref[r])
+        if not 0 <= g < len(ref):
+            out.append(f"slot {c}: index {g} out of range")
+            continue
+        if abs(got_v[c] - max(ref[g], 0.0)) > atol + rtol * abs(ref[g]):
+            out.append(f"slot {c}: value {got_v[c]} vs float64 {ref[g]} (item {g})")
+        if g != r and abs(ref[g] - ref[r]) > 2 * tol:
+            out.append(f"slot {c}: item {g} ({ref[g]}) vs {r} ({ref[r]})")
     return out
 
 

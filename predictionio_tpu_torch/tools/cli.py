@@ -28,9 +28,10 @@ index (``ivf.blob``); ``rebuild`` reads the instance's sealed factor store,
 re-runs the recall gate and reseals the index, which a live server adopts
 on ``POST /reload``.
 
-Not ported yet, and failing with an error that names the ROADMAP item that
-brings them: the other templates (item 11) and the fleet options of
-``deploy`` (item 13); the other verbs of the JAX CLI are not here at all.
+``template list|get`` knows the seven templates the port serves; the
+JAX package's ``python`` template (pypio) fails with an error that names
+ROADMAP item 15, as do the fleet options of ``deploy`` (item 13); the
+other verbs of the JAX CLI are not here at all.
 """
 
 from __future__ import annotations
@@ -126,16 +127,18 @@ def load_plugins(paths: list[str], group: Optional[str] = None) -> list:
 
 BUILTIN_TEMPLATES = {
     "recommendation": "predictionio_tpu_torch.templates.recommendation.RecommendationEngine",
+    "classification": "predictionio_tpu_torch.templates.classification.ClassificationEngine",
+    "similarproduct": "predictionio_tpu_torch.templates.similarproduct.SimilarProductEngine",
+    "similaruser": "predictionio_tpu_torch.templates.similaruser.SimilarUserEngine",
+    "ecommercerecommendation": "predictionio_tpu_torch.templates.ecommerce.ECommerceEngine",
     "sequentialrecommendation": (
         "predictionio_tpu_torch.templates.sequentialrecommendation."
         "SequentialRecommendationEngine"
     ),
+    "universalrecommender": (
+        "predictionio_tpu_torch.templates.universal.UniversalRecommenderEngine"
+    ),
 }
-# the JAX package's other templates
-WAITING_TEMPLATES = (
-    "classification", "similarproduct", "similaruser", "ecommercerecommendation",
-    "universalrecommender", "python",
-)
 
 
 def _install_drain_handler(server) -> None:
@@ -614,8 +617,8 @@ def cmd_template(args) -> int:
         return 0
     if args.template_command == "get":
         name = args.name
-        if name in WAITING_TEMPLATES:
-            raise _not_ported(f"the {name} template", 11)
+        if name == "python":
+            raise _not_ported("the python template (pypio)", 15)
         if name not in BUILTIN_TEMPLATES:
             return _die(f"Unknown template {name}. Try `pio template list`.")
         directory = args.directory or name

@@ -322,6 +322,7 @@ def test_train_and_deploy_need_a_card_unless_told_cpu(tmp_path, verb):
 @pytest.mark.parametrize("argv,item", [
     (["template", "get", "classification"], 11),
     (["template", "get", "universalrecommender"], 11),
+    (["template", "get", "python"], 15),
     (["deploy", "--fleet", "2"], 13),
     (["deploy", "--canary"], 13),
     (["deploy", "--autoscale"], 13),
@@ -333,6 +334,13 @@ def test_waiting_options_name_their_roadmap_item(tmp_path, monkeypatch, capsys, 
     monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path))
     monkeypatch.chdir(tmp_path)
     Storage.reset_instance()
+    if argv[0] == "template" and item == 11:
+        # item 11 is ported: the template's skeleton names the port's engine
+        assert port_cli.main(argv) == 0
+        variant = json.loads((tmp_path / argv[2] / "engine.json").read_text())
+        assert variant["engineFactory"] == port_cli.BUILTIN_TEMPLATES[argv[2]]
+        assert "ROADMAP" not in capsys.readouterr().err
+        return
     if argv[0] == "eventserver":
         # item 14's ingest part is ported: the buffered event server starts
         # with these options, reports its mode and drains on POST /stop

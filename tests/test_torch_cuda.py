@@ -1097,3 +1097,76 @@ def test_probe_mode_refuses_what_it_does_not_take_on_card(card, monkeypatch):
                        rng.standard_normal((600, 10)).astype(np.float32), max_k=10,
                        ivf_index=ivf.build_index(rng.standard_normal((600, 10)).astype(
                            np.float32), 6), retrieval="ivf")
+
+
+def _co_draw(seed, n_users, n_items, n_ratings):
+    rng = np.random.default_rng(seed)
+    p = (np.arange(1, n_items + 1) + 5.0) ** -1.1
+    user = rng.integers(0, n_users, n_ratings)
+    item = rng.choice(n_items, n_ratings, p=p / p.sum())
+    return interactions_from_arrays(user, item, np.ones(n_ratings), np.zeros(n_ratings),
+                                    (f"u{k}" for k in range(n_users)),
+                                    (f"i{k}" for k in range(n_items)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand_bytes", (None, 1 << 20))
+def test_cross_occurrence_block_counts_are_exact_on_card(card, monkeypatch, operand_bytes):
+    """int8 products on the card give the exact distinct-user counts (float64
+    products of the dense 0/1 incidence on the host: exact integers), past
+    bf16's 256 and over several user blocks and products."""
+    from predictionio_tpu_torch.models import cooccurrence as co
+
+    if operand_bytes is not None:
+        monkeypatch.setattr(co, "_OPERAND_BYTES", operand_bytes)
+    primary = _co_draw(1, 10_000, 700, 60_000)
+    secondary = _co_draw(2, 10_000, 900, 150_000)
+    ctx = DeviceContext.create(device=card)
+    C = co.cross_occurrence_matrix(ctx, primary, secondary, 700, 900).cpu().numpy()
+    a_p = np.zeros((10_000, 700))
+    a_p[primary.user, primary.item] = 1.0
+    a_s = np.zeros((10_000, 900))
+    a_s[secondary.user, secondary.item] = 1.0
+    want = a_p.T @ a_s
+    assert want.max() > 256
+    np.testing.assert_array_equal(C, want.astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_scatter_padded_slot_at_origin_on_card(card):
+    from predictionio_tpu_torch.models import cooccurrence as co
+
+    lu = torch.tensor([[1, 2, 0, 0, 0]], dtype=torch.int32, device=card)
+    li = torch.tensor([[0, 3, 0, 0, 0]], dtype=torch.int32, device=card)
+    lm = torch.tensor([[1, 1, 0, 0, 0]], dtype=torch.float32, device=card)
+    a = co._incidence(lu, li, lm, 8).cpu()
+    want = torch.zeros_like(a)
+    want[0, 1] = want[3, 2] = 1
+    assert torch.equal(a, want)
+    C = co.cross_occurrence_block(lu, li, lm, lu, li, lm, 128, 128).cpu()
+    assert C[0, 0] == 1 and C[3, 3] == 1 and C.sum() == 2
+
+
+@pytest.mark.cuda
+def test_cross_occurrence_topn_on_card_follows_the_llr_rule(card):
+    """The column-blocked LLR top-k on the card against float64 LLR of the
+    exact counts (ROADMAP §3's LLR rule), with the diagonal excluded."""
+    from predictionio_tpu_torch.models import cooccurrence as co
+    from predictionio_tpu_torch.testing import (
+        llr_atol,
+        llr_reference64,
+        llr_topk_mismatches,
+    )
+
+    inter = _co_draw(3, 6_000, 500, 40_000)
+    pc = co.distinct_item_counts(inter, 500)
+    idx, vals = co.cross_occurrence_topn(
+        DeviceContext.create(device=card), inter, inter, 500, 500, n_users=6_000, k=20,
+        primary_counts=pc, col_block=128, exclude_diagonal=True)
+    a = np.zeros((6_000, 500))
+    a[inter.user, inter.item] = 1.0
+    ref = llr_reference64(a.T @ a, pc, pc, 6_000)
+    np.fill_diagonal(ref, -1.0)
+    bad = [m for j in range(500)
+           for m in llr_topk_mismatches(idx[j], vals[j], ref[:, j], llr_atol(6_000))]
+    assert not bad, bad[:5]

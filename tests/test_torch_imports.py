@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -94,6 +95,16 @@ print(" ".join(names))
         "predictionio_tpu_torch.models.cooccurrence",
         # IVF retrieval
         "predictionio_tpu_torch.ops.ivf", "predictionio_tpu_torch.serving.sharding",
+        # the other model families and templates
+        "predictionio_tpu_torch.models.naive_bayes", "predictionio_tpu_torch.models.random_forest",
+        "predictionio_tpu_torch.models.markov_chain",
+        "predictionio_tpu_torch.models.binary_vectorizer",
+        "predictionio_tpu_torch.serving.event_cache", "predictionio_tpu_torch.core.self_cleaning",
+        "predictionio_tpu_torch.data.aggregator", "predictionio_tpu_torch.templates.universal",
+        "predictionio_tpu_torch.templates.similarproduct",
+        "predictionio_tpu_torch.templates.ecommerce",
+        "predictionio_tpu_torch.templates.similaruser",
+        "predictionio_tpu_torch.templates.classification",
     } <= names
     # the SASRec training, segment and operators' slices' names, by attribute
     code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "
@@ -129,7 +140,34 @@ print(" ".join(names))
             "from predictionio_tpu_torch.ops.score_kernel import ivf_score_topk, "
             "ivf_score_topk_reference, fused_probed_score_topk, select_probes, ivf_launches; "
             "from predictionio_tpu_torch.core.evaluation import recall_at_k; "
-            "from predictionio_tpu_torch.tools.cli import cmd_ivf")
+            "from predictionio_tpu_torch.tools.cli import cmd_ivf; "
+            "from predictionio_tpu_torch.models.cooccurrence import CooccurrenceModel, "
+            "BlockedIncidence, incidence_width, block_incidence, distinct_item_counts, "
+            "cross_occurrence_matrix, cooccurrence_matrix, llr_cross_scores, "
+            "cross_occurrence_topn, cross_occurrence_block, llr_scores, train_cooccurrence, "
+            "DENSE_ITEM_LIMIT; "
+            "from predictionio_tpu_torch.ops.topk import topk_two_key; "
+            "from predictionio_tpu_torch.data.batch import EventBatch; EventBatch.filter_events; "
+            "from predictionio_tpu_torch.data.event import PropertyMap; "
+            "from predictionio_tpu_torch.obs.bridges import bridge_event_cache; "
+            "from predictionio_tpu_torch.serving.query_server import QueryServer; "
+            "QueryServer._event_cache_stats; "
+            "from predictionio_tpu_torch.templates.universal import URDataSource, URAlgorithm, "
+            "URModel, UniversalRecommenderEngine; "
+            "from predictionio_tpu_torch.templates.similarproduct import SimilarALSAlgorithm, "
+            "SimilarCooccurrenceAlgorithm, SumServing; "
+            "from predictionio_tpu_torch.templates.ecommerce import ECommAlgorithm, ECommModel; "
+            "from predictionio_tpu_torch.templates.similaruser import SimilarUserModel; "
+            "from predictionio_tpu_torch.templates.classification import Accuracy, "
+            "ClassificationEvaluation; "
+            "from predictionio_tpu_torch.models.naive_bayes import train_multinomial_nb, "
+            "train_categorical_nb; "
+            "from predictionio_tpu_torch.models.random_forest import train_random_forest, "
+            "_grow_tree; "
+            "from predictionio_tpu_torch.models.markov_chain import train_markov_chain; "
+            "from predictionio_tpu_torch.models.binary_vectorizer import BinaryVectorizer; "
+            "from predictionio_tpu_torch.core.self_cleaning import SelfCleaningDataSource, "
+            "clean_persisted_events")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
@@ -264,7 +302,7 @@ try:
 except Exception as e:
     out["checkpoint_error"] = f"{{type(e).__name__}}: {{e}}"
 try:
-    persistence.resolve_class("predictionio_tpu.models.cooccurrence.CooccurrenceModel")
+    persistence.resolve_class("predictionio_tpu.serving.fleet.Fleet")
 except ImportError as e:
     out["foreign_error"] = str(e)
 bad = [m for m, mod in sys.modules.items() if mod is not None
@@ -279,7 +317,7 @@ print(json.dumps(out, default=str))
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["foreign_modules"] == [] and out["instance"] == inst.id
     assert "orbax" in out["checkpoint_error"] and "CheckpointedALSModel" in out["checkpoint_error"]
-    assert "predictionio_tpu.models.cooccurrence.CooccurrenceModel" in out["foreign_error"]
+    assert "predictionio_tpu.serving.fleet.Fleet" in out["foreign_error"]
     for u, answer in out["answers"].items():
         got = answer["itemScores"]
         row = model.user_factors[model.user_map[u]] @ model.item_factors.T
@@ -288,3 +326,27 @@ print(json.dumps(out, default=str))
                               np.array([[model.item_map[x["item"]] for x in got]]),
                               row[ref][None], ref[None], 1e-5)
         assert not bad, (u, bad[:3])
+
+
+def _train_item11(name):
+    from predictionio_tpu_torch.models import markov_chain, naive_bayes, random_forest
+
+    x = np.random.default_rng(0).random((12, 3)).astype(np.float32)
+    y = ["a", "b"] * 6
+    if name == "multinomial_nb":
+        return naive_bayes.train_multinomial_nb(None, x, y)
+    if name == "categorical_nb":
+        return naive_bayes.train_categorical_nb(None, [("a", ["r", "s"]), ("b", ["t", "s"])])
+    if name == "random_forest":
+        return random_forest.train_random_forest(None, x, y, random_forest.RFConfig(n_trees=2, max_depth=2))
+    return markov_chain.train_markov_chain(None, np.array([0, 1, 2]), np.array([1, 2, 0]), 3)
+
+
+@pytest.mark.parametrize("name", ["multinomial_nb", "categorical_nb", "random_forest", "markov_chain"])
+def test_model_trainers_without_a_context_need_a_card(name):
+    """No context means the card: the trainers never fall back to the CPU."""
+    if torch.cuda.is_available():
+        assert _train_item11(name) is not None
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _train_item11(name)

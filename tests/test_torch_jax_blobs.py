@@ -165,8 +165,8 @@ def test_resolve_class_maps_jax_paths(path, want):
 
 @pytest.mark.parametrize("path,match", [
     ("predictionio_tpu.models.als.CheckpointedALSModel", "orbax"),
-    ("predictionio_tpu.templates.classification.ClassificationEngine", "item 11"),
-    ("predictionio_tpu.models.cooccurrence.CooccurrenceModel", "no counterpart"),
+    ("predictionio_tpu.templates.nosuchtemplate.Engine", "no counterpart"),
+    ("predictionio_tpu.serving.fleet.Fleet", "no counterpart"),
     ("jax.numpy.ndarray", "no counterpart"),
     ("orbax.checkpoint.PyTreeCheckpointer", "does not import"),
 ])
@@ -261,6 +261,155 @@ def test_jax_trained_instance_deploys_in_the_port(tmp_path, monkeypatch, capsys)
                 np.array([[jm.item_map[x["item"]] for x in got]]),
                 row[ref][None], ref[None], 1e-5)
             assert not bad, bad[:3]
+        assert port_cli.main(["undeploy", "--port", str(port)]) == 0
+        t.join(30)
+    finally:
+        Storage.reset_instance()
+        port_sqlite.close_all_dbs()
+
+
+def _template_events():
+    """Events every template below trains on: views and buys in two taste
+    groups, follows, item categories and labeled user attributes."""
+    from predictionio_tpu.data.event import Event
+
+    rng = np.random.default_rng(2)
+    out = []
+    for u in range(40):
+        group = [i for i in range(16) if i % 2 == u % 2]
+        for i in rng.choice(group, 4, replace=False):
+            out.append(Event(event="view", entity_type="user", entity_id=f"u{u}",
+                             target_entity_type="item", target_entity_id=f"i{i}",
+                             event_time=1_767_225_600.0 + len(out)))
+        out.append(Event(event="buy", entity_type="user", entity_id=f"u{u}",
+                         target_entity_type="item", target_entity_id=f"i{group[u % 8]}",
+                         event_time=1_767_225_600.0 + len(out)))
+        for v in rng.choice([x for x in range(40) if x % 2 == u % 2 and x != u], 3,
+                            replace=False):
+            out.append(Event(event="follow", entity_type="user", entity_id=f"u{u}",
+                             target_entity_type="user", target_entity_id=f"u{v}",
+                             event_time=1_767_225_600.0 + len(out)))
+    for i in range(16):
+        out.append(Event(event="$set", entity_type="item", entity_id=f"i{i}",
+                         properties={"categories": [f"c{i % 2}"]},
+                         event_time=1_767_225_600.0 + len(out)))
+    for c in range(60):
+        a0, a1, a2 = (float(x) for x in rng.uniform(0, 10, 3))
+        out.append(Event(event="$set", entity_type="user", entity_id=f"p{c}",
+                         properties={"attr0": a0, "attr1": a1, "attr2": a2,
+                                     "plan": "premium" if a0 + a1 > 10 else "basic"},
+                         event_time=1_767_225_600.0 + len(out)))
+    return out
+
+
+TEMPLATE_CASES = {
+    "classification": (
+        [{"name": "naive", "params": {"lambda": 1.0}},
+         {"name": "randomforest", "params": {"numTrees": 4, "maxDepth": 3}}],
+        [{"features": [9.0, 8.0, 1.0]}, {"features": [1.0, 2.0, 3.0]}]),
+    "similarproduct": (
+        [{"name": "als", "params": {"rank": 4, "numIterations": 3}},
+         {"name": "cooccurrence", "params": {"n": 5, "llr": True}}],
+        [{"items": ["i0"], "num": 4}, {"items": ["i1", "i3"], "num": 3, "categories": ["c1"]}]),
+    "similaruser": (
+        [{"name": "als", "params": {"rank": 4, "numIterations": 3}}],
+        [{"users": ["u0"], "num": 4}, {"users": ["u1", "u3"], "num": 3}]),
+    "ecommercerecommendation": (
+        [{"name": "ecomm", "params": {"appName": "Shared", "rank": 4, "numIterations": 3,
+                                      "unseenOnly": True}}],
+        [{"user": "u0", "num": 4}, {"user": "nobody", "num": 3},
+         {"user": "u1", "num": 3, "categories": ["c1"]}]),
+    "universalrecommender": (
+        [{"name": "ur", "params": {"appName": "Shared", "maxCorrelatorsPerItem": 5}}],
+        [{"user": "u0", "num": 4}, {"user": "u5", "num": 3, "blackList": ["i1"]}]),
+}
+
+
+def _without_none(obj):
+    """A result as the servers encode it: fields that are None are left out."""
+    if isinstance(obj, dict):
+        return {k: _without_none(v) for k, v in obj.items() if v is not None}
+    if isinstance(obj, list):
+        return [_without_none(v) for v in obj]
+    return obj
+
+
+@pytest.mark.parametrize("template", sorted(TEMPLATE_CASES))
+def test_jax_written_template_instance_deploys_and_answers(tmp_path, monkeypatch, template):
+    """An auto-mode instance the JAX CLI trained for each of the other
+    templates deploys with the port's ``pio deploy`` on the same sqlite
+    store and answers what the JAX model answers from the same arrays."""
+    import dataclasses
+
+    from predictionio_tpu.data import store as jax_store
+    from predictionio_tpu_torch.tools import cli as port_cli
+
+    for k in list(os.environ):
+        if k.startswith(("PIO_STORAGE_", "PIO_ALS_", "PIO_QUANT_", "PIO_IVF_")):
+            monkeypatch.delenv(k)
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "base"))
+    from predictionio_tpu.parallel.mesh import MeshContext
+
+    monkeypatch.setattr(jax_cli, "make_ctx",
+                        lambda variant: MeshContext.create(devices=jax.devices()[:1]))
+    algorithms, queries = TEMPLATE_CASES[template]
+    factory = jax_cli.BUILTIN_TEMPLATES[template]
+    JaxStorage.reset_instance()
+    try:
+        assert jax_cli.main(["app", "new", "Shared"]) == 0
+        storage = JaxStorage.instance()
+        app_id = storage.get_meta_data_apps().get_by_name("Shared").id
+        storage.get_l_events().insert_batch(_template_events(), app_id)
+        eng = tmp_path / "engine"
+        eng.mkdir()
+        variant = {"engineFactory": factory, "datasource": {"params": {"appName": "Shared"}},
+                   "algorithms": algorithms}
+        (eng / "engine.json").write_text(json.dumps(variant))
+        assert jax_cli.main(["train", "--engine-dir", str(eng)]) == 0
+        inst = storage.get_meta_data_engine_instances().get_latest_completed(
+            factory, "default", "default")
+        engine = jax_persistence.resolve_class(factory).apply()
+        ep = engine.params_from_variant(variant)
+        algos, serving = engine.make_algorithms(ep), engine.make_serving(ep)
+        models = jax_persistence.deserialize_models(
+            jax_persistence.open_model_blob(storage.get_model_data_models().get(inst.id).models),
+            inst.id, algos, [p for _, p in ep.algorithm_params_list], None)[0]
+        jax_store.set_storage(storage)
+        want = []
+        for q in queries:
+            query = serving.supplement(engine.query_cls(**q))
+            want.append(dataclasses.asdict(
+                serving.serve(query, [a.predict(m, query) for a, m in zip(algos, models)])))
+    finally:
+        jax_store.set_storage(None)
+        JaxStorage.reset_instance()
+        jax_sqlite.close_all_dbs()
+    Storage.reset_instance()
+    port = _free_port()
+    try:
+        t = threading.Thread(target=port_cli.main, args=([
+            "deploy", "--engine-dir", str(eng), "--ip", "127.0.0.1", "--port", str(port),
+            "--device", "cpu"] + (["--batching"] if template == "similarproduct" else []),),
+            daemon=True)
+        t.start()
+        url = f"http://127.0.0.1:{port}"
+        t_end = time.monotonic() + 60
+        while True:
+            try:
+                urllib.request.urlopen(f"{url}/readyz", timeout=5).close()
+                break
+            except OSError:
+                assert time.monotonic() < t_end and t.is_alive()
+                time.sleep(0.05)
+        with urllib.request.urlopen(f"{url}/", timeout=10) as r:
+            assert json.loads(r.read())["engineInstanceId"] == inst.id
+        for q, w in zip(queries, want):
+            req = urllib.request.Request(f"{url}/queries.json", data=json.dumps(q).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                got = json.loads(r.read())
+            got.pop("degraded", None)
+            assert got == _without_none(w), (q, got, w)
         assert port_cli.main(["undeploy", "--port", str(port)]) == 0
         t.join(30)
     finally:

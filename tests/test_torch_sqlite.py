@@ -395,3 +395,27 @@ def test_close_db_evicts_and_reopens(tmp_path):
     port_sqlite.close_db(again)
     # closing checkpoints the WAL into the file
     assert not os.path.exists(path + "-wal") or os.path.getsize(path + "-wal") == 0
+
+
+@pytest.mark.parametrize("filters", [
+    {"entity_type": "user", "entity_id": "u1"},
+    {"entity_type": "user", "entity_id": "u2", "event_names": ["buy", "view"],
+     "target_entity_type": "item", "limit": 3, "reversed": True},
+    {"entity_id": "u3", "limit": 0},
+], ids=lambda f: "-".join(sorted(f)))
+def test_one_entitys_rows_come_from_the_entity_index(pair, filters, monkeypatch):
+    """A read of one entity's rows (a template's live history or seen-set)
+    walks ``idx_events_entity``, not the whole app in time order, and
+    returns what the JAX package's sqlite DAO returns."""
+    app_id = _load(pair, _event_dicts(n=300, seed=5))
+    le = pair["port"].get_l_events()
+    ran = []
+    real = le._all
+    monkeypatch.setattr(le, "_all", lambda sql, params=(): ran.append((sql, params)) or real(sql, params))
+    got = _dicts(le.find(app_id, **filters))
+    monkeypatch.undo()
+    want = _dicts(pair["jax"].get_l_events().find(app_id, **filters))
+    assert got == want and (filters.get("limit") == 0 or got)
+    sql, params = ran[-1]
+    plan = le.conn.execute(f"EXPLAIN QUERY PLAN {sql}", params).fetchall()
+    assert any("idx_events_entity" in str(row) for row in plan), plan
