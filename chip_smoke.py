@@ -195,7 +195,7 @@ code is not 0 and the last line is never printed.
              posts a ``predict`` event per answer), and ``pio loadtest`` with
              this process as the client: closed loops of 2,000 requests, Zipf
              over all 162,541 users, at concurrency 1, 16 and 64; open loops
-             ``steady:rate=R,duration=6`` at 200, 800 and 3,200 req/s over
+             ``steady:rate=R,duration=4`` at 200, 800 and 3,200 req/s over
              64 connections (the rate the client really issued printed beside
              each). Each load prints client p50/p99 and QPS, the batches by
              size and rung, the fast path's dispatches, the card's busy share
@@ -224,7 +224,7 @@ code is not 0 and the last line is never printed.
              and once under a ``PIO_QUANT_MIN_OVERLAP`` above the
              measured overlap, which must leave no ``quant.blob``; ``deploy
              --batching`` of each dtype as a subprocess, whose ``GET /`` and
-             ``/metrics`` must report the dtype asked for, closed loops of 2,000
+             ``/metrics`` must report the dtype asked for, closed loops of 1,000
              requests (Zipf over every user) at concurrency 1 and 64 beside phase
              13's f32 server, 300 sampled answers held against kernel 1's plain
              version at that dtype, and kernel 1's launches equal to the server's
@@ -289,7 +289,7 @@ code is not 0 and the last line is never printed.
              and the auto instance a third time under ``PIO_RETRIEVAL=exact``
              (the rollback: no ``pio_ivf_*`` series; the exact path's
              yardstick under the same loads). Each server:
-             ``pio loadtest`` closed loops of 2,000 at concurrency 1 and 16
+             ``pio loadtest`` closed loops of 1,000 at concurrency 1 and 16
              (rung hits, the scanned fraction by rung and realized), ``pio ivf
              show``, ``GET /`` and the ``pio_ivf_*`` series of ``/metrics``;
              200 sampled answers of each, one at a time (rung 1, asserted),
@@ -362,6 +362,52 @@ code is not 0 and the last line is never printed.
              kernel 2 in implicit mode is timed on the e-commerce data (one
              iteration's buckets, its bound, the plain version, ``torch.bmm``
              of the gathered rows, and a whole iteration).
+18. fleet — replicas behind the router, in a fresh sqlite store, on the
+             full-width model of phase 4. (a) ``fleet-route``: ``pio deploy
+             --batching --fleet 3 --canary`` (the router on one port, its
+             three replica processes on the next three, each with its own
+             CUDA context on the card); each replica's deploy-to-ready
+             seconds and whether it loaded kernel 1 from the build cache;
+             the router process maps neither libcuda nor libtorch, and
+             ``nvidia-smi --query-compute-apps`` lists the replicas and not
+             the router (where it shares this machine's pid namespace);
+             ``pio loadtest`` closed loops of 2,000 Zipf queries through the
+             router at concurrency 1 and 16, beside 1,000 straight to one
+             replica at the same concurrency (p50, p99); on every replica
+             kernel 1's launches equal its dispatches, the replicas' queries
+             sum to the router's forwarded attempts (answers, retries and
+             hedges), and at concurrency 1 so do the launches; 200 answers
+             through the router held against the plain version (rule 4).
+             (c) ``canary``, under a closed loop of 16: ``pio fleet roll``
+             onto a new generation; the same factors published in checkpoint
+             mode at int8 through the quantized gate, canaried with ``pio
+             canary start`` and promoted (every replica then serves int8 and
+             that instance); a third generation, faulted on its replicas by
+             ``server:generation:<id>`` error rules, rolled back with a
+             quarantine receipt (a seeded rule fails 15% of its answers; the
+             router's retries absorb them inside its 10% budget, which hedges
+             share, so the few that reach a client are counted and must be
+             those injected 500s); a second ``pio fleet roll`` and a kill -9 of
+             one replica (a cold restart) both come back on the int8 instance;
+             zero client-visible failures through the rolls and the int8 canary. (b) ``fleet-chaos``:
+             this process's router and supervisor over two replicas spawned
+             as the CLI spawns them; under a closed loop of 16 a seeded
+             ``crash:fleet:replica`` rule SIGKILLs the replica its seed names,
+             which is readmitted only while its ``/readyz`` answers 200 and
+             warm; then the autoscaler (min 1, max 3, ticks of 250 ms, 8 slots
+             a replica, up at 30% of them) scales up under a load step of 6 clients and down
+             once it stops; zero client-visible failures. (d)
+             ``tenants-pipeline``: one replica under ``PIO_TENANTS`` (A with a
+             100 qps quota, B none): A's flood of 2,000 is shed with 503 and
+             ``Retry-After`` while B's loop sees no failure (B's p99 alone and
+             under the flood), then a ``client:tenant:A`` rule opens A's
+             breaker only; one replica serving the full-width model with an
+             IVF index (nlist 256) under a retrieval → ranking
+             ``PIO_PIPELINE`` (2,048 candidates): 200 answers equal the exact
+             top-k over their candidates (rule 4), kernel 1's filtered
+             launches equal the ranking stage's calls, and a latency rule on
+             ``server:pipeline:ranking`` makes answers retrieval-only, tagged
+             ``degraded``, with no launch. Each sub-phase's seconds.
 
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
@@ -1691,12 +1737,13 @@ ALS_VARIANT = {"algorithms": [{"name": "als", "params": {"rank": RANK}}]}
 
 
 def publish(storage, engine, model, variant=ALS_VARIANT, factory=ALS_FACTORY,
-            engine_id="default", engine_variant="default"):
+            engine_id="default", engine_variant="default", instance_id=""):
     """Write ``model`` as a COMPLETED engine instance with its sealed blob,
     the steps the training workflow takes after training. ``pio deploy``
     looks instances up under ``engine_id`` = the engine.json's factory and
     ``engine_variant`` = its ``id``. A ``PersistentModel`` saves itself and
-    the blob holds its manifest (checkpoint mode)."""
+    the blob holds its manifest (checkpoint mode). ``instance_id`` names
+    the instance (a fresh random id when empty)."""
     import datetime as dt
 
     from predictionio_tpu_torch.core import persistence
@@ -1707,7 +1754,7 @@ def publish(storage, engine, model, variant=ALS_VARIANT, factory=ALS_FACTORY,
     instances = storage.get_meta_data_engine_instances()
     now = dt.datetime.now(tz=dt.timezone.utc)
     inst = EngineInstance(
-        id="", status=instances.STATUS_INIT, start_time=now, end_time=now,
+        id=instance_id, status=instances.STATUS_INIT, start_time=now, end_time=now,
         engine_id=engine_id, engine_version="default", engine_variant=engine_variant,
         engine_factory=factory, **params.to_json_strings(),
     )
@@ -3139,7 +3186,9 @@ def phase_quickstart_cli(seed, device):
         try:
             socket.create_connection(("127.0.0.1", qs.port), timeout=5).close()
             require(False, f"port {qs.port} still listening after undeploy")
-        except ConnectionRefusedError:
+        except (ConnectionRefusedError, TimeoutError):
+            # refused, or (on some hosts, for a port just closed) no answer
+            # within 5 s: either way nothing listens there
             pass
         lat_ms = np.asarray(latency) * 1e3
         top = 100.0 * (1 - 10 / len(lat_ms))
@@ -3229,7 +3278,7 @@ OPS_APP = "ServingOps"
 OPS_REQUESTS = 2000  # each closed-loop load
 OPS_CONCURRENCY = (1, 16, 64)
 OPS_RATES = (200, 800, 3200)  # open-loop arrival rates, req/s
-OPS_RATE_S = 6  # seconds each open-loop rate runs
+OPS_RATE_S = 4  # seconds each open-loop rate runs (6 until the fleet phase came)
 OPS_CLIENTS = 64  # the open loop's workers (one keep-alive connection each)
 OPS_SLO_MS = 50.0  # the p99 limit PERF.md §2 sets for /queries.json
 OPS_SAMPLED = 300  # answers held against the plain version
@@ -3649,7 +3698,8 @@ def phase_serving_ops(model, seed, device, kernel_rows):
 
 PE_APP = "default"  # the app RecommendationEvaluation reads
 PE_DTYPES = ("int8", "bf16")
-PE_CONCURRENCY = (1, 64)  # closed loops of OPS_REQUESTS, Zipf over every user
+PE_CONCURRENCY = (1, 64)  # closed loops of PE_REQUESTS, Zipf over every user
+PE_REQUESTS = 1000  # each closed loop (OPS_REQUESTS, 2,000, until the fleet phase came)
 PE_BATCH_QUERIES = 1000  # pio batchpredict's input lines
 PE_ALS_ITERS, PE_ALS_INTERVAL = 20, 5  # resume: 10 iterations, then 20
 PE_SAS_EPOCHS, PE_SAS_INTERVAL = 8, 2  # resume: two intervals (4 steps), then 8
@@ -3810,10 +3860,10 @@ def phase_publish_eval(model, seed, device, kernel_rows, ops):
             for c in PE_CONCURRENCY:
                 before = info()
                 rc, rep = run_loadtest_cli(
-                    "--port", str(qs.port), "--query", query, "--requests", str(OPS_REQUESTS),
+                    "--port", str(qs.port), "--query", query, "--requests", str(PE_REQUESTS),
                     "--concurrency", str(c), "--dist", "zipf", "--sample", sample)
                 after = info()
-                require(rc == 0 and rep["ok"] == OPS_REQUESTS and rep["http5xx"] == 0,
+                require(rc == 0 and rep["ok"] == PE_REQUESTS and rep["http5xx"] == 0,
                         f"{dtype} closed loop c={c}: exit {rc}, {rep}")
                 f32 = f32_rows.get(c, {})
                 loads.append(step("closed-loop", dtype=dtype, concurrency=c, qps=rep["qps"],
@@ -4525,7 +4575,7 @@ def phase_streaming(model, seed, device):
 
 
 IVF_NLIST = 256  # ≈ √59,047 clusters for the ML-25M catalog
-IVF_REQUESTS = 2000  # each closed loop
+IVF_REQUESTS = 1000  # each closed loop (2,000 until the fleet phase came)
 IVF_CONCURRENCY = (1, 16)
 IVF_SAMPLED = 200  # answers each server holds against the plain version
 IVF_TIMED = (1, 8, 64)  # rungs of the probe mode's timings
@@ -6002,6 +6052,711 @@ def phase_templates_cli(seed, device):
 
 # (B·H, T_q, T_kv, h) of the A/B's flash timings, causal: kernel 4 at the
 # serving and training shapes, kernels 5 and 6 at BWD_TIMED
+# -- fleet: replicas behind the router, chaos, canary, tenants, pipeline -------
+
+FLEET_APP = "Fleet"
+FLEET_N = 3  # replicas of `pio deploy --fleet`
+FLEET_REQUESTS = 2000  # each closed loop through the router
+FLEET_CONCURRENCY = (1, 16)
+FLEET_DIRECT_REQUESTS = 1000  # one replica's own closed loop at the same concurrency
+FLEET_SAMPLED = 200  # answers through the router held against the plain version
+FLEET_CLIENTS = 16  # the closed loop under the kill, the rolls and the canaries
+FLEET_BAD_ID = "fleet-bad-generation"  # the faulted canary candidate's instance id
+FLEET_BAD_P = 0.15  # the share of its answers the faulted candidate fails
+FLEET_SCALE_CLIENTS = 6  # the autoscaler's load step, against 8 slots a replica
+TEN_QUOTA_QPS = 100.0  # tenant A's quota
+TEN_FLOOD = 2000  # tenant A's requests in the flood (16 clients)
+TEN_B_REQUESTS = 1000  # tenant B's closed loop (4 clients), alone and under the flood
+PIPE_CANDIDATES = 2048  # the retrieval stage's candidates (under ALSScorer.MAX_FILTER)
+PIPE_QUERIES = 200  # pipeline answers held against the exact top-k over their candidates
+
+
+def free_port_run(n: int) -> int:
+    """A port p with p .. p+n-1 all free (the fleet's router and replicas)."""
+    import random
+    import socket
+
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(20_000, 60_000 - n)
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError("check failed: no run of free ports")
+
+
+class ClosedLoop:
+    """``clients`` workers, one keep-alive connection each, sending the next
+    query of a seeded Zipf stream over ``users`` as soon as the last one
+    answered, until stopped or ``total`` requests were sent. Every answer
+    but a 200, and every transport error, is a client-visible failure,
+    kept with its status, body and ``Retry-After``."""
+
+    def __init__(self, port, users, seed, clients=FLEET_CLIENTS, total=None, extra=None,
+                 headers=None):
+        import threading
+
+        import numpy as np
+
+        self.port, self.users, self.total = port, users, total
+        self.extra, self.headers = dict(extra or {}), dict(headers or {})
+        p = zipf_mandelbrot_weights(len(users), 1.1)
+        rng = np.random.default_rng(seed)
+        self.picks = [rng.choice(len(users), size=4096, p=p) for _ in range(clients)]
+        self.stop_evt = threading.Event()
+        self.lock = threading.Lock()
+        self.sent = 0
+        self.ok = 0
+        self.failures = []
+        self.latencies_ms = []
+        self.threads = [threading.Thread(target=self._run, args=(i,), daemon=True)
+                        for i in range(clients)]
+
+    def _ticket(self) -> bool:
+        with self.lock:
+            if self.total is not None and self.sent >= self.total:
+                return False
+            self.sent += 1
+            return True
+
+    def _run(self, i):
+        import http.client
+
+        conn = None
+        j = 0
+        while not self.stop_evt.is_set() and self._ticket():
+            user = self.users[int(self.picks[i][j % len(self.picks[i])])]
+            j += 1
+            body = json.dumps({"user": user, "num": OPS_NUM, **self.extra})
+            t0 = time.perf_counter()
+            try:
+                if conn is None:
+                    conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+                conn.request("POST", "/queries.json", body,
+                             {"Content-Type": "application/json", **self.headers})
+                r = conn.getresponse()
+                data = r.read()
+                status, retry = r.status, r.getheader("Retry-After")
+                if r.getheader("Connection", "").lower() == "close":
+                    conn.close()
+                    conn = None
+            except (OSError, http.client.HTTPException) as e:
+                if conn is not None:
+                    conn.close()
+                conn = None
+                with self.lock:
+                    self.failures.append({"error": f"{type(e).__name__}: {e}"})
+                continue
+            ms = (time.perf_counter() - t0) * 1e3
+            with self.lock:
+                if status == 200:
+                    self.ok += 1
+                    self.latencies_ms.append(ms)
+                else:
+                    self.failures.append({"status": status, "retry_after": retry,
+                                          "body": data[:200].decode("utf-8", "replace")})
+        if conn is not None:
+            conn.close()
+
+    def start(self) -> "ClosedLoop":
+        for t in self.threads:
+            t.start()
+        return self
+
+    def wait_ok(self, n, timeout=60.0):
+        t_end = time.monotonic() + timeout
+        while self.ok < n and time.monotonic() < t_end:
+            time.sleep(0.02)
+        require(self.ok >= n, f"the closed loop answered {self.ok} of {n} queries in {timeout} s")
+
+    def stop(self) -> dict:
+        """Stop (a loop of ``total`` requests runs to its end first) and
+        tally what the clients saw."""
+        import numpy as np
+
+        if self.total is None:
+            self.stop_evt.set()
+        for t in self.threads:
+            t.join(120)
+        lat = np.asarray(self.latencies_ms or [0.0])
+        return {"sent": self.sent, "ok": self.ok, "failures": len(self.failures),
+                "first_failures": self.failures[:3],
+                "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+def phase_fleet(model, seed, device):
+    """The fleet on the card: see the module docstring, phase 18."""
+    import contextlib
+    import pickle
+    import random
+    import re
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from predictionio_tpu_torch.common import faults
+    from predictionio_tpu_torch.core import persistence
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.serving.autoscaler import Autoscaler
+    from predictionio_tpu_torch.serving.fleet import PREEMPT_SITE, FleetSupervisor
+    from predictionio_tpu_torch.serving.pipeline import _ivf_candidates
+    from predictionio_tpu_torch.serving.router import ADMITTED, Router
+    from predictionio_tpu_torch.templates import recommendation as rec
+    from predictionio_tpu_torch.testing import topk_mismatches
+    from predictionio_tpu_torch.tools import cli
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pio-fleet-")
+    knobs = ("PIO_FS_BASEDIR", "PIO_DEVPROF_WINDOW", "PIO_QUANT_DTYPE", "PIO_QUANT_MIN_OVERLAP",
+             "PIO_IVF_NLIST", "PIO_IVF_NPROBE", "PIO_RETRIEVAL", "PIO_RESULT_CACHE",
+             "PIO_COALESCE", "PIO_STREAMING", "PIO_TENANTS", "PIO_PIPELINE", "PIO_FAULT_SPEC",
+             "PIO_FAULT_SEED", "PIO_PIN_INSTANCE", "PIO_AUTOSCALE", "PIO_CANARY")
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith(("PIO_STORAGE_", "PIO_FLEET_", "PIO_CANARY_", "PIO_ROUTER_",
+                              "PIO_HEDGE_", "PIO_AUTOSCALE_", "PIO_TENANT")) or k in knobs}
+    for k in saved:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    Storage.reset_instance()
+    store.set_storage(None)
+    procs, routers = [], []
+    out = {"phase": "fleet", "seconds": {}}
+    U, V = model.user_factors, model.item_factors
+    users = [model.user_map.inverse[j] for j in range(len(model.user_map))]
+    sample = "user=" + ",".join(users)
+    query = json.dumps({"user": users[0], "num": OPS_NUM})
+    rng = np.random.default_rng(seed + 97)
+
+    def step(name, **row):
+        row["t"] = time.perf_counter() - t_phase
+        emit({"phase": "fleet", "step": name, **row})
+        return row
+
+    def info(port):
+        return http_json(f"http://127.0.0.1:{port}/")[1]
+
+    def spawn(name, argv, env=None):
+        log = open(os.path.join(tmp, f"{name}.log"), "w")
+        # a session of its own: the fleet router's replicas share its
+        # process group, so one killpg ends them all whatever happened
+        p = subprocess.Popen(CLI + argv, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=log,
+                             env=dict(os.environ, PYTHONPATH=ROOT, **(env or {})),
+                             start_new_session=True)
+        p.log_path = log.name
+        procs.append(p)
+        return p
+
+    def tail(p):
+        with open(p.log_path) as f:
+            return f.read()[-3000:]
+
+    def wait_ready(port, proc, t0, timeout=300.0):
+        """Seconds from ``t0`` to the first 200 on the server's /readyz."""
+        t_end = time.monotonic() + timeout
+        while time.monotonic() < t_end:
+            require(proc.poll() is None, f"server exited {proc.returncode}: {tail(proc)}")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz", timeout=5) as r:
+                    if r.status == 200:
+                        return time.perf_counter() - t0
+            except OSError:
+                pass
+            time.sleep(0.02)
+        raise RuntimeError(f"check failed: :{port}/readyz never answered 200: {tail(proc)}")
+
+    def wait_for(cond, what, timeout=120.0, every=0.05):
+        t_end = time.monotonic() + timeout
+        while time.monotonic() < t_end:
+            v = cond()
+            if v:
+                return v
+            time.sleep(every)
+        raise RuntimeError(f"check failed: {what} within {timeout} s")
+
+    def no_failures(load, what):
+        r = load.stop()
+        require(r["failures"] == 0 and r["ok"] > 0, f"{what}: client-visible failures {r}")
+        return r
+
+    try:
+        storage = Storage.instance()
+        cli_run("app", "new", FLEET_APP)
+        engine = rec.RecommendationEngine.apply()
+        eng = os.path.join(tmp, "engine-fleet")
+        variant = write_engine_json(eng, "fleet", {"rank": RANK})
+        ckpt_variant = write_engine_json(os.path.join(tmp, "engine-int8"), "fleet",
+                                         {"rank": RANK, "persistMode": "checkpoint"})
+
+        def pub(m, v=variant, **kw):
+            return publish(storage, engine, m, variant=v, engine_id=ALS_FACTORY,
+                           engine_variant="fleet", **kw)
+
+        gen = {"base": pub(model)}
+
+        # (a) fleet-route: pio deploy --batching --fleet 3, the router on
+        # `base`, the replicas on the next three ports
+        t_a = time.perf_counter()
+        base = free_port_run(1 + FLEET_N)
+        rports = [base + 1 + i for i in range(FLEET_N)]
+        fleet_env = {
+            # the bad canary candidate's seeded error rule (replicas consult
+            # it on /queries.json while that instance is deployed; nothing
+            # else matches it): 15% of its answers fail, 5% of the fleet's,
+            # inside the router's 10% retry budget
+            "PIO_FAULT_SPEC": (f"site=server:generation:{FLEET_BAD_ID},kind=error,status=500,"
+                               f"p={FLEET_BAD_P}"),
+            "PIO_FAULT_SEED": str(seed),
+            "PIO_CANARY_TICK_MS": "100", "PIO_CANARY_MIN_SAMPLES": "30",
+            "PIO_CANARY_WINDOW_S": "3", "PIO_CANARY_SOAK_S": "2",
+            "PIO_CANARY_P99_SLO_MS": "1000",
+            # one device-time accountant window a replica for the phase
+            "PIO_DEVPROF_WINDOW": "3600",
+        }
+        t_spawn = time.perf_counter()
+        router_proc = spawn("fleet-router", [
+            "deploy", "--engine-dir", eng, "--batching", "--fleet", str(FLEET_N), "--canary",
+            "--device", device.type, "--ip", "127.0.0.1", "--port", str(base)], fleet_env)
+        ready_s = {p: wait_ready(p, router_proc, t_spawn) for p in rports}
+
+        def fleet_view():
+            return http_json(f"http://127.0.0.1:{base}/")[1]
+
+        wait_for(lambda: (lambda v: v["available"] == FLEET_N and all(
+            r["state"] == ADMITTED and r["instanceId"] == gen["base"] and r["warm"]
+            for r in v["replicas"]))(fleet_view()), "the router admitting all three replicas")
+        router_ready_s = time.perf_counter() - t_spawn
+        replicas = http_json(f"http://127.0.0.1:{base}/fleet")[1]["fleet"]["replicas"]
+        pids = {r["port"]: r["pid"] for r in replicas}
+        at_ready = {p: info(p) for p in rports}
+        builds = {p: at_ready[p]["kernelBuildCached"] for p in rports}
+        require(all(b.get("score_topk") for b in builds.values()),
+                f"every replica loads kernel 1 from the build cache: {builds}")
+        # the router is host code: no CUDA context, no torch in its process
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.split()
+        smi_pids = {int(x) for x in smi if x.strip().isdigit()}
+        with open(f"/proc/{router_proc.pid}/maps") as f:
+            maps = f.read()
+        router_libs = {lib: lib in maps for lib in ("libcuda.so", "libtorch", "libcudart")}
+        require(not router_libs["libcuda.so"] and not router_libs["libtorch"],
+                f"the router process maps {router_libs}")
+        same_ns = bool(smi_pids & set(pids.values()))
+        if same_ns:
+            require(set(pids.values()) <= smi_pids and router_proc.pid not in smi_pids,
+                    f"nvidia-smi compute apps {sorted(smi_pids)}: replicas {pids}, "
+                    f"router {router_proc.pid}")
+        out["deploy"] = step(
+            "deploy", replicas=FLEET_N, deploy_to_ready_s=ready_s,
+            router_admits_all_s=router_ready_s, build_cached=builds,
+            kernel_builds={p: at_ready[p]["kernelBuilds"] for p in rports},
+            replica_pids=pids, router_pid=router_proc.pid, nvidia_smi_pids=sorted(smi_pids),
+            nvidia_smi_shares_pid_namespace=same_ns, router_maps=router_libs)
+
+        def router_attempts(before, after):
+            c = {k: after["counters"].get(k, 0) - before["counters"].get(k, 0)
+                 for k in after["counters"]}
+            return c, c["ok"] + c["client_error"] + c["failed"] + c["retries"] + c["hedges_fired"]
+
+        loops = []
+        for c in FLEET_CONCURRENCY:
+            rb, b4 = fleet_view(), {p: info(p) for p in rports}
+            rc, rep = run_loadtest_cli(
+                "--port", str(base), "--query", query, "--requests", str(FLEET_REQUESTS),
+                "--concurrency", str(c), "--dist", "zipf", "--sample", sample)
+            ra, aft = fleet_view(), {p: info(p) for p in rports}
+            require(rc == 0 and rep["ok"] == FLEET_REQUESTS and rep["http5xx"] == 0,
+                    f"router closed loop c={c}: exit {rc}, {rep}")
+            per = {}
+            for p in rports:
+                launches = aft[p]["scoreKernelLaunches"] - b4[p]["scoreKernelLaunches"]
+                dispatches = aft[p]["fastpath"][0]["calls"] - b4[p]["fastpath"][0]["calls"]
+                served = aft[p]["requestCount"] - b4[p]["requestCount"]
+                require(launches == dispatches, f"c={c} :{p}: kernel 1 launched {launches} "
+                                                f"times vs {dispatches} dispatches")
+                per[p] = {"launches": launches, "dispatches": dispatches, "queries": served}
+            busy = {p: _device_totals(aft[p])["busy_s"] - _device_totals(b4[p])["busy_s"]
+                    for p in rports}
+            counters, attempts = router_attempts(rb, ra)
+            require(counters["failed"] == 0 and counters["shed"] == 0, f"router {counters}")
+            require(sum(r["queries"] for r in per.values()) == attempts,
+                    f"c={c}: replicas served {per}, the router forwarded {attempts} ({counters})")
+            if c == 1:  # one query at a time a replica: a launch each
+                require(sum(r["launches"] for r in per.values()) == attempts,
+                        f"c=1: launches {per} vs forwarded attempts {attempts}")
+            rc, drep = run_loadtest_cli(
+                "--port", str(rports[0]), "--query", query, "--requests",
+                str(FLEET_DIRECT_REQUESTS), "--concurrency", str(c), "--dist", "zipf",
+                "--sample", sample)
+            require(rc == 0 and drep["ok"] == FLEET_DIRECT_REQUESTS, f"direct c={c}: {drep}")
+            loops.append(step(
+                "route", concurrency=c, requests=rep["requests"], qps=rep["qps"],
+                p50_ms=rep["p50Ms"], p99_ms=rep["p99Ms"], direct_p50_ms=drep["p50Ms"],
+                direct_p99_ms=drep["p99Ms"], direct_qps=drep["qps"], forwarded=attempts,
+                retries=counters["retries"], hedges_fired=counters["hedges_fired"],
+                hedges_won=counters["hedges_won"], hedges_denied=counters["hedges_denied"],
+                wall_s=rep["wallSec"], card_busy_s=busy,
+                card_busy_share=sum(busy.values()) / rep["wallSec"], per_replica=per))
+        out["route"] = loops
+        picks = [(users[int(j)], int(rng.integers(1, K + 1)))
+                 for j in rng.integers(0, len(users), FLEET_SAMPLED)]
+        answers = []
+        for u, n in picks:
+            status, a = http_json(f"http://127.0.0.1:{base}/queries.json", {"user": u, "num": n})
+            require(status == 200, f"{u}: {status} {a}")
+            answers.append(a)
+        out["route_max_gap"] = hold_topk(
+            [a["itemScores"] for a in answers], U, V, [model.user_map[u] for u, _ in picks],
+            [n for _, n in picks], model.item_map, "answers through the router")
+        out["seconds"]["fleet-route"] = time.perf_counter() - t_a
+        step("fleet-route", seconds=out["seconds"]["fleet-route"], held=FLEET_SAMPLED,
+             max_gap=out["route_max_gap"])
+
+        # (b) the roll under load: every replica restarts onto the newest
+        # COMPLETED generation, zero client-visible failures
+        t_b = time.perf_counter()
+        gen["roll"] = pub(model)
+
+        def replica_ports():
+            return [r["port"] for r in http_json(f"http://127.0.0.1:{base}/fleet")[1]["fleet"]
+                    ["replicas"]]
+
+        def roll(what):
+            t0 = time.perf_counter()
+            load = ClosedLoop(base, users, seed + 1).start()
+            load.wait_ok(100)
+            cli_run("fleet", "roll", "--ip", "127.0.0.1", "--port", str(base), "--timeout", "300")
+            r = no_failures(load, what)
+            return {"seconds": time.perf_counter() - t0, "load": r,
+                    "instances": {p: info(p)["engineInstanceId"] for p in replica_ports()}}
+
+        rolled = roll("the roll")
+        require(set(rolled["instances"].values()) == {gen["roll"]}, f"after the roll {rolled}")
+        out["roll"] = step("roll", **rolled)
+
+        # (c) canary: the int8 publish of the same factors promotes; a
+        # faulted generation rolls back, is quarantined and stays skipped
+        os.environ["PIO_QUANT_DTYPE"] = "int8"
+        gen["int8"] = pub(als.CheckpointedALSModel(U, V, model.user_map, model.item_map,
+                                                   model.config), v=ckpt_variant)
+        del os.environ["PIO_QUANT_DTYPE"]
+        with open(os.path.join(als.CheckpointedALSModel._dir(gen["int8"]), "maps.pkl"), "rb") as f:
+            quant = pickle.load(f)["quant"]
+        require(quant.get("dtype") == "int8", f"int8 publish: {quant}")
+
+        def canary(what):
+            t0 = time.perf_counter()
+            load = ClosedLoop(base, users, seed + 2).start()
+            load.wait_ok(100)
+            cli_run("canary", "start", "--ip", "127.0.0.1", "--port", str(base))
+            st = wait_for(lambda: (lambda s: s if s["state"] == "idle" and s.get("lastOutcome")
+                                   else None)(http_json(f"http://127.0.0.1:{base}/canary")[1]),
+                          f"the {what} canary ending", timeout=180)
+            if what != "faulted":
+                return st, {"seconds": time.perf_counter() - t0,
+                            "load": no_failures(load, f"the {what} canary")}
+            # the router retries an HTTP failure only inside its 10% retry
+            # budget, which hedges share: a few of the candidate's injected
+            # 500s may reach a client, and nothing else may
+            r = load.stop()
+            require(r["ok"] > 0 and all(f.get("status") == 500 and '"injected":true' in f["body"]
+                                        for f in load.failures),
+                    f"the faulted canary: failures other than its injected 500s {r}")
+            return st, {"seconds": time.perf_counter() - t0, "load": r}
+
+        st, good = canary("int8")
+        require(st["lastOutcome"].get("outcome") == "promoted"
+                and st["lastOutcome"].get("candidate") == gen["int8"], f"int8 canary: {st}")
+        served = {p: info(p) for p in replica_ports()}
+        require(all(i["engineInstanceId"] == gen["int8"]
+                    and i["fastpath"][0]["kernel"]["factor_dtype"] == "int8"
+                    for i in served.values()),
+                f"after the promotion: {[(i['engineInstanceId'], i['fastpath'][0]['kernel']) for i in served.values()]}")
+        out["canary_good"] = step("canary-promote", quant_overlap=quant.get("topk_overlap"),
+                                  outcome=st["lastOutcome"], **good)
+        gen["bad"] = pub(model, instance_id=FLEET_BAD_ID)
+        st, bad = canary("faulted")
+        require(st["lastOutcome"].get("outcome") == "quarantined"
+                and st["lastOutcome"].get("candidate") == gen["bad"], f"faulted canary: {st}")
+        receipt = os.path.join(persistence.quarantine_dir(ALS_FACTORY, "default", "fleet"),
+                               f"{FLEET_BAD_ID}.json")
+        require(persistence.is_quarantined(FLEET_BAD_ID, ALS_FACTORY, "default", "fleet")
+                and os.path.exists(receipt), f"no quarantine receipt at {receipt}")
+        rec_ = json.loads(persistence.open_blob_file(receipt))
+        rolled = roll("the roll after the rollback")
+        require(set(rolled["instances"].values()) == {gen["int8"]},
+                f"the roll after the rollback deployed {rolled['instances']}")
+        victim_port = replica_ports()[0]
+        old_pid = {r["port"]: r["pid"] for r in http_json(
+            f"http://127.0.0.1:{base}/fleet")[1]["fleet"]["replicas"]}[victim_port]
+        t0 = time.perf_counter()
+        os.kill(old_pid, signal.SIGKILL)
+        wait_for(lambda: any(r["port"] == victim_port and r["pid"] != old_pid and r["alive"]
+                             for r in http_json(f"http://127.0.0.1:{base}/fleet")[1]["fleet"]
+                             ["replicas"]), "the killed replica respawned")
+        cold_s = wait_ready(victim_port, router_proc, t0)
+        cold = info(victim_port)
+        require(cold["engineInstanceId"] == gen["int8"],
+                f"the cold restart deployed {cold['engineInstanceId']}")
+        out["canary_bad"] = step(
+            "canary-rollback", outcome=st["lastOutcome"], receipt=rec_, **bad,
+            roll_after=rolled, cold_restart={"instance": cold["engineInstanceId"],
+                                             "deploy_to_ready_s": cold_s})
+        status, _ = http_json(f"http://127.0.0.1:{base}/stop", {}, method="POST")
+        require(status == 200, f"router stop: {status}")
+        router_proc.wait(timeout=60)
+        out["seconds"]["canary"] = time.perf_counter() - t_b
+        step("canary", seconds=out["seconds"]["canary"])
+
+        # (b) fleet-chaos: this process's router and supervisor over two
+        # replicas (the CLI's own child argv); a seeded crash:fleet:replica
+        # rule SIGKILLs one under load, then the autoscaler steps 1 → 3 → 1
+        t_c = time.perf_counter()
+        args = cli.build_parser().parse_args(
+            ["deploy", "--engine-dir", eng, "--batching", "--device", device.type])
+        chaos_log = open(os.path.join(tmp, "chaos-replicas.log"), "w")
+
+        def spawn_replica(port):
+            p = subprocess.Popen(cli._child_deploy_argv(args, port), cwd=ROOT,
+                                 stdout=subprocess.DEVNULL, stderr=chaos_log,
+                                 env=dict(os.environ, PYTHONPATH=ROOT))
+            procs.append(p)
+            return p
+
+        ports = [free_port(), free_port()]
+        router = Router([f"http://127.0.0.1:{p}" for p in ports], telemetry=False)
+        routers.append(router)
+        router.health_interval_ms, router.eject_after, router.readmit_after = 100.0, 2, 2
+        router.slow_start_s = 0.5
+        sup = FleetSupervisor(spawn_replica, ports, router=router, port_allocator=free_port)
+        sup.restart_backoff_s = 0.2
+        router.attach_fleet(sup)
+        sup.start()
+        rport = router.start("127.0.0.1", 0)
+        wait_for(lambda: all(r["state"] == ADMITTED and r["instanceId"] is not None and r["warm"]
+                             for r in router.stats()["replicas"]),
+                 "the chaos fleet admitted", timeout=300)
+        load = ClosedLoop(rport, users, seed + 3).start()
+        load.wait_ok(200)
+        spec, fseed = f"site={PREEMPT_SITE},kind=crash,times=1", seed + 5
+        before = {r["url"]: r["pid"] for r in sup.status()["replicas"]}
+        alive = sorted(before.values())
+        want = alive[random.Random(f"{fseed}:0:0:victim").randrange(len(alive))]
+        plan = faults.FaultPlan(faults.parse_spec(spec), seed=fseed)
+        t_kill = time.perf_counter()
+        faults.install(plan)
+        wait_for(lambda: plan.stats()["rules"][0]["fired"] == 1, "the preemption firing", 10)
+        faults.clear()
+        victim = wait_for(lambda: next((u for u, pid in before.items() if any(
+            r["url"] == u and r["pid"] != pid for r in sup.status()["replicas"])), None),
+            "the preempted replica respawned", 30)
+        require(before[victim] == want, f"killed {before[victim]}, the seeded plan names {want}")
+        # the respawn: once the router has ejected it, it may be admitted
+        # only while its /readyz answers 200 and warm
+        seen_ejected, early, t_ready = False, [], None
+        t_end = time.monotonic() + 300
+        while time.monotonic() < t_end:
+            st_ = next(r for r in router.stats()["replicas"] if r["url"] == victim)
+            seen_ejected |= st_["state"] != ADMITTED
+            try:
+                with urllib.request.urlopen(victim + "/readyz", timeout=2) as r:
+                    ready = r.status == 200 and json.loads(r.read())["fastpathWarm"]
+            except OSError:
+                ready = False
+            if ready and t_ready is None:
+                t_ready = time.perf_counter() - t_kill
+            if seen_ejected and st_["state"] == ADMITTED:
+                if not ready:
+                    early.append(st_)
+                break
+            time.sleep(0.02)
+        require(seen_ejected and not early and t_ready is not None,
+                f"respawn admission: ejected {seen_ejected}, admitted cold {early}")
+        load.wait_ok(load.ok + 200)
+        kill = no_failures(load, "the preemption")
+        out["preempt"] = step("preempt", spec=spec, seed=fseed, victim_pid=before[victim],
+                              respawn_ready_s=t_ready, router_counters=router.counters.snapshot(),
+                              load=kill)
+        scaler = Autoscaler(router, sup)
+        scaler.interval_ms = 250.0
+        scaler.min_replicas, scaler.max_replicas = 1, 3
+        scaler.up_threshold, scaler.down_threshold = 0.3, 0.05
+        scaler.up_cooldown_s, scaler.down_cooldown_s, scaler.down_after = 2.0, 2.0, 3
+        scaler.busy_enabled = False
+        router.replica_max_inflight = 8  # 6 clients fill 37% of two replicas' slots
+        router.attach_autoscaler(scaler)
+        load = ClosedLoop(rport, users, seed + 4, clients=FLEET_SCALE_CLIENTS).start()
+        load.wait_ok(100)
+        t0 = time.perf_counter()
+        scaler.start()
+        wait_for(lambda: scaler.stats()["scaleUps"] >= 1 and router.available_count() >= 3,
+                 "the autoscaler scaling up under the load step", timeout=300)
+        up_s = time.perf_counter() - t0
+        load.wait_ok(load.ok + 200)
+        scaled = no_failures(load, "the autoscaler's load step")
+        t0 = time.perf_counter()
+        wait_for(lambda: scaler.stats()["scaleDowns"] >= 1 and len(sup.status()["replicas"]) < 3,
+                 "the autoscaler scaling down after the load", timeout=120)
+        out["autoscale"] = step("autoscale", up_s=up_s, down_s=time.perf_counter() - t0,
+                                stats=scaler.stats(), load=scaled,
+                                router_counters=router.counters.snapshot())
+        scaler.stop()
+        router.shutdown()
+        out["seconds"]["fleet-chaos"] = time.perf_counter() - t_c
+        step("fleet-chaos", seconds=out["seconds"]["fleet-chaos"])
+
+        # (d) tenants-pipeline: one replica with two tenants, one with the
+        # IVF model under a retrieval → ranking pipeline
+        t_d = time.perf_counter()
+        os.environ["PIO_IVF_NLIST"] = "256"
+        ivf_model = als._declare_ivf_partition(als.ALSModel(
+            user_factors=U, item_factors=V, user_map=model.user_map, item_map=model.item_map,
+            config=model.config))
+        del os.environ["PIO_IVF_NLIST"]
+        require(ivf_model.ivf_index is not None and ivf_model.ivf_index.nlist == 256,
+                "the IVF declaration")
+        pipe_dir = os.path.join(tmp, "engine-pipeline")
+        gen["ivf"] = publish(storage, engine, ivf_model, engine_id=ALS_FACTORY,
+                             engine_variant="pipeline",
+                             variant=write_engine_json(pipe_dir, "pipeline", {"rank": RANK}))
+        pipeline = {"name": "ivf-als", "stages": [
+            {"name": "retrieval", "kind": "retrieval", "budgetFraction": 0.4,
+             "params": {"candidates": PIPE_CANDIDATES}},
+            {"name": "ranking", "kind": "ranking", "budgetFraction": 0.5}]}
+        tenants = [{"tenantId": "A", "accessKey": "key-A", "quotaQps": TEN_QUOTA_QPS},
+                   {"tenantId": "B", "accessKey": "key-B"}]
+        tport, pport = free_port(), free_port()
+        t0 = time.perf_counter()
+        tproc = spawn("tenants", ["deploy", "--engine-dir", eng, "--batching", "--device",
+                                  device.type, "--ip", "127.0.0.1", "--port", str(tport)], {
+            "PIO_TENANTS": json.dumps(tenants),
+            "PIO_FAULT_SPEC": f"site=client:tenant:A,kind=error,after={TEN_FLOOD},times=5"})
+        pproc = spawn("pipeline", ["deploy", "--engine-dir", pipe_dir, "--batching", "--device",
+                                   device.type, "--ip", "127.0.0.1", "--port", str(pport)], {
+            "PIO_PIPELINE": json.dumps(pipeline),
+            "PIO_FAULT_SPEC": (f"site=server:pipeline:ranking,kind=latency,latency_ms=400,"
+                               f"after={PIPE_QUERIES},times=3")})
+        ready = {"tenants": wait_ready(tport, tproc, t0), "pipeline": wait_ready(pport, pproc, t0)}
+        alone = ClosedLoop(tport, users, seed + 6, clients=4, total=TEN_B_REQUESTS,
+                           extra={"accessKey": "key-B"}).start()
+        alone_r = no_failures(alone, "tenant B alone")
+        flood = ClosedLoop(tport, users, seed + 7, clients=16, total=TEN_FLOOD,
+                           extra={"accessKey": "key-A"}).start()
+        b_load = ClosedLoop(tport, users, seed + 8, clients=4, total=TEN_B_REQUESTS,
+                            extra={"accessKey": "key-B"}).start()
+        b_r = no_failures(b_load, "tenant B under A's flood")
+        flood_r = flood.stop()
+        shed = flood.failures
+        require(flood_r["sent"] == TEN_FLOOD and shed
+                and all(f.get("status") == 503 and f.get("retry_after") for f in shed),
+                f"tenant A's flood: sent {flood_r['sent']}, {len(shed)} not 200, e.g. {shed[:3]}")
+        reasons = sorted({m.group(1) for f in shed
+                          if (m := re.search(r'"reason":"(\w+)"', f.get("body", "")))})
+        injected = []
+        for _ in range(5):
+            status, body = http_json(f"http://127.0.0.1:{tport}/queries.json",
+                                     {"user": users[0], "num": OPS_NUM, "accessKey": "key-A"})
+            injected.append((status, body.get("injected")))
+        status_a, body_a = http_json(f"http://127.0.0.1:{tport}/queries.json",
+                                     {"user": users[0], "num": OPS_NUM, "accessKey": "key-A"})
+        status_b, _ = http_json(f"http://127.0.0.1:{tport}/queries.json",
+                                {"user": users[1], "num": OPS_NUM, "accessKey": "key-B"})
+        ten = info(tport)["tenancy"]
+        require(injected == [(503, True)] * 5 and status_a == 503
+                and body_a.get("reason") == "breaker" and status_b == 200
+                and ten["A"]["breaker"] == "open" and ten["B"]["breaker"] == "closed",
+                f"client:tenant:A: {injected}, then A {status_a} {body_a}, B {status_b}, {ten}")
+        out["tenants"] = step(
+            "tenants", quota_qps=TEN_QUOTA_QPS, a_sent=flood_r["sent"], a_ok=flood_r["ok"],
+            a_shed=len(shed), a_shed_reasons=reasons, b_alone=alone_r, b_flooded=b_r,
+            breaker={"A": ten["A"]["breaker"], "B": ten["B"]["breaker"]},
+            deploy_to_ready_s=ready["tenants"])
+
+        index = ivf_model.ivf_index
+        before = info(pport)
+        picks = [(users[int(j)], int(rng.integers(1, K + 1)))
+                 for j in rng.integers(0, len(users), PIPE_QUERIES)]
+        bad = []
+        for u, n in picks:
+            status, a = http_json(f"http://127.0.0.1:{pport}/queries.json", {"user": u, "num": n})
+            require(status == 200 and not a.get("degraded"), f"pipeline {u}: {status} {a}")
+            q = U[model.user_map[u]]
+            cand, _ = _ivf_candidates(index, q, PIPE_CANDIDATES)
+            exact = V[cand].astype(np.float64) @ q.astype(np.float64)
+            order = np.lexsort((cand, -exact))[:n]
+            got_i = np.array([[model.item_map[x["item"]] for x in a["itemScores"]]])
+            got_v = np.array([[x["score"] for x in a["itemScores"]]])
+            bad += topk_mismatches(got_v, got_i, exact[order][None, :].astype(np.float32),
+                                   cand[order][None, :], TOL)
+        require(not bad, f"pipeline answers vs the exact top-k over the candidates: {bad[:3]}")
+        after = info(pport)
+        launches = after["scoreKernelLaunches"] - before["scoreKernelLaunches"]
+        ranking = (after["pipeline"]["stages"]["ranking"]["runs"]
+                   - before["pipeline"]["stages"]["ranking"]["runs"])
+        require(launches == ranking == PIPE_QUERIES,
+                f"kernel 1 launched {launches} times, ranking ran {ranking}, {PIPE_QUERIES} queries")
+        degraded = []
+        for u, n in picks[:3]:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{pport}/queries.json",
+                data=json.dumps({"user": u, "num": n}).encode(), method="POST",
+                headers={"Content-Type": "application/json", "X-Request-Deadline": "300"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                a = json.loads(r.read())
+            cand, _ = _ivf_candidates(index, U[model.user_map[u]], PIPE_CANDIDATES)
+            keep = set(cand.tolist())
+            degraded.append(a.get("degraded") is True and a.get("pipelineStage") == "ranking"
+                            and len(a["itemScores"]) == n
+                            and all(model.item_map[x["item"]] in keep for x in a["itemScores"]))
+        last = info(pport)
+        require(all(degraded) and last["scoreKernelLaunches"] == after["scoreKernelLaunches"],
+                f"ranking latency rule: degraded {degraded}, launches "
+                f"{last['scoreKernelLaunches'] - after['scoreKernelLaunches']}")
+        out["pipeline"] = step(
+            "pipeline", nlist=index.nlist, candidates=PIPE_CANDIDATES, queries=PIPE_QUERIES,
+            ranking_calls=ranking, kernel1_launches=launches, degraded=len(degraded),
+            stages=last["pipeline"]["stages"], deploy_to_ready_s=ready["pipeline"])
+        for port, proc in ((tport, tproc), (pport, pproc)):
+            http_json(f"http://127.0.0.1:{port}/stop", {}, method="POST")
+            proc.wait(timeout=60)
+        out["seconds"]["tenants-pipeline"] = time.perf_counter() - t_d
+        out["seconds"]["total"] = time.perf_counter() - t_phase
+        step("tenants-pipeline", seconds=out["seconds"]["tenants-pipeline"])
+        emit({"phase": "fleet", "seconds": out["seconds"], "ok": True})
+        return out
+    finally:
+        faults.clear()
+        for r in routers:
+            r.stop()
+        for p in procs:
+            with contextlib.suppress(OSError):  # the group may be gone
+                os.killpg(p.pid, signal.SIGKILL)
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        Storage.reset_instance()
+        store.set_storage(None)
+        sqlite.close_all_dbs()
+        for k in [k for k in os.environ if k.startswith(("PIO_STORAGE_", "PIO_FLEET_"))
+                  or k in knobs]:
+            del os.environ[k]
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 AB_FWD = ((1, 256, 256, 50), (128, 256, 256, 50))
 
 
@@ -6212,6 +6967,7 @@ def main(argv=None) -> int:
     tpl_cli = phase_templates_cli(args.seed, device)
     templates = {"ur_ml25m": tpl_ur, "cli": tpl_cli, "seconds": time.perf_counter() - t0}
     emit({"phase": "templates", "seconds": templates["seconds"], "ok": True})
+    fleet = phase_fleet(model, args.seed, device)
     # each kernel's launches on the CLI path, counted as the CLI drove it
     cli_launches = {
         "fused_gather_score_topk": quick["serve"]["launches"],
@@ -6330,6 +7086,13 @@ def main(argv=None) -> int:
                                              "library_ms", "exact_ms", "scanned_fraction",
                                              "real_rows", "padding_share")}
         for r in ivf_out["times"] if r["catalog"] == "ml25m"}
+    # the fleet: kernel 1 on each replica behind the router (launches =
+    # dispatches, asserted) at concurrency 1 and 16, and on the pipeline's
+    # ranking stage (one filtered launch a ranking call, asserted)
+    kernels["kernels"][0]["fleet_launches"] = {
+        f"c{row['concurrency']}": sum(r["launches"] for r in row["per_replica"].values())
+        for row in fleet["route"]}
+    kernels["kernels"][0]["fleet_launches"]["pipeline_ranking"] = fleet["pipeline"]["kernel1_launches"]
     kernels["kernels"][0]["by_dtype_b64"] = {
         r["dtype"]: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in rows if r.get("case", "ml25m") == "ml25m" and r["batch"] == RUNGS[-1]}
@@ -6373,7 +7136,7 @@ def main(argv=None) -> int:
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
                    "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
                    "serving_ops": ops, "publish_eval": pub, "streaming": stream, "ivf": ivf_out,
-                   "templates": templates,
+                   "templates": templates, "fleet": fleet,
                    **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)

@@ -15,10 +15,29 @@ of its durability-critical paths, consulted through :func:`crash_point`:
   applied epoch advances (a restart catches up from the sealed log).
 
 A matching ``crash`` rule hard-kills the process with ``os._exit(137)``: no
-atexit hooks, no flushes, the same observable death as ``kill -9``.
-The non-crash sites (the HTTP kit's fault shim and its ``check``, the query
-server's generation-keyed faults) and the fleet's preemption site
-(``kill_point``) are not ported yet.
+atexit hooks, no flushes, the same observable death as ``kill -9``. Also
+``crash:canary:mid_promote`` and ``crash:canary:before_receipt``, between
+the canary controller's promotion reloads and before its quarantine
+receipt (``serving/canary.py``).
+
+The other sites are consulted through :func:`check`:
+
+* ``server:<service>:<path>`` — the HTTP kit, before dispatch (latency,
+  error reply, dropped connection, torn chunked stream);
+* ``client:router:<path>`` and ``client:replica:delta`` — the fleet
+  router, before a forward and before a delta push to a replica;
+* ``client:tenant:<tenant>`` — the query server, after a tenant's
+  authentication and before its admission;
+* ``server:generation:<instance_id>`` — the query server's
+  ``/queries.json`` against the deployed generation (how a canary test
+  plants a bad candidate);
+* ``server:pipeline:<stage>`` — the pipeline engine, before each stage;
+* ``client:canary:shadow`` — the canary controller, before each shadow
+  replay.
+
+``crash:fleet:replica`` is the fleet supervisor's preemption site, through
+:func:`kill_point`: a matching ``crash`` rule SIGKILLs one seeded-random
+child replica per firing.
 
 Nothing fires unless a plan is installed — the shim is one ``is None``
 check on the hot path.  Installation is programmatic (:func:`install`,
@@ -182,6 +201,14 @@ def active() -> Optional[FaultPlan]:
     return _active
 
 
+def check(site: str) -> Optional[FaultAction]:
+    """The fault point: consult the installed plan (None = no chaos)."""
+    plan = active()
+    if plan is None:
+        return None
+    return plan.on_call(site)
+
+
 def crash_point(site: str) -> None:
     """A compiled-in process-death site: one ``is None`` check when chaos
     is off; with a matching ``crash`` rule installed, ``os._exit(137)`` —
@@ -200,6 +227,37 @@ def crash_point(site: str) -> None:
         import os
 
         os._exit(CRASH_EXIT_CODE)
+
+
+def kill_point(site: str, pids: list[int]) -> Optional[int]:
+    """A SUPERVISOR-side preemption site: where :func:`crash_point` kills
+    the calling process, this SIGKILLs one of the given *child* pids on
+    the plan's seeded schedule (the fleet monitor consults it as
+    ``crash:fleet:replica``, so chaos plans can preempt random replicas
+    while the fleet is scaling).  The victim is deterministic for a given
+    schedule: ``(seed, rule, ordinal)`` picks an index into the sorted pid
+    list.  Returns the killed pid, or None when nothing fired, no pids
+    were offered, or the victim died before the signal landed.
+    """
+    plan = active()
+    if plan is None or not pids:
+        return None
+    act = plan.on_call(site)
+    if act is None or act.kind != "crash":
+        return None
+    import os
+    import signal
+
+    ordered = sorted(pids)
+    pick = random.Random(
+        f"{plan.seed}:{act.rule}:{act.ordinal}:victim"
+    ).randrange(len(ordered))
+    victim = ordered[pick]
+    try:
+        os.kill(victim, signal.SIGKILL)
+    except OSError:
+        return None
+    return victim
 
 
 def parse_spec(spec: str) -> list[FaultRule]:

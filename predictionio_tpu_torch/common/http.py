@@ -2,10 +2,12 @@
 
 Copy of ``predictionio_tpu/common/http.py`` with its telemetry and trace
 hooks (an installed :class:`~predictionio_tpu_torch.obs.Telemetry` counts
-every request and records its sampled trace), without its fault-injection
-shim (a chaos item of its own) and without chunked streaming bodies (the
-slices that need them bring them). One difference: ``stop()`` also shuts
-the connections still open. Stdlib only.
+every request and records its sampled trace), its chunked streaming bodies
+(a body that is an iterator of bytes) and its fault-injection shim: before
+dispatch every request consults ``server:<service>:<path>``
+(:func:`~predictionio_tpu_torch.common.faults.check`) for a latency, an
+error reply, a dropped connection, or a streamed body torn mid-chunk. One
+difference: ``stop()`` also shuts the connections still open. Stdlib only.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional
 
+from predictionio_tpu_torch.common import faults as _faults
 from predictionio_tpu_torch.obs import tracing as _tracing
 
 
@@ -49,7 +52,8 @@ class Request:
 @dataclass
 class Response:
     status: int = 200
-    # JSON-serializable, str (text/html) or bytes
+    # JSON-serializable, str (text/html), bytes, or an ITERATOR of bytes
+    # (sent with Transfer-Encoding: chunked, one chunk a piece)
     body: Any = None
     content_type: Optional[str] = None
     headers: dict[str, str] = field(default_factory=dict)
@@ -182,6 +186,35 @@ class HttpService:
                 params = dict(urllib.parse.parse_qsl(parsed.query))
                 length = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(length) if length else b""
+                # the truncate flag is per REQUEST, not per connection: a
+                # keep-alive socket must not carry a stale fault into a
+                # response the seeded plan never scheduled
+                self._fault_truncate = False
+                # fault-injection shim: one None check with no plan installed
+                act = _faults.check(f"server:{service.name}:{parsed.path}")
+                if act is not None:
+                    if act.latency_s:
+                        time.sleep(act.latency_s)
+                    if act.kind == "drop":
+                        # die without a response: the client sees a reset,
+                        # as from a crashed server process
+                        self.close_connection = True
+                        try:
+                            self.connection.shutdown(socket.SHUT_RDWR)
+                        except OSError:
+                            pass
+                        return
+                    if act.kind == "error":
+                        try:
+                            self._send(json_response(
+                                act.status, {"message": "injected fault"}
+                            ))
+                        except (BrokenPipeError, ConnectionResetError):
+                            self.close_connection = True
+                        return
+                    if act.kind == "truncate":
+                        # _send cuts a streamed body mid-chunk
+                        self._fault_truncate = True
                 tel = service.telemetry
                 trace = None
                 if tel is not None:
@@ -230,6 +263,9 @@ class HttpService:
 
             def _send(self, resp: Response):
                 body, ctype = resp.body, resp.content_type
+                if hasattr(body, "__next__"):  # an iterator of bytes: chunked
+                    self._send_chunked(resp)
+                    return
                 if isinstance(body, bytes):
                     payload = body
                     ctype = ctype or "application/octet-stream"
@@ -252,6 +288,34 @@ class HttpService:
                     head.append(b"Connection: close\r\n")
                 head.append(b"\r\n")
                 self.wfile.write(b"".join(head) + payload)
+
+            def _send_chunked(self, resp: Response):
+                self.send_response(resp.status)
+                self.send_header("Content-Type", resp.content_type or "application/octet-stream")
+                self.send_header("Transfer-Encoding", "chunked")
+                for k, v in resp.headers.items():
+                    self.send_header(k, v)
+                self.end_headers()
+                for piece in resp.body:
+                    if not piece:
+                        # an empty chunk is the terminator: skip it, even
+                        # when tearing (a zero-length cut would end the
+                        # stream cleanly)
+                        continue
+                    if self._fault_truncate:
+                        # chaos: tear the stream mid-piece (half a frame, no
+                        # terminal chunk); the client must see a truncated
+                        # stream, never a short but valid result
+                        cut = piece[: max(1, len(piece) // 2)]
+                        self.wfile.write(f"{len(cut):x}\r\n".encode() + cut + b"\r\n")
+                        self.close_connection = True
+                        try:
+                            self.connection.shutdown(socket.SHUT_RDWR)
+                        except OSError:
+                            pass
+                        return
+                    self.wfile.write(f"{len(piece):x}\r\n".encode() + piece + b"\r\n")
+                self.wfile.write(b"0\r\n\r\n")
 
             def do_GET(self):
                 self._handle("GET")

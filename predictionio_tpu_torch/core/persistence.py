@@ -14,8 +14,13 @@ process. :data:`JAX_COUNTERPARTS` maps each JAX class such a record can
 name to the port's class, :func:`load_models_blob` unpickles through that
 table, and :func:`resolve_class` resolves dotted paths through it. Any
 other ``predictionio_tpu`` path, and any jax, orbax or ml_dtypes one, is
-refused with an error that names it. Generation quarantine waits for the
-canary slice.
+refused with an error that names it.
+
+Generation quarantine: a generation that failed ONLINE verification (a
+canary rollback) gets a sealed receipt under
+``<PIO_FS_BASEDIR>/quarantine/<engine-key>/<id>.json``, in the JAX
+package's layout and envelope, so either package reads the other's
+receipts. Every newest-COMPLETED selection walks past those ids.
 """
 
 from __future__ import annotations
@@ -86,6 +91,176 @@ def open_blob_file(path: str) -> bytes:
     missing."""
     with open(path, "rb") as f:
         return open_model_blob(f.read())
+
+
+# ---------------------------------------------------------------------------
+# Generation quarantine: durable receipts for generations that failed ONLINE
+# verification (canary rollback, soak-watchdog rollback). A receipt is a
+# sealed JSON blob under <PIO_FS_BASEDIR>/quarantine/<engine-key>/<id>.json;
+# newest-COMPLETED selection (workflow.get_latest_completed_instance), the
+# query server's cold-start fallback, fleet.roll() targets and future
+# canaries all consult the set so a bad generation is never auto-deployed
+# twice. Receipts seal through the same checksum envelope as model blobs;
+# a torn/corrupt receipt still QUARANTINES its id (fail-safe: the filename
+# carries the id, so an unreadable receipt can only over-block, never
+# silently re-admit a known-bad generation).
+
+
+def _engine_key(engine_id: str, engine_version: str, engine_variant: str) -> str:
+    import re
+
+    raw = f"{engine_id}-{engine_version}-{engine_variant}"
+    return re.sub(r"[^A-Za-z0-9_.-]", "_", raw)
+
+
+def quarantine_dir(
+    engine_id: str = "default",
+    engine_version: str = "default",
+    engine_variant: str = "default",
+) -> str:
+    """Receipt directory for one engine key (created lazily by writes)."""
+    import os
+
+    from predictionio_tpu_torch.utils.fs import pio_base_dir
+
+    return os.path.join(
+        pio_base_dir(),
+        "quarantine",
+        _engine_key(engine_id, engine_version, engine_variant),
+    )
+
+
+def _receipt_path(dirname: str, instance_id: str) -> str:
+    import os
+    import re
+
+    safe = re.sub(r"[^A-Za-z0-9_.-]", "_", instance_id)
+    return os.path.join(dirname, f"{safe}.json")
+
+
+def write_quarantine_receipt(
+    instance_id: str,
+    reason: str,
+    engine_id: str = "default",
+    engine_version: str = "default",
+    engine_variant: str = "default",
+    epoch: int = 0,
+    details: dict | None = None,
+) -> str:
+    """Durably quarantine ``instance_id``; returns the receipt path.
+
+    The receipt is sealed (checksum envelope) and published atomically
+    (tmp + fsync + rename), so a crash mid-write leaves either no receipt
+    or a whole one — and callers that must not lose the quarantine on
+    crash write their intent to a journal FIRST and re-issue this call on
+    resume (it is idempotent: re-writing an existing receipt keeps the
+    earliest epoch's verdict by simply overwriting with equivalent data).
+    """
+    import json
+    import os
+    import time
+
+    dirname = quarantine_dir(engine_id, engine_version, engine_variant)
+    os.makedirs(dirname, exist_ok=True)
+    path = _receipt_path(dirname, instance_id)
+    receipt = {
+        "instanceId": instance_id,
+        "reason": reason,
+        "epoch": int(epoch),
+        "quarantinedAt": time.time(),
+        "engineId": engine_id,
+        "engineVersion": engine_version,
+        "engineVariant": engine_variant,
+        "details": details or {},
+    }
+    seal_blob_file(path, json.dumps(receipt, sort_keys=True).encode("utf-8"))
+    from predictionio_tpu_torch.utils.fs import fsync_dir
+
+    fsync_dir(dirname)
+    return path
+
+
+def read_quarantine_receipts(
+    engine_id: str = "default",
+    engine_version: str = "default",
+    engine_variant: str = "default",
+) -> list[dict]:
+    """All receipts for one engine key, unreadable ones included.
+
+    A receipt that fails its checksum (torn write the atomic protocol
+    should prevent, or media corruption) is surfaced as
+    ``{"instanceId": <from filename>, "reason": "unreadable-receipt"}`` —
+    quarantine fails SAFE: a damaged receipt blocks the generation rather
+    than re-admitting it.
+    """
+    import json
+    import os
+
+    dirname = quarantine_dir(engine_id, engine_version, engine_variant)
+    try:
+        names = sorted(os.listdir(dirname))
+    except OSError:
+        return []
+    receipts: list[dict] = []
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        path = os.path.join(dirname, name)
+        try:
+            receipts.append(json.loads(open_blob_file(path).decode("utf-8")))
+        except (ModelIntegrityError, OSError, ValueError):
+            receipts.append(
+                {"instanceId": name[: -len(".json")],
+                 "reason": "unreadable-receipt"}
+            )
+    return receipts
+
+
+def quarantined_instance_ids(
+    engine_id: str = "default",
+    engine_version: str = "default",
+    engine_variant: str = "default",
+) -> set:
+    """The ids no selection path may auto-deploy."""
+    return {
+        str(r.get("instanceId"))
+        for r in read_quarantine_receipts(engine_id, engine_version,
+                                          engine_variant)
+        if r.get("instanceId")
+    }
+
+
+def is_quarantined(
+    instance_id: str,
+    engine_id: str = "default",
+    engine_version: str = "default",
+    engine_variant: str = "default",
+) -> bool:
+    import os
+
+    dirname = quarantine_dir(engine_id, engine_version, engine_variant)
+    return os.path.exists(_receipt_path(dirname, instance_id))
+
+
+def clear_quarantine(
+    instance_id: str,
+    engine_id: str = "default",
+    engine_version: str = "default",
+    engine_variant: str = "default",
+) -> bool:
+    """Operator-only release of a quarantined generation (``pio canary
+    quarantine --release``); returns False when no receipt existed."""
+    import os
+
+    dirname = quarantine_dir(engine_id, engine_version, engine_variant)
+    try:
+        os.unlink(_receipt_path(dirname, instance_id))
+    except OSError:
+        return False
+    from predictionio_tpu_torch.utils.fs import fsync_dir
+
+    fsync_dir(dirname)
+    return True
 
 
 class _RetrainSentinel:

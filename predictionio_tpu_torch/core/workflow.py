@@ -207,10 +207,34 @@ def get_latest_completed_instance(
     engine_version: str = "default",
     engine_variant: str = "default",
 ) -> EngineInstance:
-    """Deploy-time lookup (parity: commands/Engine.scala:234-241)."""
-    inst = storage.get_meta_data_engine_instances().get_latest_completed(
+    """Deploy-time lookup (parity: commands/Engine.scala:234-241).
+
+    Skips quarantined generations: a canary rollback writes a durable
+    receipt (core/persistence.quarantined_instance_ids) and every
+    newest-COMPLETED selection — cold start, /reload, fleet-roll respawn,
+    batch predict — walks past those ids to the newest instance that has
+    NOT failed online verification. A fleet restart therefore never
+    re-deploys the generation that was just rolled back.
+    """
+    instances = storage.get_meta_data_engine_instances()
+    quarantined = persistence.quarantined_instance_ids(
         engine_id, engine_version, engine_variant
     )
+    inst = None
+    if quarantined:
+        for cand in instances.get_completed(engine_id, engine_version,
+                                            engine_variant):
+            if cand.id not in quarantined:
+                inst = cand
+                break
+            logger.warning(
+                "skipping quarantined engine instance %s for %s/%s/%s",
+                cand.id, engine_id, engine_version, engine_variant,
+            )
+    else:
+        inst = instances.get_latest_completed(
+            engine_id, engine_version, engine_variant
+        )
     if inst is None:
         raise RuntimeError(
             f"No completed engine instance for {engine_id}/{engine_version}/"

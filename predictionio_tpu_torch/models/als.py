@@ -1063,17 +1063,25 @@ class ALSScorer:
         num: int,
         exclude_items: Optional[np.ndarray] = None,
         candidate_items: Optional[np.ndarray] = None,
+        prefer_card: bool = False,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """(item_indices, scores) of the top ``num`` items for one user."""
+        """(item_indices, scores) of the top ``num`` items for one user.
+
+        ``prefer_card`` ranks on the fast path whenever one is built on the
+        card, below :attr:`HOST_THRESHOLD` too (the pipeline's ranking
+        stage: one kernel launch under the candidate mask)."""
         k = min(max(num, 1), self.n_items)
         n_excl = 0 if exclude_items is None else len(exclude_items)
         n_cand = 0 if candidate_items is None else len(candidate_items)
         fp = getattr(self, "_fastpath", None)
+        on_card = self.on_device or (
+            prefer_card and fp is not None and fp.ctx.device.type == "cuda"
+        )
         # num beyond the built top-k width serves exactly from the host
         # rather than silently truncating; oversized filter sets also drop
         # to the host
         if (
-            self.on_device and k <= fp.k
+            on_card and k <= fp.k
             and n_excl <= self.MAX_FILTER and n_cand <= self.MAX_FILTER
         ):
             idx, vals = fp.score_topk_filtered(

@@ -2,9 +2,11 @@
 
 Counterpart of ``predictionio_tpu/obs/bridges.py`` with the bridges of the
 components the port has: the batcher, the fast path, IVF retrieval,
-devprof, the result cache, the template event cache, error counters,
-resilience (breakers), the event-server stats, the ingest buffer with its WAL and the latency
-histogram. The others come with their components.
+devprof, the result cache, the template event cache, tenancy, the
+pipeline, error counters, resilience (breakers), the fleet supervisor, the
+autoscaler, the canary controller, the event-server stats, the ingest
+buffer with its WAL and the latency histogram. The others (training
+kernel, sharding, pod) come with their components.
 
 Every load-bearing runtime layer predates the registry and already keeps
 its own thread-safe counters (``MicroBatcher.stats()``, fastpath
@@ -583,6 +585,359 @@ def bridge_resilience(
                     ),
                 ]
             )
+        return fams
+
+    registry.register_collector(collect)
+
+
+def bridge_tenancy(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """TenantRegistry ``stats()`` → pio_tenant_* families, labeled by
+    tenant (and variant for the A/B comparison series).  Emits nothing
+    when no registry is installed; label cardinality is bounded by the
+    registry's tenant/variant config, under PIO_METRICS_MAX_SERIES."""
+
+    def collect():
+        s = stats_fn()
+        if not s:
+            return []
+        req_samples, err_samples, lat_samples = [], [], []
+        shed_samples, inflight, caps, tokens = [], [], [], []
+        slo, brk, pressure = [], [], []
+        for tid, t in sorted(s.items()):
+            lab = (("tenant", tid),)
+            inflight.append(("", lab, _num(t.get("inflight"))))
+            caps.append(("", lab, _num(t.get("cap"))))
+            if t.get("tokens") is not None:
+                tokens.append(("", lab, _num(t.get("tokens"))))
+            slo.append(("", lab, _num(t.get("slo_violations"))))
+            brk.append((
+                "", lab,
+                BREAKER_STATE_VALUES.get(str(t.get("breaker")), 0.0),
+            ))
+            cap = max(1.0, _num(t.get("cap"), 1.0))
+            pressure.append(
+                ("", lab, min(1.0, _num(t.get("inflight")) / cap))
+            )
+            for reason, n in sorted((t.get("shed") or {}).items()):
+                shed_samples.append(
+                    ("", (("tenant", tid), ("reason", reason)), _num(n))
+                )
+            for vname, v in sorted((t.get("variants") or {}).items()):
+                vlab = (("tenant", tid), ("variant", vname))
+                req_samples.append(("", vlab, _num(v.get("requests"))))
+                err_samples.append(("", vlab, _num(v.get("errors"))))
+                for q in ("p50", "p99"):
+                    lat_samples.append((
+                        "", vlab + (("quantile", q),),
+                        _num(v.get(f"{q}_ms")),
+                    ))
+        return [
+            _fam("pio_tenant_requests_total", "counter",
+                 "Requests accounted per tenant and A/B variant.",
+                 req_samples),
+            _fam("pio_tenant_errors_total", "counter",
+                 "Server-error (5xx) responses per tenant and variant — "
+                 "the same events that feed the tenant's breaker.",
+                 err_samples),
+            _fam("pio_tenant_latency_ms", "gauge",
+                 "Per-tenant, per-variant latency quantiles (the online "
+                 "A/B comparison surface).", lat_samples),
+            _fam("pio_tenant_shed_total", "counter",
+                 "Per-tenant sheds by reason: quota (token bucket dry), "
+                 "inflight (fair-share cap), breaker (tenant breaker "
+                 "open).", shed_samples),
+            _fam("pio_tenant_inflight", "gauge",
+                 "Requests currently inside this tenant's admission "
+                 "slice.", inflight),
+            _fam("pio_tenant_inflight_cap", "gauge",
+                 "Fair-share inflight cap (weight-proportional share of "
+                 "the server gate, x PIO_TENANT_BURST).", caps),
+            _fam("pio_tenant_quota_tokens", "gauge",
+                 "Token-bucket balance for quota'd tenants (absent when "
+                 "no quota_qps is set).", tokens),
+            _fam("pio_tenant_slo_violations_total", "counter",
+                 "Successful answers that exceeded the tenant's slo_ms.",
+                 slo),
+            _fam("pio_tenant_breaker_state", "gauge",
+                 "Tenant circuit-breaker state (0 closed / 1 open / 2 "
+                 "half-open).", brk),
+            _fam("pio_tenant_pressure", "gauge",
+                 "Inflight saturation against the fair-share cap — the "
+                 "autoscaler's per-tenant signal.", pressure),
+        ]
+
+    registry.register_collector(collect)
+
+
+def bridge_pipeline(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """PipelineEngine ``stats()`` → pio_pipeline_* families, labeled by
+    stage.  Emits nothing while no pipeline is bound."""
+
+    def collect():
+        s = stats_fn()
+        if not s:
+            return []
+        runs, overruns, errors, lat, frac = [], [], [], [], []
+        for name, st in sorted((s.get("stages") or {}).items()):
+            lab = (("stage", name),)
+            runs.append(("", lab, _num(st.get("runs"))))
+            overruns.append(("", lab, _num(st.get("overruns"))))
+            errors.append(("", lab, _num(st.get("errors"))))
+            frac.append(("", lab, _num(st.get("budget_fraction"))))
+            for q in ("p50", "p99"):
+                lat.append((
+                    "", lab + (("quantile", q),), _num(st.get(f"{q}_ms")),
+                ))
+        return [
+            _fam("pio_pipeline_stage_runs_total", "counter",
+                 "Completed runs per pipeline stage.", runs),
+            _fam("pio_pipeline_stage_overruns_total", "counter",
+                 "Stage executions that exceeded their share of the "
+                 "request deadline.", overruns),
+            _fam("pio_pipeline_stage_errors_total", "counter",
+                 "Stage executions that raised.", errors),
+            _fam("pio_pipeline_stage_latency_ms", "gauge",
+                 "Per-stage latency quantiles.", lat),
+            _fam("pio_pipeline_stage_budget_fraction", "gauge",
+                 "Configured share of the request deadline per stage.",
+                 frac),
+            _fam("pio_pipeline_degraded_total", "counter",
+                 "Answers degraded to the retrieval-only result after a "
+                 "later stage overran or failed.",
+                 [("", (), _num(s.get("degraded_total")))]),
+        ]
+
+    registry.register_collector(collect)
+
+
+def bridge_fleet(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """FleetSupervisor ``stats()`` → pio_fleet_* process-lifecycle
+    series, so crash-restarts and scale events are visible on the
+    router's /metrics instead of only in its logs."""
+
+    def collect():
+        s = stats_fn()
+        if not s:
+            return []
+        trans = s.get("transitions") or {}
+        fams = [
+            _fam(
+                "pio_fleet_replicas", "gauge",
+                "Replica processes currently under supervision.",
+                [("", (), _num(s.get("replicas")))],
+            ),
+            _fam(
+                "pio_fleet_replicas_alive", "gauge",
+                "Supervised replica processes currently running.",
+                [("", (), _num(s.get("alive")))],
+            ),
+            _fam(
+                "pio_fleet_restarts_total", "counter",
+                "Crash-restarts performed by the supervisor.",
+                [("", (), _num(s.get("restarts")))],
+            ),
+            _fam(
+                "pio_fleet_transitions_total", "counter",
+                "Replica lifecycle transitions: up (process spawned) and "
+                "down (crash observed or replica scaled away).",
+                [
+                    ("", (("direction", "up"),), _num(trans.get("up"))),
+                    ("", (("direction", "down"),), _num(trans.get("down"))),
+                ],
+            ),
+        ]
+        backoff = s.get("backoffMs")
+        if isinstance(backoff, dict) and backoff:
+            fams.append(
+                _fam(
+                    "pio_fleet_replica_backoff_ms", "gauge",
+                    "Current crash-restart backoff per replica slot "
+                    "(0 after a healthy stretch).",
+                    [
+                        ("", (("replica", str(url)),), _num(ms))
+                        for url, ms in sorted(backoff.items())
+                    ],
+                )
+            )
+        return fams
+
+    registry.register_collector(collect)
+
+
+def bridge_autoscaler(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """Autoscaler ``stats()`` → pio_autoscaler_* decision series (the
+    composite pressure, its per-signal inputs, and scale events)."""
+
+    def collect():
+        s = stats_fn()
+        if not s:
+            return []
+        sigs = s.get("signals") or {}
+        decision = {"down": -1.0, "hold": 0.0, "up": 1.0}.get(
+            s.get("lastDecision"), 0.0
+        )
+        return [
+            _fam(
+                "pio_autoscaler_replicas_target", "gauge",
+                "Replica count the autoscaler is currently holding the "
+                "fleet at.",
+                [("", (), _num(s.get("replicas")))],
+            ),
+            _fam(
+                "pio_autoscaler_pressure", "gauge",
+                "Composite load pressure (max of the normalized signals) "
+                "driving scale decisions.",
+                [("", (), _num(s.get("pressure")))],
+            ),
+            _fam(
+                "pio_autoscaler_signal", "gauge",
+                "Normalized [0,1] per-signal pressure feeding the "
+                "composite (inflight, shed, hedge, busy).",
+                [
+                    ("", (("signal", str(k)),), _num(v))
+                    for k, v in sorted(sigs.items())
+                ],
+            ),
+            _fam(
+                "pio_autoscaler_scale_events_total", "counter",
+                "Scale decisions executed, by direction.",
+                [
+                    ("", (("direction", "up"),), _num(s.get("scaleUps"))),
+                    ("", (("direction", "down"),), _num(s.get("scaleDowns"))),
+                ],
+            ),
+            _fam(
+                "pio_autoscaler_last_decision", "gauge",
+                "Most recent control decision: -1 down, 0 hold, 1 up.",
+                [("", (), decision)],
+            ),
+        ]
+
+    registry.register_collector(collect)
+
+
+CANARY_STATE_VALUES = {
+    "idle": 0.0, "verifying": 1.0, "promoting": 2.0, "soaking": 3.0,
+    "rolling_back": 4.0,
+}
+
+
+def bridge_canary(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """CanaryController ``stats()`` → pio_canary_* series: the rollout
+    state machine, per-generation verdict inputs, shadow-mirror volume,
+    and the quarantine ledger depth."""
+
+    def collect():
+        s = stats_fn()
+        if not s:
+            return []
+        counters = s.get("counters") or {}
+        shadow = s.get("shadow") or {}
+        cand = s.get("candidateStats") or {}
+        base = s.get("baselineStats") or {}
+        state = str(s.get("state") or "idle")
+        fams = [
+            _fam(
+                "pio_canary_state", "gauge",
+                "Controller state: 0 idle, 1 verifying, 2 promoting, "
+                "3 soaking, 4 rolling_back.",
+                [("", (), CANARY_STATE_VALUES.get(state, 0.0))],
+            ),
+            _fam(
+                "pio_canary_epoch", "gauge",
+                "Fencing epoch of the journal owner; bumps on every "
+                "canary start and every controller resume.",
+                [("", (), _num(s.get("epoch")))],
+            ),
+            _fam(
+                "pio_canary_info", "gauge",
+                "Constant-1 info series; the labels carry the current "
+                "state and candidate/baseline generation ids.",
+                [(
+                    "", (
+                        ("state", state),
+                        ("candidate", str(s.get("candidate") or "")),
+                        ("baseline", str(s.get("baseline") or "")),
+                    ), 1.0,
+                )],
+            ),
+            _fam(
+                "pio_canary_shadow_queries_total", "counter",
+                "Shadow-mirrored query pairs replayed against candidate "
+                "+ baseline (answers discarded), by outcome.",
+                [
+                    ("", (("outcome", "ok"),), _num(counters.get("shadow_ok"))),
+                    ("", (("outcome", "error"),),
+                     _num(counters.get("shadow_errors"))),
+                ],
+            ),
+            _fam(
+                "pio_canary_shadow_overlap", "gauge",
+                "Mean top-k prediction overlap between candidate and "
+                "baseline over this window's shadow pairs.",
+                [("", (), _num(shadow.get("meanOverlap"), 0.0))],
+            ),
+            _fam(
+                "pio_canary_candidate_error_rate", "gauge",
+                "Attributed online error rate of the candidate "
+                "generation (real traffic, router-attributed).",
+                [("", (), _num(cand.get("errorRate")))],
+            ),
+            _fam(
+                "pio_canary_candidate_p99_ms", "gauge",
+                "Attributed online p99 latency of the candidate "
+                "generation, milliseconds.",
+                [("", (), _num(cand.get("p99Ms")))],
+            ),
+            _fam(
+                "pio_canary_baseline_p99_ms", "gauge",
+                "Attributed online p99 latency of the baseline "
+                "generation, milliseconds (the ratio-SLO denominator).",
+                [("", (), _num(base.get("p99Ms")))],
+            ),
+            _fam(
+                "pio_canary_verifications_total", "counter",
+                "Verification windows concluded, by verdict.",
+                [
+                    ("", (("outcome", "pass"),),
+                     _num(counters.get("verifications_pass"))),
+                    ("", (("outcome", "fail"),),
+                     _num(counters.get("verifications_fail"))),
+                ],
+            ),
+            _fam(
+                "pio_canary_rollbacks_total", "counter",
+                "Automatic rollbacks executed, by phase (verify = canary "
+                "replica only, soak = runtime fleet-wide to LKG).",
+                [
+                    ("", (("phase", "verify"),),
+                     _num(counters.get("rollbacks_verify"))),
+                    ("", (("phase", "soak"),),
+                     _num(counters.get("rollbacks_soak"))),
+                ],
+            ),
+            _fam(
+                "pio_canary_promotions_total", "counter",
+                "Canaries promoted to the full fleet.",
+                [("", (), _num(counters.get("promotions")))],
+            ),
+            _fam(
+                "pio_canary_quarantined_generations", "gauge",
+                "Engine instance ids currently blocked by a durable "
+                "quarantine receipt.",
+                [("", (), float(len(s.get("quarantined") or [])))],
+            ),
+        ]
         return fams
 
     registry.register_collector(collect)

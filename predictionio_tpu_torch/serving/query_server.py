@@ -56,14 +56,23 @@ instances. A warm-up failure raises out of ``reload()`` (counted
 ``warmup_errors``): the JAX server counts it and serves on, which on the
 card would hide a kernel that failed to build or launch.
 
+**Fleet surface.** As in the JAX server: ``reload(instance_id)`` refuses
+a generation a canary quarantined (``POST /reload`` answers 409) unless
+``force``; a cold start honours ``PIO_PIN_INSTANCE`` (the fleet's spawn
+pin during a canary) and every newest-COMPLETED walk skips quarantined
+ids. Multi-tenancy (``tenants``/``PIO_TENANTS``,
+``serving/tenancy.py``): access-key auth, per-tenant fair-share admission
+and quota sheds (503 with ``Retry-After``) ahead of the server-wide gate,
+per-tenant breakers, A/B variants, and a result-cache namespace per
+tenant. A composed pipeline (``pipeline``/``PIO_PIPELINE``,
+``serving/pipeline.py``) is bound to each generation at its swap and
+answers per query, retrieval then ranking. Fault sites:
+``server:generation:<instanceId>`` on ``/queries.json`` and
+``client:tenant:<tenant>`` after a tenant's authentication.
+
 Waiting for their ROADMAP items, and raising an error that names them:
-tenancy (``tenants``/``PIO_TENANTS``) and pipelines (``pipeline``/
-``PIO_PIPELINE``), item 13; pod serving and its lockstep
-(``PIO_POD_GROUP``), item 10. The router's push of a delta to a fleet is
-item 13. Fault injection waits for a chaos item of its own,
-``POST /debug/profile`` for item 15, and quarantined generations (which
-``reload(force=True)`` overrides in the JAX server) for the canary, item
-13: until then no generation is quarantined.
+pod serving and its lockstep (``PIO_POD_GROUP``), item 10; ``POST
+/debug/profile``, item 15.
 """
 
 from __future__ import annotations
@@ -82,6 +91,7 @@ from typing import Any, Optional
 import numpy as np
 
 from predictionio_tpu_torch import obs
+from predictionio_tpu_torch.common import faults as _faults
 from predictionio_tpu_torch.common.http import HttpService, Request, Response, json_response
 from predictionio_tpu_torch.common.resilience import (
     DEADLINE_HEADER,
@@ -97,6 +107,7 @@ from predictionio_tpu_torch.common.resilience import (
     parse_deadline_header,
 )
 from predictionio_tpu_torch.core import delta as _delta
+from predictionio_tpu_torch.core import persistence
 from predictionio_tpu_torch.core.engine import Engine
 from predictionio_tpu_torch.core.persistence import open_model_blob
 from predictionio_tpu_torch.core.workflow import (
@@ -111,6 +122,8 @@ from predictionio_tpu_torch.ops import _build, score_kernel
 from predictionio_tpu_torch.ops._build import KernelError
 from predictionio_tpu_torch.models.cooccurrence import fold_increments
 from predictionio_tpu_torch.ops import quantize as _quantize
+from predictionio_tpu_torch.serving.pipeline import build_pipeline_engine, pipeline_from_env
+from predictionio_tpu_torch.serving.tenancy import extract_access_key, tenants_from_env
 from predictionio_tpu_torch.serving.result_cache import (
     canonical_fingerprint,
     coalesce_from_env,
@@ -211,10 +224,6 @@ class QueryServer:
         tenants=None,
         pipeline=None,
     ):
-        if tenants is not None or os.environ.get("PIO_TENANTS", "").strip():
-            raise _not_ported("multi-tenancy (tenants / PIO_TENANTS)", 13)
-        if pipeline is not None or os.environ.get("PIO_PIPELINE", "").strip():
-            raise _not_ported("composed pipelines (pipeline / PIO_PIPELINE)", 13)
         if os.environ.get("PIO_POD_GROUP", "").strip():
             raise _not_ported("pod serving and its lockstep (PIO_POD_GROUP)", 10)
         self.engine = engine
@@ -295,6 +304,17 @@ class QueryServer:
         # streaming is off or no factor model is live, and every streaming
         # touchpoint does nothing on None
         self._streaming: Optional[dict] = None
+        # multi-tenancy: the tenant registry every /queries.json consults
+        # (auth, fair-share admission ahead of the server-wide gate,
+        # per-tenant breakers and variants); None keeps the open server
+        self._tenants = (
+            tenants_from_env(total_inflight=self.max_inflight)
+            if tenants is None else tenants
+        )
+        # composed retrieval→ranking pipeline: the sealed config loads
+        # here, the engine binds to the deployed model at every swap
+        self._pipeline_config = pipeline_from_env() if pipeline is None else pipeline
+        self._pipeline_engine = None
         self._register_routes()
         self.reload()
         self._batcher = None
@@ -332,12 +352,34 @@ class QueryServer:
         A cold start whose instance cannot be loaded falls back to the
         persisted last-known-good pointer, then every other COMPLETED
         instance newest first; with nothing deployable left it raises.
-        ``force`` overrides a quarantine in the JAX server; the port has
-        no quarantined generations until the canary (ROADMAP §1 item 13).
+        ``instance_id`` pins the load to one generation (the canary's
+        hot-swap) and refuses a quarantined one unless ``force``: with a
+        generation live the refusal raises (``POST /reload`` answers 409;
+        the JAX server's check sits inside its load ``try`` and answers 200
+        with the live id, ROADMAP §3); at a cold start it falls back as a
+        failed load does. With no
+        ``instance_id`` the newest non-quarantined COMPLETED instance
+        deploys; a cold start honours ``PIO_PIN_INSTANCE`` (the fleet's
+        spawn pin while a canary is in flight).
         """
-        del force  # nothing is quarantined yet (see the docstring)
+        if instance_id is None and self._deployed is None:
+            instance_id = os.environ.get("PIO_PIN_INSTANCE", "").strip() or None
+        refused = None
+        if instance_id is not None and not force and persistence.is_quarantined(
+            instance_id, self.engine_id, self.engine_version, self.engine_variant,
+        ):
+            refused = RuntimeError(
+                f"engine instance {instance_id} is quarantined (failed online "
+                "verification); pass force to override"
+            )
+            if self._deployed is not None:
+                # a refusal, not a failed load: the caller hears it (POST
+                # /reload answers 409) and the live generation keeps serving
+                raise refused
         instance = None
         try:
+            if refused is not None:
+                raise refused  # a cold start falls back as from a failed load
             if instance_id is not None:
                 instance = self.storage.get_meta_data_engine_instances().get(instance_id)
                 if instance is None:
@@ -394,6 +436,21 @@ class QueryServer:
         if self._result_cache is not None:
             # answers of the previous generation never serve against this one
             self._result_cache.clear()
+        if self._pipeline_config is not None:
+            # re-bind the pipeline to this generation; a config that cannot
+            # bind (a template without the ALS surface) serves single-stage
+            try:
+                engine = build_pipeline_engine(
+                    self._pipeline_config, deployed.algorithms, deployed.models
+                )
+            except Exception:
+                engine = None
+                self._rl_log.exception(
+                    "pipeline", "pipeline %s failed to bind; serving single-stage",
+                    self._pipeline_config.name,
+                )
+            with self._lock:
+                self._pipeline_engine = engine
         self._record_last_known_good(deployed.instance_id)
 
     # -- last-known-good pointer (survives restarts) -------------------------
@@ -437,12 +494,20 @@ class QueryServer:
             )
         except Exception:
             return None
+        # a quarantined generation failed ONLINE verification (a canary
+        # rollback): neither the pointer nor the walk may bring it back
+        quarantined = persistence.quarantined_instance_ids(
+            self.engine_id, self.engine_version, self.engine_variant
+        )
         by_id = {i.id: i for i in completed}
         order: list[str] = []
         lkg_id = self._read_last_known_good()
-        if lkg_id and lkg_id != failed_id and lkg_id in by_id:
+        if lkg_id and lkg_id != failed_id and lkg_id in by_id and lkg_id not in quarantined:
             order.append(lkg_id)
-        order += [i.id for i in completed if i.id != failed_id and i.id not in order]
+        order += [
+            i.id for i in completed
+            if i.id != failed_id and i.id not in order and i.id not in quarantined
+        ]
         for iid in order:
             try:
                 _, algorithms, serving, models = prepare_deploy(
@@ -709,6 +774,14 @@ class QueryServer:
             lambda: 1.0 if self._coalesce else 0.0,
         )
         _bridges.bridge_event_cache(reg, self._event_cache_stats)
+        # pio_tenant_*: only while a tenant registry is installed
+        if self._tenants is not None:
+            _bridges.bridge_tenancy(reg, self._tenants.stats)
+        # pio_pipeline_*: emits only while a composed pipeline is bound
+        _bridges.bridge_pipeline(
+            reg,
+            lambda: self._pipeline_engine.stats() if self._pipeline_engine is not None else None,
+        )
         _bridges.bridge_resilience(
             reg,
             lambda: {"breakers": [self._feedback_breaker.stats()]},
@@ -828,18 +901,35 @@ class QueryServer:
         return dict(last) if last is not None else None
 
     # -- query hot loop (parity: CreateServer.scala:484-634) -----------------
-    def handle_query(self, data: dict, deadline: Optional[Deadline] = None) -> dict:
+    def handle_query(
+        self,
+        data: dict,
+        deadline: Optional[Deadline] = None,
+        tenant: Optional[str] = None,
+        variant: Optional[str] = None,
+    ) -> dict:
         t0 = time.perf_counter()
         with self._lock:
             deployed = self._deployed
             generation = self._serving_gen
+            pipe = self._pipeline_engine
         with _tracing.stage("decode"):
             query = bind_query(self.engine.query_cls, data)
         degraded = False
         cache = self._result_cache
         # one canonical fingerprint serves both layers: the result-cache
-        # key here and the single-flight coalescing key at the batcher
-        fp = canonical_fingerprint(data) if (cache is not None or self._coalesce) else None
+        # key here and the single-flight coalescing key at the batcher.
+        # Under multi-tenancy it is namespaced by tenant, variant and live
+        # instance: two tenants' identical bodies never share an answer
+        namespace = None
+        if tenant is not None:
+            namespace = "\x1f".join(
+                (tenant, variant or "-", deployed.instance_id if deployed else "")
+            )
+        fp = (
+            canonical_fingerprint(data, namespace=namespace)
+            if (cache is not None or self._coalesce) else None
+        )
         cache_hit = False
         if cache is not None and fp is not None:
             cached = cache.get(fp, generation)
@@ -860,7 +950,15 @@ class QueryServer:
             try:
                 if deadline is not None and deadline.expired():
                     raise DeadlineExceeded("deadline expired before predict")
-                if self._batcher is not None:
+                pmeta = None
+                if pipe is not None:
+                    # composed dataflow: retrieval → ranking under per-stage
+                    # shares of this request's deadline; a late or failed
+                    # ranking stage yields the retrieval-only answer
+                    supplemented = deployed.serving.supplement(query)
+                    prediction, pmeta = pipe.run_pipeline(supplemented, deadline)
+                    prediction = deployed.serving.serve(supplemented, [prediction])
+                elif self._batcher is not None:
                     supplemented, prediction = self._batcher.submit(
                         query, deadline=deadline, key=fp if self._coalesce else None,
                     )
@@ -873,6 +971,14 @@ class QueryServer:
                     prediction = deployed.serving.serve(supplemented, predictions)
                 with _tracing.stage("serialize"):
                     result = _to_jsonable(prediction)
+                if pmeta is not None and pmeta.get("degraded"):
+                    # a stage overran its share: retrieval-only, flagged,
+                    # counted and never cached
+                    if isinstance(result, dict):
+                        result["degraded"] = True
+                        result["pipelineStage"] = pmeta.get("stage")
+                    degraded = True
+                    self.counters.inc("degraded")
             except DeadlineExceeded:
                 self.counters.inc("deadline_exceeded")
                 raise
@@ -1049,6 +1155,10 @@ class QueryServer:
                 self._result_cache.stats() if self._result_cache is not None else None
             )
             info["coalesce"] = self._coalesce
+            info["tenancy"] = self._tenants.stats() if self._tenants is not None else None
+            info["pipeline"] = (
+                self._pipeline_engine.stats() if self._pipeline_engine is not None else None
+            )
             fp = []
             for algo, model in zip(algorithms, models):
                 get_stats = getattr(algo, "serving_stats", None)
@@ -1059,6 +1169,10 @@ class QueryServer:
             info["scoreKernelLaunches"] = score_kernel.launches.count
             # kernels built in this process: a delta patch builds none
             info["kernelBuilds"] = len(_build.build_log)
+            # which of them this process found in the build cache (no nvcc)
+            info["kernelBuildCached"] = {
+                name: out == "cached" for name, (_, _, out) in _build.build_log.items()
+            }
             with self._inflight_lock:
                 info["inflight"] = self._inflight
             info["resilience"] = {
@@ -1135,19 +1249,7 @@ class QueryServer:
             body["status"] = "ready"
             return json_response(200, body)
 
-        @svc.route("POST", r"/queries\.json")
-        def queries(req: Request):
-            with _tracing.stage("decode"):
-                data = req.json()
-            if not isinstance(data, dict):
-                return json_response(400, {"message": "query must be a JSON object"})
-            if self._draining:
-                # draining: in-flight work finishes, new work goes elsewhere
-                return Response(
-                    status=503,
-                    body={"message": "server draining; retry against another instance"},
-                    headers=self._retry_headers(),
-                )
+        def _serve_admitted(req, data, tenant, variant):
             # admission control: beyond max_inflight, queueing only adds
             # latency to requests that will miss their deadlines anyway —
             # shed with 503 + Retry-After so callers back off
@@ -1170,9 +1272,17 @@ class QueryServer:
                     return json_response(504, {"message": "deadline expired before execution"})
                 try:
                     # ambient binding: layers below see the budget through
-                    # current_deadline() where no parameter reaches them
+                    # current_deadline() where no parameter reaches them.
+                    # Untenanted servers keep the two-argument call:
+                    # handle_query is a documented override point
                     with deadline_scope(deadline):
-                        return json_response(200, self.handle_query(data, deadline))
+                        if tenant is None:
+                            result = self.handle_query(data, deadline)
+                        else:
+                            result = self.handle_query(
+                                data, deadline, tenant=tenant, variant=variant
+                            )
+                        return json_response(200, result)
                 except DeadlineExceeded as e:
                     return json_response(504, {"message": str(e)})
                 except TypeError as e:
@@ -1181,13 +1291,96 @@ class QueryServer:
                 with self._inflight_lock:
                     self._inflight -= 1
 
+        @svc.route("POST", r"/queries\.json")
+        def queries(req: Request):
+            with _tracing.stage("decode"):
+                data = req.json()
+            if not isinstance(data, dict):
+                return json_response(400, {"message": "query must be a JSON object"})
+            if self._draining:
+                # draining: in-flight work finishes, new work goes elsewhere
+                return Response(
+                    status=503,
+                    body={"message": "server draining; retry against another instance"},
+                    headers=self._retry_headers(),
+                )
+            if _faults.active() is not None:
+                # generation-keyed chaos: a rule on server:generation:<id>
+                # degrades only the replica serving that instance (how a
+                # test plants a bad canary candidate)
+                with self._lock:
+                    live = self._deployed
+                if live is not None:
+                    act = _faults.check(f"server:generation:{live.instance_id}")
+                    if act is not None:
+                        if act.latency_s:
+                            time.sleep(act.latency_s)
+                        if act.kind in ("error", "drop", "crash"):
+                            return json_response(
+                                act.status or 500,
+                                {"message": "injected generation fault", "injected": True},
+                            )
+            reg = self._tenants
+            if reg is None:
+                return _serve_admitted(req, data, None, None)
+            # multi-tenant surface: the event server's auth contract on the
+            # query plane (?accessKey=, X-PIO-Access-Key or the body's
+            # accessKey, which cache fingerprints leave out)
+            key = extract_access_key(req.params, req.headers, data)
+            if not key:
+                return json_response(401, {"message": "Missing accessKey."})
+            spec = reg.authenticate(key)
+            if spec is None:
+                return json_response(401, {"message": "Invalid accessKey."})
+            tenant = spec.tenant_id
+            act = _faults.check(f"client:tenant:{tenant}")
+            if act is not None:
+                # a chaos-injected bad request FROM this tenant feeds this
+                # tenant's breaker only
+                if act.latency_s:
+                    time.sleep(act.latency_s)
+                if act.kind in ("error", "drop", "crash"):
+                    reg.record_result(tenant, None, ok=False, latency_s=0.0)
+                    return json_response(
+                        act.status or 503, {"message": "injected fault", "injected": True},
+                    )
+            adm = reg.admit(tenant)
+            if not adm.ok:
+                # per-tenant shed (quota, fair-share cap or open breaker):
+                # 503 with a quota-aware Retry-After, other tenants untouched
+                return Response(
+                    status=503,
+                    body={"message": f"tenant {tenant} shed", "tenant": tenant,
+                          "reason": adm.reason},
+                    headers={"Retry-After": f"{adm.retry_after_s:g}"},
+                )
+            variant = reg.pick_variant(tenant, data.get("user"))
+            ok = False
+            t0 = time.perf_counter()
+            try:
+                resp = _serve_admitted(req, data, tenant, variant)
+                # 4xx and 503 are the contract working; only 5xx server
+                # errors feed this tenant's breaker
+                ok = resp.status < 500 or resp.status == 503
+                return resp
+            finally:
+                reg.release(tenant)
+                reg.record_result(tenant, variant, ok=ok, latency_s=time.perf_counter() - t0)
+
         @svc.route("GET", r"/reload")
         @svc.route("POST", r"/reload")
         def reload_route(req: Request):
-            # ?instanceId= pins the swap to one generation
+            # ?instanceId= pins the swap to one generation (the canary's
+            # promote and rollback hop); a quarantined id answers 409
+            # unless ?force=1
             target = (req.params.get("instanceId") or "").strip() or None
             force = (req.params.get("force") or "") in ("1", "true", "yes")
-            iid = self.reload(instance_id=target, force=force)
+            try:
+                iid = self.reload(instance_id=target, force=force)
+            except RuntimeError as e:
+                if "quarantined" in str(e):
+                    return json_response(409, {"message": str(e)})
+                raise
             return json_response(200, {"message": "Reloaded", "engineInstanceId": iid})
 
         @svc.route("POST", r"/delta")

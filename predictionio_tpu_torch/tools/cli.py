@@ -5,7 +5,8 @@ Counterpart of ``predictionio_tpu/tools/cli.py`` (parity:
 and its operators run and the same argument names and ``[INFO]``/``[ERROR]``
 lines: ``version``, ``status``, ``build``, ``app``, ``accesskey``, ``train``,
 ``eval``, ``deploy``, ``undeploy``, ``batchpredict``, ``eventserver``,
-``template``, ``loadtest`` and ``ivf``.
+``template``, ``loadtest``, ``ivf``, ``fleet``, ``canary``, ``tenants`` and
+``pipeline``.
 
     python -m predictionio_tpu_torch.tools.cli <verb> ...
 
@@ -28,10 +29,17 @@ index (``ivf.blob``); ``rebuild`` reads the instance's sealed factor store,
 re-runs the recall gate and reseals the index, which a live server adopts
 on ``POST /reload``.
 
+``deploy --fleet N`` turns this process into the router (host code: it
+opens no CUDA context) in front of N replica processes, each a re-exec of
+this CLI's ``deploy`` on the same ``--device``; ``--autoscale``,
+``--canary``, ``--tenants`` and ``--pipeline`` are the JAX package's.
+``fleet status|roll`` and ``canary status|start|promote|abort|quarantine``
+operate a running router; ``tenants check|list`` and ``pipeline
+seal|show`` check configs and inspect a live server.
+
 ``template list|get`` knows the seven templates the port serves; the
 JAX package's ``python`` template (pypio) fails with an error that names
-ROADMAP item 15, as do the fleet options of ``deploy`` (item 13); the
-other verbs of the JAX CLI are not here at all.
+ROADMAP item 15; the other verbs of the JAX CLI are not here at all.
 """
 
 from __future__ import annotations
@@ -362,13 +370,130 @@ def cmd_batchpredict(args) -> int:
     return 0
 
 
+def _child_deploy_argv(args, port: int) -> list[str]:
+    """Re-exec this CLI as a single-replica ``deploy`` child on ``port``
+    and the parent's ``--device`` (fleet mode: the parent becomes the
+    router, the children serve and launch the kernels)."""
+    argv = [
+        sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "deploy",
+        "--ip", "127.0.0.1", "--port", str(port), "--device", args.device,
+    ]
+    if getattr(args, "engine_dir", None):
+        argv += ["--engine-dir", args.engine_dir]
+    if getattr(args, "variant", None):
+        argv += ["--variant", args.variant]
+    if args.feedback:
+        argv += [
+            "--feedback",
+            "--event-server-ip", args.event_server_ip,
+            "--event-server-port", str(args.event_server_port),
+        ]
+    if args.accesskey:
+        argv += ["--accesskey", args.accesskey]
+    for p in args.plugin:
+        argv += ["--plugin", p]
+    if args.batching:
+        argv += ["--batching"]
+    return argv
+
+
+def _deploy_fleet(args) -> int:
+    """``pio deploy --fleet N``: N replica subprocesses on ports
+    port+1..port+N behind a health-checked, hedging router on ``port``,
+    supervised for crash-restart and rolling deploys.  With
+    ``--autoscale`` (or ``PIO_AUTOSCALE=1``) an autoscaler control loop
+    grows/shrinks the replica set from the router's own load signals;
+    scale-up replicas take the next sequential ports past the initial
+    range."""
+    import itertools
+    import subprocess
+
+    from predictionio_tpu_torch.serving.autoscaler import Autoscaler
+    from predictionio_tpu_torch.serving.fleet import FleetSupervisor
+    from predictionio_tpu_torch.serving.router import Router
+
+    ports = [args.port + 1 + i for i in range(args.fleet)]
+    next_ports = itertools.count(args.port + 1 + args.fleet)
+
+    def spawn(port: int) -> subprocess.Popen:
+        return subprocess.Popen(_child_deploy_argv(args, port))
+
+    router = Router([f"http://127.0.0.1:{p}" for p in ports])
+    fleet = FleetSupervisor(
+        spawn, ports, router=router,
+        port_allocator=lambda: next(next_ports),
+    )
+    router.attach_fleet(fleet)
+    # multi-tenant fleet: the router admits per tenant at the edge; the
+    # replica subprocesses inherit PIO_TENANTS and enforce the same
+    # registry behind it (auth is checked on both hops)
+    from predictionio_tpu_torch.serving.tenancy import tenants_from_env
+
+    tenants = tenants_from_env()
+    if tenants is not None:
+        router.attach_tenants(tenants)
+    autoscale = (
+        getattr(args, "autoscale", False)
+        or os.environ.get("PIO_AUTOSCALE", "0") != "0"
+    )
+    scaler = None
+    if autoscale:
+        scaler = Autoscaler(router, fleet)
+        router.attach_autoscaler(scaler)
+    canary = None
+    if (
+        getattr(args, "canary", False)
+        or os.environ.get("PIO_CANARY", "0") != "0"
+    ):
+        from predictionio_tpu_torch.serving.canary import CanaryController
+
+        variant = load_variant(args)
+        engine_id, engine_version, engine_variant = engine_identity(variant)
+        canary = CanaryController(
+            router, fleet=fleet, storage=_storage(),
+            engine_id=engine_id, engine_version=engine_version,
+            engine_variant=engine_variant,
+        )
+        router.attach_canary(canary)
+    fleet.start()
+    if scaler is not None:
+        scaler.start()
+    if canary is not None:
+        # finish whatever a killed predecessor left mid-flight (and
+        # fence it, should it still be alive somewhere)
+        resumed = canary.resume()
+        if resumed:
+            print(f"[INFO] Canary journal recovered: {resumed}.")
+    port = router.start(args.ip, args.port)
+    _install_drain_handler(router)
+    print(
+        f"[INFO] Fleet of {args.fleet} replicas (ports "
+        f"{ports[0]}-{ports[-1]}) is deploying behind the router at "
+        f"http://{args.ip}:{port}. Roll with `pio fleet roll`."
+        + (" Autoscaler is active." if scaler is not None else "")
+        + (" Canary controller is armed (`pio canary status`)."
+           if canary is not None else ""),
+        flush=True,
+    )
+    try:
+        router.service.serve_forever()
+    except KeyboardInterrupt:
+        router.shutdown()
+    return 0
+
+
 def cmd_deploy(args) -> int:
+    # --tenants / --pipeline publish through the env knobs so the fleet's
+    # replica processes inherit the same registry and pipeline
+    if args.tenants:
+        os.environ["PIO_TENANTS"] = args.tenants
+    if args.pipeline:
+        os.environ["PIO_PIPELINE"] = args.pipeline
+    if args.fleet and args.fleet > 1:
+        # the router process serves no model: it never imports torch
+        return _deploy_fleet(args)
     from predictionio_tpu_torch.serving.query_server import QueryServer
 
-    for flag, item in (("fleet", 13), ("autoscale", 13), ("canary", 13),
-                       ("tenants", 13), ("pipeline", 13)):
-        if getattr(args, flag):
-            raise _not_ported(f"deploy --{flag}", item)
     variant = load_variant(args)
     engine = resolve_engine_from_variant(variant)
     engine_id, engine_version, engine_variant = engine_identity(variant)
@@ -397,6 +522,178 @@ def cmd_deploy(args) -> int:
         qs.service.serve_forever()
     except KeyboardInterrupt:
         qs.drain()
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    """Operate a running fleet router: ``status`` prints the replica
+    table; ``roll`` triggers a zero-downtime rolling deploy and waits
+    for it to finish."""
+    import time as _time
+    import urllib.error
+    import urllib.request
+
+    base = f"http://{args.ip}:{args.port}"
+
+    def get_fleet() -> dict:
+        with urllib.request.urlopen(base + "/fleet", timeout=10) as r:
+            return json.loads(r.read().decode("utf-8"))
+
+    try:
+        if args.fleet_command == "status":
+            print(json.dumps(get_fleet(), indent=2))
+            return 0
+        # roll
+        req = urllib.request.Request(base + "/fleet/roll", method="POST")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            print(f"[INFO] {json.loads(r.read().decode())['message']}")
+        deadline = _time.monotonic() + args.timeout
+        while _time.monotonic() < deadline:
+            state = get_fleet()
+            if not state.get("rolling"):
+                print(json.dumps(state, indent=2))
+                print("[INFO] Roll complete.")
+                return 0
+            _time.sleep(0.5)
+        return _die(f"roll still in progress after {args.timeout}s")
+    except urllib.error.HTTPError as e:
+        return _die(f"router answered {e.code}: {e.read().decode()}")
+    except OSError as e:
+        return _die(f"no router at {base}: {e}")
+
+
+def cmd_canary(args) -> int:
+    """Operate a fleet router's canary controller: ``status`` prints the
+    state machine + verdict inputs; ``start`` begins a canary (newest
+    non-quarantined candidate, or ``--instance``); ``promote`` skips the
+    rest of the window; ``abort`` rolls back WITHOUT quarantining;
+    ``quarantine`` lists receipts (``--release ID`` clears one)."""
+    import urllib.error
+    import urllib.request
+
+    base = f"http://{args.ip}:{args.port}"
+
+    def call(path: str, method: str = "GET", payload: Optional[dict] = None):
+        data = json.dumps(payload).encode("utf-8") if payload else b""
+        req = urllib.request.Request(
+            base + path, method=method,
+            data=data if method == "POST" else None,
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read().decode("utf-8"))
+
+    try:
+        cmd = args.canary_command
+        if cmd == "status":
+            print(json.dumps(call("/canary"), indent=2))
+            return 0
+        if cmd == "start":
+            payload = {}
+            if getattr(args, "instance", None):
+                payload["instanceId"] = args.instance
+            if getattr(args, "force", False):
+                payload["force"] = True
+            out = call("/canary/start", "POST", payload)
+            print(json.dumps(out, indent=2))
+            print("[INFO] Canary started; watch `pio canary status`.")
+            return 0
+        if cmd == "promote":
+            print(json.dumps(call("/canary/promote", "POST"), indent=2))
+            return 0
+        if cmd == "abort":
+            print(json.dumps(call("/canary/abort", "POST"), indent=2))
+            return 0
+        # quarantine
+        if getattr(args, "release", None):
+            out = call(
+                "/canary/quarantine/release", "POST",
+                {"instanceId": args.release},
+            )
+            print(json.dumps(out, indent=2))
+            return 0 if out.get("released") else _die(
+                f"no quarantine receipt for {args.release}"
+            )
+        print(json.dumps(call("/canary/quarantine"), indent=2))
+        return 0
+    except urllib.error.HTTPError as e:
+        return _die(f"router answered {e.code}: {e.read().decode()}")
+    except OSError as e:
+        return _die(f"no router at {base}: {e}")
+
+
+def cmd_tenants(args) -> int:
+    """``pio tenants check|list``: validate a tenant registry config
+    offline (check), or print a live server's per-tenant admission /
+    variant stats (list)."""
+    from predictionio_tpu_torch.serving.tenancy import registry_from_config
+
+    if args.tenants_command == "check":
+        source = args.config or os.environ.get("PIO_TENANTS", "")
+        if not source:
+            return _die("no config: pass --config or set PIO_TENANTS")
+        try:
+            if source.strip().startswith(("{", "[")):
+                config = json.loads(source)
+            else:
+                with open(source, "r", encoding="utf-8") as f:
+                    config = json.load(f)
+            reg = registry_from_config(config)
+        except (OSError, ValueError) as e:
+            return _die(f"invalid tenant config: {e}")
+        print(json.dumps(
+            {
+                "tenants": [s.to_dict() for s in reg.specs()],
+                "engineVariants": sorted(reg.engine_variants()),
+            },
+            indent=2,
+        ))
+        print(f"[INFO] Tenant config OK ({len(reg.specs())} tenants).")
+        return 0
+    # list: live server stats
+    import urllib.request
+
+    url = f"http://{args.ip}:{args.port}/"
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            info = json.loads(r.read().decode("utf-8"))
+    except OSError as e:
+        return _die(f"no server at {url}: {e}")
+    tenancy = info.get("tenancy")
+    if tenancy is None:
+        print("[INFO] Server has no tenant registry (PIO_TENANTS unset).")
+        return 0
+    print(json.dumps(tenancy, indent=2))
+    return 0
+
+
+def cmd_pipeline(args) -> int:
+    """``pio pipeline seal|show``: publish a pipeline JSON config as a
+    sealed deployable blob, or open + verify + describe a sealed one."""
+    from predictionio_tpu_torch.core.persistence import ModelIntegrityError
+    from predictionio_tpu_torch.serving.pipeline import (
+        PipelineConfig, load_pipeline, save_pipeline,
+    )
+
+    if args.pipeline_command == "seal":
+        try:
+            with open(args.config, "r", encoding="utf-8") as f:
+                config = PipelineConfig.from_dict(json.load(f))
+        except (OSError, ValueError, KeyError) as e:
+            return _die(f"invalid pipeline config: {e}")
+        save_pipeline(config, args.out)
+        print(f"[INFO] Sealed pipeline {config.name!r} "
+              f"({config.fingerprint}) -> {args.out}. "
+              f"Deploy with PIO_PIPELINE={args.out}.")
+        return 0
+    # show
+    try:
+        config = load_pipeline(args.path)
+    except ModelIntegrityError as e:
+        return _die(f"pipeline blob failed integrity check: {e}")
+    except (OSError, ValueError) as e:
+        return _die(f"cannot load pipeline: {e}")
+    print(json.dumps(config.describe(), indent=2))
     return 0
 
 
@@ -729,12 +1026,116 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--key-path", default=None)
     sp.add_argument("--batching", action="store_true",
                     help="micro-batch concurrent queries into one kernel launch")
-    sp.add_argument("--fleet", type=int, default=0, metavar="N")
-    sp.add_argument("--autoscale", action="store_true")
-    sp.add_argument("--canary", action="store_true")
-    sp.add_argument("--tenants", default=None, metavar="PATH_OR_JSON")
-    sp.add_argument("--pipeline", default=None, metavar="PATH_OR_JSON")
+    sp.add_argument(
+        "--fleet", type=int, default=0, metavar="N",
+        help="N replica processes on ports port+1..port+N behind a "
+        "health-checked, hedging router on --port",
+    )
+    sp.add_argument(
+        "--autoscale", action="store_true",
+        help="with --fleet: grow and shrink the replica set from the "
+        "router's load signals (PIO_AUTOSCALE_*); equivalent to PIO_AUTOSCALE=1",
+    )
+    sp.add_argument(
+        "--canary", action="store_true",
+        help="with --fleet: arm the SLO-guarded canary controller "
+        "(`pio canary start`); equivalent to PIO_CANARY=1",
+    )
+    sp.add_argument(
+        "--tenants", default=None, metavar="PATH_OR_JSON",
+        help="tenant registry config (JSON file or inline); equivalent to PIO_TENANTS",
+    )
+    sp.add_argument(
+        "--pipeline", default=None, metavar="PATH_OR_JSON",
+        help="composed retrieval->ranking pipeline (a sealed blob from "
+        "`pio pipeline seal`, or inline JSON); equivalent to PIO_PIPELINE",
+    )
     sp.set_defaults(func=cmd_deploy)
+
+    sp = sub.add_parser(
+        "tenants", help="validate tenant configs / inspect live "
+        "per-tenant admission and A/B stats"
+    )
+    tenants_sub = sp.add_subparsers(dest="tenants_command", required=True)
+    x = tenants_sub.add_parser(
+        "check", help="validate a tenant registry config offline"
+    )
+    x.add_argument("--config", default=None,
+                   help="JSON file or inline JSON (default: PIO_TENANTS)")
+    x.set_defaults(func=cmd_tenants)
+    x = tenants_sub.add_parser(
+        "list", help="print a live server's per-tenant stats"
+    )
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000)
+    x.set_defaults(func=cmd_tenants)
+
+    sp = sub.add_parser(
+        "pipeline", help="seal or inspect a composed retrieval->ranking "
+        "pipeline config"
+    )
+    pipeline_sub = sp.add_subparsers(dest="pipeline_command", required=True)
+    x = pipeline_sub.add_parser(
+        "seal", help="publish pipeline JSON as a sealed deployable blob"
+    )
+    x.add_argument("--config", required=True, help="pipeline JSON file")
+    x.add_argument("--out", required=True, help="sealed blob output path")
+    x.set_defaults(func=cmd_pipeline)
+    x = pipeline_sub.add_parser(
+        "show", help="open + verify + describe a sealed pipeline blob"
+    )
+    x.add_argument("path", help="sealed pipeline blob")
+    x.set_defaults(func=cmd_pipeline)
+
+    sp = sub.add_parser(
+        "fleet", help="operate a running fleet router (status / roll)"
+    )
+    fleet_sub = sp.add_subparsers(dest="fleet_command", required=True)
+    x = fleet_sub.add_parser("status")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000)
+    x.set_defaults(func=cmd_fleet)
+    x = fleet_sub.add_parser(
+        "roll", help="zero-downtime rolling deploy to the latest "
+        "trained model generation",
+    )
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--timeout", type=float, default=600.0,
+                   help="seconds to wait for the roll to finish")
+    x.set_defaults(func=cmd_fleet)
+
+    sp = sub.add_parser(
+        "canary", help="operate a fleet router's SLO-guarded canary "
+        "rollout (status / start / promote / abort / quarantine)"
+    )
+    canary_sub = sp.add_subparsers(dest="canary_command", required=True)
+    for verb, help_text in (
+        ("status", "print the canary state machine and verdict inputs"),
+        ("start", "canary ONE replica onto a candidate generation"),
+        ("promote", "skip the rest of the verification window"),
+        ("abort", "roll the canary back WITHOUT quarantining"),
+        ("quarantine", "list quarantine receipts (--release ID clears)"),
+    ):
+        x = canary_sub.add_parser(verb, help=help_text)
+        x.add_argument("--ip", default="127.0.0.1")
+        x.add_argument("--port", type=int, default=8000)
+        if verb == "start":
+            x.add_argument(
+                "--instance", default=None,
+                help="candidate engine instance id (default: newest "
+                "non-quarantined COMPLETED generation)",
+            )
+            x.add_argument(
+                "--force", action="store_true",
+                help="canary a quarantined candidate anyway",
+            )
+        if verb == "quarantine":
+            x.add_argument(
+                "--release", default=None, metavar="INSTANCE_ID",
+                help="clear the receipt for this instance id",
+            )
+        x.set_defaults(func=cmd_canary)
 
     sp = sub.add_parser("undeploy")
     sp.add_argument("--ip", default="127.0.0.1")

@@ -364,6 +364,24 @@ def test_waiting_options_name_their_roadmap_item(tmp_path, monkeypatch, capsys, 
             port_sqlite.close_all_dbs()
         assert rc == [0] and "ROADMAP" not in capsys.readouterr().err
         return
+    if item == 13:
+        # item 13 is ported: --fleet N runs the fleet deploy, and --canary
+        # or --autoscale without a fleet deploy one server, as in the JAX
+        # CLI (here it stops at the missing engine.json, naming no item)
+        fleets = []
+        monkeypatch.setattr(port_cli, "_deploy_fleet", lambda args: fleets.append(args.fleet) or 0)
+        try:
+            rc = port_cli.main(argv)
+        finally:
+            Storage.reset_instance()
+            port_sqlite.close_all_dbs()
+        err = capsys.readouterr().err
+        assert "ROADMAP" not in err
+        if "--fleet" in argv:
+            assert rc == 0 and fleets == [2]
+        else:
+            assert rc == 1 and fleets == [] and "engine.json not found" in err
+        return
     try:
         assert port_cli.main(argv) == 1
     finally:

@@ -1170,3 +1170,103 @@ def test_cross_occurrence_topn_on_card_follows_the_llr_rule(card):
     bad = [m for j in range(500)
            for m in llr_topk_mismatches(idx[j], vals[j], ref[:, j], llr_atol(6_000))]
     assert not bad, bad[:5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("f32", "int8"))
+@pytest.mark.parametrize("retrieval", ("exact", "ivf"))
+def test_candidate_masked_rung1_launch_matches_plain_version_on_card(card, dtype, retrieval):
+    """The pipeline's ranking stage: one launch at rung 1 under a candidate
+    mask (and an exclusion) gives the plain version's answer, and
+    ``ALSScorer.recommend(prefer_card=True)`` takes that launch below
+    ``HOST_THRESHOLD``, up to ``MAX_FILTER`` candidates."""
+    from predictionio_tpu_torch.ops import ivf
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+    rng = np.random.default_rng(41)
+    U = rng.standard_normal((400, 10)).astype(np.float32)
+    V = rng.standard_normal((6000, 10)).astype(np.float32)
+    Uq, us = quantize_factors(U, dtype)
+    Vq, vs = quantize_factors(V, dtype)
+    kw = dict(max_k=100, factor_dtype=dtype, user_scale=us, item_scale=vs)
+    if retrieval == "ivf":
+        kw.update(ivf_index=ivf.build_index(V, 16, nprobe=4), retrieval="ivf")
+    on_card = BucketedScorer(DeviceContext.create(device=str(card)), Uq, Vq, **kw)
+    plain = BucketedScorer(DeviceContext.create(device="cpu"), Uq, Vq, **kw)
+    for n_cand, k in ((1, 1), (37, 10), (2000, 100), (als.ALSScorer.MAX_FILTER // 8, 100)):
+        cand = rng.choice(6000, size=min(n_cand, 6000), replace=False)
+        excl = cand[: len(cand) // 10]
+        u = int(rng.integers(0, 400))
+        before = score_kernel.launches.count
+        gi, gv = on_card.score_topk_filtered(u, k, excl, cand)
+        assert score_kernel.launches.count == before + 1
+        ri, rv = plain.score_topk_filtered(u, k, excl, cand)
+        assert not topk_mismatches(gv[None], gi[None], rv[None], ri[None], 1e-5)
+        keep = np.asarray(gv) > -1e29
+        assert set(np.asarray(gi)[keep]) <= set(cand) - set(excl)
+    model = als.als_model_from_arrays(U, V, [f"u{i}" for i in range(400)],
+                                      [f"i{i}" for i in range(6000)])
+    scorer = als.ALSScorer(DeviceContext.create(device=str(card)), model)
+    assert not scorer.on_device  # below HOST_THRESHOLD
+    scorer.enable_fastpath()
+    cand = rng.choice(6000, size=500, replace=False)
+    before = score_kernel.launches.count
+    gi, gv = scorer.recommend(3, 20, candidate_items=cand, prefer_card=True)
+    assert score_kernel.launches.count == before + 1
+    hi, hv = scorer.recommend(3, 20, candidate_items=cand)  # the host's answer
+    assert score_kernel.launches.count == before + 1
+    assert not topk_mismatches(gv[None], gi[None], hv[None], hi[None], 1e-5)
+
+
+FLEET_REPLICA_PROBE = """
+import json, sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.ops import _build, score_kernel
+from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+rng = np.random.default_rng(5)
+U = rng.standard_normal((300, 10)).astype(np.float32)
+V = rng.standard_normal((4000, 10)).astype(np.float32)
+scorer = BucketedScorer(DeviceContext.create(device="cuda"), U, V, max_k=50)
+idx, vals = scorer.score_topk(np.arange(64), 50)
+print(json.dumps({"build": _build.build_log["score_topk"][2] == "cached",
+                  "launches": score_kernel.launches.count,
+                  "idx": np.asarray(idx).tolist(), "vals": np.asarray(vals).tolist()}))
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_launch_kernel_1_from_one_build_cache(card):
+    """Two replica processes, each with its own CUDA context on one card,
+    load kernel 1 from the one build cache at the same time (neither runs
+    nvcc) and give the plain version's answer."""
+    import subprocess
+    import sys
+
+    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+    _build.build_all(("score_topk",))  # the cache the replicas find
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", FLEET_REPLICA_PROBE], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-2000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    rng = np.random.default_rng(5)
+    U = rng.standard_normal((300, 10)).astype(np.float32)
+    V = rng.standard_normal((4000, 10)).astype(np.float32)
+    ri, rv = BucketedScorer(DeviceContext.create(device="cpu"), U, V, max_k=50).score_topk(
+        np.arange(64), 50)
+    for o in outs:
+        assert o["build"] is True and o["launches"] >= 1
+        assert not topk_mismatches(np.array(o["vals"]), np.array(o["idx"]), rv, ri, 1e-5)
+    assert outs[0]["idx"] == outs[1]["idx"] and outs[0]["vals"] == outs[1]["vals"]

@@ -95,6 +95,11 @@ print(" ".join(names))
         "predictionio_tpu_torch.models.cooccurrence",
         # IVF retrieval
         "predictionio_tpu_torch.ops.ivf", "predictionio_tpu_torch.serving.sharding",
+        # the fleet: routing, supervision, autoscaling, canary, tenants, pipelines
+        "predictionio_tpu_torch.serving.router", "predictionio_tpu_torch.serving.fleet",
+        "predictionio_tpu_torch.serving.autoscaler", "predictionio_tpu_torch.serving.canary",
+        "predictionio_tpu_torch.serving.tenancy", "predictionio_tpu_torch.serving.pipeline",
+        "predictionio_tpu_torch.parallel.mesh",
         # the other model families and templates
         "predictionio_tpu_torch.models.naive_bayes", "predictionio_tpu_torch.models.random_forest",
         "predictionio_tpu_torch.models.markov_chain",
@@ -171,6 +176,55 @@ print(" ".join(names))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+PUBLIC_NAMES = """
+import sys
+sys.modules['jax'] = None
+sys.modules['predictionio_tpu'] = None
+from predictionio_tpu_torch.data import Event
+from predictionio_tpu_torch.models import train_als
+import predictionio_tpu_torch as pio
+import predictionio_tpu_torch.data as data
+import predictionio_tpu_torch.data.storage as storage
+import predictionio_tpu_torch.models as models
+import predictionio_tpu_torch.ops as ops
+import predictionio_tpu_torch.parallel as parallel
+out = {}
+for mod in (data, storage, models, ops, parallel):
+    assert all(getattr(mod, n) is not None for n in mod.__all__), mod.__name__
+    out[mod.__name__] = sorted(mod.__all__)
+out["top"] = sorted(n for n in pio._LAZY_EXPORTS if getattr(pio, n) is not None)
+assert pio.Event is Event and models.train_als is train_als
+assert pio.Storage.__module__ == "predictionio_tpu_torch.data.storage.registry"
+print(__import__("json").dumps(out))
+"""
+
+
+def test_public_names_mirror_the_jax_package():
+    """ROADMAP §1 item 18: each package ``__init__`` exports the JAX
+    package's ``__all__`` with the port's own objects, and the top level
+    its lazy names, with jax blocked; ``MeshContext`` and ``make_mesh``
+    wait for item 10 and are the only names left out."""
+    import json
+
+    import predictionio_tpu
+    import predictionio_tpu.data
+    import predictionio_tpu.data.storage
+    import predictionio_tpu.models
+    import predictionio_tpu.ops
+    import predictionio_tpu.parallel
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", PUBLIC_NAMES], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    port = json.loads(r.stdout.strip().splitlines()[-1])
+    waiting = {"MeshContext", "make_mesh"}
+    for name in ("data", "data.storage", "models", "ops", "parallel"):
+        jax_all = set(sys.modules[f"predictionio_tpu.{name}"].__all__)
+        assert set(port[f"predictionio_tpu_torch.{name}"]) == jax_all - waiting, name
+    assert set(port["top"]) == set(predictionio_tpu._LAZY_EXPORTS) - waiting
 
 
 def test_every_kernel_source_is_built():

@@ -441,12 +441,55 @@ def test_plugins_json_and_output_blocker_alike(sides):
     assert out["jax"] == out["port"] and out["port"][1:] == (200, 2, 1)
 
 
-@pytest.mark.parametrize("kw,item", [({"tenants": object()}, 13), ({"pipeline": object()}, 13)])
+TENANTS = [{"tenantId": "t1", "accessKey": "key-1"}, {"tenantId": "t2", "accessKey": "key-2"}]
+PIPELINE = {"name": "p", "stages": [
+    {"name": "retrieval", "kind": "retrieval", "budgetFraction": 0.4, "params": {"candidates": 12}},
+    {"name": "ranking", "kind": "ranking", "budgetFraction": 0.6}]}
+
+
+def _tenant_and_pipeline_answers(side, **kw):
+    """What a client sees of a tenanted or pipelined server: auth codes and
+    answers for a few users, and whether GET / reports the feature."""
+    qs, base = side.server(**kw)
+    out = [call("POST", base + "/queries.json", {"user": "u4", "num": 5})[0]]
+    key = "?accessKey=key-1" if qs._tenants is not None else ""
+    if key:
+        out.append(call("POST", base + "/queries.json?accessKey=nope", {"user": "u4"})[0])
+    answers = [call("POST", base + "/queries.json" + key, {"user": f"u{u}", "num": 5})[:2]
+               for u in (1, 4, 9)]
+    info = call("GET", base + "/")[1]
+    return out, answers, info["tenancy"] is not None, info["pipeline"] is not None
+
+
+@pytest.mark.parametrize("kw,item", [({"tenants": TENANTS}, 13), ({"pipeline": PIPELINE}, 13)])
 def test_waiting_options_name_their_item(sides, kw, item):
-    side = sides["port"]
-    side.publish()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        side.server(**kw)
+    """Tenancy and composed pipelines (item 13) are ported: given a tenant
+    registry or a pipeline config, the port's server answers as the JAX
+    server does: 401 without or with a wrong access key, the same answers
+    with one, the pipeline's answers ranked over its candidates."""
+    from predictionio_tpu.serving import pipeline as jax_pipeline
+    from predictionio_tpu.serving import tenancy as jax_tenancy
+    from predictionio_tpu_torch.serving import pipeline as port_pipeline
+    from predictionio_tpu_torch.serving import tenancy as port_tenancy
+
+    mods = {"jax": (jax_tenancy, jax_pipeline), "port": (port_tenancy, port_pipeline)}
+    out = {}
+    for name, side in sides.items():
+        side.publish()
+        tenancy, pipeline = mods[name]
+        arg = ({"tenants": tenancy.registry_from_config(kw["tenants"])} if "tenants" in kw
+               else {"pipeline": pipeline.PipelineConfig.from_dict(kw["pipeline"])})
+        out[name] = _tenant_and_pipeline_answers(side, **arg)
+    (jc, ja, jt, jp), (pc, pa, pt, pp) = out["jax"], out["port"]
+    assert jc == pc and (jt, jp) == (pt, pp) == ("tenants" in kw, "pipeline" in kw)
+    assert pc == ([401, 401] if "tenants" in kw else [200])
+    for (js, jb), (ps, pb) in zip(ja, pa):
+        assert js == ps == 200 and bool(jb.get("degraded")) == bool(pb.get("degraded")) is False
+        jv = np.array([[s["score"] for s in jb["itemScores"]]], np.float32)
+        pv = np.array([[s["score"] for s in pb["itemScores"]]], np.float32)
+        ji = np.array([[int(s["item"][1:]) for s in jb["itemScores"]]])
+        pi = np.array([[int(s["item"][1:]) for s in pb["itemScores"]]])
+        assert topk_mismatches(pv, pi, jv, ji) == []
 
 
 @pytest.mark.parametrize("env,item", [("PIO_TENANTS", 13), ("PIO_PIPELINE", 13), ("PIO_STREAMING", 8),
@@ -460,6 +503,20 @@ def test_waiting_env_knobs_name_their_item(sides, monkeypatch, env, item, tmp_pa
         monkeypatch.setenv("PIO_DELTA_DIR", str(tmp_path / "deltas"))
         qs, _ = side.server()
         assert qs._streaming is not None and qs.streaming_stats()["applied_epoch"] == 0
+        return
+    if item == 13:
+        # item 13 is ported: the knob names a config file ("1" names none,
+        # so both servers refuse to start alike) or holds the JSON inline
+        sides["jax"].publish()
+        with pytest.raises(FileNotFoundError):
+            side.server()
+        with pytest.raises(FileNotFoundError):
+            sides["jax"].server()
+        config = TENANTS if env == "PIO_TENANTS" else PIPELINE
+        monkeypatch.setenv(env, json.dumps(config))
+        out = {name: _tenant_and_pipeline_answers(s) for name, s in sides.items()}
+        assert out["jax"][0] == out["port"][0] and out["port"][2:] == (
+            env == "PIO_TENANTS", env == "PIO_PIPELINE")
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         side.server()
