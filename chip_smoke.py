@@ -195,7 +195,7 @@ code is not 0 and the last line is never printed.
              posts a ``predict`` event per answer), and ``pio loadtest`` with
              this process as the client: closed loops of 2,000 requests, Zipf
              over all 162,541 users, at concurrency 1, 16 and 64; open loops
-             ``steady:rate=R,duration=4`` at 200, 800 and 3,200 req/s over
+             ``steady:rate=R,duration=3`` at 200, 800 and 3,200 req/s over
              64 connections (the rate the client really issued printed beside
              each). Each load prints client p50/p99 and QPS, the batches by
              size and rung, the fast path's dispatches, the card's busy share
@@ -371,7 +371,7 @@ code is not 0 and the last line is never printed.
              the router process maps neither libcuda nor libtorch, and
              ``nvidia-smi --query-compute-apps`` lists the replicas and not
              the router (where it shares this machine's pid namespace);
-             ``pio loadtest`` closed loops of 2,000 Zipf queries through the
+             ``pio loadtest`` closed loops of 1,000 Zipf queries through the
              router at concurrency 1 and 16, beside 1,000 straight to one
              replica at the same concurrency (p50, p99); on every replica
              kernel 1's launches equal its dispatches, the replicas' queries
@@ -408,6 +408,36 @@ code is not 0 and the last line is never printed.
              launches equal the ranking stage's calls, and a latency rule on
              ``server:pipeline:ranking`` makes answers retrieval-only, tagged
              ``degraded``, with no launch. Each sub-phase's seconds.
+19. sharded — the sharded placement on one card, over a mesh of four
+             placements of it: the full-width model under a plan of 4 shards
+             (``build_plan(strategy="popularity")``, weights the draw's item
+             counts), flat and with two host rows (the two-tier merge), at
+             every rung × {f32, bf16, int8}: the answers equal the replicated
+             exact kernel path's bit for bit and kernel 1 launches 4 × the
+             dispatches; an exclusion mask over a third of the catalog; one
+             delta (2,000 users, 600 items) patched into the shards' blocks,
+             whose answers equal the patched replicated ones; the B = 64
+             dispatch and kernel 1's device µs a shard beside the replicated
+             kernel's. Then the CLI on 50,000 ML-1M events: ``pio train``
+             under ``PIO_SHARD_COUNT=4`` in checkpoint mode, ``pio shards
+             show``, ``pio deploy --batching`` (the default one-card mesh:
+             ``/readyz`` says ``servingBackend: replicated`` with no
+             fingerprint, and the answers equal the unsharded factors'), ``pio
+             shards rebuild --shards 2``, ``POST /reload`` (200, the same
+             answers), the rebuilt plan sharded on the mesh; an IVF checkpoint
+             (nlist 16) under the plan serves exact sharded on the mesh.
+20. ring   — sequence parallelism on one card: ``ring_flash_attention`` at
+             (B·H 8, T 4,096, D 64), causal, f32, over four placements (blocks
+             of 1,024): kernels 4, 5 and 6 launch once per live block pair (10
+             each), the forward o and lse and the backward dq, dk, dv match
+             the whole-sequence flash kernels and their plain versions; its ms
+             against the whole sequence's. ``ulysses_attention`` at the same
+             shape (H 8 over four ways, flash local attention). SASRec
+             ``seq_parallel`` at ML-1M widths (d 50, 2 blocks, 3,416 items,
+             maxLen 256, batch 128) on a {data 1, model 2} mesh of the card:
+             20 steps whose loss matches the data-parallel loss of the same
+             params and batch within rtol 1e-5, then 20 free-running steps of
+             each, timed.
 
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
@@ -3278,7 +3308,7 @@ OPS_APP = "ServingOps"
 OPS_REQUESTS = 2000  # each closed-loop load
 OPS_CONCURRENCY = (1, 16, 64)
 OPS_RATES = (200, 800, 3200)  # open-loop arrival rates, req/s
-OPS_RATE_S = 4  # seconds each open-loop rate runs (6 until the fleet phase came)
+OPS_RATE_S = 3  # seconds each open-loop rate runs (6 until the fleet phase, 4 until the sharded and ring phases came)
 OPS_CLIENTS = 64  # the open loop's workers (one keep-alive connection each)
 OPS_SLO_MS = 50.0  # the p99 limit PERF.md §2 sets for /queries.json
 OPS_SAMPLED = 300  # answers held against the plain version
@@ -6056,7 +6086,7 @@ def phase_templates_cli(seed, device):
 
 FLEET_APP = "Fleet"
 FLEET_N = 3  # replicas of `pio deploy --fleet`
-FLEET_REQUESTS = 2000  # each closed loop through the router
+FLEET_REQUESTS = 1000  # each closed loop through the router (2,000 until the sharded and ring phases came)
 FLEET_CONCURRENCY = (1, 16)
 FLEET_DIRECT_REQUESTS = 1000  # one replica's own closed loop at the same concurrency
 FLEET_SAMPLED = 200  # answers through the router held against the plain version
@@ -6757,6 +6787,472 @@ def phase_fleet(model, seed, device):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+SH_SHARDS = 4  # the plan's shards, on four placements of the one card
+SH_HOST_GROUPS = 2  # the one-process pod plan's host rows
+SH_TIMED = 50  # calls of each timed dispatch at B = 64
+SH_CLI_EVENTS = 50_000  # the quickstart's bulk events for `pio train` under the plan
+SH_CLI_USERS = 40  # users asked through the deployed server
+SH_IVF_NLIST = 16  # the IVF index published under a plan (full probe: recall 1.0)
+RING_SHAPE = (8, 4096, 64)  # B·H, T, D of ring_flash_attention
+RING_WAYS = 4  # placements of the ring: blocks of 1,024
+RING_PAIRS = RING_WAYS * (RING_WAYS + 1) // 2  # live (q, kv) block pairs, causal
+RING_O_TOL = 2e-5  # rtol = atol, forward
+RING_GRAD_RTOL, RING_GRAD_ATOL = 2e-4, 2e-5
+RING_TIMED = 10
+SP_STEPS = 20  # SASRec seq_parallel training steps, and the data-parallel run beside it
+
+
+def same_topk(a, b) -> bool:
+    """Bit-for-bit equality of two (indices, values) answers."""
+    import numpy as np
+
+    return bool(np.array_equal(a[0], b[0]) and np.asarray(a[1]).tobytes() == np.asarray(b[1]).tobytes())
+
+
+def phase_sharded(model, seed, device, item_counts):
+    """The sharded placement on one card: see the module docstring, phase 19."""
+    import contextlib
+    import io
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import score_kernel
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+    from predictionio_tpu_torch.serving import sharding
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+    from predictionio_tpu_torch.tools import cli
+
+    t_phase = time.perf_counter()
+    U, V = model.user_factors, model.item_factors
+    n_users, n_items = U.shape[0], V.shape[0]
+    one = DeviceContext.create(device=device)
+    mesh = DeviceContext.create(devices=[device] * SH_SHARDS)
+    out = {"phase": "sharded"}
+
+    def step(name, **row):
+        row["t"] = time.perf_counter() - t_phase
+        emit({"phase": "sharded", "step": name, **row})
+        return row
+
+    # 1. the plans: popularity-balanced by the draw's item counts, flat and
+    # in two host rows
+    t0 = time.perf_counter()
+    plans = {"flat": sharding.build_plan(n_items, SH_SHARDS, weights=item_counts),
+             "pod": sharding.build_plan(n_items, SH_SHARDS, weights=item_counts,
+                                        host_groups=SH_HOST_GROUPS)}
+    out["plans"] = step("plans", build_s=time.perf_counter() - t0,
+                        **{k: p.describe() for k, p in plans.items()})
+
+    # 2. every rung × dtype, flat and pod: the replicated exact kernel path's
+    # answers first, then the sharded scorers' inside the counted window
+    scorers, want, users_of = {}, {}, {}
+    rng = np.random.default_rng(seed + 91)
+    for dtype in DTYPES:
+        if dtype == "f32":
+            args, kw = (U, V), {}
+        else:
+            Uq, us = quantize_factors(U, dtype)
+            Vq, vs = quantize_factors(V, dtype)
+            args, kw = (Uq, Vq), {"factor_dtype": dtype, "user_scale": us, "item_scale": vs}
+        repl = BucketedScorer(one, *args, max_k=K, **kw)
+        for layout, plan in plans.items():
+            fp = BucketedScorer(mesh, *args, max_k=K, plan=plan, **kw)
+            require(fp.sharding == "sharded" and fp._pod == (layout == "pod"),
+                    f"{layout} {dtype}: {fp.sharding}, pod {fp._pod}")
+            scorers[(layout, dtype)] = fp
+        scorers[("replicated", dtype)] = repl
+        for b in RUNGS:
+            users_of[(dtype, b)] = rng.integers(0, n_users, b).astype(np.int32)
+            want[(dtype, b)] = repl.score_topk(users_of[(dtype, b)], K)
+    score_kernel.launches.reset()
+    dispatches = 0
+    for (layout, dtype), fp in scorers.items():
+        if layout == "replicated":
+            continue
+        for b in RUNGS:
+            got = fp.score_topk(users_of[(dtype, b)], K)
+            dispatches += 1
+            require(same_topk(got, want[(dtype, b)]),
+                    f"{layout} {dtype} B = {b}: sharded answers differ from replicated")
+    launches = score_kernel.launches.count
+    require(launches == SH_SHARDS * dispatches,
+            f"kernel 1 launched {launches} times for {dispatches} dispatches of {SH_SHARDS} shards")
+    stats = scorers[("flat", "f32")].stats()["sharding"]
+    pod_stats = scorers[("pod", "f32")].stats()["pod"]
+    require(pod_stats["dispatches"] == len(RUNGS), f"pod dispatches {pod_stats}")
+    out["rungs"] = step("rungs", dispatches=dispatches, launches=launches,
+                        result_wins=stats["result_wins"], merge_bytes=stats["merge_bytes"],
+                        resident_bytes=stats["resident_bytes"],
+                        pod_cross_host_merge_bytes=pod_stats["cross_host_merge_bytes"])
+
+    # 3. an exclusion mask spanning the shards, and one delta on the layout
+    excl = rng.choice(n_items, n_items // 3, replace=False)
+    for layout in plans:
+        got = scorers[(layout, "f32")].score_topk_filtered(7, K, excl, None)
+        require(same_topk(got, scorers[("replicated", "f32")].score_topk_filtered(7, K, excl, None)),
+                f"{layout}: a filtered call differs from replicated")
+    d_users = rng.choice(n_users, 2000, replace=False)
+    d_items = rng.choice(n_items, 600, replace=False)
+    u_rows = (rng.standard_normal((len(d_users), U.shape[1])) * 0.5).astype(np.float32)
+    i_rows = (rng.standard_normal((len(d_items), V.shape[1])) * 0.5).astype(np.float32)
+    applied = {}
+    for key in (("flat", "f32"), ("replicated", "f32"), ("flat", "int8"), ("replicated", "int8")):
+        applied[key] = scorers[key].apply_delta_rows(d_users, u_rows, d_items, i_rows)
+    for dtype in ("f32", "int8"):
+        for b in (1, 64):
+            who = np.concatenate([d_users[:b // 2 + 1], rng.integers(0, n_users, b)])[:b]
+            got = scorers[("flat", dtype)].score_topk(who.astype(np.int32), K)
+            require(same_topk(got, scorers[("replicated", dtype)].score_topk(who.astype(np.int32), K)),
+                    f"{dtype} B = {b}: the patched sharded rows differ from replicated")
+    out["delta"] = step("delta", users=len(d_users), items=len(d_items),
+                        device_ms={f"{k[0]}-{k[1]}": r["device_ms"] for k, r in applied.items()})
+
+    # 4. times at B = 64, f32: the dispatch (four launches and the merge)
+    # against the replicated exact kernel; kernel 1's device µs a shard
+    u64 = torch.from_numpy(users_of[("f32", 64)]).to(device)
+    flat, repl = scorers[("flat", "f32")], scorers[("replicated", "f32")]
+    dispatch_ms = cuda_ms(lambda: flat._score(u64, 64), SH_TIMED)
+    pod_ms = cuda_ms(lambda: scorers[("pod", "f32")]._score(u64, 64), SH_TIMED)
+    exact_ms = cuda_ms(lambda: repl._score(u64, 64), SH_TIMED)
+    users64 = users_of[("f32", 64)]
+    flat.score_topk(users64, K)
+    t0 = time.perf_counter()
+    for _ in range(SH_TIMED):
+        flat.score_topk(users64, K)
+    host_ms = (time.perf_counter() - t0) / SH_TIMED * 1e3
+    t0 = time.perf_counter()
+    for _ in range(SH_TIMED):
+        repl.score_topk(users64, K)
+    repl_host_ms = (time.perf_counter() - t0) / SH_TIMED * 1e3
+    dev = device_us(lambda: flat._score(u64, 64), 20)
+    dev_repl = device_us(lambda: repl._score(u64, 64), 20)
+    out["times"] = step(
+        "times-b64", dispatch_ms=dispatch_ms, pod_dispatch_ms=pod_ms, exact_ms=exact_ms,
+        dispatch_host_ms=host_ms, exact_host_ms=repl_host_ms,
+        kernel_us_per_shard=dev.get("score_select", 0.0) / SH_SHARDS,
+        exact_kernel_us=dev_repl.get("score_select", 0.0), device_us=dev,
+        cap_pad=flat._n_items_pad, local_k=flat._local_k)
+
+    # 5. the CLI: `pio train` under PIO_SHARD_COUNT in checkpoint mode, `pio
+    # shards show|rebuild`, `pio deploy --batching` on the one-card default
+    # mesh (replicated, no fingerprint), POST /reload; an IVF checkpoint
+    # under a plan on the four-placement mesh serves exact
+    tmp = tempfile.mkdtemp(prefix="pio-sharded-")
+    knobs = ("PIO_FS_BASEDIR", "PIO_SHARD_COUNT", "PIO_SHARD_HBM_BUDGET", "PIO_SHARD_STRATEGY",
+             "PIO_POD_HOST_GROUPS", "PIO_SERVING_SHARDING", "PIO_IVF_NLIST", "PIO_IVF_NPROBE",
+             "PIO_IVF_MIN_RECALL", "PIO_RETRIEVAL", "PIO_QUANT_DTYPE", "PIO_ALS_SOLVER",
+             "PIO_ALS_COMPUTE_DTYPE")
+    saved = {k: v for k, v in os.environ.items() if k.startswith("PIO_STORAGE_") or k in knobs}
+    for k in saved:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    Storage.reset_instance()
+    store.set_storage(None)
+    servers = []
+
+    def pio(*argv):
+        o, e = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+            rc = cli.main(list(argv))
+        require(rc == 0, f"pio {' '.join(argv)} exited {rc}: {e.getvalue()[-500:]}")
+        return o.getvalue()
+
+    try:
+        pio("app", "new", "ShardApp")
+        storage = Storage.instance()
+        app_id = storage.get_meta_data_apps().get_by_name("ShardApp").id
+        inter, _ = ml1m_interactions(seed)
+        pick = np.sort(np.random.default_rng(seed + 93).choice(len(inter.user), SH_CLI_EVENTS,
+                                                               replace=False))
+        stars = np.random.default_rng(seed + 94).integers(1, 6, SH_CLI_EVENTS)
+        storage.get_l_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=f"u{inter.user[k]}",
+                  target_entity_type="item", target_entity_id=f"si{inter.item[k]}",
+                  properties={"rating": int(stars[j])}, event_time=float(inter.t[k]),
+                  creation_time=float(inter.t[k]))
+            for j, k in enumerate(pick)], app_id)
+        del inter
+        eng = os.path.join(tmp, "engine")
+        pio("template", "get", "recommendation", "--directory", eng)
+        fill_engine_json(os.path.join(eng, "engine.json"), "ShardApp", [
+            {"name": "als", "params": {"rank": RANK, "numIterations": 10,
+                                       "persistMode": "checkpoint"}}])
+        pio("build", "--engine-dir", eng)
+        os.environ["PIO_SHARD_COUNT"] = str(SH_SHARDS)
+        t0 = time.perf_counter()
+        trained = pio("train", "--engine-dir", eng, "--device", device.type)
+        train_s = time.perf_counter() - t0
+        del os.environ["PIO_SHARD_COUNT"]
+        iid = trained.split("Engine instance ID: ")[1].split()[0]
+        shown = json.loads(pio("shards", "show", "--instance", iid))
+        require(shown[0]["n_shards"] == SH_SHARDS and shown[0]["strategy"] == "popularity",
+                f"pio shards show: {shown}")
+        fp_trained = shown[0]["fingerprint"]
+        loaded = als.CheckpointedALSModel.load(iid, None, one)
+        require(loaded.sharding_plan.fingerprint == fp_trained, "the loaded plan is the sealed one")
+
+        qs = CliServer(tmp, "deploy", "deploy", "--engine-dir", eng, "--batching",
+                       "--device", device.type)
+        servers.append(qs)
+        ready_s = qs.wait_ready()
+        _, ready = http_json(f"{qs.base}/readyz")
+        require(ready.get("servingBackend") == "replicated" and "shardingFingerprint" not in ready,
+                f"a one-card deploy of a plan: {ready}")
+        names = [loaded.user_map.inverse[j] for j in range(0, len(loaded.user_map),
+                                                           len(loaded.user_map) // SH_CLI_USERS)]
+
+        def answers():
+            got = []
+            for u in names[:SH_CLI_USERS]:
+                status, a = http_json(f"{qs.base}/queries.json", {"user": u, "num": 20})
+                require(status == 200, f"query {u}: {status} {a}")
+                got.append([(x["item"], x["score"]) for x in a["itemScores"]])
+            return got
+
+        served = answers()
+        # an unsharded deploy's answers: the same factors with no plan
+        loaded.sharding_plan = None
+        unsharded = als.ALSScorer(one, loaded).enable_fastpath()
+        inv = loaded.item_map.inverse
+        for u, got in zip(names, served):
+            idx, vals = unsharded.score_topk(np.array([loaded.user_map[u]], np.int32), 20)
+            ref = [(inv[int(i)], float(v)) for i, v in zip(idx[0], vals[0])]
+            require(got == ref, f"{u}: deployed {got[:3]} vs unsharded {ref[:3]}")
+        rebuilt = pio("shards", "rebuild", "--instance", iid, "--shards", "2")
+        require("POST /reload" in rebuilt, rebuilt)
+        shown2 = json.loads(pio("shards", "show", "--instance", iid))
+        require(shown2[0]["n_shards"] == 2 and shown2[0]["fingerprint"] != fp_trained,
+                f"after the rebuild: {shown2}")
+        status, body = http_json(f"{qs.base}/reload", {}, method="POST")
+        require(status == 200 and body.get("engineInstanceId") == iid, f"reload {status} {body}")
+        _, ready2 = http_json(f"{qs.base}/readyz")
+        require(ready2.get("servingBackend") == "replicated" and "shardingFingerprint" not in ready2,
+                f"after the reload: {ready2}")
+        require(answers() == served, "answers changed across the reload")
+        status, _ = http_json(f"{qs.base}/stop", {}, method="POST")
+        qs.wait_exit()
+        # the same instance on the four placements: sharded under the rebuilt plan
+        on_mesh = als.CheckpointedALSModel.load(iid, None, mesh)
+        fp_mesh = als.ALSScorer(mesh, on_mesh).enable_fastpath()
+        require(fp_mesh.sharding == "sharded"
+                and fp_mesh.stats()["sharding"]["plan"]["fingerprint"] == shown2[0]["fingerprint"],
+                "the rebuilt plan serves sharded on the mesh")
+        users_cli = np.array([loaded.user_map[u] for u in names[:SH_CLI_USERS]], np.int32)
+        require(same_topk(fp_mesh.score_topk(users_cli, 20), unsharded.score_topk(users_cli, 20)),
+                "the CLI instance sharded on the mesh differs from replicated")
+        out["cli"] = step("cli", train_s=train_s, events=SH_CLI_EVENTS, ready_s=ready_s,
+                          fingerprint_trained=fp_trained,
+                          fingerprint_rebuilt=shown2[0]["fingerprint"],
+                          ready=ready, ready_after_reload=ready2, answers_checked=len(served))
+
+        # 6. an IVF checkpoint under a plan: the mesh serves it exact sharded
+        os.environ.update(PIO_IVF_NLIST=str(SH_IVF_NLIST), PIO_IVF_NPROBE=str(SH_IVF_NLIST))
+        ck = als.CheckpointedALSModel(U, V, model.user_map, model.item_map, model.config,
+                                      sharding_plan=plans["flat"])
+        t0 = time.perf_counter()
+        ck.save("sharded-ivf", None)
+        publish_s = time.perf_counter() - t0
+        for k in ("PIO_IVF_NLIST", "PIO_IVF_NPROBE"):
+            del os.environ[k]
+        with open(os.path.join(als.CheckpointedALSModel._dir("sharded-ivf"), "maps.pkl"), "rb") as f:
+            meta = pickle.load(f)
+        back = als.CheckpointedALSModel.load("sharded-ivf", None, mesh)
+        require(back.ivf_index is not None and back.sharding_plan is not None,
+                f"IVF and plan sealed: {meta['ivf']} {meta['sharding']}")
+        fp_ivf = als.ALSScorer(mesh, back).enable_fastpath()
+        require((fp_ivf.sharding, fp_ivf.retrieval) == ("sharded", "exact"),
+                f"an IVF index under a plan: {fp_ivf.sharding}, {fp_ivf.retrieval}")
+        fp_one = als.ALSScorer(one, als.CheckpointedALSModel.load("sharded-ivf", None, one))
+        fp_one = fp_one.enable_fastpath()
+        require((fp_one.sharding, fp_one.retrieval) == ("replicated", "ivf"), "one card: IVF")
+        for b in (1, 64):
+            require(same_topk(fp_ivf.score_topk(users_of[("f32", b)], K), want[("f32", b)]),
+                    f"IVF under a plan, B = {b}: not the exact answers")
+        out["ivf"] = step("ivf-under-plan", nlist=SH_IVF_NLIST, publish_s=publish_s,
+                          record=meta["ivf"], one_card=fp_one.retrieval)
+    finally:
+        for s in servers:
+            s.kill()
+        Storage.reset_instance()
+        store.set_storage(None)
+        sqlite.close_all_dbs()
+        for k in [k for k in os.environ if k.startswith("PIO_STORAGE_") or k in knobs]:
+            del os.environ[k]
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["dispatches"] = dispatches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "sharded", "seconds": out["seconds"], "launches": launches,
+          "dispatches": dispatches, "ok": True})
+    return out
+
+
+def phase_ring(seed, device):
+    """Sequence parallelism on one card: see the module docstring, phase 20."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import sequential as seq
+    from predictionio_tpu_torch.ops import flash_attention as fa
+    from predictionio_tpu_torch.parallel import ring, ulysses
+
+    t_phase = time.perf_counter()
+    out = {"phase": "ring"}
+    mesh = DeviceContext.create(devices=[device] * RING_WAYS)
+
+    def step(name, **row):
+        row["t"] = time.perf_counter() - t_phase
+        emit({"phase": "ring", "step": name, **row})
+        return row
+
+    def gap(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 101)
+    q, k, v, w = (torch.randn(*RING_SHAPE, generator=g).to(device) for _ in range(4))
+    scale = 1.0 / RING_SHAPE[-1] ** 0.5
+
+    # 1. the main path: one forward and backward of ring_flash_attention,
+    # counts set to 0 just before and read just after
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    reset_flash_counts()
+    o_ring = ring.ring_flash_attention(mesh, qs, ks, vs, causal=True)
+    (o_ring * w).sum().backward()
+    torch.cuda.synchronize(device)
+    launches = flash_counts()
+    require(launches == {"fwd": RING_PAIRS, "bwd_dq": RING_PAIRS, "bwd_dkv": RING_PAIRS},
+            f"ring launches {launches}, want {RING_PAIRS} each")
+    # o and lse of the blocks against the whole sequence
+    devs = ring.axis_devices(mesh, "data")
+    blocks = [ring._blocks(x, devs) for x in (q, k, v)]
+    with torch.no_grad():
+        o_b, lse_b = ring._ring_flash_fwd_impl(*blocks, True, scale, devs)
+        o_whole, lse_whole = fa.flash_block_fwd(q, k, v, True, scale)
+        o_plain, lse_plain = fa.flash_attention_reference(q, k, v, True, scale)
+    o_cat, lse_cat = torch.cat(o_b, -2), torch.cat(lse_b, -1)
+    for name, got, ref in (("o vs kernel", o_cat, o_whole), ("o vs plain", o_cat, o_plain),
+                           ("lse vs kernel", lse_cat, lse_whole), ("lse vs plain", lse_cat, lse_plain)):
+        torch.testing.assert_close(got, ref, rtol=RING_O_TOL, atol=RING_O_TOL, msg=name)
+    torch.testing.assert_close(o_ring.detach(), o_whole, rtol=RING_O_TOL, atol=RING_O_TOL)
+    qw, kw_, vw = (x.clone().requires_grad_(True) for x in (q, k, v))
+    (fa.flash_attention(qw, kw_, vw, causal=True) * w).sum().backward()
+    do = w.contiguous()
+    with torch.no_grad():
+        plain_grads = fa.flash_attention_bwd_reference(q, k, v, o_plain, lse_plain, do, True, scale)
+    errs = {}
+    for name, got, ref_k, ref_p in zip(("dq", "dk", "dv"), (qs.grad, ks.grad, vs.grad),
+                                       (qw.grad, kw_.grad, vw.grad), plain_grads):
+        torch.testing.assert_close(got, ref_k, rtol=RING_GRAD_RTOL, atol=RING_GRAD_ATOL, msg=name)
+        torch.testing.assert_close(got, ref_p, rtol=RING_GRAD_RTOL, atol=RING_GRAD_ATOL, msg=name)
+        errs[name] = {"vs_kernel": gap(got, ref_k), "vs_plain": gap(got, ref_p)}
+    errs["o"] = {"vs_kernel": gap(o_cat, o_whole), "vs_plain": gap(o_cat, o_plain)}
+    errs["lse"] = {"vs_kernel": gap(lse_cat, lse_whole), "vs_plain": gap(lse_cat, lse_plain)}
+
+    # times: the ring's forward, and forward + backward, against the whole
+    # sequence's kernels
+    def ring_fb():
+        a, b, c = (x.detach().requires_grad_(True) for x in (q, k, v))
+        (ring.ring_flash_attention(mesh, a, b, c, causal=True) * w).sum().backward()
+
+    def whole_fb():
+        a, b, c = (x.detach().requires_grad_(True) for x in (q, k, v))
+        (fa.flash_attention(a, b, c, causal=True) * w).sum().backward()
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: ring.ring_flash_attention(mesh, q, k, v, causal=True), RING_TIMED)
+        whole_fwd_ms = cuda_ms(lambda: fa.flash_block_fwd(q, k, v, True, scale), RING_TIMED)
+    fb_ms = cuda_ms(ring_fb, RING_TIMED)
+    whole_fb_ms = cuda_ms(whole_fb, RING_TIMED)
+    dev = device_us(ring_fb, 5)
+    out["ring"] = step("ring-flash", shape=list(RING_SHAPE), ways=RING_WAYS, launches=launches,
+                       errors=errs, fwd_ms=fwd_ms, whole_fwd_ms=whole_fwd_ms, fwd_bwd_ms=fb_ms,
+                       whole_fwd_bwd_ms=whole_fb_ms, device_us=dev)
+
+    # 2. Ulysses: H 8 over 4 placements, the flash local attention
+    qh, kh, vh, wh = (x.reshape(RING_SHAPE) for x in (q, k, v, w))  # (H, T, D)
+    a, b, c = (x.clone().requires_grad_(True) for x in (qh, kh, vh))
+    before = flash_counts()
+    o_u = ulysses.ulysses_attention(mesh, a, b, c, causal=True, use_flash=True)
+    (o_u * wh).sum().backward()
+    torch.cuda.synchronize(device)
+    after = flash_counts()
+    u_launches = {key: after[key] - before[key] for key in after}
+    require(u_launches == {"fwd": RING_WAYS, "bwd_dq": RING_WAYS, "bwd_dkv": RING_WAYS},
+            f"ulysses launches {u_launches}")
+    torch.testing.assert_close(o_u.detach(), o_whole, rtol=RING_O_TOL, atol=RING_O_TOL)
+    torch.testing.assert_close(o_u.detach(), o_plain, rtol=RING_O_TOL, atol=RING_O_TOL)
+    for got, ref_k, ref_p in zip((a.grad, b.grad, c.grad), (qw.grad, kw_.grad, vw.grad), plain_grads):
+        torch.testing.assert_close(got, ref_k, rtol=RING_GRAD_RTOL, atol=RING_GRAD_ATOL)
+        torch.testing.assert_close(got, ref_p, rtol=RING_GRAD_RTOL, atol=RING_GRAD_ATOL)
+    with torch.no_grad():
+        u_ms = cuda_ms(lambda: ulysses.ulysses_attention(mesh, qh, kh, vh, causal=True,
+                                                         use_flash=True), RING_TIMED)
+    out["ulysses"] = step("ulysses", launches=u_launches, fwd_ms=u_ms,
+                          o_vs_kernel=gap(o_u.detach(), o_whole))
+
+    # 3. SASRec seq_parallel training at ML-1M widths on {data 1, model 2}
+    # of the card: SP_STEPS steps from the params data-parallel training
+    # starts from, each step's loss held against the data-parallel loss of
+    # the same params and batch; then both free-running, timed
+    inter, _ = ml1m_interactions(seed)
+    cfg = seq.SASRecConfig(d_model=SAS_D, n_layers=SAS_LAYERS, n_heads=SAS_HEADS,
+                           max_len=SAS_MAX_LEN, epochs=SP_STEPS, batch_size=SAS_BATCH, lr=SAS_LR,
+                           seed=seed)
+    sp_cfg = seq.SASRecConfig(**{**cfg.__dict__, "seq_parallel": True})
+    sp_mesh = DeviceContext.create(axes={"data": 1, "model": 2}, devices=[device] * 2)
+    start = seq.init_params(seed, cfg, inter.n_items)
+    seqs = seq.training_sequences(inter, cfg)
+    rows = torch.from_numpy(seqs.astype(np.int64)).to(device)
+    net = seq.SASRecNet(start, cfg, device, trainable=True)
+    opt = seq.adam(net, cfg)
+    sp_loss = seq._build_sp_loss(sp_mesh, 2, cfg)
+    rng = np.random.default_rng(cfg.seed)
+    batch = min(cfg.batch_size, len(seqs))
+    step_gaps = []
+    for _ in range(SP_STEPS):
+        s = rows[torch.from_numpy(rng.integers(0, len(seqs), batch)).to(device)]
+        with torch.no_grad():
+            dp = float(seq._loss_fn(net.tree(), s, cfg))
+        sp = float(seq.train_step(net, opt, s, cfg, sp_loss))
+        step_gaps.append(abs(sp - dp) / abs(dp))
+    require(max(step_gaps) <= 1e-5, f"SP loss vs DP loss step by step: {max(step_gaps)}")
+    runs = {}
+    for name, c, ctx in (("sp", sp_cfg, sp_mesh), ("dp", cfg, DeviceContext.create(device=device))):
+        reset_flash_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        m = seq.train_sasrec(ctx, inter, c, init_params=start)
+        torch.cuda.synchronize(device)
+        runs[name] = {"s_per_step": (time.perf_counter() - t0) / SP_STEPS, "losses": m.losses,
+                      "flash_launches": flash_counts()}
+    free = float(np.max(np.abs(runs["sp"]["losses"] - runs["dp"]["losses"])
+                        / np.abs(runs["dp"]["losses"])))
+    require(np.isfinite(runs["sp"]["losses"]).all() and runs["sp"]["losses"][-1] < runs["sp"]["losses"][0],
+            f"SP training did not learn: {runs['sp']['losses']}")
+    out["sasrec_sp"] = step(
+        "sasrec-sp", steps=SP_STEPS, step_by_step_max_rel=max(step_gaps), free_run_max_rel=free,
+        sp_s_per_step=runs["sp"]["s_per_step"], dp_s_per_step=runs["dp"]["s_per_step"],
+        sp_losses=[float(x) for x in runs["sp"]["losses"]],
+        dp_flash_launches=runs["dp"]["flash_launches"],
+        sp_flash_launches=runs["sp"]["flash_launches"])
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "ring", "seconds": out["seconds"], "launches": launches, "ok": True})
+    return out
+
+
 AB_FWD = ((1, 256, 256, 50), (128, 256, 256, 50))
 
 
@@ -6919,7 +7415,11 @@ def main(argv=None) -> int:
         ab(args.ab, args.seed)
         return 0
     from predictionio_tpu_torch.ops import _build, score_kernel
+    from predictionio_tpu_torch.testing import warm_cpu_math
 
+    # the CPU-side references (the parity phases' CPU trainings, plain
+    # versions run on the host) start after the first exp/log of the process
+    warm_cpu_math()
     device = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6961,6 +7461,10 @@ def main(argv=None) -> int:
     pub = phase_publish_eval(model, args.seed, device, rows, ops)
     stream = phase_streaming(model, args.seed, device)
     ivf_out = phase_ivf(model, args.seed, device)
+    import numpy as np
+
+    sharded = phase_sharded(model, args.seed, device, np.bincount(inter.item, minlength=N_ITEMS))
+    ring_out = phase_ring(args.seed, device)
     t0 = time.perf_counter()
     tpl_ur = phase_ur_ml25m(args.seed, device, inter)
     del inter
@@ -7093,6 +7597,13 @@ def main(argv=None) -> int:
         f"c{row['concurrency']}": sum(r["launches"] for r in row["per_replica"].values())
         for row in fleet["route"]}
     kernels["kernels"][0]["fleet_launches"]["pipeline_ranking"] = fleet["pipeline"]["kernel1_launches"]
+    # the sharded placement on four placements of the card: kernel 1 once a
+    # shard a dispatch (asserted), the B = 64 dispatch beside the exact kernel
+    kernels["kernels"][0]["sharded_launches"] = {
+        "launches": sharded["launches"], "dispatches": sharded["dispatches"], "shards": SH_SHARDS}
+    kernels["kernels"][0]["sharded_b64"] = {
+        key: sharded["times"][key] for key in ("dispatch_ms", "pod_dispatch_ms", "exact_ms",
+                                               "kernel_us_per_shard", "exact_kernel_us")}
     kernels["kernels"][0]["by_dtype_b64"] = {
         r["dtype"]: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in rows if r.get("case", "ml25m") == "ml25m" and r["batch"] == RUNGS[-1]}
@@ -7124,6 +7635,9 @@ def main(argv=None) -> int:
         "resume": pub["resume_als"]["launches_resumed"], "eval": pub["eval"]["kernel2_launches"]}
     for k, part in zip(kernels["kernels"][2:5], ("fwd", "bwd_dq", "bwd_dkv")):
         k["publish_eval_launches"] = {"resume": pub["resume_sasrec"]["launches"][part]}
+        # one forward and backward of ring_flash_attention over four blocks
+        # (n(n+1)/2 live pairs, asserted)
+        k["ring_launches"] = ring_out["launches"][part]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -7136,8 +7650,8 @@ def main(argv=None) -> int:
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
                    "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
                    "serving_ops": ops, "publish_eval": pub, "streaming": stream, "ivf": ivf_out,
-                   "templates": templates, "fleet": fleet,
-                   **kernels}, f, indent=1)
+                   "templates": templates, "fleet": fleet, "sharded": sharded,
+                   "ring": ring_out, **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)
     emit(kernels)

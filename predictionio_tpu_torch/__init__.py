@@ -12,7 +12,8 @@ launches the hand-written kernel under ``csrc/``; a tensor on the CPU takes
 the kernel's plain PyTorch version instead.
 
 The top-level names load lazily, as in the JAX package (nothing heavy is
-imported with the package); ``MeshContext`` waits for ROADMAP §1 item 10.
+imported with the package). ``MeshContext`` is the mesh of one process
+(``parallel/mesh.py``).
 """
 
 __version__ = "0.1.0"
@@ -29,6 +30,7 @@ _LAZY_EXPORTS = {
     "Engine": "predictionio_tpu_torch.core",
     "EngineFactory": "predictionio_tpu_torch.core",
     "EngineParams": "predictionio_tpu_torch.core",
+    "MeshContext": "predictionio_tpu_torch.parallel",
 }
 
 

@@ -23,8 +23,13 @@ Counterpart of ``predictionio_tpu/models/als.py`` on one card:
   carries factors and id lists across from anywhere else;
 * :class:`CheckpointedALSModel` (``:1379-1748``): checkpoint-mode
   persistence, the factors in a sealed numpy store, the quantized serving
-  variant behind its publish gate (``PIO_QUANT_DTYPE``) and the IVF index
-  behind its recall gate (``PIO_IVF_NLIST``, ``PIO_IVF_MIN_RECALL``);
+  variant behind its publish gate (``PIO_QUANT_DTYPE``), the sharding plan
+  (``plan.blob``, fingerprint-checked at load) and the IVF index behind its
+  recall gate (``PIO_IVF_NLIST``, ``PIO_IVF_MIN_RECALL``);
+* the sharding declaration (``:1321-1347``): :func:`train_als` attaches a
+  :class:`~predictionio_tpu_torch.serving.sharding.ShardingPlan` when
+  ``PIO_SHARD_COUNT`` or ``PIO_SHARD_HBM_BUDGET`` is set, which the fast
+  path serves sharded on a mesh with the plan's placements;
 * the IVF declaration (``:1351-1377``): :func:`train_als` attaches a
   k-means coarse partition (``ops/ivf.py``) when ``PIO_IVF_NLIST`` is set,
   which an auto-mode model pickles with it and ``pio deploy --batching``
@@ -69,6 +74,7 @@ from predictionio_tpu_torch.ops import score_kernel as _score_kernel
 from predictionio_tpu_torch.ops import train_kernel as _train_kernel
 from predictionio_tpu_torch.ops._build import KernelError
 from predictionio_tpu_torch.ops.topk import NEG_INF
+from predictionio_tpu_torch.serving import sharding as _sharding
 
 logger = logging.getLogger(__name__)
 
@@ -141,20 +147,17 @@ class ALSModel:
     user_scale: Optional[np.ndarray] = None
     item_factors_q: Optional[np.ndarray] = None
     item_scale: Optional[np.ndarray] = None
+    # publish-time ShardingPlan (serving/sharding.py), declared when the
+    # PIO_SHARD_* knobs ask for item-factor partitioning; None serves
+    # replicated. Travels inside the sealed MODELDATA pickle (auto mode) or
+    # as its own sealed plan.blob (checkpoint mode).
+    sharding_plan: Optional[object] = None
     # publish-time IVF coarse-retrieval index (ops/ivf.py), declared when
     # PIO_IVF_NLIST asks for an approximate scan; None serves exact.
     # Recall-gated at publish and sealed as ivf.blob (checkpoint mode).
     ivf_index: Optional[object] = None
 
     def __setstate__(self, state):
-        # a JAX-package model also holds sharding_plan, None unless sharded
-        # serving (not ported) declared it
-        if state.get("sharding_plan") is not None:
-            raise _persistence.ForeignClassError(
-                "predictionio_tpu.serving.sharding.ShardingPlan: the model declares a "
-                "sharding plan, and sharded serving is not ported to "
-                "predictionio_tpu_torch yet (ROADMAP §1 item 10)"
-            )
         _persistence.reconcile_state(self, state)
 
     def predict_rating(self, user_idx: int, item_idx: int) -> float:
@@ -570,13 +573,39 @@ def train_als(
     U_host, V_host = U.cpu().numpy(), V.cpu().numpy()
     if u_perm is not None:
         U_host, V_host = U_host[u_perm], V_host[i_perm]
-    return _declare_ivf_partition(ALSModel(
+    return _declare_ivf_partition(_declare_sharding_plan(ALSModel(
         user_factors=U_host,
         item_factors=V_host,
         user_map=interactions.user_map,
         item_map=interactions.item_map,
         config=cfg,
-    ))
+    )))
+
+
+def _declare_sharding_plan(model: ALSModel) -> ALSModel:
+    """Publish-time sharding declaration (``PIO_SHARD_*``; no-op unset).
+
+    The popularity strategy's weights are the item-factor L2 norms, the
+    train-time proxy for expected traffic; ``pio shards rebuild`` can
+    rebalance later. A failed declaration publishes unsharded with a
+    warning.
+    """
+    try:
+        plan = _sharding.plan_from_env(
+            model.item_factors.shape[0],
+            weights=np.linalg.norm(model.item_factors, axis=1),
+            bytes_per_item=float(model.item_factors.shape[1]) * 4.0,
+        )
+    except ValueError as e:
+        logger.warning("sharding plan declaration failed (%s); publishing unsharded", e)
+        return model
+    if plan is not None:
+        model.sharding_plan = plan
+        logger.info(
+            "declared sharding plan %s: %d shards (%s)",
+            plan.fingerprint, plan.n_shards, plan.strategy,
+        )
+    return model
 
 
 def _declare_ivf_partition(model: ALSModel) -> ALSModel:
@@ -676,6 +705,7 @@ class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
     FACTORS = "factors.blob"
     MAPS = "maps.pkl"
     QUANT = "quant.blob"
+    PLAN = "plan.blob"
     IVF = "ivf.blob"
 
     @staticmethod
@@ -689,7 +719,6 @@ class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
 
         from predictionio_tpu_torch.core.checkpoint import save_state
 
-        _refuse_unported_publish_knobs()
         d = self._dir(instance_id)
         os.makedirs(d, exist_ok=True)
         save_state(
@@ -697,17 +726,39 @@ class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
             {"user_factors": self.user_factors, "item_factors": self.item_factors},
         )
         quant_meta = self._publish_quantized(d)
+        shard_meta = self._publish_plan(d)
         ivf_meta = self._publish_ivf(d)
         with open(os.path.join(d, self.MAPS), "wb") as f:
-            # the plan record as the JAX package writes it with its knobs
-            # unset: replicated
             pickle.dump(
                 {"user_map": self.user_map, "item_map": self.item_map,
                  "config": self.config, "quant": quant_meta,
-                 "sharding": {"n_shards": 0}, "ivf": ivf_meta},
+                 "sharding": shard_meta, "ivf": ivf_meta},
                 f,
             )
         return True  # manifest mode: MODELDATA stores only the class path
+
+    def _publish_plan(self, d: str) -> dict:
+        """Seal the declared ShardingPlan beside the factors (``plan.blob``).
+
+        The manifest record carries the plan's fingerprint, so a deploy can
+        check that the blob it opens is the partition this generation was
+        published with; ``pio shards rebuild`` reseals both. No plan records
+        ``n_shards: 0`` and serving stays replicated.
+        """
+        plan = getattr(self, "sharding_plan", None)
+        if plan is None:
+            return {"n_shards": 0}
+        _sharding.save_plan(os.path.join(d, self.PLAN), plan)
+        logger.info(
+            "sharding plan sealed: %d shards / %d host groups (%s), fingerprint %s",
+            plan.n_shards, plan.host_groups, plan.strategy, plan.fingerprint,
+        )
+        return {
+            "n_shards": plan.n_shards,
+            "strategy": plan.strategy,
+            "fingerprint": plan.fingerprint,
+            "host_groups": plan.host_groups,
+        }
 
     def _publish_ivf(self, d: str) -> dict:
         """Recall-gate and seal the IVF index at publish (``ivf.blob``).
@@ -814,8 +865,40 @@ class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
             config=meta["config"],
         )
         cls._load_quantized(model, d, meta.get("quant") or {})
+        cls._load_plan(model, d, meta.get("sharding") or {})
         cls._load_ivf(model, d, meta.get("ivf") or {})
         return model
+
+    @classmethod
+    def _load_plan(cls, model: "CheckpointedALSModel", d: str, rec: dict) -> None:
+        """Attach the published ShardingPlan, degrading on any damage.
+
+        A torn or missing ``plan.blob``, a checksum mismatch or a
+        fingerprint that disagrees with the manifest logs a warning and
+        leaves ``sharding_plan`` unset: the server cold-starts replicated,
+        and the deploy never fails on the plan.
+        """
+        import pickle
+
+        if not rec or not rec.get("n_shards"):
+            return
+        try:
+            plan = _sharding.load_plan(os.path.join(d, cls.PLAN))
+            want = rec.get("fingerprint")
+            if want and plan.fingerprint != want:
+                raise _persistence.ModelIntegrityError(
+                    f"plan fingerprint {plan.fingerprint} != manifest {want}"
+                )
+            model.sharding_plan = plan
+            logger.info(
+                "loaded sharding plan %s: %d shards (%s)",
+                plan.fingerprint, plan.n_shards, plan.strategy,
+            )
+        except (
+            _persistence.ModelIntegrityError, OSError, KeyError,
+            pickle.UnpicklingError, EOFError, ValueError,
+        ) as e:
+            logger.warning("sharding plan unavailable (%s); serving replicated", e)
 
     @classmethod
     def _load_ivf(cls, model: "CheckpointedALSModel", d: str, rec: dict) -> None:
@@ -903,17 +986,6 @@ class CheckpointedALSModel(ALSModel, _persistence.PersistentModel):
             logger.warning("quantized factors unavailable (%s); serving fp32", e)
 
 
-def _refuse_unported_publish_knobs() -> None:
-    """A publish that asks for sharded serving raises: the plan's gate comes
-    with that slice."""
-    set_ = [k for k in ("PIO_SHARD_COUNT", "PIO_SHARD_HBM_BUDGET") if os.environ.get(k, "").strip()]
-    if set_:
-        raise NotImplementedError(
-            f"{', '.join(set_)} asks the publish for a sharding plan, which is not "
-            "ported to predictionio_tpu_torch yet (ROADMAP §1 item 10)"
-        )
-
-
 class ALSScorer:
     """Serving-side top-N ranking with factors resident on the card.
 
@@ -973,8 +1045,10 @@ class ALSScorer:
         from predictionio_tpu_torch.serving.fastpath import BucketedScorer
 
         m = self.model
-        # a published IVF index selects the pruned retrieval path per
-        # PIO_RETRIEVAL
+        # a publish-time ShardingPlan selects the sharded placement per
+        # PIO_SERVING_SHARDING, a published IVF index the pruned retrieval
+        # path per PIO_RETRIEVAL
+        plan = getattr(m, "sharding_plan", None)
         ivf_index = getattr(m, "ivf_index", None)
         if m.factor_dtype != "f32" and m.user_factors_q is not None:
             # published quantized variant: narrow factors on the card,
@@ -983,11 +1057,11 @@ class ALSScorer:
                 self.ctx, m.user_factors_q, m.item_factors_q, max_k=max_k,
                 factor_dtype=m.factor_dtype,
                 user_scale=m.user_scale, item_scale=m.item_scale,
-                warm_buckets=warm_buckets, ivf_index=ivf_index,
+                warm_buckets=warm_buckets, plan=plan, ivf_index=ivf_index,
             )
         return BucketedScorer(
             self.ctx, m.user_factors, m.item_factors, max_k=max_k,
-            warm_buckets=warm_buckets, ivf_index=ivf_index,
+            warm_buckets=warm_buckets, plan=plan, ivf_index=ivf_index,
         )
 
     def _batch_fastpath(self, k: int):

@@ -30,9 +30,17 @@ sequence (causal cross-entropy).
 * :func:`sasrec_params_from_jax` carries a JAX param tree across;
   :func:`init_params` draws params on numpy with the JAX scales.
 
+* ``seq_parallel`` (:func:`_build_sp_loss`) trains with the batch split
+  over the mesh's ``data`` axis and time over its ``model`` axis: the
+  one-token shift is done on the whole sequence first, each block takes its
+  slice of ``pos``, and each layer's attention is the dense ring
+  (``parallel/ring._ring_attention_block``) over the ``model`` placements,
+  as in the JAX package; the loss is the ``psum`` of the blocks' masked
+  sums. A mesh of repeated placements (``["cpu"] * 2``, ``[cuda:0] * 2``)
+  runs it on one device.
+
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP item
-that brings them: ``seq_parallel`` and sharded (multi-host) interactions
-(item 10).
+that brings it: training from sharded multi-host interactions (item 10).
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ from predictionio_tpu_torch.core import persistence as _persistence
 from predictionio_tpu_torch.data.batch import Interactions
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.ops.flash_attention import flash_attention, use_flash_default
-from predictionio_tpu_torch.parallel.ring import full_attention
+from predictionio_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, pad_to_multiple, psum
+from predictionio_tpu_torch.parallel.ring import _ring_attention_block, full_attention
 
 PAD = 0  # item ids are shifted by +1; 0 is the padding token
 LAYER_KEYS = ("wqkv", "wo", "ln1", "ln2", "w1", "w2")
@@ -70,7 +79,7 @@ class SASRecConfig:
     n_experts: int = 0
     expert_capacity: float = 1.25
     moe_aux_weight: float = 0.01
-    # ring attention over a `model` mesh axis: not ported yet (item 10)
+    # ring attention over the mesh's `model` axis (sequence parallelism)
     seq_parallel: bool = False
     # mid-training checkpoint/resume: params + Adam state saved every
     # checkpoint_interval epochs under checkpoint_dir; a restart resumes
@@ -213,30 +222,46 @@ def _block_stack(params: dict, seq: torch.Tensor, cfg: SASRecConfig, pos, attent
     output (dense or the flash kernels, chosen by the caller). Pad rows are
     zeroed after every layer. The aux loss is 0 for a dense FFN.
     """
-    seq = seq.long()
-    x = params["emb"][seq] + pos[None, :, :]
-    pad_mask = (seq == PAD)[:, :, None]
+    hidden, aux = _block_stack_blocks(
+        [params], [seq], cfg, [pos], lambda q, k, v: [attention(q[0], k[0], v[0])]
+    )
+    return hidden[0], aux
+
+
+def _block_stack_blocks(params: list, seqs: list, cfg: SASRecConfig, poss: list, attention):
+    """:func:`_block_stack` over the blocks of a split sequence, layer by
+    layer in lockstep: block i has its params tree ``params[i]`` (on its
+    device), ids ``seqs[i]`` and positional rows ``poss[i]``; ``attention``
+    maps the lists of the blocks' head-split q/k/v to the list of their
+    outputs (the ring, across blocks). Returns (hidden list, MoE aux)."""
+    seqs = [s.long() for s in seqs]
+    xs = [p["emb"][s] + pos[None, :, :] for p, s, pos in zip(params, seqs, poss)]
+    pad_masks = [(s == PAD)[:, :, None] for s in seqs]
     h = cfg.d_model // cfg.n_heads
-    aux_total = torch.zeros((), dtype=x.dtype, device=x.device)
+    aux_total = torch.zeros((), dtype=xs[0].dtype, device=xs[0].device)
 
     def heads(z):  # (B, T, D) → (B, H, T, h)
         return z.reshape(*z.shape[:-1], cfg.n_heads, h).transpose(-3, -2).contiguous()
 
-    for layer in params["layers"]:
-        y = _layer_norm(x, layer["ln1"])
-        q, k, v = (y @ layer["wqkv"]).split(cfg.d_model, dim=-1)
-        a = attention(heads(q), heads(k), heads(v))
-        a = a.transpose(-3, -2).reshape(y.shape)
-        x = x + a @ layer["wo"]
-        y = _layer_norm(x, layer["ln2"])
-        if cfg.n_experts:
-            delta, aux = _moe_ffn(layer, y, cfg, valid=seq != PAD)
-            x = x + delta
-            aux_total = aux_total + aux
-        else:
-            x = x + torch.relu(y @ layer["w1"]) @ layer["w2"]
-        x = x.masked_fill(pad_mask, 0.0)
-    return x, aux_total
+    for li in range(len(params[0]["layers"])):
+        layers = [p["layers"][li] for p in params]
+        ys = [_layer_norm(x, layer["ln1"]) for x, layer in zip(xs, layers)]
+        qkv = [(y @ layer["wqkv"]).split(cfg.d_model, dim=-1) for y, layer in zip(ys, layers)]
+        outs = attention(*([heads(t[i]) for t in qkv] for i in range(3)))
+        new = []
+        for x, y, a, layer, s, pad_mask in zip(xs, ys, outs, layers, seqs, pad_masks):
+            a = a.transpose(-3, -2).reshape(y.shape)
+            x = x + a @ layer["wo"]
+            y = _layer_norm(x, layer["ln2"])
+            if cfg.n_experts:
+                delta, aux = _moe_ffn(layer, y, cfg, valid=s != PAD)
+                x = x + delta
+                aux_total = aux_total + aux.to(aux_total.device)
+            else:
+                x = x + torch.relu(y @ layer["w1"]) @ layer["w2"]
+            new.append(x.masked_fill(pad_mask, 0.0))
+        xs = new
+    return xs, aux_total
 
 
 def _forward(params: dict, seq: torch.Tensor, cfg: SASRecConfig, allow_flash: bool = False):
@@ -277,6 +302,72 @@ def _loss_fn(params: dict, seq: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor
     hidden, aux = _forward(params, inputs, cfg, allow_flash=True)
     num, den = _masked_nll_sums(params, hidden, inputs, targets)
     return num / den.clamp_min(1) + cfg.moe_aux_weight * aux
+
+
+def _sp_grid(ctx) -> list[list[torch.device]]:
+    """The mesh's placements as a (data, model) grid (other axes at their
+    first index)."""
+    names, devs = ctx.mesh.axis_names, ctx.mesh.devices
+    grid = [[None] * ctx.axis_size(MODEL_AXIS) for _ in range(ctx.axis_size(DATA_AXIS))]
+    for coord in np.ndindex(*devs.shape):
+        d = coord[names.index(DATA_AXIS)] if DATA_AXIS in names else 0
+        m = coord[names.index(MODEL_AXIS)] if MODEL_AXIS in names else 0
+        if grid[d][m] is None:
+            grid[d][m] = devs[coord]
+    return grid
+
+
+def _build_sp_loss(ctx, sp_ways: int, cfg: SASRecConfig):
+    """The loss with the sequence split over the ``model`` axis:
+    ``loss(params, inp, tgt)`` over whole (B, T) inputs and targets, the
+    one-token shift already done on the whole sequence.
+
+    The batch splits over ``data`` and time over ``model`` (block (d, m) on
+    the placement at that grid point); params are every placement's (one
+    copy a device). Each block runs the transformer body on its slice of
+    ``pos``, the attention the dense ring over its row's ``model``
+    placements (``_ring_attention_block``), then its masked nll sums; the
+    loss is the ``psum`` of the sums over every block, divided. Equal to
+    the data-parallel :func:`_loss_fn` up to float32 rounding.
+    """
+    grid = _sp_grid(ctx)
+    if len(grid[0]) != sp_ways:
+        raise ValueError(f"the mesh's model axis has {len(grid[0])} placements, not {sp_ways}")
+
+    def on(params, dev):
+        return {
+            "emb": params["emb"].to(dev),
+            "pos": params["pos"].to(dev),
+            "layers": [{k: t.to(dev) for k, t in layer.items()} for layer in params["layers"]],
+        }
+
+    def loss(params, inp, tgt):
+        n_data = len(grid)
+        b_local, t_local = inp.shape[0] // n_data, inp.shape[1] // sp_ways
+        trees = {}
+        nums, dens = [], []
+        for d, devs in enumerate(grid):
+            for dev in devs:
+                if dev not in trees:
+                    trees[dev] = on(params, dev)
+            rows = slice(d * b_local, (d + 1) * b_local)
+            cols = [slice(m * t_local, (m + 1) * t_local) for m in range(sp_ways)]
+            seqs = [inp[rows, c].to(dev) for c, dev in zip(cols, devs)]
+            tgts = [tgt[rows, c].to(dev) for c, dev in zip(cols, devs)]
+            trees_row = [trees[dev] for dev in devs]
+            poss = [tr["pos"][c] for tr, c in zip(trees_row, cols)]
+            hidden, _ = _block_stack_blocks(
+                trees_row, seqs, cfg, poss,
+                lambda q, k, v: _ring_attention_block(q, k, v, causal=True, devices=devs),
+            )
+            for tr, hb, sb, tb in zip(trees_row, hidden, seqs, tgts):
+                num, den = _masked_nll_sums(tr, hb, sb, tb)
+                nums.append(num)
+                dens.append(den)
+        num, den = psum(nums)[0], psum(dens)[0]
+        return num / den.clamp_min(1)
+
+    return loss
 
 
 class SASRecNet(torch.nn.Module):
@@ -432,11 +523,17 @@ def adam(net: SASRecNet, cfg: SASRecConfig) -> torch.optim.Adam:
     return torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def train_step(net: SASRecNet, opt: torch.optim.Optimizer, seq: torch.Tensor, cfg: SASRecConfig):
+def train_step(net: SASRecNet, opt: torch.optim.Optimizer, seq: torch.Tensor, cfg: SASRecConfig,
+               sp_loss=None):
     """One optimizer step on the batch ``seq`` (B, max_len + 1); returns
-    the loss before the step, on the device."""
+    the loss before the step, on the device. ``sp_loss`` (from
+    :func:`_build_sp_loss`) takes the place of :func:`_loss_fn`, fed the
+    inputs and targets shifted on the whole sequence."""
     opt.zero_grad(set_to_none=True)
-    loss = _loss_fn(net.tree(), seq, cfg)
+    if sp_loss is not None:
+        loss = sp_loss(net.tree(), seq[:, :-1], seq[:, 1:])
+    else:
+        loss = _loss_fn(net.tree(), seq, cfg)
     loss.backward()
     opt.step()
     return loss.detach()
@@ -450,22 +547,22 @@ def train_sasrec(
 ) -> SASRecModel:
     """Train a SASRec on ``ctx.device``: one Adam step per epoch.
 
-    What the JAX function does on one device: :func:`training_sequences`,
-    ``batch = min(batch_size, n)``, ``np.random.default_rng(seed)`` drawing
-    ``integers(0, n, batch)`` rows per epoch, and Adam with optax's
+    What the JAX function does in one process: :func:`training_sequences`,
+    ``batch = min(batch_size, n)`` (rounded to a multiple of the mesh's
+    ``data`` axis, 1 on one device), ``np.random.default_rng(seed)``
+    drawing ``integers(0, n, batch)`` rows per epoch, and Adam with optax's
     defaults (betas 0.9 and 0.999, eps 1e-8). The start is ``init_params``
     (a host param tree, e.g. the JAX ``_init_params`` draw as numpy), else
     :func:`init_params` from ``seed``. On the card at a flash-eligible
     ``max_len`` every layer's attention runs the flash kernels, backward
-    included. Returns host float32 params and each step's loss (of the
-    steps this call ran: a resumed run starts at its checkpoint's epoch).
+    included. With ``seq_parallel`` the step's loss is
+    :func:`_build_sp_loss` over the mesh's (data, model) placements (a
+    ``model`` axis of at least 2 that divides ``max_len``; no experts).
+    The weights and Adam state live on ``ctx.device``. Returns host float32
+    params and each step's loss (of the steps this call ran: a resumed run
+    starts at its checkpoint's epoch).
     """
     cfg = config or SASRecConfig()
-    if cfg.seq_parallel:
-        raise NotImplementedError(
-            "seq_parallel (ring attention across devices) is not ported yet "
-            "(ROADMAP §1 item 10)"
-        )
     if not isinstance(interactions, Interactions):
         raise NotImplementedError(
             f"training from {type(interactions).__name__} (sharded multi-host "
@@ -473,7 +570,29 @@ def train_sasrec(
         )
     seqs = training_sequences(interactions, cfg)
     n = len(seqs)
-    batch = min(cfg.batch_size, n)
+    # the JAX rule: the batch is a multiple of the data axis (1 on one device)
+    n_shards = ctx.axis_size(DATA_AXIS)
+    batch = pad_to_multiple(min(cfg.batch_size, pad_to_multiple(n, n_shards)), n_shards)
+    sp_ways = ctx.axis_size(MODEL_AXIS) if cfg.seq_parallel else 1
+    if cfg.seq_parallel:
+        if cfg.n_experts:
+            raise ValueError(
+                "seq_parallel and n_experts both claim the `model` mesh axis; enable one "
+                "of SP/EP per training run"
+            )
+        if sp_ways < 2:
+            raise ValueError(
+                "seq_parallel needs a mesh `model` axis of size >= 2 to shard the time "
+                'dimension over (e.g. engine.json mesh: {"mesh_axes": {"data": N, '
+                '"model": M}}, or a context with devices=[dev] * M); silently training '
+                "replicated would defeat the flag's purpose"
+            )
+        if cfg.max_len % sp_ways:
+            raise ValueError(
+                f"max_len {cfg.max_len} not divisible by the model-axis size {sp_ways} "
+                "required for sequence parallelism"
+            )
+    sp_loss = _build_sp_loss(ctx, sp_ways, cfg) if sp_ways > 1 else None
     start = init_params if init_params is not None else _draw_params(cfg.seed, cfg, interactions.n_items)
     start_epoch, manager, fingerprint, restored = 0, None, None, None
     if cfg.checkpoint_dir:
@@ -507,7 +626,7 @@ def train_sasrec(
     losses = []
     for epoch in range(start_epoch, cfg.epochs):
         picks = torch.from_numpy(rng.integers(0, n, batch)).to(ctx.device)
-        losses.append(train_step(net, opt, rows[picks], cfg))
+        losses.append(train_step(net, opt, rows[picks], cfg, sp_loss))
         if manager is not None and _checkpoint.save_due(
             epoch + 1, cfg.checkpoint_interval, cfg.epochs
         ):

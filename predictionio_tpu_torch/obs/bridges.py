@@ -1,12 +1,14 @@
 """Bridges: existing component stats → registry Families at scrape time.
 
 Counterpart of ``predictionio_tpu/obs/bridges.py`` with the bridges of the
-components the port has: the batcher, the fast path, IVF retrieval,
-devprof, the result cache, the template event cache, tenancy, the
-pipeline, error counters, resilience (breakers), the fleet supervisor, the
-autoscaler, the canary controller, the event-server stats, the ingest
-buffer with its WAL and the latency histogram. The others (training
-kernel, sharding, pod) come with their components.
+components the port has: the batcher, the fast path, sharded serving and
+its one-process pod layout, IVF retrieval, devprof, the result cache, the
+template event cache, tenancy, the pipeline, error counters, resilience
+(breakers), the fleet supervisor, the autoscaler, the canary controller,
+the event-server stats, the ingest buffer with its WAL and the latency
+histogram. The training kernel's bridge comes with the port's first
+benchmark (ROADMAP §1 item 12); ``bridge_pod``'s router half (pod-group
+routing) with item 10's many-process half.
 
 Every load-bearing runtime layer predates the registry and already keeps
 its own thread-safe counters (``MicroBatcher.stats()``, fastpath
@@ -252,6 +254,170 @@ def bridge_fastpath(
 
 
 # -- device utilization -------------------------------------------------------
+
+
+def bridge_sharding(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """Sharded-serving accounting → pio_shard_* series.
+
+    Emits nothing while the scorer serves replicated (no ``sharding`` block
+    in its stats), so the families appear exactly while a plan serves.
+    ``pio_shard_busy_fraction`` is attributed: the measured busy fraction
+    apportioned across shards by their realized result share. Family names
+    and help texts are the JAX package's.
+    """
+
+    def collect():
+        s = stats_fn()
+        sh = (s or {}).get("sharding")
+        if not isinstance(sh, dict):
+            return []
+        plan = sh.get("plan") or {}
+        n = int(_num(plan.get("n_shards")))
+
+        def per_shard(values, cast=_num):
+            vals = values if isinstance(values, list) else []
+            return [
+                ("", (("shard", str(i)),), cast(v))
+                for i, v in enumerate(vals[:n])
+            ]
+
+        fams = [
+            _fam(
+                "pio_shard_info", "gauge",
+                "Active sharding plan (info gauge; value is the shard "
+                "count, labels carry the plan identity).",
+                [(
+                    "",
+                    (
+                        ("fingerprint", str(plan.get("fingerprint", ""))),
+                        ("strategy", str(plan.get("strategy", ""))),
+                    ),
+                    float(n),
+                )],
+            ),
+            _fam(
+                "pio_shard_items", "gauge",
+                "Catalog items assigned to each shard by the plan.",
+                per_shard(plan.get("items_per_shard")),
+            ),
+            _fam(
+                "pio_shard_resident_bytes", "gauge",
+                "Device-resident item-factor bytes per shard (padded "
+                "block; must fit the per-shard HBM budget).",
+                per_shard(sh.get("resident_bytes")),
+            ),
+            _fam(
+                "pio_shard_queries_routed_total", "counter",
+                "Query rows fanned out to each shard (every shard scores "
+                "every row of every dispatch).",
+                per_shard(sh.get("queries_routed")),
+            ),
+            _fam(
+                "pio_shard_result_wins_total", "counter",
+                "Top-k result slots won by each shard's items — the "
+                "realized popularity load the plan balances.",
+                per_shard(sh.get("result_wins")),
+            ),
+            _fam(
+                "pio_shard_load_share", "gauge",
+                "Expected per-shard traffic share the plan was balanced "
+                "with (build-time weights).",
+                per_shard(plan.get("load_share")),
+            ),
+            _fam(
+                "pio_shard_result_share", "gauge",
+                "Realized per-shard share of returned top-k slots.",
+                per_shard(sh.get("result_share")),
+            ),
+            _fam(
+                "pio_shard_merge_bytes_total", "counter",
+                "Cumulative cross-shard merge collective payload "
+                "(all-gathered leaderboard bytes; see perf_roofline.md).",
+                [("", (), _num(sh.get("merge_bytes")))],
+            ),
+            _fam(
+                "pio_shard_merge_seconds_total", "counter",
+                "Device wall attributed to the merge collective (modeled "
+                "as the merge-byte share of each dispatch).",
+                [("", (), _num(sh.get("merge_seconds")))],
+            ),
+        ]
+        busy = sh.get("busy_fraction")
+        if isinstance(busy, list):
+            fams.append(
+                _fam(
+                    "pio_shard_busy_fraction", "gauge",
+                    "Measured window busy fraction attributed across "
+                    "shards by realized result-load share; max/min is "
+                    "the balance the bench gates on.",
+                    per_shard(busy),
+                )
+            )
+        return fams
+
+    registry.register_collector(collect)
+
+
+def bridge_pod(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """The fast path's pod-layout accounting → pio_pod_* series (see
+    :func:`bridge_sharding`); each family appears exactly when its key is
+    present. The router's pod-group families come with its pod-group
+    routing (ROADMAP §1 item 10)."""
+
+    def collect():
+        pod = stats_fn()
+        if not isinstance(pod, dict):
+            return []
+        fams = []
+        hg = pod.get("host_groups")
+        if hg:
+            fams.append(_fam(
+                "pio_pod_host_groups", "gauge",
+                "Host groups in the active pod serving mesh.",
+                [("", (), _num(hg))],
+            ))
+        if "cross_host_merge_bytes" in pod:
+            fams.append(_fam(
+                "pio_pod_cross_host_merge_bytes_total", "counter",
+                "Cumulative cross-host leaderboard payload: the (H, B, "
+                "k) tier-2 gather only (tier-1 stays on-host; "
+                "perf_roofline.md derives the S/H reduction).",
+                [("", (), _num(pod.get("cross_host_merge_bytes")))],
+            ))
+        if "cross_host_merge_seconds" in pod:
+            fams.append(_fam(
+                "pio_pod_cross_host_merge_seconds_total", "counter",
+                "Device wall attributed to the cross-host merge tier "
+                "(its byte share of each dispatch).",
+                [("", (), _num(pod.get("cross_host_merge_seconds")))],
+            ))
+        if "dispatches" in pod:
+            fams.append(_fam(
+                "pio_pod_merge_dispatches_total", "counter",
+                "Device dispatches that ran the two-tier pod merge.",
+                [("", (), _num(pod.get("dispatches")))],
+            ))
+        if "process_count" in pod:
+            fams.append(_fam(
+                "pio_pod_process_info", "gauge",
+                "This process's slot in the pod launch (info gauge; "
+                "labels carry index/count).",
+                [(
+                    "",
+                    (
+                        ("index", str(int(_num(pod.get("process_index"))))),
+                        ("count", str(int(_num(pod.get("process_count"))))),
+                    ),
+                    1.0,
+                )],
+            ))
+        return fams
+
+    registry.register_collector(collect)
 
 
 def bridge_ivf(

@@ -9,6 +9,9 @@ launches the CUDA kernel for tensors on the card and takes the plain
 PyTorch version for tensors on the CPU. There is no backend switch and no
 environment variable that swaps the two on the card.
 
+:func:`two_tier_merge_topk` is the pod layout's two-tier merge of per-shard
+leaderboards (``predictionio_tpu/ops/topk.py:94-184``).
+
 Tie order: ``torch.topk`` documents none, and the JAX package's contract
 is ``lax.top_k``'s (value descending, then smaller index). The helpers
 here write that two-key order out with stable sorts.
@@ -89,6 +92,51 @@ def merge_topk(
     score row, ties across candidate lists included."""
     v, i = sort_two_key(values, indices)
     return v[:, :k], i[:, :k]
+
+
+def gather_merge_topk(values, indices, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flat merge of per-shard leaderboards: the n placements' (B, m)
+    leaderboards gathered onto ``device`` as (B, n·m) candidate rows, then
+    :func:`merge_topk` to ``min(k, n·m)``."""
+    from predictionio_tpu_torch.parallel.mesh import all_gather
+
+    gv, gg = all_gather(values, device), all_gather(indices, device)  # (n, B, m)
+    n, b, m = gv.shape
+    return merge_topk(gv.transpose(0, 1).reshape(b, n * m), gg.transpose(0, 1).reshape(b, n * m),
+                      min(k, n * m))
+
+
+def two_tier_merge_topk(
+    values: list[torch.Tensor],
+    indices: list[torch.Tensor],
+    k: int,
+    *,
+    host_groups: int,
+    device=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pod layout's leaderboard merge, on per-shard lists.
+
+    ``values``/``indices`` are the S shards' ``(B, local_k)`` leaderboards in
+    global ids, host-major (shard s in host row ``s // G``, G = S /
+    ``host_groups``). Tier 1 gathers each row's G leaderboards onto the
+    row's first placement and merges them to one ``(B, min(k, G·local_k))``
+    per-host leaderboard; tier 2 gathers the H per-host leaderboards onto
+    ``device`` (default: shard 0's) and merges them to ``(B, k)``. Both
+    tiers use :func:`merge_topk`'s two-key order, so the answer equals one
+    top-k over the whole row, as the JAX ``two_tier_merge_topk`` promises.
+    """
+    s = len(values)
+    if host_groups < 1 or s % host_groups:
+        raise ValueError(f"host_groups={host_groups} must divide {s} shards")
+    g = s // host_groups
+    dev = values[0].device if device is None else device
+    host_v, host_g = [], []
+    for h in range(host_groups):
+        row = slice(h * g, (h + 1) * g)
+        v, i = gather_merge_topk(values[row], indices[row], k, values[h * g].device)
+        host_v.append(v)
+        host_g.append(i)
+    return gather_merge_topk(host_v, host_g, k, dev)
 
 
 def gather_score_topk(

@@ -61,7 +61,22 @@ hand-written kernel).
   every cluster, so they stay exact. Delta item rows land in their
   cluster slots.
 
-The sharded placement (``plan=``) comes with ROADMAP §1 item 10.
+* **Sharded placement** (``plan=``, ``PIO_SERVING_SHARDING``; the JAX
+  package's ``:113-155, 447-520, 822-926``) — with a publish-time
+  :class:`~predictionio_tpu_torch.serving.sharding.ShardingPlan` of S > 1
+  shards and a mesh of at least S placements, the item factors (and int8
+  scales, unit on pads) lie in the plan's blocks of ``cap_pad`` slots, block
+  s on placement s with its global ids and pad mask; the user factors are on
+  every placement. A dispatch launches the score kernel once a shard over
+  that shard's block for its best ``local_k = min(k, cap_pad)``, maps the
+  winners to global ids, gathers the S leaderboards onto the first
+  placement and merges them in the two-key order (``merge_topk``), so the
+  answer equals the replicated placement's bit for bit. A plan with host
+  groups merges in two tiers (``two_tier_merge_topk``) over the ``(host,
+  data)`` submesh. ``auto`` (the default) serves sharded only when the
+  mesh has the plan's placements: on a one-card default mesh it is the
+  replicated path, and an explicit ``sharded`` warns and serves
+  replicated. An IVF index under a sharded plan serves exact sharded.
 """
 
 from __future__ import annotations
@@ -70,12 +85,14 @@ import logging
 import os
 import threading
 import time
+from contextlib import nullcontext as _nullcontext
 from typing import Optional
 
 import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.parallel import mesh as _mesh
 from predictionio_tpu_torch.obs import devprof as _devprof
 from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.ops import _build
@@ -83,7 +100,11 @@ from predictionio_tpu_torch.ops import ivf as _ivf
 from predictionio_tpu_torch.ops import score_kernel as _score_kernel
 from predictionio_tpu_torch.ops import quantize as _quantize
 from predictionio_tpu_torch.ops.quantize import factors_to_tensor
-from predictionio_tpu_torch.ops.topk import gather_score_topk
+from predictionio_tpu_torch.ops.topk import (
+    gather_merge_topk,
+    gather_score_topk,
+    two_tier_merge_topk,
+)
 from predictionio_tpu_torch.serving import sharding as _sharding
 
 logger = logging.getLogger(__name__)
@@ -100,6 +121,52 @@ def bucket_for(n: int, buckets=BUCKETS) -> Optional[int]:
         if n <= b:
             return b
     return None
+
+
+SERVING_BACKENDS = ("replicated", "sharded", "auto")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def resolve_serving_backend(
+    requested: Optional[str] = None,
+    *,
+    plan=None,
+    ctx: Optional[DeviceContext] = None,
+) -> str:
+    """The factor placement: ``"replicated"`` or ``"sharded"``.
+
+    ``requested`` overrides ``PIO_SERVING_SHARDING`` (default ``auto``).
+    ``auto`` serves sharded only when a plan of more than one shard is
+    declared and the mesh has at least that many placements; an explicit
+    ``sharded`` without a plan raises, and a plan wider than the mesh warns
+    and serves replicated (the plan is an optimization, never a point of
+    failure).
+    """
+    req = (requested or os.environ.get("PIO_SERVING_SHARDING") or "auto").strip().lower()
+    if req not in SERVING_BACKENDS:
+        raise ValueError(f"PIO_SERVING_SHARDING must be one of {SERVING_BACKENDS}, got {req!r}")
+    if req == "replicated":
+        return "replicated"
+    n_dev = ctx.n_devices if ctx is not None else 1
+    if req == "sharded":
+        if plan is None:
+            raise ValueError(
+                "PIO_SERVING_SHARDING=sharded requires a ShardingPlan declared at "
+                "publish (PIO_SHARD_COUNT/PIO_SHARD_HBM_BUDGET)"
+            )
+        if plan.n_shards > n_dev:
+            logger.warning(
+                "sharding plan wants %d shards but the mesh has %d devices; serving "
+                "replicated", plan.n_shards, n_dev,
+            )
+            return "replicated"
+        return "sharded"
+    if plan is not None and 1 < plan.n_shards <= n_dev:
+        return "sharded"
+    return "replicated"
 
 
 class BucketedScorer:
@@ -120,12 +187,8 @@ class BucketedScorer:
         plan=None,
         ivf_index=None,
         retrieval: Optional[str] = None,
+        sharding: Optional[str] = None,
     ):
-        if plan is not None:
-            raise NotImplementedError(
-                "sharded serving (plan=) is not ported to predictionio_tpu_torch yet "
-                "(ROADMAP §1 item 10)"
-            )
         self.ctx = ctx
         self.n_users = user_factors.shape[0]
         self.n_items = item_factors.shape[0]
@@ -134,25 +197,50 @@ class BucketedScorer:
             raise ValueError("int8 factors require user_scale and item_scale")
         self.k = min(max_k, self.n_items)
         self.buckets = BUCKETS
+        # factor placement (PIO_SERVING_SHARDING): replicated copies, or the
+        # item blocks of the publish-time plan on the mesh's placements
+        self.plan = plan
+        self.sharding = resolve_serving_backend(sharding, plan=plan, ctx=ctx)
+        self._shard_acct: Optional[_sharding.ShardAccounting] = None
         # retrieval path (PIO_RETRIEVAL): IVF prunes the scan to the probed
-        # cluster blocks when the model carries an index
+        # cluster blocks when the model carries an index; a sharded plan
+        # already partitions the scan, and takes precedence
         self.ivf_index = ivf_index
-        self.retrieval = _ivf.resolve_retrieval(retrieval, index=ivf_index)
+        retr = _ivf.resolve_retrieval(retrieval, index=ivf_index)
+        if retr == "ivf" and self.sharding == "sharded":
+            logger.warning(
+                "IVF retrieval composes with replicated placement only; the sharding "
+                "plan takes precedence — serving exact sharded"
+            )
+            retr = "exact"
+        self.retrieval = retr
+        # a plan with host groups merges in two tiers over (host, data)
+        self._pod = self.sharding == "sharded" and getattr(plan, "host_groups", 1) > 1
         if factor_dtype == "f32":
             user_factors = np.asarray(user_factors, np.float32)
             item_factors = np.asarray(item_factors, np.float32)
         self._ivf_extra_bytes = 0
-        if self.retrieval == "ivf":
-            self._init_ivf_placement(user_factors, item_factors, user_scale, item_scale)
-        else:
-            self._init_replicated_placement(
-                user_factors, item_factors, user_scale, item_scale
+        if self.sharding == "sharded":
+            self._init_sharded_placement(user_factors, item_factors, user_scale, item_scale)
+            # the flat merge has no second tier to account
+            self._shard_acct = _sharding.ShardAccounting(
+                self.plan, self._local_k, merged_k=self.k if self._pod else None
             )
-        self.resident_factor_bytes = sum(
-            t.numel() * t.element_size()
-            for t in (self._U, self._V, self._Uscale, self._Vscale)
-            if t is not None
-        ) + self._ivf_extra_bytes
+            # the user factors (and scales) once, every shard's block
+            self.resident_factor_bytes = sum(
+                _nbytes(f[0]) for f in (self._factors[0], self._factors[2]) if f is not None
+            ) + sum(self.resident_shard_bytes)
+        else:
+            if self.retrieval == "ivf":
+                self._init_ivf_placement(user_factors, item_factors, user_scale, item_scale)
+            else:
+                self._init_replicated_placement(
+                    user_factors, item_factors, user_scale, item_scale
+                )
+            self.resident_factor_bytes = sum(
+                _nbytes(t) for t in (self._U, self._V, self._Uscale, self._Vscale)
+                if t is not None
+            ) + self._ivf_extra_bytes
         # IVF scan accounting: probed blocks and scanned padded rows per
         # dispatch, against the rows the exact path would have scanned
         self._ivf_dispatches = 0
@@ -196,13 +284,18 @@ class BucketedScorer:
         self.devprof = _devprof.DeviceUtilization(
             platform=_devprof.platform_for(self.ctx.device)
         )
-        rank = self._U.shape[1]
+        rank = np.asarray(user_factors).shape[1]
+        # per-rung annotated bytes, read by the shard accounting's merge share
+        self._cost_bytes: dict[int, float] = {}
         for b in self.buckets:
             # IVF: a dispatch scans its rung's P_b·cap_pad probed rows for
-            # per-probe lists of min(k, cap_pad), as the JAX package annotates
+            # per-probe lists of min(k, cap_pad), as the JAX package annotates;
+            # sharded: the S blocks of cap_pad slots every dispatch scans
             scanned, width = self._n_items_pad, self.k
             if self.retrieval == "ivf":
                 scanned, width = self._probes[b] * self._ivf_layout.cap_pad, self._local_k
+            elif self.sharding == "sharded":
+                scanned = self.plan.n_shards * self._n_items_pad
             if self.backend == "fused":
                 flops, nbytes = _devprof.fused_score_cost(
                     b, scanned, rank, width, self.factor_dtype
@@ -211,6 +304,7 @@ class BucketedScorer:
             else:
                 flops, nbytes = _devprof.score_cost(b, scanned, rank, dtype=self.factor_dtype)
                 self.devprof.set_cost(b, flops, nbytes, source="analytic")
+            self._cost_bytes[b] = float(nbytes)
         # warm-up: build the kernel and launch every rung once (or only the
         # rungs ``warm_buckets`` names), before the first request; a failure
         # here raises to the deploy
@@ -302,10 +396,67 @@ class BucketedScorer:
                          self._item_pad_mask)
         self._ivf_extra_bytes = int(C.nbytes) + int(gid.nbytes) + int(pad_mask.nbytes)
 
+    def _init_sharded_placement(self, user_factors, item_factors, user_scale, item_scale) -> None:
+        """The item factors in the plan's blocks on the shard placements.
+
+        ``build_layout`` gives every shard a block of ``cap_pad`` slots (the
+        kernel's item padding of the largest shard), real slots ascending by
+        global id, so a shard's local top-k order composes with the merge's.
+        Block s goes to placement s of the shard submesh (the ``(host,
+        data)`` pod submesh for a plan with host groups), with its global
+        ids and pad mask; the user factors go to every placement, one tensor
+        a device. ``_n_items_pad`` is the block size, ``_local_k`` a shard's
+        leaderboard width: a shard with fewer than k real items gives its
+        whole block, and S·cap_pad ≥ n_items ≥ k.
+        """
+        plan = self.plan
+        plan.validate(self.n_items)
+        layout = _sharding.build_layout(plan, _score_kernel.pad_block_items)
+        self._shard_layout = layout
+        self._n_items_pad = layout.cap_pad
+        self._local_k = min(self.k, layout.cap_pad)
+        shard_axes = _mesh.DATA_AXIS
+        if self._pod:
+            try:
+                sc = self.ctx.pod_submesh(plan.n_shards, plan.host_groups)
+                shard_axes = (_mesh.HOST_AXIS, _mesh.DATA_AXIS)
+            except ValueError as e:
+                logger.warning("pod layout rejected (%s); serving the flat merge instead", e)
+                self._pod = False
+        if not self._pod:
+            sc = self.ctx.submesh(plan.n_shards)
+        self._shard_ctx = sc
+        gid, pad_mask = layout.gid, layout.pad_mask
+        # global item id -> its slot, for delta rows and per-query filters
+        self._slot_of = np.empty(self.n_items, np.int64)
+        real = np.flatnonzero(~pad_mask)
+        self._slot_of[gid[real]] = real
+
+        # host tensors first (a uint16 array is a bf16 bit pattern), then
+        # the placements' blocks
+        def blocks(x):
+            return tuple(sc.place(factors_to_tensor(x, "cpu"), shard_axes))
+
+        def everywhere(x):
+            return tuple(sc.place(factors_to_tensor(x, "cpu")))
+
+        U = everywhere(np.asarray(user_factors))
+        V = blocks(layout.take_rows(np.asarray(item_factors)))
+        Us = Vs = None
+        if self.factor_dtype == "int8":
+            Us = everywhere(np.asarray(user_scale, np.float32))
+            Vs = blocks(layout.take_rows(np.asarray(item_scale, np.float32), fill=1.0))
+        # (U, V, U scales, V scales, gid, pad mask), each a tuple of the S
+        # placements' tensors; a patch swaps the whole tuple
+        self._factors = (U, V, Us, Vs, blocks(gid), blocks(pad_mask))
+        self.resident_shard_bytes = [
+            _nbytes(V[s]) + (_nbytes(Vs[s]) if Vs is not None else 0) for s in range(plan.n_shards)
+        ]
+
     def _layout_slots(self) -> Optional[np.ndarray]:
-        """Global item id → laid-out slot under IVF retrieval, else None
-        (the exact placement's slot is the item's index)."""
-        return self._slot_of if self.retrieval == "ivf" else None
+        """Global item id → laid-out slot under IVF retrieval or a sharded
+        plan, else None (the exact placement's slot is the item's index)."""
+        return self._slot_of if self.retrieval == "ivf" or self.sharding == "sharded" else None
 
     @property
     def _U(self) -> torch.Tensor:
@@ -326,9 +477,12 @@ class BucketedScorer:
     def _score(
         self, u_dev: torch.Tensor, b: int, timing: Optional[tuple] = None
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One launch at rung ``b``: the exact scan, or the IVF probe scan
-        (answering in global ids). Reads the factor tuple once."""
+        """One dispatch at rung ``b``: the exact scan, the IVF probe scan
+        (answering in global ids), or one launch a shard and the merge
+        (global ids). Reads the factor tuple once."""
         f = self._factors
+        if self.sharding == "sharded":
+            return self._score_sharded(f, u_dev, f[5], timing)
         U, V, Us, Vs = f[:4]
         if self.retrieval == "ivf":
             C, gid, mask = f[4:]
@@ -340,6 +494,38 @@ class BucketedScorer:
             U, V, u_dev, self.k, item_mask=self._item_pad_mask,
             u_scale=Us, v_scale=Vs, timing=timing,
         )
+
+    def _score_sharded(self, f, u_dev, masks, timing=None):
+        """The kernel once a shard over its block at ``local_k``, winners
+        mapped to global ids, the S leaderboards gathered onto the first
+        placement and merged (two tiers for a pod plan). ``masks`` are the
+        shards' exclusion masks; ``timing`` brackets the launches and the
+        merge on the first placement's stream."""
+        U, V, Us, Vs, gid = f[:5]
+        merge_dev = V[0].device
+        on_card = merge_dev.type == "cuda"
+        with torch.cuda.device(merge_dev) if on_card else _nullcontext():
+            if timing is not None:
+                timing[0].record()
+            lv, lg, u_on = [], [], {}
+            for s in range(len(V)):
+                dev = V[s].device
+                if dev not in u_on:
+                    u_on[dev] = u_dev.to(dev)
+                vals, idx = gather_score_topk(
+                    U[s], V[s], u_on[dev], self._local_k, item_mask=masks[s],
+                    u_scale=None if Us is None else Us[s], v_scale=None if Vs is None else Vs[s],
+                )
+                lv.append(vals)
+                lg.append(gid[s][idx.long()])
+            if self._pod:
+                out = two_tier_merge_topk(lv, lg, self.k, host_groups=self.plan.host_groups,
+                                          device=merge_dev)
+            else:
+                out = gather_merge_topk(lv, lg, self.k, merge_dev)
+            if timing is not None:
+                timing[1].record()
+        return out
 
     def score_topk(
         self, user_indices: np.ndarray, k: int
@@ -397,11 +583,13 @@ class BucketedScorer:
             b = bucket_for(len(chunk), self.buckets)
             padded = np.zeros(b, np.int32)
             padded[: len(chunk)] = chunk
-            idx_h, val_h = self._dispatch(b, padded)
+            idx_h, val_h, device_s = self._dispatch(b, padded)
             with self._lock:
                 self.hits[b] += 1
                 self.queries += len(chunk)
                 self.padded_rows += b - len(chunk)
+                if self._shard_acct is not None:
+                    self._shard_acct.note(idx_h[: len(chunk), :k], b, device_s, self._cost_bytes[b])
                 if self.retrieval == "ivf":
                     self._ivf_dispatches += 1
                     self._ivf_probed_blocks += self._probes[b]
@@ -412,8 +600,9 @@ class BucketedScorer:
             val_parts.append(val_h[: len(chunk), :k])
         return np.concatenate(idx_parts), np.concatenate(val_parts)
 
-    def _dispatch(self, b: int, padded: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """One traced, accounted launch at rung ``b``; host (idx, vals)."""
+    def _dispatch(self, b: int, padded: np.ndarray) -> tuple[np.ndarray, np.ndarray, float]:
+        """One traced, accounted dispatch at rung ``b``; host (idx, vals)
+        and the device seconds."""
         for t in _tracing.active_traces():
             t.annotate(bucket=b)
         dev = self.ctx.device
@@ -446,7 +635,7 @@ class BucketedScorer:
             t.add_stage("d2h", (t2 - t0) - compute_s)
             t.annotate(device_us=round(device_s * 1e6, 2))
         self.devprof.record(b, device_s)
-        return idx_h, val_h
+        return idx_h, val_h, device_s
 
     def score_topk_filtered(
         self,
@@ -473,7 +662,13 @@ class BucketedScorer:
             items = np.asarray(items, np.int64)
             return torch.as_tensor(items if slots is None else slots[items], device=dev)
 
-        mask = self._item_pad_mask.clone()
+        f = self._factors
+        sharded = self.sharding == "sharded"
+        if sharded:  # the layout's whole mask, split back into blocks below
+            dev = torch.device("cpu")
+            mask = torch.from_numpy(self._shard_layout.pad_mask.copy())
+        else:
+            mask = self._item_pad_mask.clone()
         if exclude_items is not None and len(exclude_items):
             mask[at(exclude_items)] = True
         if candidate_items is not None:
@@ -482,8 +677,11 @@ class BucketedScorer:
                 keep[at(candidate_items)] = True
             mask |= ~keep
         u_dev = torch.tensor([user_idx], dtype=torch.int32, device=dev)
-        f = self._factors
-        if self.retrieval == "ivf":
+        if sharded:
+            cap = self._n_items_pad
+            masks = [mask[s * cap:(s + 1) * cap].to(f[1][s].device) for s in range(len(f[1]))]
+            vals, idx = self._score_sharded(f, u_dev, masks)
+        elif self.retrieval == "ivf":
             every = torch.arange(self.ivf_index.nlist, dtype=torch.int32, device=dev)
             vals, idx = _score_kernel.fused_probed_score_topk(
                 f[0], f[1], u_dev, self.k, every, f[5], self._ivf_layout.cap_pad, mask,
@@ -544,7 +742,8 @@ class BucketedScorer:
 
         Counterpart of ``predictionio_tpu/serving/fastpath.py:553-646``: an
         item row lands in its slot, the item's index under the exact
-        placement and its cluster slot under IVF (``_layout_slots``). Rows
+        placement, its cluster slot under IVF and its slot in its shard's
+        block under a sharded plan (``_layout_slots``). Rows
         past the factor matrices are dropped; pad rows, the mask, the
         centroids and the global ids are never touched. Quantized factors are
         re-quantized row-wise as at publish. The patched users fall out of
@@ -566,24 +765,32 @@ class BucketedScorer:
         dev = self.ctx.device
         slots = self._layout_slots()
         item_at = items if slots is None else slots[items]
-        # quantize and upload first: the timed span holds the card's copies
-        patches = []
-        for which, idx, rows in ((0, users, u_rows), (1, item_at, i_rows)):
-            if len(idx):
-                q, scale = _quantize.quantize_factors(rows, self.factor_dtype)
-                patches.append((which, torch.from_numpy(idx).to(dev), factors_to_tensor(q, dev),
-                                None if scale is None else torch.from_numpy(scale).to(dev)))
+        if self.sharding == "sharded":
+            patch = self._sharded_patch(users, u_rows, item_at, i_rows)
+        else:
+            # quantize and upload first: the timed span holds the card's copies
+            patches = []
+            for which, idx, rows in ((0, users, u_rows), (1, item_at, i_rows)):
+                if len(idx):
+                    q, scale = _quantize.quantize_factors(rows, self.factor_dtype)
+                    patches.append((which, torch.from_numpy(idx).to(dev), factors_to_tensor(q, dev),
+                                    None if scale is None else torch.from_numpy(scale).to(dev)))
+
+            def patch(factors):
+                factors = list(factors)
+                for which, at, q, scale in patches:
+                    factors[which] = factors[which].clone().index_copy_(0, at, q)
+                    if scale is not None:
+                        factors[which + 2] = factors[which + 2].clone().index_copy_(0, at, scale)
+                return tuple(factors)
+
         on_card = dev.type == "cuda"
         with self._patch_lock:
             t0 = time.perf_counter()
             if on_card:
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
-            factors = list(self._factors)
-            for which, at, q, scale in patches:
-                factors[which] = factors[which].clone().index_copy_(0, at, q)
-                if scale is not None:
-                    factors[which + 2] = factors[which + 2].clone().index_copy_(0, at, scale)
+            factors = patch(self._factors)
             if on_card:
                 end.record()
                 try:
@@ -598,7 +805,7 @@ class BucketedScorer:
                 device_ms = start.elapsed_time(end)
             else:
                 device_ms = (time.perf_counter() - t0) * 1e3
-            self._factors = tuple(factors)
+            self._factors = factors
         with self._lock:
             for u in users:
                 self._hot_rows.pop(int(u), None)
@@ -609,6 +816,45 @@ class BucketedScorer:
             "warmup_executions": self.warmup_executions,
             "kernel_builds": len(_build.build_log), "device_ms": device_ms,
         }
+
+    def _sharded_patch(self, users, u_rows, item_slots, i_rows):
+        """The patch of :meth:`apply_delta_rows` under a sharded plan, a
+        function of the factor tuple: user rows go into the user factors of
+        every placement's device (one clone a device, the scales with them),
+        item rows into the block of the shard that owns their slot. The
+        placements share the card the patch is timed on."""
+        cap = self._n_items_pad
+        uq = us = iq = i_scale = None
+        if len(users):
+            uq, us = _quantize.quantize_factors(u_rows, self.factor_dtype)
+        if len(item_slots):
+            iq, i_scale = _quantize.quantize_factors(i_rows, self.factor_dtype)
+
+        def patch(factors):
+            U, V, Us, Vs, gid, mask = (None if x is None else list(x) for x in factors)
+            done: dict = {}
+            for s, t in enumerate(U if len(users) else ()):
+                if id(t) not in done:
+                    at = torch.from_numpy(users).to(t.device)
+                    done[id(t)] = (
+                        t.clone().index_copy_(0, at, factors_to_tensor(uq, t.device)),
+                        None if Us is None
+                        else Us[s].clone().index_copy_(0, at, torch.from_numpy(us).to(t.device)),
+                    )
+                U[s] = done[id(t)][0]
+                if Us is not None:
+                    Us[s] = done[id(t)][1]
+            owner = item_slots // cap
+            for s in np.unique(owner).tolist():
+                pick = owner == s
+                d = V[s].device
+                at = torch.from_numpy(item_slots[pick] - s * cap).to(d)
+                V[s] = V[s].clone().index_copy_(0, at, factors_to_tensor(iq[pick], d))
+                if Vs is not None:
+                    Vs[s] = Vs[s].clone().index_copy_(0, at, torch.from_numpy(i_scale[pick]).to(d))
+            return tuple(None if x is None else tuple(x) for x in (U, V, Us, Vs, gid, mask))
+
+        return patch
 
     def stats(self) -> dict:
         """Counters for ``GET /`` stats."""
@@ -651,9 +897,30 @@ class BucketedScorer:
                     "recall_at_publish": index.recall_at_publish,
                     "fingerprint": index.fingerprint,
                 }
+            sharding = pod = None
+            if self._shard_acct is not None:
+                sharding = self._shard_acct.snapshot(
+                    (self.devprof.snapshot() or {}).get("busy_fraction"),
+                    list(self.resident_shard_bytes),
+                )
+                if self._pod:
+                    pod = {
+                        "host_groups": self.plan.host_groups,
+                        "shards_per_group": self.plan.shards_per_group,
+                        "process_index": 0,
+                        "process_count": 1,
+                        "spans_processes": self._shard_ctx.spans_processes,
+                        "fingerprint": self.plan.fingerprint,
+                        "cross_host_merge_bytes": sharding["pod_merge_bytes"],
+                        "cross_host_merge_seconds": sharding["pod_merge_seconds"],
+                        "dispatches": sharding["pod_dispatches"],
+                    }
             return {
                 "buckets": list(self.buckets),
                 "top_k": self.k,
+                "serving_backend": self.sharding,
+                "sharding": sharding,
+                "pod": pod,
                 "kernel": {
                     "backend": self.backend,
                     "device": str(self.ctx.device),

@@ -70,9 +70,13 @@ answers per query, retrieval then ranking. Fault sites:
 ``server:generation:<instanceId>`` on ``/queries.json`` and
 ``client:tenant:<tenant>`` after a tenant's authentication.
 
+``/readyz`` carries ``servingBackend`` and, while a sharding plan serves
+sharded, ``shardingFingerprint`` (and a ``pod`` block for a plan with host
+groups); ``/metrics`` carries ``pio_shard_*`` and ``pio_pod_*`` then.
+
 Waiting for their ROADMAP items, and raising an error that names them:
-pod serving and its lockstep (``PIO_POD_GROUP``), item 10; ``POST
-/debug/profile``, item 15.
+pod serving across processes and its lockstep (``PIO_POD_GROUP``), item
+10; ``POST /debug/profile``, item 15.
 """
 
 from __future__ import annotations
@@ -225,7 +229,7 @@ class QueryServer:
         pipeline=None,
     ):
         if os.environ.get("PIO_POD_GROUP", "").strip():
-            raise _not_ported("pod serving and its lockstep (PIO_POD_GROUP)", 10)
+            raise _not_ported("pod serving across processes and its lockstep (PIO_POD_GROUP)", 10)
         self.engine = engine
         self.storage = storage or Storage.instance()
         self.ctx = ctx or DeviceContext.create()
@@ -750,9 +754,14 @@ class QueryServer:
         if self._batcher is not None:
             _bridges.bridge_batcher(reg, self._batcher.stats)
         _bridges.bridge_fastpath(reg, self._fastpath_stats)
+        # pio_shard_*: emits only while a plan serves sharded (the stats
+        # block is absent under replicated placement)
+        _bridges.bridge_sharding(reg, self._fastpath_stats)
         # pio_ivf_*: emits only while an IVF index is live (the stats block
         # is absent under exact retrieval)
         _bridges.bridge_ivf(reg, self._fastpath_stats)
+        # pio_pod_*: emits only while a plan with host groups serves
+        _bridges.bridge_pod(reg, lambda: (self._fastpath_stats() or {}).get("pod"))
         # live device utilization: the scorer's cost-annotated dispatch
         # accountant, labeled with the generation it serves (the scorer —
         # and its accountant — are rebuilt on every successful reload)
@@ -1212,6 +1221,25 @@ class QueryServer:
                 "fastpathWarm": warm,
                 "engineInstanceId": dep.instance_id if dep else None,
             }
+            # the factor placement and, while a plan serves sharded, its
+            # fingerprint: a `pio shards rebuild` + reload shows as a change
+            fps = self._fastpath_stats()
+            if fps and fps.get("serving_backend"):
+                body["servingBackend"] = fps["serving_backend"]
+                plan = (fps.get("sharding") or {}).get("plan") or {}
+                if plan.get("fingerprint"):
+                    body["shardingFingerprint"] = plan["fingerprint"]
+            # the one-process pod layout: this process is group 0 of its mesh
+            pod = (fps or {}).get("pod")
+            if pod:
+                body["pod"] = {
+                    "group": int(pod.get("process_index") or 0),
+                    "groups": int(pod.get("host_groups") or 1),
+                    "fingerprint": pod.get("fingerprint"),
+                    "processIndex": pod.get("process_index"),
+                    "processCount": pod.get("process_count"),
+                    "spansProcesses": bool(pod.get("spans_processes")),
+                }
             # streaming: the applied epoch and the staleness tell a router
             # where this replica sits in the delta sequence
             st = self._streaming

@@ -320,6 +320,7 @@ class ALSAlgorithm(Algorithm):
             model = CheckpointedALSModel(
                 model.user_factors, model.item_factors,
                 model.user_map, model.item_map, model.config,
+                sharding_plan=model.sharding_plan,
             )
         self._scorers[id(model)] = ALSScorer(ctx, model)
         return model

@@ -5,8 +5,8 @@ Counterpart of ``predictionio_tpu/tools/cli.py`` (parity:
 and its operators run and the same argument names and ``[INFO]``/``[ERROR]``
 lines: ``version``, ``status``, ``build``, ``app``, ``accesskey``, ``train``,
 ``eval``, ``deploy``, ``undeploy``, ``batchpredict``, ``eventserver``,
-``template``, ``loadtest``, ``ivf``, ``fleet``, ``canary``, ``tenants`` and
-``pipeline``.
+``template``, ``loadtest``, ``shards``, ``ivf``, ``fleet``, ``canary``,
+``tenants`` and ``pipeline``.
 
     python -m predictionio_tpu_torch.tools.cli <verb> ...
 
@@ -23,6 +23,13 @@ through the write-behind buffer (``--flush-ms``, ``--buffer-max``), and
 Streaming micro-generations need no option: ``PIO_STREAMING=1`` turns them
 on in ``deploy``, and the event plane's publisher is attached through
 ``EventServer.enable_delta_publisher``, as in the JAX package.
+
+``shards show|rebuild`` inspects or rebuilds a checkpoint-mode instance's
+sharding plan (``plan.blob``, written when ``train`` ran under
+``PIO_SHARD_COUNT`` or ``PIO_SHARD_HBM_BUDGET``); a live server adopts a
+rebuilt plan on ``POST /reload``. ``deploy`` serves a plan sharded only on a
+mesh with the plan's placements; on one card (the default mesh) it serves
+replicated.
 
 ``ivf show|rebuild`` inspects or rebuilds a checkpoint-mode instance's IVF
 index (``ivf.blob``); ``rebuild`` reads the instance's sealed factor store,
@@ -821,6 +828,91 @@ def cmd_loadtest(args) -> int:
 
 
 
+def cmd_shards(args) -> int:
+    """Inspect or rebuild a published model's ShardingPlan.
+
+    ``show`` reads the sealed ``plan.blob`` beside a checkpoint-mode
+    instance's factors. ``rebuild`` rebalances the item→shard assignment
+    from the instance's ``factors.blob`` and reseals ``plan.blob``, then
+    rewrites ``maps.pkl``'s record, each atomically (tmp + fsync + rename);
+    a live server picks the plan up on ``POST /reload``.
+    """
+    import pickle
+
+    from predictionio_tpu_torch.core import persistence
+    from predictionio_tpu_torch.core.checkpoint import restore_state
+    from predictionio_tpu_torch.models.als import CheckpointedALSModel
+    from predictionio_tpu_torch.serving import sharding as _sharding
+    from predictionio_tpu_torch.utils.fs import pio_base_dir
+
+    base = os.path.join(pio_base_dir(), "persistent_models")
+
+    def plan_path(iid: str) -> str:
+        return os.path.join(base, iid, CheckpointedALSModel.PLAN)
+
+    if args.shards_command == "show":
+        if args.instance:
+            instances = [args.instance]
+        elif os.path.isdir(base):
+            instances = sorted(os.listdir(base))
+        else:
+            instances = []
+        rows = []
+        for iid in instances:
+            p = plan_path(iid)
+            if not os.path.exists(p):
+                if args.instance:
+                    print(f"[INFO] {iid}: no sharding plan (replicated)")
+                continue
+            try:
+                rows.append({"instance": iid, **_sharding.load_plan(p).describe()})
+            except Exception as e:
+                rows.append({"instance": iid, "error": str(e)})
+        print(json.dumps(rows, indent=2))
+        return 0
+
+    # rebuild
+    iid = args.instance
+    d = os.path.join(base, iid)
+    maps_path = os.path.join(d, CheckpointedALSModel.MAPS)
+    if not os.path.exists(maps_path):
+        return _die(f"no checkpoint-persisted model at {d}")
+    import numpy as np
+
+    V = np.asarray(restore_state(os.path.join(d, CheckpointedALSModel.FACTORS))["item_factors"],
+                   np.float32)
+    weights = np.linalg.norm(V, axis=1) if args.weights == "norm" else None
+    try:
+        plan = _sharding.build_plan(
+            int(V.shape[0]), n_shards=args.shards, weights=weights, strategy=args.strategy,
+            capacity_budget_bytes=args.budget, bytes_per_item=float(V.shape[1]) * 4.0,
+            host_groups=args.host_groups,
+        )
+    except ValueError as e:
+        return _die(f"cannot build plan: {e}")
+    _sharding.save_plan(plan_path(iid), plan)
+    with open(maps_path, "rb") as f:
+        meta = persistence.load_models_blob(f.read())
+    meta["sharding"] = {
+        "n_shards": plan.n_shards,
+        "strategy": plan.strategy,
+        "fingerprint": plan.fingerprint,
+        "host_groups": plan.host_groups,
+    }
+    tmp = f"{maps_path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(meta, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, maps_path)
+    print(json.dumps({"instance": iid, **plan.describe()}, indent=2))
+    print(
+        "[INFO] Plan resealed. POST /reload on the serving deployment to "
+        "pick it up (the LKG machinery guards the swap)."
+    )
+    return 0
+
+
 def cmd_ivf(args) -> int:
     """Inspect or rebuild a published model's IVF retrieval index.
 
@@ -1238,6 +1330,34 @@ def build_parser() -> argparse.ArgumentParser:
         "(zipf draws, tenant-mix picks) — same seed, same workload",
     )
     sp.set_defaults(func=cmd_loadtest)
+
+    sp = sub.add_parser(
+        "shards", help="inspect or rebuild a published model's sharded-serving plan"
+    )
+    shards_sub = sp.add_subparsers(dest="shards_command", required=True)
+    x = shards_sub.add_parser(
+        "show", help="print the sealed ShardingPlan of one (or every) checkpoint-persisted "
+        "model instance",
+    )
+    x.add_argument("--instance", default=None)
+    x.set_defaults(func=cmd_shards)
+    x = shards_sub.add_parser(
+        "rebuild", help="re-balance the item→shard assignment offline and reseal plan.blob; "
+        "a live server adopts it on POST /reload",
+    )
+    x.add_argument("--instance", required=True)
+    x.add_argument("--shards", type=int, default=None, help="explicit shard count")
+    x.add_argument("--budget", type=int, default=None,
+                   help="per-shard HBM byte budget (derives the count)")
+    x.add_argument("--strategy", default="popularity",
+                   choices=["popularity", "round_robin", "contiguous"])
+    x.add_argument("--weights", default="norm", choices=["norm", "uniform"],
+                   help="popularity weights: item-factor L2 norms (the traffic proxy) or "
+                   "uniform")
+    x.add_argument("--host-groups", type=int, default=1,
+                   help="pod host groups: shards partition into this many contiguous groups "
+                   "(two-tier merge; must divide the shard count)")
+    x.set_defaults(func=cmd_shards)
 
     sp = sub.add_parser(
         "ivf", help="inspect or rebuild a published model's IVF approximate-retrieval index"

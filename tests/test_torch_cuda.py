@@ -1270,3 +1270,124 @@ def test_two_processes_launch_kernel_1_from_one_build_cache(card):
         assert o["build"] is True and o["launches"] >= 1
         assert not topk_mismatches(np.array(o["vals"]), np.array(o["idx"]), rv, ri, 1e-5)
     assert outs[0]["idx"] == outs[1]["idx"] and outs[0]["vals"] == outs[1]["vals"]
+
+
+# -- the mesh on one card: sharded serving and the ring (repeated placements) ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("host_groups", (1, 2))
+def test_sharded_rungs_equal_replicated_with_a_launch_a_shard_on_card(card, dtype, host_groups):
+    """A plan of 4 shards on ``[cuda:0] * 4``: every rung equals the
+    replicated exact kernel path bit for bit, and a dispatch launches kernel
+    1 once a shard (4 × dispatches), flat or two-tier merged."""
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+    from predictionio_tpu_torch.serving import sharding
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+    rng = np.random.default_rng(53)
+    U = rng.standard_normal((500, 10)).astype(np.float32)
+    V = rng.standard_normal((5003, 10)).astype(np.float32)
+    Uq, us = quantize_factors(U, dtype)
+    Vq, vs = quantize_factors(V, dtype)
+    kw = dict(max_k=100, factor_dtype=dtype, user_scale=us, item_scale=vs)
+    plan = sharding.build_plan(5003, 4, weights=np.linalg.norm(V, axis=1), host_groups=host_groups)
+    repl = BucketedScorer(DeviceContext.create(device=str(card)), Uq, Vq, **kw)
+    shrd = BucketedScorer(DeviceContext.create(devices=[card] * 4), Uq, Vq, plan=plan, **kw)
+    assert shrd.sharding == "sharded" and shrd._pod == (host_groups > 1)
+    for b in (1, 8, 16, 32, 64):
+        users = rng.integers(0, 500, b)
+        ri, rv = repl.score_topk(users, 100)
+        before = score_kernel.launches.count
+        si, sv = shrd.score_topk(users, 100)
+        assert score_kernel.launches.count == before + 4, b
+        assert np.array_equal(ri, si) and rv.tobytes() == sv.tobytes(), b
+    excl = np.arange(0, 5003, 3)
+    before = score_kernel.launches.count
+    got = shrd.score_topk_filtered(7, 100, excl, None)
+    assert score_kernel.launches.count == before + 4
+    want = repl.score_topk_filtered(7, 100, excl, None)
+    assert np.array_equal(got[0], want[0]) and got[1].tobytes() == want[1].tobytes()
+
+
+@pytest.mark.cuda
+def test_sharded_delta_rows_on_card(card):
+    from predictionio_tpu_torch.serving import sharding
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+
+    rng = np.random.default_rng(59)
+    U = rng.standard_normal((300, 10)).astype(np.float32)
+    V = rng.standard_normal((3000, 10)).astype(np.float32)
+    plan = sharding.build_plan(3000, 4, strategy="round_robin")
+    shrd = BucketedScorer(DeviceContext.create(devices=[card] * 4), U, V, max_k=50, plan=plan)
+    users, items = np.arange(0, 300, 7), np.arange(0, 3000, 11)
+    U2, V2 = U.copy(), V.copy()
+    U2[users] = rng.standard_normal((len(users), 10)) * 2
+    V2[items] = rng.standard_normal((len(items), 10)) * 2
+    shrd.apply_delta_rows(users, U2[users], items, V2[items])
+    plain = BucketedScorer(DeviceContext.create(device="cpu"), U2, V2, max_k=50)
+    for b in (1, 8, 64):
+        who = rng.integers(0, 300, b)
+        (gi, gv), (ri, rv) = shrd.score_topk(who, 50), plain.score_topk(who, 50)
+        assert not topk_mismatches(gv, gi, rv, ri, 1e-5), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", (True, False))
+def test_ring_flash_launches_once_a_live_pair_and_matches_the_whole_kernel_on_card(card, causal):
+    """``ring_flash_attention`` over ``[cuda:0] * 4``: kernels 4, 5 and 6
+    launch once per live block pair (10 each causal, 16 full), and o and
+    the gradients match the whole-sequence flash kernel (2e-5; 2e-4 /
+    2e-5)."""
+    from predictionio_tpu_torch.parallel import ring
+    from predictionio_tpu_torch.parallel.mesh import MeshContext
+
+    mesh = MeshContext.create(devices=[card] * 4)
+    g = torch.Generator(device="cpu").manual_seed(61)
+    q, k, v, w = (torch.randn(2, 4, 512, 32, generator=g).to(card) for _ in range(4))
+    pairs = 10 if causal else 16
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    counts = [c.count for c in (flash_attention.launches, flash_attention.bwd_dq_launches,
+                                flash_attention.bwd_dkv_launches)]
+    out = ring.ring_flash_attention(mesh, qs, ks, vs, causal=causal)
+    (out * w).sum().backward()
+    torch.cuda.synchronize(card)
+    got = [c.count - n for c, n in zip((flash_attention.launches, flash_attention.bwd_dq_launches,
+                                        flash_attention.bwd_dkv_launches), counts)]
+    assert got == [pairs, pairs, pairs]
+    qw, kw, vw = (x.clone().requires_grad_(True) for x in (q, k, v))
+    whole = flash_attention.flash_attention(qw, kw, vw, causal=causal)
+    (whole * w).sum().backward()
+    torch.testing.assert_close(out, whole, rtol=2e-5, atol=2e-5)
+    for a, b in ((qs, qw), (ks, kw), (vs, vw)):
+        torch.testing.assert_close(a.grad, b.grad, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_ulysses_flash_and_sasrec_sp_on_card(card):
+    """Ulysses with the flash local attention (kernel 4 once a placement)
+    matches the dense attention, and a SASRec SP step's loss on a {data 1,
+    model 2} mesh of the card equals the data-parallel loss (rtol 1e-5)."""
+    from predictionio_tpu_torch.parallel import ring, ulysses
+    from predictionio_tpu_torch.parallel.mesh import MeshContext
+
+    mesh = MeshContext.create(devices=[card] * 4)
+    g = torch.Generator(device="cpu").manual_seed(67)
+    q, k, v = (torch.randn(8, 1024, 64, generator=g).to(card) for _ in range(3))
+    before = flash_attention.launches.count
+    out = ulysses.ulysses_attention(mesh, q, k, v, causal=True, use_flash=True)
+    assert flash_attention.launches.count == before + 4
+    torch.testing.assert_close(out, ring.full_attention(q, k, v, causal=True), rtol=2e-5, atol=2e-5)
+
+    cfg = sequential.SASRecConfig(d_model=16, n_heads=2, n_layers=1, max_len=16)
+    params = sequential.init_params(0, cfg, 30)
+    rng = np.random.default_rng(1)
+    s = np.zeros((8, 17), np.int64)
+    s[:, 4:] = rng.integers(1, 31, size=(8, 13))
+    st = torch.from_numpy(s).to(card)
+    net = sequential.SASRecNet(params, cfg, card, trainable=True)
+    sp2 = MeshContext.create(axes={"data": 1, "model": 2}, devices=[card] * 2)
+    sp = sequential._build_sp_loss(sp2, 2, cfg)(net.tree(), st[:, :-1], st[:, 1:])
+    dense = sequential._loss_fn(net.tree(), st, cfg)
+    np.testing.assert_allclose(float(sp), float(dense), rtol=1e-5)

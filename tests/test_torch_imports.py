@@ -204,8 +204,8 @@ print(__import__("json").dumps(out))
 def test_public_names_mirror_the_jax_package():
     """ROADMAP §1 item 18: each package ``__init__`` exports the JAX
     package's ``__all__`` with the port's own objects, and the top level
-    its lazy names, with jax blocked; ``MeshContext`` and ``make_mesh``
-    wait for item 10 and are the only names left out."""
+    its lazy names, with jax blocked; with the mesh ported (``MeshContext``
+    and ``make_mesh``) no name is left out."""
     import json
 
     import predictionio_tpu
@@ -220,11 +220,10 @@ def test_public_names_mirror_the_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     port = json.loads(r.stdout.strip().splitlines()[-1])
-    waiting = {"MeshContext", "make_mesh"}
     for name in ("data", "data.storage", "models", "ops", "parallel"):
         jax_all = set(sys.modules[f"predictionio_tpu.{name}"].__all__)
-        assert set(port[f"predictionio_tpu_torch.{name}"]) == jax_all - waiting, name
-    assert set(port["top"]) == set(predictionio_tpu._LAZY_EXPORTS) - waiting
+        assert set(port[f"predictionio_tpu_torch.{name}"]) == jax_all, name
+    assert set(port["top"]) == set(predictionio_tpu._LAZY_EXPORTS)
 
 
 def test_every_kernel_source_is_built():

@@ -435,10 +435,21 @@ def test_an_index_the_probe_mode_cannot_take_raises_at_build(clean_env, monkeypa
         BucketedScorer(CPU, U, V, max_k=5, ivf_index=index, retrieval="ivf")
 
 
-def test_a_sharding_plan_raises_naming_item_10(clean_env):
+def test_a_sharding_plan_raises_naming_item_10(clean_env, caplog):
+    """Sharded serving is ported: an IVF index under a plan that serves
+    sharded serves exact sharded with the JAX package's warning, and its
+    answers equal the exact replicated scorer's bit for bit."""
     U, V = _clustered()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        BucketedScorer(CPU, U, V, max_k=5, plan=object())
+    mesh = DeviceContext.create(devices=["cpu"] * 4)
+    plan = sharding.build_plan(len(V), 4)
+    fp = BucketedScorer(mesh, U, V, max_k=5, plan=plan, ivf_index=ivf.build_index(V, 6),
+                        retrieval="ivf")
+    assert (fp.sharding, fp.retrieval) == ("sharded", "exact")
+    assert "serving exact sharded" in caplog.text
+    exact = BucketedScorer(CPU, U, V, max_k=5)
+    users = np.arange(len(U))
+    (si, sv), (ei, ev) = fp.score_topk(users, 5), exact.score_topk(users, 5)
+    assert np.array_equal(si, ei) and sv.tobytes() == ev.tobytes()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -611,15 +622,27 @@ def test_jax_auto_mode_blob_with_an_index_deploys_and_answers_as_jax(jax_ctx, cl
     assert again.ivf_index.fingerprint == jm.ivf_index.fingerprint
 
 
-def test_jax_auto_mode_blob_with_a_sharding_plan_still_names_item_10():
+def test_jax_auto_mode_blob_with_a_sharding_plan_still_names_item_10(clean_env):
+    """A JAX auto-mode blob carrying a plan and an index loads: both cross
+    with their fingerprints; one device serves the index (the plan is wider
+    than the mesh), a mesh of the plan's placements serves exact sharded."""
     U, V = _clustered()
-    jm = _jax_auto_model(U, V, None)
+    jm = _jax_auto_model(U, V, jax_ivf.build_index(V, 6, nprobe=6))
     jm.sharding_plan = jax_sharding.build_plan(len(V), n_shards=2)
     algo = jax_rec.ALSAlgorithm(jax_rec.ALSAlgorithmParams(rank=8))
     blob = jax_persistence.serialize_models("x", [algo], [jm], [algo.params])
     port_algo = rec.ALSAlgorithm(rec.ALSAlgorithmParams(rank=8))
-    with pytest.raises(persistence.ForeignClassError, match="ShardingPlan.*item 10"):
-        persistence.deserialize_models(blob, "x", [port_algo], [port_algo.params], CPU)
+    pm = persistence.deserialize_models(blob, "x", [port_algo], [port_algo.params], CPU)[0][0]
+    assert isinstance(pm.sharding_plan, sharding.ShardingPlan)
+    assert pm.sharding_plan.fingerprint == jm.sharding_plan.fingerprint
+    assert pm.sharding_plan.to_payload() == jm.sharding_plan.to_payload()
+    one = als.ALSScorer(CPU, pm).enable_fastpath()
+    two = als.ALSScorer(DeviceContext.create(devices=["cpu"] * 2), pm).enable_fastpath()
+    assert (one.sharding, one.retrieval) == ("replicated", "ivf")
+    assert (two.sharding, two.retrieval) == ("sharded", "exact")
+    users = np.arange(len(U))
+    (ai, av), (bi, bv) = one.score_topk(users, 10), two.score_topk(users, 10)
+    assert np.array_equal(ai, bi) and av.tobytes() == bv.tobytes()  # full probe = exact
 
 
 # -- observability ---------------------------------------------------------------------

@@ -108,7 +108,7 @@ def test_jax_als_blob_loads_as_port_classes():
     assert type(got.config) is als.ALSConfig and not hasattr(got.config, "train_kernel")
     assert (got.config.rank, got.config.compute_dtype, got.config.checkpoint_interval) == \
         (5, "bf16", 7)
-    assert got.factor_dtype == "f32" and not hasattr(got, "sharding_plan")
+    assert got.factor_dtype == "f32" and got.sharding_plan is None
     idx, _ = port_algo._scorer(got).recommend_batch(np.arange(5), 4)
     np.testing.assert_array_equal(
         idx, np.argsort(-(m.user_factors[:5] @ m.item_factors.T), axis=1, kind="stable")[:, :4])
@@ -140,13 +140,27 @@ def test_jax_sasrec_blob_holds_host_arrays_and_loads():
 
 
 def test_jax_blob_with_a_sharding_plan_is_refused():
+    """Sharded serving is ported: a JAX blob whose model declares a plan
+    loads with the port's ShardingPlan, payload for payload, and a mesh of
+    the plan's placements serves it sharded, equal to the replicated
+    answers bit for bit."""
+    from predictionio_tpu_torch.serving import sharding
+
     m = _jax_als_model()
     m.sharding_plan = jax_sharding.build_plan(20, n_shards=2)
     algo = jax_rec.ALSAlgorithm(jax_rec.ALSAlgorithmParams(rank=5))
     port_algo = rec.ALSAlgorithm(rec.ALSAlgorithmParams(rank=5))
-    with pytest.raises(persistence.ForeignClassError,
-                       match=r"predictionio_tpu\.serving\.sharding\.ShardingPlan.*item 10"):
-        persistence.deserialize_models(_jax_blob(algo, m), "x", [port_algo], [port_algo.params], CPU)
+    [got], _ = persistence.deserialize_models(_jax_blob(algo, m), "x", [port_algo],
+                                              [port_algo.params], CPU)
+    assert type(got.sharding_plan) is sharding.ShardingPlan
+    assert got.sharding_plan.to_payload() == m.sharding_plan.to_payload()
+    mesh = DeviceContext.create(devices=["cpu"] * 2)
+    shrd = als.ALSScorer(mesh, got).enable_fastpath()
+    repl = als.ALSScorer(CPU, got).enable_fastpath()
+    assert (shrd.sharding, repl.sharding) == ("sharded", "replicated")
+    users = np.arange(len(got.user_factors))
+    (si, sv), (ri, rv) = shrd.score_topk(users, 5), repl.score_topk(users, 5)
+    assert np.array_equal(si, ri) and sv.tobytes() == rv.tobytes()
 
 
 @pytest.mark.parametrize("path,want", [

@@ -163,15 +163,34 @@ def test_quant_warnings_name_the_fallback(tmp_path, monkeypatch, caplog):
     assert "quantized factors unavailable" in caplog.text and "serving fp32" in caplog.text
 
 
-@pytest.mark.parametrize("knob,item", [("PIO_SHARD_COUNT", 10), ("PIO_SHARD_HBM_BUDGET", 10)])
+@pytest.mark.parametrize("knob,item", [("PIO_SHARD_COUNT", "4"), ("PIO_SHARD_HBM_BUDGET", "400")])
 def test_unported_publish_knobs_raise(tmp_path, monkeypatch, knob, item):
-    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path))
-    monkeypatch.setenv(knob, "4")
+    """The ``PIO_SHARD_*`` knobs are ported: each declares the JAX
+    package's plan at publish (``item`` is the knob's value: 4 shards, or
+    400 bytes a shard of the 40 × 8 float32 items, also 4), sealed as
+    ``plan.blob`` with the same manifest record and payload, and a load
+    brings it back."""
+    for k in ("PIO_SHARD_COUNT", "PIO_SHARD_HBM_BUDGET", "PIO_SHARD_STRATEGY",
+              "PIO_POD_HOST_GROUPS"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv(knob, item)
     U, V = _factors()
-    m = als.CheckpointedALSModel(U, V, BiMap.string_int(f"u{i}" for i in range(len(U))),
-                                 BiMap.string_int(f"i{i}" for i in range(len(V))), None)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
-        m.save("inst", None)
+    out = {}
+    for pkg, mod, bimap in (("jax", jax_als, JaxBiMap), ("port", als, BiMap)):
+        monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / pkg))
+        m = mod._declare_sharding_plan(mod.CheckpointedALSModel(
+            U, V, bimap.string_int(f"u{i}" for i in range(len(U))),
+            bimap.string_int(f"i{i}" for i in range(len(V))), None))
+        assert m.save("inst", None) is True
+        d = mod.CheckpointedALSModel._dir("inst")
+        with open(os.path.join(d, "maps.pkl"), "rb") as f:
+            record = pickle.load(f)["sharding"]
+        with open(os.path.join(d, "plan.blob"), "rb") as f:
+            out[pkg] = (record, f.read())
+    assert out["port"] == out["jax"]
+    assert out["port"][0]["n_shards"] == 4
+    loaded = als.CheckpointedALSModel.load("inst", None, DeviceContext.create(device="cpu"))
+    assert loaded.sharding_plan.fingerprint == out["port"][0]["fingerprint"]
 
 
 def test_ivf_nlist_at_publish_seals_the_jax_record(tmp_path, monkeypatch):

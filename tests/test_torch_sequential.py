@@ -239,8 +239,16 @@ def test_not_ported_parts_name_their_roadmap_item():
     params["layers"][0]["router"] = np.zeros((8, 3), np.float32)  # E disagrees with w1
     with pytest.raises(ValueError, match="layer shapes"):
         seq.sasrec_params_from_jax(params)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        seq.train_sasrec(CPU, None, seq.SASRecConfig(seq_parallel=True))
+    # seq_parallel is ported: it needs a model axis of 2 or more, and trains
+    # on a mesh of repeated CPU placements
+    inter = _cycle_interactions()
+    with pytest.raises(ValueError, match="model.*axis"):
+        seq.train_sasrec(CPU, inter, seq.SASRecConfig(max_len=8, seq_parallel=True))
+    sp = seq.train_sasrec(
+        DeviceContext.create(axes={"data": 1, "model": 2}, devices=["cpu"] * 2), inter,
+        seq.SASRecConfig(d_model=8, n_heads=2, n_layers=1, max_len=8, epochs=2,
+                         seq_parallel=True))
+    assert sp.losses.shape == (2,) and np.isfinite(sp.losses).all()
     # checkpoints are ported: only the sharded input stops this one
     with pytest.raises(NotImplementedError, match="item 10"):
         seq.train_sasrec(CPU, None, seq.SASRecConfig(checkpoint_dir="/nowhere"))
@@ -248,6 +256,21 @@ def test_not_ported_parts_name_their_roadmap_item():
         seq.train_sasrec(CPU, None)
     with pytest.raises(NotImplementedError, match="item 10"):
         tmpl.SASRecAlgorithm(tmpl.SASRecParams()).train(CPU, tmpl.TrainingData(None))
+
+
+def _cycle_interactions(n_users=64, n_items=10, length=12, seed=0):
+    """Every user walks the cycle 0 → 1 → … → 9 → 0 from a random start
+    (the JAX tests' ``cyclic_interactions``)."""
+    from predictionio_tpu_torch.data.batch import interactions_from_arrays
+
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, n_items, n_users)
+    user = np.repeat(np.arange(n_users), length)
+    item = (np.repeat(starts, length) + np.tile(np.arange(length), n_users)) % n_items
+    t = np.tile(np.arange(length), n_users).astype(np.float64)
+    return interactions_from_arrays(user, item, np.ones(len(user)), t,
+                                    [f"u{k}" for k in range(n_users)],
+                                    [f"i{k}" for k in range(n_items)])
 
 
 def test_config_and_params_mirror_jax():
