@@ -193,7 +193,7 @@ code is not 0 and the last line is never printed.
              a fresh ``PIO_FS_BASEDIR``, ``eventserver --stats`` and ``deploy
              --batching --feedback`` against it (subprocesses; feedback
              posts a ``predict`` event per answer), and ``pio loadtest`` with
-             this process as the client: closed loops of 2,000 requests, Zipf
+             this process as the client: closed loops of 1,000 requests, Zipf
              over all 162,541 users, at concurrency 1, 16 and 64; open loops
              ``steady:rate=R,duration=3`` at 200, 800 and 3,200 req/s over
              64 connections (the rate the client really issued printed beside
@@ -224,7 +224,7 @@ code is not 0 and the last line is never printed.
              and once under a ``PIO_QUANT_MIN_OVERLAP`` above the
              measured overlap, which must leave no ``quant.blob``; ``deploy
              --batching`` of each dtype as a subprocess, whose ``GET /`` and
-             ``/metrics`` must report the dtype asked for, closed loops of 1,000
+             ``/metrics`` must report the dtype asked for, closed loops of 500
              requests (Zipf over every user) at concurrency 1 and 64 beside phase
              13's f32 server, 300 sampled answers held against kernel 1's plain
              version at that dtype, and kernel 1's launches equal to the server's
@@ -289,7 +289,7 @@ code is not 0 and the last line is never printed.
              and the auto instance a third time under ``PIO_RETRIEVAL=exact``
              (the rollback: no ``pio_ivf_*`` series; the exact path's
              yardstick under the same loads). Each server:
-             ``pio loadtest`` closed loops of 1,000 at concurrency 1 and 16
+             ``pio loadtest`` closed loops of 500 at concurrency 1 and 16
              (rung hits, the scanned fraction by rung and realized), ``pio ivf
              show``, ``GET /`` and the ``pio_ivf_*`` series of ``/metrics``;
              200 sampled answers of each, one at a time (rung 1, asserted),
@@ -371,7 +371,7 @@ code is not 0 and the last line is never printed.
              the router process maps neither libcuda nor libtorch, and
              ``nvidia-smi --query-compute-apps`` lists the replicas and not
              the router (where it shares this machine's pid namespace);
-             ``pio loadtest`` closed loops of 1,000 Zipf queries through the
+             ``pio loadtest`` closed loops of 500 Zipf queries through the
              router at concurrency 1 and 16, beside 1,000 straight to one
              replica at the same concurrency (p50, p99); on every replica
              kernel 1's launches equal its dispatches, the replicas' queries
@@ -438,6 +438,54 @@ code is not 0 and the last line is never printed.
              20 steps whose loss matches the data-parallel loss of the same
              params and batch within rtol 1e-5, then 20 free-running steps of
              each, timed.
+21. dist-collectives — many processes on the one card: ``chip_smoke.py
+             --dist-worker DIR`` twice, gloo ranks of a ``torch.distributed``
+             launch with 2 placements of ``cuda:0`` each (every number is two
+             ranks time-slicing one card). ``all_gather``, ``ppermute``,
+             ``all_to_all`` and ``psum`` of ``parallel/mesh.py`` on 4 blocks of
+             4,096 × 64 float32 equal the one-process mesh of 4 placements bit
+             for bit; ms a call, bytes staged through the host and gloo ms.
+22. dist-train-ml25m — the ML-25M draw over 2 × 2 placements, dense, f32,
+             rank 10, 5 iterations: each rank takes its 1/2 of the draw as the
+             sharded read gives it (its users' and its items' rows; the
+             tables exchanged through a sqlite model-data repository,
+             ``parallel/ingest.py``), then ``train_als`` on it, the entry
+             point (its placement check, the layout's checkpoint fingerprint,
+             one coordinator-only save, the coordinator's removal of the
+             rendezvous blobs; all asserted): kernel 2 launches buckets × 2
+             local shards × 5 in each rank (asserted). The factors equal this
+             process's run of the two ranks' blocks on 4 placements bit for
+             bit, and its 1-placement ``train_als`` from the same initial draw
+             within rtol = atol = 1e-3. s/iteration (without the save), the
+             all-gather's staged bytes and ms within it, host bucketing and
+             exchange s. Then the segment solver over the
+             same 4 placements in one process (kernel 3′ once a shard a
+             half-step, asserted).
+23. dist-cli — ``pio launch -n 2`` on 100,000 ML-1M events in sqlite:
+             ``train`` writes exactly one COMPLETED instance (kernel 2 in both
+             ranks, as each rank's ``kernel launches`` line reports), whose
+             factors equal bit for bit this process's run of the two ranks'
+             blocks (the same 1/2 reads, by two threads) on 2 placements,
+             and within rtol = atol = 1e-2 the one-process read of ``pio
+             train`` trained on one placement from the launch's start, the
+             gap no larger than that run's own distance from a float64
+             training from the same start (the float32 floor);
+             ``pio deploy --batching`` serves it (kernel 1
+             = dispatches, answers by rule 4 against the plain version);
+             ``batchpredict`` writes part files equal to a one-process run;
+             e-commerce (kernel 2 implicit in both ranks); SASRec for 30 steps
+             (kernels 4-6 a layer a step in each rank, as counted; each step's
+             loss within rtol 1e-5 of one process's ``train_step`` on the
+             same global batches from the same start); a
+             worker killed with SIGKILL fails the launch with its code.
+24. dist-pod — the ML-25M serving model under a pod plan of 2 groups × 2
+             shards over the two ranks, driven in lockstep at every rung ×
+             dtype: the answers equal the one-process pod serve bit for bit,
+             kernel 1 launches 2 local shards × dispatches in each rank
+             (asserted); the published pod instance deployed on that mesh
+             answers ``/readyz`` and ``/queries.json`` 503 with the JAX
+             server's bodies. Dispatch ms and the cross-process merge's staged
+             bytes.
 
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
@@ -2963,10 +3011,8 @@ def phase_quickstart_cli(seed, device):
     from predictionio_tpu_torch.device import DeviceContext
     from predictionio_tpu_torch.models import als
     from predictionio_tpu_torch.ops import train_kernel
-    from predictionio_tpu_torch.templates.recommendation import (
-        RecommendationEngine,
-        _merge_part_reads,
-    )
+    from predictionio_tpu_torch.parallel.ingest import _merge_part_reads
+    from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
     from predictionio_tpu_torch.templates.sequentialrecommendation import (
         SequentialRecommendationEngine,
     )
@@ -3305,7 +3351,7 @@ def phase_quickstart_cli(seed, device):
 # -- serving-ops: the deployed ALS server as operators run it -----------------
 
 OPS_APP = "ServingOps"
-OPS_REQUESTS = 2000  # each closed-loop load
+OPS_REQUESTS = 1000  # each closed-loop load (2,000 until the dist phases came)
 OPS_CONCURRENCY = (1, 16, 64)
 OPS_RATES = (200, 800, 3200)  # open-loop arrival rates, req/s
 OPS_RATE_S = 3  # seconds each open-loop rate runs (6 until the fleet phase, 4 until the sharded and ring phases came)
@@ -3729,7 +3775,7 @@ def phase_serving_ops(model, seed, device, kernel_rows):
 PE_APP = "default"  # the app RecommendationEvaluation reads
 PE_DTYPES = ("int8", "bf16")
 PE_CONCURRENCY = (1, 64)  # closed loops of PE_REQUESTS, Zipf over every user
-PE_REQUESTS = 1000  # each closed loop (OPS_REQUESTS, 2,000, until the fleet phase came)
+PE_REQUESTS = 500  # each closed loop (2,000 until the fleet phase came, 1,000 until the dist phases)
 PE_BATCH_QUERIES = 1000  # pio batchpredict's input lines
 PE_ALS_ITERS, PE_ALS_INTERVAL = 20, 5  # resume: 10 iterations, then 20
 PE_SAS_EPOCHS, PE_SAS_INTERVAL = 8, 2  # resume: two intervals (4 steps), then 8
@@ -4605,7 +4651,7 @@ def phase_streaming(model, seed, device):
 
 
 IVF_NLIST = 256  # ≈ √59,047 clusters for the ML-25M catalog
-IVF_REQUESTS = 1000  # each closed loop (2,000 until the fleet phase came)
+IVF_REQUESTS = 500  # each closed loop (2,000 until the fleet phase came, 1,000 until the dist phases)
 IVF_CONCURRENCY = (1, 16)
 IVF_SAMPLED = 200  # answers each server holds against the plain version
 IVF_TIMED = (1, 8, 64)  # rungs of the probe mode's timings
@@ -6086,9 +6132,9 @@ def phase_templates_cli(seed, device):
 
 FLEET_APP = "Fleet"
 FLEET_N = 3  # replicas of `pio deploy --fleet`
-FLEET_REQUESTS = 1000  # each closed loop through the router (2,000 until the sharded and ring phases came)
+FLEET_REQUESTS = 500  # each closed loop through the router (2,000 until the sharded and ring phases came, 1,000 until the dist phases)
 FLEET_CONCURRENCY = (1, 16)
-FLEET_DIRECT_REQUESTS = 1000  # one replica's own closed loop at the same concurrency
+FLEET_DIRECT_REQUESTS = 500  # one replica's own closed loop at the same concurrency (1,000 until the dist phases)
 FLEET_SAMPLED = 200  # answers through the router held against the plain version
 FLEET_CLIENTS = 16  # the closed loop under the kill, the rolls and the canaries
 FLEET_BAD_ID = "fleet-bad-generation"  # the faulted canary candidate's instance id
@@ -7253,6 +7299,878 @@ def phase_ring(seed, device):
     return out
 
 
+# -- many processes: gloo ranks time-slicing the one card (phases 21-24) --------
+
+DIST_N = 2  # processes of every launch
+DIST_LOCAL = 2  # placements of the card each process holds: 2 × 2 = 4 shards
+DIST_BLOCK = (4096, 64)  # float32 rows × columns of each collective's block
+DIST_CALLS = 20  # timed calls of each collective
+DIST_ITERS = 5  # ALS iterations of the ML-25M draw over the 2 × 2 placements
+DIST_TRAIN_TOL = 1e-3  # the 1-placement run against the 2 × 2 run, rtol = atol
+DIST_CLI_QUERIES = 64  # /queries.json to the deployed launch-trained instance
+# the launch's factors against one process's training of the same events
+# from the same start, rtol = atol: the float32 trainings of these events
+# sit ~1e-2 from a float64 one (43% of the users have fewer ratings than
+# the rank), so the witness below also holds the gap to that floor
+DIST_CLI_TOL = 1e-2  # and the launch no more than twice that run's distance from float64
+SAS_DP_RTOL = 1e-5  # the launch's SASRec losses against one process's steps
+
+
+def dist_blocks(device, seed, shape):
+    """The collectives' four global blocks, the same in every process."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 181)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+            for _ in range(DIST_N * DIST_LOCAL)]
+
+
+def dist_collectives(ctx, blocks):
+    """The four collectives of ``parallel/mesh.py`` on this process's blocks
+    (all of them on a one-process mesh), as stacked tensors."""
+    import torch
+
+    from predictionio_tpu_torch.parallel import mesh
+
+    lo, hi = ctx.local_range
+    local, devs = blocks[lo:hi], ctx.local_devices
+    return {
+        "all_gather": lambda: mesh.all_gather(local, ctx.device, ctx=ctx),
+        "ppermute": lambda: torch.stack(mesh.ppermute(local, devs, 1, ctx=ctx)),
+        "all_to_all": lambda: torch.stack(mesh.all_to_all(local, 0, 1, devs, ctx=ctx)),
+        "psum": lambda: torch.stack(mesh.psum(local, devs, ctx=ctx)),
+    }
+
+
+def sharded_from_draw(inter, pid, n, storage, key):
+    """This process's 1/n of an in-memory draw as the sharded read gives
+    it (``parallel/ingest.py``): its users' rows and its items' rows, the
+    (entity → count) tables exchanged through the model-data repository
+    and the rows translated into the global ids. The draw stands in for the
+    store: 25,000,095 sqlite rows would take tens of minutes to read."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.batch import Interactions
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.data.storage.base import PEvents
+    from predictionio_tpu_torch.parallel import ingest
+
+    uids = np.array(list(inter.user_map.keys()), dtype=object)
+    iids = np.array(list(inter.item_map.keys()), dtype=object)
+    u_own = np.fromiter((PEvents.shard_hash(s) % n for s in uids), np.int64, len(uids))
+    i_own = np.fromiter((PEvents.shard_hash(s) % n for s in iids), np.int64, len(iids))
+
+    def local(rows):
+        uu, u_code = np.unique(inter.user[rows], return_inverse=True)
+        ii, i_code = np.unique(inter.item[rows], return_inverse=True)
+        return Interactions(
+            user=u_code.astype(np.int32), item=i_code.astype(np.int32),
+            rating=inter.rating[rows], t=inter.t[rows],
+            user_map=BiMap(dict(zip(uids[uu].tolist(), range(len(uu))))),
+            item_map=BiMap(dict(zip(iids[ii].tolist(), range(len(ii))))))
+
+    upass = local(np.flatnonzero(u_own[inter.user] == pid))
+    ipass = local(np.flatnonzero(i_own[inter.item] == pid))
+    user_map, user_counts, _ = ingest.exchange_entity_tables(
+        storage, key + "_user", ingest._count_table(upass.user, upass.user_map), pid, n)
+    item_map, item_counts, _ = ingest.exchange_entity_tables(
+        storage, key + "_item", ingest._count_table(ipass.item, ipass.item_map), pid, n)
+    return ingest.ShardedInteractions(
+        user_rows=ingest._translate(upass, user_map, item_map),
+        item_rows=ingest._translate(ipass, user_map, item_map),
+        user_map=user_map, item_map=item_map, user_counts=user_counts,
+        item_counts=item_counts, process_index=pid, num_processes=n,
+        cleanup=lambda: ingest.cleanup_exchange_keys(storage, key, n))
+
+
+def dist_storage_env(tmp, name):
+    src = "D" + name.upper()
+    env = {f"PIO_STORAGE_SOURCES_{src}_TYPE": "sqlite",
+           f"PIO_STORAGE_SOURCES_{src}_PATH": os.path.join(tmp, f"{name}.sqlite")}
+    for r in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE"] = src
+    return env
+
+
+def dist_worker(tmp) -> int:
+    """One rank of the in-process launch of phases 21, 22 and 24 (spawned
+    by :func:`phase_dist` as ``chip_smoke.py --dist-worker DIR``): the
+    collectives, the ML-25M training and the pod serve, each in lockstep with
+    the other rank, on ``DIST_LOCAL`` placements of ``cuda:0``."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.core import checkpoint
+    from predictionio_tpu_torch.data.batch import interactions_from_arrays
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import _build, score_kernel, train_kernel
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+    from predictionio_tpu_torch.parallel import distributed, ingest
+    from predictionio_tpu_torch.serving import sharding
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+    from predictionio_tpu_torch.serving.query_server import QueryServer
+    from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
+
+    with open(os.path.join(tmp, "dist_args.json")) as f:
+        args = json.load(f)
+    t0 = time.perf_counter()
+    require(distributed.initialize(), "joined the rendezvous")
+    pid = distributed.process_index()
+    out = {"pid": pid, "join_s": time.perf_counter() - t0}
+    device = torch.device(args["device"])
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    torch.zeros(1, device=device)  # the card, after the rendezvous
+    t0 = time.perf_counter()
+    if on_card:
+        _build.build_all()
+    out["build_s"] = time.perf_counter() - t0
+    ctx = DeviceContext.create(devices=[device] * DIST_LOCAL)
+    require(ctx.spans_processes and ctx.n_devices == DIST_N * DIST_LOCAL, f"mesh {ctx.devices}")
+
+    # 21. the collectives, bit for bit against the one-process mesh (main)
+    fns = dist_collectives(ctx, dist_blocks(device, args["seed"], args["block"]))
+    np.savez(os.path.join(tmp, f"coll{pid}.npz"), **{k: fn().cpu().numpy() for k, fn in fns.items()})
+    coll = {}
+    for name, fn in fns.items():
+        distributed.reset_stats()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(DIST_CALLS):
+            fn()
+        sync()
+        coll[name] = {"ms": (time.perf_counter() - t0) * 1e3 / DIST_CALLS,
+                      "staged_bytes": distributed.STATS["staged_bytes"] / DIST_CALLS,
+                      "gloo_ms": distributed.STATS["seconds"] * 1e3 / DIST_CALLS}
+    out["collectives"] = coll
+
+    # 22. the ML-25M draw's training over 2 × 2 placements (the draw as the
+    # main process made it, loaded rather than drawn again)
+    t0 = time.perf_counter()
+    z = np.load(os.path.join(tmp, "draw.npz"))
+    n_users, n_items = args["draw"][:2]
+    inter = interactions_from_arrays(z["user"], z["item"], z["rating"], np.zeros(len(z["user"])),
+                                     (f"u{i}" for i in range(n_users)),
+                                     (f"i{j}" for j in range(n_items)))
+    del z
+    draw_s = time.perf_counter() - t0
+    storage = Storage(env=dist_storage_env(tmp, "rendezvous"))
+    t0 = time.perf_counter()
+    sh = sharded_from_draw(inter, pid, DIST_N, storage, args["run_key"])
+    exchange_s = time.perf_counter() - t0
+    del inter
+    # through the trainer's entry point; its blocks, its start and its
+    # iterations are timed and kept by wrappers around the functions it
+    # calls, which run unchanged
+    seen = {}
+
+    def timed(name, fn, align=False):
+        def call(*a, **kw):
+            if align:  # both ranks start the clock together, past their host stages
+                distributed.barrier()
+            sync()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            sync()
+            seen[name] = (time.perf_counter() - t0, a, r)
+            return r
+        return call
+
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    cfg = als.ALSConfig(rank=RANK, iterations=DIST_ITERS, compute_dtype="f32", solver="dense",
+                        checkpoint_dir=ckpt_dir, checkpoint_interval=DIST_ITERS)
+    blob = f"{ingest._BLOB_PREFIX}{args['run_key']}_user_m{pid}"
+    require(storage.get_model_data_models().get(blob) is not None, f"p{pid}: rendezvous blob {blob}")
+    writes = []
+    mgr = checkpoint.CheckpointManager
+    orig = (als._sharded_blocks_for_host, als._run_shards, mgr.save, mgr._write)
+    als._sharded_blocks_for_host = timed("bucketing", orig[0])
+    als._run_shards = timed("iterations", orig[1], align=True)
+    mgr.save = timed("checkpoint", orig[2])
+    mgr._write = lambda self, step, tree: (writes.append(step), orig[3](self, step, tree))
+    distributed.barrier()
+    train_kernel.launches.reset()
+    distributed.reset_stats()
+    try:
+        t0 = time.perf_counter()
+        m = als.train_als(ctx, sh, cfg)
+        train_als_s = time.perf_counter() - t0
+    finally:
+        als._sharded_blocks_for_host, als._run_shards, mgr.save, mgr._write = orig
+    launches = train_kernel.launches.count
+    gathers = dict(distributed.STATS)
+    bucketing_s, _, (ub, ib, ug, ig, my) = seen["bucketing"]
+    # the iterations' seconds without the one checkpoint save (the
+    # coordinator's write and the barrier after it)
+    checkpoint_s = seen["checkpoint"][0]
+    train_s, run_args, (U_all, V_all) = seen["iterations"]
+    train_s -= checkpoint_s
+    U0, V0 = run_args[3], run_args[4]
+    require(tuple(my) == ctx.local_range, f"shards {my} vs placements {ctx.local_range}")
+    want = (len(ub.widths) + len(ib.widths)) * DIST_LOCAL * DIST_ITERS
+    # (the CPU's plain versions count no launch)
+    require(launches == want or not on_card, f"p{pid}: kernel 2 launched {launches} times, want buckets "
+            f"({len(ub.widths)} + {len(ib.widths)}) × {DIST_LOCAL} local shards × {DIST_ITERS}")
+    require(m.user_factors.tobytes() == U_all[ug[2][:sh.n_users]].tobytes(), "the entry's factors")
+    # the coordinator alone wrote the last step's checkpoint and, after the
+    # last collective, removed the rendezvous blobs
+    require(writes == ([DIST_ITERS] if pid == 0 else []), f"p{pid} checkpoint writes {writes}")
+    require(pid != 0 or storage.get_model_data_models().get(blob) is None,
+            "the coordinator removed the rendezvous blobs")
+    np.savez(os.path.join(tmp, f"blocks{pid}.npz"), **{
+        f"{side}_{f}_{b}": a for side, blk in (("u", ub), ("i", ib))
+        for f in ("idx", "rat", "msk") for b, a in enumerate(getattr(blk, f))})
+    if pid == 0:
+        np.savez(os.path.join(tmp, "factors.npz"), U=U_all, V=V_all, U0=U0, V0=V0,
+                 u_perm=ug[2], i_perm=ig[2], users=np.array(list(sh.user_map.keys())),
+                 items=np.array(list(sh.item_map.keys())),
+                 u_widths=np.array(ub.widths), i_widths=np.array(ib.widths),
+                 fingerprint=als._sharded_fingerprint(sh, cfg, len(ug[2]), len(ig[2]),
+                                                      DIST_N * DIST_LOCAL))
+    out["train"] = {
+        "draw_s": draw_s, "exchange_s": exchange_s, "bucketing_s": bucketing_s,
+        "train_als_s": train_als_s, "checkpoint_s": checkpoint_s, "train_s": train_s,
+        "s_per_iteration": train_s / DIST_ITERS,
+        "allgather_ms_per_iteration": gathers["seconds"] * 1e3 / DIST_ITERS,
+        "staged_bytes_per_iteration": gathers["staged_bytes"] / DIST_ITERS,
+        "launches": launches, "buckets": [len(ub.widths), len(ib.widths)],
+        "local_ratings": [len(sh.user_rows.rating), len(sh.item_rows.rating)],
+        "padded_slots": ub.padded_ratings + ib.padded_ratings}
+    del ub, ib, sh, m, seen
+
+    # 24. the pod plan of 2 host groups × 2 shards, served in lockstep
+    z = np.load(os.path.join(tmp, "pod_model.npz"))
+    with open(os.path.join(tmp, "pod_plan.bin"), "rb") as f:
+        plan = sharding.ShardingPlan.from_payload(f.read())
+    pod, answers = {}, {}
+    for dtype in DTYPES:
+        if dtype == "f32":
+            fargs, kw = (z["U"], z["V"]), {}
+        else:
+            (Uq, us), (Vq, vs) = quantize_factors(z["U"], dtype), quantize_factors(z["V"], dtype)
+            fargs, kw = (Uq, Vq), {"factor_dtype": dtype, "user_scale": us, "item_scale": vs}
+        fp = BucketedScorer(ctx, *fargs, max_k=K, plan=plan, **kw)
+        require(fp._pod and fp._shard_ctx.spans_processes, f"{dtype}: pod {fp._pod}")
+        rng = np.random.default_rng(args["seed"] + 191)
+        score_kernel.launches.reset()
+        distributed.reset_stats()
+        ms = {}
+        for b in RUNGS:
+            users = rng.integers(0, len(z["U"]), b).astype(np.int32)
+            sync()
+            t0 = time.perf_counter()
+            idx, val = fp.score_topk(users, K)
+            ms[b] = (time.perf_counter() - t0) * 1e3
+            answers[f"{dtype}_{b}_i"], answers[f"{dtype}_{b}_v"] = idx, val
+        launches = score_kernel.launches.count
+        require(launches == DIST_LOCAL * len(RUNGS) or not on_card,
+                f"p{pid} {dtype}: kernel 1 launched {launches} times for {len(RUNGS)} "
+                f"dispatches of {DIST_LOCAL} local shards")
+        pod[dtype] = {"dispatch_ms": ms, "launches": launches, "dispatches": len(RUNGS),
+                      "merge_staged_bytes": distributed.STATS["staged_bytes"],
+                      "merge_ms": distributed.STATS["seconds"] * 1e3}
+    np.savez(os.path.join(tmp, f"pod{pid}.npz"), **answers)
+    # the published pod instance deployed on the mesh: lockstep only
+    qs = QueryServer(RecommendationEngine.apply(), storage=Storage(env=dist_storage_env(tmp, "pod")),
+                     ctx=ctx, batching=True, telemetry=False)
+    base = f"http://127.0.0.1:{qs.start('127.0.0.1', 0)}"
+    try:
+        pod["readyz"] = http_json(f"{base}/readyz")
+        pod["queries"] = http_json(f"{base}/queries.json", {"user": "u1", "num": 5})
+    finally:
+        qs.stop()
+    out["pod"] = pod
+    with open(os.path.join(tmp, f"worker{pid}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.barrier()
+    distributed.shutdown()
+    return 0
+
+
+def phase_dist(model, seed, device, inter, item_counts):
+    """Phases 21, 22 and 24: see the module docstring."""
+    import shutil
+    import tempfile
+    import uuid
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+    from predictionio_tpu_torch.serving import sharding
+    from predictionio_tpu_torch.serving.fastpath import BucketedScorer
+    from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pio-dist-")
+    saved = os.environ.get("PIO_FS_BASEDIR")
+    try:
+        # the pod serve's model, plan and published instance (checkpoint mode)
+        U, V = model.user_factors, model.item_factors
+        np.savez(os.path.join(tmp, "pod_model.npz"), U=U, V=V)
+        plan = sharding.build_plan(len(V), DIST_N * DIST_LOCAL, weights=item_counts,
+                                   host_groups=DIST_N)
+        with open(os.path.join(tmp, "pod_plan.bin"), "wb") as f:
+            f.write(plan.to_payload())
+        os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+        pod_model = als.CheckpointedALSModel(U, V, model.user_map, model.item_map, model.config,
+                                             sharding_plan=plan)
+        publish(Storage(env=dist_storage_env(tmp, "pod")), RecommendationEngine.apply(), pod_model,
+                variant={"algorithms": [{"name": "als", "params": {
+                    "rank": RANK, "persistMode": "checkpoint"}}]})
+        np.savez(os.path.join(tmp, "draw.npz"), user=inter.user, item=inter.item,
+                 rating=inter.rating)
+        with open(os.path.join(tmp, "dist_args.json"), "w") as f:
+            json.dump({"seed": seed, "run_key": uuid.uuid4().hex[:12], "device": str(device),
+                       "draw": [N_USERS, N_ITEMS, N_RATINGS], "block": list(DIST_BLOCK)}, f)
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=ROOT, PIO_COORDINATOR=f"127.0.0.1:{port}",
+                   PIO_NUM_PROCESSES=str(DIST_N))
+        t0 = time.perf_counter()
+        procs, logs = [], []
+        for i in range(DIST_N):
+            logs.append(os.path.join(tmp, f"worker{i}.log"))
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dist-worker", tmp],
+                    cwd=ROOT, env=dict(env, PIO_PROCESS_ID=str(i)), stdout=log,
+                    stderr=subprocess.STDOUT))
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        workers_s = time.perf_counter() - t0
+        for i, rc in enumerate(rcs):
+            with open(logs[i]) as f:
+                require(rc == 0, f"dist worker {i} exited {rc}: {f.read()[-3000:]}")
+        w = []
+        for i in range(DIST_N):
+            with open(os.path.join(tmp, f"worker{i}.json")) as f:
+                w.append(json.load(f))
+        out = {"phase": "dist", "workers_s": workers_s,
+               "join_s": [x["join_s"] for x in w], "build_s": [x["build_s"] for x in w]}
+
+        # 21. every collective's result equals the one-process mesh's
+        mesh4 = DeviceContext.create(devices=[device] * (DIST_N * DIST_LOCAL))
+        one = {k: fn().cpu().numpy() for k, fn in dist_collectives(
+            mesh4, dist_blocks(device, seed, DIST_BLOCK)).items()}
+        for pid in range(DIST_N):
+            z = np.load(os.path.join(tmp, f"coll{pid}.npz"))
+            for name, want in one.items():
+                got = z[name]
+                if name != "all_gather":
+                    want = want[pid * DIST_LOCAL:(pid + 1) * DIST_LOCAL]
+                require(got.shape == want.shape and got.tobytes() == want.tobytes(),
+                        f"p{pid} {name}: differs from the one-process mesh")
+        out["collectives"] = {name: [x["collectives"][name] for x in w] for name in one}
+        emit({"phase": "dist-collectives", "bit_equal": True, "block": list(DIST_BLOCK),
+              "placements": [DIST_N, DIST_LOCAL], **out["collectives"]})
+
+        # 22. the 2 × 2 run equals the same hosts' blocks on 4 placements of
+        # one process bit for bit, and the 1-placement run within the tolerance
+        f = np.load(os.path.join(tmp, "factors.npz"))
+        zs = [np.load(os.path.join(tmp, f"blocks{p}.npz")) for p in range(DIST_N)]
+
+        def both_hosts(side):
+            nb = len(f[f"{side}_widths"])
+            cat = [[np.concatenate([z[f"{side}_{name}_{b}"] for z in zs]) for b in range(nb)]
+                   for name in ("idx", "rat", "msk")]
+            return als._ShardDenseBlocks(idx=cat[0], rat=cat[1], msk=cat[2],
+                                         widths=list(f[f"{side}_widths"]), per_shard=0,
+                                         padded_ratings=0)
+
+        cfg = als.ALSConfig(rank=RANK, iterations=DIST_ITERS, compute_dtype="f32", solver="dense")
+        n_sh = DIST_N * DIST_LOCAL
+        t0 = time.perf_counter()
+        U_ref, V_ref = als._run_shards(
+            mesh4, als._shard_inputs(both_hosts("u"), range(n_sh), [device] * n_sh, True),
+            als._shard_inputs(both_hosts("i"), range(n_sh), [device] * n_sh, True),
+            f["U0"], f["V0"], cfg)
+        one_process_s = time.perf_counter() - t0
+        require(U_ref.tobytes() == f["U"].tobytes() and V_ref.tobytes() == f["V"].tobytes(),
+                "the 2 × 2 run differs from the same blocks on 4 placements of one process")
+        fp = np.load(os.path.join(tmp, "ckpt", f"step_{DIST_ITERS}.fp.npy"))
+        require(fp.tobytes() == f["fingerprint"].tobytes(),
+                f"the coordinator's checkpoint sidecar {fp} vs the layout's fingerprint")
+        del zs
+        users, items = f["users"], f["items"]
+        u_perm, i_perm = f["u_perm"], f["i_perm"]
+        u_orig = np.array([int(s[1:]) for s in users])
+        i_orig = np.array([int(s[1:]) for s in items])
+
+        def to_original(blocked, perm, orig, n):
+            out_ = np.zeros((n, RANK), np.float32)
+            out_[orig] = blocked[perm[:len(orig)]]
+            return out_
+
+        init = (to_original(f["U0"], u_perm, u_orig, len(inter.user_map)),
+                to_original(f["V0"], i_perm, i_orig, len(inter.item_map)))
+        t0 = time.perf_counter()
+        m1 = als.train_als(DeviceContext.create(device=device), inter, cfg, init_factors=init)
+        one_placement_s = time.perf_counter() - t0
+        gap_u = np.abs(m1.user_factors[u_orig] - f["U"][u_perm[:len(u_orig)]])
+        gap_v = np.abs(m1.item_factors[i_orig] - f["V"][i_perm[:len(i_orig)]])
+        tol_u = DIST_TRAIN_TOL * (1 + np.abs(m1.user_factors[u_orig]))
+        tol_v = DIST_TRAIN_TOL * (1 + np.abs(m1.item_factors[i_orig]))
+        gaps = {"max_abs_u": float(gap_u.max()), "max_abs_v": float(gap_v.max()),
+                "beyond_tol": int((gap_u > tol_u).sum() + (gap_v > tol_v).sum())}
+        require(gaps["beyond_tol"] == 0,
+                f"2 × 2 vs 1-placement factors beyond rtol = atol = {DIST_TRAIN_TOL}: {gaps}")
+        t = w[0]["train"]
+        out["train"] = {**{k: [x["train"][k] for x in w] for k in t},
+                        "one_process_4_placements_s": one_process_s,
+                        "one_placement_s": one_placement_s, "vs_one_placement": gaps}
+        emit({"phase": "dist-train-ml25m", "bit_equal_to_one_process": True,
+              "iterations": DIST_ITERS, "ratings": N_RATINGS, **out["train"]})
+
+        # 3′ over the same 4 placements of one process: the segment solver
+        # launches its kernel once a shard a half-step
+        seg = zipf_interactions(seed + 3, *SEG_DRAW)
+        scfg = als.ALSConfig(rank=RANK, iterations=2, compute_dtype="f32", solver="segment")
+        train_kernel.segment_launches.reset()
+        t0 = time.perf_counter()
+        als.train_als(mesh4, seg, scfg)
+        seg_launches = train_kernel.segment_launches.count
+        require(seg_launches == n_sh * 2 * scfg.iterations,
+                f"segment kernel launched {seg_launches} times over {n_sh} shards × 2 × 2")
+        out["segment_4_placements"] = {"launches": seg_launches, "s": time.perf_counter() - t0,
+                                       "ratings": SEG_DRAW[2]}
+        emit({"phase": "dist-train-segment", **out["segment_4_placements"]})
+        del seg
+
+        # 24. the pod answers equal the one-process pod serve bit for bit
+        pod_rows = {}
+        for dtype in DTYPES:
+            if dtype == "f32":
+                fargs, kw = (U, V), {}
+            else:
+                (Uq, us), (Vq, vs) = quantize_factors(U, dtype), quantize_factors(V, dtype)
+                fargs, kw = (Uq, Vq), {"factor_dtype": dtype, "user_scale": us, "item_scale": vs}
+            fp = BucketedScorer(mesh4, *fargs, max_k=K, plan=plan, **kw)
+            require(fp._pod and not fp._shard_ctx.spans_processes, "one-process pod serve")
+            rng = np.random.default_rng(seed + 191)
+            for b in RUNGS:
+                users_b = rng.integers(0, len(U), b).astype(np.int32)
+                wi, wv = fp.score_topk(users_b, K)
+                for pid in range(DIST_N):
+                    z = np.load(os.path.join(tmp, f"pod{pid}.npz"))
+                    require(np.array_equal(z[f"{dtype}_{b}_i"], wi)
+                            and z[f"{dtype}_{b}_v"].tobytes() == wv.tobytes(),
+                            f"p{pid} {dtype} B = {b}: the lockstep answer differs")
+            pod_rows[dtype] = [x["pod"][dtype] for x in w]
+        jax_body = {"message": "pod mesh spans processes: queries must be dispatched in SPMD "
+                    "lockstep on every process, not routed to one — serve through "
+                    "self-contained host-local replicas instead"}
+        for pid, x in enumerate(w):
+            rs, rb = x["pod"]["readyz"]
+            require(rs == 503 and rb["status"] == "pod mesh spans processes (lockstep only)"
+                    and rb["pod"]["group"] is None and rb["pod"]["spansProcesses"],
+                    f"p{pid} /readyz {rs} {rb}")
+            qs_, qb = x["pod"]["queries"]
+            require(qs_ == 503 and qb == jax_body, f"p{pid} /queries.json {qs_} {qb}")
+        out["pod"] = pod_rows
+        emit({"phase": "dist-pod", "bit_equal_to_one_process": True, "groups": DIST_N,
+              "shards": DIST_N * DIST_LOCAL, "rows": pod_rows, "readyz": 503, "queries": 503})
+        out["seconds"] = time.perf_counter() - t_phase
+        return out
+    finally:
+        if saved is None:
+            os.environ.pop("PIO_FS_BASEDIR", None)
+        else:
+            os.environ["PIO_FS_BASEDIR"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def als_f64(inter, U0, V0, cfg, device):
+    """ALS-WR (explicit) of ``inter`` in float64 from (U0, V0) in its id
+    order: the plain normal equations (``Σ v vᵀ + (λ·n + 1e-6) I``, ``Σ r v``)
+    and a float64 solve, ``cfg.iterations`` times. The witness the float32
+    trainings are measured against."""
+    import torch
+
+    f64 = torch.float64
+    u = torch.from_numpy(inter.user.astype("int64")).to(device)
+    i = torch.from_numpy(inter.item.astype("int64")).to(device)
+    r = torch.from_numpy(inter.rating.astype("float64")).to(device)
+    eye = torch.eye(cfg.rank, dtype=f64, device=device)
+
+    def side(e, o, F, n):
+        g = F[o]
+        A = torch.zeros(n, cfg.rank, cfg.rank, dtype=f64, device=device).index_add_(
+            0, e, g[:, :, None] * g[:, None, :])
+        b = torch.zeros(n, cfg.rank, dtype=f64, device=device).index_add_(0, e, r[:, None] * g)
+        cnt = torch.zeros(n, dtype=f64, device=device).index_add_(0, e, torch.ones_like(r))
+        return torch.linalg.solve(A + (cfg.reg * cnt + 1e-6)[:, None, None] * eye, b)
+
+    U = torch.from_numpy(U0).to(device, f64)
+    V = torch.from_numpy(V0).to(device, f64)
+    for _ in range(cfg.iterations):
+        U = side(u, i, V, len(U))
+        V = side(i, u, U, len(V))
+    return U.cpu().numpy(), V.cpu().numpy()
+
+
+def pio_launch(tmp, name, *argv, env=None, timeout=600):
+    """``pio launch -n DIST_N -- <argv>`` as a subprocess; (rc, its output,
+    each process's kernel launches from its last report)."""
+    import re
+
+    log = os.path.join(tmp, f"{name}.log")
+    cmd = CLI + ["launch", "-n", str(DIST_N), "--coordinator-port", str(free_port()), "--", *argv]
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run(cmd, cwd=ROOT, env=dict(env or os.environ, PYTHONPATH=ROOT),
+                            stdout=f, stderr=subprocess.STDOUT, timeout=timeout).returncode
+    with open(log) as f:
+        text = f.read()
+    launches = {}
+    for m in re.finditer(r"\[p(\d+)\] \[INFO\] process \d+/\d+ kernel launches: (\{.*\})", text):
+        launches[int(m.group(1))] = json.loads(m.group(2))
+    return rc, text, launches, time.perf_counter() - t0
+
+
+def phase_dist_cli(seed, device):
+    """Phase 23: ``pio launch`` on the card. See the module docstring."""
+    import re
+    import shutil
+    import signal
+    import tempfile
+    import uuid
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import sqlite
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.models import sequential as seq
+    from predictionio_tpu_torch.parallel import ingest
+    from predictionio_tpu_torch.templates.recommendation import (
+        DataSourceParams,
+        RecommendationDataSource,
+        RecommendationEngine,
+    )
+    from predictionio_tpu_torch.templates.sequentialrecommendation import (
+        SequentialRecommendationEngine,
+    )
+    from predictionio_tpu_torch.testing import topk_mismatches
+    from predictionio_tpu_torch.tools import launcher as launch_mod
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pio-dist-cli-")
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("PIO_STORAGE_") or k in ("PIO_FS_BASEDIR", "PIO_ALS_SOLVER")}
+    for k in saved:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    Storage.reset_instance()
+    store.set_storage(None)
+    servers = []
+    out = {"phase": "dist-cli"}
+    key_of = re.compile(r"Access Key: (\S+)")
+    try:
+        # 1. 100,000 events of the ML-1M draw in the zero-config sqlite store
+        key_of.search(cli_run("app", "new", "DistApp"))
+        storage = Storage.instance()
+        app_id = storage.get_meta_data_apps().get_by_name("DistApp").id
+        inter, _ = ml1m_interactions(seed)
+        rng = np.random.default_rng(seed + 23)
+        pick = np.sort(rng.choice(len(inter.user), QS_BULK, replace=False))
+        b_user, b_item, b_t = inter.user[pick], inter.item[pick], inter.t[pick]
+        del inter
+        buy = rng.integers(0, QS_BUY_EVERY, QS_BULK) == 0
+        stars = rng.integers(1, 6, QS_BULK)
+        le = storage.get_l_events()
+        for c in range(0, QS_BULK, QS_BULK_CHUNK):
+            le.insert_batch([
+                Event(event="buy" if buy[k] else "rate", entity_type="user",
+                      entity_id=f"u{b_user[k]}", target_entity_type="item",
+                      target_entity_id=f"si{b_item[k]}",
+                      properties=None if buy[k] else {"rating": int(stars[k])},
+                      event_time=float(b_t[k]), creation_time=float(b_t[k]))
+                for k in range(c, min(c + QS_BULK_CHUNK, QS_BULK))], app_id)
+
+        # 2. pio launch -n 2 -- train: one COMPLETED instance, kernel 2 in
+        # every process
+        eng = os.path.join(tmp, "recommendation")
+        cli_run("template", "get", "recommendation", "--directory", eng)
+        variant = fill_engine_json(os.path.join(eng, "engine.json"), "DistApp", [
+            {"name": "als", "params": {"rank": RANK, "numIterations": TRAIN_ITERS, "seed": seed}}])
+        rc, text, launches, train_s = pio_launch(tmp, "train", "train", "--engine-dir", eng,
+                                                 "--device", device.type)
+        require(rc == 0, f"pio launch train exited {rc}: {text[-3000:]}")
+        ids = set(re.findall(r"Engine instance ID: (\S+)", text))
+        insts = storage.get_meta_data_engine_instances().get_all()
+        done = [i for i in insts if i.status == "COMPLETED"]
+        require(len(ids) == 1 and len(done) == 1 and len(insts) == 1 and done[0].id in ids,
+                f"instances {[(i.id, i.status) for i in insts]}, reported {ids}")
+        iid = done[0].id
+        k2 = [launches.get(p, {}).get("train_normal_eq", 0) for p in range(DIST_N)]
+        require(len(set(k2)) == 1 and k2[0] > 0 and k2[0] % TRAIN_ITERS == 0,
+                f"kernel 2 launches per process {k2} over {TRAIN_ITERS} iterations")
+        out["train"] = {"wall_s": train_s, "kernel2_launches": k2, "instance": iid}
+        emit({"phase": "dist-cli", "step": "train", **out["train"]})
+
+        # 3. the same two ranks' blocks in this process on 2 placements of the
+        # card: the factors equal the launch's bit for bit
+        engine = RecommendationEngine.apply()
+        _, _, _, models = workflow.prepare_deploy(engine, done[0], storage=storage,
+                                                  ctx=DeviceContext.create(device=device))
+        m2 = models[0]
+        src = engine.make_algorithms(engine.params_from_variant(variant))[0]._config()
+        parts = RecommendationDataSource(DataSourceParams(appName="DistApp"))._part_filters()
+        run_key = uuid.uuid4().hex[:12]
+        with ThreadPoolExecutor(DIST_N) as pool:
+            sh = list(pool.map(lambda p: ingest.read_sharded_interactions(
+                storage, app_id, run_key=run_key, process_index=p, num_processes=DIST_N,
+                parts=parts), range(DIST_N)))
+        hosts = [als._sharded_blocks_for_host(sh[p], DIST_N, p, DIST_N) for p in range(DIST_N)]
+        u_perm, i_perm = hosts[0][2][2], hosts[0][3][2]
+        U0, V0 = als.sharded_initial_factors(sh[0], src, u_perm, i_perm)
+        U_ref, V_ref = als._run_shards(
+            DeviceContext.create(devices=[device] * DIST_N),
+            [x for h in hosts for x in als._shard_inputs(h[0], range(1), [device], True)],
+            [x for h in hosts for x in als._shard_inputs(h[1], range(1), [device], True)],
+            U0, V0, src)
+        require(list(sh[0].user_map.keys()) == list(m2.user_map.keys())
+                and U_ref[u_perm[:sh[0].n_users]].tobytes() == m2.user_factors.tobytes()
+                and V_ref[i_perm[:sh[0].n_items]].tobytes() == m2.item_factors.tobytes(),
+                "the launch's factors differ from its two ranks' blocks on 2 placements")
+        # rule 4's factor clause: the read `pio train` makes in one process,
+        # trained on one placement from the launch's own start (its draw in
+        # global-id order, handed over by entity name; `pio train` would draw
+        # in its own id order and start elsewhere). Witness: a float64
+        # training from that start, which the launch is no farther from
+        # than the one-process float32 training is
+        one = RecommendationDataSource(DataSourceParams(appName="DistApp"))._read_interactions(
+            sharded_ok=False)
+        gen = torch.Generator(device="cpu").manual_seed(int(src.seed))
+        gU = als._initial_factors(src, sh[0].n_users, gen)
+        gV = als._initial_factors(src, sh[0].n_items, gen)
+        ou = np.array([m2.user_map[n] for n in one.user_map.keys()])
+        oi = np.array([m2.item_map[n] for n in one.item_map.keys()])
+        m1 = als.train_als(DeviceContext.create(device=device), one, src,
+                           init_factors=(gU[ou], gV[oi]))
+        U64, V64 = als_f64(one, gU[ou], gV[oi], src, device)
+        launch_f = (m2.user_factors[ou], m2.item_factors[oi])
+        one_f = (m1.user_factors, m1.item_factors)
+
+        def gap(a, b):
+            return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+        deg = np.bincount(one.user, minlength=one.n_users)
+        at_rank = deg >= src.rank
+        vs = {"max_abs": gap(launch_f, one_f),
+              "max_rel": max(float((np.abs(x - y) / (1 + np.abs(y))).max())
+                             for x, y in zip(launch_f, one_f)),
+              "max_abs_users_at_rank": gap([launch_f[0][at_rank]], [one_f[0][at_rank]]),
+              "users_below_rank": float(1 - at_rank.mean()),
+              "launch_vs_f64": gap(launch_f, (U64, V64)), "one_vs_f64": gap(one_f, (U64, V64))}
+        require(vs["max_rel"] <= DIST_CLI_TOL,
+                f"the launch's factors vs one process's from the same start: {vs}")
+        require(vs["max_abs"] <= vs["one_vs_f64"] and vs["launch_vs_f64"] <= 2 * vs["one_vs_f64"],
+                f"the launch's gap to one process is beyond the float32 floor: {vs}")
+        out["vs_one_process"] = {"bit_equal": True, "placements": DIST_N, "same_start": vs}
+        emit({"phase": "dist-cli", "step": "vs-one-process", **out["vs_one_process"]})
+
+        # 4. pio deploy --batching of the launch's instance: kernel 1 a dispatch
+        qs = CliServer(tmp, "deploy", "deploy", "--engine-dir", eng, "--batching",
+                       "--device", device.type)
+        servers.append(qs)
+        ready_s = qs.wait_ready()
+        require(http_json(f"{qs.base}/readyz")[1]["engineInstanceId"] == iid, "deployed instance")
+        at_ready = http_json(f"{qs.base}/")[1]["scoreKernelLaunches"]
+        q_rng = np.random.default_rng(seed + 24)
+        inv = m2.user_map.inverse
+        queries = [{"user": inv[int(q_rng.integers(len(m2.user_map)))], "num": 10}
+                   for _ in range(DIST_CLI_QUERIES)]
+        answers = [http_json(f"{qs.base}/queries.json", q) for q in queries]
+        require(all(s == 200 for s, _ in answers), "every /queries.json answered 200")
+        info = http_json(f"{qs.base}/")[1]
+        served = info["scoreKernelLaunches"] - at_ready
+        require(served == info["fastpath"][0]["calls"] > 0,
+                f"kernel 1 launched {served} times vs {info['fastpath'][0]['calls']} dispatches")
+        U, V = (torch.from_numpy(np.ascontiguousarray(F)) for F in (m2.user_factors, m2.item_factors))
+        users = torch.tensor([m2.user_map[q["user"]] for q in queries])
+        rv, ri = (t.numpy() for t in torch.topk(U[users] @ V.T, 10, dim=1))
+        bad = []
+        for j, (_, a) in enumerate(answers):
+            gi = np.array([[m2.item_map[x["item"]] for x in a["itemScores"]]])
+            gv = np.array([[x["score"] for x in a["itemScores"]]])
+            bad += topk_mismatches(gv, gi, rv[j:j + 1], ri[j:j + 1], TOL)
+        require(not bad, f"served answers vs the plain version: {bad[:3]}")
+        cli_run("undeploy", "--port", str(qs.port))
+        qs.wait_exit()
+        out["serve"] = {"deploy_to_ready_s": ready_s, "queries": len(answers), "launches": served}
+        emit({"phase": "dist-cli", "step": "serve", **out["serve"]})
+
+        # 5. pio launch -n 2 -- batchpredict: part files equal one process's
+        qfile = os.path.join(tmp, "queries.jsonl")
+        with open(qfile, "w") as fq:
+            for q in queries:
+                fq.write(json.dumps(q) + "\n")
+        rc, text, launches, bp_s = pio_launch(
+            tmp, "batchpredict", "batchpredict", "--engine-dir", eng, "--input", qfile,
+            "--output", os.path.join(tmp, "bp.jsonl"), "--device", device.type)
+        require(rc == 0, f"pio launch batchpredict exited {rc}: {text[-3000:]}")
+        cli_run("batchpredict", "--engine-dir", eng, "--input", qfile,
+                "--output", os.path.join(tmp, "one.jsonl"), "--device", device.type)
+        parts = [json.loads(x) for p in range(DIST_N)
+                 for x in open(os.path.join(tmp, f"bp.jsonl.part-{p}"))]
+        one = [json.loads(x) for x in open(os.path.join(tmp, "one.jsonl"))]
+        key = lambda r: json.dumps(r["query"], sort_keys=True)  # noqa: E731
+        got = {key(r): r for r in parts}
+        require(len(parts) == len(one) == len(queries), f"{len(parts)} part lines, {len(one)}")
+        for r in one:
+            a, b = got[key(r)]["prediction"]["itemScores"], r["prediction"]["itemScores"]
+            require([x["item"] for x in a] == [x["item"] for x in b]
+                    and np.allclose([x["score"] for x in a], [x["score"] for x in b],
+                                    rtol=TOL, atol=TOL), f"batchpredict part line {key(r)}")
+        k1 = [launches.get(p, {}).get("score_topk", 0) for p in range(DIST_N)]
+        require(all(n > 0 for n in k1), f"kernel 1 launches per process {k1}")
+        out["batchpredict"] = {"wall_s": bp_s, "kernel1_launches": k1, "lines": len(parts)}
+        emit({"phase": "dist-cli", "step": "batchpredict", **out["batchpredict"]})
+
+        # 6. e-commerce: implicit ALS under the launch
+        ecom = os.path.join(tmp, "ecommerce")
+        cli_run("template", "get", "ecommercerecommendation", "--directory", ecom)
+        fill_engine_json(os.path.join(ecom, "engine.json"), "DistApp", [
+            {"name": "ecomm", "params": {"appName": "DistApp", "rank": RANK,
+                                         "numIterations": TPL_ITERS}}],
+            eventNames=["rate", "buy"])
+        rc, text, launches, ec_s = pio_launch(tmp, "ecomm", "train", "--engine-dir", ecom,
+                                              "--device", device.type)
+        require(rc == 0, f"pio launch train (e-commerce) exited {rc}: {text[-3000:]}")
+        k2 = [launches.get(p, {}).get("train_normal_eq", 0) for p in range(DIST_N)]
+        require(len(set(k2)) == 1 and k2[0] > 0 and k2[0] % TPL_ITERS == 0,
+                f"e-commerce kernel 2 (implicit) launches per process {k2}")
+        out["ecommerce"] = {"wall_s": ec_s, "kernel2_launches": k2}
+        emit({"phase": "dist-cli", "step": "ecommerce", **out["ecommerce"]})
+
+        # 7. SASRec data parallel: kernels 4-6 a layer a step in each process
+        seq_app_id = storage.get_meta_data_apps().get_by_name("DistApp").id
+        srng = np.random.default_rng(seed + 15)
+        w = zipf_mandelbrot_weights(1000, 1.1)
+        le.insert_batch([
+            Event(event="view", entity_type="user", entity_id=f"wu{u}", target_entity_type="item",
+                  target_entity_id=f"wi{int(i)}", event_time=1_767_225_600.0 + t)
+            for u in range(300)
+            for t, i in enumerate(srng.choice(1000, int(srng.integers(20, 301)), p=w))], seq_app_id)
+        seng = os.path.join(tmp, "sequentialrecommendation")
+        cli_run("template", "get", "sequentialrecommendation", "--directory", seng)
+        fill_engine_json(os.path.join(seng, "engine.json"), "DistApp", [
+            {"name": "sasrec", "params": {
+                "appName": "DistApp", "eventNames": ["view"], "dModel": SAS_D,
+                "numLayers": SAS_LAYERS, "numHeads": SAS_HEADS, "maxLen": SAS_MAX_LEN,
+                "epochs": QS_SAS_STEPS, "batchSize": SAS_BATCH, "lr": SAS_LR, "seed": seed}}],
+            eventNames=["view"])
+        rc, text, launches, sas_s = pio_launch(tmp, "sasrec", "train", "--engine-dir", seng,
+                                               "--device", device.type)
+        require(rc == 0, f"pio launch train (SASRec) exited {rc}: {text[-3000:]}")
+        want = SAS_LAYERS * QS_SAS_STEPS
+        for p in range(DIST_N):
+            got_l = {k: launches.get(p, {}).get(k) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+            require(set(got_l.values()) == {want},
+                    f"p{p} SASRec flash launches {got_l} vs {SAS_LAYERS} layers × {QS_SAS_STEPS} steps")
+        sas_iid = re.search(r"Engine instance ID: (\S+)", text).group(1)
+        sas_inst = storage.get_meta_data_engine_instances().get(sas_iid)
+        _, _, _, smodels = workflow.prepare_deploy(
+            SequentialRecommendationEngine.apply(), sas_inst, storage=storage,
+            ctx=DeviceContext.create(device=device))
+        losses = np.asarray(smodels[0].losses)
+        require(len(losses) == QS_SAS_STEPS and np.isfinite(losses).all()
+                and losses[-5:].mean() < losses[:5].mean(),
+                f"SASRec launch losses {losses[:3]} … {losses[-3:]}")
+        # the same steps in one process: each rank's rows and its draws
+        # (its own stream), concatenated into the global batch, through
+        # train_step on one placement from the same start
+        scfg = seq.SASRecConfig(d_model=SAS_D, n_layers=SAS_LAYERS, n_heads=SAS_HEADS,
+                                max_len=SAS_MAX_LEN, epochs=QS_SAS_STEPS, batch_size=SAS_BATCH,
+                                lr=SAS_LR, seed=seed)
+        run_key = uuid.uuid4().hex[:12]
+        with ThreadPoolExecutor(DIST_N) as pool:
+            ssh = list(pool.map(lambda p: ingest.read_sharded_interactions(
+                storage, seq_app_id, run_key=run_key, process_index=p, num_processes=DIST_N,
+                entity_type="user", event_names=["view"], target_entity_type="item",
+                item_pass=False), range(DIST_N)))
+        rows = [seq._sharded_sequences(x, scfg) for x in ssh]
+        n_global = rows[0][1]
+        batch = seq.pad_to_multiple(min(scfg.batch_size, seq.pad_to_multiple(n_global, DIST_N)), DIST_N)
+        net = seq.SASRecNet(seq.init_params(scfg.seed, scfg, ssh[0].n_items), scfg, device,
+                            trainable=True)
+        opt = seq.adam(net, scfg)
+        rngs = [np.random.default_rng(scfg.seed + 1_000_003 * p) for p in range(DIST_N)]
+        on_dev = [torch.from_numpy(r.astype(np.int64)).to(device) for r, _ in rows]
+        one_losses = np.array([float(seq.train_step(net, opt, torch.cat([
+            on_dev[p][torch.from_numpy(rngs[p].integers(0, len(on_dev[p]), batch // DIST_N)).to(device)]
+            for p in range(DIST_N)]), scfg)) for _ in range(QS_SAS_STEPS)])
+        sas_rel = float((np.abs(losses - one_losses) / np.abs(one_losses)).max())
+        require(sas_rel <= SAS_DP_RTOL,
+                f"SASRec launch losses vs one process's steps: max rel {sas_rel} "
+                f"({losses[:3]} vs {one_losses[:3]})")
+        flash_per_process = [{k: launches.get(p, {}).get(k) for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} for p in range(DIST_N)]
+        out["sasrec"] = {"wall_s": sas_s, "flash_launches_per_process": flash_per_process,
+                         "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+                         "vs_one_process_max_rel": sas_rel, "global_batch": batch}
+        emit({"phase": "dist-cli", "step": "sasrec", **out["sasrec"]})
+
+        # 8. kill -9 of one worker mid-training (the SASRec launch, the
+        # longest): the launch fails with its code and does not hang
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        log = os.path.join(tmp, "killed.log")
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            launcher = subprocess.Popen(
+                CLI + ["launch", "-n", str(DIST_N), "--coordinator-port", str(free_port()), "--",
+                       "train", "--engine-dir", seng, "--device", device.type],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+        killed = None
+        while killed is None and launcher.poll() is None and time.perf_counter() - t0 < 120:
+            with open(log) as f:
+                pid_of = re.search(rf"process {DIST_N - 1}: pid (\d+)", f.read())
+            if pid_of and time.perf_counter() - t0 > 0.4 * sas_s:
+                os.kill(int(pid_of.group(1)), signal.SIGKILL)
+                killed = (int(pid_of.group(1)), time.perf_counter() - t0)
+            time.sleep(0.1)
+        rc = launcher.wait(timeout=launch_mod.FAIL_GRACE_S + 120)
+        kill_s = time.perf_counter() - t0
+        with open(log) as f:
+            text = f.read()
+        require(killed is not None, f"no worker to kill (launch exited {rc}): {text[-2000:]}")
+        require(rc != 0 and "exited with code -9" in text,
+                f"the launch with a killed worker exited {rc}: {text[-2000:]}")
+        out["kill"] = {"rc": rc, "seconds": kill_s, "killed_at_s": killed[1],
+                       "grace_s": launch_mod.FAIL_GRACE_S}
+        emit({"phase": "dist-cli", "step": "kill-9", **out["kill"]})
+        out["seconds"] = time.perf_counter() - t_phase
+        emit({"phase": "dist-cli", "seconds": out["seconds"], "ok": True})
+        return out
+    finally:
+        for s in servers:
+            s.kill()
+        store.set_storage(None)
+        sqlite.close_all_dbs()
+        Storage.reset_instance()
+        os.environ.pop("PIO_FS_BASEDIR", None)
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+
 AB_FWD = ((1, 256, 256, 50), (128, 256, 256, 50))
 
 
@@ -7394,10 +8312,14 @@ def main(argv=None) -> int:
                     help="only time kernels 1, 2, 4, 5 and 6 of PARENT_TREE and of this tree, in turns")
     ap.add_argument("--time-kernels", metavar="TREE", help=argparse.SUPPRESS)
     ap.add_argument("--data", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
 
+    if args.dist_worker:  # a rank of phase_dist's launch, on the device it names
+        sys.path.insert(0, ROOT)
+        return dist_worker(args.dist_worker)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
@@ -7465,6 +8387,8 @@ def main(argv=None) -> int:
 
     sharded = phase_sharded(model, args.seed, device, np.bincount(inter.item, minlength=N_ITEMS))
     ring_out = phase_ring(args.seed, device)
+    dist = phase_dist(model, args.seed, device, inter, np.bincount(inter.item, minlength=N_ITEMS))
+    dist_cli = phase_dist_cli(args.seed, device)
     t0 = time.perf_counter()
     tpl_ur = phase_ur_ml25m(args.seed, device, inter)
     del inter
@@ -7638,6 +8562,26 @@ def main(argv=None) -> int:
         # one forward and backward of ring_flash_attention over four blocks
         # (n(n+1)/2 live pairs, asserted)
         k["ring_launches"] = ring_out["launches"][part]
+    # many processes (2 ranks of 2 placements of the card each): kernel 1 on
+    # the pod serve (local shards × dispatches a process, asserted), the
+    # launch-trained deployment and the batchpredict part files; kernel 2 on
+    # the ML-25M training (buckets × local shards × iterations a process,
+    # asserted) and the CLI trainings; 3′ on 4 placements of one process;
+    # kernels 4-6 on the SASRec launch (a layer a step in each process)
+    kernels["kernels"][0]["dist_launches"] = {
+        "pod_per_process": {d: [r["launches"] for r in rows_]
+                            for d, rows_ in dist["pod"].items()},
+        "cli_serve": dist_cli["serve"]["launches"],
+        "batchpredict_per_process": dist_cli["batchpredict"]["kernel1_launches"]}
+    kernels["kernels"][1]["dist_launches"] = {
+        "ml25m_per_process": dist["train"]["launches"],
+        "cli_train_per_process": dist_cli["train"]["kernel2_launches"],
+        "ecommerce_per_process": dist_cli["ecommerce"]["kernel2_launches"]}
+    kernels["kernels"][6]["dist_launches"] = {
+        "four_placements": dist["segment_4_placements"]["launches"]}
+    for k, name in zip(kernels["kernels"][2:5], ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        k["dist_launches"] = {"sasrec_per_process": [
+            row[name] for row in dist_cli["sasrec"]["flash_launches_per_process"]]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -7651,7 +8595,7 @@ def main(argv=None) -> int:
                    "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
                    "serving_ops": ops, "publish_eval": pub, "streaming": stream, "ivf": ivf_out,
                    "templates": templates, "fleet": fleet, "sharded": sharded,
-                   "ring": ring_out, **kernels}, f, indent=1)
+                   "ring": ring_out, "dist": dist, "dist_cli": dist_cli, **kernels}, f, indent=1)
     require(score_kernel.launches.count > 0, "kernel launched")
     print(smi, flush=True)
     emit(kernels)

@@ -137,7 +137,18 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any) -> None:
         """Persist a step, its fingerprint sidecar (when the tree carries a
-        ``fingerprint``), and drop the oldest steps beyond ``keep``."""
+        ``fingerprint``), and drop the oldest steps beyond ``keep``.
+
+        Under a launch every process calls this and only the coordinator
+        writes (a shared ``checkpoint_dir`` stays single-writer); a barrier
+        then keeps the others from reading before the write has landed."""
+        from predictionio_tpu_torch.parallel import distributed
+
+        if distributed.should_write_storage():
+            self._write(step, tree)
+        distributed.barrier()
+
+    def _write(self, step: int, tree: Any) -> None:
         d = self._step_dir(step)
         os.makedirs(d, exist_ok=True)
         save_state(os.path.join(d, STATE_FILE), tree)

@@ -406,6 +406,11 @@ def run_evaluation(
             f"{generator_cls} has an empty engine_params_list; nothing to evaluate"
         )
 
+    # under a launch every process evaluates, and only the coordinator
+    # records the EvaluationInstance and best.json (run_train's rule)
+    from predictionio_tpu_torch.parallel import distributed
+
+    writer = distributed.should_write_storage()
     instances = storage.get_meta_data_evaluation_instances()
     now = _dt.datetime.now(tz=UTC)
     instance = EvaluationInstance(
@@ -418,34 +423,42 @@ def run_evaluation(
         batch=batch,
         mesh_conf=dict(ctx.conf),
     )
-    instance_id = instances.insert(instance)
-    instance.status = instances.STATUS_EVALUATING
-    instances.update(instance)
+    instance_id = ""
+    if writer:
+        instance_id = instances.insert(instance)
+        instance.status = instances.STATUS_EVALUATING
+        instances.update(instance)
 
     try:
         evaluator = MetricEvaluator(evaluation.metric, evaluation.metrics)
         result = evaluator.evaluate_base(
-            ctx, evaluation.engine, generator.engine_params_list, output_path,
+            ctx, evaluation.engine, generator.engine_params_list,
+            output_path if writer else None,
         )
     except BaseException:
-        instance.status = instances.STATUS_ABORTED
-        instance.end_time = _dt.datetime.now(tz=UTC)
-        instances.update(instance)
+        if writer:
+            instance.status = instances.STATUS_ABORTED
+            instance.end_time = _dt.datetime.now(tz=UTC)
+            instances.update(instance)
         raise
     finally:
         from predictionio_tpu_torch.core.workflow import CleanupFunctions
 
         CleanupFunctions.run()
-    result.instance_id = instance_id
 
-    instance.status = instances.STATUS_COMPLETED
-    instance.end_time = _dt.datetime.now(tz=UTC)
-    instance.evaluator_results = result.summary
-    instance.evaluator_results_html = (
-        f"<html><body><pre>{result.summary}</pre></body></html>"
-    )
-    instance.evaluator_results_json = result.to_json()
-    instances.update(instance)
+    if writer:
+        instance.status = instances.STATUS_COMPLETED
+        instance.end_time = _dt.datetime.now(tz=UTC)
+        instance.evaluator_results = result.summary
+        instance.evaluator_results_html = (
+            f"<html><body><pre>{result.summary}</pre></body></html>"
+        )
+        instance.evaluator_results_json = result.to_json()
+        instances.update(instance)
+    # the others leave only once the record has landed, with its id
+    instance_id = distributed.broadcast_object(instance_id)
+    distributed.barrier()
+    result.instance_id = instance_id
     return RunEvaluationResult(
         instance_id=instance_id, best_score=result.best.score, summary=result.summary
     )

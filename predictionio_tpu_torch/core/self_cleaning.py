@@ -164,9 +164,12 @@ class SelfCleaningDataSource:
         if window is None:
             return None
         from predictionio_tpu_torch.data.store import get_storage, resolve_app
+        from predictionio_tpu_torch.parallel import distributed
 
-        # one process trains on one card: the rewrite runs exactly once (the
-        # JAX package's coordinator-only rule comes with ROADMAP §1 item 10)
+        if distributed.is_multihost_env() and not distributed.is_coordinator():
+            # the store rewrite must run exactly once: under a launch every
+            # process runs read_training, and only the coordinator compacts
+            return None
         storage = storage or get_storage()
         app_id, channel_id = resolve_app(self.params.appName)
         return clean_persisted_events(storage, app_id, window, channel_id)

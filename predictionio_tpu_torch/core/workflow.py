@@ -103,6 +103,12 @@ def run_train(
     storage = storage or Storage.instance()
     ctx = ctx or DeviceContext.create()
     wp = workflow_params or WorkflowParams()
+    # under a launch every process reads and trains (joining the
+    # collectives), and only the coordinator writes the instance and the
+    # model rows, as one Spark application does in the reference
+    from predictionio_tpu_torch.parallel import distributed
+
+    writer = distributed.should_write_storage()
 
     instances = storage.get_meta_data_engine_instances()
     now = _dt.datetime.now(tz=UTC)
@@ -120,10 +126,12 @@ def run_train(
         mesh_conf=dict(ctx.conf),
         **engine_params.to_json_strings(),
     )
-    instance_id = instances.insert(instance)
-    logger.info("engine instance %s: training started", instance_id)
-    instance.status = instances.STATUS_TRAINING
-    instances.update(instance)
+    instance_id = ""
+    if writer:
+        instance_id = instances.insert(instance)
+        logger.info("engine instance %s: training started", instance_id)
+        instance.status = instances.STATUS_TRAINING
+        instances.update(instance)
 
     try:
         algorithms = engine.make_algorithms(engine_params)
@@ -135,25 +143,33 @@ def run_train(
             stop_after_prepare=wp.stop_after_prepare,
             algorithms=algorithms,
         )
-        algo_params = [p for _, p in engine_params.algorithm_params_list]
-        blob = persistence.serialize_models(instance_id, algorithms, models, algo_params)
-        # checksum envelope: deploy verifies the content before unpickling
-        storage.get_model_data_models().insert(
-            Model(id=instance_id, models=persistence.seal_model_blob(blob))
-        )
+        if writer:
+            # every process holds the whole model; the coordinator seals it
+            # (PersistentModel file writes included)
+            algo_params = [p for _, p in engine_params.algorithm_params_list]
+            blob = persistence.serialize_models(instance_id, algorithms, models, algo_params)
+            # checksum envelope: deploy verifies the content before unpickling
+            storage.get_model_data_models().insert(
+                Model(id=instance_id, models=persistence.seal_model_blob(blob))
+            )
     except BaseException:
         # no zombie TRAINING rows: mark the run aborted, then propagate
-        instance.status = instances.STATUS_ABORTED
-        instance.end_time = _dt.datetime.now(tz=UTC)
-        instances.update(instance)
+        if writer:
+            instance.status = instances.STATUS_ABORTED
+            instance.end_time = _dt.datetime.now(tz=UTC)
+            instances.update(instance)
         raise
     finally:
         CleanupFunctions.run()
 
-    instance.status = instances.STATUS_COMPLETED
-    instance.end_time = _dt.datetime.now(tz=UTC)
-    instances.update(instance)
-    logger.info("engine instance %s: training completed", instance_id)
+    if writer:
+        instance.status = instances.STATUS_COMPLETED
+        instance.end_time = _dt.datetime.now(tz=UTC)
+        instances.update(instance)
+        logger.info("engine instance %s: training completed", instance_id)
+    # the others leave only once the COMPLETED row has landed, with its id
+    instance_id = distributed.broadcast_object(instance_id)
+    distributed.barrier()
     return instance_id
 
 

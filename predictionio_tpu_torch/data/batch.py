@@ -33,6 +33,11 @@ class EventBatch:
     target_entity_id: np.ndarray  # object (str | None)
     event_time: np.ndarray  # float64 epoch seconds
     properties: list  # row-aligned property dicts
+    event_id: np.ndarray = None  # object (str | None): the sharded read's identity
+
+    def __post_init__(self):
+        if self.event_id is None:
+            self.event_id = np.full(len(self.event), None, dtype=object)
 
     @staticmethod
     def from_events(events: Iterable[Event]) -> "EventBatch":
@@ -55,6 +60,7 @@ class EventBatch:
                 [e.event_time.timestamp() for e in evs], dtype=np.float64
             ),
             properties=[e.properties.to_dict() for e in evs],
+            event_id=col(lambda e: e.event_id),
         )
 
     def __len__(self) -> int:
@@ -70,6 +76,7 @@ class EventBatch:
             target_entity_id=self.target_entity_id[idx],
             event_time=self.event_time[idx],
             properties=[self.properties[i] for i in idx],
+            event_id=self.event_id[idx],
         )
 
     def filter_events(self, names: Sequence[str]) -> "EventBatch":

@@ -12,8 +12,10 @@ serving and training slices use:
   and their records.
 
 ``LEvents.aggregate_properties`` folds ``$set``/``$unset``/``$delete`` into
-entity snapshots (``data/aggregator.py``). One card reads every
-row, so ``find`` has no ``shard`` argument; bulk writes and deletes through
+entity snapshots (``data/aggregator.py``). ``PEvents.find`` and
+``find_interactions`` take ``shard=(index, count)`` and ``shard_key`` for the
+1/N read of a launch (``parallel/ingest.py``), with the JAX package's crc32
+entity hash (:meth:`PEvents.shard_hash`). Bulk writes and deletes through
 ``PEvents`` (writers use ``LEvents``), free-text search and the instances'
 field queries come with later slices.
 """
@@ -24,8 +26,11 @@ import abc
 import datetime as _dt
 import re
 import secrets
+import zlib
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, Sequence
+
+import numpy as np
 
 from predictionio_tpu_torch.data.aggregator import aggregate_properties
 from predictionio_tpu_torch.data.batch import EventBatch
@@ -222,8 +227,72 @@ class PEvents(abc.ABC):
         event_names: Optional[Sequence[str]] = None,
         target_entity_type: Optional[str] = None,
         target_entity_id: Optional[str] = None,
+        shard: Optional[tuple] = None,
+        shard_key: str = "row",
     ) -> EventBatch:
-        """Filtered columnar scan of every matching row."""
+        """Filtered columnar scan of every matching row, or of shard
+        ``shard = (index, count)`` of them:
+
+        * ``"row"`` — a disjoint, covering split the backend defines
+          (positional here, the rowid modulo in sqlite);
+        * ``"entity"`` — ``shard_hash(entity_id) % count``: all events of
+          one entity land on one shard (the user pass);
+        * ``"target"`` — the same keyed by ``target_entity_id`` (the item
+          pass); rows without a target go to shard 0.
+        """
+
+    @staticmethod
+    def shard_hash(s: str) -> int:
+        """The entity → shard hash every backend shares: crc32 of the UTF-8 bytes,
+        the same on every process and run (Python's ``hash`` is salted)."""
+        return zlib.crc32(s.encode("utf-8"))
+
+    @staticmethod
+    def shard_sql_predicate(shard_key: str, row_pred: str) -> str:
+        """The SQL text of the shard pushdown, binding ``(count, index)``
+        over a ``pio_crc32`` SQL function (:meth:`shard_hash`); ``row_pred``
+        is the backend's row rule."""
+        if shard_key == "row":
+            return row_pred
+        if shard_key == "entity":
+            return "(pio_crc32(entity_id) % ?) = ?"
+        if shard_key == "target":
+            return (
+                "((CASE WHEN target_entity_id IS NULL THEN 0 "
+                "ELSE pio_crc32(target_entity_id) END) % ?) = ?"
+            )
+        raise ValueError(f"unknown shard_key {shard_key!r}")
+
+    @classmethod
+    def shard_select(cls, batch: EventBatch, shard: Optional[tuple], shard_key: str) -> EventBatch:
+        """The row filter a backend applies after its scan when it cannot
+        push the predicate down."""
+        if shard is None:
+            return batch
+        index, count = int(shard[0]), int(shard[1])
+        if count <= 1:
+            return batch
+        if shard_key == "row":
+            keep = (np.arange(len(batch)) % count) == index
+        elif shard_key in ("entity", "target"):
+            col = batch.entity_id if shard_key == "entity" else batch.target_entity_id
+            keep = cls._entity_shard_of(col, count) == index
+        else:
+            raise ValueError(f"unknown shard_key {shard_key!r}")
+        return batch.select(keep)
+
+    @classmethod
+    def _entity_shard_of(cls, col, count: int) -> np.ndarray:
+        """Each row's shard: the distinct ids hashed once each and spread
+        through the inverse indices; rows without a target go to 0."""
+        col = np.asarray(col, dtype=object)
+        is_none = np.fromiter((s is None for s in col), dtype=bool, count=len(col))
+        uniq, inv = np.unique(np.where(is_none, "", col).astype(object), return_inverse=True)
+        ushard = np.fromiter(
+            (cls.shard_hash(str(s)) % count for s in uniq), dtype=np.int64, count=len(uniq))
+        out = ushard[inv]
+        out[is_none] = 0
+        return out
 
     def find_interactions(
         self,
@@ -234,15 +303,21 @@ class PEvents(abc.ABC):
         target_entity_type: Optional[str] = None,
         rating_key: Optional[str] = None,
         default_rating: float = 1.0,
+        shard: Optional[tuple] = None,
+        shard_key: str = "row",
     ):
         """Bulk (user, item, rating, t) triples for training reads:
-        ``find`` + ``EventBatch.interactions``."""
+        ``find`` + ``EventBatch.interactions``. A sharded read gives the
+        triples of 1/count of the rows with id maps of that shard only (a
+        launch merges them: ``parallel/ingest.py``)."""
         return self.find(
             app_id,
             channel_id=channel_id,
             entity_type=entity_type,
             event_names=event_names,
             target_entity_type=target_entity_type,
+            shard=shard,
+            shard_key=shard_key,
         ).interactions(rating_key=rating_key, default_rating=default_rating)
 
 

@@ -175,8 +175,10 @@ class MemoryPEvents(base.PEvents):
     def __init__(self, source_name: str = "default", **_):
         self._l = MemoryLEvents(source_name)
 
-    def find(self, app_id, channel_id=None, **filters) -> EventBatch:
-        return EventBatch.from_events(self._l.find(app_id, channel_id, **filters))
+    def find(self, app_id, channel_id=None, shard=None, shard_key="row",
+             **filters) -> EventBatch:
+        batch = EventBatch.from_events(self._l.find(app_id, channel_id, **filters))
+        return self.shard_select(batch, shard, shard_key)
 
 
 class MemorySequences(base.Sequences):

@@ -8,9 +8,11 @@ engine and evaluation instances, models and sequences, filter predicates pushed 
 (``JDBCPEvents.find``). One file-backed database per source, WAL mode so
 the event server's writers and the trainer's bulk reader coexist.
 
-Not ported yet, and raising an error that names the ROADMAP item that
-brings them: the sharded bulk read (``PEvents.find(shard=...)``, item 10),
-and free-text ``search`` (item 14).
+The sharded bulk read (``PEvents.find(shard=(index, count), shard_key=...)``)
+pushes the JAX package's sqlite predicate into SQL over the same crc32
+``pio_crc32`` function, so one file gives the same event ids to a process of
+either package. Not ported yet, and raising an error that names the ROADMAP
+item that brings it: free-text ``search`` (item 14).
 """
 
 from __future__ import annotations
@@ -409,12 +411,32 @@ class SqlitePEvents(_SqliteDAO, base.PEvents):
 
     def find(self, app_id, channel_id=None, shard=None, shard_key="row",
              **filters) -> EventBatch:
-        if shard is not None and int(shard[1]) > 1:
-            raise NotImplementedError(
-                "sharded bulk reads are not ported to predictionio_tpu_torch "
-                "yet (ROADMAP §1 item 10)"
-            )
-        return EventBatch.from_events(self._l.find(app_id, channel_id, **filters))
+        if shard is None or int(shard[1]) <= 1:
+            return EventBatch.from_events(self._l.find(app_id, channel_id, **filters))
+        # the sharded bulk read: the partition predicate runs in SQL next to
+        # the data, so each process materializes only its 1/count (parity:
+        # Spark JDBC partitioned reads, JDBCPEvents.scala:35-119)
+        index, count = int(shard[0]), int(shard[1])
+        where, params = _event_where(
+            app_id, channel_id, filters.get("start_time"), filters.get("until_time"),
+            filters.get("entity_type"), filters.get("entity_id"), filters.get("event_names"),
+            filters.get("target_entity_type"), filters.get("target_entity_id"),
+        )
+        if shard_key in ("entity", "target"):
+            # the shared entity hash (base.PEvents.shard_hash) as a SQL
+            # function; registering it again on a shared connection is a no-op
+            with self.lock:
+                self.conn.create_function(
+                    "pio_crc32", 1,
+                    lambda v: base.PEvents.shard_hash(v) if v is not None else 0,
+                    deterministic=True,
+                )
+        # rowid-modulo row rule: disjoint and covering
+        pred = base.PEvents.shard_sql_predicate(shard_key, "(rowid % ?) = ?")
+        sql = (f"SELECT * FROM events WHERE {where} AND {pred} "
+               "ORDER BY event_time ASC, creation_time ASC")
+        rows = self._all(sql, (*params, count, index))
+        return EventBatch.from_events([_row_to_event(r) for r in rows])
 
     def write(self, events: Iterable[Event], app_id: int, channel_id=None) -> None:
         self._l.batch_insert(list(events), app_id, channel_id)

@@ -14,11 +14,17 @@ Counterpart of ``predictionio_tpu/models/als.py`` on one card:
   per side (``_segment_layout``), then per half-step one call of the CUDA
   kernel ``ops/train_kernel.fused_segment_normal_eq``, which sums the
   normal equations in the JAX package's chunk order, and the same solve.
-  There is no mesh: one card holds
-  every entity, so the blocks have no shard dimension (the JAX package's
-  ``n_shards = 1`` layout). With ``checkpoint_dir`` set, the factors are
-  saved every ``checkpoint_interval`` iterations and a rerun resumes from
-  the last matching step (``core/checkpoint.py``; ``:954-1030``);
+  On a mesh of S placements the ids are cut into S shards (the LPT
+  rebalance, ``_balance_permutation``; ``_make_dense_shards`` /
+  ``_make_shard_blocks``): every half-step runs the kernel on each of this
+  process's shards and all-gathers the new factors (``_run_shards``), across
+  processes when the mesh spans a launch. Under ``pio launch`` the trainer
+  also takes the 1/N read (``ShardedInteractions``,
+  :func:`_train_als_sharded`: ``_sharded_balance_permutation``,
+  ``_sharded_blocks_for_host``; dense only). With ``checkpoint_dir`` set,
+  the factors are saved every ``checkpoint_interval`` iterations (by the
+  coordinator) and a rerun resumes from the last matching step
+  (``core/checkpoint.py``; ``:954-1030``);
 * :class:`ALSModel` (``:132``) and :func:`als_model_from_arrays`, which
   carries factors and id lists across from anywhere else;
 * :class:`CheckpointedALSModel` (``:1379-1748``): checkpoint-mode
@@ -58,6 +64,7 @@ for per-query calls.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import logging
 import os
 import threading
@@ -73,6 +80,7 @@ from predictionio_tpu_torch.ops import quantize as _quantize
 from predictionio_tpu_torch.ops import score_kernel as _score_kernel
 from predictionio_tpu_torch.ops import train_kernel as _train_kernel
 from predictionio_tpu_torch.ops._build import KernelError
+from predictionio_tpu_torch.parallel import mesh as _mesh
 from predictionio_tpu_torch.ops.topk import NEG_INF
 from predictionio_tpu_torch.serving import sharding as _sharding
 
@@ -100,10 +108,9 @@ class ALSConfig:
     # None → PIO_ALS_COMPUTE_DTYPE (default "f32"), read when the config is
     # built, not when the module is imported
     compute_dtype: Optional[str] = None
-    # The JAX package's LPT rebalance across mesh shards. One card has one
-    # shard, where the JAX package rebalances nothing: the dense solver
-    # degree-sorts and the segment solver keeps the original order either
-    # way (kept so configs and pickled models read the same).
+    # the LPT rebalance across mesh shards (models/als.py:180); one shard
+    # rebalances nothing: the dense solver degree-sorts and the segment
+    # solver keeps the original order
     rebalance: bool = True
     # "dense" — degree-bucketed normal equations through the training
     # kernel (ranks 1..64); "segment" — the rating stream sorted by entity,
@@ -229,13 +236,72 @@ class _DenseBlocks:
     padded_ratings: int  # Σ n_b·D_b — the device workload size
 
 
-def _degree_sort_permutation(entity: np.ndarray, n_entity: int) -> np.ndarray:
-    """Old id → new id relabeling by descending rating count (stable), so
-    contiguous id ranges form degree buckets."""
+def _degree_sort_permutation(entity: np.ndarray, n_entity: int, n_shards: int = 1) -> np.ndarray:
+    """Old id → new id relabeling by descending rating count (stable)
+    within each shard's id range, so contiguous id ranges form degree
+    buckets (shard membership unchanged; the JAX package's companion of the
+    LPT rebalance)."""
     counts = np.bincount(entity, minlength=n_entity)
-    order = np.argsort(-counts, kind="stable")
+    per_shard = n_entity // n_shards
     perm = np.empty(n_entity, np.int64)
-    perm[order] = np.arange(n_entity)
+    for p in range(n_shards):
+        lo = p * per_shard
+        order = np.argsort(-counts[lo:lo + per_shard], kind="stable")
+        perm[lo + order] = lo + np.arange(per_shard)
+    return perm
+
+
+def _balance_permutation(entity: np.ndarray, n_entity_pad: int, n_shards: int) -> np.ndarray:
+    """Old id → new id relabeling that balances the shards' rating counts
+    (``models/als.py:180``): LPT with capacity, the hottest entity to the
+    lightest shard with a free slot, ties by shard index. Each shard then
+    holds an equal slice of the popularity curve, degree-sorted."""
+    counts = np.bincount(entity, minlength=n_entity_pad)
+    order = np.argsort(-counts, kind="stable")  # hottest first
+    per_shard = n_entity_pad // n_shards
+    perm = np.empty(n_entity_pad, np.int64)
+    heap = [(0, p) for p in range(n_shards)]
+    used = np.zeros(n_shards, np.int64)
+    for o in order:
+        load, p = heapq.heappop(heap)
+        perm[o] = p * per_shard + used[p]
+        used[p] += 1
+        if used[p] < per_shard:  # full shards leave the heap
+            heapq.heappush(heap, (load + int(counts[o]), p))
+    return perm
+
+
+def _sharded_balance_permutation(
+    counts: np.ndarray, owner: np.ndarray, n_hosts: int, d_local: int, per_shard: int,
+) -> np.ndarray:
+    """Global old id → blocked id under sharded ingest
+    (``models/als.py:306``). Entity e's rows live only on process
+    ``owner[e]`` (the DAO shard hash), so its row lands in one of that
+    process's ``d_local`` shards: LPT within each process over the global
+    counts; padding ids fill the free slots in order. Every process
+    computes the same permutation from the exchanged counts."""
+    n_entities = len(counts)
+    n_pad = per_shard * n_hosts * d_local
+    perm = np.empty(n_pad, np.int64)
+    free_slots: list[int] = []
+    for q in range(n_hosts):
+        ids = np.flatnonzero(owner == q)
+        order = ids[np.argsort(-counts[ids], kind="stable")]
+        if len(order) > d_local * per_shard:
+            raise ValueError(
+                f"host {q} owns {len(order)} entities > capacity {d_local * per_shard}")
+        heap = [(0, d) for d in range(d_local)]
+        used = np.zeros(d_local, np.int64)
+        for o in order:
+            load, d = heapq.heappop(heap)
+            perm[o] = (q * d_local + d) * per_shard + used[d]
+            used[d] += 1
+            if used[d] < per_shard:
+                heapq.heappush(heap, (load + int(counts[o]), d))
+        for d in range(d_local):
+            base_slot = (q * d_local + d) * per_shard
+            free_slots.extend(range(base_slot + used[d], base_slot + per_shard))
+    perm[n_entities:] = np.sort(np.array(free_slots, np.int64))
     return perm
 
 
@@ -257,6 +323,80 @@ def _bucket_boundaries(dmax: np.ndarray, chunk_budget: int) -> list:
     return out
 
 
+@dataclasses.dataclass
+class _ShardDenseBlocks:
+    """Per-bucket dense rating matrices of shards [s0, s1) of one side
+    (the JAX package's ``_DenseBlocks``): ``idx``/``rat``/``msk`` are
+    (s1 - s0, n_b, width_b), bucket b covers local ids [starts, ends)
+    identically in every shard."""
+
+    idx: list
+    rat: list
+    msk: list
+    widths: list
+    per_shard: int
+    padded_ratings: int
+
+    def shard(self, j: int) -> list:
+        """Shard j's buckets, [(idx, rat, msk)], each (n_b, width_b)."""
+        return [(i[j], r[j], m[j]) for i, r, m in zip(self.idx, self.rat, self.msk)]
+
+
+def _make_dense_shards(
+    entity: np.ndarray,
+    other: np.ndarray,
+    rating: np.ndarray,
+    n_entity_pad: int,
+    n_shards: int,
+    chunk_budget: Optional[int] = None,
+    shard_range: Optional[tuple] = None,
+    deg_global: Optional[np.ndarray] = None,
+) -> _ShardDenseBlocks:
+    """Degree-bucketed dense rating matrices over ``n_shards`` shards of
+    ``n_entity_pad // n_shards`` ids (``models/als.py:377``). Degrees must
+    be monotone within each shard (the LPT or degree-sort permutation).
+
+    ``shard_range=(s0, s1)`` fills shards [s0, s1) only, from this
+    process's rows (sharded ingest), with bucket boundaries cut from
+    ``deg_global``, the (n_shards, per_shard) degree matrix every process
+    derives from the exchanged counts, so every process gets the same
+    buckets over different data."""
+    chunk_budget = chunk_budget or _DENSE_CHUNK
+    per_shard = n_entity_pad // n_shards
+    local_deg = np.bincount(entity, minlength=n_entity_pad)
+    deg = deg_global if deg_global is not None else local_deg.reshape(n_shards, per_shard)
+    bounds = _bucket_boundaries(deg.max(axis=0), chunk_budget)
+    s0, s1 = shard_range if shard_range is not None else (0, n_shards)
+    # sort triples by (shard, local id): each (shard, bucket) is then one
+    # contiguous slice, and the column is the rank within the entity
+    order = np.argsort(entity, kind="stable")
+    entity_s, other_s, rating_s = entity[order], other[order], rating[order]
+    offsets = np.concatenate([[0], np.cumsum(local_deg)])
+    pos = np.arange(len(entity_s)) - offsets[entity_s]
+    idx_l, rat_l, msk_l, widths = [], [], [], []
+    padded = 0
+    for j0, j1, width in bounds:
+        n_b = j1 - j0
+        idx_b = np.zeros((s1 - s0, n_b, width), np.int32)
+        rat_b = np.zeros((s1 - s0, n_b, width), np.float32)
+        msk_b = np.zeros((s1 - s0, n_b, width), np.float32)
+        for p in range(s0, s1):
+            s = offsets[p * per_shard + j0]
+            e = offsets[p * per_shard + j1]
+            rows = entity_s[s:e] - (p * per_shard + j0)
+            cols = pos[s:e]
+            idx_b[p - s0, rows, cols] = other_s[s:e]
+            rat_b[p - s0, rows, cols] = rating_s[s:e]
+            msk_b[p - s0, rows, cols] = 1.0
+        idx_l.append(idx_b)
+        rat_l.append(rat_b)
+        msk_l.append(msk_b)
+        widths.append(width)
+        padded += (s1 - s0) * n_b * width
+    return _ShardDenseBlocks(idx=idx_l, rat=rat_l, msk=msk_l, widths=widths,
+                             per_shard=per_shard, padded_ratings=padded)
+
+
 def _make_dense_blocks(
     entity: np.ndarray,
     other: np.ndarray,
@@ -264,40 +404,14 @@ def _make_dense_blocks(
     n_entity: int,
     chunk_budget: Optional[int] = None,
 ) -> _DenseBlocks:
-    """Degree-bucketed dense rating matrices. ``entity`` must already be
-    degree-sorted (:func:`_degree_sort_permutation`): all ratings of one
-    entity land in one row of one bucket, so the half-step needs no
-    scatter."""
-    chunk_budget = chunk_budget or _DENSE_CHUNK
-    deg = np.bincount(entity, minlength=n_entity)
-    bounds = _bucket_boundaries(deg, chunk_budget)
-    # sort triples by entity: each bucket is one contiguous slice, and the
-    # column is the rank within the entity
-    order = np.argsort(entity, kind="stable")
-    entity_s, other_s, rating_s = entity[order], other[order], rating[order]
-    offsets = np.concatenate([[0], np.cumsum(deg)])
-    pos = np.arange(len(entity_s)) - offsets[entity_s]
-    idx_l, rat_l, msk_l, widths = [], [], [], []
-    padded = 0
-    for j0, j1, width in bounds:
-        n_b = j1 - j0
-        idx_b = np.zeros((n_b, width), np.int32)
-        rat_b = np.zeros((n_b, width), np.float32)
-        msk_b = np.zeros((n_b, width), np.float32)
-        s, e = offsets[j0], offsets[j1]
-        rows = entity_s[s:e] - j0
-        cols = pos[s:e]
-        idx_b[rows, cols] = other_s[s:e]
-        rat_b[rows, cols] = rating_s[s:e]
-        msk_b[rows, cols] = 1.0
-        idx_l.append(idx_b)
-        rat_l.append(rat_b)
-        msk_l.append(msk_b)
-        widths.append(width)
-        padded += n_b * width
-    return _DenseBlocks(
-        idx=idx_l, rat=rat_l, msk=msk_l, widths=widths, padded_ratings=padded,
-    )
+    """One shard's degree-bucketed dense rating matrices. ``entity`` must
+    already be degree-sorted (:func:`_degree_sort_permutation`): all
+    ratings of one entity land in one row of one bucket, so the half-step
+    needs no scatter."""
+    b = _make_dense_shards(entity, other, rating, n_entity, 1, chunk_budget)
+    return _DenseBlocks(idx=[a[0] for a in b.idx], rat=[a[0] for a in b.rat],
+                        msk=[a[0] for a in b.msk], widths=b.widths,
+                        padded_ratings=b.padded_ratings)
 
 
 def _dense_blocks_for(interactions, cfg: ALSConfig):
@@ -313,6 +427,73 @@ def _dense_blocks_for(interactions, cfg: ALSConfig):
     ub = _make_dense_blocks(u_perm[user], i_perm[item], rating, n_users)
     ib = _make_dense_blocks(i_perm[item], u_perm[user], rating, n_items)
     return ub, ib, u_perm, i_perm
+
+
+def _dense_shards_for(interactions, cfg: ALSConfig, n_shards: int):
+    """The mesh's dense prep (``models/als.py:1043``): ``(ub, ib, u_perm,
+    i_perm)`` over ``n_shards`` shards of the padded id ranges, LPT under
+    ``cfg.rebalance`` and the per-shard degree sort otherwise."""
+    n_users_pad = _pad_to_multiple(interactions.n_users, n_shards)
+    n_items_pad = _pad_to_multiple(interactions.n_items, n_shards)
+    user = interactions.user.astype(np.int64)
+    item = interactions.item.astype(np.int64)
+    rating = interactions.rating.astype(np.float32)
+    if cfg.rebalance and n_shards > 1:
+        u_perm = _balance_permutation(user, n_users_pad, n_shards)
+        i_perm = _balance_permutation(item, n_items_pad, n_shards)
+    else:
+        u_perm = _degree_sort_permutation(user, n_users_pad, n_shards)
+        i_perm = _degree_sort_permutation(item, n_items_pad, n_shards)
+    ub = _make_dense_shards(u_perm[user], i_perm[item], rating, n_users_pad, n_shards)
+    ib = _make_dense_shards(i_perm[item], u_perm[user], rating, n_items_pad, n_shards)
+    return ub, ib, u_perm, i_perm
+
+
+def _sharded_blocks_for_host(sh, n_shards: int, pid: int, n_hosts: int):
+    """One process's dense blocks and layout under sharded ingest
+    (``models/als.py:1120-1181``): a pure function of the exchanged global
+    tables, so every process computes the same permutations, pads and
+    bucket widths, and only the local block contents differ.
+
+    Returns ``(ub, ib, u_geom, i_geom, shard_range)``, each geom
+    ``(per_shard, n_pad, perm, deg_blocked)``; ``shard_range`` is the
+    interval of shards this process's blocks cover."""
+    from predictionio_tpu_torch.data.storage.base import PEvents
+
+    d_local = n_shards // n_hosts
+
+    def side(id_map, counts):
+        inv = id_map.inverse
+        n = len(id_map)
+        owner = np.fromiter(
+            (PEvents.shard_hash(inv[i]) % n_hosts for i in range(n)), np.int64, count=n)
+        # capacity: the fullest process's entities fit its d_local shards
+        host_max = int(np.bincount(owner, minlength=n_hosts).max()) if n else 1
+        per_shard = max(1, -(-host_max // d_local))
+        n_pad = per_shard * n_shards
+        perm = _sharded_balance_permutation(counts, owner, n_hosts, d_local, per_shard)
+        deg = np.zeros(n_pad, np.int64)
+        deg[perm[:n]] = counts
+        return per_shard, n_pad, perm, deg.reshape(n_shards, per_shard)
+
+    u_geom = side(sh.user_map, sh.user_counts)
+    i_geom = side(sh.item_map, sh.item_counts)
+    _, n_users_pad, u_perm, deg_u = u_geom
+    _, n_items_pad, i_perm, deg_i = i_geom
+    my = (pid * d_local, (pid + 1) * d_local)
+    ub = _make_dense_shards(
+        u_perm[sh.user_rows.user.astype(np.int64)],
+        i_perm[sh.user_rows.item.astype(np.int64)],
+        sh.user_rows.rating.astype(np.float32),
+        n_users_pad, n_shards, shard_range=my, deg_global=deg_u,
+    )
+    ib = _make_dense_shards(
+        i_perm[sh.item_rows.item.astype(np.int64)],
+        u_perm[sh.item_rows.user.astype(np.int64)],
+        sh.item_rows.rating.astype(np.float32),
+        n_items_pad, n_shards, shard_range=my, deg_global=deg_i,
+    )
+    return ub, ib, u_geom, i_geom, my
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +569,38 @@ def _segment_blocks_for(interactions) -> tuple[_Blocks, _Blocks]:
     )
 
 
+def _make_shard_blocks(
+    entity: np.ndarray, other: np.ndarray, rating: np.ndarray, n_entity_pad: int, n_shards: int,
+) -> list[_Blocks]:
+    """The stream cut into ``n_shards`` shards by entity range
+    (``models/als.py:218``): shard p holds the ratings of entities
+    [p·per_shard, (p+1)·per_shard) with shard-local ids, every shard padded
+    to the longest one's length (a multiple of 8, and of :data:`_CHUNK`
+    beyond one chunk)."""
+    per_shard = n_entity_pad // n_shards
+    shard = entity // per_shard
+    order = np.argsort(shard, kind="stable")
+    entity, other, rating, shard = entity[order], other[order], rating[order], shard[order]
+    counts = np.bincount(shard, minlength=n_shards)
+    length = _pad_to_multiple(int(counts.max()) if len(counts) else 1, 8)
+    if length > _CHUNK:
+        length = _pad_to_multiple(length, _CHUNK)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    out = []
+    for p in range(n_shards):
+        s, e = offsets[p], offsets[p + 1]
+        n = e - s
+        blk = _Blocks(local=np.zeros(length, np.int32), other=np.zeros(length, np.int32),
+                      rating=np.zeros(length, np.float32), mask=np.zeros(length, np.float32),
+                      n_entity=per_shard, length=length)
+        blk.local[:n] = entity[s:e] - p * per_shard
+        blk.other[:n] = other[s:e]
+        blk.rating[:n] = rating[s:e]
+        blk.mask[:n] = 1.0
+        out.append(blk)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Device half-step: solve one side's factors from the other's
 # ---------------------------------------------------------------------------
@@ -458,17 +671,18 @@ def _initial_factors(cfg: ALSConfig, n: int, gen: torch.Generator) -> np.ndarray
     return (torch.randn((n, cfg.rank), generator=gen, dtype=torch.float32) * scale).numpy()
 
 
-def _checkpoint_fingerprint(interactions, cfg: ALSConfig) -> np.ndarray:
+def _checkpoint_fingerprint(interactions, cfg: ALSConfig, n_shards: int = 1) -> np.ndarray:
     """What ties a checkpoint to this config and dataset: the JAX package's
-    fields (``models/als.py:954-975``) at one shard, so no padding. A
-    foreign or permuted dataset (another digest) starts fresh."""
+    fields (``models/als.py:954-975``). A foreign or permuted dataset
+    (another digest) starts fresh; rebalance, solver and shard count set
+    the saved row order."""
     from predictionio_tpu_torch.core.checkpoint import dataset_digest
 
     rating = interactions.rating.astype(np.float32)
     return np.array(
         [
-            interactions.n_users,
-            interactions.n_items,
+            _pad_to_multiple(interactions.n_users, n_shards),
+            _pad_to_multiple(interactions.n_items, n_shards),
             len(rating),
             cfg.rank,
             int(cfg.implicit),
@@ -480,13 +694,82 @@ def _checkpoint_fingerprint(interactions, cfg: ALSConfig) -> np.ndarray:
             ),
             float(cfg.reg),
             float(cfg.alpha),
-            # rebalance, solver and shard count set the saved row order
             int(cfg.rebalance),
             int(cfg.solver == "dense"),
-            1,
+            n_shards,
         ],
         dtype=np.float64,
     )
+
+
+def _initial_rows(cfg: ALSConfig, given, n: int, n_pad: int, gen) -> np.ndarray:
+    """(n_pad, rank) initial factors in original (global) id order: the
+    given rows (n of them, zero padded, or all n_pad), else a draw of
+    n_pad rows from ``gen`` (the JAX package draws the padded count)."""
+    if given is None:
+        return _initial_factors(cfg, n_pad, gen)
+    f = np.array(given, np.float32)
+    if f.ndim != 2 or f.shape[1] != cfg.rank or f.shape[0] not in (n, n_pad):
+        raise ValueError(
+            f"init_factors rows of shape {f.shape}, expected ({n} or {n_pad}, {cfg.rank})")
+    if f.shape[0] == n_pad:
+        return f
+    out = np.zeros((n_pad, cfg.rank), np.float32)
+    out[:n] = f
+    return out
+
+
+def _shard_inputs(blocks, shards, devices, dense: bool) -> list:
+    """The half-step inputs of the given shards, each on its placement:
+    dense, a list of (idx, rat, msk) tensors per bucket; segment, a
+    :class:`~predictionio_tpu_torch.ops.train_kernel.SegmentLayout`."""
+    if dense:
+        return [[tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in t)
+                 for t in blocks.shard(j)] for j, d in zip(shards, devices)]
+    return [_segment_layout(blocks[j], d) for j, d in zip(shards, devices)]
+
+
+def _run_shards(ctx, u_shards, i_shards, U0, V0, cfg: ALSConfig, fingerprint=None):
+    """The iterations over this process's shards (``models/als.py:712-758``
+    for the dense solver): each half-step runs the kernel once a bucket (or
+    the segment kernel once) on every local shard, solves, and all-gathers
+    the shards' new factors across the mesh's placements (across processes
+    when ``ctx`` spans them), so every process holds both sides whole.
+    ``U0``/``V0`` are (n_pad, rank) in blocked order; returns the final
+    host factors in blocked order. Checkpoints are written by the
+    coordinator."""
+    half_step = _dense_half_step if cfg.solver == "dense" else _half_step
+    start_iter, manager = 0, None
+    if cfg.checkpoint_dir:
+        from predictionio_tpu_torch.core import checkpoint as _checkpoint
+
+        _checkpoint.validate_interval(cfg.checkpoint_interval)
+        manager = _checkpoint.CheckpointManager(cfg.checkpoint_dir)
+        start_iter, state = _checkpoint.resume_from(manager, fingerprint, cfg.iterations)
+        if state is not None:
+            # the saved factors are in this layout's row order (the
+            # fingerprint names the solver and the shards)
+            U0, V0 = state["U"], state["V"]
+    dev, devs = ctx.device, ctx.local_devices
+    U = torch.from_numpy(np.ascontiguousarray(U0, np.float32)).to(dev)
+    V = torch.from_numpy(np.ascontiguousarray(V0, np.float32)).to(dev)
+
+    def side(shards, opp):
+        gram = _gram(opp) if cfg.implicit else None
+        outs = [half_step(blk, opp.to(d), None if gram is None else gram.to(d), cfg)
+                for blk, d in zip(shards, devs)]
+        full = _mesh.all_gather(outs, dev, ctx=ctx)
+        return full.reshape(-1, cfg.rank)
+
+    for it in range(start_iter, cfg.iterations):
+        # u-solve gathers ITEM factors, v-solve gathers USER factors
+        U = side(u_shards, V)
+        V = side(i_shards, U)
+        if manager is not None and _checkpoint.save_due(
+            it + 1, cfg.checkpoint_interval, cfg.iterations
+        ):
+            manager.save(it + 1, {"U": U, "V": V, "fingerprint": fingerprint})
+    return U.cpu().numpy(), V.cpu().numpy()
 
 
 def train_als(
@@ -496,83 +779,75 @@ def train_als(
     *,
     init_factors: Optional[tuple[np.ndarray, np.ndarray]] = None,
 ) -> ALSModel:
-    """Train factors on ``ctx.device`` with ``config.solver``; returns a
-    host-form :class:`ALSModel` with factors in original id order.
+    """Train factors over the mesh's ``data`` axis with ``config.solver``;
+    returns a host-form :class:`ALSModel` with factors in original id order.
+
+    ``interactions`` is an :class:`Interactions` (every process holds all
+    rows) or a :class:`~predictionio_tpu_torch.parallel.ingest.
+    ShardedInteractions` (each process of a launch read 1/N:
+    :func:`_train_als_sharded`). On S placements the ids are padded to a
+    multiple of S and cut into S shards (LPT-balanced under
+    ``config.rebalance``; degree-sorted otherwise); each shard runs on its
+    placement and the half-steps all-gather the factors.
 
     The initial factors are standard normal draws from a CPU
     ``torch.Generator`` seeded by ``config.seed``, scaled by 1/sqrt(rank),
-    unless ``init_factors=(U0, V0)`` gives them, in ORIGINAL entity order
-    ((n_users, rank) and (n_items, rank)). Both solvers start entity e from
-    row e of the draw, so one seed starts them from the same factors. The
-    JAX package draws them with jax's threefry generator, which torch
-    cannot reproduce, so the parity tests pass the JAX draw here. On a CUDA
-    device every bucket of every dense half-step launches the training
-    kernel, and every segment half-step the segment kernel once; on the CPU
-    they run the kernels' plain versions.
+    over the padded id count, unless ``init_factors=(U0, V0)`` gives them
+    in ORIGINAL id order (n or n_pad rows a side; n rows are zero padded).
+    Entity e starts from row e of the draw whatever the layout. The JAX
+    package draws them with jax's threefry generator, which torch cannot
+    reproduce, so the parity tests pass the JAX draw here. On a CUDA device
+    every bucket of every dense half-step launches the training kernel on
+    every shard, and every segment half-step the segment kernel once a
+    shard; on the CPU they run the kernels' plain versions.
 
     With ``config.checkpoint_dir`` the factors are saved (as host arrays,
-    in the solver's row order) after every ``checkpoint_interval``
+    in the layout's row order) after every ``checkpoint_interval``
     iterations and the last; a run that finds a step whose fingerprint
     matches resumes there and launches the kernels only for the
     iterations left.
     """
+    from predictionio_tpu_torch.parallel.ingest import ShardedInteractions
+
     cfg = config or ALSConfig()
-    device = ctx.device
+    if isinstance(interactions, ShardedInteractions):
+        return _train_als_sharded(ctx, interactions, cfg, init_factors)
+    n_shards = ctx.axis_size(_mesh.DATA_AXIS)
     n_users, n_items = interactions.n_users, interactions.n_items
-
-    if init_factors is None:
-        gen = torch.Generator(device="cpu").manual_seed(int(cfg.seed))
-        U0 = _initial_factors(cfg, n_users, gen)
-        V0 = _initial_factors(cfg, n_items, gen)
+    n_users_pad = _pad_to_multiple(n_users, n_shards)
+    n_items_pad = _pad_to_multiple(n_items, n_shards)
+    gen = torch.Generator(device="cpu").manual_seed(int(cfg.seed))
+    given = init_factors if init_factors is not None else (None, None)
+    U0 = _initial_rows(cfg, given[0], n_users, n_users_pad, gen)
+    V0 = _initial_rows(cfg, given[1], n_items, n_items_pad, gen)
+    dense = cfg.solver == "dense"
+    if dense:
+        ub, ib, u_perm, i_perm = _dense_shards_for(interactions, cfg, n_shards)
     else:
-        U0, V0 = (np.array(f, np.float32) for f in init_factors)
-        if U0.shape != (n_users, cfg.rank) or V0.shape != (n_items, cfg.rank):
-            raise ValueError(
-                f"init_factors shapes {U0.shape}/{V0.shape}, expected "
-                f"{(n_users, cfg.rank)}/{(n_items, cfg.rank)}"
-            )
-    if cfg.solver == "segment":
-        # no relabeling: the JAX package's one-shard segment path
+        user = interactions.user.astype(np.int64)
+        item = interactions.item.astype(np.int64)
+        rating = interactions.rating.astype(np.float32)
         u_perm = i_perm = None
-        u_blocks, i_blocks = (
-            _segment_layout(blk, device) for blk in _segment_blocks_for(interactions))
-        half_step = _half_step
-    else:
-        ub, ib, u_perm, i_perm = _dense_blocks_for(interactions, cfg)
-        # blocked row perm[e] holds original entity e
-        U0 = U0[np.argsort(u_perm)]
-        V0 = V0[np.argsort(i_perm)]
-        u_blocks, i_blocks = (
-            [tuple(torch.from_numpy(a).to(device) for a in t)
-             for t in zip(blk.idx, blk.rat, blk.msk)]
-            for blk in (ub, ib)
-        )
-        half_step = _dense_half_step
-    start_iter, manager, fingerprint = 0, None, None
-    if cfg.checkpoint_dir:
-        from predictionio_tpu_torch.core import checkpoint as _checkpoint
-
-        _checkpoint.validate_interval(cfg.checkpoint_interval)
-        manager = _checkpoint.CheckpointManager(cfg.checkpoint_dir)
-        fingerprint = _checkpoint_fingerprint(interactions, cfg)
-        start_iter, state = _checkpoint.resume_from(manager, fingerprint, cfg.iterations)
-        if state is not None:
-            # the saved factors are in this solver's row order (the
-            # fingerprint names the solver)
-            U0, V0 = state["U"], state["V"]
-    U = torch.from_numpy(np.ascontiguousarray(U0, np.float32)).to(device)
-    V = torch.from_numpy(np.ascontiguousarray(V0, np.float32)).to(device)
-    for it in range(start_iter, cfg.iterations):
-        # u-solve gathers ITEM factors, v-solve gathers USER factors
-        U = half_step(u_blocks, V, _gram(V) if cfg.implicit else None, cfg)
-        V = half_step(i_blocks, U, _gram(U) if cfg.implicit else None, cfg)
-        if manager is not None and _checkpoint.save_due(
-            it + 1, cfg.checkpoint_interval, cfg.iterations
-        ):
-            manager.save(it + 1, {"U": U, "V": V, "fingerprint": fingerprint})
-    U_host, V_host = U.cpu().numpy(), V.cpu().numpy()
+        if cfg.rebalance and n_shards > 1:
+            u_perm = _balance_permutation(user, n_users_pad, n_shards)
+            i_perm = _balance_permutation(item, n_items_pad, n_shards)
+        user_blk = u_perm[user] if u_perm is not None else user
+        item_blk = i_perm[item] if i_perm is not None else item
+        ub = _make_shard_blocks(user_blk, item_blk, rating, n_users_pad, n_shards)
+        ib = _make_shard_blocks(item_blk, user_blk, rating, n_items_pad, n_shards)
     if u_perm is not None:
-        U_host, V_host = U_host[u_perm], V_host[i_perm]
+        # blocked row perm[e] holds original entity e
+        U0, V0 = U0[np.argsort(u_perm)], V0[np.argsort(i_perm)]
+    shards = range(*ctx.local_range)
+    U_all, V_all = _run_shards(
+        ctx,
+        _shard_inputs(ub, shards, ctx.local_devices, dense),
+        _shard_inputs(ib, shards, ctx.local_devices, dense),
+        U0, V0, cfg,
+        _checkpoint_fingerprint(interactions, cfg, n_shards) if cfg.checkpoint_dir else None,
+    )
+    U_host = U_all[u_perm[:n_users]] if u_perm is not None else U_all[:n_users]
+    V_host = V_all[i_perm[:n_items]] if i_perm is not None else V_all[:n_items]
     return _declare_ivf_partition(_declare_sharding_plan(ALSModel(
         user_factors=U_host,
         item_factors=V_host,
@@ -580,6 +855,87 @@ def train_als(
         item_map=interactions.item_map,
         config=cfg,
     )))
+
+
+def _sharded_fingerprint(sh, cfg: ALSConfig, n_users_pad, n_items_pad, n_shards) -> np.ndarray:
+    """The sharded layout's checkpoint fingerprint (``models/als.py:
+    1246-1279``), the same on every process: the exchanged row digest and
+    the global degree vectors stand in for the rows."""
+    from predictionio_tpu_torch.core.checkpoint import dataset_digest
+
+    return np.array(
+        [
+            n_users_pad, n_items_pad, int(sh.user_counts.sum()),
+            cfg.rank, int(cfg.implicit), cfg.seed,
+            float(sh.dataset_digest),
+            dataset_digest(sh.user_counts, sh.item_counts),
+            float(cfg.reg), float(cfg.alpha),
+            2.0,  # layout tag: sharded-ingest dense blocking
+            n_shards, sh.num_processes,
+        ],
+        dtype=np.float64,
+    )
+
+
+def _train_als_sharded(ctx, sh, cfg: ALSConfig, init_factors=None) -> ALSModel:
+    """Training from a launch's 1/N read (``models/als.py:1184-1316``).
+
+    Each process arrives with its users' and its items' rows in global ids
+    and the global degree vectors; every relabeling and bucket geometry is
+    derived from the exchanged counts, so the processes run the same
+    buckets over different data (:func:`_sharded_blocks_for_host`). Dense
+    only, as in the JAX package. The coordinator removes the rendezvous
+    blobs after the last collective."""
+    if cfg.solver != "dense":
+        raise ValueError("sharded multi-host training requires solver='dense'")
+    n_shards = ctx.axis_size(_mesh.DATA_AXIS)
+    n_hosts = sh.num_processes
+    if n_shards % n_hosts:
+        raise ValueError(f"{n_shards} device shards not divisible by {n_hosts} hosts")
+    ub, ib, u_geom, i_geom, my = _sharded_blocks_for_host(
+        sh, n_shards, sh.process_index, n_hosts)
+    if tuple(ctx.local_range) != tuple(my):
+        raise ValueError(
+            f"process {sh.process_index}'s placements {ctx.local_range} are not its "
+            f"shards {my}")
+    _, n_users_pad, u_perm, _ = u_geom
+    _, n_items_pad, i_perm, _ = i_geom
+    U0, V0 = sharded_initial_factors(sh, cfg, u_perm, i_perm, init_factors)
+    local = range(n_shards // n_hosts)
+    U_all, V_all = _run_shards(
+        ctx,
+        _shard_inputs(ub, local, ctx.local_devices, True),
+        _shard_inputs(ib, local, ctx.local_devices, True),
+        U0, V0, cfg,
+        _sharded_fingerprint(sh, cfg, n_users_pad, n_items_pad, n_shards)
+        if cfg.checkpoint_dir else None,
+    )
+    from predictionio_tpu_torch.parallel import distributed
+
+    if sh.cleanup is not None and distributed.should_write_storage():
+        # the final all-gather was a collective: every process finished
+        # its exchange long ago
+        sh.cleanup()
+    return _declare_ivf_partition(_declare_sharding_plan(ALSModel(
+        user_factors=U_all[u_perm[:sh.n_users]],
+        item_factors=V_all[i_perm[:sh.n_items]],
+        user_map=sh.user_map,
+        item_map=sh.item_map,
+        config=cfg,
+    )))
+
+
+def sharded_initial_factors(sh, cfg: ALSConfig, u_perm, i_perm, init_factors=None):
+    """The sharded layout's initial (U0, V0) in blocked order: a draw over
+    the entities only (``init_factors`` in global-id order, or the seeded
+    torch draw), zero padded, so the start is the same for any process
+    count or capacity (padding rows have no ratings)."""
+    gen = torch.Generator(device="cpu").manual_seed(int(cfg.seed))
+    given = init_factors if init_factors is not None else (
+        _initial_factors(cfg, sh.n_users, gen), _initial_factors(cfg, sh.n_items, gen))
+    U0 = _initial_rows(cfg, given[0], sh.n_users, len(u_perm), None)
+    V0 = _initial_rows(cfg, given[1], sh.n_items, len(i_perm), None)
+    return U0[np.argsort(u_perm)], V0[np.argsort(i_perm)]
 
 
 def _declare_sharding_plan(model: ALSModel) -> ALSModel:

@@ -29,8 +29,12 @@ JAX package computes them outside Pallas too, so no hand kernel is involved.
 * **Tie order.** ``lax.top_k`` puts ties by smaller index; the top-k here is
   ``ops/topk.topk_two_key``, which has that order.
 
-Multi-host reduction (``host_reduce``), the ``model``-axis column split and
-the sharded trainer come with ROADMAP §1 item 10 and raise here.
+* **Many processes.** Under a launch each process counts its own users'
+  rows and ``host_reduce`` (``distributed.host_sum``) sums the counts
+  across processes before scoring: the users are disjoint, so the sum is
+  exact (:func:`_train_cooccurrence_sharded`). The JAX package's
+  ``model``-axis column split is not used: every column block runs on
+  ``ctx.device``, with the same result.
 """
 
 from __future__ import annotations
@@ -51,12 +55,6 @@ _USER_BLOCK = 4096  # users per incidence block (A_b is USER_BLOCK × n_items)
 # bytes of the larger int8 operand of one product: user blocks are grouped
 # up to this (8 blocks at the ML-25M catalog of 59,136 padded items)
 _OPERAND_BYTES = 2 << 30
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to predictionio_tpu_torch yet (ROADMAP §1 item 10)"
-    )
 
 
 @dataclasses.dataclass
@@ -203,8 +201,6 @@ def cross_occurrence_matrix(
     the SECONDARY event on item j (``C = A_pᵀ A_s``). Either side may come
     pre-blocked (:func:`block_incidence`); then ``n_users_pad`` used for
     blocking must match."""
-    if host_reduce is not None:
-        raise _not_ported("the multi-host cross-occurrence reduction")
     if n_users_pad is None:
         n_users = max(
             x.n_users for x in (primary, secondary) if isinstance(x, Interactions)
@@ -220,6 +216,9 @@ def cross_occurrence_matrix(
         *_on_device(primary, ctx.device), *_on_device(secondary, ctx.device),
         p_pad, s_pad,
     )
+    if host_reduce is not None:
+        # a launch's users are disjoint across processes: C sums exactly
+        C = torch.from_numpy(host_reduce(C.cpu().numpy())).to(ctx.device)
     return C[:n_items_primary, :n_items_secondary]
 
 
@@ -326,8 +325,6 @@ def cross_occurrence_topn(
     Returns (top_items (s_items, k) int32, top_scores (s_items, k) f32),
     rows indexed by INDICATOR item.
     """
-    if host_reduce is not None:
-        raise _not_ported("the multi-host cross_occurrence_topn (host_reduce)")
     device = ctx.device
     n_users_pad = pad_to_multiple(n_users, _USER_BLOCK)
     if isinstance(primary, Interactions):
@@ -390,6 +387,10 @@ def cross_occurrence_topn(
         C = cross_occurrence_block(
             *p_dev, *_on_device(blocked_s, device), p_pad, width_pad
         )
+        if host_reduce is not None:
+            # reduce the block across processes, THEN score: top-k does not
+            # commute with the sum
+            C = torch.from_numpy(host_reduce(C.cpu().numpy())).to(device)
         vals, idx = score_block(
             C, pc_primary, torch.from_numpy(s_counts).to(device), start,
             n_items_primary, k, use_llr, total, exclude_diagonal,
@@ -427,9 +428,13 @@ def train_cooccurrence(
     use_llr: bool = False,
 ) -> CooccurrenceModel:
     """Top-``n`` co-occurring items per item (LLR-scored with ``use_llr``),
-    computed on ``ctx.device``. The JAX package's sharded interactions (one
-    host's users' rows) come with ROADMAP §1 item 10."""
-    if not isinstance(interactions, Interactions):
+    computed on ``ctx.device``; from a launch's
+    :class:`~predictionio_tpu_torch.parallel.ingest.ShardedInteractions`
+    each process holds its users' rows and the per-process counts reduce
+    exactly across processes (disjoint users)."""
+    from predictionio_tpu_torch.parallel.ingest import ShardedInteractions
+
+    if isinstance(interactions, ShardedInteractions):
         return _train_cooccurrence_sharded(ctx, interactions, n, use_llr)
     n_items_total = interactions.n_items
     if n_items_total > DENSE_ITEM_LIMIT:
@@ -462,9 +467,52 @@ def train_cooccurrence(
     )
 
 
-def _train_cooccurrence_sharded(ctx, sh, n: int, use_llr: bool):
-    """Multi-host self-co-occurrence (per-host Grams reduced across hosts)."""
-    raise _not_ported("the sharded co-occurrence trainer (ShardedInteractions)")
+def _train_cooccurrence_sharded(ctx, sh, n: int, use_llr: bool) -> CooccurrenceModel:
+    """Self-co-occurrence under a launch (``models/cooccurrence.py:
+    469-568``): compact this process's users, count locally, reduce the
+    counts across processes (``distributed.host_sum``), then score and take
+    the top-n."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    inter = sh.user_rows
+    n_items_total = sh.n_items
+    if len(inter.user):
+        uniq, inv = np.unique(inter.user, return_inverse=True)
+    else:
+        uniq = inv = np.empty(0, np.int64)
+    local = Interactions(user=inv.astype(np.int32), item=inter.item, rating=inter.rating,
+                         t=inter.t, user_map=None, item_map=sh.item_map)
+    n_local_users = max(len(uniq), 1)
+    k = min(n, n_items_total)
+    if n_items_total > DENSE_ITEM_LIMIT:
+        # disjoint users: the local distinct counts sum to the global marginals
+        pc = distributed.host_sum(distinct_item_counts(local, n_items_total))
+        idx, vals = cross_occurrence_topn(
+            ctx, local, local, n_items_total, n_items_total,
+            n_users=n_local_users, k=k, use_llr=use_llr,
+            primary_counts=pc, exclude_diagonal=True,
+            secondary_counts=pc, host_reduce=distributed.host_sum,
+            llr_total=float(sh.n_users),
+        )
+        model = CooccurrenceModel(top_items=idx, top_scores=vals, item_map=sh.item_map)
+    else:
+        # an explicit pad: a process with no users still joins the reduction
+        C = cross_occurrence_matrix(
+            ctx, local, local, n_items_total, n_items_total,
+            n_users_pad=pad_to_multiple(n_local_users, _USER_BLOCK),
+            host_reduce=distributed.host_sum,
+        )
+        scores = llr_scores(C, n_users=sh.n_users) if use_llr else C
+        scores = scores - torch.diag(torch.diagonal(scores))  # exclude self-pairs
+        vals, idx = topk_two_key(scores, k)
+        model = CooccurrenceModel(
+            top_items=idx.cpu().numpy().astype(np.int32),
+            top_scores=vals.cpu().numpy().astype(np.float32),
+            item_map=sh.item_map,
+        )
+    if sh.cleanup is not None and distributed.should_write_storage():
+        sh.cleanup()  # drop the rendezvous blobs
+    return model
 
 
 # ---------------------------------------------------------------------------

@@ -39,13 +39,20 @@ sequence (causal cross-entropy).
   sums. A mesh of repeated placements (``["cpu"] * 2``, ``[cuda:0] * 2``)
   runs it on one device.
 
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP item
-that brings it: training from sharded multi-host interactions (item 10).
+* Under ``pio launch`` (a :class:`~predictionio_tpu_torch.parallel.ingest.
+  ShardedInteractions`) training is data parallel across processes: each
+  process builds its own users' sequences, draws ``batch / n_hosts`` rows
+  from them (its own seeded stream), computes the masked sums of its rows,
+  divides by the GLOBAL count of valid targets and all-reduces the
+  gradients (:func:`dp_train_step`), so each step is the one-process step
+  on the concatenated batch. ``seq_parallel`` and experts raise there, as
+  in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 from functools import partial
 from typing import Optional, Union
@@ -62,6 +69,8 @@ from predictionio_tpu_torch.parallel.ring import _ring_attention_block, full_att
 
 PAD = 0  # item ids are shifted by +1; 0 is the padding token
 LAYER_KEYS = ("wqkv", "wo", "ln1", "ln2", "w1", "w2")
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -539,6 +548,66 @@ def train_step(net: SASRecNet, opt: torch.optim.Optimizer, seq: torch.Tensor, cf
     return loss.detach()
 
 
+def _all_reduce_grads(net: SASRecNet) -> None:
+    """Sum every parameter's gradient across the launch's processes, in
+    process order (one host-staged gather of the flattened gradients)."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    params = [p for p in net.parameters() if p.grad is not None]
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    parts = distributed.gather_blocks([flat])
+    total = parts[0].clone()
+    for part in parts[1:]:
+        total += part
+    total = total.to(flat.device)
+    off = 0
+    for p in params:
+        n = p.grad.numel()
+        p.grad.copy_(total[off:off + n].view_as(p.grad))
+        off += n
+
+
+def dp_train_step(net: SASRecNet, opt: torch.optim.Optimizer, seq: torch.Tensor,
+                  cfg: SASRecConfig):
+    """One data-parallel step of a launch on this process's rows ``seq``:
+    the masked nll sum over the global count of valid targets (summed
+    across processes), gradients all-reduced, then the Adam step. Returns
+    the global batch's loss."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    opt.zero_grad(set_to_none=True)
+    inputs, targets = seq[:, :-1], seq[:, 1:]
+    hidden, _aux = _forward(net.tree(), inputs, cfg, allow_flash=True)
+    num, den = _masked_nll_sums(net.tree(), hidden, inputs, targets)
+    den_all = float(distributed.host_sum(np.array([float(den)]))[0])
+    loss = num / max(den_all, 1.0)
+    loss.backward()
+    _all_reduce_grads(net)
+    opt.step()
+    return torch.tensor(
+        float(distributed.host_sum(np.array([loss.item()], np.float64))[0]), dtype=torch.float32)
+
+
+def _sharded_sequences(sh, cfg: SASRecConfig) -> tuple[np.ndarray, int]:
+    """This process's training rows under a launch and the global count of
+    trainable users. A process with no trainable user contributes one
+    all-PAD row (zero valid targets), so every collective sees the same
+    batch shape; no trainable user anywhere raises."""
+    seqs = build_sequences(sh.user_rows, cfg.max_len + 1)
+    seqs = seqs[(seqs != PAD).sum(1) >= 2]
+    n_global = int((sh.user_counts >= 2).sum())
+    if len(seqs) == 0:
+        if n_global == 0:
+            raise ValueError(
+                "no user has >= 2 interaction events; sequential training "
+                "needs at least one (previous item -> next item) transition"
+            )
+        logger.warning("process %d: no trainable sequence; contributing all-PAD rows",
+                       sh.process_index)
+        seqs = np.full((1, cfg.max_len + 1), PAD, seqs.dtype)
+    return seqs, n_global
+
+
 def train_sasrec(
     ctx,
     interactions: Interactions,
@@ -562,17 +631,30 @@ def train_sasrec(
     params and each step's loss (of the steps this call ran: a resumed run
     starts at its checkpoint's epoch).
     """
+    from predictionio_tpu_torch.parallel.ingest import ShardedInteractions
+
     cfg = config or SASRecConfig()
-    if not isinstance(interactions, Interactions):
-        raise NotImplementedError(
-            f"training from {type(interactions).__name__} (sharded multi-host "
-            "interactions) is not ported yet (ROADMAP §1 item 10)"
-        )
-    seqs = training_sequences(interactions, cfg)
-    n = len(seqs)
-    # the JAX rule: the batch is a multiple of the data axis (1 on one device)
+    sharded = isinstance(interactions, ShardedInteractions)
     n_shards = ctx.axis_size(DATA_AXIS)
-    batch = pad_to_multiple(min(cfg.batch_size, pad_to_multiple(n, n_shards)), n_shards)
+    if sharded:
+        if cfg.seq_parallel or cfg.n_experts:
+            raise ValueError(
+                "sharded multi-host SASRec training is pure data "
+                "parallelism; seq_parallel / n_experts claim the `model` "
+                "axis across hosts and are not supported under pio launch"
+            )
+        n_hosts, pid = interactions.num_processes, interactions.process_index
+        if n_shards % n_hosts:
+            raise ValueError(f"{n_shards} device shards not divisible by {n_hosts} hosts")
+        seqs, n_global = _sharded_sequences(interactions, cfg)
+    else:
+        n_hosts, pid = 1, 0
+        seqs = training_sequences(interactions, cfg)
+        n_global = len(seqs)
+    n = len(seqs)
+    # the JAX rule: the batch is a multiple of the data axis (1 on one
+    # device), cut from the GLOBAL trainable count
+    batch = pad_to_multiple(min(cfg.batch_size, pad_to_multiple(n_global, n_shards)), n_shards)
     sp_ways = ctx.axis_size(MODEL_AXIS) if cfg.seq_parallel else 1
     if cfg.seq_parallel:
         if cfg.n_experts:
@@ -600,12 +682,15 @@ def train_sasrec(
 
         _checkpoint.validate_interval(cfg.checkpoint_interval)
         manager = _checkpoint.CheckpointManager(cfg.checkpoint_dir)
-        # the JAX package's fields (models/sequential.py:525-545), one host
+        # the JAX package's fields (models/sequential.py:525-545): under a
+        # launch the global count, the exchanged row digest and the process
+        # count, the same on every process
         fingerprint = np.array(
-            [interactions.n_items, n, batch, cfg.d_model, cfg.n_layers, cfg.n_heads,
+            [interactions.n_items, n_global, batch, cfg.d_model, cfg.n_layers, cfg.n_heads,
              cfg.max_len, float(cfg.lr), cfg.seed, cfg.n_experts,
              float(cfg.expert_capacity), float(cfg.moe_aux_weight),
-             _checkpoint.dataset_digest(seqs), int(cfg.seq_parallel)],
+             float(interactions.dataset_digest) if sharded else _checkpoint.dataset_digest(seqs),
+             int(cfg.seq_parallel)] + ([n_hosts] if sharded else []),
             dtype=np.float64,
         )
         start_epoch, restored = _checkpoint.resume_from(manager, fingerprint, cfg.epochs)
@@ -620,13 +705,19 @@ def train_sasrec(
             "param_groups": opt.state_dict()["param_groups"],
         })
     rows = torch.from_numpy(seqs.astype(np.int64)).to(ctx.device)
-    rng = np.random.default_rng(cfg.seed)
+    # under a launch each process draws its slice of the global batch from
+    # its own users, with its own stream (process 0's is the one-process one)
+    local_batch = batch // n_hosts
+    rng = np.random.default_rng(cfg.seed + 1_000_003 * pid)
     for _ in range(start_epoch):  # resume: fast-forward the batch sampler
-        rng.integers(0, n, batch)
+        rng.integers(0, n, local_batch)
     losses = []
     for epoch in range(start_epoch, cfg.epochs):
-        picks = torch.from_numpy(rng.integers(0, n, batch)).to(ctx.device)
-        losses.append(train_step(net, opt, rows[picks], cfg, sp_loss))
+        picks = torch.from_numpy(rng.integers(0, n, local_batch)).to(ctx.device)
+        if n_hosts > 1:
+            losses.append(dp_train_step(net, opt, rows[picks], cfg))
+        else:
+            losses.append(train_step(net, opt, rows[picks], cfg, sp_loss))
         if manager is not None and _checkpoint.save_due(
             epoch + 1, cfg.checkpoint_interval, cfg.epochs
         ):
@@ -635,6 +726,11 @@ def train_sasrec(
                 "opt": {str(i): st for i, st in opt.state_dict()["state"].items()},
                 "fingerprint": fingerprint,
             })
+    if sharded and interactions.cleanup is not None:
+        from predictionio_tpu_torch.parallel import distributed
+
+        if distributed.should_write_storage():
+            interactions.cleanup()  # the steps were collectives: every exchange is done
     return SASRecModel(
         params=net.host_params(),
         item_map=interactions.item_map,

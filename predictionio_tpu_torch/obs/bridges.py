@@ -2,13 +2,12 @@
 
 Counterpart of ``predictionio_tpu/obs/bridges.py`` with the bridges of the
 components the port has: the batcher, the fast path, sharded serving and
-its one-process pod layout, IVF retrieval, devprof, the result cache, the
+its pod layout (the router's group fan-out too), IVF retrieval, devprof, the result cache, the
 template event cache, tenancy, the pipeline, error counters, resilience
 (breakers), the fleet supervisor, the autoscaler, the canary controller,
 the event-server stats, the ingest buffer with its WAL and the latency
 histogram. The training kernel's bridge comes with the port's first
-benchmark (ROADMAP §1 item 12); ``bridge_pod``'s router half (pod-group
-routing) with item 10's many-process half.
+benchmark (ROADMAP §1 item 12).
 
 Every load-bearing runtime layer predates the registry and already keeps
 its own thread-safe counters (``MicroBatcher.stats()``, fastpath
@@ -363,10 +362,12 @@ def bridge_sharding(
 def bridge_pod(
     registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
 ) -> None:
-    """The fast path's pod-layout accounting → pio_pod_* series (see
-    :func:`bridge_sharding`); each family appears exactly when its key is
-    present. The router's pod-group families come with its pod-group
-    routing (ROADMAP §1 item 10)."""
+    """Pod-scale serving accounting → pio_pod_* series. One bridge, two
+    emitters: a query server's fast path exposes its ``pod`` block
+    (host-group topology, process slot, cross-host merge traffic), a router
+    its group fan-out counters (queries routed per group, fleet-wide
+    fallbacks). Each family appears exactly when its key is present (see
+    :func:`bridge_sharding`)."""
 
     def collect():
         pod = stats_fn()
@@ -379,6 +380,24 @@ def bridge_pod(
                 "pio_pod_host_groups", "gauge",
                 "Host groups in the active pod serving mesh.",
                 [("", (), _num(hg))],
+            ))
+        routed = pod.get("queries_routed")
+        if isinstance(routed, dict):
+            fams.append(_fam(
+                "pio_pod_queries_routed_total", "counter",
+                "Attempts the router fanned to their owning host group "
+                "(shard-aware routing; primaries, retries, and hedges "
+                "all keep — and count against — the query's affinity).",
+                [("", (("group", str(g)),), _num(n))
+                 for g, n in sorted(routed.items(), key=lambda kv: str(kv[0]))],
+            ))
+        if "fallback_broadcasts" in pod:
+            fams.append(_fam(
+                "pio_pod_fallback_broadcasts_total", "counter",
+                "Attempts routed fleet-wide because the owning group had "
+                "no eligible replica — the documented degrade path "
+                "(retried and hedged attempts included).",
+                [("", (), _num(pod.get("fallback_broadcasts")))],
             ))
         if "cross_host_merge_bytes" in pod:
             fams.append(_fam(

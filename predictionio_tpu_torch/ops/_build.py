@@ -131,7 +131,20 @@ def build_all(names=SOURCES) -> dict[str, tuple[Path, float, str]]:
                 raise KernelError(f"nvcc failed for {name}.cu:\n{out}")
             os.replace(tmp, target)
             build_log[name] = (target, time.perf_counter() - t0, out)
+        if procs:
+            _note_rank_build(procs, t0)
         return {n: build_log[n] for n in names}
+
+
+def _note_rank_build(procs: dict, t0: float) -> None:
+    """Under a launch every rank builds on a cold cache (each into its own
+    temporary, moved into place atomically): say how long this rank took."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    pid, n = distributed.process_slot()
+    if n > 1:
+        print(f"[INFO] process {pid}/{n}: built {', '.join(sorted(procs))} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def library(name: str) -> Path:

@@ -1,11 +1,12 @@
-"""The device mesh in one process: named axes over ``torch.device``
-placements, and the four collectives the sharded paths use.
+"""The device mesh: named axes over ``torch.device`` placements, in one
+process or across the processes of a launch, and the four collectives the
+sharded paths use.
 
 Counterpart of ``predictionio_tpu/parallel/mesh.py``. Where the JAX package
 carries a :class:`jax.sharding.Mesh` and lets ``shard_map`` run one program
-per device, the port carries an array of ``torch.device`` placements with
-the same axis names (``data``, ``model``, ``host``) and runs the per-block
-work as a loop over the placements' blocks:
+per device, the port carries an array of placements with the same axis
+names (``data``, ``model``, ``host``) and runs the per-block work as a loop
+over this process's blocks:
 
 * :func:`make_mesh` with no devices takes the distinct cards
   ``torch.cuda.device_count()`` gives (one on a one-card machine); an
@@ -13,22 +14,31 @@ work as a loop over the placements' blocks:
   ``[cuda:0] * 4`` gives four placements on one device. That is how the
   tests (and ``chip_smoke.py`` on one card) give S shards S places, as the
   JAX tests do on eight host-platform CPU devices;
+* under a launch (``parallel/distributed.py`` initialized with N > 1
+  processes) :meth:`MeshContext.create` spans the processes: the global
+  placements are each process's own placements in process order, as
+  :class:`Placement` records (``process_index``, ``device``), and
+  :attr:`MeshContext.spans_processes` is True. Every process names the same
+  local placements (one by default, its card or the CPU);
 * :meth:`MeshContext.place` cuts a tensor along a spec into the blocks of
-  the placements, flat in the mesh's row-major order; an axis the spec does
-  not name replicates, and a repeated device holds one tensor for every
-  placement that needs the same block;
+  this process's placements, flat in the mesh's row-major order; an axis
+  the spec does not name replicates, and a repeated device holds one tensor
+  for every placement that needs the same block;
 * :func:`all_gather`, :func:`ppermute`, :func:`all_to_all` and
-  :func:`psum` take and give lists of blocks, one per placement. They are
-  tensor ops (``to``, ``stack``, ``cat``, ``+``), so autograd differentiates
-  through them as the JAX collectives transpose;
-* :attr:`MeshContext.spans_processes` is False: every placement is in this
-  process. Meshes across processes (``torch.distributed``) come with ROADMAP
-  §1 item 10's many-process half.
+  :func:`psum` take and give lists of blocks, one per placement of this
+  process. In one process they are tensor ops (``to``, ``stack``, ``cat``,
+  ``+``), so autograd differentiates through them as the JAX collectives
+  transpose. Given a ``ctx`` whose mesh spans processes they run their
+  cross-process body: every process's blocks are gathered through
+  :func:`~predictionio_tpu_torch.parallel.distributed.gather_blocks`
+  (gloo, staged through host memory) and the same tensor ops then run on
+  the gathered list, in placement order, so the result equals the
+  one-process mesh of the same placements bit for bit.
 
 :class:`MeshContext` is also the port's one-device context
 (``device.DeviceContext`` is this class): ``ctx.device`` is the first
-placement, and :meth:`MeshContext.create` with ``device=`` gives a mesh of
-that one device.
+placement of this process, and :meth:`MeshContext.create` with ``device=``
+gives a mesh of that one device (one placement a process under a launch).
 """
 
 from __future__ import annotations
@@ -78,6 +88,23 @@ def default_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A placement of a mesh that spans processes: the process that holds
+    it and its device there (another process's device as that process
+    names it)."""
+
+    process_index: int
+    device: torch.device
+
+    @property
+    def type(self) -> str:
+        return self.device.type
+
+    def __str__(self) -> str:
+        return f"p{self.process_index}:{self.device}"
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """Placements in an array with named axes (``jax.sharding.Mesh``'s
@@ -105,26 +132,26 @@ def make_mesh(
     the device count. ``devices`` may repeat a device.
     """
     devs = [resolve_device(d) for d in devices] if devices is not None else default_devices()
-    n = len(devs)
-    if n == 0:
+    if not devs:
         raise ValueError("a mesh needs at least one device")
+    return _mesh_of(devs, axes)
+
+
+def _mesh_of(devs: list, axes: Optional[Mapping[str, int]]) -> Mesh:
+    """A mesh over placements already resolved (``Placement`` records or
+    devices), shaped by ``axes`` as :func:`make_mesh` shapes it."""
+    n = len(devs)
     axes = dict(axes) if axes is not None else {DATA_AXIS: n}
-    known = 1
-    infer_key = None
-    for k, v in axes.items():
-        if v == -1:
-            if infer_key is not None:
-                raise ValueError("only one mesh axis may be -1")
-            infer_key = k
-        else:
-            known *= v
-    if infer_key is not None:
+    infer = [k for k, v in axes.items() if v == -1]
+    if len(infer) > 1:
+        raise ValueError("only one mesh axis may be -1")
+    known = math.prod(v for v in axes.values() if v != -1)
+    if infer:
         if n % known:
             raise ValueError(f"{n} devices not divisible by {known}")
-        axes[infer_key] = n // known
-    total = math.prod(axes.values())
-    if total != n:
-        raise ValueError(f"mesh axes {axes} need {total} devices, have {n}")
+        axes[infer[0]] = n // known
+    if math.prod(axes.values()) != n:
+        raise ValueError(f"mesh axes {axes} need {math.prod(axes.values())} devices, have {n}")
     arr = np.empty(n, dtype=object)
     arr[:] = devs
     return Mesh(arr.reshape(tuple(axes.values())), tuple(axes.keys()))
@@ -135,8 +162,9 @@ def misaligned_pod_row(devices: Sequence[Any], host_groups: int) -> Optional[int
 
     Folding ``devices`` row-major into ``host_groups`` rows, every row must
     be process-pure for the two-tier merge's on-host tier to stay on the
-    host. A placement carries its process as ``process_index`` (0 for a
-    ``torch.device``: every placement of this process)."""
+    host. A placement carries its process as ``process_index`` (a
+    :class:`Placement`; a ``torch.device`` is a placement of this process,
+    0)."""
     per_row = len(devices) // host_groups
     for g in range(host_groups):
         row = devices[g * per_row:(g + 1) * per_row]
@@ -148,11 +176,28 @@ def misaligned_pod_row(devices: Sequence[Any], host_groups: int) -> Optional[int
 # -- the collectives, on lists of blocks (one per placement) -----------------
 
 
-def all_gather(blocks: Sequence[torch.Tensor], device: DeviceLike) -> torch.Tensor:
+def _spanning(ctx) -> bool:
+    return ctx is not None and ctx.spans_processes
+
+
+def _global_blocks(blocks: Sequence[torch.Tensor], ctx) -> list[torch.Tensor]:
+    """Every placement's block in global placement order (host tensors for
+    the other processes' blocks, this process's own blocks as given)."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    gathered = distributed.gather_blocks(blocks)
+    lo, hi = ctx.local_range
+    return gathered[:lo] + list(blocks) + gathered[hi:]
+
+
+def all_gather(blocks: Sequence[torch.Tensor], device: DeviceLike, *, ctx=None) -> torch.Tensor:
     """The blocks stacked on ``device``: (n, *block.shape) — what
     ``lax.all_gather`` gives every device, here given to the one that
-    merges."""
+    merges. With a ``ctx`` spanning processes ``blocks`` are this process's
+    and every process gets all n."""
     dev = torch.device(device)
+    if _spanning(ctx):
+        blocks = _global_blocks(blocks, ctx)
     return torch.stack([b.to(dev) for b in blocks])
 
 
@@ -160,9 +205,19 @@ def ppermute(
     blocks: Sequence[torch.Tensor],
     devices: Optional[Sequence[DeviceLike]] = None,
     shift: int = 1,
+    *,
+    ctx=None,
 ) -> list[torch.Tensor]:
     """The ring step ``perm = [(j, (j + shift) % n)]``: placement j receives
-    the block of placement ``j - shift``, moved to ``devices[j]``."""
+    the block of placement ``j - shift``, moved to ``devices[j]`` (this
+    process's placements only, with a ``ctx`` spanning processes)."""
+    if _spanning(ctx):
+        every = _global_blocks(blocks, ctx)
+        n = len(every)
+        lo, hi = ctx.local_range
+        out = [every[(j - shift) % n] for j in range(lo, hi)]
+        devs = devices if devices is not None else [b.device for b in blocks]
+        return [b.to(torch.device(d)) for b, d in zip(out, devs)]
     n = len(blocks)
     out = [blocks[(j - shift) % n] for j in range(n)]
     if devices is not None:
@@ -175,17 +230,25 @@ def all_to_all(
     split_dim: int,
     concat_dim: int,
     devices: Optional[Sequence[DeviceLike]] = None,
+    *,
+    ctx=None,
 ) -> list[torch.Tensor]:
     """Tiled ``lax.all_to_all``: each block is cut into n chunks along
     ``split_dim``; placement j receives chunk j of every block, concatenated
-    in placement order along ``concat_dim``."""
-    n = len(blocks)
-    chunks = [torch.chunk(b, n, dim=split_dim) for b in blocks]
+    in placement order along ``concat_dim`` (this process's placements
+    only, with a ``ctx`` spanning processes)."""
+    if _spanning(ctx):
+        every = _global_blocks(blocks, ctx)
+        lo, hi = ctx.local_range
+    else:
+        every, lo, hi = list(blocks), 0, len(blocks)
+    n = len(every)
+    chunks = [torch.chunk(b, n, dim=split_dim) for b in every]
     if any(len(c) != n or c[0].shape != c[-1].shape for c in chunks):
-        raise ValueError(f"dim {split_dim} of {tuple(blocks[0].shape)} does not split {n} ways")
+        raise ValueError(f"dim {split_dim} of {tuple(every[0].shape)} does not split {n} ways")
     out = []
-    for j in range(n):
-        dev = torch.device(devices[j]) if devices is not None else blocks[j].device
+    for k, j in enumerate(range(lo, hi)):
+        dev = torch.device(devices[k]) if devices is not None else blocks[k].device
         out.append(torch.cat([chunks[i][j].to(dev) for i in range(n)], dim=concat_dim))
     return out
 
@@ -193,15 +256,21 @@ def all_to_all(
 def psum(
     blocks: Sequence[torch.Tensor],
     devices: Optional[Sequence[DeviceLike]] = None,
+    *,
+    ctx=None,
 ) -> list[torch.Tensor]:
     """The sum of the blocks, in placement order, given to every placement
-    (on ``devices[j]``, else the first block's device)."""
+    (on ``devices[j]``, else the first block's device); with a ``ctx``
+    spanning processes, the sum of every process's blocks."""
     dev0 = blocks[0].device
-    total = blocks[0]
+    n_local = len(blocks)
+    if _spanning(ctx):
+        blocks = _global_blocks(blocks, ctx)
+    total = blocks[0].to(dev0)
     for b in blocks[1:]:
         total = total + b.to(dev0)
     if devices is None:
-        return [total] * len(blocks)
+        return [total] * n_local
     return [total.to(torch.device(d)) for d in devices]
 
 
@@ -212,10 +281,13 @@ class MeshContext:
     the free-form deployment settings recorded on ``EngineInstance.
     mesh_conf`` (the device itself is never read from there when the
     caller names one, so a conf written by a CPU test cannot send a
-    deployment on the card to the CPU)."""
+    deployment on the card to the CPU). ``process_index`` is this
+    process's place in a launch; a mesh that spans processes holds
+    :class:`Placement` records."""
 
     mesh: Mesh
     conf: dict = dataclasses.field(default_factory=dict)
+    process_index: int = 0
 
     @staticmethod
     def create(
@@ -227,7 +299,11 @@ class MeshContext:
         """``device=`` gives the one-device mesh (the port's entry points
         take ``device="cpu"`` this way); ``devices=`` an explicit mesh,
         repeats allowed; neither, every card. ``axes`` (or the conf's
-        ``mesh_axes`` when no ``device`` is named) shape the mesh."""
+        ``mesh_axes`` when no ``device`` is named) shape the mesh.
+
+        Under a launch of N > 1 processes these are this process's
+        placements, and the mesh spans every process's placements in
+        process order (each process names the same local placements)."""
         conf = dict(conf or {})
         if device is not None:
             if devices is not None:
@@ -235,17 +311,48 @@ class MeshContext:
             devices = [device]
         elif axes is None and "mesh_axes" in conf:
             axes = {k: int(v) for k, v in conf["mesh_axes"].items()}
-        return MeshContext(mesh=make_mesh(axes=axes, devices=devices), conf=conf)
+        from predictionio_tpu_torch.parallel import distributed
+
+        pid, n_proc = distributed.process_slot()
+        if n_proc == 1:
+            return MeshContext(mesh=make_mesh(axes=axes, devices=devices), conf=conf)
+        local = [resolve_device(d) for d in devices] if devices is not None else default_devices()
+        placements = [Placement(p, d) for p in range(n_proc) for d in local]
+        return MeshContext(
+            mesh=_mesh_of(placements, axes), conf=conf, process_index=pid)
 
     # -- placement helpers -------------------------------------------------
     @property
-    def device(self) -> torch.device:
-        """The first placement: where one-device work runs."""
-        return self.mesh.devices.flat[0]
+    def spans_processes(self) -> bool:
+        """True when some placement lives in another process."""
+        return any(isinstance(d, Placement) and d.process_index != self.process_index
+                   for d in self.mesh.devices.flat)
 
     @property
-    def devices(self) -> list[torch.device]:
-        """Every placement, in the mesh's row-major order."""
+    def local_devices(self) -> list[torch.device]:
+        """This process's placements' devices, in mesh order."""
+        return [d.device if isinstance(d, Placement) else d
+                for d in self.mesh.devices.flat
+                if getattr(d, "process_index", self.process_index) == self.process_index]
+
+    @property
+    def local_range(self) -> tuple[int, int]:
+        """The flat interval of this process's placements (process-major)."""
+        idx = [i for i, d in enumerate(self.mesh.devices.flat)
+               if getattr(d, "process_index", self.process_index) == self.process_index]
+        if not idx or idx[-1] - idx[0] + 1 != len(idx):
+            raise ValueError("this process's placements are not one contiguous run")
+        return idx[0], idx[-1] + 1
+
+    @property
+    def device(self) -> torch.device:
+        """This process's first placement: where one-device work runs."""
+        return self.local_devices[0]
+
+    @property
+    def devices(self) -> list:
+        """Every placement, in the mesh's row-major order (``torch.device``
+        in one process, :class:`Placement` records across processes)."""
         return list(self.mesh.devices.flat)
 
     @property
@@ -255,6 +362,18 @@ class MeshContext:
     def axis_size(self, axis: str) -> int:
         return self.mesh.shape.get(axis, 1)
 
+    def _sub(self, axes: Mapping[str, int], devs: list) -> "MeshContext":
+        return MeshContext(mesh=_mesh_of(devs, axes), conf=dict(self.conf),
+                           process_index=self.process_index)
+
+    def local(self) -> "MeshContext":
+        """A one-process context over this process's placements (work that
+        each process of a launch does on its own, like its share of a batch
+        predict)."""
+        if not self.spans_processes:
+            return self
+        return MeshContext(mesh=make_mesh(devices=self.local_devices), conf=dict(self.conf))
+
     def submesh(self, n_devices: int, axis: str = DATA_AXIS) -> "MeshContext":
         """A context over the first ``n_devices`` placements, one ``axis``
         (a plan of S shards serves on the first S placements)."""
@@ -262,10 +381,7 @@ class MeshContext:
             return self
         if n_devices > self.mesh.size:
             raise ValueError(f"submesh of {n_devices} devices from a {self.mesh.size}-device mesh")
-        return MeshContext(
-            mesh=make_mesh(axes={axis: n_devices}, devices=self.devices[:n_devices]),
-            conf=dict(self.conf),
-        )
+        return self._sub({axis: n_devices}, self.devices[:n_devices])
 
     def pod_submesh(self, n_shards: int, host_groups: int) -> "MeshContext":
         """A 2-D ``(host, data)`` context over the first ``n_shards``
@@ -286,20 +402,11 @@ class MeshContext:
                 f"{n_shards // host_groups} shards do not align with the per-process "
                 "device layout"
             )
-        return MeshContext(
-            mesh=make_mesh(axes={HOST_AXIS: host_groups, DATA_AXIS: n_shards // host_groups},
-                           devices=devs),
-            conf=dict(self.conf),
-        )
-
-    @property
-    def spans_processes(self) -> bool:
-        """Every placement of a port mesh lives in this process."""
-        return False
+        return self._sub({HOST_AXIS: host_groups, DATA_AXIS: n_shards // host_groups}, devs)
 
     def place(self, x, *spec: Any) -> list[torch.Tensor]:
-        """The per-placement blocks of ``x`` (a host array or a tensor)
-        under ``spec``, flat in row-major mesh order.
+        """This process's per-placement blocks of ``x`` (a host array or a
+        tensor) under ``spec``, flat in row-major mesh order.
 
         ``spec[d]`` names the axis (or a tuple of axes, major first) that
         dimension d is split over, or None; axes the spec does not name
@@ -313,6 +420,11 @@ class MeshContext:
         cache: dict = {}
         out = []
         for coord in np.ndindex(*shape):
+            dev = self.mesh.devices[coord]
+            if isinstance(dev, Placement):
+                if dev.process_index != self.process_index:
+                    continue
+                dev = dev.device
             sl = [slice(None)] * t.dim()
             key = []
             for dim, ax in enumerate(spec):
@@ -327,7 +439,6 @@ class MeshContext:
                 step = t.shape[dim] // n
                 sl[dim] = slice(idx * step, (idx + 1) * step)
                 key.append((dim, idx))
-            dev = self.mesh.devices[coord]
             k = (tuple(key), dev)
             if k not in cache:
                 cache[k] = t[tuple(sl)].contiguous().to(dev)
@@ -340,9 +451,13 @@ class MeshContext:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
 
-def device_get_global(x) -> np.ndarray:
-    """Device → host. In one process every block is addressable, so this is
-    a plain copy."""
+def device_get_global(x, ctx=None) -> np.ndarray:
+    """Device → host. A tensor is copied; a list of this process's blocks
+    (one per placement, cut along dim 0) is concatenated in placement
+    order, every process's blocks when ``ctx`` spans processes."""
+    if isinstance(x, (list, tuple)):
+        blocks = _global_blocks(x, ctx) if _spanning(ctx) else list(x)
+        return torch.cat([b.detach().cpu() for b in blocks]).numpy()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)

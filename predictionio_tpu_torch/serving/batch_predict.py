@@ -6,9 +6,10 @@ line; each line is parsed → supplemented → predicted per algorithm →
 served → rendered as one JSON line. Queries go through
 ``Algorithm.batch_predict`` in chunks of :data:`_CHUNK_QUERIES`, the
 serving fast path's top rung, so on the card each chunk of known users is
-one launch of the score kernel. One process writes ``<output>``; the JAX
-package's multi-process split into part files waits for multi-GPU
-(ROADMAP §1 item 10).
+one launch of the score kernel. One process writes ``<output>``; under
+``pio launch -n N`` process p scores the lines ``(line_no - 1) % N == p``
+and writes ``<output>.part-p`` (``parallel/distributed.shard_output_path``,
+Spark's ``saveAsTextFile`` part files).
 """
 
 from __future__ import annotations
@@ -45,9 +46,14 @@ def run_batch_predict(
     engine_version: str = "default",
     engine_variant: str = "default",
 ) -> tuple[int, str]:
-    """Returns (predictions written, the path written)."""
+    """Returns (predictions written by this process, the path it wrote)."""
+    from predictionio_tpu_torch.parallel import distributed
+
     storage = storage or Storage.instance()
-    ctx = ctx or DeviceContext.create()
+    # every process holds the whole model and scores its own lines on its
+    # own placements
+    ctx = (ctx or DeviceContext.create()).local()
+    pid, n_procs = distributed.process_slot()
     # the FALLIBLE deploy runs before the output opens: a failed run
     # leaves the previous output untouched
     instance = get_latest_completed_instance(
@@ -56,6 +62,8 @@ def run_batch_predict(
     _, algorithms, serving, models = prepare_deploy(
         engine, instance, storage=storage, ctx=ctx
     )
+    # the part file and the stale-output hygiene of the distributed writer
+    _, _, output_path = distributed.shard_output_path(output_path)
     n = 0
     with open(input_path) as fin, open(output_path, "w") as fout:
         # Queries are CHUNKED through Algorithm.batch_predict — the same
@@ -117,6 +125,8 @@ def run_batch_predict(
             chunk.clear()
 
         for line_no, line in enumerate(fin, 1):
+            if n_procs > 1 and (line_no - 1) % n_procs != pid:
+                continue
             line = line.strip()
             if not line:
                 continue

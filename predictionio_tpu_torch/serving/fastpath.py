@@ -76,7 +76,11 @@ hand-written kernel).
   data)`` submesh. ``auto`` (the default) serves sharded only when the
   mesh has the plan's placements: on a one-card default mesh it is the
   replicated path, and an explicit ``sharded`` warns and serves
-  replicated. An IVF index under a sharded plan serves exact sharded.
+  replicated. An IVF index under a sharded plan serves exact sharded. On a
+  mesh that spans the processes of a launch each process holds its own
+  placements' blocks, launches the kernel once a local shard and merges
+  with the others in lockstep (:meth:`BucketedScorer.
+  _merge_across_processes`); deltas are skipped there.
 """
 
 from __future__ import annotations
@@ -92,6 +96,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.parallel import distributed as _distributed
 from predictionio_tpu_torch.parallel import mesh as _mesh
 from predictionio_tpu_torch.obs import devprof as _devprof
 from predictionio_tpu_torch.obs import tracing as _tracing
@@ -449,8 +454,9 @@ class BucketedScorer:
         # (U, V, U scales, V scales, gid, pad mask), each a tuple of the S
         # placements' tensors; a patch swaps the whole tuple
         self._factors = (U, V, Us, Vs, blocks(gid), blocks(pad_mask))
+        # this process's blocks (every block in one process)
         self.resident_shard_bytes = [
-            _nbytes(V[s]) + (_nbytes(Vs[s]) if Vs is not None else 0) for s in range(plan.n_shards)
+            _nbytes(V[s]) + (_nbytes(Vs[s]) if Vs is not None else 0) for s in range(len(V))
         ]
 
     def _layout_slots(self) -> Optional[np.ndarray]:
@@ -518,7 +524,9 @@ class BucketedScorer:
                 )
                 lv.append(vals)
                 lg.append(gid[s][idx.long()])
-            if self._pod:
+            if self._shard_ctx.spans_processes:
+                out = self._merge_across_processes(lv, lg, merge_dev)
+            elif self._pod:
                 out = two_tier_merge_topk(lv, lg, self.k, host_groups=self.plan.host_groups,
                                           device=merge_dev)
             else:
@@ -526,6 +534,29 @@ class BucketedScorer:
             if timing is not None:
                 timing[1].record()
         return out
+
+    def _merge_across_processes(self, lv, lg, dev):
+        """The merge on a shard mesh that spans processes (``fastpath.py:
+        851-890`` in the JAX package), every process in lockstep: under a
+        pod plan tier 1 merges each of this process's host rows here and
+        tier 2 gathers the H per-host leaderboards from every process
+        (``distributed.gather_blocks``, host-staged); the flat merge gathers
+        every shard's leaderboard. The lists and the merges are the
+        one-process ones, so the answer is the one-process pod serve's."""
+        from predictionio_tpu_torch.parallel import distributed
+
+        if self._pod:
+            g = self.plan.n_shards // self.plan.host_groups
+            host_v, host_g = [], []
+            for r in range(0, len(lv), g):  # this process holds whole host rows
+                v, i = gather_merge_topk(lv[r:r + g], lg[r:r + g], self.k, lv[r].device)
+                host_v.append(v)
+                host_g.append(i)
+            every_v, every_g = distributed.gather_blocks(host_v), distributed.gather_blocks(host_g)
+            return gather_merge_topk(every_v, every_g, self.k, dev)
+        sc = self._shard_ctx
+        gv, gg = _mesh.all_gather(lv, dev, ctx=sc), _mesh.all_gather(lg, dev, ctx=sc)
+        return gather_merge_topk(list(gv), list(gg), self.k, dev)
 
     def score_topk(
         self, user_indices: np.ndarray, k: int
@@ -752,6 +783,16 @@ class BucketedScorer:
         unchanged by any delta, and ``device_ms``, the patch's time on the
         device (CUDA events on the card, the host's clock on the CPU).
         """
+        if self.sharding == "sharded" and self._shard_ctx.spans_processes:
+            # another process holds the other shards' blocks: deltas do not
+            # compose with serving across processes, the next full reload
+            # picks them up (the JAX package's documented degrade)
+            logger.warning(
+                "apply_delta_rows skipped: factors span processes on a pod mesh; "
+                "deltas apply at the next full publish/reload"
+            )
+            return {"users": 0, "items": 0, "warmup_executions": self.warmup_executions,
+                    "kernel_builds": len(_build.build_log), "device_ms": 0.0, "skipped": "pod"}
         users = np.asarray(user_idx, np.int64).reshape(-1)
         u_rows = np.asarray(user_rows, np.float32).reshape(len(users), -1)
         keep = users < self.n_users
@@ -907,8 +948,8 @@ class BucketedScorer:
                     pod = {
                         "host_groups": self.plan.host_groups,
                         "shards_per_group": self.plan.shards_per_group,
-                        "process_index": 0,
-                        "process_count": 1,
+                        "process_index": self._shard_ctx.process_index,
+                        "process_count": _distributed.num_processes(),
                         "spans_processes": self._shard_ctx.spans_processes,
                         "fingerprint": self.plan.fingerprint,
                         "cross_host_merge_bytes": sharding["pod_merge_bytes"],

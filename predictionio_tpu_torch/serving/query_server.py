@@ -72,11 +72,14 @@ answers per query, retrieval then ranking. Fault sites:
 
 ``/readyz`` carries ``servingBackend`` and, while a sharding plan serves
 sharded, ``shardingFingerprint`` (and a ``pod`` block for a plan with host
-groups); ``/metrics`` carries ``pio_shard_*`` and ``pio_pod_*`` then.
+groups: its ``group``, which ``PIO_POD_GROUP`` pins for a self-contained
+replica); ``/metrics`` carries ``pio_shard_*`` and ``pio_pod_*`` then. A pod
+mesh that spans the processes of a launch serves in lockstep only
+(:meth:`QueryServer._pod_lockstep`): ``/readyz`` withholds the group and
+answers 503, and ``/queries.json`` answers 503, as the JAX server does.
 
-Waiting for their ROADMAP items, and raising an error that names them:
-pod serving across processes and its lockstep (``PIO_POD_GROUP``), item
-10; ``POST /debug/profile``, item 15.
+Waiting for its ROADMAP item, and raising an error that names it: ``POST
+/debug/profile``, item 15.
 """
 
 from __future__ import annotations
@@ -138,12 +141,6 @@ from predictionio_tpu_torch.serving.result_cache import (
 from predictionio_tpu_torch.utils.profiling import LatencyHistogram
 
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to predictionio_tpu_torch yet (ROADMAP §1 item {item})"
-    )
 
 
 class EngineServerPlugin:
@@ -228,8 +225,6 @@ class QueryServer:
         tenants=None,
         pipeline=None,
     ):
-        if os.environ.get("PIO_POD_GROUP", "").strip():
-            raise _not_ported("pod serving across processes and its lockstep (PIO_POD_GROUP)", 10)
         self.engine = engine
         self.storage = storage or Storage.instance()
         self.ctx = ctx or DeviceContext.create()
@@ -303,6 +298,7 @@ class QueryServer:
         # model-generation tag: every successful swap increments it, so
         # cached answers from the previous generation never validate
         self._serving_gen = 0
+        self._pod_lockstep_memo = None
         # streaming micro-generations (PIO_STREAMING=1): the delta state
         # enable_streaming() builds after each successful reload; None when
         # streaming is off or no factor model is live, and every streaming
@@ -696,6 +692,22 @@ class QueryServer:
         return out
 
     # -- observability -------------------------------------------------------
+    def _pod_lockstep(self) -> bool:
+        """True when the live fast path's pod mesh spans processes: every
+        process must then dispatch the same batches in the same order (the
+        cross-process merge is a collective), so this replica cannot answer
+        a query routed to it alone (``query_server.py:756-779`` in the JAX
+        package). Memoized per serving generation."""
+        with self._lock:
+            gen = self._serving_gen
+            memo = self._pod_lockstep_memo
+        if memo is not None and memo[0] == gen:
+            return memo[1]
+        spans = bool(((self._fastpath_stats() or {}).get("pod") or {}).get("spans_processes"))
+        with self._lock:
+            self._pod_lockstep_memo = (gen, spans)
+        return spans
+
     def _fastpath_stats(self) -> Optional[dict]:
         """First deployed algorithm's serving_stats (registry bridge)."""
         with self._lock:
@@ -1229,16 +1241,24 @@ class QueryServer:
                 plan = (fps.get("sharding") or {}).get("plan") or {}
                 if plan.get("fingerprint"):
                     body["shardingFingerprint"] = plan["fingerprint"]
-            # the one-process pod layout: this process is group 0 of its mesh
+            # the pod placement: this replica's host group, for the fleet
+            # router's group-affine routing (PIO_POD_GROUP pins it for
+            # self-contained replicas). A mesh that spans processes is
+            # lockstep only: its group is withheld and the replica is not
+            # ready, whatever PIO_POD_GROUP says
             pod = (fps or {}).get("pod")
+            pod_spans = bool((pod or {}).get("spans_processes"))
             if pod:
+                group_env = os.environ.get("PIO_POD_GROUP", "")
                 body["pod"] = {
-                    "group": int(pod.get("process_index") or 0),
+                    "group": None if pod_spans
+                    else int(group_env) if group_env.strip()
+                    else int(pod.get("process_index") or 0),
                     "groups": int(pod.get("host_groups") or 1),
                     "fingerprint": pod.get("fingerprint"),
                     "processIndex": pod.get("process_index"),
                     "processCount": pod.get("process_count"),
-                    "spansProcesses": bool(pod.get("spans_processes")),
+                    "spansProcesses": pod_spans,
                 }
             # streaming: the applied epoch and the staleness tell a router
             # where this replica sits in the delta sequence
@@ -1273,6 +1293,11 @@ class QueryServer:
                 return Response(status=503, body=body, headers=self._retry_headers())
             if inflight >= self.max_inflight:
                 body["status"] = "overloaded"
+                return Response(status=503, body=body, headers=self._retry_headers())
+            if pod_spans:
+                # never admitted into a routed fleet: this process scores
+                # only in lockstep with its pod peers
+                body["status"] = "pod mesh spans processes (lockstep only)"
                 return Response(status=503, body=body, headers=self._retry_headers())
             body["status"] = "ready"
             return json_response(200, body)
@@ -1330,6 +1355,18 @@ class QueryServer:
                 return Response(
                     status=503,
                     body={"message": "server draining; retry against another instance"},
+                    headers=self._retry_headers(),
+                )
+            if self._pod_lockstep():
+                # refusing beats deadlocking: one process of a pod mesh that
+                # spans processes cannot dispatch alone, its peers would never
+                # join the cross-process merge
+                return Response(
+                    status=503,
+                    body={"message": "pod mesh spans processes: queries "
+                          "must be dispatched in SPMD lockstep on every "
+                          "process, not routed to one — serve through "
+                          "self-contained host-local replicas instead"},
                     headers=self._retry_headers(),
                 )
             if _faults.active() is not None:

@@ -31,10 +31,14 @@ The router→replica hop is a first-class fault-injection site
 (``client:router:/queries.json`` — ``common/faults.py``), so the chaos
 suite can exercise latency / error / drop on the hop itself.
 
-Pod-group routing (a replica advertising a ``pod`` block on ``/readyz``,
-the JAX router's group-affine pick and ``client:pod:merge`` site) waits
-for ROADMAP §1 item 10: a probe that sees such a block raises an error
-naming it, and that replica is never admitted.
+* **Pod-group routing**: replicas that advertise a ``pod`` block on
+  ``/readyz`` (self-contained pod replicas, their group pinned by
+  ``PIO_POD_GROUP``) get group-affine routing: a query goes to the host
+  group that owns it by a crc32 of its user key, falling back fleet-wide
+  when that group has no eligible replica (``pio_pod_queries_routed_total
+  {group}`` and ``pio_pod_fallback_broadcasts_total``), with the
+  ``client:pod:merge`` fault site on the hop. An advert whose mesh spans
+  processes is ignored: such a replica serves in lockstep only.
 
 Thread model: request handler threads (HttpService pool), one attempt
 thread per forwarded try, and one ``_health_loop`` pacing on the stop
@@ -51,6 +55,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import zlib
 from collections import deque
 from typing import Optional
 
@@ -82,13 +87,6 @@ DRAINING = "draining"
 STATE_VALUES = {ADMITTED: 0.0, EJECTED: 1.0, DRAINING: 2.0}
 
 
-def _pod_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "pod-group routing (a replica advertising a pod block on /readyz) is "
-        "not ported to predictionio_tpu_torch yet (ROADMAP §1 item 10)"
-    )
-
-
 def _env_num(name: str, default, cast):
     try:
         return cast(os.environ[name])
@@ -115,6 +113,11 @@ class ReplicaState:
         # attribution and hot-swap targeting key on THIS instead
         self.instance_id: Optional[str] = None
         self.delta_epoch: Optional[int] = None
+        # the host group this replica's serving mesh belongs to, as
+        # advertised on /readyz (None: not a pod replica)
+        self.pod_group: Optional[int] = None
+        self.pod_groups: Optional[int] = None
+        self.pod_fingerprint: Optional[str] = None
         self.warm = True
         self.no_readmit_before = 0.0
         self.last_error = ""
@@ -132,7 +135,7 @@ class _Slot:
     attempt threads (primary + optional hedge)."""
 
     __slots__ = ("event", "lock", "result", "winner_hedged", "outstanding",
-                 "failure", "tried")
+                 "failure", "tried", "group")
 
     def __init__(self):
         self.event = threading.Event()
@@ -142,6 +145,9 @@ class _Slot:
         self.outstanding = 0
         self.failure = None         # last losing (status, body, headers)
         self.tried: set[str] = set()
+        # the query's pod owner group (None: no affinity); retries and
+        # hedges keep the primary pick's affinity
+        self.group: Optional[int] = None
 
 
 class Router:
@@ -224,7 +230,11 @@ class Router:
             "ok", "client_error", "failed", "shed", "deadline", "retries",
             "hedges_fired", "hedges_won", "hedges_denied",
             "ejections_health", "ejections_outlier", "readmissions",
+            "pod_fallback",
         )
+        # pod fan-out: queries routed to the host group that owns them, by
+        # group id (guarded by _lock)
+        self._pod_routed: dict[int, int] = {}
         self._rl_log = RateLimitedLogger(logger)
         # streaming delta propagation acks by outcome (push_delta); a
         # plain dict guarded by _lock — outcomes come from receipt shapes,
@@ -253,12 +263,17 @@ class Router:
         frac = (now - rep.admitted_at) / self.slow_start_s
         return min(1.0, max(0.1, frac))
 
-    def _pick_locked(self, exclude: set[str]) -> Optional[ReplicaState]:
+    def _pick_locked(
+        self, exclude: set[str], group: Optional[int] = None
+    ) -> Optional[ReplicaState]:
         """Weighted least-loaded admitted replica whose breaker allows the
         call.  ``allow()`` is only consulted on a candidate we are about
-        to use, so a half-open probe slot is never burnt on a bystander."""
+        to use, so a half-open probe slot is never burnt on a bystander.
+        Replicas of the pod host ``group`` that owns the query are strictly
+        preferred; with none eligible the pick falls back fleet-wide."""
         now = time.monotonic()
         cands = []
+        owned = []
         for rep in self._replicas:
             if rep.url in exclude or rep.state != ADMITTED:
                 continue
@@ -266,10 +281,13 @@ class Router:
                 continue
             load = (rep.inflight + 1.0) / self._weight(rep, now)
             cands.append((load, len(cands), rep))
-        cands.sort(key=lambda t: (t[0], t[1]))
-        for _, _, rep in cands:
-            if rep.breaker.allow():
-                return rep
+            if group is not None and rep.pod_group == group:
+                owned.append(cands[-1])
+        for pool in (owned, cands) if group is not None else (cands,):
+            pool.sort(key=lambda t: (t[0], t[1]))
+            for _, _, rep in pool:
+                if rep.breaker.allow():
+                    return rep
         return None
 
     def available_count(self) -> int:
@@ -471,6 +489,50 @@ class Router:
         with self._lock:
             return self._hedge_delay_ms
 
+    # -- pod host-group fan-out ---------------------------------------------
+    def _pod_group_count_locked(self) -> Optional[int]:
+        """The fleet's agreed host-group count, or None without one agreed
+        plan (no pod replicas, or mismatched fingerprints mid-deploy):
+        routing then picks fleet-wide."""
+        groups: set[int] = set()
+        fps: set[Optional[str]] = set()
+        for rep in self._replicas:
+            if rep.pod_group is None or not rep.pod_groups:
+                continue
+            groups.add(rep.pod_groups)
+            fps.add(rep.pod_fingerprint)
+        if len(groups) != 1 or len(fps) != 1:
+            return None
+        n = next(iter(groups))
+        return n if n > 1 else None
+
+    def _note_pod_pick_locked(self, rep: ReplicaState, group: Optional[int]) -> None:
+        """Charge one attempt's pick (caller holds ``_lock``): an owner
+        group hit in ``pio_pod_queries_routed_total{group}``, an off-owner
+        pick in ``pio_pod_fallback_broadcasts_total``."""
+        if group is None:
+            return
+        if rep.pod_group == group:
+            self._pod_routed[group] = self._pod_routed.get(group, 0) + 1
+        else:
+            self.counters.inc("pod_fallback")
+
+    def _owner_group(self, body: bytes) -> Optional[int]:
+        """The host group that owns this query, by a crc32 of its user key;
+        None without an agreed pod map or a user key (fleet-wide)."""
+        with self._lock:
+            n = self._pod_group_count_locked()
+        if n is None:
+            return None
+        try:
+            q = json.loads(body.decode("utf-8"))
+        except (ValueError, UnicodeDecodeError):
+            return None
+        user = q.get("user") if isinstance(q, dict) else None
+        if user is None:
+            return None
+        return zlib.crc32(str(user).encode("utf-8")) % n
+
     # -- forwarding ----------------------------------------------------------
     def _forward(
         self,
@@ -494,6 +556,17 @@ class Router:
                     b'{"message":"injected fault"}',
                     {},
                 )
+        if rep.pod_group is not None:
+            # the pod-merge hop: a forward into a host group whose merge can
+            # tear when a member dies mid-collective (site client:pod:merge)
+            act = _faults.check("client:pod:merge")
+            if act is not None:
+                if act.latency_s:
+                    time.sleep(act.latency_s)
+                if act.kind == "drop":
+                    raise ConnectionError("injected pod merge tear on router->group hop")
+                if act.kind == "error":
+                    return (act.status, b'{"message":"injected pod merge fault"}', {})
         headers = {"Content-Type": "application/json"}
         timeout = self.request_timeout_s
         if deadline is not None:
@@ -668,7 +741,11 @@ class Router:
             with slot.lock:
                 tried = set(slot.tried)
             with self._lock:
-                nxt = self._pick_locked(tried)
+                # retries keep the primary pick's group affinity (slot.group
+                # is written once, before the first attempt spawns)
+                nxt = self._pick_locked(tried, group=slot.group)
+                if nxt is not None:
+                    self._note_pod_pick_locked(nxt, slot.group)
             if nxt is None:
                 self._abandon(slot, last)
                 return
@@ -769,12 +846,17 @@ class Router:
                 if self._shadow_capture:
                     self._shadow_buf.append(req.body)
         self.budget.on_attempt()
+        group = self._owner_group(req.body)
         slot = _Slot()
+        slot.group = group
         with self._lock:
-            rep = self._pick_locked(slot.tried)
+            rep = self._pick_locked(slot.tried, group=group)
             if rep is not None:
                 slot.tried.add(rep.url)
                 slot.outstanding = 1
+                # the owner group's hit or the fleet-wide fallback, counted
+                # on every attempt (retries and hedges too)
+                self._note_pod_pick_locked(rep, group)
         if rep is None:
             self.counters.inc("shed")
             return Response(
@@ -791,12 +873,14 @@ class Router:
                 with slot.lock:
                     tried = set(slot.tried)
                 with self._lock:
-                    hrep = self._pick_locked(tried)
+                    hrep = self._pick_locked(tried, group=group)
                 if hrep is not None:
                     if self.budget.take():
                         with slot.lock:
                             slot.tried.add(hrep.url)
                             slot.outstanding += 1
+                        with self._lock:
+                            self._note_pod_pick_locked(hrep, group)
                         self.counters.inc("hedges_fired")
                         self._spawn_attempt(
                             slot, hrep, req.body, deadline, True, trace_id
@@ -861,18 +945,7 @@ class Router:
             return False, info
         except (OSError, ValueError):
             return False, None
-        if isinstance(info, dict) and info.get("pod") is not None:
-            raise _pod_not_ported()
         return bool(info.get("fastpathWarm", True)), info
-
-    def _probe_or_refuse(self, rep: ReplicaState):
-        """A probe; a replica this port cannot route to (a pod group
-        member) is logged with the error and kept out as unready."""
-        try:
-            return self._probe_replica(rep)
-        except NotImplementedError as e:
-            self._rl_log.warning("pod", "replica %s refused: %s", rep.url, e)
-            return False, None
 
     def _health_loop(self):
         interval_s = self.health_interval_ms / 1e3
@@ -880,7 +953,7 @@ class Router:
             self._probe_cycle()
 
     def _probe_cycle(self):
-        results = [(rep, self._probe_or_refuse(rep)) for rep in self._replicas]
+        results = [(rep, self._probe_replica(rep)) for rep in self._replicas]
         now = time.monotonic()
         with self._lock:
             for rep, (ok, info) in results:
@@ -898,6 +971,20 @@ class Router:
             de = info.get("deltaEpoch")
             if isinstance(de, int):
                 rep.delta_epoch = de
+            pod = info.get("pod")
+            if isinstance(pod, dict) and not pod.get("spansProcesses"):
+                g, n = pod.get("group"), pod.get("groups")
+                rep.pod_group = int(g) if isinstance(g, int) else None
+                rep.pod_groups = int(n) if isinstance(n, int) else None
+                fp = pod.get("fingerprint")
+                rep.pod_fingerprint = fp if isinstance(fp, str) else None
+            else:
+                # a mesh that spans processes serves in lockstep only: one
+                # group's queries routed to it would wedge its peers, so it
+                # is never a routable pod group member
+                rep.pod_group = None
+                rep.pod_groups = None
+                rep.pod_fingerprint = None
             rep.warm = bool(info.get("fastpathWarm", True))
         if ok:
             rep.healthy_streak += 1
@@ -1031,6 +1118,7 @@ class Router:
                     "generation": r.generation,
                     "instanceId": r.instance_id,
                     "deltaEpoch": r.delta_epoch,
+                    "podGroup": r.pod_group,
                     "warm": r.warm,
                     "lastError": r.last_error or None,
                     "breaker": r.breaker.stats(),
@@ -1039,12 +1127,19 @@ class Router:
             ]
             hedge_delay = self._hedge_delay_ms
             rolling = self._rolling
+            pod_groups = self._pod_group_count_locked()
+            pod_routed = {str(g): n for g, n in self._pod_routed.items()}
             canary = self._canary
         return {
             "generations": self.generation_stats(),
             "canary": canary.stats() if canary is not None else None,
             "status": "alive",
             "replicas": replicas,
+            "pod": {
+                "groups": pod_groups,
+                "queriesRouted": pod_routed,
+                "fallbackBroadcasts": self.counters.get("pod_fallback"),
+            } if pod_groups is not None or pod_routed else None,
             "available": sum(
                 1 for r in replicas if r["state"] == ADMITTED
             ),
@@ -1065,11 +1160,26 @@ class Router:
             "breakers": [r.breaker.stats() for r in self._replicas],
         }
 
+    def _pod_stats(self) -> Optional[dict]:
+        """The pod block for ``bridge_pod``: None until a replica
+        advertises a pod map (the families stay absent until then)."""
+        with self._lock:
+            groups = self._pod_group_count_locked()
+            routed = dict(self._pod_routed)
+        if groups is None and not routed:
+            return None
+        return {
+            "host_groups": groups,
+            "queries_routed": routed,
+            "fallback_broadcasts": self.counters.get("pod_fallback"),
+        }
+
     def _register_metrics(self) -> None:
         reg = self.telemetry.registry
         _bridges.bridge_resilience(
             reg, self._resilience_stats, prefix="pio_router"
         )
+        _bridges.bridge_pod(reg, self._pod_stats)
 
         def _router_families():
             now = time.monotonic()

@@ -5,8 +5,8 @@ Counterpart of ``predictionio_tpu/templates/ecommerce.py`` (parity:
 ``ECommAlgorithm.scala:85-560``). Training runs implicit ALS on the
 context's device (the training kernel on the card); queries are answered
 on the host with numpy over the model's arrays, as the JAX package answers
-them. The multi-host popular count (``ShardedInteractions``) comes with
-ROADMAP §1 item 10.
+them. Under ``pio launch`` the read is the 1/N sharded one and the popular
+count sums the processes' histograms (``distributed.host_sum``).
 
 * train (``:91``): implicit ALS over view(+buy) events, plus
   ``trainDefault`` (``:211``) — popular-interaction counts as the fallback
@@ -104,9 +104,11 @@ class ECommDataSource(DataSource):
     params_cls = ECommDataSourceParams
 
     def read_training(self, ctx) -> TrainingData:
-        # one card reads every row (the JAX package's multi-host 1/N read
-        # comes with ROADMAP §1 item 10)
-        inter = PEventStore.find_interactions(
+        from predictionio_tpu_torch.parallel.ingest import template_interactions
+
+        # one process: a plain columnar read; under a launch the 1/N
+        # entity-keyed sharded read (the ALS trainer dispatches on type)
+        inter = template_interactions(
             self.params.appName,
             entity_type="user",
             event_names=list(self.params.eventNames),
@@ -158,11 +160,6 @@ class ECommAlgorithm(Algorithm):
 
     def train(self, ctx, pd: PreparedData) -> ECommModel:
         p = self.params
-        if not isinstance(pd.interactions, Interactions):
-            raise NotImplementedError(
-                "multi-host e-commerce training (ShardedInteractions) is not "
-                "ported to predictionio_tpu_torch yet (ROADMAP §1 item 10)"
-            )
         als = train_als(
             ctx,
             pd.interactions,
@@ -175,10 +172,21 @@ class ECommAlgorithm(Algorithm):
                 seed=3 if p.seed is None else p.seed,
             ),
         )
-        # trainDefault (ECommAlgorithm.scala:211): popular-count fallback
-        popular = np.bincount(
-            pd.interactions.item, minlength=len(als.item_map)
-        ).astype(np.float32)
+        # trainDefault (ECommAlgorithm.scala:211): popular-count fallback.
+        # Under a launch the processes' item histograms of their users' rows
+        # sum exactly (each rating counted once, on its user's process)
+        from predictionio_tpu_torch.parallel.ingest import ShardedInteractions
+
+        if isinstance(pd.interactions, ShardedInteractions):
+            from predictionio_tpu_torch.parallel import distributed
+
+            popular = distributed.host_sum(
+                np.bincount(pd.interactions.user_rows.item, minlength=len(als.item_map))
+            ).astype(np.float32)
+        else:
+            popular = np.bincount(
+                pd.interactions.item, minlength=len(als.item_map)
+            ).astype(np.float32)
         return ECommModel(
             als=als, popular=popular, item_categories=pd.item_categories
         )

@@ -41,8 +41,7 @@ from predictionio_tpu_torch.core.evaluation import EngineParamsGenerator, Evalua
 from predictionio_tpu_torch.core.metrics import OptionAverageMetric
 from predictionio_tpu_torch.core.persistence import RETRAIN
 from predictionio_tpu_torch.core.self_cleaning import SelfCleaningDataSource
-from predictionio_tpu_torch.data import store
-from predictionio_tpu_torch.data.batch import Interactions, merge_interactions
+from predictionio_tpu_torch.data.batch import Interactions
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.models.als import (
     ALSConfig,
@@ -105,14 +104,6 @@ class DataSourceParams(Params):
     eventRatings: Optional[dict] = None
 
 
-def _merge_part_reads(read_fn, part_kwargs: list) -> Interactions:
-    """Read one Interactions per filter dict, drop empties, merge the rest
-    into shared id maps (``parallel/ingest.py:389-397``)."""
-    reads = [read_fn(p) for p in part_kwargs]
-    reads = [r for r in reads if len(r.rating)] or reads[:1]
-    return reads[0] if len(reads) == 1 else merge_interactions(reads)
-
-
 class RecommendationDataSource(SelfCleaningDataSource, DataSource):
     params_cls = DataSourceParams
 
@@ -147,15 +138,29 @@ class RecommendationDataSource(SelfCleaningDataSource, DataSource):
             ),
         ]
 
+    def _read_interactions(self, sharded_ok: bool = True):
+        """One columnar read per event type, merged into shared id maps;
+        under a launch the 1/N entity-keyed sharded read
+        (``parallel/ingest.py``), which the trainer dispatches on. read_eval
+        needs every row on every process (its fold split is row-level)."""
+        from predictionio_tpu_torch.parallel.ingest import template_interactions
+
+        return template_interactions(
+            self.params.appName, parts=self._part_filters(), force_local=not sharded_ok)
+
     def read_training(self, ctx) -> TrainingData:
-        self.clean_persisted_events()  # no-op without an eventWindow param
-        # one columnar read per event type, merged into shared id maps
-        return TrainingData(
-            _merge_part_reads(
-                lambda p: store.PEventStore.find_interactions(self.params.appName, **p),
-                self._part_filters(),
+        from predictionio_tpu_torch.parallel import distributed
+
+        if distributed.process_slot()[1] > 1 and self.params.eventWindow:
+            # the window cleaner rewrites the store in place (coordinator
+            # only), which would race the other processes' sharded reads
+            raise ValueError(
+                "eventWindow cleaning is not supported under multi-host "
+                "launch: run `pio train` single-host to compact, then "
+                "launch without eventWindow"
             )
-        )
+        self.clean_persisted_events()  # no-op without an eventWindow param
+        return TrainingData(self._read_interactions())
 
     def read_eval(self, ctx):
         """k-fold split (parity: DataSource.scala:83 readEval kFold): row i
@@ -164,10 +169,7 @@ class RecommendationDataSource(SelfCleaningDataSource, DataSource):
         ep = self.params.evalParams or {}
         k_fold = int(ep.get("kFold", 3))
         query_num = int(ep.get("queryNum", 10))
-        inter = _merge_part_reads(
-            lambda p: store.PEventStore.find_interactions(self.params.appName, **p),
-            self._part_filters(),
-        )
+        inter = self._read_interactions(sharded_ok=False)
         fold_of = np.arange(len(inter)) % k_fold
         inv_u, inv_i = inter.user_map.inverse, inter.item_map.inverse
         folds = []
@@ -211,6 +213,14 @@ class ExcludeItemsPreparator(Preparator):
         path = getattr(self.params, "filepath", None)
         if not path:
             return td
+        from predictionio_tpu_torch.parallel.ingest import ShardedInteractions
+
+        if isinstance(td.interactions, ShardedInteractions):
+            raise ValueError(
+                "ExcludeItemsPreparator filepath is not supported with "
+                "sharded multi-host ingest; filter items in the datasource "
+                "events or train single-host"
+            )
         with open(path) as f:
             no_train = {line.strip() for line in f if line.strip()}
         if not no_train:

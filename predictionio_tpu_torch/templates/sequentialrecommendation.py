@@ -81,13 +81,19 @@ class SequentialDataSource(DataSource):
     params_cls = SeqDataSourceParams
 
     def read_training(self, ctx) -> TrainingData:
-        # the single-host read of the JAX package's template_interactions
+        from predictionio_tpu_torch.parallel.ingest import template_interactions
+
+        # one process: a plain columnar read; under a launch the 1/N
+        # entity-keyed read. SASRec uses per-user rows only, so the sharded
+        # read skips the target-keyed pass (the global item table derives
+        # exactly from the user pass)
         return TrainingData(
-            interactions=store.PEventStore.find_interactions(
+            interactions=template_interactions(
                 self.params.appName,
                 entity_type="user",
                 event_names=list(self.params.eventNames),
                 target_entity_type="item",
+                item_pass=False,
             )
         )
 

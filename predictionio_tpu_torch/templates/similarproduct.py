@@ -100,9 +100,11 @@ class SimilarProductDataSource(DataSource):
     params_cls = DataSourceParams
 
     def read_training(self, ctx) -> TrainingData:
-        # one card reads every row (the JAX package's multi-host 1/N read
-        # comes with ROADMAP §1 item 10)
-        inter = PEventStore.find_interactions(
+        from predictionio_tpu_torch.parallel.ingest import template_interactions
+
+        # one process: a plain columnar read; under a launch the 1/N
+        # entity-keyed sharded read (the trainers dispatch on type)
+        inter = template_interactions(
             self.params.appName,
             entity_type="user",
             event_names=list(self.params.eventNames),

@@ -40,7 +40,6 @@ from predictionio_tpu_torch.core import (
 )
 from predictionio_tpu_torch.core.controller import SanityCheck
 from predictionio_tpu_torch.data.batch import Interactions
-from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.models.als import ALSConfig, ALSModel, train_als
 
 logger = logging.getLogger(__name__)
@@ -87,9 +86,11 @@ class SimilarUserDataSource(DataSource):
     params_cls = SimilarUserDataSourceParams
 
     def read_training(self, ctx) -> TrainingData:
-        # one card reads every row (the JAX package's multi-host 1/N read
-        # comes with ROADMAP §1 item 10)
-        follows = PEventStore.find_interactions(
+        from predictionio_tpu_torch.parallel.ingest import template_interactions
+
+        # one process: a plain columnar read; under a launch the 1/N
+        # entity-keyed sharded read (the trainers dispatch on type)
+        follows = template_interactions(
             self.params.appName,
             entity_type="user",
             event_names=list(self.params.eventNames),

@@ -15,8 +15,10 @@ At query time the user's RECENT history per event type is read live from the
 event store; each history item votes through its indicator's correlated-item
 rows and votes are summed — so new events shift recommendations without
 retraining (the reference UR's Elasticsearch-query-time behavior). Queries
-are answered on the host, as the JAX package answers them. The multi-host
-read and per-host accumulation come with ROADMAP §1 item 10.
+are answered on the host, as the JAX package answers them. Under ``pio
+launch`` each process reads its users' events in one 1/N scan
+(``parallel/ingest.read_sharded_event_batch``), counts on its own users and
+sums the counts across processes (``distributed.host_sum``) before scoring.
 """
 
 from __future__ import annotations
@@ -80,13 +82,17 @@ class TrainingData(SanityCheck):
     user_map: BiMap
     item_map: BiMap
     primary_event: str
-    # the JAX package's multi-host ingest (per_event holds one host's users'
-    # rows when n_hosts > 1) comes with ROADMAP §1 item 10
+    # under a launch per_event holds this process's users' rows (global
+    # ids); n_hosts > 1 switches the trainer to per-process counts summed
+    # across processes
     n_hosts: int = 1
+    global_primary_rows: int = 0  # Σ processes (sanity sees the whole set)
+    cleanup: Optional[object] = None  # removes the rendezvous blobs
 
     def sanity_check(self):
         primary = self.per_event.get(self.primary_event)
-        if primary is None or len(primary) == 0:
+        local = 0 if primary is None else len(primary)
+        if max(local, self.global_primary_rows) == 0:
             raise ValueError(
                 f"no {self.primary_event!r} (primary) events found; check appName"
             )
@@ -102,6 +108,10 @@ class URDataSource(DataSource):
     params_cls = URDataSourceParams
 
     def read_training(self, ctx) -> TrainingData:
+        from predictionio_tpu_torch.parallel import distributed
+
+        if distributed.process_slot()[1] > 1:
+            return self._read_training_sharded()
         # one store scan for ALL event types, split per name afterwards
         batch = PEventStore.find(
             self.params.appName,
@@ -128,10 +138,31 @@ class URDataSource(DataSource):
         )
 
     def _read_training_sharded(self) -> TrainingData:
-        """Multi-host: one entity-keyed 1/N scan per host."""
-        raise NotImplementedError(
-            "the Universal Recommender's multi-host read is not ported to "
-            "predictionio_tpu_torch yet (ROADMAP §1 item 10)"
+        """Under a launch: ONE entity-keyed 1/N scan covers every event type
+        (this process's users' whole histories); the global id spaces come
+        from the model-repository exchange (``parallel/ingest.py``)."""
+        from predictionio_tpu_torch.data.store import get_storage, resolve_app
+        from predictionio_tpu_torch.parallel import distributed
+        from predictionio_tpu_torch.parallel.ingest import read_sharded_event_batch
+
+        app_id, channel_id = resolve_app(self.params.appName)
+        batch, user_map, item_map, cleanup = read_sharded_event_batch(
+            get_storage(), app_id, channel_id=channel_id, entity_type="user",
+            event_names=list(self.params.eventNames), target_entity_type="item",
+        )
+        per_event = {
+            name: batch.filter_events([name]).interactions(user_map=user_map, item_map=item_map)
+            for name in self.params.eventNames
+        }
+        primary = per_event[self.params.eventNames[0]]
+        return TrainingData(
+            per_event=per_event,
+            user_map=user_map,
+            item_map=item_map,
+            primary_event=self.params.eventNames[0],
+            n_hosts=distributed.num_processes(),
+            global_primary_rows=int(distributed.host_sum(np.array([len(primary)]))[0]),
+            cleanup=cleanup,
         )
 
 
@@ -158,19 +189,38 @@ class URAlgorithm(Algorithm):
     DENSE_ITEM_LIMIT = DENSE_ITEM_LIMIT
 
     def train(self, ctx, pd: TrainingData) -> URModel:
-        if pd.n_hosts > 1:
-            raise NotImplementedError(
-                "multi-host Universal Recommender training is not ported to "
-                "predictionio_tpu_torch yet (ROADMAP §1 item 10)"
-            )
+        from predictionio_tpu_torch.parallel import distributed
+
+        sharded = pd.n_hosts > 1
         primary = pd.per_event[pd.primary_event]
         n_items = len(pd.item_map)
-        n_users = len(pd.user_map)  # observed users (the LLR total)
-        n_users_pad = pad_to_multiple(n_users, _USER_BLOCK)
+        n_users = len(pd.user_map)  # global observed users (the LLR total)
+        per_event = pd.per_event
+        host_reduce = None
+        n_axis_users = n_users
+        if sharded:
+            # the processes' users are disjoint: each compacts its users to
+            # a dense local range (C is a sum over users), one axis shared
+            # by every event type, and the counts are summed across processes
+            local_users = np.unique(np.concatenate(
+                [i.user for i in per_event.values() if len(i)] or [np.empty(0, np.int32)]))
+            lut = np.zeros(max(n_users, 1), np.int64)
+            lut[local_users] = np.arange(len(local_users))
+            per_event = {
+                name: dataclasses.replace(
+                    inter, user=lut[inter.user.astype(np.int64)].astype(np.int32))
+                for name, inter in per_event.items()
+            }
+            primary = per_event[pd.primary_event]
+            n_axis_users = max(len(local_users), 1)
+            host_reduce = distributed.host_sum
+        n_users_pad = pad_to_multiple(n_axis_users, _USER_BLOCK)
         # block the primary side ONCE; reused for every indicator product
         primary_blocked = block_incidence(primary, n_users_pad)
         # LLR marginals = DISTINCT-user counts, matching binarized incidence
         primary_counts_np = distinct_item_counts(primary, n_items)
+        if sharded:
+            primary_counts_np = host_reduce(primary_counts_np)
         k = min(self.params.maxCorrelatorsPerItem, n_items)
         blocked_mode = n_items > self.DENSE_ITEM_LIMIT
         # the dense path's marginals on the card (the blocked path pads and
@@ -179,24 +229,32 @@ class URAlgorithm(Algorithm):
             None if blocked_mode else torch.from_numpy(primary_counts_np).to(ctx.device)
         )
         indicators = {}
-        for name, inter in pd.per_event.items():
-            counts_t_np = distinct_item_counts(inter, n_items)
+        for name, inter in per_event.items():
+            # one reduced vector answers "any events at all?" and gives the
+            # marginals; the primary's is the one above
+            if sharded and name == pd.primary_event:
+                counts_t_np = primary_counts_np
+            else:
+                counts_t_np = distinct_item_counts(inter, n_items)
+                if sharded:
+                    counts_t_np = host_reduce(counts_t_np)
             if counts_t_np.sum() == 0:
                 logger.warning("indicator %s has no events; skipped", name)
                 continue
             if blocked_mode:
                 indicators[name] = cross_occurrence_topn(
                     ctx, primary_blocked, inter, n_items, n_items,
-                    n_users=n_users, k=k, use_llr=True,
+                    n_users=n_axis_users, k=k, use_llr=True,
                     primary_counts=primary_counts_np,
                     exclude_diagonal=(name == pd.primary_event),
                     secondary_counts=counts_t_np,
+                    host_reduce=host_reduce,
                     llr_total=float(n_users),
                 )
                 continue
             C = cross_occurrence_matrix(
                 ctx, primary_blocked, inter, n_items, n_items,
-                n_users_pad=n_users_pad,
+                n_users_pad=n_users_pad, host_reduce=host_reduce,
             )
             counts_t = torch.from_numpy(counts_t_np).to(ctx.device)
             llr = llr_cross_scores(C, primary_counts, counts_t, n_users)
@@ -207,6 +265,8 @@ class URAlgorithm(Algorithm):
                 idx.cpu().numpy().astype(np.int32),
                 vals.cpu().numpy().astype(np.float32),
             )
+        if sharded and pd.cleanup is not None and distributed.should_write_storage():
+            pd.cleanup()
         return URModel(
             indicators=indicators,
             item_map=pd.item_map,

@@ -120,10 +120,17 @@ def resolve_engine_from_variant(variant: dict):
 
 def make_ctx(variant: dict, device: str):
     """The compute context on ``device`` (``--device``); ``variant["mesh"]``
-    is recorded on the instance and never picks the device."""
-    from predictionio_tpu_torch.device import DeviceContext
+    is recorded on the instance and never picks the device.
 
-    return DeviceContext.create(conf=variant.get("mesh") or {}, device=device)
+    Under ``pio launch`` the context spans the launch's processes, each
+    holding one placement: its card, or the CPU under ``--device cpu``."""
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.parallel import distributed
+
+    conf = variant.get("mesh") or {}
+    if distributed.initialize():  # no-op unless PIO_COORDINATOR is set
+        return DeviceContext.create(conf=conf, devices=[device])
+    return DeviceContext.create(conf=conf, device=device)
 
 
 def load_plugins(paths: list[str], group: Optional[str] = None) -> list:
@@ -308,6 +315,34 @@ def cmd_accesskey(args) -> int:
     return _die(f"unknown accesskey command {args.ak_command}")
 
 
+def cmd_launch(args) -> int:
+    """N coordinated processes of one ``pio`` command (the reference's
+    ``Runner.runOnSpark`` role, Runner.scala:185)."""
+    from predictionio_tpu_torch.tools import launcher
+
+    pio_args = list(args.pio_args)
+    if pio_args and pio_args[0] == "--":
+        pio_args = pio_args[1:]
+    if not pio_args:
+        print("[ERROR] launch needs a pio command after --", file=sys.stderr)
+        return 1
+    if args.hosts:
+        hosts = [h.strip() for h in args.hosts.split(",") if h.strip()]
+        for line in launcher.render_host_commands(pio_args, hosts, args.coordinator_port):
+            print(line)
+        return 0
+    rc = launcher.launch_local(
+        pio_args,
+        num_processes=args.num_processes,
+        coordinator_port=args.coordinator_port,
+    )
+    if rc == 0:
+        print(f"[INFO] all {args.num_processes} processes completed")
+    else:
+        print(f"[ERROR] a worker failed (exit {rc})", file=sys.stderr)
+    return rc
+
+
 def cmd_train(args) -> int:
     from predictionio_tpu_torch.core.workflow import WorkflowParams, run_train
 
@@ -334,7 +369,29 @@ def cmd_train(args) -> int:
         engine_variant=engine_variant,
     )
     print(f"[INFO] Training completed. Engine instance ID: {instance_id}")
+    _report_launches()
     return 0
+
+
+def _report_launches() -> None:
+    """Under ``pio launch`` each worker prints the kernels it launched, the
+    proof that every rank's work went through the card's kernels."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    pid, n = distributed.process_slot()
+    if n == 1:
+        return
+    from predictionio_tpu_torch.ops import flash_attention, score_kernel, train_kernel
+
+    counts = {
+        "score_topk": score_kernel.launches.count,
+        "train_normal_eq": train_kernel.launches.count,
+        "segment_normal_eq": train_kernel.segment_launches.count,
+        "flash_fwd": flash_attention.launches.count,
+        "flash_bwd_dq": flash_attention.bwd_dq_launches.count,
+        "flash_bwd_dkv": flash_attention.bwd_dkv_launches.count,
+    }
+    print(f"[INFO] process {pid}/{n} kernel launches: {json.dumps(counts)}", flush=True)
 
 
 def cmd_eval(args) -> int:
@@ -374,6 +431,7 @@ def cmd_batchpredict(args) -> int:
         engine_variant=engine_variant,
     )
     print(f"[INFO] Batch predict completed: {n} predictions -> {written}")
+    _report_launches()
     return 0
 
 
@@ -1091,6 +1149,26 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--stop-after-prepare", action="store_true")
     sp.set_defaults(func=cmd_train)
 
+    sp = sub.add_parser(
+        "launch",
+        help="run a pio command as N coordinated processes (the launch "
+        "contract of parallel/distributed.py; Runner.runOnSpark role)",
+    )
+    sp.add_argument("-n", "--num-processes", type=int, default=2)
+    sp.add_argument("--coordinator-port", type=int, default=7654)
+    sp.add_argument(
+        "--hosts",
+        default=None,
+        help="comma-separated host list: print per-host command lines "
+        "instead of spawning locally (hosts[0] is the coordinator)",
+    )
+    sp.add_argument(
+        "pio_args",
+        nargs=argparse.REMAINDER,
+        help="the pio command to launch, after --  (e.g. -- train --device cpu)",
+    )
+    sp.set_defaults(func=cmd_launch)
+
     sp = sub.add_parser("eval")
     sp.add_argument("evaluation_class")
     sp.add_argument("engine_params_generator_class", nargs="?", default=None)
@@ -1398,6 +1476,12 @@ def main(argv: Optional[list[str]] = None) -> int:
         level=logging.DEBUG if args.verbose else logging.WARNING,
         format="[%(levelname)s] [%(name)s] %(message)s",
     )
+    if os.environ.get("PIO_COORDINATOR") and args.command != "launch":
+        # a launch's worker joins the rendezvous before any other work, so
+        # every process leaves it together (parallel/distributed.py)
+        from predictionio_tpu_torch.parallel import distributed
+
+        distributed.initialize()
     try:
         return args.func(args)
     except BrokenPipeError:

@@ -269,11 +269,32 @@ class TestTraining:
             assert idx[0] == 1 and scores[0] == 10
 
     def test_sharded_paths_raise_naming_item_10(self):
-        port, _ = draw(0, 10, 5, per_user=(1, 4))
-        with pytest.raises(NotImplementedError, match="item 10"):
-            co.train_cooccurrence(CPU, object(), n=3)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            co.cross_occurrence_matrix(CPU, port, port, 5, 5, host_reduce=sum)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            co.cross_occurrence_topn(CPU, port, port, 5, 5, n_users=10, k=2,
-                                     primary_counts=np.ones(5), host_reduce=sum)
+        # the launch's paths are ported: one host's ShardedInteractions (the
+        # host sum is then the identity) trains to the plain path's model,
+        # and a host_reduce that returns its input changes nothing
+        from predictionio_tpu_torch.parallel.ingest import ShardedInteractions
+
+        port, _ = draw(0, 30, 12, per_user=(1, 6))
+        sh = ShardedInteractions(
+            user_rows=port, item_rows=port, user_map=port.user_map, item_map=port.item_map,
+            user_counts=np.bincount(port.user, minlength=port.n_users),
+            item_counts=np.bincount(port.item, minlength=port.n_items),
+            process_index=0, num_processes=1)
+        for use_llr in (False, True):
+            a = co.train_cooccurrence(CPU, port, n=4, use_llr=use_llr)
+            b = co.train_cooccurrence(CPU, sh, n=4, use_llr=use_llr)
+            assert a.top_items.tobytes() == b.top_items.tobytes()
+            assert a.top_scores.tobytes() == b.top_scores.tobytes()
+
+        def same(x):
+            return np.array(x, copy=True)
+
+        C0 = co.cross_occurrence_matrix(CPU, port, port, 12, 12)
+        C1 = co.cross_occurrence_matrix(CPU, port, port, 12, 12, host_reduce=same)
+        assert torch.equal(C0, C1)
+        pc = co.distinct_item_counts(port, 12)
+        t0 = co.cross_occurrence_topn(CPU, port, port, 12, 12, n_users=30, k=3,
+                                      primary_counts=pc, col_block=5)
+        t1 = co.cross_occurrence_topn(CPU, port, port, 12, 12, n_users=30, k=3,
+                                      primary_counts=pc, col_block=5, host_reduce=same)
+        assert all(np.array_equal(x, y) for x, y in zip(t0, t1))

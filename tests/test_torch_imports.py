@@ -100,6 +100,9 @@ print(" ".join(names))
         "predictionio_tpu_torch.serving.autoscaler", "predictionio_tpu_torch.serving.canary",
         "predictionio_tpu_torch.serving.tenancy", "predictionio_tpu_torch.serving.pipeline",
         "predictionio_tpu_torch.parallel.mesh",
+        # many processes: the gloo runtime, the sharded read, the launcher
+        "predictionio_tpu_torch.parallel.distributed", "predictionio_tpu_torch.parallel.ingest",
+        "predictionio_tpu_torch.tools.launcher",
         # the other model families and templates
         "predictionio_tpu_torch.models.naive_bayes", "predictionio_tpu_torch.models.random_forest",
         "predictionio_tpu_torch.models.markov_chain",

@@ -518,5 +518,8 @@ def test_waiting_env_knobs_name_their_item(sides, monkeypatch, env, item, tmp_pa
         assert out["jax"][0] == out["port"][0] and out["port"][2:] == (
             env == "PIO_TENANTS", env == "PIO_PIPELINE")
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        side.server()
+    # item 10 is ported: PIO_POD_GROUP pins a self-contained pod replica's
+    # group on /readyz (tests/test_torch_pod_processes.py); without a pod
+    # plan the server starts and serves as the JAX one does
+    qs, _ = side.server()
+    assert qs._pod_lockstep() is False

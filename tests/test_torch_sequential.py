@@ -249,13 +249,28 @@ def test_not_ported_parts_name_their_roadmap_item():
         seq.SASRecConfig(d_model=8, n_heads=2, n_layers=1, max_len=8, epochs=2,
                          seq_parallel=True))
     assert sp.losses.shape == (2,) and np.isfinite(sp.losses).all()
-    # checkpoints are ported: only the sharded input stops this one
-    with pytest.raises(NotImplementedError, match="item 10"):
-        seq.train_sasrec(CPU, None, seq.SASRecConfig(checkpoint_dir="/nowhere"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        seq.train_sasrec(CPU, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmpl.SASRecAlgorithm(tmpl.SASRecParams()).train(CPU, tmpl.TrainingData(None))
+    # training from a launch's sharded read is ported (data parallel across
+    # processes, tests/test_torch_launch_templates.py): one host's
+    # ShardedInteractions train as the plain rows do, step for step, and
+    # seq_parallel or experts under a launch raise as the JAX package does
+    from predictionio_tpu_torch.parallel.ingest import ShardedInteractions
+
+    counts = np.bincount(inter.user, minlength=inter.n_users)
+    sh = ShardedInteractions(
+        user_rows=inter, item_rows=inter.subset(np.zeros(0, np.int64)),
+        user_map=inter.user_map, item_map=inter.item_map, user_counts=counts,
+        item_counts=np.bincount(inter.item, minlength=inter.n_items),
+        process_index=0, num_processes=1)
+    small = seq.SASRecConfig(d_model=8, n_heads=2, n_layers=1, max_len=8, epochs=3)
+    one = seq.train_sasrec(CPU, inter, small)
+    got = seq.train_sasrec(CPU, sh, small)
+    assert got.losses.tobytes() == one.losses.tobytes()
+    for bad in (dict(seq_parallel=True), dict(n_experts=2)):
+        with pytest.raises(ValueError, match="not supported under pio launch"):
+            seq.train_sasrec(CPU, sh, dataclasses.replace(small, **bad))
+    with pytest.raises(ValueError, match="not supported under pio launch"):
+        tmpl.SASRecAlgorithm(tmpl.SASRecParams(seqParallel=True, maxLen=8)).train(
+            CPU, tmpl.TrainingData(sh))
 
 
 def _cycle_interactions(n_users=64, n_items=10, length=12, seed=0):

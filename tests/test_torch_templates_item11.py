@@ -347,10 +347,24 @@ class TestECommerce:
             ecommerce.ECommerceEngine.apply(), jax_ecomm.ECommerceEngine.apply(), variant, jctx)
         factors_close(models[0].als, jmodels[0].als)
 
-    def test_sharded_interactions_raise_naming_item_10(self):
-        algo = ecommerce.ECommAlgorithm(ecommerce.ECommAlgorithmParams())
-        with pytest.raises(NotImplementedError, match="item 10"):
-            algo.train(CPU, ecommerce.TrainingData(interactions=object(), item_categories={}))
+    def test_sharded_interactions_raise_naming_item_10(self, both):
+        # a launch's ShardedInteractions train (the popular count through
+        # host_sum); one host's equals the plain rows' model bit for bit
+        from predictionio_tpu_torch.parallel.ingest import ShardedInteractions
+
+        inter = port_store.PEventStore.find_interactions(
+            APP, entity_type="user", event_names=["view", "buy"], target_entity_type="item")
+        sh = ShardedInteractions(
+            user_rows=inter, item_rows=inter, user_map=inter.user_map, item_map=inter.item_map,
+            user_counts=np.bincount(inter.user, minlength=inter.n_users),
+            item_counts=np.bincount(inter.item, minlength=inter.n_items),
+            process_index=0, num_processes=1)
+        algo = ecommerce.ECommAlgorithm(ecommerce.ECommAlgorithmParams(rank=3, numIterations=2))
+        a = algo.train(CPU, ecommerce.TrainingData(interactions=inter, item_categories={}))
+        b = algo.train(CPU, ecommerce.TrainingData(interactions=sh, item_categories={}))
+        assert a.popular.tobytes() == b.popular.tobytes()
+        assert a.als.user_factors.tobytes() == b.als.user_factors.tobytes()
+        assert a.als.item_factors.tobytes() == b.als.item_factors.tobytes()
 
 
 class TestSimilarUser:

@@ -13,8 +13,9 @@ queries from the users' live histories.
   answers are held by rule 4 (``topk_mismatches``) at that many times the
   LLR tolerance.
 * Only bought items are excluded, the blacklist holds, an unknown user gets
-  nothing, and a run without primary events is refused; the multi-host
-  read and trainer raise naming ROADMAP item 10.
+  nothing, and a run without primary events is refused; the launch's
+  sharded read and per-process counts give the plain path's indicators in
+  one process.
 """
 
 import datetime as dt
@@ -177,11 +178,24 @@ def test_missing_primary_rejected(both):
         engine.train(CPU, engine.params_from_variant(variant(names=("purchase",))))
 
 
-def test_multi_host_paths_raise_naming_item_10(both):
+def test_multi_host_paths_raise_naming_item_10(both, monkeypatch):
+    # the launch's read and per-process counts are ported; in one process
+    # (the host sum is the identity) they give the plain path's indicators,
+    # matched by item name (the exchange orders the global ids its own way)
     ds = ur.URDataSource(ur.URDataSourceParams(appName=APP))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    monkeypatch.delenv("PIO_RUN_ID", raising=False)
+    with pytest.raises(RuntimeError, match="run id"):
         ds._read_training_sharded()
-    td = ds.read_training(CPU)
-    td.n_hosts = 2
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ur.URAlgorithm(ur.URAlgorithmParams(appName=APP)).train(CPU, td)
+    monkeypatch.setenv("PIO_RUN_ID", "ur-" + uuid.uuid4().hex[:8])
+    sh = ds._read_training_sharded()
+    assert sh.global_primary_rows == len(sh.per_event["buy"]) > 0
+    sh.n_hosts = 2  # the per-process path (compacted users, summed counts)
+    plain = ds.read_training(CPU)
+    algo = ur.URAlgorithm(ur.URAlgorithmParams(appName=APP, maxCorrelatorsPerItem=4))
+    a, b = algo.train(CPU, plain), algo.train(CPU, sh)
+    assert set(a.indicators) == set(b.indicators)
+    for name in a.indicators:
+        for item, j in plain.item_map.items():
+            va = np.sort(a.indicators[name][1][j])
+            vb = np.sort(b.indicators[name][1][sh.item_map[item]])
+            np.testing.assert_array_equal(va, vb)
