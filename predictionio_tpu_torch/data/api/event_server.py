@@ -33,7 +33,10 @@ Counterpart of the plain path of ``predictionio_tpu/data/api/event_server.py``
   publisher holds, flush the buffer and the WAL within
   ``PIO_DRAIN_TIMEOUT_MS``, close the event writer, stop listening.
 
-Webhooks are not ported yet and raise naming ROADMAP §1 item 14.
+``POST /webhooks/<name>.json|.form`` turns a third-party payload into an
+event through the registered connector (``data/webhooks/``: segmentio,
+mailchimp and the two examples); ``GET`` on the same path probes that the
+connector exists (parity: ``EventServer.scala:442-505``).
 """
 
 from __future__ import annotations
@@ -54,18 +57,18 @@ from predictionio_tpu_torch.data.api.stats import Stats
 from predictionio_tpu_torch.data.api.wal import WriteAheadLog
 from predictionio_tpu_torch.data.event import Event, parse_time_or_none
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.data.webhooks.connector import (
+    ConnectorError,
+    connector_to_event,
+    get_form_connector,
+    get_json_connector,
+)
 from predictionio_tpu_torch.obs import bridges as _bridges
 from predictionio_tpu_torch.serving.result_cache import notify_delete, notify_event
 
 logger = logging.getLogger(__name__)
 
 MAX_BATCH_SIZE = 50  # parity default: EventServer.scala:66
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to predictionio_tpu_torch yet (ROADMAP §1 item {item})"
-    )
 
 
 def _env_num(name: str, default, cast):
@@ -246,6 +249,10 @@ class EventServer:
             "Fast-acked events restored from the WAL at startup.",
             lambda: float(self.wal_replayed),
         )
+        # a network-backed storage carries the retry/breaker client
+        storage_rs = getattr(self.storage, "resilience_stats", None)
+        if callable(storage_rs):
+            _bridges.bridge_resilience(reg, storage_rs)
 
         def _delta_families():
             # only while a publisher is live (PIO_STREAMING=1 and
@@ -437,6 +444,9 @@ class EventServer:
         except (ValueError, KeyError, TypeError) as e:
             self.stats_update(auth, str(data.get("event", "")), 400)
             return json_response(400, {"message": str(e)})
+        return self._insert_event(auth, event)
+
+    def _insert_event(self, auth: dict, event: Event) -> Response:
         denied = self._admit(auth, event)
         if denied is not None:
             self.stats_update(auth, event.event, denied.status)
@@ -686,13 +696,32 @@ class EventServer:
                 return err
             return json_response(200, self.stats.get(auth["app_id"]))
 
-        @svc.route("POST", r"/webhooks/(?P<name>[^/]+)\.(?:json|form)")
-        def webhook(req):
-            raise _not_ported("webhook connectors", 14)
+        def webhook_route(kind: str, lookup, payload):
+            @svc.route("POST", rf"/webhooks/(?P<name>[^/]+)\.{kind}")
+            def webhook(req):
+                auth, err = self._authenticate(req)
+                if err:
+                    return err
+                connector = lookup(req.match.group("name"))
+                if connector is None:
+                    return json_response(404, {"message": "Not Found"})
+                try:
+                    event = connector_to_event(connector, payload(req))
+                except (ConnectorError, ValueError, KeyError) as e:
+                    return json_response(400, {"message": str(e)})
+                return self._insert_event(auth, event)
 
-        @svc.route("GET", r"/webhooks/(?P<name>[^/]+)\.(?:json|form)")
-        def webhook_probe(req):
-            raise _not_ported("webhook connectors", 14)
+            @svc.route("GET", rf"/webhooks/(?P<name>[^/]+)\.{kind}")
+            def webhook_probe(req):
+                auth, err = self._authenticate(req)
+                if err:
+                    return err
+                if lookup(req.match.group("name")) is None:
+                    return json_response(404, {"message": "Not Found"})
+                return json_response(200, {"message": "Ok"})
+
+        webhook_route("json", get_json_connector, lambda req: req.json() or {})
+        webhook_route("form", get_form_connector, lambda req: req.form())
 
     # -- lifecycle --------------------------------------------------------------
     def start(
@@ -765,3 +794,26 @@ class EventServer:
         if self._stopped:
             return
         self.drain()
+
+
+def register_builtin_connectors() -> None:
+    """The connectors the JAX package registers at import, under the same
+    names (``/webhooks/segmentio.json``, ``/webhooks/mailchimp.form``, ...)."""
+    from predictionio_tpu_torch.data.webhooks.connector import (
+        register_form_connector,
+        register_json_connector,
+    )
+    from predictionio_tpu_torch.data.webhooks.examples import (
+        ExampleFormConnector,
+        ExampleJsonConnector,
+    )
+    from predictionio_tpu_torch.data.webhooks.mailchimp import MailChimpConnector
+    from predictionio_tpu_torch.data.webhooks.segmentio import SegmentIOConnector
+
+    register_json_connector("segmentio", SegmentIOConnector())
+    register_form_connector("mailchimp", MailChimpConnector())
+    register_json_connector("examplejson", ExampleJsonConnector())
+    register_form_connector("exampleform", ExampleFormConnector())
+
+
+register_builtin_connectors()

@@ -1,8 +1,8 @@
 """Columnar event batches and the integer-indexed triples training reads.
 
 Counterpart of ``predictionio_tpu/data/batch.py``: :class:`EventBatch`
-(``from_events``, ``select``, ``filter_events``, ``interactions``),
-:class:`Interactions` (``subset``,
+(``from_events``, row iteration, ``select``, ``filter_events``,
+``interactions``), :class:`EntityMap`, :class:`Interactions` (``subset``,
 ``drop_items``) and :func:`merge_interactions`, in numpy only. The id maps
 are the port's :class:`~predictionio_tpu_torch.data.bimap.BiMap`, whose
 bulk paths factorize with numpy where the JAX package uses pandas, with the
@@ -14,7 +14,7 @@ the tests).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Iterable, Optional, Sequence
+from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -34,10 +34,20 @@ class EventBatch:
     event_time: np.ndarray  # float64 epoch seconds
     properties: list  # row-aligned property dicts
     event_id: np.ndarray = None  # object (str | None): the sharded read's identity
+    tags: list = None  # row-aligned tag tuples
+    pr_id: np.ndarray = None  # object (str | None)
+    creation_time: np.ndarray = None  # float64 epoch seconds
 
     def __post_init__(self):
+        n = len(self.event)
         if self.event_id is None:
-            self.event_id = np.full(len(self.event), None, dtype=object)
+            self.event_id = np.full(n, None, dtype=object)
+        if self.tags is None:
+            self.tags = [()] * n
+        if self.pr_id is None:
+            self.pr_id = np.full(n, None, dtype=object)
+        if self.creation_time is None:
+            self.creation_time = np.asarray(self.event_time, dtype=np.float64).copy()
 
     @staticmethod
     def from_events(events: Iterable[Event]) -> "EventBatch":
@@ -61,10 +71,32 @@ class EventBatch:
             ),
             properties=[e.properties.to_dict() for e in evs],
             event_id=col(lambda e: e.event_id),
+            tags=[e.tags for e in evs],
+            pr_id=col(lambda e: e.pr_id),
+            creation_time=np.array(
+                [e.creation_time.timestamp() for e in evs], dtype=np.float64
+            ),
         )
 
     def __len__(self) -> int:
         return len(self.event)
+
+    def __iter__(self) -> Iterator[Event]:
+        """The rows as :class:`Event` records, one at a time."""
+        for i in range(len(self)):
+            yield Event(
+                event=self.event[i],
+                entity_type=self.entity_type[i],
+                entity_id=self.entity_id[i],
+                target_entity_type=self.target_entity_type[i],
+                target_entity_id=self.target_entity_id[i],
+                properties=self.properties[i],
+                event_time=float(self.event_time[i]),
+                tags=self.tags[i],
+                pr_id=self.pr_id[i],
+                event_id=self.event_id[i],
+                creation_time=float(self.creation_time[i]),
+            )
 
     def select(self, mask: np.ndarray) -> "EventBatch":
         idx = np.nonzero(mask)[0]
@@ -77,6 +109,9 @@ class EventBatch:
             event_time=self.event_time[idx],
             properties=[self.properties[i] for i in idx],
             event_id=self.event_id[idx],
+            tags=[self.tags[i] for i in idx],
+            pr_id=self.pr_id[idx],
+            creation_time=self.creation_time[idx],
         )
 
     def filter_events(self, names: Sequence[str]) -> "EventBatch":
@@ -161,6 +196,34 @@ def merge_interactions(parts: "Sequence[Interactions]") -> "Interactions":
         user_map=user_map,
         item_map=item_map,
     )
+
+
+class EntityMap:
+    """Entity ids ↔ indices plus their property snapshots (parity:
+    ``EntityMap.scala``): aggregated entity properties as an index-aligned
+    table, indices in the snapshots' order."""
+
+    def __init__(self, properties: dict):
+        self._properties = dict(properties)
+        self.id_map = BiMap.string_int(self._properties.keys())
+
+    def __len__(self) -> int:
+        return len(self._properties)
+
+    def __contains__(self, entity_id) -> bool:
+        return entity_id in self._properties
+
+    def properties(self, entity_id):
+        return self._properties[entity_id]
+
+    def index_of(self, entity_id) -> int:
+        return self.id_map[entity_id]
+
+    def entity_of(self, index: int):
+        return self.id_map.inverse[index]
+
+    def items(self):
+        return self._properties.items()
 
 
 @dataclass

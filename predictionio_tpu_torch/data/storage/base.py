@@ -1,7 +1,6 @@
 """Storage DAO contracts for the event, meta-data and model repositories.
 
-Counterpart of ``predictionio_tpu/data/storage/base.py``, cut to what the
-serving and training slices use:
+Counterpart of ``predictionio_tpu/data/storage/base.py``:
 
 * :class:`LEvents` — row-oriented event DAO (parity: ``LEvents.scala``);
 * :class:`PEvents` — bulk event DAO returning a columnar
@@ -12,18 +11,21 @@ serving and training slices use:
   and their records.
 
 ``LEvents.aggregate_properties`` folds ``$set``/``$unset``/``$delete`` into
-entity snapshots (``data/aggregator.py``). ``PEvents.find`` and
-``find_interactions`` take ``shard=(index, count)`` and ``shard_key`` for the
-1/N read of a launch (``parallel/ingest.py``), with the JAX package's crc32
-entity hash (:meth:`PEvents.shard_hash`). Bulk writes and deletes through
-``PEvents`` (writers use ``LEvents``), free-text search and the instances'
-field queries come with later slices.
+entity snapshots (``data/aggregator.py``) and ``LEvents.search`` is the
+free-text event search (a host-side filter over ``find`` by default).
+``PEvents.find`` and ``find_interactions`` take ``shard=(index, count)`` and
+``shard_key`` for the 1/N read of a launch (``parallel/ingest.py``), with
+the JAX package's crc32 entity hash (:meth:`PEvents.shard_hash`);
+``PEvents.write``/``delete`` are the bulk writes. ``EngineInstances.query``
+and ``EvaluationInstances.query`` are the field queries over runs
+(``pio instances``).
 """
 
 from __future__ import annotations
 
 import abc
 import datetime as _dt
+import json
 import re
 import secrets
 import zlib
@@ -188,6 +190,40 @@ class LEvents(abc.ABC):
         filters for events WITHOUT a target.
         """
 
+    def search(
+        self,
+        app_id: int,
+        text: str,
+        channel_id: Optional[int] = None,
+        limit: Optional[int] = None,
+        **filters,
+    ) -> list[Event]:
+        """Free-text event search (parity: the ES-backed EVENTDATA store's
+        query-string role): case-folded substring of ``text`` in the event
+        name, the entity/target ids and the properties serialized with real
+        UTF-8, on top of the :meth:`find` ``filters``. This default filters
+        a ``find`` scan on the host; sqlite and postgres push it into SQL."""
+        needle = text.lower()
+
+        def hit(e: Event) -> bool:
+            hay = (
+                e.event, e.entity_type, e.entity_id,
+                e.target_entity_type or "", e.target_entity_id or "",
+            )
+            return any(needle in h.lower() for h in hay) or needle in (
+                json.dumps(dict(e.properties or {}), ensure_ascii=False).lower()
+            )
+
+        out: list[Event] = []
+        for e in self.find(app_id, channel_id=channel_id, **filters):
+            # the bound before the append: limit <= 0 returns nothing, as
+            # the SQL LIMIT pushdown does
+            if limit is not None and len(out) >= max(0, limit):
+                break
+            if hit(e):
+                out.append(e)
+        return out
+
     def aggregate_properties(
         self,
         app_id: int,
@@ -320,6 +356,18 @@ class PEvents(abc.ABC):
             shard_key=shard_key,
         ).interactions(rating_key=rating_key, default_rating=default_rating)
 
+    @abc.abstractmethod
+    def write(
+        self, events: Iterable[Event], app_id: int, channel_id: Optional[int] = None
+    ) -> None:
+        """Bulk write (parity: PEvents.write)."""
+
+    @abc.abstractmethod
+    def delete(
+        self, event_ids: Iterable[str], app_id: int, channel_id: Optional[int] = None
+    ) -> None:
+        """Bulk delete by eventId (parity: PEvents.delete)."""
+
 
 class Sequences(abc.ABC):
     """Named monotonic id-allocation service (parity: ``ESSequences.scala``):
@@ -405,6 +453,25 @@ class Models(abc.ABC):
     def delete(self, model_id: str) -> None: ...
 
 
+def _filter_instances(instances, exact, since, until, text, limit, text_fields) -> list:
+    """The newest-first instance filter behind the ``query`` defaults."""
+    needle = text.lower() if text is not None else None
+    out = []
+    for i in sorted(instances, key=lambda x: x.start_time, reverse=True):
+        if limit is not None and len(out) >= max(0, limit):
+            break
+        if any(want is not None and getattr(i, attr) != want for attr, want in exact.items()):
+            continue
+        if since is not None and i.start_time < since:
+            continue
+        if until is not None and i.start_time >= until:
+            continue
+        if needle is not None and not any(needle in (f or "").lower() for f in text_fields(i)):
+            continue
+        out.append(i)
+    return out
+
+
 class EngineInstances(abc.ABC):
     STATUS_INIT = "INIT"
     STATUS_TRAINING = "TRAINING"
@@ -440,6 +507,36 @@ class EngineInstances(abc.ABC):
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...
 
+    def query(
+        self,
+        status: Optional[str] = None,
+        engine_factory: Optional[str] = None,
+        engine_variant: Optional[str] = None,
+        since: Optional[_dt.datetime] = None,
+        until: Optional[_dt.datetime] = None,
+        text: Optional[str] = None,
+        limit: Optional[int] = None,
+    ) -> list[EngineInstance]:
+        """Train runs newest first (parity: the ES METADATA search role,
+        ``ESEngineInstances.scala``): exact ``status``/``engine_factory``/
+        ``engine_variant``, ``since``/``until`` on start_time and
+        case-folded ``text`` over the params and batch. This default filters
+        :meth:`get_all`; sqlite and postgres push it into SQL."""
+        return _filter_instances(
+            self.get_all(),
+            exact={
+                "status": status,
+                "engine_factory": engine_factory,
+                "engine_variant": engine_variant,
+            },
+            since=since, until=until, text=text, limit=limit,
+            text_fields=lambda i: [
+                i.engine_factory, i.batch, i.engine_variant,
+                i.data_source_params, i.preparator_params,
+                i.algorithms_params, i.serving_params,
+            ],
+        )
+
 
 class EvaluationInstances(abc.ABC):
     STATUS_INIT = "INIT"
@@ -466,3 +563,25 @@ class EvaluationInstances(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...
+
+    def query(
+        self,
+        status: Optional[str] = None,
+        evaluation_class: Optional[str] = None,
+        since: Optional[_dt.datetime] = None,
+        until: Optional[_dt.datetime] = None,
+        text: Optional[str] = None,
+        limit: Optional[int] = None,
+    ) -> list[EvaluationInstance]:
+        """Evaluation runs newest first (parity:
+        ``ESEvaluationInstances.scala``); ``text`` searches the classes,
+        the batch and the evaluator results."""
+        return _filter_instances(
+            self.get_all(),
+            exact={"status": status, "evaluation_class": evaluation_class},
+            since=since, until=until, text=text, limit=limit,
+            text_fields=lambda i: [
+                i.evaluation_class, i.engine_params_generator_class,
+                i.batch, i.evaluator_results, i.evaluator_results_json,
+            ],
+        )

@@ -1,8 +1,9 @@
 """In-memory storage driver (``PIO_STORAGE_SOURCES_*_TYPE=memory``).
 
 Counterpart of ``predictionio_tpu/data/storage/memory.py`` (events, apps,
-access keys, channels, sequences, models, engine and evaluation instances), with the
-same process-wide keyed singletons: separately constructed DAOs over one
+access keys, channels, sequences, models, engine and evaluation instances;
+``search`` and the instance ``query`` methods are the base class's host-side
+filters, as in the JAX package), with the same process-wide keyed singletons: separately constructed DAOs over one
 source name share state, as many clients share one database.
 """
 
@@ -179,6 +180,13 @@ class MemoryPEvents(base.PEvents):
              **filters) -> EventBatch:
         batch = EventBatch.from_events(self._l.find(app_id, channel_id, **filters))
         return self.shard_select(batch, shard, shard_key)
+
+    def write(self, events: Iterable[Event], app_id: int, channel_id=None) -> None:
+        self._l.insert_batch(list(events), app_id, channel_id)
+
+    def delete(self, event_ids: Iterable[str], app_id: int, channel_id=None) -> None:
+        for eid in event_ids:
+            self._l.delete(eid, app_id, channel_id)
 
 
 class MemorySequences(base.Sequences):

@@ -9,12 +9,17 @@ configuration contract (parity: ``Storage.scala:146-466``):
 * ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_SOURCE`` —
   binds each repository to a named source.
 
-The port ships the ``sqlite`` driver (every repository, the zero-config
-default), the ``memory`` driver (events, apps, access keys, channels,
-sequences, engine and evaluation instances, models) and ``localfs``
-(models). An environment that names no source gets source ``DEFAULT`` of
-type sqlite, the file ``default.sqlite`` under ``PIO_FS_BASEDIR``, as in
-the JAX package.
+The drivers, as in the JAX package: ``sqlite`` (every repository, the
+zero-config default), ``memory`` (every repository), ``localfs`` (models),
+``postgres`` (every repository, over the v3 wire protocol; ``TYPE=jdbc``
+with a ``postgresql://`` URL resolves to it, any other JDBC URL raises),
+``s3`` (models, SigV4 over HTTP) and ``network`` (every repository, a remote
+``pio storageserver`` that many hosts share). An environment that names no
+source gets source ``DEFAULT`` of type sqlite, the file ``default.sqlite``
+under ``PIO_FS_BASEDIR``. The ``parquet`` driver is not ported (it needs
+pyarrow): a source of that type raises an error naming ROADMAP §1 item 14,
+and so does any other unregistered type, never falling back to a local
+store.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from __future__ import annotations
 import os
 from typing import Callable, Optional
 
-from predictionio_tpu_torch.data.storage import base, localfs, memory, sqlite
+from predictionio_tpu_torch.data.storage import base, localfs, memory, network, postgres, s3, sqlite
 
 METADATA = "METADATA"
 EVENTDATA = "EVENTDATA"
@@ -53,7 +58,37 @@ DRIVERS: dict[str, dict[str, Callable]] = {
         "Sequences": sqlite.SqliteSequences,
     },
     "localfs": {"Models": localfs.LocalFSModels},
+    "s3": {"Models": s3.S3Models},
+    "postgres": {
+        "LEvents": postgres.PostgresLEvents,
+        "PEvents": postgres.PostgresPEvents,
+        "Models": postgres.PostgresModels,
+        "Apps": postgres.PostgresApps,
+        "AccessKeys": postgres.PostgresAccessKeys,
+        "Channels": postgres.PostgresChannels,
+        "EngineInstances": postgres.PostgresEngineInstances,
+        "EvaluationInstances": postgres.PostgresEvaluationInstances,
+        "Sequences": postgres.PostgresSequences,
+    },
+    "network": {
+        "LEvents": network.NetworkLEvents,
+        "PEvents": network.NetworkPEvents,
+        "Models": network.NetworkModels,
+        "Apps": network.NetworkApps,
+        "AccessKeys": network.NetworkAccessKeys,
+        "Channels": network.NetworkChannels,
+        "EngineInstances": network.NetworkEngineInstances,
+        "EvaluationInstances": network.NetworkEvaluationInstances,
+        "Sequences": network.NetworkSequences,
+    },
 }
+
+
+def _is_postgres_jdbc_url(url: str) -> bool:
+    """A ``TYPE=jdbc`` source whose URL (``jdbc:`` prefix optional) is a
+    postgres one maps to the wire driver; the one rule DAO resolution and
+    ``pio status`` share."""
+    return url.removeprefix("jdbc:").startswith(("postgresql://", "postgres://"))
 
 
 class StorageError(Exception):
@@ -114,11 +149,15 @@ class Storage:
         return repos
 
     def repository_bindings(self) -> dict[str, tuple[str, str]]:
-        """repository → (source name, driver type), for ``pio status``."""
-        return {
-            repo: (source, self._sources[source].get("type"))
-            for repo, source in self._repos.items()
-        }
+        """repository → (source name, driver type), for ``pio status``; a
+        ``TYPE=jdbc`` source with a postgres URL shows as ``jdbc→postgres``."""
+        out = {}
+        for repo, source in self._repos.items():
+            t = self._sources[source].get("type")
+            if t == "jdbc" and _is_postgres_jdbc_url(self._sources[source].get("url", "")):
+                t = "jdbc→postgres"
+            out[repo] = (source, t)
+        return out
 
     # -- DAO resolution (parity: Storage.getDataObject:310-359) ------------
     def get_data_object(self, repo: str, dao: str):
@@ -128,6 +167,25 @@ class Storage:
         source_name = self._repos[repo]
         attrs = dict(self._sources[source_name])
         type_name = attrs.pop("type")
+        if type_name == "jdbc":
+            if not _is_postgres_jdbc_url(attrs.get("url", "")):
+                # no quiet local fallback for a networked JDBC source
+                raise StorageError(
+                    f"source {source_name!r}: TYPE=jdbc without a "
+                    "postgresql:// URL names a client/server SQL database "
+                    "this build does not speak. Use TYPE=postgres with "
+                    f"PIO_STORAGE_SOURCES_{source_name}_URL=postgresql://"
+                    "user:pass@host/db, TYPE=sqlite for a single-host "
+                    "file store, or TYPE=network against `pio "
+                    "storageserver` for a shared data plane."
+                )
+            type_name = "postgres"
+        if type_name == "parquet":
+            raise StorageError(
+                f"source {source_name!r}: the parquet driver is not ported to "
+                "predictionio_tpu_torch (ROADMAP §1 item 14: it needs pyarrow, "
+                "which the port does not depend on)"
+            )
         if type_name not in DRIVERS:
             raise StorageError(f"unknown storage type {type_name!r}")
         if dao not in DRIVERS[type_name]:
@@ -167,6 +225,27 @@ class Storage:
     def get_meta_data_sequences(self) -> base.Sequences:
         return self.get_data_object(METADATA, "Sequences")
 
+    def resilience_stats(self) -> Optional[dict]:
+        """Retry and breaker state merged over the cached network DAOs, or
+        None when no network client is live (the obs bridge then renders
+        nothing)."""
+        merged: Optional[dict] = None
+        for obj in list(self._dao_cache.values()):
+            rs = getattr(getattr(obj, "_c", None), "resilience_stats", None)
+            if not callable(rs):
+                continue
+            s = rs()
+            if merged is None:
+                merged = {"retries": 0, "retry_budget_tokens": None, "breakers": {}}
+            merged["retries"] += s.get("retries") or 0
+            tokens = s.get("retry_budget_tokens")
+            if tokens is not None:
+                prior = merged["retry_budget_tokens"]
+                # the most exhausted client is the signal
+                merged["retry_budget_tokens"] = tokens if prior is None else min(prior, tokens)
+            merged["breakers"].update(s.get("breakers") or {})
+        return merged
+
     # -- smoke check (parity: Storage.verifyAllDataObjects:372-394) --------
     def verify_all_data_objects(self) -> bool:
         """Touch every repository, then write, read and delete one event."""
@@ -176,6 +255,7 @@ class Storage:
         self.get_meta_data_access_keys()
         self.get_meta_data_channels()
         self.get_meta_data_engine_instances()
+        self.get_meta_data_evaluation_instances()
         self.get_model_data_models()
         levents = self.get_l_events()
         levents.init(0)

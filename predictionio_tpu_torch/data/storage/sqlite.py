@@ -11,8 +11,9 @@ the event server's writers and the trainer's bulk reader coexist.
 The sharded bulk read (``PEvents.find(shard=(index, count), shard_key=...)``)
 pushes the JAX package's sqlite predicate into SQL over the same crc32
 ``pio_crc32`` function, so one file gives the same event ids to a process of
-either package. Not ported yet, and raising an error that names the ROADMAP
-item that brings it: free-text ``search`` (item 14).
+either package. Free-text ``search`` and the instances' ``query`` push their
+predicates into SQL too, through the ``pio_contains`` function (Python case
+folding, the base class's semantics).
 """
 
 from __future__ import annotations
@@ -224,6 +225,34 @@ class _SqliteDAO:
         with self.lock:
             return self.conn.execute(sql, params).fetchall()
 
+    def _query_instances(self, table, exact, text_cols, since, until, text, limit):
+        """The SQL form of ``base._filter_instances`` behind both ``query``
+        methods; the subclass supplies ``_COLS`` and ``_row``."""
+        where, params = [], []
+        for col, val in exact:
+            if val is not None:
+                where.append(f"{col} = ?")
+                params.append(val)
+        if since is not None:
+            where.append("start_time >= ?")
+            params.append(_ts(since))
+        if until is not None:
+            where.append("start_time < ?")
+            params.append(_ts(until))
+        if text is not None:
+            where.append("(" + " OR ".join(f"pio_contains({c}, ?)" for c in text_cols) + ")")
+            params.extend([text.lower()] * len(text_cols))
+        sql = f"SELECT {self._COLS} FROM {table}"
+        if where:
+            sql += " WHERE " + " AND ".join(where)
+        # rowid breaks start_time ties in insertion order, as the base
+        # default's stable sort over get_all does
+        sql += " ORDER BY start_time DESC, rowid ASC"
+        if limit is not None:
+            sql += " LIMIT ?"
+            params.append(max(0, limit))
+        return [self._row(r) for r in self._all(sql, params)]
+
 
 def _chan(channel_id: Optional[int]) -> int:
     return 0 if channel_id is None else channel_id
@@ -397,11 +426,40 @@ class SqliteLEvents(_SqliteDAO, base.LEvents):
             sql += f" LIMIT {int(limit)}"
         return [_row_to_event(r) for r in self._all(sql, params)]
 
+    _SEARCH_FILTERS = (
+        "start_time", "until_time", "entity_type", "entity_id",
+        "event_names", "target_entity_type", "target_entity_id", "reversed",
+    )
+
     def search(self, app_id, text, channel_id=None, limit=None, **filters):
-        raise NotImplementedError(
-            "free-text event search is not ported to predictionio_tpu_torch "
-            "yet (ROADMAP §1 item 14)"
+        """Free-text search pushed into SQL: ``pio_contains`` over the event
+        name, the entity/target ids and the properties column."""
+        unknown = set(filters) - set(self._SEARCH_FILTERS)
+        if unknown:
+            # the base default raises TypeError through find()
+            raise TypeError(f"search() got unexpected filters {unknown}")
+        where, params = _event_where(
+            app_id, channel_id, filters.get("start_time"), filters.get("until_time"),
+            filters.get("entity_type"), filters.get("entity_id"), filters.get("event_names"),
+            filters.get("target_entity_type"), filters.get("target_entity_id"),
         )
+        cols = ("event", "entity_type", "entity_id", "target_entity_type",
+                "target_entity_id", "properties")
+        clauses = [f"pio_contains({c}, ?)" for c in cols]
+        params = list(params) + [text.lower()] * len(cols)
+        # rows an older build wrote may still hold \uXXXX escapes: match
+        # the escaped needle in the properties column too
+        escaped = json.dumps(text.lower(), ensure_ascii=True)[1:-1]
+        if escaped != text.lower():
+            clauses.append("pio_contains(properties, ?)")
+            params.append(escaped)
+        where += " AND (" + " OR ".join(clauses) + ")"
+        order = "DESC" if filters.get("reversed") else "ASC"
+        sql = (f"SELECT * FROM events WHERE {where} "
+               f"ORDER BY event_time {order}, creation_time {order}")
+        if limit is not None:
+            sql += f" LIMIT {max(0, int(limit))}"
+        return [_row_to_event(r) for r in self._all(sql, params)]
 
 
 class SqlitePEvents(_SqliteDAO, base.PEvents):
@@ -683,6 +741,22 @@ class SqliteEngineInstances(_SqliteDAO, base.EngineInstances):
     def delete(self, instance_id: str) -> bool:
         return self._write("DELETE FROM engine_instances WHERE id = ?", (instance_id,)) > 0
 
+    def query(self, status=None, engine_factory=None, engine_variant=None,
+              since=None, until=None, text=None, limit=None):
+        return self._query_instances(
+            table="engine_instances",
+            exact=(
+                ("status", status),
+                ("engine_factory", engine_factory),
+                ("engine_variant", engine_variant),
+            ),
+            text_cols=(
+                "engine_factory", "batch", "engine_variant", "data_source_params",
+                "preparator_params", "algorithms_params", "serving_params",
+            ),
+            since=since, until=until, text=text, limit=limit,
+        )
+
 
 class SqliteEvaluationInstances(_SqliteDAO, base.EvaluationInstances):
     """The ``evaluation_instances`` table (the JAX package's schema and
@@ -764,3 +838,15 @@ class SqliteEvaluationInstances(_SqliteDAO, base.EvaluationInstances):
     def delete(self, instance_id: str) -> bool:
         return self._write(
             "DELETE FROM evaluation_instances WHERE id = ?", (instance_id,)) > 0
+
+    def query(self, status=None, evaluation_class=None, since=None,
+              until=None, text=None, limit=None):
+        return self._query_instances(
+            table="evaluation_instances",
+            exact=(("status", status), ("evaluation_class", evaluation_class)),
+            text_cols=(
+                "evaluation_class", "engine_params_generator_class", "batch",
+                "evaluator_results", "evaluator_results_json",
+            ),
+            since=since, until=until, text=text, limit=limit,
+        )

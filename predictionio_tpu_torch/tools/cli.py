@@ -4,7 +4,8 @@ Counterpart of ``predictionio_tpu/tools/cli.py`` (parity:
 ``tools/.../console/Console.scala:134-827``), with the verbs the quickstart
 and its operators run and the same argument names and ``[INFO]``/``[ERROR]``
 lines: ``version``, ``status``, ``build``, ``app``, ``accesskey``, ``train``,
-``eval``, ``deploy``, ``undeploy``, ``batchpredict``, ``eventserver``,
+``launch``, ``eval``, ``deploy``, ``undeploy``, ``batchpredict``,
+``eventserver``, ``storageserver``, ``instances``, ``export``, ``import``,
 ``template``, ``loadtest``, ``shards``, ``ivf``, ``fleet``, ``canary``,
 ``tenants`` and ``pipeline``.
 
@@ -43,6 +44,14 @@ this CLI's ``deploy`` on the same ``--device``; ``--autoscale``,
 ``fleet status|roll`` and ``canary status|start|promote|abort|quarantine``
 operate a running router; ``tenants check|list`` and ``pipeline
 seal|show`` check configs and inspect a live server.
+
+``storageserver`` serves the configured storage to other hosts, which set
+``PIO_STORAGE_SOURCES_<N>_TYPE=network`` and ``_URL`` (and ``_SECRET`` for
+``--secret``); like the router it is host code and opens no CUDA context.
+``instances`` field-queries train and evaluation runs; ``export`` and
+``import`` move an app's events as JSON lines, each process of a ``pio
+launch`` taking its 1/N. ``status`` shows each repository's source and
+driver type (``jdbc→postgres`` for a JDBC source with a postgres URL).
 
 ``template list|get`` knows the seven templates the port serves; the
 JAX package's ``python`` template (pypio) fails with an error that names
@@ -804,6 +813,77 @@ def cmd_eventserver(args) -> int:
     return 0
 
 
+def cmd_storageserver(args) -> int:
+    """Serve the configured storage to other hosts (driver type
+    ``network``): the data plane of a layout whose event server, trainer
+    and query server run on different hosts. Host code only: it opens no
+    CUDA context and never imports torch."""
+    from predictionio_tpu_torch.data.storage.network import StorageServer
+
+    server = StorageServer(storage=_storage(), secret=args.secret)
+    port = server.start(args.ip, args.port, allow_insecure=args.allow_insecure,
+                        cert_path=args.cert_path, key_path=args.key_path)
+    print(f"[INFO] Storage Server is listening at http://{args.ip}:{port}", flush=True)
+    try:
+        server.service.serve_forever()
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
+def cmd_instances(args) -> int:
+    """Field-query train or evaluation runs (the ES metadata-search role,
+    ``ESEngineInstances.scala``): ``pio instances --status COMPLETED
+    --text als --limit 5``."""
+    from predictionio_tpu_torch.data.event import parse_time_or_none
+
+    storage = _storage()
+    kwargs = dict(
+        status=args.status,
+        since=parse_time_or_none(args.since) if args.since else None,
+        until=parse_time_or_none(args.until) if args.until else None,
+        text=args.text,
+        limit=args.limit,
+    )
+    if args.eval:
+        if args.variant:
+            return _die("--variant does not apply to --eval instances")
+        rows = storage.get_meta_data_evaluation_instances().query(
+            evaluation_class=args.factory, **kwargs)
+        cols = ["id", "status", "start_time", "evaluation_class", "batch"]
+    else:
+        rows = storage.get_meta_data_engine_instances().query(
+            engine_factory=args.factory, engine_variant=args.variant, **kwargs)
+        cols = ["id", "status", "start_time", "engine_factory", "engine_variant", "batch"]
+    if args.json:
+        print(json.dumps([
+            {c: (str(getattr(i, c)) if c == "start_time" else getattr(i, c)) for c in cols}
+            for i in rows
+        ]))
+        return 0
+    print("  ".join(f"{c:<20}" for c in cols))
+    for i in rows:
+        print("  ".join(f"{str(getattr(i, c)):<20.20}" for c in cols))
+    print(f"[INFO] {len(rows)} instance(s)")
+    return 0
+
+
+def cmd_export(args) -> int:
+    from predictionio_tpu_torch.tools.export_import import export_events
+
+    n, written = export_events(_storage(), args.appid, args.output, channel=args.channel)
+    print(f"[INFO] Exported {n} events to {written}")
+    return 0
+
+
+def cmd_import(args) -> int:
+    from predictionio_tpu_torch.tools.export_import import import_events
+
+    n = import_events(_storage(), args.appid, args.input, channel=args.channel)
+    print(f"[INFO] Imported {n} events.")
+    return 0
+
+
 def cmd_loadtest(args) -> int:
     from predictionio_tpu_torch.tools.loadtest import run_ingest_loadtest, run_loadtest
 
@@ -1341,6 +1421,36 @@ def build_parser() -> argparse.ArgumentParser:
                     "to this write-ahead-log directory and replay them on "
                     "startup (PIO_WAL_DIR; fsync via PIO_WAL_FSYNC)")
     sp.set_defaults(func=cmd_eventserver)
+
+    sp = sub.add_parser("storageserver")
+    sp.add_argument("--ip", default="0.0.0.0")
+    sp.add_argument("--port", type=int, default=7077)
+    sp.add_argument("--secret", default=None)
+    sp.add_argument("--allow-insecure", action="store_true",
+                    help="serve without a secret on non-loopback interfaces")
+    sp.add_argument("--cert-path", default=None)
+    sp.add_argument("--key-path", default=None)
+    sp.set_defaults(func=cmd_storageserver)
+
+    sp = sub.add_parser(
+        "instances", help="field-query train/eval runs (the ES metadata-search role)")
+    sp.add_argument("--status")
+    sp.add_argument("--factory", help="engineFactory (or evaluation class)")
+    sp.add_argument("--variant")
+    sp.add_argument("--since", help="ISO time lower bound on start_time")
+    sp.add_argument("--until", help="ISO time upper bound on start_time")
+    sp.add_argument("--text", help="free-text match over params/results")
+    sp.add_argument("--limit", type=int)
+    sp.add_argument("--eval", action="store_true", help="query evaluation instances instead")
+    sp.add_argument("--json", action="store_true")
+    sp.set_defaults(func=cmd_instances)
+
+    for verb, path_flag in (("export", "--output"), ("import", "--input")):
+        sp = sub.add_parser(verb)
+        sp.add_argument("--appid", type=int, required=True)
+        sp.add_argument(path_flag, required=True)
+        sp.add_argument("--channel", default=None)
+        sp.set_defaults(func=cmd_export if verb == "export" else cmd_import)
 
     sp = sub.add_parser("loadtest")
     sp.add_argument("--ip", default="127.0.0.1")

@@ -1,13 +1,14 @@
 """The chaos suite on the port: seeded fault plans against its servers.
 
 Counterpart of ``tests/test_resilience.py``'s ``TestHttpFaultShim``,
-``TestQueryServerChaos`` and ``TestTelemetryUnderChaos``, run against the
-port's HTTP kit and query server. The fault harness itself is held against
-the JAX package: for the same plans, seeds and call sequences,
+``TestStorageChaos``, ``TestQueryServerChaos`` and
+``TestTelemetryUnderChaos``, run against the port's HTTP kit, network
+storage client and server, and query server. The fault harness itself is
+held against the JAX package: for the same plans, seeds and call sequences,
 ``faults.check`` returns the same actions and ``faults.kill_point`` picks
-the same victims (exact equality). The JAX suite's storage-client breaker
-walk waits for the network store (ROADMAP §1 item 16); its counterpart here
-walks a router replica's breaker, whose series the same bridge renders.
+the same victims (exact equality). The breaker walk runs twice: on the
+storage client's per-endpoint breaker (the JAX suite's) and on a router
+replica's breaker, whose series the same bridge renders.
 """
 
 import datetime as dt
@@ -25,9 +26,12 @@ import pytest
 from predictionio_tpu.common import faults as jax_faults
 from predictionio_tpu_torch.common import faults
 from predictionio_tpu_torch.common.http import HttpService, Response, json_response
+from predictionio_tpu_torch.common.resilience import BreakerOpen
 from predictionio_tpu_torch.core import persistence
+from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base as port_base
 from predictionio_tpu_torch.data.storage import memory as port_memory
+from predictionio_tpu_torch.data.storage.network import NetworkStorageError, StorageServer
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.models.als import als_model_from_arrays
@@ -421,6 +425,118 @@ class TestQueryServerChaos:
             qs.stop()
 
 
+# -- storage client vs a faulty server/transport -----------------------------
+
+
+def _mem_storage(name):
+    return Storage(env={
+        f"PIO_STORAGE_SOURCES_{name}_TYPE": "memory",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": name,
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": name,
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": name,
+    })
+
+
+def _net_client(port, **overrides):
+    env = {
+        "PIO_STORAGE_SOURCES_NET_TYPE": "network",
+        "PIO_STORAGE_SOURCES_NET_URL": f"http://127.0.0.1:{port}",
+        "PIO_STORAGE_SOURCES_NET_SECRET": "s3cret",
+        "PIO_STORAGE_SOURCES_NET_RETRIES": "3",
+        "PIO_STORAGE_SOURCES_NET_BACKOFF_MS": "5",
+        "PIO_STORAGE_SOURCES_NET_TIMEOUT": "30",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "NET",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NET",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "NET",
+    }
+    env.update({f"PIO_STORAGE_SOURCES_NET_{k}": v for k, v in overrides.items()})
+    return Storage(env=env)
+
+
+@pytest.fixture()
+def served():
+    name = "C" + uuid.uuid4().hex[:8].upper()
+    backing = _mem_storage(name)
+    server = StorageServer(backing, secret="s3cret")
+    port = server.start("127.0.0.1", 0)
+    try:
+        yield {"server": server, "backing": backing, "client": _net_client(port), "port": port}
+    finally:
+        server.stop()
+        port_memory.reset_store(name)
+
+
+def _rule(**kw):
+    return faults.FaultRule(**kw)
+
+
+class TestStorageChaos:
+    def test_retry_recovers_dropped_call(self, served):
+        faults.install(faults.FaultPlan(
+            [_rule(site="client:storage:/meta/apps/*", kind="drop", times=1)], seed=1))
+        apps = served["client"].get_meta_data_apps()
+        app_id = apps.insert(port_base.App(0, "chaos"))  # the first call drops, the retry lands
+        assert apps.get(app_id).name == "chaos"
+        assert apps._c.retry_count >= 1
+        stats = apps._c.resilience_stats()
+        assert stats["retries"] == apps._c.retry_count
+        assert "/meta/apps" in stats["breakers"]
+
+    def test_server_5xx_retried_to_success(self, served):
+        app_id = served["backing"].get_meta_data_apps().insert(port_base.App(0, "chaos5xx"))
+        served["backing"].get_l_events().init(app_id)
+        faults.install(faults.FaultPlan(
+            [_rule(site="server:storageserver:/levents/insert", kind="error", status=503,
+                   times=2)], seed=2))
+        le = served["client"].get_l_events()
+        eid = le.insert(Event(event="$set", entity_type="user", entity_id="u1"), app_id)
+        assert le.get(eid, app_id) is not None
+        assert le._c.retry_count >= 2
+
+    def test_breaker_opens_then_halfopen_probe_closes(self, served):
+        client = _net_client(served["port"], RETRIES="1", BREAKER_THRESHOLD="2",
+                             BREAKER_RESET_MS="200")
+        apps = client.get_meta_data_apps()
+        faults.install(faults.FaultPlan(
+            [_rule(site="client:storage:/meta/apps/*", kind="error", status=503)], seed=3))
+        for _ in range(2):
+            with pytest.raises(NetworkStorageError):
+                apps.get_all()
+        br = apps._c.breaker_for("/meta/apps")
+        assert br.state == "open"
+        with pytest.raises(BreakerOpen):  # open: fails fast, no socket
+            apps.get_all()
+        assert br.fast_failures >= 1
+        faults.clear()  # the half-open probe after the cooldown succeeds
+        time.sleep(0.25)
+        assert apps.get_all() == []
+        assert br.state == "closed"
+
+    def _seed_events(self, served, n=40):
+        app_id = served["backing"].get_meta_data_apps().insert(port_base.App(0, "framed"))
+        le = served["backing"].get_l_events()
+        le.init(app_id)
+        le.batch_insert([
+            Event(event="rate", entity_type="user", entity_id=f"u{i % 7}",
+                  target_entity_type="item", target_entity_id=f"i{i % 5}",
+                  properties={"rating": float(i % 5 + 1)})
+            for i in range(n)], app_id)
+        return app_id
+
+    @pytest.mark.parametrize("site,seed", [
+        ("client:storage:frames:/pevents/find", 4),  # torn on the client
+        ("server:storageserver:/pevents/find", 5),  # torn mid-frame by the server
+    ])
+    def test_truncated_frame_stream_retried(self, served, site, seed):
+        """A torn frame stream is a truncation error (never a short result)
+        that the policy layer recovers."""
+        app_id = self._seed_events(served)
+        faults.install(faults.FaultPlan([_rule(site=site, kind="truncate", times=1)], seed=seed))
+        pe = served["client"].get_p_events()
+        assert len(pe.find(app_id)) == 40
+        assert pe._c.retry_count >= 1
+
+
 class TestTelemetryUnderChaos:
     def test_breaker_metrics_walk_closed_open_halfopen(self, monkeypatch):
         """The router's per-replica breaker series follow the breaker's real
@@ -477,6 +593,47 @@ class TestTelemetryUnderChaos:
         finally:
             router.stop()
             stub.stop()
+
+    def test_storage_client_breaker_metrics_walk_closed_open_halfopen(self, served):
+        """The pio_storage_client_* series track the storage client's breaker
+        under a fault shim: 0 → 1 → 2 → 0, with the retry counter and
+        opens_total moving when they should (the JAX suite's walk)."""
+        client = _net_client(served["port"], RETRIES="2", BREAKER_THRESHOLD="2",
+                             BREAKER_RESET_MS="200")
+        apps = client.get_meta_data_apps()
+        reg = obs_metrics.MetricsRegistry()
+        obs_bridges.bridge_resilience(reg, client.resilience_stats)
+
+        def series():
+            return obs_metrics.parse_prometheus(reg.render_prometheus())
+
+        def gauge(name):
+            return series().get((f"pio_storage_client_{name}", (("endpoint", "/meta/apps"),)))
+
+        assert apps.get_all() == []
+        assert gauge("breaker_state") == 0
+        assert series()[("pio_storage_client_retries_total", ())] == 0
+        faults.install(faults.FaultPlan(
+            [_rule(site="client:storage:/meta/apps/*", kind="error", status=503)], seed=11))
+        with pytest.raises(NetworkStorageError):  # two attempts trip threshold 2
+            apps.get_all()
+        assert gauge("breaker_state") == 1 and gauge("breaker_opens_total") == 1
+        assert series()[("pio_storage_client_retries_total", ())] >= 1
+        faults.clear()
+        faults.install(faults.FaultPlan(
+            [_rule(site="client:storage:/meta/apps/*", kind="latency", latency_ms=400,
+                   times=1)], seed=12))
+        time.sleep(0.25)
+        probe = threading.Thread(target=apps.get_all, daemon=True)
+        probe.start()
+        saw_half_open = False
+        deadline = time.monotonic() + 2.0
+        while time.monotonic() < deadline and not saw_half_open:
+            saw_half_open = gauge("breaker_state") == 2
+            time.sleep(0.01)
+        probe.join(5.0)
+        assert saw_half_open, "scrape never observed HALF_OPEN"
+        assert gauge("breaker_state") == 0 and gauge("breaker_opens_total") == 1
 
     def test_metrics_keeps_serving_while_degraded(self, trained):
         """/metrics answers — and shows the degradation — while the scorer

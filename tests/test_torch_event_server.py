@@ -270,10 +270,14 @@ def test_waiting_parts_name_their_roadmap_item(tmp_path, monkeypatch):
     assert callable(srv.attach_delta_sink) and callable(srv.enable_delta_publisher)
     base = f"http://127.0.0.1:{srv.start('127.0.0.1', 0)}"
     try:
-        for method, path, item in (("POST", "/webhooks/segmentio.json", 14),
-                                   ("GET", "/webhooks/mailchimp.form", 14)):
+        # the webhook connectors are ported: a probe finds the registered
+        # connector, an unknown one is 404, an empty payload is the
+        # connector's 400 (tests/test_torch_webhooks.py holds the events)
+        for method, path, want in (("POST", "/webhooks/segmentio.json", 400),
+                                   ("GET", "/webhooks/mailchimp.form", 200),
+                                   ("GET", "/webhooks/nosuch.json", 404)):
             status, body = call(base, method, f"{path}?accessKey={KEY}", {})
-            assert status == 500 and f"item {item}" in body["message"], (path, body)
+            assert status == want, (path, status, body)
         # committed writes bump the result cache's invalidation index: two
         # events of user u1 (batch) and one more (single) by entity, the
         # delete globally — the JAX server's notify_event / notify_delete

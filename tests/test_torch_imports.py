@@ -103,6 +103,15 @@ print(" ".join(names))
         # many processes: the gloo runtime, the sharded read, the launcher
         "predictionio_tpu_torch.parallel.distributed", "predictionio_tpu_torch.parallel.ingest",
         "predictionio_tpu_torch.tools.launcher",
+        # shared storage: the remote drivers, their stubs, webhooks, export/import
+        "predictionio_tpu_torch.data.storage.postgres", "predictionio_tpu_torch.data.storage.pgstub",
+        "predictionio_tpu_torch.data.storage.s3", "predictionio_tpu_torch.data.storage.s3stub",
+        "predictionio_tpu_torch.data.storage.network", "predictionio_tpu_torch.data.webhooks",
+        "predictionio_tpu_torch.data.webhooks.connector",
+        "predictionio_tpu_torch.data.webhooks.examples",
+        "predictionio_tpu_torch.data.webhooks.mailchimp",
+        "predictionio_tpu_torch.data.webhooks.segmentio",
+        "predictionio_tpu_torch.tools.export_import",
         # the other model families and templates
         "predictionio_tpu_torch.models.naive_bayes", "predictionio_tpu_torch.models.random_forest",
         "predictionio_tpu_torch.models.markov_chain",
