@@ -187,7 +187,21 @@ code is not 0 and the last line is never printed.
              the event server, ``template get sequentialrecommendation``,
              ``train`` (maxLen 256, 15 steps: kernels 4, 5, 6 launch 2 × 15
              times each), ``deploy`` and 20 queries read live from sqlite, each
-             held against the plain forward on the history.
+             held against the plain forward on the history. Phase
+             ``operator-tools`` rides on it and starts no server or training
+             of its own: after the dense ``pio train``, the train accountant
+             (``obs/devprof.train_snapshot``: one record an iteration, a busy
+             share in (0, 1], MFU and memory share against the ``h100-sxm``
+             row), kernel 2's launches (buckets × 20) and a registry with
+             ``bridge_train_kernel`` (``pio_train_kernel_info{backend="cuda"}``,
+             the intensity equal to ``fused_train_cost`` on the same buckets);
+             against the ``deploy --batching`` server, a 300-request loadtest,
+             ``pio profile --ms 1000`` with 1,000 requests at concurrency 8
+             while a second client queries from before the verb to its end,
+             and another 300: the server's Chrome trace holds device events of
+             kernel 1 (``score_select``), its kernel 1 launches grow by exactly
+             its dispatches over the verb, ``pio_profile_captures_total`` reads
+             1; the phase's seconds are printed.
 12b. remote-storage — the quickstart's store and engine through shared
              storage, each leg deploying from a fresh ``PIO_FS_BASEDIR``
              that holds no local state. ``pio export`` of its app (every
@@ -3056,6 +3070,141 @@ def fill_engine_json(path, app, algorithms, **datasource):
     return variant
 
 
+OT_PROFILE_MS = 1000  # the capture window of `pio profile`
+OT_PROFILE_REQUESTS, OT_PROFILE_CONCURRENCY = 1000, 8  # the verb's own load
+OT_BASELINE_REQUESTS = 300  # the same load without a capture, before and after it
+K1_SYMBOL = "score_select"  # kernel 1's __global__ function (csrc/score_topk.cu)
+
+
+def operator_tools_train(snap, stats, read, cfg, launches, n_buckets, device, out):
+    """Phase ``operator-tools``, its training half, on what the in-process
+    ``pio train`` left: the train accountant's snapshot (one record an
+    iteration, a busy share in (0, 1], utilization against the card's peak
+    row) and the ``pio_train_kernel_*`` exposition, whose intensity must be
+    the cost model's on the same buckets; kernel 2's launches (buckets ×
+    iterations, checked by the caller) go into the record. Returns its
+    seconds."""
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.obs import devprof
+    from predictionio_tpu_torch.obs.bridges import bridge_train_kernel
+    from predictionio_tpu_torch.obs.metrics import MetricsRegistry, parse_prometheus
+
+    t0 = time.perf_counter()
+    platform = devprof.platform_for(device)
+    require(snap.get("recorded") == TRAIN_ITERS,
+            f"pio train recorded {snap.get('recorded')} iterations vs {TRAIN_ITERS}")
+    require(0.0 < snap.get("busy_fraction", 0.0) <= 1.0, f"train busy share {snap}")
+    require(snap.get("platform") == platform and snap.get("mfu") is not None
+            and snap.get("hbm_util") is not None
+            and (device.type != "cuda" or platform == "h100-sxm"),
+            f"train snapshot against the {platform} row: {snap}")
+    # the buckets pio train ran (its caller holds kernel 2's launches to
+    # buckets × iterations): one shard on the one-card mesh
+    ub, ib, _, _ = als._dense_shards_for(read, cfg, 1)
+    blocks = [t for blk in (ub, ib) for t in blk.shard(0)]
+    slots = sum(idx.size for idx, _, _ in blocks)
+    rows = sum(idx.shape[0] for idx, _, _ in blocks)
+    flops, nbytes = devprof.fused_train_cost(len(read), read.n_users, read.n_items, RANK,
+                                             "f32", slots=slots, rows=rows)
+    reg = MetricsRegistry()
+    bridge_train_kernel(reg, lambda: stats)
+    series = parse_prometheus(reg.render_prometheus())
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    info = series.get(("pio_train_kernel_info", (("backend", backend), ("compute_dtype", "f32"))))
+    intensity = series.get(("pio_train_kernel_intensity_flop_per_byte", ()))
+    require(info == 1.0, f"pio_train_kernel_info{{backend={backend!r}}}: {sorted(series)}")
+    require(intensity is not None and abs(intensity - flops / nbytes) <= 1e-9 * flops / nbytes,
+            f"intensity {intensity} vs the cost model's {flops / nbytes}")
+    out["operator_tools"] = {
+        "train_snapshot": snap, "kernel2_launches": launches,
+        "buckets_x_iterations": n_buckets * TRAIN_ITERS,
+        "intensity_flop_per_byte": intensity, "cost_flops": flops, "cost_bytes": nbytes,
+        "resident_bytes": series.get(("pio_train_kernel_resident_bytes", ())),
+    }
+    return time.perf_counter() - t0
+
+
+def operator_tools_profile(qs, model, out):
+    """Phase ``operator-tools``, its serving half: ``pio profile`` against
+    the ``deploy --batching`` server, with a second client's queries running
+    from before the verb to its end, so the capture window has traffic
+    however long the server takes to open it. The server's Chrome trace
+    must hold a device event of kernel 1, its kernel 1 launches must grow by
+    exactly its fast-path dispatches over the verb, and
+    ``pio_profile_captures_total`` must read 1. A loadtest of the verb's
+    shape without a capture runs before and after it. Returns its seconds."""
+    import threading
+
+    from predictionio_tpu_torch.obs.metrics import parse_prometheus
+    from predictionio_tpu_torch.tools.loadtest import run_loadtest
+
+    t0 = time.perf_counter()
+    user = model.user_map.inverse[0]
+    query = {"user": user, "num": K}
+
+    def plain_load():
+        r = run_loadtest(url=qs.base, query=query, requests=OT_BASELINE_REQUESTS,
+                         concurrency=OT_PROFILE_CONCURRENCY)
+        require(r["errors"] == 0, f"loadtest without a capture: {r['errors']} errors")
+        return {k: r[k] for k in ("qps", "p50Ms", "p99Ms")}
+
+    no_capture_before = plain_load()
+    before = http_json(f"{qs.base}/")[1]
+    stop, side = threading.Event(), {"answered": 0, "failed": []}
+
+    def side_client():
+        while not stop.is_set():
+            status, body = http_json(f"{qs.base}/queries.json", query)
+            if status == 200:
+                side["answered"] += 1
+            else:
+                side["failed"].append(f"{status} {body}")
+
+    client = threading.Thread(target=side_client, name="operator-tools-side-client")
+    client.start()
+    try:
+        t_verb = time.perf_counter()
+        printed = cli_run("profile", "--ip", "127.0.0.1", "--port", str(qs.port),
+                          "--ms", str(OT_PROFILE_MS), "--requests", str(OT_PROFILE_REQUESTS),
+                          "--concurrency", str(OT_PROFILE_CONCURRENCY),
+                          "--query", json.dumps(query))
+        verb_s = time.perf_counter() - t_verb
+    finally:
+        stop.set()
+        client.join()
+    result = json.loads(printed.strip().splitlines()[-1])
+    after = http_json(f"{qs.base}/")[1]
+    no_capture_after = plain_load()
+    launched = after["scoreKernelLaunches"] - before["scoreKernelLaunches"]
+    dispatched = after["fastpath"][0]["calls"] - before["fastpath"][0]["calls"]
+    path = os.path.join(result["profile"]["path"], "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if K1_SYMBOL in e.get("name", "")]
+    with urllib.request.urlopen(f"{qs.base}/metrics", timeout=30) as r:
+        series = parse_prometheus(r.read().decode())
+    captures = series.get(("pio_profile_captures_total", ()))
+    out["operator_tools"].update(
+        profile_ms=OT_PROFILE_MS, profile_requests=OT_PROFILE_REQUESTS, verb_s=verb_s,
+        loadtest=result["loadtest"], server_metrics=result["serverMetrics"],
+        side_client_answers=side["answered"],
+        loadtest_before_capture=no_capture_before, loadtest_after_capture=no_capture_after,
+        trace_events=len(events), kernel_trace_events=len(kernels),
+        kernel1_trace_events=len(k1), kernel1_trace_us=sum(float(e.get("dur", 0.0)) for e in k1),
+        kernel1_launches=launched, dispatches=dispatched, trace_bytes=os.path.getsize(path),
+        profile_captures=captures)
+    emit({"phase": "operator-tools", "step": "profile", **{
+        k: v for k, v in out["operator_tools"].items() if k not in ("train_snapshot",)}})
+    require(not side["failed"], f"side client under pio profile: {side['failed'][:3]}")
+    require(launched == dispatched > 0,
+            f"kernel 1 launched {launched} times vs {dispatched} dispatches under pio profile")
+    require(k1, f"no device event of {K1_SYMBOL} among {len(events)} trace events "
+                f"({len(kernels)} kernel events) in {path}")
+    require(captures == 1.0, f"pio_profile_captures_total {captures}")
+    return time.perf_counter() - t0
+
+
 def phase_quickstart_cli(seed, device, keep=None):
     """The reference quickstart through ``python -m predictionio_tpu_torch.
     tools.cli`` on the card, on the zero-config sqlite store of a fresh
@@ -3078,6 +3227,7 @@ def phase_quickstart_cli(seed, device, keep=None):
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.device import DeviceContext
     from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.obs import devprof
     from predictionio_tpu_torch.ops import train_kernel
     from predictionio_tpu_torch.parallel.ingest import _merge_part_reads
     from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
@@ -3215,10 +3365,15 @@ def phase_quickstart_cli(seed, device, keep=None):
         sqlite.SqlitePEvents.find_interactions = timed_read
         try:
             train_kernel.launches.reset()  # the path's window
+            dispatched = (devprof.train_recorder(devprof.platform_for(device)).dispatches)
             t0 = time.perf_counter()
             trained = cli_run("train", "--engine-dir", eng, "--device", device.type)
             train_s = time.perf_counter() - t0
             launches = train_kernel.launches.count
+            # what pio train recorded, before the trainings below record theirs
+            train_snap = dict(devprof.train_snapshot() or {},
+                              recorded=devprof.train_recorder().dispatches - dispatched)
+            train_stats = train_kernel.stats()
         finally:
             sqlite.SqlitePEvents.find_interactions = find_interactions
         iid = re.search(r"Engine instance ID: (\S+)", trained).group(1)
@@ -3250,6 +3405,8 @@ def phase_quickstart_cli(seed, device, keep=None):
                         "bit_equal_to_train_als": bit_equal,
                         "max_abs_gap": max(gaps)}
         emit({"phase": "quickstart-cli", "step": "train", **out["train"]})
+        ops_s = operator_tools_train(train_snap, train_stats, read, cfg, launches, n_buckets,
+                                     device, out)
 
         # the segment solver under its own engine variant, so deploy serves the dense one
         seg = os.path.join(tmp, "recommendation-segment")
@@ -3325,6 +3482,8 @@ def phase_quickstart_cli(seed, device, keep=None):
             got_v = np.array([[x["score"] for x in a["itemScores"]]])
             bad += topk_mismatches(got_v, got_i, rv[j:j + 1, :n], ri[j:j + 1, :n], TOL)
         require(not bad, f"served answers disagree with the plain version: {bad[:3]}")
+        ops_s += operator_tools_profile(qs, model, out)
+        emit({"phase": "operator-tools", "seconds": ops_s, **out["operator_tools"]})
         if keep is not None:
             keep.update(tmp=tmp, base=os.environ["PIO_FS_BASEDIR"], eng=eng, variant=variant,
                         app_id=app_id, n_events=n_events, read=read, model=model,

@@ -96,6 +96,7 @@ def _date_hdr() -> bytes:
         )
         # racing threads rebuild the same (second, header) pair; last write
         # wins and every value is correct, so no lock is needed
+        # pio: ignore[race-global-write]
         _DATE_CACHE = (now, hdr)
     return hdr
 
@@ -130,6 +131,8 @@ class HttpService:
             self.routes.append((method.upper(), regex, fn))
             literal = pattern.replace(r"\.", ".")
             if not any(c in literal for c in "[](){}?*+|^$\\"):
+                # routes register before serve_forever starts; dispatch only reads
+                # pio: ignore[race-unguarded-rmw]
                 self._exact[(method.upper(), literal)] = fn
             return fn
 

@@ -327,6 +327,8 @@ JAX_COUNTERPARTS = {
     f"{_JAX}.templates.ecommerce.ECommModel": f"{_PORT}.templates.ecommerce.ECommModel",
     f"{_JAX}.templates.similaruser.SimilarUserModel":
         f"{_PORT}.templates.similaruser.SimilarUserModel",
+    # a pypio-saved instance's engine factory
+    f"{_JAX}.pypio.PythonEngine": f"{_PORT}.pypio.PythonEngine",
 }
 
 # JAX classes that have no counterpart yet, with why

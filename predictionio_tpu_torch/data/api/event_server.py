@@ -352,6 +352,7 @@ class EventServer:
         )
         # one rebind, before the flush worker starts: sinks and metrics
         # read None or the finished publisher
+        # pio: ignore[race-unguarded-rebind]
         self._delta_publisher = pub
         self.attach_delta_sink(pub.on_committed)
         self._delta_flush_stop.clear()

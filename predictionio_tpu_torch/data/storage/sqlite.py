@@ -560,6 +560,10 @@ class SqliteApps(_SqliteDAO, base.Apps):
                 self.conn.commit()
                 return cur.lastrowid if app.id <= 0 else app.id
             except sqlite3.IntegrityError:
+                # the failed INSERT left the implicit transaction open, and
+                # with it the file's write lock: every other connection
+                # (another process's) would see "database is locked"
+                self.conn.rollback()
                 return None
 
     def get(self, app_id: int):
@@ -595,6 +599,10 @@ class SqliteAccessKeys(_SqliteDAO, base.AccessKeys):
                 self.conn.commit()
                 return key
             except sqlite3.IntegrityError:
+                # the failed INSERT left the implicit transaction open, and
+                # with it the file's write lock: every other connection
+                # (another process's) would see "database is locked"
+                self.conn.rollback()
                 return None
 
     @staticmethod
@@ -644,6 +652,10 @@ class SqliteChannels(_SqliteDAO, base.Channels):
                 self.conn.commit()
                 return cur.lastrowid
             except sqlite3.IntegrityError:
+                # the failed INSERT left the implicit transaction open, and
+                # with it the file's write lock: every other connection
+                # (another process's) would see "database is locked"
+                self.conn.rollback()
                 return None
 
     def get(self, channel_id: int):

@@ -68,6 +68,7 @@ import heapq
 import logging
 import os
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -729,7 +730,111 @@ def _shard_inputs(blocks, shards, devices, dense: bool) -> list:
     return [_segment_layout(blocks[j], d) for j, d in zip(shards, devices)]
 
 
-def _run_shards(ctx, u_shards, i_shards, U0, V0, cfg: ALSConfig, fingerprint=None):
+class _IterationTimer:
+    """Each iteration's device time without a host sync: a pair of CUDA
+    events around it on the card, read once the end event has completed;
+    the host clock on the CPU, whose ops are done when they return."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self._pending: list = []
+
+    def start(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def stop(self, it: int, start) -> None:
+        if not self.cuda:
+            self._pending.append((it, start, time.perf_counter()))
+            return
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        self._pending.append((it, start, event))
+
+    def completed(self, wait: bool = False) -> list:
+        """(iteration, seconds) of the timed iterations that have ended, in
+        order; with ``wait`` (after the factors' readback) all of them."""
+        out = []
+        while self._pending:
+            it, t0, t1 = self._pending[0]
+            if self.cuda:
+                if not wait and not t1.query():
+                    break
+                # training, not a request: after the factors' readback (or once
+                # query() said done) this waits for nothing
+                # pio: ignore[hotpath-block-sync]
+                t1.synchronize()
+                seconds = t0.elapsed_time(t1) / 1e3
+            else:
+                seconds = t1 - t0
+            out.append((it, seconds))
+            self._pending.pop(0)
+        return out
+
+
+def _train_devprof(cfg: ALSConfig, device, n_ratings: int, n_users_pad: int,
+                   n_items_pad: int, u_shards, i_shards, n_shards: int):
+    """Cost-annotate the process-global train accountant for this run
+    (``models/als.py:811-840``) and publish the resolved dispatch to the
+    train-kernel stats the ``/metrics`` bridge exports.
+
+    Returns ``(accountant, dispatch_key)``. The key's cost is this
+    process's share of one iteration: the dense solver's is
+    :func:`~predictionio_tpu_torch.obs.devprof.fused_train_cost` over the
+    local shards' buckets (their padded slots and rows; each local shard's
+    kernel reads the whole opposite matrix), the segment solver's
+    :func:`~predictionio_tpu_torch.obs.devprof.als_train_cost`. FLOPs are
+    the whole iteration's times the local shards' share."""
+    from predictionio_tpu_torch.obs import devprof
+
+    local = max(1, len(u_shards))
+    share = local / max(1, n_shards)
+    if cfg.solver == "dense":
+        slots = sum(idx.numel() for shard in (*u_shards, *i_shards) for idx, _, _ in shard)
+        rows = sum(idx.shape[0] for shard in (*u_shards, *i_shards) for idx, _, _ in shard)
+        flops, nbytes = devprof.fused_train_cost(
+            n_ratings, n_users_pad, n_items_pad, cfg.rank, cfg.compute_dtype,
+            slots=slots, rows=rows)
+        nbytes += (local - 1) * devprof.fused_train_vread_bytes(
+            n_users_pad, n_items_pad, cfg.rank, cfg.compute_dtype)
+    else:
+        flops, nbytes = devprof.als_train_cost(
+            n_ratings, n_users_pad, n_items_pad, cfg.rank, cfg.compute_dtype)
+        nbytes *= share
+    flops *= share
+    device = torch.device(device)
+    _train_kernel.record_stats(
+        backend="cuda" if device.type == "cuda" else "cpu",
+        compute_dtype=cfg.compute_dtype,
+        resident_bytes=_train_kernel.resident_bytes(
+            max(n_users_pad, n_items_pad), cfg.rank, cfg.compute_dtype),
+        intensity_flop_per_byte=(flops / nbytes) if nbytes else None,
+    )
+    acc = devprof.train_recorder(platform=devprof.platform_for(device))
+    key = f"als_iter_r{cfg.rank}"
+    acc.set_cost(key, flops, nbytes, source="analytic")
+    return acc, key
+
+
+def _log_step_utilization(acc, it: int, total: int) -> None:
+    snap = acc.snapshot()
+    if not snap:
+        return
+    mfu = snap.get("mfu")
+    logger.info(
+        "als iter %d/%d utilization: busy=%.3f gflops=%.2f hbm_gbps=%.2f"
+        " mfu=%s",
+        it + 1, total, snap["busy_fraction"], snap["flops_per_s"] / 1e9,
+        snap["hbm_gbps"], "n/a" if mfu is None else f"{mfu:.6f}",
+    )
+
+
+def _run_shards(ctx, u_shards, i_shards, U0, V0, cfg: ALSConfig, fingerprint=None,
+                n_ratings: int = 0):
     """The iterations over this process's shards (``models/als.py:712-758``
     for the dense solver): each half-step runs the kernel once a bucket (or
     the segment kernel once) on every local shard, solves, and all-gathers
@@ -737,7 +842,9 @@ def _run_shards(ctx, u_shards, i_shards, U0, V0, cfg: ALSConfig, fingerprint=Non
     when ``ctx`` spans them), so every process holds both sides whole.
     ``U0``/``V0`` are (n_pad, rank) in blocked order; returns the final
     host factors in blocked order. Checkpoints are written by the
-    coordinator."""
+    coordinator. Each iteration's device time (:class:`_IterationTimer`)
+    goes to the train accountant (:func:`_train_devprof`), charged with
+    ``n_ratings`` ratings' cost."""
     half_step = _dense_half_step if cfg.solver == "dense" else _half_step
     start_iter, manager = 0, None
     if cfg.checkpoint_dir:
@@ -761,15 +868,28 @@ def _run_shards(ctx, u_shards, i_shards, U0, V0, cfg: ALSConfig, fingerprint=Non
         full = _mesh.all_gather(outs, dev, ctx=ctx)
         return full.reshape(-1, cfg.rank)
 
+    util_acc, util_key = _train_devprof(
+        cfg, dev, n_ratings, U.shape[0], V.shape[0], u_shards, i_shards,
+        ctx.axis_size(_mesh.DATA_AXIS))
+    timer = _IterationTimer(dev)
     for it in range(start_iter, cfg.iterations):
+        t_step = timer.start()
         # u-solve gathers ITEM factors, v-solve gathers USER factors
         U = side(u_shards, V)
         V = side(i_shards, U)
+        timer.stop(it, t_step)
+        for done_it, seconds in timer.completed():
+            util_acc.record(util_key, seconds)
+            _log_step_utilization(util_acc, done_it, cfg.iterations)
         if manager is not None and _checkpoint.save_due(
             it + 1, cfg.checkpoint_interval, cfg.iterations
         ):
             manager.save(it + 1, {"U": U, "V": V, "fingerprint": fingerprint})
-    return U.cpu().numpy(), V.cpu().numpy()
+    U_host, V_host = U.cpu().numpy(), V.cpu().numpy()
+    for done_it, seconds in timer.completed(wait=True):
+        util_acc.record(util_key, seconds)
+        _log_step_utilization(util_acc, done_it, cfg.iterations)
+    return U_host, V_host
 
 
 def train_als(
@@ -845,6 +965,7 @@ def train_als(
         _shard_inputs(ib, shards, ctx.local_devices, dense),
         U0, V0, cfg,
         _checkpoint_fingerprint(interactions, cfg, n_shards) if cfg.checkpoint_dir else None,
+        n_ratings=len(interactions.user),
     )
     U_host = U_all[u_perm[:n_users]] if u_perm is not None else U_all[:n_users]
     V_host = V_all[i_perm[:n_items]] if i_perm is not None else V_all[:n_items]
@@ -909,6 +1030,7 @@ def _train_als_sharded(ctx, sh, cfg: ALSConfig, init_factors=None) -> ALSModel:
         U0, V0, cfg,
         _sharded_fingerprint(sh, cfg, n_users_pad, n_items_pad, n_shards)
         if cfg.checkpoint_dir else None,
+        n_ratings=int(sh.user_counts.sum()),
     )
     from predictionio_tpu_torch.parallel import distributed
 

@@ -5,9 +5,8 @@ components the port has: the batcher, the fast path, sharded serving and
 its pod layout (the router's group fan-out too), IVF retrieval, devprof, the result cache, the
 template event cache, tenancy, the pipeline, error counters, resilience
 (breakers), the fleet supervisor, the autoscaler, the canary controller,
-the event-server stats, the ingest buffer with its WAL and the latency
-histogram. The training kernel's bridge comes with the port's first
-benchmark (ROADMAP §1 item 12).
+the event-server stats, the ingest buffer with its WAL, the latency
+histogram, and the training kernel's dispatch (``pio_train_kernel_*``).
 
 Every load-bearing runtime layer predates the registry and already keeps
 its own thread-safe counters (``MicroBatcher.stats()``, fastpath
@@ -566,6 +565,63 @@ def bridge_devprof(
                     "pio_device_hbm_util", "gauge",
                     "Achieved HBM bandwidth over the per-chip peak.",
                     [("", lbl, _num(s.get("hbm_util")))],
+                )
+            )
+        return fams
+
+    registry.register_collector(collect)
+
+
+# -- training: kernel 2's dispatch ---------------------------------------------
+
+def bridge_train_kernel(
+    registry: MetricsRegistry, stats_fn: Callable[[], Optional[dict]]
+) -> None:
+    """``ops/train_kernel.stats()`` → pio_train_kernel_* series.
+
+    A training records its resolved dispatch (backend ``cuda`` for kernel
+    2 on the card, ``cpu`` for the plain versions; compute dtype; the
+    opposite-factor bytes a half-step reads; the analytic intensity) into
+    the kernel module's stats dict when it starts; this bridge snapshots it
+    at scrape so an in-process train is visible on the same ``/metrics``
+    the serving kernel reports to. Emits nothing before the first train in
+    this process.
+    """
+
+    def collect():
+        s = stats_fn()
+        if not s:
+            return []
+        fams = [
+            _fam(
+                "pio_train_kernel_info", "gauge",
+                "Active training-kernel backend and compute dtype "
+                "(info gauge, constant 1; the labels are the signal).",
+                [(
+                    "",
+                    (
+                        ("backend", str(s.get("backend", ""))),
+                        ("compute_dtype", str(s.get("compute_dtype", ""))),
+                    ),
+                    1.0,
+                )],
+            ),
+            _fam(
+                "pio_train_kernel_resident_bytes", "gauge",
+                "Opposite-factor bytes a half-step reads on the card: the "
+                "matrix at the compute dtype, plus the per-row f32 scales "
+                "when int8 (read through L2, once per half-step).",
+                [("", (), _num(s.get("resident_bytes")))],
+            ),
+        ]
+        if s.get("intensity_flop_per_byte") is not None:
+            fams.append(
+                _fam(
+                    "pio_train_kernel_intensity_flop_per_byte", "gauge",
+                    "Analytic arithmetic intensity of one training "
+                    "iteration (obs/devprof.fused_train_cost for the dense "
+                    "solver, als_train_cost for the segment solver).",
+                    [("", (), _num(s.get("intensity_flop_per_byte")))],
                 )
             )
         return fams

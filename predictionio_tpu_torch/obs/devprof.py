@@ -1,6 +1,6 @@
-"""Device-utilization accounting for serving: cost models, peaks, live rates.
+"""Device-utilization accounting: cost models, peaks, live rates, capture.
 
-Counterpart of ``predictionio_tpu/obs/devprof.py``'s serving half:
+Counterpart of ``predictionio_tpu/obs/devprof.py``:
 
 * **One cost model, one peak table.** :func:`score_cost` and
   :func:`fused_score_cost` give the analytic (FLOPs, bytes) of one
@@ -12,9 +12,20 @@ Counterpart of ``predictionio_tpu/obs/devprof.py``'s serving half:
   window into achieved FLOP/s, memory GB/s, utilization against the peak,
   and the device's busy share — the live ``pio_device_*`` gauge families.
 
-The training recorder (``train_recorder``/``train_snapshot``) comes with the
-training kernel's bridge, and ``capture_profile`` (``POST /debug/profile``,
-``pio profile``) with ROADMAP §1 item 15.
+* **Training cost models.** :func:`als_train_cost` and
+  :func:`train_utilization` are the JAX package's, definition for
+  definition. :func:`als_train_cost_amplified` charges the card's own
+  gather sector (:data:`SECTOR_BYTES`, 32 B), and :func:`fused_train_cost`
+  counts what kernel 2 (``csrc/train_normal_eq.cu``) must move as written,
+  the bytes ``chip_smoke.py``'s ``train_bound`` counts.
+* **Training recorder** (:func:`train_recorder`, :func:`train_snapshot`):
+  ``pio train`` has no server to scrape, so ``models/als.py`` records each
+  iteration's device time (CUDA events on the card) into a process-global
+  accountant.
+* **On-demand profile capture** (:func:`capture_profile`): a bounded
+  ``torch.profiler`` window (CPU and CUDA activities) written as a Chrome
+  trace under the basedir, driven by the query server's ``POST
+  /debug/profile`` and ``pio profile``.
 
 Knobs: ``PIO_DEVPROF_WINDOW`` — rolling-window length in seconds for the
 live gauges (default 60).
@@ -22,6 +33,7 @@ live gauges (default 60).
 
 from __future__ import annotations
 
+import math
 import os
 import threading
 import time
@@ -32,9 +44,18 @@ __all__ = [
     "PEAKS",
     "peak_for",
     "platform_for",
+    "default_platform",
+    "als_train_cost",
+    "als_train_cost_amplified",
+    "fused_train_cost",
+    "fused_train_vread_bytes",
+    "train_utilization",
     "score_cost",
     "fused_score_cost",
     "DeviceUtilization",
+    "train_recorder",
+    "train_snapshot",
+    "capture_profile",
 ]
 
 # Per-card peaks for utilization accounting, from the public spec sheets:
@@ -78,9 +99,137 @@ def platform_for(device) -> str:
     return name
 
 
+def default_platform() -> Optional[str]:
+    """The :data:`PEAKS` row of the default device: the first CUDA card's
+    (:func:`platform_for`), else ``"cpu"``; None when torch cannot say."""
+    try:
+        import torch
+
+        return platform_for("cuda:0" if torch.cuda.is_available() else "cpu")
+    except Exception:
+        return None
+
+
+def als_train_cost(
+    n_ratings: int, n_users: int, n_items: int, rank: int, dtype: str = "f32"
+) -> tuple[float, float]:
+    """Analytic (FLOPs, bytes) of ONE dense-solver ALS iteration, the JAX
+    package's definition.
+
+    FLOPs: per rating 2·(2k² + 4k) madds (outer product + rhs accumulate,
+    both sides) + per entity 2·(k³/3) Cholesky factor+solve madds.
+    Bytes: per rating, both sides: k·s gather read + 12 B of idx/rat/msk;
+    per entity k·4 factor write + opposite-factor read once per half-step.
+    A model, not a measurement.
+    """
+    k = rank
+    s = 2 if dtype == "bf16" else 4  # bytes per factor element
+    ents = n_users + n_items
+    flops_per_iter = n_ratings * 2 * (2 * k * k + 4 * k) * 2 + ents * (
+        2 * k**3 / 3
+    )
+    bytes_per_iter = (
+        n_ratings * 2 * (k * s + 12)  # gather + idx/rat/msk streams
+        + ents * k * (4 + s)  # factor write (f32) + opposite read
+    )
+    return float(flops_per_iter), float(bytes_per_iter)
+
+
+def train_utilization(
+    n_ratings, n_users, n_items, rank, iterations, dtype, dt, n_chips,
+    platform,
+) -> dict:
+    """Analytic achieved FLOP/s + memory GB/s from workload dims and wall
+    time: the cost model is :func:`als_train_cost`, the denominators
+    :data:`PEAKS`."""
+    flops_per_iter, bytes_per_iter = als_train_cost(
+        n_ratings, n_users, n_items, rank, dtype
+    )
+    flops = flops_per_iter * iterations / dt / n_chips
+    gbps = bytes_per_iter * iterations / dt / n_chips
+    peak = peak_for(platform)
+    return {
+        "model_flops_per_sec_per_chip": round(flops / 1e9, 2),  # GFLOP/s
+        "model_hbm_gbps_per_chip": round(gbps / 1e9, 2),
+        "mfu": round(flops / peak["flops"], 6) if peak else None,
+        "hbm_util": round(gbps / peak["hbm_gbps"], 6) if peak else None,
+    }
+
+
 # bytes per factor element by serving dtype (mirrors ops/quantize.py;
 # duplicated here so the obs layer never imports the ops layer)
 _FACTOR_BYTES = {"f32": 4.0, "bf16": 2.0, "int8": 1.0}
+
+# The H100's global-memory sector: a load reads whole 32-byte sectors, so a
+# gathered factor row of k·s bytes costs ceil(k·s / 32) of them.
+SECTOR_BYTES = 32.0
+
+
+def als_train_cost_amplified(
+    n_ratings: int, n_users: int, n_items: int, rank: int, dtype: str = "f32"
+) -> tuple[float, float]:
+    """:func:`als_train_cost` with the gather term a row gather pays on the
+    card: each gathered row reads whole sectors (:data:`SECTOR_BYTES`), 64 B
+    for a rank-10 f32 row of 40 B. The plain version's gather
+    (``index_select`` of the opposite rows, then the products) is what this
+    models."""
+    k = rank
+    s = _FACTOR_BYTES.get(dtype, 4.0)
+    flops, _ = als_train_cost(n_ratings, n_users, n_items, rank, dtype)
+    ents = n_users + n_items
+    row = math.ceil(k * s / SECTOR_BYTES) * SECTOR_BYTES
+    nbytes = (
+        n_ratings * 2 * (row + 12)  # sector reads + idx/rat/msk streams
+        + ents * k * (4 + s)  # factor write (f32) + opposite read
+    )
+    return float(flops), float(nbytes)
+
+
+def fused_train_vread_bytes(
+    n_users: int, n_items: int, rank: int, compute_dtype: str = "f32"
+) -> float:
+    """Bytes of kernel 2's opposite-factor read over one iteration (both
+    half-steps), each side's opposite matrix once at the compute dtype plus
+    the per-row f32 scale column when int8. Kernel 2 reads a slot's row from
+    global memory each time the slot comes up; the opposite matrix (6.5 MB
+    for ML-25M's users at rank 10, f32) sits in the card's 50 MB L2, so the
+    memory reads it once, as ``chip_smoke.py``'s ``train_bound`` counts."""
+    s = _FACTOR_BYTES.get(compute_dtype, 4.0)
+    ents = float(n_users + n_items)
+    nbytes = ents * rank * s
+    if compute_dtype == "int8":
+        nbytes += ents * 4.0
+    return nbytes
+
+
+def fused_train_cost(
+    n_ratings: int, n_users: int, n_items: int, rank: int,
+    compute_dtype: str = "f32", slots: Optional[int] = None,
+    rows: Optional[int] = None,
+) -> tuple[float, float]:
+    """Analytic (FLOPs, bytes) of ONE ALS iteration through kernel 2.
+
+    Bytes are what ``chip_smoke.py``'s ``train_bound`` counts for the two
+    half-steps, so the live gauge and the bound agree:
+
+    * 12 B of idx/rat/msk a slot (``slots``: the buckets' padded n_b·D of
+      both sides; 2·n_ratings when not given);
+    * the opposite matrices once (:func:`fused_train_vread_bytes`);
+    * A (k²), b (k) and cnt (1) written in f32 for each bucket row
+      (``rows``: both sides' bucket rows; n_users + n_items when not given).
+
+    FLOPs are :func:`als_train_cost`'s (the same contraction and Cholesky).
+    """
+    k = rank
+    flops, _ = als_train_cost(n_ratings, n_users, n_items, rank)
+    slots = 2 * n_ratings if slots is None else slots
+    rows = n_users + n_items if rows is None else rows
+    nbytes = (
+        float(slots) * 12.0  # idx/rat/msk streams, both sides
+        + fused_train_vread_bytes(n_users, n_items, rank, compute_dtype)
+        + float(rows) * (k * k + k + 1) * 4.0  # A, b and cnt written
+    )
+    return float(flops), float(nbytes)
 
 
 def score_cost(
@@ -227,3 +376,60 @@ class DeviceUtilization:
             "mfu": round(flops_per_s / peak["flops"], 9) if peak else None,
             "hbm_util": round(gbps / peak["hbm_gbps"], 9) if peak else None,
         }
+
+
+# -- train-side recorder ------------------------------------------------------
+# `pio train` has no HTTP server to scrape, so the train loop records into
+# a process-global accountant; the CLI and tests read the snapshot, and the
+# loop logs a utilization line per iteration so a long train is visible live.
+
+_train_lock = threading.Lock()
+_train_acc: Optional[DeviceUtilization] = None
+
+
+def train_recorder(platform: Optional[str] = None) -> DeviceUtilization:
+    """The process-global training accountant (created on first use, and
+    anew when ``platform`` names another row)."""
+    global _train_acc
+    with _train_lock:
+        if _train_acc is None or (
+            platform is not None and _train_acc.platform != platform
+        ):
+            _train_acc = DeviceUtilization(platform=platform)
+        return _train_acc
+
+
+def train_snapshot() -> Optional[dict]:
+    with _train_lock:
+        acc = _train_acc
+    return acc.snapshot() if acc is not None else None
+
+
+# -- on-demand profile capture ------------------------------------------------
+
+
+def capture_profile(ms: int, out_dir: Optional[str] = None) -> str:
+    """Run ``torch.profiler`` for a bounded window; return the directory of
+    its Chrome trace (``trace.json``).
+
+    Blocks the calling thread for ``ms`` milliseconds while the rest of the
+    process keeps serving — exactly what the query server's ``POST
+    /debug/profile`` wants. The profiler is process-global: one capture at
+    a time (``utils/profiling.profiled``). Traces land under
+    ``<basedir>/profiles/<stamp>-<pid>`` unless ``out_dir`` overrides.
+    Kernel 1 launches through ``ctypes``, not as a torch op: its device
+    events come from CUPTI, which sees the whole process; host-side op
+    events come from the threads the profiler follows.
+    """
+    from predictionio_tpu_torch.utils.fs import pio_base_dir
+    from predictionio_tpu_torch.utils.profiling import profiled
+
+    ms = max(1, int(ms))
+    if out_dir is None:
+        stamp = time.strftime("%Y%m%d-%H%M%S", time.gmtime())
+        out_dir = os.path.join(
+            pio_base_dir(), "profiles", f"{stamp}-{os.getpid()}"
+        )
+    with profiled(os.path.join(out_dir, "trace.json")):
+        time.sleep(ms / 1e3)
+    return out_dir

@@ -186,6 +186,10 @@ def _library():
         if _lib is None:
             from predictionio_tpu_torch.ops import _build
 
+            # built at warm-up: the fast path launches every rung from
+            # BucketedScorer.__init__ before the first request, so a request
+            # finds the library loaded
+            # pio: ignore[hotpath-jit-in-request]
             lib = ctypes.CDLL(str(_build.library("score_topk")))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.pio_score_topk.argtypes = [p] * 10 + [i] * 8 + [p]

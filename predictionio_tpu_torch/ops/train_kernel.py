@@ -51,6 +51,13 @@ package's VMEM budget and its demotion to the XLA path (``fits_vmem``,
 :data:`launches` counts kernel 2's launches (one per call: one or two CUDA
 grids), :data:`gather_launches` kernel 3's and :data:`segment_launches` the
 segment kernel's.
+
+:func:`record_stats` / :func:`stats` / :func:`reset_stats` (``ops/
+train_kernel.py:121-140``) hold what the most recent training in this
+process resolved (``backend`` ``cuda`` when its tensors were on a card,
+``cpu`` for the plain versions; the compute dtype; the opposite factors'
+bytes on the card; the analytic intensity), which
+``obs/bridges.bridge_train_kernel`` exports as ``pio_train_kernel_*``.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops._build import KernelError
+from predictionio_tpu_torch.ops.quantize import FACTOR_BYTES
 from predictionio_tpu_torch.ops.score_kernel import LaunchCounter
 from predictionio_tpu_torch.ops.segment import segment_sum
 
@@ -83,6 +91,43 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 launches = LaunchCounter()
 gather_launches = LaunchCounter()
 segment_launches = LaunchCounter()
+
+
+# -- live stats for the /metrics bridge ---------------------------------------
+# models/als.py records the resolved dispatch here when a training starts;
+# the obs bridge (obs/bridges.py) exports it as pio_train_kernel_* without
+# the obs layer ever importing training internals at scrape time.
+
+_stats_lock = threading.Lock()
+_stats: dict = {}
+
+
+def record_stats(**kw) -> None:
+    """Merge a training's facts (backend, compute_dtype, resident bytes,
+    analytic intensity) into the module-global stats the bridge scrapes."""
+    with _stats_lock:
+        _stats.update(kw)
+
+
+def stats() -> dict:
+    with _stats_lock:
+        return dict(_stats)
+
+
+def reset_stats() -> None:
+    with _stats_lock:
+        _stats.clear()
+
+
+def resident_bytes(n_opp: int, rank: int, compute_dtype: str = "f32") -> float:
+    """Bytes of the opposite factors a half-step reads on the card: the
+    matrix at the compute dtype plus the per-row f32 scale column when
+    int8 (the JAX package's VMEM-resident block, ``ops/train_kernel.py:98``)."""
+    b = float(n_opp) * float(rank) * FACTOR_BYTES.get(compute_dtype, 4)
+    if compute_dtype == "int8":
+        b += float(n_opp) * 4.0
+    return b
+
 
 # Kernel 3: the most values (n·k) one call writes (the C source's
 # MAX_ELEMENTS: its flat index is 32-bit).

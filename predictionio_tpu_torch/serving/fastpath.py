@@ -326,6 +326,8 @@ class BucketedScorer:
         """Full factor copies on the card, item dimension padded to the
         kernel's chunk layout (zero rows, masked; unit scales)."""
         dev = self.ctx.device
+        # construction-time: before the scorer is shared
+        # pio: ignore[race-unguarded-rebind]
         self._n_items_pad = _score_kernel.pad_block_items(self.n_items)
         pad_i = self._n_items_pad - self.n_items
         U = factors_to_tensor(np.asarray(user_factors), dev)
@@ -342,7 +344,10 @@ class BucketedScorer:
             )
         # (U, V, U scales, V scales): rebound whole by apply_delta_rows and
         # read once a launch, so a launch never mixes two generations' rows
+        # pio: ignore[race-unguarded-rebind]
         self._factors = (U, V, Us, Vs)
+        # construction-time: before the scorer is shared
+        # pio: ignore[race-unguarded-rebind]
         self._item_pad_mask = self.ctx.replicate(
             np.arange(self._n_items_pad) >= self.n_items
         )
@@ -362,9 +367,13 @@ class BucketedScorer:
         index = self.ivf_index
         index.validate(self.n_items)
         layout = _sharding.build_layout(index.plan, _score_kernel.pad_block_items)
+        # construction-time: before the scorer is shared
+        # pio: ignore[race-unguarded-rebind]
         self._ivf_layout = layout
         self._n_items_pad = layout.cap_pad
         self._exact_items_pad = _score_kernel.pad_block_items(self.n_items)
+        # construction-time: before the scorer is shared
+        # pio: ignore[race-unguarded-rebind]
         self._local_k = min(self.k, layout.cap_pad)
         # deploy-time probe budget: PIO_IVF_NPROBE overrides the published
         # default, clamped to [1, nlist]
@@ -375,6 +384,8 @@ class BucketedScorer:
         # P smallest clusters' sizes sum to >= k), so padding never wins
         sizes = np.sort(index.plan.shard_sizes())
         self._min_probes = int(np.searchsorted(np.cumsum(sizes), self.k) + 1)
+        # construction-time: before the scorer is shared
+        # pio: ignore[race-unguarded-rebind]
         self._probes = {
             b: min(index.nlist, max(self._min_probes, self._nprobe * b)) for b in self.buckets
         }
@@ -386,6 +397,8 @@ class BucketedScorer:
         # global item id -> its slot, for delta rows and per-query filters
         self._slot_of = np.empty(self.n_items, np.int64)
         real = np.flatnonzero(~pad_mask)
+        # built once during construction, read-only under traffic
+        # pio: ignore[race-unguarded-rmw]
         self._slot_of[gid[real]] = real
         U = factors_to_tensor(np.asarray(user_factors), dev)
         V = factors_to_tensor(layout.take_rows(np.asarray(item_factors)), dev)
@@ -427,9 +440,13 @@ class BucketedScorer:
                 shard_axes = (_mesh.HOST_AXIS, _mesh.DATA_AXIS)
             except ValueError as e:
                 logger.warning("pod layout rejected (%s); serving the flat merge instead", e)
+                # construction-time: before the scorer is shared
+                # pio: ignore[race-unguarded-rebind]
                 self._pod = False
         if not self._pod:
             sc = self.ctx.submesh(plan.n_shards)
+        # construction-time: before the scorer is shared
+        # pio: ignore[race-unguarded-rebind]
         self._shard_ctx = sc
         gid, pad_mask = layout.gid, layout.pad_mask
         # global item id -> its slot, for delta rows and per-query filters
@@ -837,6 +854,7 @@ class BucketedScorer:
                 try:
                     # the new rows are in memory before any launch can read
                     # them, whatever stream it runs on
+                    # pio: ignore[hotpath-block-sync]
                     end.synchronize()
                 except Exception as e:
                     err = _build.as_kernel_error(e, "delta row patch")

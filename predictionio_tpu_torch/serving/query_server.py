@@ -78,8 +78,12 @@ mesh that spans the processes of a launch serves in lockstep only
 (:meth:`QueryServer._pod_lockstep`): ``/readyz`` withholds the group and
 answers 503, and ``/queries.json`` answers 503, as the JAX server does.
 
-Waiting for its ROADMAP item, and raising an error that names it: ``POST
-/debug/profile``, item 15.
+``POST /debug/profile?ms=N`` captures a ``torch.profiler`` window of the
+live server (``obs/devprof.capture_profile``: a Chrome trace under
+``<basedir>/profiles/``), guarded by ``PIO_PROFILE_ENDPOINT`` (``0``
+answers 403), bounded at 10,000 ms and single-flight (409), as the JAX
+server's; ``pio_profile_captures_total`` and
+``pio_profile_last_capture_unix`` count them.
 """
 
 from __future__ import annotations
@@ -124,6 +128,7 @@ from predictionio_tpu_torch.core.workflow import (
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.obs import bridges as _bridges
+from predictionio_tpu_torch.obs import devprof as _devprof
 from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.ops import _build, score_kernel
 from predictionio_tpu_torch.ops._build import KernelError
@@ -275,6 +280,10 @@ class QueryServer:
         self._draining = False
         self.drain_timeout_ms = float(os.environ.get("PIO_DRAIN_TIMEOUT_MS", 5000.0))
         self._rl_log = RateLimitedLogger(logger)
+        # on-demand profile capture (POST /debug/profile): single-flight
+        self._profile_lock = threading.Lock()
+        self._profile_captures = 0
+        self._profile_last_unix = 0.0
         # the feedback poster rides the shared retry/breaker policy: a dead
         # event server trips the breaker and feedback drops fast (counted)
         self._feedback_policy = RetryPolicy(max_attempts=3, base_backoff_s=0.1)
@@ -584,6 +593,7 @@ class QueryServer:
         )
         # one rebind on the reload thread before the worker starts: readers
         # see None or the whole state
+        # pio: ignore[race-unguarded-rebind]
         self._streaming = st
         # catch-up before readmission: replay every epoch already sealed
         self._streaming_catch_up(st)
@@ -736,6 +746,14 @@ class QueryServer:
                 return cache.stats_dict()
         return None
 
+    @staticmethod
+    def _train_kernel_stats() -> Optional[dict]:
+        """Training-kernel dispatch stats recorded by the most recent
+        in-process train (None until one runs)."""
+        from predictionio_tpu_torch.ops import train_kernel
+
+        return train_kernel.stats() or None
+
     def _register_metrics(self) -> None:
         """Expose every serving stat on the obs registry, making
         ``/metrics`` the single source of truth for this server. Each
@@ -782,6 +800,9 @@ class QueryServer:
             lambda: (self._fastpath_stats() or {}).get("devprof"),
             lambda: self._serving_gen,
         )
+        # pio_train_kernel_*: kernel 2's dispatch recorded by the most recent
+        # in-process train (empty — and silent — until one runs)
+        _bridges.bridge_train_kernel(reg, self._train_kernel_stats)
         if self._result_cache is not None:
             _bridges.bridge_result_cache(reg, self._result_cache.stats)
         reg.gauge_fn(
@@ -835,6 +856,14 @@ class QueryServer:
                 F("pio_draining", "gauge",
                   "1 while the server is draining toward shutdown.",
                   [("", (), 1.0 if self._draining else 0.0)]),
+                F("pio_profile_captures_total", "counter",
+                  "On-demand torch.profiler captures served by "
+                  "POST /debug/profile.",
+                  [("", (), float(self._profile_captures))]),
+                F("pio_profile_last_capture_unix", "gauge",
+                  "Wall-clock time of the most recent profile capture "
+                  "(0 when none has run).",
+                  [("", (), float(self._profile_last_unix))]),
             ]
 
         reg.register_collector(_serving_families)
@@ -1119,9 +1148,11 @@ class QueryServer:
                 # fire-and-forget: the caller already has its answer, so
                 # there is no deadline to propagate; the fixed timeout and
                 # the breaker bound the loop instead
+                # pio: ignore[deadline-drop]
                 urllib.request.urlopen(req, timeout=5).close()
 
             try:
+                # pio: ignore[deadline-not-forwarded] (see post() above)
                 call_with_resilience(post, self._feedback_policy, breaker=self._feedback_breaker)
             except BreakerOpen:
                 # event server is down: drop fast (counted) instead of each
@@ -1484,6 +1515,41 @@ class QueryServer:
 
             threading.Thread(target=_stop, daemon=True).start()
             return json_response(200, {"message": "Shutting down."})
+
+        @svc.route("POST", r"/debug/profile")
+        def profile_route(req: Request):
+            # guarded, bounded, single-flight: torch.profiler is process-
+            # global, so concurrent captures are refused (409) rather than
+            # queued; the window is capped so a fat-fingered ms can't hold
+            # the profiler open for minutes
+            if os.environ.get("PIO_PROFILE_ENDPOINT", "1") == "0":
+                return json_response(
+                    403,
+                    {"message": "profile endpoint disabled "
+                     "(PIO_PROFILE_ENDPOINT=0)"},
+                )
+            try:
+                ms = int(req.params.get("ms") or 500)
+            except (TypeError, ValueError):
+                return json_response(400, {"message": "ms must be an integer"})
+            ms = max(1, min(ms, 10_000))
+            if not self._profile_lock.acquire(blocking=False):
+                return json_response(
+                    409, {"message": "a profile capture is already running"}
+                )
+            try:
+                path = _devprof.capture_profile(ms)
+            except Exception as e:
+                self._rl_log.exception("profile", "profile capture failed")
+                return json_response(
+                    500, {"message": f"profile capture failed: {e}"}
+                )
+            finally:
+                self._profile_lock.release()
+            with self._lock:
+                self._profile_captures += 1
+                self._profile_last_unix = time.time()
+            return json_response(200, {"path": path, "ms": ms})
 
         @svc.route("GET", r"/plugins\.json")
         def plugins_route(req: Request):

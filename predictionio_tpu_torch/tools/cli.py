@@ -53,9 +53,20 @@ seal|show`` check configs and inspect a live server.
 launch`` taking its 1/N. ``status`` shows each repository's source and
 driver type (``jdbc→postgres`` for a JDBC source with a postgres URL).
 
-``template list|get`` knows the seven templates the port serves; the
-JAX package's ``python`` template (pypio) fails with an error that names
-ROADMAP item 15; the other verbs of the JAX CLI are not here at all.
+``template list|get`` knows the eight templates the port serves, the
+``python`` template (pypio's :class:`~predictionio_tpu_torch.pypio.
+PythonEngine`, whose models are trained outside ``pio train``) among them.
+
+The operator tools: ``profile`` captures a ``torch.profiler`` window off a
+live query server (``POST /debug/profile``) while driving load through it
+and prints the utilization picture against the port's peak table (the
+H100's row on the card); ``analyze`` runs the port's static analysis
+(``predictionio_tpu_torch/analysis``) over a checkout; ``adminserver`` and
+``dashboard`` serve the admin plane and the evaluation dashboard (host
+code, no CUDA context); ``shell`` opens a Python console with pypio
+preloaded; ``run`` calls a dotted callable in-process (a JAX-package path
+resolves to the port's counterpart or is refused); ``upgrade`` reports
+that the storage schemas migrate themselves.
 """
 
 from __future__ import annotations
@@ -82,12 +93,6 @@ def _storage():
 def _die(msg: str, code: int = 1) -> int:
     print(f"[ERROR] {msg}", file=sys.stderr)
     return code
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to predictionio_tpu_torch yet (ROADMAP §1 item {item})"
-    )
 
 
 # -- engine.json handling ----------------------------------------------------
@@ -169,6 +174,7 @@ BUILTIN_TEMPLATES = {
     "universalrecommender": (
         "predictionio_tpu_torch.templates.universal.UniversalRecommenderEngine"
     ),
+    "python": "predictionio_tpu_torch.pypio.PythonEngine",
 }
 
 
@@ -1144,8 +1150,6 @@ def cmd_template(args) -> int:
         return 0
     if args.template_command == "get":
         name = args.name
-        if name == "python":
-            raise _not_ported("the python template (pypio)", 15)
         if name not in BUILTIN_TEMPLATES:
             return _die(f"Unknown template {name}. Try `pio template list`.")
         directory = args.directory or name
@@ -1166,6 +1170,226 @@ def cmd_template(args) -> int:
         print(f"[INFO] Engine skeleton created at {path}")
         return 0
     return _die(f"unknown template command {args.template_command}")
+
+
+def cmd_shell(args) -> int:
+    """Interactive console with the framework preloaded (parity role:
+    bin/pio-shell's sbt console — here a Python REPL with pypio ready)."""
+    import code
+
+    from predictionio_tpu_torch import pypio
+    from predictionio_tpu_torch.data.store import LEventStore, PEventStore
+
+    ns = {
+        "pypio": pypio,
+        "PEventStore": PEventStore,
+        "LEventStore": LEventStore,
+        "storage": _storage(),
+    }
+    banner = (
+        "predictionio_tpu_torch shell — preloaded: pypio, PEventStore, "
+        "LEventStore, storage (the PIO_STORAGE_* backends).\n"
+        "Start with pypio.init(); try pypio.find_events(app_name=...)."
+    )
+    code.interact(banner=banner, local=ns, exitmsg="")
+    return 0
+
+
+def cmd_adminserver(args) -> int:
+    from predictionio_tpu_torch.tools.admin import AdminServer
+
+    server = AdminServer(storage=_storage())
+    port = server.start(args.ip, args.port)
+    print(f"[INFO] Admin Server is listening at http://{args.ip}:{port}", flush=True)
+    try:
+        server.service.serve_forever()
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
+def cmd_dashboard(args) -> int:
+    from predictionio_tpu_torch.tools.dashboard import Dashboard
+
+    server = Dashboard(storage=_storage())
+    port = server.start(args.ip, args.port)
+    print(f"[INFO] Dashboard is listening at http://{args.ip}:{port}", flush=True)
+    try:
+        server.service.serve_forever()
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Parity: `pio run <main-class>` — execute a dotted callable in-process
+    (a JAX-package path resolves to the port's counterpart or is refused)."""
+    from predictionio_tpu_torch.core.persistence import resolve_class
+
+    obj = resolve_class(args.main)
+    result = obj(*args.args) if callable(obj) else None
+    if result is not None:
+        print(result)
+    return 0
+
+
+def cmd_upgrade(args) -> int:
+    # parity: Console "upgrade" verb — storage schemas here are
+    # self-migrating (CREATE IF NOT EXISTS), so this is informational
+    print(f"[INFO] predictionio_tpu_torch {__version__}: storage schemas are "
+          "current; nothing to upgrade.")
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """``pio profile``: capture a ``torch.profiler`` window off a live query
+    server while driving load through it, then print the utilization
+    picture (MFU / memory / busy share) next to the client quantiles. The
+    capture runs in a background thread so the loadtest traffic is what the
+    profiler sees; size ``--requests`` so the run outlasts ``--ms``."""
+    import http.client
+    import threading
+
+    from predictionio_tpu_torch.tools.loadtest import (
+        run_loadtest, scrape_metrics, summarize_metrics,
+    )
+
+    url = f"http://{args.ip}:{args.port}"
+    capture: dict = {}
+
+    def _capture() -> None:
+        conn = http.client.HTTPConnection(args.ip, args.port, timeout=args.ms / 1e3 + 30.0)
+        try:
+            conn.request("POST", f"/debug/profile?ms={args.ms}")
+            resp = conn.getresponse()
+            body = resp.read().decode("utf-8", "replace")
+            if resp.status == 200:
+                capture.update(json.loads(body))
+            else:
+                capture["error"] = f"HTTP {resp.status}: {body[:200]}"
+        except Exception as e:
+            capture["error"] = str(e)
+        finally:
+            conn.close()
+
+    t = threading.Thread(target=_capture, name="pio-profile-capture")
+    t.start()
+    result = run_loadtest(
+        url=url,
+        query=json.loads(args.query),
+        requests=args.requests,
+        concurrency=args.concurrency,
+    )
+    t.join()
+    try:
+        metrics = summarize_metrics(scrape_metrics(url))
+    except Exception as e:
+        metrics = {"error": str(e)}
+
+    if capture.get("path"):
+        print(f"[INFO] profile trace ({args.ms} ms): {capture['path']}")
+    else:
+        print(f"[WARN] profile capture failed: {capture.get('error')}")
+    print(
+        f"[INFO] loadtest: ok={result['ok']} errors={result['errors']} "
+        f"qps={result['qps']} p50={result['p50Ms']}ms p99={result['p99Ms']}ms"
+    )
+    busy = metrics.get("deviceBusyFraction")
+    if busy is None:
+        print("[WARN] no pio_device_* series on /metrics — the server has "
+              "not recorded a cost-annotated dispatch yet")
+    else:
+        mfu = metrics.get("deviceMfu")
+        hbm = metrics.get("deviceHbmUtil")
+        gflops = (metrics.get("deviceFlopsPerSec") or 0.0) / 1e9
+        print(
+            f"[INFO] device: busy={busy * 100:.2f}%  {gflops:.2f} GFLOP/s"
+            + (f"  MFU={mfu * 100:.4f}%" if mfu is not None else "")
+            + (f"  HBM={metrics.get('deviceHbmGbps'):.3f} GB/s "
+               f"({hbm * 100:.4f}% of peak)" if hbm is not None else "")
+        )
+        if mfu is not None and hbm is not None:
+            bound = "HBM-bandwidth" if hbm >= mfu else "compute"
+            print(f"[INFO] roofline: {bound}-bound at this batch mix "
+                  "(peaks: obs/devprof.PEAKS, the card's row)")
+    if metrics.get("slowTraces") is not None:
+        print(f"[INFO] slow traces retained: {int(metrics['slowTraces'])} "
+              "(GET /trace/slow.json)")
+    print(json.dumps({
+        "profile": capture,
+        "loadtest": {k: result.get(k) for k in ("ok", "errors", "qps", "p50Ms", "p99Ms")},
+        "serverMetrics": metrics,
+    }))
+    return 0 if capture.get("path") and result["errors"] == 0 else 1
+
+
+def _git_changed(root: str) -> set[str]:
+    """Repo-relative paths that differ from HEAD, plus untracked files."""
+    import subprocess
+
+    paths: set[str] = set()
+    for argv in (
+        ["git", "diff", "--name-only", "HEAD"],
+        ["git", "ls-files", "--others", "--exclude-standard"],
+    ):
+        out = subprocess.run(argv, cwd=root, capture_output=True, text=True, check=False)
+        if out.returncode != 0:
+            raise RuntimeError(f"--changed-only needs a git checkout: {out.stderr.strip()}")
+        paths.update(p.strip() for p in out.stdout.splitlines() if p.strip())
+    return paths
+
+
+def cmd_analyze(args) -> int:
+    """The port's static analysis over a checkout (``analysis/``): the
+    port's package and ``chip_smoke.py``, against ``docs/*.md`` and
+    ``README.md``, with the port's own baseline file."""
+    import importlib
+
+    from predictionio_tpu_torch.analysis import core
+
+    # import-for-effect: the package __init__ registers every analyzer
+    importlib.import_module("predictionio_tpu_torch.analysis")
+    if args.list_rules:
+        for name in sorted(core.ANALYZER_RULES):
+            for rid in core.ANALYZER_RULES[name]:
+                r = core.RULES[rid]
+                print(f"{rid:28} {r.severity:8} [{name}] {r.summary}")
+        return 0
+    root = args.root
+    names = args.analyzers.split(",") if args.analyzers else None
+    changed = _git_changed(root) if args.changed_only else None
+    baseline_path = args.baseline or os.path.join(root, core.BASELINE_NAME)
+    if args.graph:
+        from predictionio_tpu_torch.analysis import lockorder
+
+        print(lockorder.to_dot(core.RepoIndex(root)), end="")
+        return 0
+    if args.prune_baseline:
+        removed = core.prune_baseline(baseline_path, core.RepoIndex(root))
+        for key in removed:
+            print(f"[INFO] pruned stale baseline entry {key}")
+        print(f"[INFO] {len(removed)} stale entr"
+              f"{'y' if len(removed) == 1 else 'ies'} pruned from {baseline_path}")
+        return 0
+    rep = core.run(
+        root,
+        analyzers=names,
+        # "" never names a file, so a --write-baseline run sees every
+        # finding instead of hiding the currently-acknowledged ones
+        baseline_path="" if args.write_baseline else baseline_path,
+        changed_only=changed,
+    )
+    if args.write_baseline:
+        core.write_baseline(baseline_path, rep.findings)
+        print(f"[INFO] Acknowledged {len(rep.findings)} finding(s) in {baseline_path}")
+        return 0
+    if args.format == "json":
+        print(json.dumps(rep.to_dict(), indent=2))
+    elif args.format == "sarif":
+        print(json.dumps(core.to_sarif(rep), indent=2))
+    else:
+        print(rep.render())
+    return 1 if rep.errors else 0
 
 
 # -- parser -------------------------------------------------------------------
@@ -1577,6 +1801,80 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("name")
     x.add_argument("--directory", default=None)
     sp.set_defaults(func=cmd_template)
+
+    sp = sub.add_parser("adminserver")
+    sp.add_argument("--ip", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=7071)
+    sp.set_defaults(func=cmd_adminserver)
+
+    sp = sub.add_parser("dashboard")
+    sp.add_argument("--ip", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=9000)
+    sp.set_defaults(func=cmd_dashboard)
+
+    sp = sub.add_parser(
+        "profile",
+        help="capture a device profile off a live query server under "
+        "load and print the MFU/HBM/roofline summary",
+    )
+    sp.add_argument("--ip", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8000)
+    sp.add_argument("--query", default='{"user": "u1", "num": 10}')
+    sp.add_argument(
+        "--ms", type=int, default=500,
+        help="profiler capture window in milliseconds (server caps at 10s)",
+    )
+    sp.add_argument(
+        "--requests", type=int, default=500,
+        help="loadtest requests driven through the capture window — size "
+        "it so the traffic outlasts --ms",
+    )
+    sp.add_argument("--concurrency", type=int, default=8)
+    sp.set_defaults(func=cmd_profile)
+
+    sub.add_parser("upgrade").set_defaults(func=cmd_upgrade)
+
+    sub.add_parser("shell").set_defaults(func=cmd_shell)
+
+    sp = sub.add_parser("run")
+    sp.add_argument("main")
+    sp.add_argument("args", nargs="*")
+    sp.set_defaults(func=cmd_run)
+
+    sp = sub.add_parser(
+        "analyze",
+        help="whole-repo static analysis of the port: hot-path hazards, "
+        "races, knob/metric contract drift, ctypes/CUDA prototype drift",
+    )
+    sp.add_argument("--root", default=".", help="repo root to analyze (default: cwd)")
+    sp.add_argument("--format", choices=("human", "json", "sarif"), default="human")
+    sp.add_argument("--analyzers", default=None,
+                    help="comma-separated subset (default: all registered)")
+    sp.add_argument(
+        "--changed-only", action="store_true",
+        help="report only findings in files changed vs HEAD (plus "
+        "untracked); analyzers still see the whole repo",
+    )
+    sp.add_argument("--baseline", default=None,
+                    help="baseline path (default: <root>/.pio-torch-analysis-baseline.json)")
+    sp.add_argument(
+        "--write-baseline", action="store_true",
+        help="acknowledge every current finding into the baseline "
+        "instead of reporting",
+    )
+    sp.add_argument("--list-rules", action="store_true",
+                    help="print the rule catalog and exit")
+    sp.add_argument(
+        "--graph", choices=("lockorder",), default=None,
+        help="dump an analysis graph as DOT instead of findings "
+        "(lockorder: the global lock-order graph, cycles in red)",
+    )
+    sp.add_argument(
+        "--prune-baseline", action="store_true",
+        help="drop baseline entries whose rule/file/symbol no longer "
+        "resolves (reported as baseline-stale warnings otherwise)",
+    )
+    sp.set_defaults(func=cmd_analyze)
     return p
 
 

@@ -1,52 +1,99 @@
-"""Serving stage timing and latency histograms.
+"""Device traces, serving stage timing and latency histograms.
 
 Counterpart of ``predictionio_tpu/utils/profiling.py``:
 
-* :func:`trace` with ``stage=`` charges the enclosed wall time to that
+* :func:`trace` — context manager around ``torch.profiler`` (CPU and, with
+  a card, CUDA activities, every thread of the process) writing a Chrome
+  trace of the block (set ``PIO_PROFILE_DIR`` or pass ``log_dir``; no-op
+  otherwise). With ``stage=`` it charges the enclosed wall time to that
   stage on every active obs trace (:mod:`predictionio_tpu_torch.obs.tracing`)
   — the serving pipeline's device-compute hook.
+* :func:`profiled` — the capture both use, ``obs/devprof.capture_profile``
+  too: the profiler is process-global, so captures take turns.
 * :class:`LatencyHistogram` — log-bucketed latency histogram with
   p50/p90/p99 readout, used by the query server per request.
-
-The JAX module's device-trace capture (``log_dir`` / ``PIO_PROFILE_DIR``,
-around ``jax.profiler``) is the ``pio profile`` tool of ROADMAP §1 item 15
-(it would run on ``torch.profiler``); asking for it raises naming that item.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import os
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 
+_profile_lock = threading.Lock()
 
-def _profile_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "device-trace capture (log_dir / PIO_PROFILE_DIR) is not ported to "
-        "predictionio_tpu_torch yet (ROADMAP §1 item 15)"
-    )
+
+@contextlib.contextmanager
+def profiled(path: str):
+    """Profile the block with ``torch.profiler`` and write its Chrome trace
+    to ``path`` (its directory is made). CPU activity always, CUDA activity
+    when a card is there; every thread of the process where this torch
+    offers it (``profile_all_threads``), since the batcher's worker and not
+    the caller launches the kernels. One capture at a time in a process."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        extra = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        extra = {}
+    with _profile_lock:
+        with profile(activities=activities, **extra) as prof:
+            yield
+            if torch.cuda.is_available() and torch.cuda.is_initialized():
+                # the block's kernels finish inside the window
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+
+
+_trace_seq = itertools.count()
+
+
+def _trace_path(log_dir: str) -> str:
+    stamp = time.strftime("%Y%m%d-%H%M%S", time.gmtime())
+    return os.path.join(log_dir, f"{stamp}-{os.getpid()}-{next(_trace_seq)}.pt.trace.json")
 
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None, stage: Optional[str] = None):
-    """Charge the block's wall time to ``stage`` on the active traces.
+    """Capture a device trace if a profile dir is configured; else no-op.
 
-    Without ``stage`` and without a profile directory this is a no-op; a
-    profile directory (``log_dir``, or ``PIO_PROFILE_DIR`` when no stage is
-    given) raises: capture is ROADMAP §1 item 15.
+    With ``stage=`` this doubles as the serving pipeline's device-compute
+    hook: the enclosed wall time is charged to that stage on every active
+    obs trace (:mod:`predictionio_tpu_torch.obs.tracing`). Stage mode does
+    NOT consult ``PIO_PROFILE_DIR`` — it runs once per micro-batch, and
+    starting and stopping the profiler at that cadence would trash the
+    trace it exists to produce; pass ``log_dir`` explicitly to combine both.
+    The trace is ``<log_dir>/<stamp>-<pid>-<n>.pt.trace.json``.
     """
-    if log_dir or (stage is None and os.environ.get("PIO_PROFILE_DIR")):
-        raise _profile_not_ported()
-    if stage is None:
+    if stage is not None:
+        from predictionio_tpu_torch.obs import tracing as _obs_tracing
+
+        if log_dir:
+            with profiled(_trace_path(log_dir)):
+                with _obs_tracing.stage(stage):
+                    yield
+            return
+        with _obs_tracing.stage(stage):
+            yield
+        return
+    log_dir = log_dir or os.environ.get("PIO_PROFILE_DIR")
+    if not log_dir:
         yield
         return
-    from predictionio_tpu_torch.obs import tracing as _obs_tracing
-
-    with _obs_tracing.stage(stage):
+    with profiled(_trace_path(log_dir)):
         yield
 
 

@@ -334,8 +334,9 @@ def test_waiting_options_name_their_roadmap_item(tmp_path, monkeypatch, capsys, 
     monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path))
     monkeypatch.chdir(tmp_path)
     Storage.reset_instance()
-    if argv[0] == "template" and item == 11:
-        # item 11 is ported: the template's skeleton names the port's engine
+    if argv[0] == "template" and item in (11, 15):
+        # items 11 and 15 are ported: the template's skeleton names the
+        # port's engine (the python template's is pypio's PythonEngine)
         assert port_cli.main(argv) == 0
         variant = json.loads((tmp_path / argv[2] / "engine.json").read_text())
         assert variant["engineFactory"] == port_cli.BUILTIN_TEMPLATES[argv[2]]

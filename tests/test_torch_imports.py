@@ -122,6 +122,17 @@ print(" ".join(names))
         "predictionio_tpu_torch.templates.ecommerce",
         "predictionio_tpu_torch.templates.similaruser",
         "predictionio_tpu_torch.templates.classification",
+        # operator tools and static analysis
+        "predictionio_tpu_torch.pypio", "predictionio_tpu_torch.tools.admin",
+        "predictionio_tpu_torch.tools.dashboard", "predictionio_tpu_torch.analysis",
+        "predictionio_tpu_torch.analysis.core", "predictionio_tpu_torch.analysis.hygiene",
+        "predictionio_tpu_torch.analysis.knobs",
+        "predictionio_tpu_torch.analysis.metrics_contract",
+        "predictionio_tpu_torch.analysis.races", "predictionio_tpu_torch.analysis.blocking",
+        "predictionio_tpu_torch.analysis.callgraph",
+        "predictionio_tpu_torch.analysis.lockorder",
+        "predictionio_tpu_torch.analysis.deadline", "predictionio_tpu_torch.analysis.hotpath",
+        "predictionio_tpu_torch.analysis.collective",
     } <= names
     # the SASRec training, segment and operators' slices' names, by attribute
     code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "
@@ -138,6 +149,16 @@ print(" ".join(names))
             "from predictionio_tpu_torch.obs.devprof import DeviceUtilization, PEAKS, peak_for; "
             "from predictionio_tpu_torch.serving.result_cache import ResultCache, notify_event; "
             "from predictionio_tpu_torch.tools.scenarios import parse_scenario, run_scenario; "
+            "from predictionio_tpu_torch.obs.devprof import train_recorder, train_snapshot, "
+            "capture_profile, als_train_cost, als_train_cost_amplified, fused_train_cost, "
+            "fused_train_vread_bytes, train_utilization, default_platform; "
+            "from predictionio_tpu_torch.utils.profiling import trace, profiled; "
+            "from predictionio_tpu_torch.ops.train_kernel import record_stats, stats, reset_stats; "
+            "from predictionio_tpu_torch.obs.bridges import bridge_train_kernel; "
+            "from predictionio_tpu_torch.pypio import init, find_events, save_model, PythonEngine; "
+            "from predictionio_tpu_torch.tools.cli import cmd_profile, cmd_analyze, cmd_shell, "
+            "cmd_run, cmd_upgrade, cmd_adminserver, cmd_dashboard; "
+            "from predictionio_tpu_torch.analysis import run, RULES; "
             "from predictionio_tpu_torch.tools.loadtest import run_loadtest, run_ingest_loadtest; "
             "from predictionio_tpu_torch.ops._build import KernelError; "
             "from predictionio_tpu_torch.core.delta import Delta, DeltaLog, DeltaApplier, "

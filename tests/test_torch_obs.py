@@ -173,7 +173,7 @@ def test_tracer_stages_and_sampling_alike(monkeypatch):
     assert port_tracing.TRACE_HEADER == jax_tracing.TRACE_HEADER == "X-Request-Id"
 
 
-def test_profiling_stage_hook_and_histogram_alike(monkeypatch):
+def test_profiling_stage_hook_and_histogram_alike(monkeypatch, tmp_path):
     for prof, tracing in ((jax_prof, jax_tracing), (port_prof, port_tracing)):
         t = tracing.Trace("x")
         with tracing.scope((t,)):
@@ -186,14 +186,15 @@ def test_profiling_stage_hook_and_histogram_alike(monkeypatch):
         for h in hs:
             h.observe(float(v))
     assert hs[0].summary() == hs[1].summary()
-    # the JAX module's device-trace capture is ROADMAP item 15 in the port
-    with pytest.raises(NotImplementedError, match="item 15"):
-        with port_prof.trace(log_dir="/nonexistent"):
-            pass
-    monkeypatch.setenv("PIO_PROFILE_DIR", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        with port_prof.trace():
-            pass
+    # the device-trace capture runs on torch.profiler in the port: a Chrome
+    # trace a block, under log_dir or PIO_PROFILE_DIR
+    with port_prof.trace(log_dir=str(tmp_path / "a")):
+        pass
+    monkeypatch.setenv("PIO_PROFILE_DIR", str(tmp_path / "b"))
+    with port_prof.trace():
+        pass
+    for d in ("a", "b"):
+        assert len(list((tmp_path / d).glob("*.pt.trace.json"))) == 1
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])

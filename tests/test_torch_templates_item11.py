@@ -602,8 +602,9 @@ def test_cli_lists_and_gets_every_template(tmp_path, capsys):
     assert port_cli.main(["template", "list"]) == 0
     listed = capsys.readouterr().out.split()
     names = ("recommendation", "classification", "similarproduct", "similaruser",
-             "ecommercerecommendation", "sequentialrecommendation", "universalrecommender")
-    assert set(names) <= set(listed) and len(port_cli.BUILTIN_TEMPLATES) == 7
+             "ecommercerecommendation", "sequentialrecommendation", "universalrecommender",
+             "python")
+    assert set(names) <= set(listed) and len(port_cli.BUILTIN_TEMPLATES) == 8
     for name in names:
         d = tmp_path / name
         assert port_cli.main(["template", "get", name, "--directory", str(d)]) == 0
