@@ -227,6 +227,32 @@ code is not 0 and the last line is never printed.
              lines equal the sqlite export's, and a ``search`` for a
              property value finds the same ids on sqlite, postgres and the
              network driver.
+12c. columnar-store — the parquet event store on the port's own Parquet
+             codec, on a machine without pyarrow. (a) ``tests/torch_data/
+             jax_parquet_store``, written by the JAX driver with pyarrow (two
+             parts of several row groups, id and properties chunks that fall
+             back from dictionary to PLAIN, a Null ``pr_id``, a WAL with
+             inserts and deletes), reads equal to its ``.npz``: every column
+             and both ``find_interactions`` (arrays and id orders). (b)
+             remote-storage's export of the quickstart's app ``pio import``ed
+             into a basedir whose EVENTDATA is ``TYPE=parquet`` (metadata and
+             models sqlite), ``pio train`` in this process (kernel 2 buckets ×
+             20 launches; the read equal to the quickstart's sqlite read, the
+             factors equal its factors bit for bit; train wall, read seconds
+             and share printed), ``deploy --batching`` from that basedir and
+             the quickstart's first 64 queries (answers equal, kernel 1
+             launches = dispatches). (c) the ML-1M draw (1,000,209 rate events
+             with a rating each) written as one bulk part, 2,000 WAL inserts
+             and 100 deletes, compacted (``promote_numeric`` through the host
+             scanner) by a helper process, and the same events through the
+             port's sqlite driver by another (both started before
+             remote-storage: ``--columnar-worker``); here
+             ``find_interactions`` with ``rating_key`` (the ``pnum_`` path)
+             and without, the first equal to the sqlite read, then 5 dense
+             ``train_als`` iterations from it
+             on the card (kernel 2 buckets × 5); write, compaction and read
+             seconds and bytes on disk printed with the card's name and power
+             limit. The host libraries' build time is printed after ``build``.
 13. serving-ops — the deployed ALS server as operators run it: the
              full-width model of phase 4 published into the sqlite store of
              a fresh ``PIO_FS_BASEDIR``, ``eventserver --stats`` and ``deploy
@@ -526,6 +552,23 @@ code is not 0 and the last line is never printed.
              server's bodies. Dispatch ms and the cross-process merge's staged
              bytes.
 
+Order. Phases 1-11 run one after another in this process, the card
+otherwise idle: every kernel's comparison and timing is made there. Then
+three lanes run side by side, each lane's phases in order: this process
+runs 12, 12b, 12c, 19, 20 and 17 (b); ``chip_smoke.py --lane serving``
+runs 13, 14, 15 and 16; ``--lane dist`` runs 21, 22, 24, 23 and 17 (a),
+the last two on the ML-25M draw it makes again from the seed. Each lane
+is a process of its own (its environment and storage are its own), its
+lines printed here once it ends; a phase line's ``at_s`` counts seconds
+from this run's start in every lane. Most of a lane's time is spent
+waiting on the servers and launches it starts (8-14 s each to import
+torch), so the lanes take about the time of the longest; their own times
+are taken with the others running. Phase 18, ``fleet``, runs last, alone:
+its closed loops hold the router to no client-visible failure. ``nvcc``
+builds the kernels in processes of its own while this process makes the
+ML-25M draw and its degree buckets; every interpreter the run starts
+shares a bytecode cache under ``build/pycache``.
+
 Tolerances. Gather kernel and segment kernel: bit for bit. Score kernel: values within rtol =
 atol = 1e-5; indices equal, except where two reference values lie within
 that tolerance of each other
@@ -572,6 +615,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -592,7 +636,14 @@ PEAK_F32_OPS_S = 67e12
 PEAK_TF32_OPS_S = 495e12
 
 
+T_START = time.perf_counter()  # what each phase line's "at_s" counts from
+if os.environ.get("CHIP_SMOKE_T0"):  # a lane: from the start of the run that spawned it
+    T_START -= time.time() - float(os.environ["CHIP_SMOKE_T0"])
+
+
 def emit(obj) -> None:
+    if "phase" in obj and "at_s" not in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -974,9 +1025,11 @@ def rmse(inter, U, V, device):
     return (se / n) ** 0.5
 
 
-def phase_train_kernels(seed, device):
+def phase_train_kernels(seed, device, inter=None, blocks=None):
     """The training kernel at full width and at the edges; the first
-    iteration's RMSE and this card's time per iteration."""
+    iteration's RMSE and this card's time per iteration. ``inter``: the
+    ML-25M draw of ``seed`` when it was drawn already (beside the build),
+    ``blocks`` its ``_dense_blocks_for`` at this phase's configuration."""
     import numpy as np
     import torch
 
@@ -985,9 +1038,10 @@ def phase_train_kernels(seed, device):
     from predictionio_tpu_torch.ops.quantize import quantize_factors_torch
 
     t0 = time.perf_counter()
-    inter = zipf_interactions(seed, N_USERS, N_ITEMS, N_RATINGS)
+    if inter is None:
+        inter = zipf_interactions(seed, N_USERS, N_ITEMS, N_RATINGS)
     cfg = als.ALSConfig(rank=RANK, iterations=TRAIN_ITERS, seed=seed)
-    ub, ib, u_perm, i_perm = als._dense_blocks_for(inter, cfg)
+    ub, ib, u_perm, i_perm = blocks if blocks is not None else als._dense_blocks_for(inter, cfg)
     gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
     U0 = als._initial_factors(cfg, N_USERS, gen)  # the draw train_als makes
     V0 = als._initial_factors(cfg, N_ITEMS, gen)
@@ -2962,6 +3016,7 @@ def http_json(url, body=None, method=None, timeout=60, raw=None):
 
 
 _HANDED_OUT: set = set()  # every port free_port has returned in this run
+_HANDED_OUT_LOCK = threading.Lock()  # launches started from threads take ports too
 
 
 def free_port() -> int:
@@ -2971,15 +3026,38 @@ def free_port() -> int:
     pair of calls about once in 14,000 on Linux's default range), and two
     servers started together would then share it: the one ready first
     answers for both."""
+    import fcntl
     import socket
 
+    # the lanes of phases run in processes of their own: a file (its name in
+    # CHIP_SMOKE_PORTS) holds every process's ports, under an exclusive lock
+    registry = os.environ.get("CHIP_SMOKE_PORTS")
     while True:
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
-        if port not in _HANDED_OUT:
-            _HANDED_OUT.add(port)
-            return port
+        with _HANDED_OUT_LOCK:
+            if registry is None:
+                if port not in _HANDED_OUT:
+                    _HANDED_OUT.add(port)
+                    return port
+                continue
+            with open(registry, "a+") as f:
+                fcntl.flock(f, fcntl.LOCK_EX)
+                f.seek(0)
+                if str(port) not in f.read().split():
+                    f.write(f"{port}\n")
+                    return port
+
+
+def maps_library(pid: int, name: str) -> bool:
+    """Whether process ``pid`` has a shared library named ``name`` mapped
+    (Linux: /proc/<pid>/maps); False once it is gone."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return name in f.read()
+    except OSError:
+        return False
 
 
 def listens_on(pid: int, port: int) -> bool:
@@ -3040,6 +3118,29 @@ class CliServer:
                 return time.perf_counter() - self.t_spawn
             time.sleep(0.02)
         raise RuntimeError(f"check failed: {self.base}{path} never answered 200: {self.tail()}")
+
+    def watch_ready(self) -> "CliServer":
+        """:meth:`wait_ready` in a thread of its own, so that the caller works
+        on (or starts other servers) while this one starts; :meth:`ready_s`
+        joins it."""
+        import threading
+
+        def run():
+            try:
+                self._ready = self.wait_ready()
+            except Exception as e:  # raised again by ready_s
+                self._ready = e
+
+        self._watch = threading.Thread(target=run, name=f"ready-{self.port}", daemon=True)
+        self._watch.start()
+        return self
+
+    def ready_s(self) -> float:
+        """Seconds from the spawn to readiness, as :meth:`watch_ready` saw them."""
+        self._watch.join()
+        if isinstance(self._ready, Exception):
+            raise self._ready
+        return self._ready
 
     def wait_exit(self, timeout=60) -> None:
         rc = self.proc.wait(timeout=timeout)
@@ -3434,10 +3535,50 @@ def phase_quickstart_cli(seed, device, keep=None):
         out["train_segment"] = {"wall_s": seg_s, "launches": seg_counts}
         emit({"phase": "quickstart-cli", "step": "train-segment", **out["train_segment"]})
 
-        # 4. serve: deploy --batching as a real subprocess
-        qs = CliServer(tmp, "deploy", "deploy", "--engine-dir", eng, "--batching", "--device", device.type)
+        # 4. SASRec through the same verbs: its events and its training
+        seq_key = key_of.search(cli_run("app", "new", QS_SEQ_APP)).group(1)
+        rng = np.random.default_rng(seed + 15)  # phase_sasrec_train_workflow's draw
+        w = zipf_mandelbrot_weights(1000, 1.1)
+        histories = {f"wu{u}": [f"wi{int(i)}" for i in rng.choice(1000, int(rng.integers(20, 301)), p=w)]
+                     for u in range(QS_SAS_USERS)}
+        views = [{"event": "view", "entityType": "user", "entityId": u, "targetEntityType": "item",
+                  "targetEntityId": i, "eventTime": 1_767_225_600.0 + t}
+                 for u, items in histories.items() for t, i in enumerate(items)]
+        es = CliServer(tmp, "eventserver-seq", "eventserver")
+        servers.append(es)
+        es.wait_ready()
+        t0 = time.perf_counter()
+        post_batches(es.base, seq_key, views)
+        seq_post_s = time.perf_counter() - t0
+        require(http_json(f"{es.base}/stop", method="POST")[0] == 202, "POST /stop")
+        es.wait_exit()
+        seng = os.path.join(tmp, "sequentialrecommendation")
+        cli_run("template", "get", "sequentialrecommendation", "--directory", seng)
+        fill_engine_json(os.path.join(seng, "engine.json"), QS_SEQ_APP, [
+            {"name": "sasrec", "params": {
+                "appName": QS_SEQ_APP, "eventNames": ["view"], "dModel": SAS_D,
+                "numLayers": SAS_LAYERS, "numHeads": SAS_HEADS, "maxLen": SAS_MAX_LEN,
+                "epochs": QS_SAS_STEPS, "batchSize": SAS_BATCH, "lr": SAS_LR, "seed": seed}}],
+            eventNames=["view"])
+        cli_run("build", "--engine-dir", seng)
+        reset_flash_counts()  # the path's window
+        t0 = time.perf_counter()
+        trained = cli_run("train", "--engine-dir", seng, "--device", device.type)
+        sas_train_s = time.perf_counter() - t0
+        counts = flash_counts()
+        want = SAS_LAYERS * QS_SAS_STEPS
+        require(counts == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
+                f"pio train (SASRec) flash launches {counts} vs {SAS_LAYERS} layers × {QS_SAS_STEPS} steps")
+        sas_iid = re.search(r"Engine instance ID: (\S+)", trained).group(1)
+        # 5. serve: deploy --batching as a real subprocess, started beside
+        # the SASRec server (each spends most of its start importing torch)
+        qs = CliServer(tmp, "deploy", "deploy", "--engine-dir", eng, "--batching",
+                       "--device", device.type).watch_ready()
         servers.append(qs)
-        ready_s = qs.wait_ready()
+        sas_qs = CliServer(tmp, "deploy-seq", "deploy", "--engine-dir", seng,
+                           "--device", device.type).watch_ready()
+        servers.append(sas_qs)
+        ready_s, sas_ready_s = qs.ready_s(), sas_qs.ready_s()
         status, ready = http_json(f"{qs.base}/readyz")
         require(ready["engineInstanceId"] == iid, f"deployed {ready} vs the dense instance {iid}")
         launched_at_ready = http_json(f"{qs.base}/")[1]["scoreKernelLaunches"]  # after the warm-up
@@ -3509,44 +3650,8 @@ def phase_quickstart_cli(seed, device, keep=None):
                         "topk_mismatches": 0}
         emit({"phase": "quickstart-cli", "step": "serve", **out["serve"]})
 
-        # 5. SASRec through the same verbs
-        seq_key = key_of.search(cli_run("app", "new", QS_SEQ_APP)).group(1)
-        rng = np.random.default_rng(seed + 15)  # phase_sasrec_train_workflow's draw
-        w = zipf_mandelbrot_weights(1000, 1.1)
-        histories = {f"wu{u}": [f"wi{int(i)}" for i in rng.choice(1000, int(rng.integers(20, 301)), p=w)]
-                     for u in range(QS_SAS_USERS)}
-        views = [{"event": "view", "entityType": "user", "entityId": u, "targetEntityType": "item",
-                  "targetEntityId": i, "eventTime": 1_767_225_600.0 + t}
-                 for u, items in histories.items() for t, i in enumerate(items)]
-        es = CliServer(tmp, "eventserver-seq", "eventserver")
-        servers.append(es)
-        es.wait_ready()
-        t0 = time.perf_counter()
-        post_batches(es.base, seq_key, views)
-        seq_post_s = time.perf_counter() - t0
-        require(http_json(f"{es.base}/stop", method="POST")[0] == 202, "POST /stop")
-        es.wait_exit()
-        seng = os.path.join(tmp, "sequentialrecommendation")
-        cli_run("template", "get", "sequentialrecommendation", "--directory", seng)
-        fill_engine_json(os.path.join(seng, "engine.json"), QS_SEQ_APP, [
-            {"name": "sasrec", "params": {
-                "appName": QS_SEQ_APP, "eventNames": ["view"], "dModel": SAS_D,
-                "numLayers": SAS_LAYERS, "numHeads": SAS_HEADS, "maxLen": SAS_MAX_LEN,
-                "epochs": QS_SAS_STEPS, "batchSize": SAS_BATCH, "lr": SAS_LR, "seed": seed}}],
-            eventNames=["view"])
-        cli_run("build", "--engine-dir", seng)
-        reset_flash_counts()  # the path's window
-        t0 = time.perf_counter()
-        trained = cli_run("train", "--engine-dir", seng, "--device", device.type)
-        sas_train_s = time.perf_counter() - t0
-        counts = flash_counts()
-        want = SAS_LAYERS * QS_SAS_STEPS
-        require(counts == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
-                f"pio train (SASRec) flash launches {counts} vs {SAS_LAYERS} layers × {QS_SAS_STEPS} steps")
-        sas_iid = re.search(r"Engine instance ID: (\S+)", trained).group(1)
-        qs = CliServer(tmp, "deploy-seq", "deploy", "--engine-dir", seng, "--device", device.type)
-        servers.append(qs)
-        sas_ready_s = qs.wait_ready()
+        # 6. SASRec's answers
+        qs = sas_qs
         users = list(histories)[:20]
         nums = {u: int(rng.integers(1, 51)) for u in users}
         sas_answers = []
@@ -3737,6 +3842,7 @@ def phase_remote_storage(device, qs):
         with open(export_path) as f:
             lines = f.read().splitlines()
         require(len(lines) == qs["n_events"], f"exported {len(lines)} of {qs['n_events']} events")
+        qs["export_path"] = export_path  # columnar-store imports it next
         step("export-sqlite", t0, events=len(lines))
 
         # 2. leg A: postgres (jdbc alias) for METADATA and EVENTDATA, s3 for MODELDATA
@@ -3851,7 +3957,430 @@ def phase_remote_storage(device, qs):
             del os.environ[k]
         os.environ.pop("PIO_FS_BASEDIR", None)
         os.environ.update(saved)
+        if not qs.get("keep_tmp"):  # else columnar-store removes it
+            shutil.rmtree(tmp, ignore_errors=True)
+    out.update(seconds=time.perf_counter() - t_phase, ok=True)
+    emit(out)
+    return out
+
+
+# -- columnar-store: the parquet driver on the port's own Parquet codec --------
+
+CS_FIXTURE = os.path.join("tests", "torch_data", "jax_parquet_store")  # the JAX driver's store
+CS_FINDS = {"plain": {}, "rated": {"rating_key": "rating", "event_names": ["rate", "buy"],
+                                   "entity_type": "user", "target_entity_type": "item"}}
+CS_WAL, CS_DELETES = 2000, 100  # WAL inserts and deletes after the ML-1M bulk part
+CS_ITERS = 5  # dense train_als iterations from the ML-1M read
+CS_READ = {"entity_type": "user", "event_names": ["rate"], "target_entity_type": "item",
+           "rating_key": "rating"}  # the read held against the port's sqlite driver
+CS_APP = 1
+
+
+def columnar_events(seed):
+    """The ML-1M draw as rate events with a rating each (the bulk part),
+    CS_WAL later events of the same users and items (the WAL), and the ids
+    of CS_DELETES bulk events to delete. Deterministic, so the sqlite
+    reference process builds the same events; creation times follow the
+    list order, so the sqlite order (event_time, creation_time) and the
+    parts' (event_time, then written order) agree."""
+    import datetime as dt
+
+    import numpy as np
+
+    from predictionio_tpu_torch.data.event import Event
+
+    inter, _ = ml1m_interactions(seed)
+    rng = np.random.default_rng(seed + 29)
+    ratings = rng.integers(1, 6, len(inter.user)).astype(float).tolist()
+    uids = [inter.user_map.inverse[i] for i in range(len(inter.user_map))]
+    iids = [inter.item_map.inverse[j] for j in range(len(inter.item_map))]
+    utc = dt.timezone.utc
+    times = {t: dt.datetime.fromtimestamp(t, tz=utc) for t in np.unique(inter.t).tolist()}
+    c0 = dt.datetime(2026, 6, 1, tzinfo=utc)
+    step = dt.timedelta(microseconds=1)
+    bulk = [Event(event="rate", entity_type="user", entity_id=uids[u], target_entity_type="item",
+                  target_entity_id=iids[i], properties={"rating": r}, event_time=times[t],
+                  event_id=f"ml-{k:07d}", creation_time=c0 + k * step)
+            for k, (u, i, r, t) in enumerate(zip(inter.user.tolist(), inter.item.tolist(),
+                                                 ratings, inter.t.tolist()))]
+    n = len(bulk)
+    t_end = float(inter.t.max()) + 1.0
+    wal = [Event(event="rate", entity_type="user", entity_id=uids[int(u)],
+                 target_entity_type="item", target_entity_id=iids[int(i)],
+                 properties={"rating": float(r)},
+                 event_time=dt.datetime.fromtimestamp(t_end + j, tz=utc),
+                 event_id=f"wal-{j:05d}", creation_time=c0 + (n + j) * step)
+           for j, (u, i, r) in enumerate(zip(rng.integers(0, len(uids), CS_WAL),
+                                             rng.integers(0, len(iids), CS_WAL),
+                                             rng.integers(1, 6, CS_WAL)))]
+    deleted = [f"ml-{k:07d}" for k in range(0, n, n // CS_DELETES)][:CS_DELETES]
+    return bulk, wal, deleted
+
+
+def columnar_worker(kind, tmp, seed) -> int:
+    """The host work of the columnar-store phase's part (c), in a process of
+    its own beside the earlier phases (``chip_smoke.py --columnar-worker
+    KIND DIR``): ``columnar_events`` built, then
+
+    * ``sqlite``: the port's sqlite driver (inserts, then deletes) and its
+      CS_READ into ``DIR/sqlite.npz``, the reference;
+    * ``parquet``: one bulk part by ``ParquetPEvents.write``, the WAL
+      inserts and deletes, a forced compaction whose ``promote_numeric``
+      must go through the host scanner; the store under ``DIR/ml1m``.
+
+    Its seconds go to ``DIR/<kind>.json``; a failed check raises."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    bulk, wal, deleted = columnar_events(seed)
+    out = {"events_s": time.perf_counter() - t0,
+           "events": len(bulk) + len(wal) - len(deleted)}
+    if kind == "sqlite":
+        from predictionio_tpu_torch.data.storage import sqlite
+
+        path = os.path.join(tmp, "ref.sqlite")
+        le, pe = sqlite.SqliteLEvents(path=path), sqlite.SqlitePEvents(path=path)
+        t0 = time.perf_counter()
+        le.insert_batch(bulk + wal, CS_APP)
+        pe.delete(deleted, CS_APP)
+        out["insert_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        i = pe.find_interactions(CS_APP, **CS_READ)
+        out["read_s"] = time.perf_counter() - t0
+        np.savez(os.path.join(tmp, "sqlite.npz"), **{
+            "rated:user": i.user, "rated:item": i.item, "rated:rating": i.rating, "rated:t": i.t,
+            "rated:user_ids": np.array([i.user_map.inverse[k] for k in range(len(i.user_map))], str),
+            "rated:item_ids": np.array([i.item_map.inverse[k] for k in range(len(i.item_map))], str)})
+        sqlite.close_all_dbs()
+    else:
+        from predictionio_tpu_torch import native
+        from predictionio_tpu_torch.data.storage import parquet, parquet_format
+
+        root = os.path.join(tmp, "ml1m")
+        pe, le = parquet.ParquetPEvents(path=root), parquet.ParquetLEvents(path=root)
+        ns = parquet._Namespace(root, CS_APP, None)
+        t0 = time.perf_counter()
+        pe.write(bulk, CS_APP)
+        out["write_s"] = time.perf_counter() - t0
+        require(len(ns.part_paths()) == 1 and not ns.wal_paths(), "one bulk part, no WAL")
+        del bulk
+        t0 = time.perf_counter()
+        le.insert_batch(wal, CS_APP)
+        pe.delete(deleted, CS_APP)
+        out["wal_s"] = time.perf_counter() - t0
+        require(len(ns.part_paths()) == 1 and ns.wal_paths(), "the inserts wait in the WAL")
+        scans = []
+        scan = native.scan_numeric_props
+
+        def counted_scan(props):
+            got = scan(props)
+            scans.append(got is not None)
+            return got
+
+        native.scan_numeric_props = counted_scan
+        try:
+            t0 = time.perf_counter()
+            ns.compact(force=True)
+            out["compact_s"] = time.perf_counter() - t0
+        finally:
+            native.scan_numeric_props = scan
+        require(scans == [True], f"the host scanner promoted the compaction's properties: {scans}")
+        (part,) = ns.part_paths()
+        pf = parquet_format.ParquetFile(part)
+        require("pnum_rating" in pf.names and not ns.wal_paths(), f"compacted part {pf.names}")
+        out.update(host_scanner=scans, bytes=os.path.getsize(part), row_groups=len(pf.row_groups))
+    with open(os.path.join(tmp, f"{kind}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_columnar_helpers(seed) -> dict:
+    """Start ``columnar_worker`` for ``sqlite`` and for ``parquet``, each in
+    a process of its own (a minute of host work each: building, writing and
+    reading a million events), so they run beside the phases before
+    ``columnar-store``; ``stop`` ends both."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="pio-columnar-helpers-")
+    procs = {}
+    for kind in ("sqlite", "parquet"):
+        with open(os.path.join(tmp, f"{kind}.log"), "w") as log:
+            procs[kind] = subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--columnar-worker", kind,
+                 tmp, "--seed", str(seed)],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                stdout=subprocess.DEVNULL, stderr=log)
+
+    def wait(kind) -> dict:
+        rc = procs[kind].wait(timeout=900)
+        with open(os.path.join(tmp, f"{kind}.log")) as f:
+            require(rc == 0, f"the {kind} helper exited {rc}: {f.read()[-2000:]}")
+        with open(os.path.join(tmp, f"{kind}.json")) as f:
+            return json.load(f)
+
+    def stop():
+        import shutil
+
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+
+    return {"tmp": tmp, "wait": wait, "stop": stop}
+
+
+def phase_columnar_store(seed, device, qs, card, helpers):
+    """The columnar event store on the card's machine (no pyarrow there):
+    see the module docstring, phase 12c. ``qs``: what ``phase_quickstart_cli``
+    kept, with ``remote-storage``'s export of its app; ``card``: the
+    ``nvidia-smi`` name and power limit printed beside the timings;
+    ``helpers``: what ``start_columnar_helpers`` started."""
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.core import workflow
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.storage import parquet, parquet_format, sqlite
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.device import DeviceContext
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import train_kernel
+    from predictionio_tpu_torch.parallel.ingest import _merge_part_reads
+    from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pio-columnar-")
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("PIO_STORAGE_") or k == "PIO_FS_BASEDIR"}
+    out = {"phase": "columnar-store"}
+    ctx = DeviceContext.create(device=device)
+    engine = RecommendationEngine.apply()
+    servers = []
+
+    def step(name, t0, **fields):
+        row = {"seconds": time.perf_counter() - t0, **fields}
+        out[name] = row
+        emit({"phase": "columnar-store", "step": name, **row})
+        return row
+
+    def same_read(got, want) -> bool:
+        return (all(np.array_equal(getattr(got, c), getattr(want, c))
+                    for c in ("user", "item", "rating", "t"))
+                and got.user_map == want.user_map and got.item_map == want.item_map)
+
+    def read_equals_npz(got, d, name) -> bool:
+        return (all(np.array_equal(getattr(got, c), d[f"{name}:{c}"])
+                    for c in ("user", "item", "rating", "t"))
+                and [got.user_map.inverse[k] for k in range(len(got.user_map))]
+                == d[f"{name}:user_ids"].tolist()
+                and [got.item_map.inverse[k] for k in range(len(got.item_map))]
+                == d[f"{name}:item_ids"].tolist())
+
+    try:
+        # (a) pyarrow's files on a machine without pyarrow
+        t0 = time.perf_counter()
+        require("pyarrow" not in sys.modules, "pyarrow is imported")
+        fixture = os.path.join(ROOT, CS_FIXTURE)
+        d = np.load(fixture + ".npz")
+        root = os.path.join(tmp, "fixture")
+        shutil.copytree(fixture, root)
+        ns = parquet._Namespace(root, CS_APP, None)
+        files = [parquet_format.ParquetFile(p) for p in ns.part_paths()]
+        groups = [len(f.row_groups) for f in files]
+        require(len(files) == 2 and min(groups) > 1 and ns.wal_paths(),
+                f"the fixture: {len(files)} parts of {groups} row groups, WAL {ns.wal_paths()}")
+        require(all(f.column("pr_id").kind == "null" for f in files), "a Null pr_id")
+        cols = ns.read_columns()
+        want_cols = sorted(k[4:].replace("__", ":") for k in d.files
+                           if k.startswith("col:") and not k.endswith("__null"))
+        require(sorted(cols) == want_cols, f"columns {sorted(cols)} vs {want_cols}")
+        for c in want_cols:
+            key = "col:" + c.replace(":", "__")
+            want = d[key]
+            if key + "__null" in d.files:
+                want = want.astype(object)
+                want[d[key + "__null"]] = None
+                require(list(cols[c]) == list(want), f"fixture column {c}")
+            else:
+                require(np.array_equal(cols[c], want, equal_nan=True), f"fixture column {c}")
+        maps = {}
+        for name, kw in CS_FINDS.items():
+            copy = os.path.join(tmp, f"fixture-{name}")
+            shutil.copytree(fixture, copy)
+            got = parquet.ParquetPEvents(path=copy).find_interactions(CS_APP, **kw)
+            require(read_equals_npz(got, d, name), f"fixture find_interactions {name}")
+            maps[name] = {"ratings": len(got), "users": len(got.user_map),
+                          "items": len(got.item_map)}
+        step("jax-store", t0, parts=len(files), row_groups=groups, rows=len(cols["id"]),
+             columns=len(want_cols), find_interactions=maps)
+
+        # (b) the quickstart through the CLI, events on parquet
+        base = os.path.join(tmp, "quickstart")
+        for k in [k for k in os.environ if k.startswith("PIO_STORAGE_")]:
+            del os.environ[k]
+        os.environ.update({
+            "PIO_FS_BASEDIR": base,
+            "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_PQ_TYPE": "parquet",
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PQ",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"})
+        os.makedirs(base, exist_ok=True)
+        Storage.reset_instance()
+        store.set_storage(None)
+        status = cli_run("status")
+        require("(type parquet)" in status and "all ready to go" in status, status)
+        cli_run("app", "new", QS_APP)
+        app_id = Storage.instance().get_meta_data_apps().get_by_name(QS_APP).id
+        t0 = time.perf_counter()
+        imported = cli_run("import", "--appid", str(app_id), "--input", qs["export_path"])
+        require(f"Imported {qs['n_events']} events" in imported, imported)
+        pq_dir = os.path.join(base, "parquet", "pq", f"app_{app_id}_ch_0")
+        require(os.path.isdir(pq_dir), f"no parquet namespace at {pq_dir}")
+        step("import-parquet", t0, events=qs["n_events"])
+        reads, read_s = [], []
+        find_interactions = parquet.ParquetPEvents.find_interactions
+
+        def timed_read(self, *a, **kw):
+            t = time.perf_counter()
+            try:
+                reads.append(find_interactions(self, *a, **kw))
+                return reads[-1]
+            finally:
+                read_s.append(time.perf_counter() - t)
+
+        parquet.ParquetPEvents.find_interactions = timed_read
+        try:
+            train_kernel.launches.reset()  # the path's window
+            t0 = time.perf_counter()
+            trained = cli_run("train", "--engine-dir", qs["eng"], "--device", device.type)
+            train_s = time.perf_counter() - t0
+            launches = train_kernel.launches.count
+        finally:
+            parquet.ParquetPEvents.find_interactions = find_interactions
+        iid = re.search(r"Engine instance ID: (\S+)", trained).group(1)
+        storage = Storage.instance()
+        inst = storage.get_meta_data_engine_instances().get(iid)
+        require(inst.status == "COMPLETED", f"pio train instance {inst.status}")
+        read = _merge_part_reads(lambda r: r, reads)
+        cfg = engine.make_algorithms(engine.params_from_variant(qs["variant"]))[0]._config()
+        ub, ib, _, _ = als._dense_blocks_for(read, cfg)
+        n_buckets = len(ub.widths) + len(ib.widths)
+        require(launches == n_buckets * TRAIN_ITERS,
+                f"kernel 2 launched {launches} times vs {n_buckets} buckets × {TRAIN_ITERS}")
+        read_equal = same_read(read, qs["read"])
+        require(read_equal, f"the parquet read ({len(read)} ratings) differs from the sqlite "
+                f"read ({len(qs['read'])} ratings)")
+        model = workflow.prepare_deploy(engine, inst, storage=storage, ctx=ctx)[3][0]
+        factors_equal = all(np.array_equal(a, b) for a, b in (
+            (model.user_factors, qs["model"].user_factors),
+            (model.item_factors, qs["model"].item_factors)))
+        require(factors_equal, "the parquet read equals sqlite's but the factors differ")
+        parts = sorted(os.listdir(pq_dir))
+        step("train-parquet", t0, instance=iid, ratings=len(read), buckets=n_buckets,
+             iterations=TRAIN_ITERS, launches=launches, wall_s=train_s, read_s=sum(read_s),
+             reads=len(read_s), read_share=sum(read_s) / train_s,
+             sqlite_read_share=qs["read_share"], read_equals_sqlite=read_equal,
+             factors_equal_quickstart=factors_equal, files=parts,
+             bytes=sum(os.path.getsize(os.path.join(pq_dir, p)) for p in parts))
+        sqlite.close_all_dbs()
+        t0 = time.perf_counter()
+        srv = CliServer(tmp, "deploy-parquet", "deploy", "--engine-dir", qs["eng"],
+                        "--batching", "--device", device.type)
+        servers.append(srv)
+        ready_s = srv.wait_ready()
+        require(http_json(f"{srv.base}/readyz")[1]["engineInstanceId"] == iid,
+                f"deployed instance is not {iid}")
+        launched_at_ready = http_json(f"{srv.base}/")[1]["scoreKernelLaunches"]
+        same = 0
+        for q, want in qs["answers"][:RS_QUERIES]:
+            status_, got = http_json(f"{srv.base}/queries.json", q)
+            require(status_ == 200, f"/queries.json {status_} {got}")
+            same += got == want
+        require(same == RS_QUERIES,
+                f"{RS_QUERIES - same} answers differ from quickstart-cli's on an equal read")
+        info = http_json(f"{srv.base}/")[1]
+        fp = info["fastpath"][0]
+        score_launches = info["scoreKernelLaunches"] - launched_at_ready
+        require(score_launches == fp["calls"] > 0,
+                f"kernel 1 launched {score_launches} times vs {fp['calls']} dispatches")
+        cli_run("undeploy", "--port", str(srv.port))
+        srv.wait_exit()
+        step("serve-parquet", t0, deploy_to_ready_s=ready_s, queries=RS_QUERIES,
+             answers_equal_quickstart=same, dispatches=fp["calls"], launches=score_launches)
+        emit({"phase": "columnar-store", "quickstart_train_wall_s": train_s,
+              "read_s": sum(read_s), "read_share": sum(read_s) / train_s, "card": card})
+
+        # (c) ML-1M width: the store the parquet helper wrote and compacted,
+        # read here, held against the sqlite helper's read, trained on the card
+        t0 = time.perf_counter()
+        built = helpers["wait"]("parquet")
+        ref_t = helpers["wait"]("sqlite")
+        wait_s = time.perf_counter() - t0
+        pe = parquet.ParquetPEvents(path=os.path.join(helpers["tmp"], "ml1m"))
+        got, read_times = {}, {}
+        for name, kw in (("rated", CS_READ), ("plain", {})):
+            t0 = time.perf_counter()
+            got[name] = pe.find_interactions(CS_APP, **kw)
+            read_times[name] = time.perf_counter() - t0
+        n_live = ML1M_EVENTS + CS_WAL - CS_DELETES
+        require(len(got["rated"]) == len(got["plain"]) == n_live == built["events"],
+                f"reads of {len(got['rated'])}, {len(got['plain'])} vs {n_live} live events")
+        # every event is a user's rate of an item: without the filters and
+        # rating_key the read is the same rows and maps at the default rating
+        plain, rated = got["plain"], got["rated"]
+        require(all(np.array_equal(getattr(plain, c), getattr(rated, c)) for c in ("user", "item", "t"))
+                and plain.user_map == rated.user_map and plain.item_map == rated.item_map
+                and bool((plain.rating == 1.0).all()) and set(np.unique(rated.rating)) <= {
+                    1.0, 2.0, 3.0, 4.0, 5.0}, "the plain read vs the rated read")
+        ref_d = np.load(os.path.join(helpers["tmp"], "sqlite.npz"))
+        require(read_equals_npz(rated, ref_d, "rated"),
+                "the ML-1M parquet read differs from the sqlite read")
+        cfg = als.ALSConfig(rank=RANK, iterations=CS_ITERS, seed=seed, solver="dense",
+                            compute_dtype="f32")
+        ub, ib, _, _ = als._dense_blocks_for(rated, cfg)
+        n_buckets = len(ub.widths) + len(ib.widths)
+        train_kernel.launches.reset()  # the path's window
+        t0 = time.perf_counter()
+        model = als.train_als(ctx, rated, cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = train_kernel.launches.count
+        require(launches == n_buckets * CS_ITERS,
+                f"kernel 2 launched {launches} times vs {n_buckets} buckets × {CS_ITERS}")
+        require(all(bool(np.isfinite(F).all()) for F in (model.user_factors, model.item_factors))
+                and model.user_factors.shape == (len(rated.user_map), RANK),
+                "finite factors of the read's shape")
+        err = rmse(rated, model.user_factors, model.item_factors, device)
+        spread = float(np.std(rated.rating))  # the RMSE of the mean rating
+        require(np.isfinite(err) and err < spread,
+                f"train RMSE {err} vs {spread} for the mean rating")
+        step("ml1m", t0, events=n_live, parquet_helper=built, read_s=read_times,
+             sqlite_ref=ref_t, wait_for_helpers_s=wait_s,
+             read_equals_sqlite=True, buckets=n_buckets, iterations=CS_ITERS,
+             launches=launches, train_s=train_s, train_rmse=err, mean_rating_rmse=spread,
+             card=card)
+        out["train_launches"] = {"quickstart": out["train-parquet"]["launches"],
+                                 "ml1m": launches}
+        out["serve_launches"] = out["serve-parquet"]["launches"]
+    finally:
+        for srv in servers:
+            srv.kill()
+        helpers["stop"]()
+        Storage.reset_instance()
+        store.set_storage(None)
+        sqlite.close_all_dbs()
+        for k in [k for k in os.environ if k.startswith("PIO_STORAGE_")]:
+            del os.environ[k]
+        os.environ.pop("PIO_FS_BASEDIR", None)
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(qs["tmp"], ignore_errors=True)
     out.update(seconds=time.perf_counter() - t_phase, ok=True)
     emit(out)
     return out
@@ -4284,7 +4813,7 @@ def phase_serving_ops(model, seed, device, kernel_rows):
 PE_APP = "default"  # the app RecommendationEvaluation reads
 PE_DTYPES = ("int8", "bf16")
 PE_CONCURRENCY = (1, 64)  # closed loops of PE_REQUESTS, Zipf over every user
-PE_REQUESTS = 300  # each closed loop (2,000 until the fleet phase came, 1,000 until the dist phases, 500 until the remote-storage phase)
+PE_REQUESTS = 200  # each closed loop (2,000 until the fleet phase came, 1,000 until the dist phases, 500 until the remote-storage phase, 300 until the columnar-store phase)
 PE_BATCH_QUERIES = 1000  # pio batchpredict's input lines
 PE_ALS_ITERS, PE_ALS_INTERVAL = 20, 5  # resume: 10 iterations, then 20
 PE_SAS_EPOCHS, PE_SAS_INTERVAL = 8, 2  # resume: two intervals (4 steps), then 8
@@ -4423,13 +4952,18 @@ def phase_publish_eval(model, seed, device, kernel_rows, ops):
         f32_rows[OPS_CONCURRENCY[-1]] = dict(ops["closed_no_feedback"], feedback=False)
         rng = np.random.default_rng(seed + 61)
         deployed = {}
+        # both servers start at once (each spends most of its start importing
+        # torch); the loads below run one server at a time
+        spawned = {dtype: CliServer(tmp, f"deploy-{dtype}", "deploy", "--engine-dir",
+                                    engines[dtype], "--batching",
+                                    "--device", device.type).watch_ready()
+                   for dtype in PE_DTYPES}
+        servers.extend(spawned.values())
+        ready = {dtype: srv.ready_s() for dtype, srv in spawned.items()}
         for dtype in PE_DTYPES:
             rung_us = {r["batch"]: sum(r["kernel_device_us"].values()) for r in kernel_rows
                        if r.get("case", "ml25m") == "ml25m" and r["dtype"] == dtype}
-            qs = CliServer(tmp, f"deploy-{dtype}", "deploy", "--engine-dir", engines[dtype],
-                           "--batching", "--device", device.type)
-            servers.append(qs)
-            ready_s = qs.wait_ready()
+            qs, ready_s = spawned[dtype], ready[dtype]
 
             def info(srv=qs):
                 return http_json(f"{srv.base}/")[1]
@@ -5160,7 +5694,7 @@ def phase_streaming(model, seed, device):
 
 
 IVF_NLIST = 256  # ≈ √59,047 clusters for the ML-25M catalog
-IVF_REQUESTS = 300  # each closed loop (2,000 until the fleet phase came, 1,000 until the dist phases, 500 until the remote-storage phase)
+IVF_REQUESTS = 200  # each closed loop (2,000 until the fleet phase came, 1,000 until the dist phases, 500 until the remote-storage phase, 300 until the columnar-store phase)
 IVF_CONCURRENCY = (1, 16)
 IVF_SAMPLED = 200  # answers each server holds against the plain version
 IVF_TIMED = (1, 8, 64)  # rungs of the probe mode's timings
@@ -5682,7 +6216,7 @@ def phase_ivf(model, seed, device):
 # -- template through the CLI ---------------------------------------------------
 
 UR_K = 50  # maxCorrelatorsPerItem: the UR default
-UR_SAMPLED = 256  # indicator items whose top-50 lists are held to the LLR rule
+UR_SAMPLED = 128  # indicator items whose top-50 lists are held to the LLR rule (256 until the columnar-store phase came)
 UR_QUERIES = 8  # users whose predict answers are held against plain host code
 UR_PEAK_INT8_OPS_S = 1979e12  # H100 SXM data sheet: dense int8 tensor-core rate
 TPL_APP = "Templates"
@@ -6643,17 +7177,17 @@ def phase_templates_cli(seed, device):
 
 FLEET_APP = "Fleet"
 FLEET_N = 2  # replicas of `pio deploy --fleet` (3 until the remote-storage phase came)
-FLEET_REQUESTS = 300  # each closed loop through the router (2,000 until the sharded and ring phases came, 1,000 until the dist phases, 500 until the remote-storage phase)
+FLEET_REQUESTS = 200  # each closed loop through the router (2,000 until the sharded and ring phases came, 1,000 until the dist phases, 500 until the remote-storage phase, 300 until the columnar-store phase)
 FLEET_CONCURRENCY = (1, 16)
-FLEET_DIRECT_REQUESTS = 300  # one replica's own closed loop at the same concurrency (1,000 until the dist phases, 500 until the remote-storage phase)
+FLEET_DIRECT_REQUESTS = 200  # one replica's own closed loop at the same concurrency (1,000 until the dist phases, 500 until the remote-storage phase, 300 until the columnar-store phase)
 FLEET_SAMPLED = 200  # answers through the router held against the plain version
 FLEET_CLIENTS = 16  # the closed loop under the kill, the rolls and the canaries
 FLEET_BAD_ID = "fleet-bad-generation"  # the faulted canary candidate's instance id
 FLEET_BAD_P = 0.15  # the share of its answers the faulted candidate fails
 FLEET_SCALE_CLIENTS = 6  # the autoscaler's load step, against 8 slots a replica
 TEN_QUOTA_QPS = 100.0  # tenant A's quota
-TEN_FLOOD = 2000  # tenant A's requests in the flood (16 clients)
-TEN_B_REQUESTS = 1000  # tenant B's closed loop (4 clients), alone and under the flood
+TEN_FLOOD = 1000  # tenant A's requests in the flood (16 clients; 2,000 until the columnar-store phase came)
+TEN_B_REQUESTS = 500  # tenant B's closed loop (4 clients), alone and under the flood (1,000 until the columnar-store phase came)
 PIPE_CANDIDATES = 2048  # the retrieval stage's candidates (under ALSScorer.MAX_FILTER)
 PIPE_QUERIES = 200  # pipeline answers held against the exact top-k over their candidates
 
@@ -6789,6 +7323,7 @@ def phase_fleet(model, seed, device):
     import shutil
     import signal
     import tempfile
+    import threading
 
     import numpy as np
 
@@ -6874,8 +7409,16 @@ def phase_fleet(model, seed, device):
             time.sleep(every)
         raise RuntimeError(f"check failed: {what} within {timeout} s")
 
-    def no_failures(load, what):
+    def no_failures(load, what, view=None):
         r = load.stop()
+        if r["failures"] and view is not None:
+            # the router's own account of its replicas at the failure
+            with contextlib.suppress(Exception):
+                v = view()
+                r["router"] = {"available": v.get("available"), "counters": v.get("counters"),
+                               "replicas": [{k: x.get(k) for k in ("url", "state", "warm",
+                                                                   "instanceId", "ewmaMs")}
+                                            for x in v.get("replicas", ())]}
         require(r["failures"] == 0 and r["ok"] > 0, f"{what}: client-visible failures {r}")
         return r
 
@@ -7026,7 +7569,7 @@ def phase_fleet(model, seed, device):
             load = ClosedLoop(base, users, seed + 1).start()
             load.wait_ok(100)
             cli_run("fleet", "roll", "--ip", "127.0.0.1", "--port", str(base), "--timeout", "300")
-            r = no_failures(load, what)
+            r = no_failures(load, what, fleet_view)
             return {"seconds": time.perf_counter() - t0, "load": r,
                     "instances": {p: info(p)["engineInstanceId"] for p in replica_ports()}}
 
@@ -7107,6 +7650,50 @@ def phase_fleet(model, seed, device):
         router_proc.wait(timeout=60)
         out["seconds"]["canary"] = time.perf_counter() - t_b
         step("canary", seconds=out["seconds"]["canary"])
+
+        # (d)'s two servers start now, beside fleet-chaos's replicas (each
+        # spends most of its start importing torch) and before its load: one
+        # replica with two tenants, one with the IVF model under a retrieval
+        # → ranking pipeline
+        os.environ["PIO_IVF_NLIST"] = "256"
+        ivf_model = als._declare_ivf_partition(als.ALSModel(
+            user_factors=U, item_factors=V, user_map=model.user_map, item_map=model.item_map,
+            config=model.config))
+        del os.environ["PIO_IVF_NLIST"]
+        require(ivf_model.ivf_index is not None and ivf_model.ivf_index.nlist == 256,
+                "the IVF declaration")
+        pipe_dir = os.path.join(tmp, "engine-pipeline")
+        gen["ivf"] = publish(storage, engine, ivf_model, engine_id=ALS_FACTORY,
+                             engine_variant="pipeline",
+                             variant=write_engine_json(pipe_dir, "pipeline", {"rank": RANK}))
+        pipeline = {"name": "ivf-als", "stages": [
+            {"name": "retrieval", "kind": "retrieval", "budgetFraction": 0.4,
+             "params": {"candidates": PIPE_CANDIDATES}},
+            {"name": "ranking", "kind": "ranking", "budgetFraction": 0.5}]}
+        tenants = [{"tenantId": "A", "accessKey": "key-A", "quotaQps": TEN_QUOTA_QPS},
+                   {"tenantId": "B", "accessKey": "key-B"}]
+        tport, pport = free_port(), free_port()
+        t0 = time.perf_counter()
+        tproc = spawn("tenants", ["deploy", "--engine-dir", eng, "--batching", "--device",
+                                  device.type, "--ip", "127.0.0.1", "--port", str(tport)], {
+            "PIO_TENANTS": json.dumps(tenants),
+            "PIO_FAULT_SPEC": f"site=client:tenant:A,kind=error,after={TEN_FLOOD},times=5"})
+        pproc = spawn("pipeline", ["deploy", "--engine-dir", pipe_dir, "--batching", "--device",
+                                   device.type, "--ip", "127.0.0.1", "--port", str(pport)], {
+            "PIO_PIPELINE": json.dumps(pipeline),
+            "PIO_FAULT_SPEC": (f"site=server:pipeline:ranking,kind=latency,latency_ms=400,"
+                               f"after={PIPE_QUERIES},times=3")})
+        d_ready = {}
+
+        def wait_both():
+            for name, port, proc in (("tenants", tport, tproc), ("pipeline", pport, pproc)):
+                try:
+                    d_ready[name] = wait_ready(port, proc, t0)
+                except Exception as e:  # reported by the require after the join
+                    d_ready[f"{name}_error"] = str(e)
+
+        starting = threading.Thread(target=wait_both, name="fleet-d-ready", daemon=True)
+        starting.start()
 
         # (b) fleet-chaos: this process's router and supervisor over two
         # replicas (the CLI's own child argv); a seeded crash:fleet:replica
@@ -7206,37 +7793,11 @@ def phase_fleet(model, seed, device):
         step("fleet-chaos", seconds=out["seconds"]["fleet-chaos"])
 
         # (d) tenants-pipeline: one replica with two tenants, one with the
-        # IVF model under a retrieval → ranking pipeline
+        # IVF model under a retrieval → ranking pipeline (both started before
+        # fleet-chaos, beside its replicas)
         t_d = time.perf_counter()
-        os.environ["PIO_IVF_NLIST"] = "256"
-        ivf_model = als._declare_ivf_partition(als.ALSModel(
-            user_factors=U, item_factors=V, user_map=model.user_map, item_map=model.item_map,
-            config=model.config))
-        del os.environ["PIO_IVF_NLIST"]
-        require(ivf_model.ivf_index is not None and ivf_model.ivf_index.nlist == 256,
-                "the IVF declaration")
-        pipe_dir = os.path.join(tmp, "engine-pipeline")
-        gen["ivf"] = publish(storage, engine, ivf_model, engine_id=ALS_FACTORY,
-                             engine_variant="pipeline",
-                             variant=write_engine_json(pipe_dir, "pipeline", {"rank": RANK}))
-        pipeline = {"name": "ivf-als", "stages": [
-            {"name": "retrieval", "kind": "retrieval", "budgetFraction": 0.4,
-             "params": {"candidates": PIPE_CANDIDATES}},
-            {"name": "ranking", "kind": "ranking", "budgetFraction": 0.5}]}
-        tenants = [{"tenantId": "A", "accessKey": "key-A", "quotaQps": TEN_QUOTA_QPS},
-                   {"tenantId": "B", "accessKey": "key-B"}]
-        tport, pport = free_port(), free_port()
-        t0 = time.perf_counter()
-        tproc = spawn("tenants", ["deploy", "--engine-dir", eng, "--batching", "--device",
-                                  device.type, "--ip", "127.0.0.1", "--port", str(tport)], {
-            "PIO_TENANTS": json.dumps(tenants),
-            "PIO_FAULT_SPEC": f"site=client:tenant:A,kind=error,after={TEN_FLOOD},times=5"})
-        pproc = spawn("pipeline", ["deploy", "--engine-dir", pipe_dir, "--batching", "--device",
-                                   device.type, "--ip", "127.0.0.1", "--port", str(pport)], {
-            "PIO_PIPELINE": json.dumps(pipeline),
-            "PIO_FAULT_SPEC": (f"site=server:pipeline:ranking,kind=latency,latency_ms=400,"
-                               f"after={PIPE_QUERIES},times=3")})
-        ready = {"tenants": wait_ready(tport, tproc, t0), "pipeline": wait_ready(pport, pproc, t0)}
+        starting.join()
+        require(set(d_ready) == {"tenants", "pipeline"}, f"(d)'s servers: {d_ready}")
         alone = ClosedLoop(tport, users, seed + 6, clients=4, total=TEN_B_REQUESTS,
                            extra={"accessKey": "key-B"}).start()
         alone_r = no_failures(alone, "tenant B alone")
@@ -7270,7 +7831,7 @@ def phase_fleet(model, seed, device):
             "tenants", quota_qps=TEN_QUOTA_QPS, a_sent=flood_r["sent"], a_ok=flood_r["ok"],
             a_shed=len(shed), a_shed_reasons=reasons, b_alone=alone_r, b_flooded=b_r,
             breaker={"A": ten["A"]["breaker"], "B": ten["B"]["breaker"]},
-            deploy_to_ready_s=ready["tenants"])
+            deploy_to_ready_s=d_ready["tenants"])
 
         index = ivf_model.ivf_index
         before = info(pport)
@@ -7315,7 +7876,7 @@ def phase_fleet(model, seed, device):
         out["pipeline"] = step(
             "pipeline", nlist=index.nlist, candidates=PIPE_CANDIDATES, queries=PIPE_QUERIES,
             ranking_calls=ranking, kernel1_launches=launches, degraded=len(degraded),
-            stages=last["pipeline"]["stages"], deploy_to_ready_s=ready["pipeline"])
+            stages=last["pipeline"]["stages"], deploy_to_ready_s=d_ready["pipeline"])
         for port, proc in ((tport, tproc), (pport, pproc)):
             http_json(f"http://127.0.0.1:{port}/stop", {}, method="POST")
             proc.wait(timeout=60)
@@ -7324,6 +7885,22 @@ def phase_fleet(model, seed, device):
         step("tenants-pipeline", seconds=out["seconds"]["tenants-pipeline"])
         emit({"phase": "fleet", "seconds": out["seconds"], "ok": True})
         return out
+    except BaseException:
+        # a failed step: every server's log kept under chiprun_out/fleet-logs/
+        # and its tail printed (the router's replicas inherit its standard
+        # error, so their lines are in the router's log)
+        keep_dir = os.path.join(ROOT, "chiprun_out", "fleet-logs")
+        os.makedirs(keep_dir, exist_ok=True)
+        for p in procs:
+            if not hasattr(p, "log_path"):  # fleet-chaos's replicas: chaos-replicas.log
+                continue
+            with contextlib.suppress(OSError):
+                shutil.copy(p.log_path, keep_dir)
+                print(f"--- {os.path.basename(p.log_path)} (last 3,000 characters) ---\n"
+                      f"{tail(p)}", file=sys.stderr, flush=True)
+        with contextlib.suppress(OSError):
+            shutil.copy(os.path.join(tmp, "chaos-replicas.log"), keep_dir)
+        raise
     finally:
         faults.clear()
         for r in routers:
@@ -8435,6 +9012,12 @@ def phase_dist_cli(seed, device):
         out["train"] = {"wall_s": train_s, "kernel2_launches": k2, "instance": iid}
         emit({"phase": "dist-cli", "step": "train", **out["train"]})
 
+        # step 4's server starts now, while step 3 runs in this process (a
+        # server's start is mostly importing torch)
+        qs = CliServer(tmp, "deploy", "deploy", "--engine-dir", eng, "--batching",
+                       "--device", device.type).watch_ready()
+        servers.append(qs)
+
         # 3. the same two ranks' blocks in this process on 2 placements of the
         # card: the factors equal the launch's bit for bit
         engine = RecommendationEngine.apply()
@@ -8498,10 +9081,7 @@ def phase_dist_cli(seed, device):
         emit({"phase": "dist-cli", "step": "vs-one-process", **out["vs_one_process"]})
 
         # 4. pio deploy --batching of the launch's instance: kernel 1 a dispatch
-        qs = CliServer(tmp, "deploy", "deploy", "--engine-dir", eng, "--batching",
-                       "--device", device.type)
-        servers.append(qs)
-        ready_s = qs.wait_ready()
+        ready_s = qs.ready_s()
         require(http_json(f"{qs.base}/readyz")[1]["engineInstanceId"] == iid, "deployed instance")
         at_ready = http_json(f"{qs.base}/")[1]["scoreKernelLaunches"]
         q_rng = np.random.default_rng(seed + 24)
@@ -8528,14 +9108,71 @@ def phase_dist_cli(seed, device):
         out["serve"] = {"deploy_to_ready_s": ready_s, "queries": len(answers), "launches": served}
         emit({"phase": "dist-cli", "step": "serve", **out["serve"]})
 
-        # 5. pio launch -n 2 -- batchpredict: part files equal one process's
+        # 5-8. four launches at once (a worker's start is mostly importing
+        # torch), then each one's checks: batchpredict, e-commerce's
+        # implicit ALS, SASRec data parallel, SASRec with a worker killed
         qfile = os.path.join(tmp, "queries.jsonl")
         with open(qfile, "w") as fq:
             for q in queries:
                 fq.write(json.dumps(q) + "\n")
-        rc, text, launches, bp_s = pio_launch(
-            tmp, "batchpredict", "batchpredict", "--engine-dir", eng, "--input", qfile,
-            "--output", os.path.join(tmp, "bp.jsonl"), "--device", device.type)
+        ecom = os.path.join(tmp, "ecommerce")
+        cli_run("template", "get", "ecommercerecommendation", "--directory", ecom)
+        fill_engine_json(os.path.join(ecom, "engine.json"), "DistApp", [
+            {"name": "ecomm", "params": {"appName": "DistApp", "rank": RANK,
+                                         "numIterations": TPL_ITERS}}],
+            eventNames=["rate", "buy"])
+        seq_app_id = storage.get_meta_data_apps().get_by_name("DistApp").id
+        srng = np.random.default_rng(seed + 15)
+        w = zipf_mandelbrot_weights(1000, 1.1)
+        le.insert_batch([
+            Event(event="view", entity_type="user", entity_id=f"wu{u}", target_entity_type="item",
+                  target_entity_id=f"wi{int(i)}", event_time=1_767_225_600.0 + t)
+            for u in range(300)
+            for t, i in enumerate(srng.choice(1000, int(srng.integers(20, 301)), p=w))], seq_app_id)
+        seng = os.path.join(tmp, "sequentialrecommendation")
+        cli_run("template", "get", "sequentialrecommendation", "--directory", seng)
+        fill_engine_json(os.path.join(seng, "engine.json"), "DistApp", [
+            {"name": "sasrec", "params": {
+                "appName": "DistApp", "eventNames": ["view"], "dModel": SAS_D,
+                "numLayers": SAS_LAYERS, "numHeads": SAS_HEADS, "maxLen": SAS_MAX_LEN,
+                "epochs": QS_SAS_STEPS, "batchSize": SAS_BATCH, "lr": SAS_LR, "seed": seed}}],
+            eventNames=["view"])
+        with ThreadPoolExecutor(3) as pool:
+            bp_run = pool.submit(
+                pio_launch, tmp, "batchpredict", "batchpredict", "--engine-dir", eng, "--input",
+                qfile, "--output", os.path.join(tmp, "bp.jsonl"), "--device", device.type)
+            ec_run = pool.submit(pio_launch, tmp, "ecomm", "train", "--engine-dir", ecom,
+                                 "--device", device.type)
+            sas_run = pool.submit(pio_launch, tmp, "sasrec", "train", "--engine-dir", seng,
+                                  "--device", device.type)
+            # 8. kill -9 of one worker of a fourth launch (SASRec's, the
+            # longest) once that worker holds the CUDA driver (its imports
+            # done, its run begun): the launch fails with its code and does
+            # not hang
+            env = dict(os.environ, PYTHONPATH=ROOT)
+            log = os.path.join(tmp, "killed.log")
+            t0 = time.perf_counter()
+            with open(log, "w") as f:
+                launcher = subprocess.Popen(
+                    CLI + ["launch", "-n", str(DIST_N), "--coordinator-port", str(free_port()),
+                           "--", "train", "--engine-dir", seng, "--device", device.type],
+                    cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+            killed = None
+            while killed is None and launcher.poll() is None and time.perf_counter() - t0 < 300:
+                with open(log) as f:
+                    text = f.read()
+                pid_of = re.search(rf"process {DIST_N - 1}: pid (\d+)", text)
+                if pid_of and maps_library(int(pid_of.group(1)), "libcuda.so"):
+                    os.kill(int(pid_of.group(1)), signal.SIGKILL)
+                    killed = (int(pid_of.group(1)), time.perf_counter() - t0)
+                time.sleep(0.1)
+            kill_rc = launcher.wait(timeout=launch_mod.FAIL_GRACE_S + 120)
+            kill_s = time.perf_counter() - t0
+            with open(log) as f:
+                kill_text = f.read()
+
+        # 5. pio launch -n 2 -- batchpredict: part files equal one process's
+        rc, text, launches, bp_s = bp_run.result()
         require(rc == 0, f"pio launch batchpredict exited {rc}: {text[-3000:]}")
         cli_run("batchpredict", "--engine-dir", eng, "--input", qfile,
                 "--output", os.path.join(tmp, "one.jsonl"), "--device", device.type)
@@ -8556,14 +9193,7 @@ def phase_dist_cli(seed, device):
         emit({"phase": "dist-cli", "step": "batchpredict", **out["batchpredict"]})
 
         # 6. e-commerce: implicit ALS under the launch
-        ecom = os.path.join(tmp, "ecommerce")
-        cli_run("template", "get", "ecommercerecommendation", "--directory", ecom)
-        fill_engine_json(os.path.join(ecom, "engine.json"), "DistApp", [
-            {"name": "ecomm", "params": {"appName": "DistApp", "rank": RANK,
-                                         "numIterations": TPL_ITERS}}],
-            eventNames=["rate", "buy"])
-        rc, text, launches, ec_s = pio_launch(tmp, "ecomm", "train", "--engine-dir", ecom,
-                                              "--device", device.type)
+        rc, text, launches, ec_s = ec_run.result()
         require(rc == 0, f"pio launch train (e-commerce) exited {rc}: {text[-3000:]}")
         k2 = [launches.get(p, {}).get("train_normal_eq", 0) for p in range(DIST_N)]
         require(len(set(k2)) == 1 and k2[0] > 0 and k2[0] % TPL_ITERS == 0,
@@ -8572,24 +9202,7 @@ def phase_dist_cli(seed, device):
         emit({"phase": "dist-cli", "step": "ecommerce", **out["ecommerce"]})
 
         # 7. SASRec data parallel: kernels 4-6 a layer a step in each process
-        seq_app_id = storage.get_meta_data_apps().get_by_name("DistApp").id
-        srng = np.random.default_rng(seed + 15)
-        w = zipf_mandelbrot_weights(1000, 1.1)
-        le.insert_batch([
-            Event(event="view", entity_type="user", entity_id=f"wu{u}", target_entity_type="item",
-                  target_entity_id=f"wi{int(i)}", event_time=1_767_225_600.0 + t)
-            for u in range(300)
-            for t, i in enumerate(srng.choice(1000, int(srng.integers(20, 301)), p=w))], seq_app_id)
-        seng = os.path.join(tmp, "sequentialrecommendation")
-        cli_run("template", "get", "sequentialrecommendation", "--directory", seng)
-        fill_engine_json(os.path.join(seng, "engine.json"), "DistApp", [
-            {"name": "sasrec", "params": {
-                "appName": "DistApp", "eventNames": ["view"], "dModel": SAS_D,
-                "numLayers": SAS_LAYERS, "numHeads": SAS_HEADS, "maxLen": SAS_MAX_LEN,
-                "epochs": QS_SAS_STEPS, "batchSize": SAS_BATCH, "lr": SAS_LR, "seed": seed}}],
-            eventNames=["view"])
-        rc, text, launches, sas_s = pio_launch(tmp, "sasrec", "train", "--engine-dir", seng,
-                                               "--device", device.type)
+        rc, text, launches, sas_s = sas_run.result()
         require(rc == 0, f"pio launch train (SASRec) exited {rc}: {text[-3000:]}")
         want = SAS_LAYERS * QS_SAS_STEPS
         for p in range(DIST_N):
@@ -8639,28 +9252,8 @@ def phase_dist_cli(seed, device):
                          "vs_one_process_max_rel": sas_rel, "global_batch": batch}
         emit({"phase": "dist-cli", "step": "sasrec", **out["sasrec"]})
 
-        # 8. kill -9 of one worker mid-training (the SASRec launch, the
-        # longest): the launch fails with its code and does not hang
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        log = os.path.join(tmp, "killed.log")
-        t0 = time.perf_counter()
-        with open(log, "w") as f:
-            launcher = subprocess.Popen(
-                CLI + ["launch", "-n", str(DIST_N), "--coordinator-port", str(free_port()), "--",
-                       "train", "--engine-dir", seng, "--device", device.type],
-                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
-        killed = None
-        while killed is None and launcher.poll() is None and time.perf_counter() - t0 < 120:
-            with open(log) as f:
-                pid_of = re.search(rf"process {DIST_N - 1}: pid (\d+)", f.read())
-            if pid_of and time.perf_counter() - t0 > 0.4 * sas_s:
-                os.kill(int(pid_of.group(1)), signal.SIGKILL)
-                killed = (int(pid_of.group(1)), time.perf_counter() - t0)
-            time.sleep(0.1)
-        rc = launcher.wait(timeout=launch_mod.FAIL_GRACE_S + 120)
-        kill_s = time.perf_counter() - t0
-        with open(log) as f:
-            text = f.read()
+        # 8. the launch with a killed worker (run beside 5-7, above)
+        rc, kill_s, killed, text = kill_rc, kill_s, killed, kill_text
         require(killed is not None, f"no worker to kill (launch exited {rc}): {text[-2000:]}")
         require(rc != 0 and "exited with code -9" in text,
                 f"the launch with a killed worker exited {rc}: {text[-2000:]}")
@@ -8816,6 +9409,139 @@ def ab(parent, seed):
     return runs
 
 
+# -- lanes: phases that run beside the main process's own ----------------------
+
+# Each lane runs its phases in order, in a process of its own (its
+# environment, storage singletons and kernel counters are its own), beside
+# the main process's phases from quickstart-cli to templates; fleet runs
+# after both, alone. Most of their time is spent waiting on the servers and
+# launches they start (8-14 s a start of a fresh interpreter on the card's
+# host), so side by side they take about the time of the longest instead of
+# the sum. The kernel comparisons and timings of phases 3-11 run before any
+# lane starts, on an otherwise idle card; the lanes' own times and those of
+# the main process's phases from then on are taken with the others running.
+LANES = {
+    "serving": ("serving-ops", "publish-eval", "streaming", "ivf"),
+    "dist": ("dist-collectives", "dist-train-ml25m", "dist-pod", "dist-cli", "templates ur-ml25m"),
+}
+
+
+def run_lane(name, state_dir, seed) -> int:
+    """The phases of lane ``name`` on the card, from the state
+    ``start_lanes`` left in ``state_dir``; what they return is pickled to
+    ``<state_dir>/<name>.pkl``."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.testing import warm_cpu_math
+
+    warm_cpu_math()
+    device = torch.device("cuda", 0)
+    with open(os.path.join(state_dir, "state.pkl"), "rb") as f:
+        state = pickle.load(f)
+    model, rows = state["model"], state["rows"]
+    if name == "serving":
+        ops = phase_serving_ops(model, seed, device, rows)
+        pub = phase_publish_eval(model, seed, device, rows, ops)
+        stream = phase_streaming(model, seed, device)
+        ivf_out = phase_ivf(model, seed, device)
+        out = {"ops": ops, "pub": pub, "stream": stream, "ivf": ivf_out}
+    elif name == "dist":
+        # the ML-25M draw of phase 4, drawn again here from the same seed
+        inter = zipf_interactions(seed, N_USERS, N_ITEMS, N_RATINGS)
+        dist = phase_dist(model, seed, device, inter, np.bincount(inter.item, minlength=N_ITEMS))
+        dist_cli = phase_dist_cli(seed, device)
+        out = {"dist": dist, "dist_cli": dist_cli, "ur_ml25m": phase_ur_ml25m(seed, device, inter)}
+    else:
+        raise ValueError(f"no lane {name!r}")
+    with open(os.path.join(state_dir, f"{name}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def start_lanes(seed, model, rows) -> dict:
+    """Start every lane of ``LANES``, each ``chip_smoke.py --lane NAME DIR``
+    in a process group of its own, its standard output and error to files under
+    DIR; returns what ``lanes_check`` and ``join_lanes`` take."""
+    import pickle
+    import tempfile
+
+    state_dir = tempfile.mkdtemp(prefix="pio-lanes-")
+    with open(os.path.join(state_dir, "state.pkl"), "wb") as f:
+        pickle.dump({"model": model, "rows": rows}, f)
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               CHIP_SMOKE_T0=str(time.time() - (time.perf_counter() - T_START)))
+    procs = {}
+    for name in LANES:
+        with open(os.path.join(state_dir, f"{name}.out"), "w") as out, \
+                open(os.path.join(state_dir, f"{name}.err"), "w") as err:
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--lane", name, state_dir,
+                 "--seed", str(seed)],
+                cwd=ROOT, env=env, stdout=out, stderr=err, start_new_session=True)
+    emit({"phase": "lanes", "step": "start", "lanes": {n: list(p) for n, p in LANES.items()},
+          "pids": {n: p.pid for n, p in procs.items()}})
+    return {"dir": state_dir, "procs": procs}
+
+
+def _lane_tail(lanes, name) -> str:
+    parts = []
+    for kind in ("out", "err"):
+        with open(os.path.join(lanes["dir"], f"{name}.{kind}")) as f:
+            parts.append(f"--- lane {name}, standard {kind}put (last 6,000 characters) ---\n"
+                         f"{f.read()[-6000:]}")
+    return "\n".join(parts)
+
+
+def lanes_check(lanes) -> None:
+    """A failed check if a lane has already exited with an error."""
+    for name, proc in lanes["procs"].items():
+        rc = proc.poll()
+        require(rc in (None, 0), f"lane {name} exited {rc}:\n{_lane_tail(lanes, name)}")
+
+
+def stop_lanes(lanes) -> None:
+    """End every lane's process group (its servers and launches with it)."""
+    import shutil
+    import signal
+
+    for proc in lanes["procs"].values():
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+        proc.wait()
+    shutil.rmtree(lanes["dir"], ignore_errors=True)
+
+
+def join_lanes(lanes) -> dict:
+    """Wait for every lane; print its lines in order (its standard output
+    here, its standard error to this process's), and return what its
+    phases returned, by lane. A failed lane is a failed check."""
+    import pickle
+    import shutil
+
+    out = {}
+    try:
+        for name, proc in lanes["procs"].items():
+            rc = proc.wait()
+            require(rc == 0, f"lane {name} exited {rc}:\n{_lane_tail(lanes, name)}")
+            for kind, stream in (("out", sys.stdout), ("err", sys.stderr)):
+                with open(os.path.join(lanes["dir"], f"{name}.{kind}")) as f:
+                    stream.write(f.read())
+                stream.flush()
+            with open(os.path.join(lanes["dir"], f"{name}.pkl"), "rb") as f:
+                out[name] = pickle.load(f)
+    except BaseException:
+        stop_lanes(lanes)
+        raise
+    shutil.rmtree(lanes["dir"], ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8824,6 +9550,9 @@ def main(argv=None) -> int:
     ap.add_argument("--time-kernels", metavar="TREE", help=argparse.SUPPRESS)
     ap.add_argument("--data", help=argparse.SUPPRESS)
     ap.add_argument("--dist-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--columnar-worker", nargs=2, metavar=("KIND", "DIR"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--lane", nargs=2, metavar=("NAME", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -8831,6 +9560,12 @@ def main(argv=None) -> int:
     if args.dist_worker:  # a rank of phase_dist's launch, on the device it names
         sys.path.insert(0, ROOT)
         return dist_worker(args.dist_worker)
+    if args.columnar_worker:  # a host helper of phase_columnar_store
+        sys.path.insert(0, ROOT)
+        return columnar_worker(*args.columnar_worker, args.seed)
+    if args.lane:  # a lane of phases beside the main process's (start_lanes)
+        sys.path.insert(0, ROOT)
+        return run_lane(*args.lane, args.seed)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
@@ -8839,6 +9574,23 @@ def main(argv=None) -> int:
         emit(time_kernels(args.seed, torch.device("cuda", 0), args.data))
         return 0
     sys.path.insert(0, ROOT)
+    # every interpreter this run starts (servers, launches, helpers) imports
+    # torch; where the installed packages hold no bytecode and the
+    # environment asks for none, each compiles torch's modules anew (8.3-8.9
+    # s an import on the card's host, 6.8-6.9 with this cache, which the
+    # first one writes: chip_probes/import_costs.py). The cache lies under
+    # build/, which .gitignore lists.
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(ROOT, "build", "pycache")
+    # the ports free_port hands out, shared with the lanes' processes
+    import tempfile
+
+    import atexit
+
+    fd, ports = tempfile.mkstemp(prefix="pio-ports-")
+    os.close(fd)
+    os.environ["CHIP_SMOKE_PORTS"] = ports
+    atexit.register(lambda: os.path.exists(ports) and os.unlink(ports))
     if args.ab:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -8864,14 +9616,46 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
     require(cap[0] == 9, f"a Hopper card (capability 9.x), got {cap}")
 
+    # nvcc runs in processes of its own: the ML-25M draw and its degree
+    # buckets (host work) are made while it builds
+    from predictionio_tpu_torch.models import als
+
     t0 = time.perf_counter()
-    built = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    build = {}
+
+    def build_kernels():
+        try:
+            build["built"] = _build.build_all()
+        except BaseException as e:  # raised again below, in this thread
+            build["error"] = e
+        build["seconds"] = time.perf_counter() - t0
+
+    nvcc_thread = threading.Thread(target=build_kernels, name="nvcc")
+    nvcc_thread.start()
+    try:
+        t1 = time.perf_counter()
+        draw = zipf_interactions(args.seed, N_USERS, N_ITEMS, N_RATINGS)
+        blocks = als._dense_blocks_for(
+            draw, als.ALSConfig(rank=RANK, iterations=TRAIN_ITERS, seed=args.seed))
+        draw_s = time.perf_counter() - t1
+    finally:
+        nvcc_thread.join()
+    if "error" in build:
+        raise build["error"]
+    built = build["built"]
+    emit({"phase": "build", "seconds": build["seconds"], "ml25m_draw_and_buckets_beside_s": draw_s,
           "libraries": {n: str(p.relative_to(ROOT)) for n, (p, _, _) in built.items()},
           "ptxas": {n: ptxas_usage(out) for n, (_, _, out) in built.items()}})
+    # the host libraries (snappy, the JSON property scanner): g++, host code
+    t0 = time.perf_counter()
+    host = _build.build_host()
+    emit({"phase": "build-host", "seconds": time.perf_counter() - t0,
+          "libraries": {n: str(p.relative_to(ROOT)) for n, (p, _, _) in host.items()}})
 
     _, _, rows, max_err = phase_kernels(args.seed, device)
-    inter, cfg, side_rows, bucket_rows, train_err, first = phase_train_kernels(args.seed, device)
+    inter, cfg, side_rows, bucket_rows, train_err, first = phase_train_kernels(
+        args.seed, device, draw, blocks)
+    del draw, blocks
     model, train = phase_train(inter, cfg, device, first)
     t0 = time.perf_counter()
     gather_rows, gather_err = phase_gather_kernel(args.seed, device, inter)
@@ -8889,25 +9673,45 @@ def main(argv=None) -> int:
     sas_train = phase_sasrec_train(args.seed, device)
     phase_sasrec_train_parity(args.seed, device)
     sas_flow = phase_sasrec_train_workflow(args.seed, device)
-    kept = {}
-    quick = phase_quickstart_cli(args.seed, device, keep=kept)
-    remote = phase_remote_storage(device, kept)
-    ops = phase_serving_ops(model, args.seed, device, rows)
-    pub = phase_publish_eval(model, args.seed, device, rows, ops)
-    stream = phase_streaming(model, args.seed, device)
-    ivf_out = phase_ivf(model, args.seed, device)
     import numpy as np
 
-    sharded = phase_sharded(model, args.seed, device, np.bincount(inter.item, minlength=N_ITEMS))
-    ring_out = phase_ring(args.seed, device)
-    dist = phase_dist(model, args.seed, device, inter, np.bincount(inter.item, minlength=N_ITEMS))
-    dist_cli = phase_dist_cli(args.seed, device)
+    # from here on the lanes (serving-ops → publish-eval → streaming → ivf,
+    # and the dist-* phases → dist-cli → the UR at ML-25M) run beside these
+    # phases
+    lanes = start_lanes(args.seed, model, rows)
+    try:
+        kept = {}
+        quick = phase_quickstart_cli(args.seed, device, keep=kept)
+        lanes_check(lanes)
+        kept["keep_tmp"] = True
+        # columnar-store's host helpers (sqlite reference, parquet store), beside remote-storage
+        columnar_helpers = start_columnar_helpers(args.seed)
+        try:
+            remote = phase_remote_storage(device, kept)
+        except BaseException:
+            columnar_helpers["stop"]()
+            raise
+        columnar = phase_columnar_store(args.seed, device, kept, smi, columnar_helpers)
+        lanes_check(lanes)
+        sharded = phase_sharded(model, args.seed, device, np.bincount(inter.item, minlength=N_ITEMS))
+        del inter
+        ring_out = phase_ring(args.seed, device)
+        lanes_check(lanes)
+        tpl_cli = phase_templates_cli(args.seed, device)
+    except BaseException:
+        stop_lanes(lanes)
+        raise
     t0 = time.perf_counter()
-    tpl_ur = phase_ur_ml25m(args.seed, device, inter)
-    del inter
-    tpl_cli = phase_templates_cli(args.seed, device)
-    templates = {"ur_ml25m": tpl_ur, "cli": tpl_cli, "seconds": time.perf_counter() - t0}
+    lane_out = join_lanes(lanes)
+    emit({"phase": "lanes", "step": "joined", "waited_s": time.perf_counter() - t0})
+    ops, pub, stream, ivf_out = (lane_out["serving"][k] for k in ("ops", "pub", "stream", "ivf"))
+    dist, dist_cli, tpl_ur = (lane_out["dist"][k] for k in ("dist", "dist_cli", "ur_ml25m"))
+    # the templates phase: the UR at ML-25M (lane dist) and the CLI's five
+    # templates (this process), each its own time
+    templates = {"ur_ml25m": tpl_ur, "cli": tpl_cli,
+                 "seconds": tpl_ur["seconds"] + tpl_cli["seconds"]}
     emit({"phase": "templates", "seconds": templates["seconds"], "ok": True})
+    # fleet alone: its closed loops hold the router to no client-visible failure
     fleet = phase_fleet(model, args.seed, device)
     # each kernel's launches on the CLI path, counted as the CLI drove it
     cli_launches = {
@@ -9010,6 +9814,12 @@ def main(argv=None) -> int:
     for k, part, key in ((kernels["kernels"][0], "serve", "launches"),
                          (kernels["kernels"][1], "train", "launches")):
         k["remote_storage_launches"] = {leg: row[part][key] for leg, row in remote["legs"].items()}
+    # the columnar store: kernel 2 in `pio train` over the parquet import of
+    # the quickstart (buckets × iterations, asserted) and in train_als from
+    # the ML-1M read; kernel 1 on the server deployed from that basedir
+    # (launches = dispatches, asserted)
+    kernels["kernels"][0]["columnar_store_launches"] = columnar["serve_launches"]
+    kernels["kernels"][1]["columnar_store_launches"] = columnar["train_launches"]
     # kernel 1 on the operators' path: the deployed server's launches from
     # readiness to the drain (serving-ops)
     kernels["kernels"][0]["ops_launches"] = ops["launches"]
@@ -9112,7 +9922,7 @@ def main(argv=None) -> int:
                    "flash": flash_rows, "sasrec": sasrec,
                    "flash_bwd": bwd_rows, "sasrec_train": sas_train,
                    "sasrec_train_workflow": sas_flow, "quickstart_cli": quick,
-                   "remote_storage": remote,
+                   "remote_storage": remote, "columnar_store": columnar,
                    "serving_ops": ops, "publish_eval": pub, "streaming": stream, "ivf": ivf_out,
                    "templates": templates, "fleet": fleet, "sharded": sharded,
                    "ring": ring_out, "dist": dist, "dist_cli": dist_cli, **kernels}, f, indent=1)

@@ -16,9 +16,9 @@ runs none of those, so each takes the form its own contract has:
   ``model``, ``host``). A misspelt axis is a ``KeyError`` at the first
   sharded call, on the card, long after CPU CI passed.
 * **ctypes prototypes** (``collective-ctypes-prototype``, the port's form of
-  the index-map arity rule). A kernel is a ``csrc/*.cu`` file whose
-  ``extern "C"`` functions the ``ops/*.py`` wrappers bind through
-  ``ctypes``. Each ``<lib>.pio_*.argtypes = [...]`` list (``[p] * 10 +
+  the index-map arity rule). A kernel is a ``csrc/*.cu`` file, a host
+  library a ``csrc/host/*.cpp`` one, whose ``extern "C"`` functions the
+  ``ops/*.py`` wrappers (and ``native.py``) bind through ``ctypes``. Each ``<lib>.pio_*.argtypes = [...]`` list (``[p] * 10 +
   [i] * 8 + [p]`` is evaluated) must match the prototype of its symbol in
   count and in kind: pointer (``T*``, ``cudaStream_t``; ``c_void_p``,
   ``c_char_p``), int (``int``, ``long long``, ``int64_t``…; ``c_int``,
@@ -302,8 +302,11 @@ def _c_kind(param: str) -> str:
 
 
 def _strip_comments(text: str) -> str:
+    """Comments gone, and character literals (a JSON scanner's ``'{'``),
+    which would unbalance the brace count of an ``extern "C"`` block."""
     text = re.sub(r"/\*.*?\*/", " ", text, flags=re.S)
-    return re.sub(r"//[^\n]*", "", text)
+    text = re.sub(r"//[^\n]*", "", text)
+    return re.sub(r"'(?:\\.|[^'\\])+'", "0", text)
 
 
 def c_prototypes(text: str) -> dict[str, list[str]]:
@@ -332,8 +335,9 @@ def c_prototypes(text: str) -> dict[str, list[str]]:
 
 
 def cuda_sources(index: RepoIndex) -> dict[str, str]:
-    """Repo-relative path → text of every ``.cu`` file the index covers
-    (the package roots of a checkout, or the whole fixture tree)."""
+    """Repo-relative path → text of every ``.cu`` file, and every ``.cpp``
+    host library, the index covers (the package roots of a checkout, or the
+    whole fixture tree)."""
     roots = [os.path.join(index.root, d) for d in PY_ROOTS
              if os.path.isdir(os.path.join(index.root, d))] or [index.root]
     out: dict[str, str] = {}
@@ -341,7 +345,7 @@ def cuda_sources(index: RepoIndex) -> dict[str, str]:
         for dirpath, dirnames, files in os.walk(base):
             dirnames[:] = sorted(d for d in dirnames if not d.startswith((".", "__")))
             for f in sorted(files):
-                if f.endswith(".cu"):
+                if f.endswith((".cu", ".cpp")):
                     p = os.path.join(dirpath, f)
                     with open(p, encoding="utf-8") as fh:
                         out[os.path.relpath(p, index.root).replace(os.sep, "/")] = fh.read()

@@ -84,6 +84,24 @@
 
 #include <type_traits>
 
+// Build. ops/_build.py compiles this file as seven units side by side and links
+// them into one library: PIO_PART = 2 d + m (d: 0 f32, 1 bf16, 2 int8; m: 0 the
+// exact mode, 1 the probe-table mode) holds that dtype's and mode's kernels
+// behind pio_score_topk_part<PIO_PART>, and PIO_PART 6 the C entry points,
+// which reach them through those six. One unit of all 30 instantiations took
+// nvcc 71 s on the card's host, five times the next slowest source. Without
+// PIO_PART the file is the whole library in one unit, as before.
+#ifdef PIO_PART
+extern "C" {
+int pio_score_topk_part0(const void* args, void* stream);
+int pio_score_topk_part1(const void* args, void* stream);
+int pio_score_topk_part2(const void* args, void* stream);
+int pio_score_topk_part3(const void* args, void* stream);
+int pio_score_topk_part4(const void* args, void* stream);
+int pio_score_topk_part5(const void* args, void* stream);
+}
+#endif
+
 namespace {
 
 constexpr int WARPS = 8;           // warps a block
@@ -710,6 +728,13 @@ cudaError_t launch(const A& a, cudaStream_t stream) {
 
 template <typename A>
 cudaError_t launch_dtype(const A& a, int dtype, cudaStream_t s) {
+#ifdef PIO_PART
+  static int (*const parts[6])(const void*, void*) = {
+      pio_score_topk_part0, pio_score_topk_part1, pio_score_topk_part2,
+      pio_score_topk_part3, pio_score_topk_part4, pio_score_topk_part5};
+  if (dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
+  return static_cast<cudaError_t>(parts[2 * dtype + (kProbed<A> ? 1 : 0)](&a, s));
+#else
   switch (dtype) {
     case 0:
       return launch<float>(a, s);
@@ -720,10 +745,27 @@ cudaError_t launch_dtype(const A& a, int dtype, cudaStream_t s) {
     default:
       return cudaErrorInvalidValue;
   }
+#endif
 }
 
 }  // namespace
 
+#if defined(PIO_PART) && PIO_PART < 6
+#define PIO_CAT2(a, b) a##b
+#define PIO_CAT(a, b) PIO_CAT2(a, b)
+
+namespace {
+using PartT = std::conditional_t<PIO_PART / 2 == 0, float,
+                                 std::conditional_t<PIO_PART / 2 == 1, __nv_bfloat16, int8_t>>;
+using PartA = std::conditional_t<PIO_PART % 2 == 0, Args, ProbedArgs>;
+}  // namespace
+
+extern "C" int PIO_CAT(pio_score_topk_part, PIO_PART)(const void* args, void* stream) {
+  return launch<PartT>(*static_cast<const PartA*>(args), static_cast<cudaStream_t>(stream));
+}
+#endif
+
+#if !defined(PIO_PART) || PIO_PART == 6
 extern "C" {
 
 int pio_score_topk_limits(int* max_k, int* warp_max_k, int* max_rank, int* max_slices) {
@@ -785,3 +827,4 @@ int pio_score_topk_probed(const void* U, const float* u_scale, const void* V,
 }
 
 }  // extern "C"
+#endif

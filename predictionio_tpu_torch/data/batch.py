@@ -2,8 +2,11 @@
 
 Counterpart of ``predictionio_tpu/data/batch.py``: :class:`EventBatch`
 (``from_events``, row iteration, ``select``, ``filter_events``,
-``interactions``), :class:`EntityMap`, :class:`Interactions` (``subset``,
-``drop_items``) and :func:`merge_interactions`, in numpy only. The id maps
+``interactions``, ``to_dataframe``, storage-promoted
+``numeric_properties``), :class:`LazyJsonProperties`, :class:`EntityMap`,
+:class:`Interactions` (``subset``, ``drop_items``) and
+:func:`merge_interactions`, in numpy only (``to_dataframe`` imports pandas
+inside it, as the JAX package's does). The id maps
 are the port's :class:`~predictionio_tpu_torch.data.bimap.BiMap`, whose
 bulk paths factorize with numpy where the JAX package uses pandas, with the
 same first-seen order. :func:`interactions_from_arrays` carries triples and
@@ -13,6 +16,7 @@ the tests).
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Iterator, Optional, Sequence
 
@@ -20,6 +24,42 @@ import numpy as np
 
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.event import Event
+
+
+class LazyJsonProperties(Sequence):
+    """Row-aligned property dicts decoded from JSON strings on access.
+
+    Bulk storage keeps properties as JSON; decoding 25M rows eagerly costs
+    minutes, and most pipelines touch only a numeric key or two (via
+    promoted columns) or a small row subset. Decoded rows are cached.
+    """
+
+    __slots__ = ("_raw", "_cache")
+
+    def __init__(self, raw: np.ndarray):
+        self._raw = raw  # object array of JSON strings
+        self._cache: dict[int, dict] = {}
+
+    def __len__(self) -> int:
+        return len(self._raw)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        i = int(i)
+        got = self._cache.get(i)
+        if got is None:
+            got = self.decode(i)
+            self._cache[i] = got
+        return got
+
+    def decode(self, i: int) -> dict:
+        """Decode one row WITHOUT caching (full-scan iteration stays O(1))."""
+        raw = self._raw[int(i)]
+        return json.loads(raw) if raw else {}
+
+    def subset(self, idx: np.ndarray) -> "LazyJsonProperties":
+        return LazyJsonProperties(self._raw[idx])
 
 
 @dataclass
@@ -32,11 +72,14 @@ class EventBatch:
     target_entity_type: np.ndarray  # object (str | None)
     target_entity_id: np.ndarray  # object (str | None)
     event_time: np.ndarray  # float64 epoch seconds
-    properties: list  # row-aligned property dicts
+    properties: Sequence  # row-aligned property dicts (list or LazyJson)
     event_id: np.ndarray = None  # object (str | None): the sharded read's identity
-    tags: list = None  # row-aligned tag tuples
+    tags: Sequence = None  # row-aligned tag tuples
     pr_id: np.ndarray = None  # object (str | None)
     creation_time: np.ndarray = None  # float64 epoch seconds
+    # storage-promoted numeric property columns (e.g. parquet parts):
+    # property_column() serves from here without touching JSON
+    numeric_properties: Optional[dict] = None
 
     def __post_init__(self):
         n = len(self.event)
@@ -83,6 +126,7 @@ class EventBatch:
 
     def __iter__(self) -> Iterator[Event]:
         """The rows as :class:`Event` records, one at a time."""
+        lazy = isinstance(self.properties, LazyJsonProperties)
         for i in range(len(self)):
             yield Event(
                 event=self.event[i],
@@ -90,7 +134,10 @@ class EventBatch:
                 entity_id=self.entity_id[i],
                 target_entity_type=self.target_entity_type[i],
                 target_entity_id=self.target_entity_id[i],
-                properties=self.properties[i],
+                # full scans must not populate the per-row decode cache
+                properties=(
+                    self.properties.decode(i) if lazy else self.properties[i]
+                ),
                 event_time=float(self.event_time[i]),
                 tags=self.tags[i],
                 pr_id=self.pr_id[i],
@@ -100,6 +147,11 @@ class EventBatch:
 
     def select(self, mask: np.ndarray) -> "EventBatch":
         idx = np.nonzero(mask)[0]
+        props = (
+            self.properties.subset(idx)
+            if isinstance(self.properties, LazyJsonProperties)
+            else [self.properties[i] for i in idx]
+        )
         return EventBatch(
             event=self.event[idx],
             entity_type=self.entity_type[idx],
@@ -107,17 +159,45 @@ class EventBatch:
             target_entity_type=self.target_entity_type[idx],
             target_entity_id=self.target_entity_id[idx],
             event_time=self.event_time[idx],
-            properties=[self.properties[i] for i in idx],
+            properties=props,
             event_id=self.event_id[idx],
             tags=[self.tags[i] for i in idx],
             pr_id=self.pr_id[idx],
             creation_time=self.creation_time[idx],
+            numeric_properties=(
+                {k: v[idx] for k, v in self.numeric_properties.items()}
+                if self.numeric_properties
+                else None
+            ),
         )
 
     def filter_events(self, names: Sequence[str]) -> "EventBatch":
         names_set = set(names)
         return self.select(
             np.fromiter((e in names_set for e in self.event), dtype=bool, count=len(self))
+        )
+
+    def to_dataframe(self):
+        """Events as a pandas DataFrame (parity: data/view DataView and
+        PPythonEventStore's DataFrame-returning reads — the notebook
+        surface). Needs pandas: without it this raises ImportError, as the
+        JAX package's does."""
+        import pandas as pd
+
+        return pd.DataFrame(
+            {
+                "eventId": self.event_id,
+                "event": self.event,
+                "entityType": self.entity_type,
+                "entityId": self.entity_id,
+                "targetEntityType": self.target_entity_type,
+                "targetEntityId": self.target_entity_id,
+                "properties": self.properties,
+                "eventTime": pd.to_datetime(self.event_time, unit="s", utc=True),
+                "creationTime": pd.to_datetime(
+                    self.creation_time, unit="s", utc=True
+                ),
+            }
         )
 
     def entity_bimap(self) -> BiMap[str, int]:
@@ -130,7 +210,11 @@ class EventBatch:
         return BiMap.string_int(self.target_entity_id[has])
 
     def property_column(self, key: str, default: float = np.nan) -> np.ndarray:
-        """One numeric property across all rows as float64."""
+        """One numeric property across all rows as float64, served from
+        storage-promoted columns when there are (no JSON touch)."""
+        if self.numeric_properties is not None and key in self.numeric_properties:
+            col = self.numeric_properties[key].astype(np.float64)
+            return np.where(np.isnan(col), default, col)
         return np.array(
             [float(p.get(key, default)) for p in self.properties], dtype=np.float64
         )

@@ -101,22 +101,28 @@ class _ScramVerifier:
 class PGStub:
     """Threaded stub server; ``users`` maps user → password."""
 
-    def __init__(self, users: dict | None = None, auth: str = "scram"):
+    def __init__(self, users: dict | None = None, auth: str = "scram",
+                 lc_ctype: str = "en_US.UTF-8"):
         if auth not in ("scram", "md5", "trust"):
             raise ValueError(f"auth must be scram|md5|trust, got {auth!r}")
         self.users = users or {"pio": "pio-secret"}
         self.auth = auth
+        # the database's character classification, as `SHOW lc_ctype`
+        # reports it; under C or POSIX lower() folds ASCII only
+        self.lc_ctype = lc_ctype
         self._scram = {
             u: _ScramVerifier(p) for u, p in self.users.items()
         }
         self.db = sqlite3.connect(":memory:", check_same_thread=False)
         self.db_lock = threading.RLock()
-        # PG folds Unicode in lower(); sqlite's builtin is ASCII-only —
-        # shadow it so the stub matches real-server semantics
-        self.db.create_function(
-            "lower", 1, lambda s: s.lower() if isinstance(s, str) else s,
-            deterministic=True,
-        )
+        # PG folds Unicode in lower() under a UTF-8 locale; sqlite's
+        # builtin is ASCII-only, which is what PG's C/POSIX locale does —
+        # shadow it only for the former so the stub matches the server
+        if lc_ctype.upper() not in ("C", "POSIX"):
+            self.db.create_function(
+                "lower", 1, lambda s: s.lower() if isinstance(s, str) else s,
+                deterministic=True,
+            )
         # the server-side shard hash: the driver installs a plpgsql
         # pio_crc32 (no-op'd by the dialect shim); the stub provides the
         # SAME function as a Python UDF (both equal zlib.crc32)
@@ -338,6 +344,9 @@ class _Session:
             self._send(b"n")
             self._send(b"C", f"{verb0 or 'SELECT'} 0".encode() + b"\x00")
             return
+        if verb0 == "SHOW" and self.stmt_sql.split()[1].lower() == "lc_ctype":
+            self.stmt_sql = "SELECT ? AS lc_ctype"
+            self.params = [self.stub.lc_ctype]
         sql = _to_sqlite(self.stmt_sql)
         with self.stub.db_lock:
             cur = self.stub.db.execute(sql, self.params)

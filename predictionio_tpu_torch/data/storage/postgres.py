@@ -385,6 +385,15 @@ class _PgDb:
         # so a server/role-level bytea_output='escape' can't corrupt
         # model blobs (the stub no-ops SET statements)
         conn.execute("SET bytea_output = 'hex'")
+        # under a C or POSIX lc_ctype the server's lower() folds ASCII only,
+        # so free-text search then folds case on the host instead; a
+        # PG-shaped server without the setting (the JAX package's stub)
+        # keeps the server-side fold
+        try:
+            rows, _ = conn.execute("SHOW lc_ctype")
+        except PGError:
+            rows = [("",)]
+        self.ascii_lower = str(rows[0][0]).upper() in ("C", "POSIX")
         conn.execute(f"SELECT pg_advisory_lock({self._SCHEMA_LOCK_KEY})")
         try:
             for stmt in _SCHEMA:
@@ -732,8 +741,15 @@ class PostgresLEvents(_PgDAO, base.LEvents):
 
     def search(self, app_id, text, channel_id=None, limit=None, **filters):
         """ES query-string role pushed into SQL: ``strpos(lower(col),
-        lower($))`` — PostgreSQL's lower() folds Unicode, matching the
-        base default exactly."""
+        lower($))`` — PostgreSQL's lower() folds Unicode under a UTF-8
+        locale, matching the base default exactly. Under a C or POSIX
+        ``lc_ctype`` it folds ASCII only, so the base class's host-side
+        filter runs instead (the JAX driver keeps the server-side fold;
+        ROADMAP §3)."""
+        if self._db.ascii_lower:
+            return base.LEvents.search(
+                self, app_id, text, channel_id=channel_id, limit=limit, **filters
+            )
         allowed = (
             "start_time", "until_time", "entity_type", "entity_id",
             "event_names", "target_entity_type", "target_entity_id",
@@ -1024,6 +1040,13 @@ class PostgresEngineInstances(_PgDAO, base.EngineInstances):
 
     def query(self, status=None, engine_factory=None, engine_variant=None,
               since=None, until=None, text=None, limit=None):
+        if text is not None and self._db.ascii_lower:
+            # a C/POSIX lc_ctype folds ASCII only: fold on the host (search)
+            return base.EngineInstances.query(
+                self, status=status, engine_factory=engine_factory,
+                engine_variant=engine_variant, since=since, until=until,
+                text=text, limit=limit,
+            )
         where, params = [], []
         for col, val in (
             ("status", status), ("engine_factory", engine_factory),

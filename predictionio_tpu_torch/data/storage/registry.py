@@ -13,13 +13,13 @@ The drivers, as in the JAX package: ``sqlite`` (every repository, the
 zero-config default), ``memory`` (every repository), ``localfs`` (models),
 ``postgres`` (every repository, over the v3 wire protocol; ``TYPE=jdbc``
 with a ``postgresql://`` URL resolves to it, any other JDBC URL raises),
-``s3`` (models, SigV4 over HTTP) and ``network`` (every repository, a remote
-``pio storageserver`` that many hosts share). An environment that names no
+``s3`` (models, SigV4 over HTTP), ``network`` (every repository, a remote
+``pio storageserver`` that many hosts share) and ``parquet`` (events: the
+columnar store on the port's own Parquet codec, by default under
+``$PIO_FS_BASEDIR/parquet/<source>``). An environment that names no
 source gets source ``DEFAULT`` of type sqlite, the file ``default.sqlite``
-under ``PIO_FS_BASEDIR``. The ``parquet`` driver is not ported (it needs
-pyarrow): a source of that type raises an error naming ROADMAP §1 item 14,
-and so does any other unregistered type, never falling back to a local
-store.
+under ``PIO_FS_BASEDIR``. Any other type raises, never falling back to a
+local store.
 """
 
 from __future__ import annotations
@@ -27,7 +27,9 @@ from __future__ import annotations
 import os
 from typing import Callable, Optional
 
-from predictionio_tpu_torch.data.storage import base, localfs, memory, network, postgres, s3, sqlite
+from predictionio_tpu_torch.data.storage import (
+    base, localfs, memory, network, parquet, postgres, s3, sqlite,
+)
 
 METADATA = "METADATA"
 EVENTDATA = "EVENTDATA"
@@ -57,6 +59,7 @@ DRIVERS: dict[str, dict[str, Callable]] = {
         "EvaluationInstances": sqlite.SqliteEvaluationInstances,
         "Sequences": sqlite.SqliteSequences,
     },
+    "parquet": {"LEvents": parquet.ParquetLEvents, "PEvents": parquet.ParquetPEvents},
     "localfs": {"Models": localfs.LocalFSModels},
     "s3": {"Models": s3.S3Models},
     "postgres": {
@@ -180,12 +183,6 @@ class Storage:
                     "storageserver` for a shared data plane."
                 )
             type_name = "postgres"
-        if type_name == "parquet":
-            raise StorageError(
-                f"source {source_name!r}: the parquet driver is not ported to "
-                "predictionio_tpu_torch (ROADMAP §1 item 14: it needs pyarrow, "
-                "which the port does not depend on)"
-            )
         if type_name not in DRIVERS:
             raise StorageError(f"unknown storage type {type_name!r}")
         if dao not in DRIVERS[type_name]:

@@ -930,8 +930,10 @@ class Router:
 
     # -- health checking -----------------------------------------------------
     def _probe_replica(self, rep: ReplicaState):
-        """GET /readyz on one replica.  (ok, info-dict-or-None) — ok means
-        200 AND the fast path reports warm (admission gates on warm)."""
+        """GET /readyz on one replica.  (ok, info-dict-or-None, timed_out)
+        — ok means 200 AND the fast path reports warm (admission gates on
+        warm); timed_out means the probe got no answer within
+        ``probe_timeout_ms`` (a busy replica, not a refusal)."""
         try:
             with urllib.request.urlopen(
                 rep.url + "/readyz", timeout=self.probe_timeout_ms / 1e3
@@ -942,10 +944,11 @@ class Router:
                 info = json.loads(e.read().decode("utf-8"))
             except (ValueError, OSError):
                 info = None
-            return False, info
-        except (OSError, ValueError):
-            return False, None
-        return bool(info.get("fastpathWarm", True)), info
+            return False, info, False
+        except (OSError, ValueError) as e:
+            reason = getattr(e, "reason", e)
+            return False, None, isinstance(reason, TimeoutError)
+        return bool(info.get("fastpathWarm", True)), info, False
 
     def _health_loop(self):
         interval_s = self.health_interval_ms / 1e3
@@ -956,11 +959,11 @@ class Router:
         results = [(rep, self._probe_replica(rep)) for rep in self._replicas]
         now = time.monotonic()
         with self._lock:
-            for rep, (ok, info) in results:
-                self._apply_probe_locked(rep, ok, info, now)
+            for rep, (ok, info, timed_out) in results:
+                self._apply_probe_locked(rep, ok, info, now, timed_out)
             self._check_outliers_locked(now)
 
-    def _apply_probe_locked(self, rep, ok, info, now):
+    def _apply_probe_locked(self, rep, ok, info, now, timed_out=False):
         if info is not None:
             gen = info.get("generation")
             if isinstance(gen, int):
@@ -1007,6 +1010,20 @@ class Router:
                 rep.state == ADMITTED
                 and rep.unhealthy_streak >= self.eject_after
             ):
+                if timed_out and sum(
+                    1 for r in self._replicas if r.state == ADMITTED
+                ) <= 1:
+                    # the guard outlier ejection has: a probe that timed
+                    # out on the last admitted replica means it is busy
+                    # (one replica carrying a roll's whole load), and
+                    # ejecting it would shed every query with 503; a
+                    # refusal or a 503 from /readyz still ejects
+                    self._rl_log.warning(
+                        "eject-held", "replica %s kept: last admitted, "
+                        "/readyz timed out %d probes",
+                        rep.url, rep.unhealthy_streak,
+                    )
+                    return
                 rep.state = EJECTED
                 self.counters.inc("ejections_health")
                 self._rl_log.warning(

@@ -186,6 +186,32 @@ def shaped(lines):
 
 
 def test_quickstart_through_both_clis_gives_the_same_answers(tmp_path, monkeypatch, capsys):
+    prun = _quickstart_parity(tmp_path, monkeypatch, capsys)
+    assert "[INFO] METADATA  -> source DEFAULT (type sqlite)" in prun.lines
+
+
+def test_quickstart_on_a_parquet_event_store_gives_the_same_answers(
+        tmp_path, monkeypatch, capsys):
+    """The same quickstart with EVENTDATA on the columnar store (each
+    package its own directory, metadata and models on sqlite): the event
+    server's inserts land in the WAL, ``pio train`` compacts and reads the
+    parts, and both CLIs print and answer alike."""
+    def storage_env(tmp):
+        return {"PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+                "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.sqlite"),
+                "PIO_STORAGE_SOURCES_PQ_TYPE": "parquet",
+                "PIO_STORAGE_SOURCES_PQ_PATH": str(tmp / "events"),
+                "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+                "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PQ",
+                "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"}
+
+    prun = _quickstart_parity(tmp_path, monkeypatch, capsys, storage_env)
+    assert "[INFO] EVENTDATA -> source PQ (type parquet)" in prun.lines
+    parts = sorted(p.name for p in (tmp_path / "port" / "events").glob("app_*_ch_0/*"))
+    assert parts and all(p.startswith("events-") for p in parts), parts
+
+
+def _quickstart_parity(tmp_path, monkeypatch, capsys, storage_env=None):
     for k in list(os.environ):
         if k.startswith("PIO_STORAGE_") or k in ("PIO_ALS_SOLVER", "PIO_ALS_COMPUTE_DTYPE"):
             monkeypatch.delenv(k)
@@ -209,6 +235,8 @@ def test_quickstart_through_both_clis_gives_the_same_answers(tmp_path, monkeypat
     ):
         storage_cls.reset_instance()
         store.set_storage(None)
+        for k, v in (storage_env(tmp_path / name) if storage_env else {}).items():
+            monkeypatch.setenv(k, v)
         run = Run(cli, capsys, device)
         try:
             runs[name] = (run, quickstart(run, tmp_path / name, monkeypatch))
@@ -217,7 +245,6 @@ def test_quickstart_through_both_clis_gives_the_same_answers(tmp_path, monkeypat
             sqlite_mod.close_all_dbs()
     (jrun, jax_answers), (prun, port_answers) = runs["jax"], runs["port"]
     assert shaped(prun.lines) == shaped(jrun.lines)
-    assert "[INFO] METADATA  -> source DEFAULT (type sqlite)" in prun.lines
 
     assert jax_answers.keys() == port_answers.keys()
     assert port_answers["nobody"] == jax_answers["nobody"] == {"itemScores": []}
@@ -231,6 +258,7 @@ def test_quickstart_through_both_clis_gives_the_same_answers(tmp_path, monkeypat
             np.array([[x["score"] for x in ref]]), np.array([[index[x["item"]] for x in ref]]),
             tol=1e-4)
         assert not bad, (u, bad[:3])
+    return prun
 
 
 def _cli(*argv, env, timeout=60):

@@ -57,7 +57,7 @@ from predictionio_tpu_torch.data.storage import postgres
 from predictionio_tpu_torch.data.storage import sqlite as port_sqlite
 from predictionio_tpu_torch.data.storage.network import StorageServer
 from predictionio_tpu_torch.data.storage.pgstub import PGStub
-from predictionio_tpu_torch.data.storage.registry import Storage, StorageError
+from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.data.storage.s3stub import S3Stub
 from predictionio_tpu_torch.device import DeviceContext
 from predictionio_tpu_torch.templates import recommendation as rec
@@ -226,11 +226,30 @@ def test_cli_export_import_and_status(layouts, monkeypatch):
         binding = lambda o: [line for line in o.splitlines() if "-> source" in line]  # noqa: E731
         assert binding(port_out) == binding(ref_out)
         assert [line.split("(type ")[1].rstrip(")") for line in binding(port_out)] == list(want)
-    # a parquet source raises naming its ROADMAP item (as the JAX CLI lets a
-    # StorageError through), never importing into a local store instead
-    with pytest.raises(StorageError, match="item 14"):
-        _cli(port_cli, ["import", "--appid", "1", "--input", str(tmp / "cli.json")],
-             _env("BAD", TYPE="parquet", PATH=tmp), monkeypatch)
+    # events on a parquet source, metadata on sqlite (the JAX CLI test's
+    # pairing): import, export and status work as the JAX verbs do, and the
+    # JAX CLI exports the port-written store line for line
+    pq_env = {**_env("META", TYPE="sqlite", PATH=tmp / "meta.sqlite"),
+              "PIO_STORAGE_SOURCES_PQ_TYPE": "parquet",
+              "PIO_STORAGE_SOURCES_PQ_PATH": str(tmp / "pq"),
+              "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PQ"}
+    rc, out = _cli(port_cli, ["app", "new", APP], pq_env, monkeypatch)
+    assert rc == 0
+    pq_app = int(out.split("App created: ID ")[1].split(",")[0])
+    rc, out = _cli(port_cli, ["import", "--appid", str(pq_app), "--input", str(tmp / "cli.json")],
+                   pq_env, monkeypatch)
+    assert rc == 0 and out.strip() == "[INFO] Imported 900 events."
+    assert (tmp / "pq" / f"app_{pq_app}_ch_0").is_dir()
+    for mod, name in ((port_cli, "pq-port.json"), (jax_cli, "pq-jax.json")):
+        rc, out = _cli(mod, ["export", "--appid", str(pq_app), "--output", str(tmp / name)],
+                       pq_env, monkeypatch)
+        assert rc == 0 and "Exported 900 events" in out, out
+    assert _lines(tmp / "pq-port.json") == _lines(tmp / "pq-jax.json") == _lines(tmp / "cli.json")
+    rc, port_out = _cli(port_cli, ["status"], pq_env, monkeypatch)
+    rc_ref, ref_out = _cli(jax_cli, ["status"], pq_env, monkeypatch)
+    binding = lambda o: [line for line in o.splitlines() if "-> source" in line]  # noqa: E731
+    assert rc == rc_ref == 0 and binding(port_out) == binding(ref_out)
+    assert "(type parquet)" in "\n".join(binding(port_out))
 
 
 def _instances(b):

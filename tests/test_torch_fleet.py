@@ -96,6 +96,8 @@ class StubReplica:
         self.generation = generation
         self.delay_s = 0.0
         self.fail_status = None  # None = answer 200
+        self.readyz_delay_s = 0.0  # a busy replica: /readyz answers late
+        self.readyz_calls = 0
         self.queries = 0
         self.seen_deadlines = []
         self._lock = threading.Lock()
@@ -103,6 +105,10 @@ class StubReplica:
 
         @self.svc.route("GET", r"/readyz")
         def readyz(req):
+            with self._lock:
+                self.readyz_calls += 1
+            if self.readyz_delay_s:
+                time.sleep(self.readyz_delay_s)
             body = {
                 "generation": self.generation,
                 "fastpathWarm": self.warm,
@@ -422,6 +428,55 @@ class TestHealthGate:
         rep = router.stats()["replicas"][0]
         assert rep["state"] == EJECTED
         assert router.available_count() == 2
+
+
+class TestRollSurvivor:
+    """A roll of a two-replica fleet drains one replica at the router while
+    it restarts, so the other carries every client alone. A survivor that
+    still answers queries but whose /readyz answers only after
+    ``probe_timeout_ms`` (busy under that load) stays admitted: health
+    ejection keeps the last admitted replica on a probe timeout, as outlier
+    ejection always has. A refusal or a 503 from /readyz still ejects it."""
+
+    def _roll_one(self, stubs, router_factory):
+        a, b = stubs(2)
+        router, base = router_factory([a.url, b.url], fast_health=True)
+        router.set_replica_draining(a.url, True)  # a restarts
+        assert router.available_count() == 1
+        return a, b, router, base
+
+    def test_stalled_readyz_keeps_the_last_admitted_replica(
+        self, stubs, router_factory
+    ):
+        a, b, router, base = self._roll_one(stubs, router_factory)
+        b.readyz_delay_s = 3 * router.probe_timeout_ms / 1e3
+        start = b.readyz_calls
+        wait_until(
+            lambda: b.readyz_calls - start >= router.eject_after + 1,
+            timeout=20.0, msg="the survivor was never probed",
+        )
+        assert router.stats()["replicas"][1]["state"] == ADMITTED
+        assert router.counters.get("ejections_health") == 0
+        status, body, _ = call("POST", base + "/queries.json", {"q": 1})
+        assert status == 200 and body["who"] == b.url
+        b.readyz_delay_s = 0.0
+
+    @pytest.mark.parametrize("fault", ["unready", "refused"])
+    def test_a_refusal_still_ejects_the_last_admitted_replica(
+        self, stubs, router_factory, fault
+    ):
+        a, b, router, base = self._roll_one(stubs, router_factory)
+        if fault == "unready":
+            b.ready = False  # /readyz answers 503
+        else:
+            b.stop()  # the port refuses connections
+        wait_until(
+            lambda: router.stats()["replicas"][1]["state"] == EJECTED,
+            timeout=10.0, msg="the refusing survivor was never ejected",
+        )
+        assert router.counters.get("ejections_health") >= 1
+        status, _, _ = call("POST", base + "/queries.json", {"q": 1})
+        assert status == 503
 
 
 # -- fleet supervisor ---------------------------------------------------------

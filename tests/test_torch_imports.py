@@ -133,6 +133,10 @@ print(" ".join(names))
         "predictionio_tpu_torch.analysis.lockorder",
         "predictionio_tpu_torch.analysis.deadline", "predictionio_tpu_torch.analysis.hotpath",
         "predictionio_tpu_torch.analysis.collective",
+        # the columnar event store
+        "predictionio_tpu_torch.data.storage.parquet",
+        "predictionio_tpu_torch.data.storage.parquet_format",
+        "predictionio_tpu_torch.native", "predictionio_tpu_torch.data.view",
     } <= names
     # the SASRec training, segment and operators' slices' names, by attribute
     code = ("import sys; sys.modules['jax'] = None; sys.modules['predictionio_tpu'] = None; "
@@ -436,3 +440,95 @@ def test_model_trainers_without_a_context_need_a_card(name):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             _train_item11(name)
+
+
+def test_parquet_store_trains_and_serves_with_pyarrow_and_pandas_blocked(tmp_path):
+    """The columnar store needs neither pyarrow nor pandas (the card's
+    machine has neither): a subprocess with both blocked, and jax and
+    ``predictionio_tpu`` too, writes a bulk part and WAL rows to a
+    ``TYPE=parquet`` source, trains through ``pio train --device cpu``
+    (compaction, the host scanner, the columnar ``find_interactions``),
+    serves the instance with the batched query server, and snappy
+    round-trips. ``to_dataframe`` and the view raise ImportError naming
+    pandas."""
+    import json
+
+    code = """
+import json, sys, urllib.request
+for m in ('jax', 'predictionio_tpu', 'pyarrow', 'pandas'):
+    sys.modules[m] = None
+import numpy as np
+from predictionio_tpu_torch import native
+from predictionio_tpu_torch.data import view
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.device import DeviceContext
+from predictionio_tpu_torch.serving.query_server import QueryServer
+from predictionio_tpu_torch.templates.recommendation import RecommendationEngine
+from predictionio_tpu_torch.tools import cli
+out = {}
+assert cli.main(["app", "new", "Pq"]) == 0
+storage = Storage.instance()
+app_id = storage.get_meta_data_apps().get_by_name("Pq").id
+rng = np.random.default_rng(4)
+evs = [Event(event="rate", entity_type="user", entity_id=f"u{int(u)}",
+             target_entity_type="item", target_entity_id=f"i{int(i)}",
+             properties={"rating": int(r)}, event_time=1_767_225_600.0 + k)
+       for k, (u, i, r) in enumerate(zip(rng.integers(0, 300, 12000),
+                                          rng.integers(0, 90, 12000),
+                                          rng.integers(1, 6, 12000)))]
+storage.get_p_events().write(evs[:11000], app_id)
+storage.get_l_events().insert_batch(evs[11000:], app_id)
+engine_dir = sys.argv[1]
+assert cli.main(["train", "--engine-dir", engine_dir, "--device", "cpu"]) == 0
+factory = "predictionio_tpu_torch.templates.recommendation.RecommendationEngine"
+qs = QueryServer(RecommendationEngine.apply(), storage=storage,
+                 ctx=DeviceContext.create(device="cpu"), engine_id=factory, batching=True)
+base = f"http://127.0.0.1:{qs.start('127.0.0.1', 0)}"
+def post(q):
+    req = urllib.request.Request(base + "/queries.json", data=json.dumps(q).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read())
+out["answers"] = [len(post({"user": f"u{k}", "num": 5})["itemScores"]) for k in range(20)]
+qs.stop()
+inter = storage.get_p_events().find_interactions(app_id, rating_key="rating")
+out["rows"] = len(inter)
+out["snappy"] = native.snappy_decompress(native.snappy_compress(b"abc" * 100)) == b"abc" * 100
+for name, fn in (("to_dataframe", lambda: storage.get_p_events().find(app_id).to_dataframe()),
+                 ("view", lambda: view.create("Pq"))):
+    try:
+        fn()
+    except ImportError as e:
+        out[name] = str(e)
+out["foreign_modules"] = sorted({m.split('.')[0] for m, mod in sys.modules.items()
+                                 if mod is not None and m.split('.')[0] in
+                                 ('jax', 'predictionio_tpu', 'pyarrow', 'pandas')})
+print(json.dumps(out))
+"""
+    engine_dir = tmp_path / "engine"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps({
+        "id": "default",
+        "engineFactory": "predictionio_tpu_torch.templates.recommendation.RecommendationEngine",
+        "datasource": {"params": {"appName": "Pq"}},
+        "algorithms": [{"name": "als", "params": {"rank": 4, "numIterations": 3}}]}))
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTHONPATH" and not k.startswith(("PIO_STORAGE_", "PIO_ALS_"))}
+    env.update({"PIO_FS_BASEDIR": str(tmp_path / "base"),
+                "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+                "PIO_STORAGE_SOURCES_DB_PATH": str(tmp_path / "pio.sqlite"),
+                "PIO_STORAGE_SOURCES_PQ_TYPE": "parquet",
+                "PIO_STORAGE_SOURCES_PQ_PATH": str(tmp_path / "events"),
+                "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+                "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PQ",
+                "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"})
+    r = subprocess.run([sys.executable, "-c", code, str(engine_dir)], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["foreign_modules"] == [] and out["snappy"]
+    assert out["rows"] == 12000 and all(n == 5 for n in out["answers"])
+    assert "pandas" in out["to_dataframe"] and "pandas" in out["view"]
+    parts = sorted(p.name for p in (tmp_path / "events").glob("app_*_ch_0/*"))
+    assert parts and all(p.startswith("events-") for p in parts), parts
